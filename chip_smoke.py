@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``pytorch_geometric_tpu_torch``).
 
-Drives the port's serving path on one CUDA card and checks it:
+Drives the port's serving and full-batch training paths on one CUDA card and
+checks them:
 
   1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-  2. build: every CUDA kernel of the path, from the sources in this checkout
-     (one ``nvcc`` per source), with the register and spill report;
-  3. each kernel against its plain PyTorch version on the card, over narrow,
-     unaligned, weighted, unweighted, bipartite and empty-row cases and the
-     serving shapes;
+  2. build: every CUDA kernel of the paths, from the sources in this checkout
+     (one ``nvcc`` per source, all started together), with the register and
+     spill report;
+  3. each kernel against its plain PyTorch version on the card: the
+     segment-sum kernel forward over narrow, unaligned, weighted, unweighted,
+     bipartite and empty-row cases and the serving shapes; the block-sparse
+     (BSR) kernel over F in {1, 10, 16, 64, 128}, a rectangular graph whose
+     sizes are not multiples of 128, empty block rows, both layouts, and
+     path A's shapes; the segment-sum kernel's backward (``grad_x`` from its
+     autograd Function against the plain version's autograd) at the serving,
+     path-A residual and path-B shapes;
   4. GCN serving at the headline configuration (the ``sparse-f32`` arm of
      ``benchmarks/inference_bench.py``: 30,000 nodes, 1,000,000 random edges
      plus 30,000 self loops with host-side GCN normalisation, width 128,
@@ -17,9 +24,26 @@ Drives the port's serving path on one CUDA card and checks it:
      launch counts, and the output held against the same weights run
      through the plain path on the CPU;
   5. GraphSAGE and GIN: one forward each on the same graph, same checks;
-  6. kernel timings (kernel, plain version, a library call as a yardstick
-     only, and the bound from the bytes the work must move): device time
-     from ``torch.profiler``, and CUDA-event wall time beside it.
+  6. segment-sum kernel timings at the serving shapes (kernel, plain
+     version, a library call as a yardstick only, and the bound from the
+     bytes the work must move): device time from ``torch.profiler``, and
+     CUDA-event wall time beside it;
+  7. path A, GCN training over the block-sparse cache: the repo's BSR
+     configuration (``benchmarks/spmm_bench.py --clustered 2400 --nodes
+     250000 --edges 5000000 --bsr``, seed ``--seed``) cached through
+     ``cache_gcn_norm(block_sparse=True)``, ``bench.py``'s model (GCN 64 ->
+     64 -> 64 -> 10, softmax cross-entropy, Adam 1e-2); the build's time and
+     size, ms per step, launches per step, a ``torch.profiler`` breakdown and
+     idle share, and 3 steps held against the CPU plain path from the same
+     weights (losses each step, the first step's gradients);
+  8. path B, ``bench.py``'s protocol (10,000 nodes, 200,000 random edges,
+     F = 64, hidden 64, 3 layers, 10 classes, Adam 1e-2, 500 steps) for GCN,
+     GraphSAGE and GIN through the segment-sum kernel forward and backward:
+     seconds per 500 steps, ms per step, launches per step, a profile, and
+     the first 3 losses against the CPU plain path;
+  9. training-kernel timings: the BSR kernel at F = 64 and 10 on both
+     layouts (``torch.sparse.mm`` on a BSR tensor of the same blocks as the
+     yardstick), and the segment-sum backward pass at path B's shapes.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--iters 20]`` from the root of a
 checkout, on a machine with one CUDA card. The last line of standard output
@@ -46,6 +70,21 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 N_NODES, N_EDGES, WIDTH, N_LAYERS, N_OUT = 30_000, 1_000_000, 128, 3, 16
+
+# bench.py's training model and protocol (bench.py:23-26, 93-114)
+TR_F, TR_HIDDEN, TR_LAYERS, TR_CLASSES, TR_LR = 64, 64, 3, 10, 1e-2
+PB_NODES, PB_EDGES, PB_STEPS = 10_000, 200_000, 500
+# bench.py's reference eager seconds per 500 steps (compile.rst:95-142, an
+# unspecified GPU), printed beside path B's seconds for orientation only
+REFERENCE_EAGER_S = {'GCN': 4.8093, 'GraphSAGE': 3.2451, 'GIN': 3.3690}
+# path A: the repo's BSR configuration (benchmarks/spmm_bench.py:103-114,
+# benchmarks/round5_chip_runbook.md:46)
+PA_NODES, PA_EDGES, PA_CLUSTER = 250_000, 5_000_000, 2400
+PA_WARMUP, PA_STEPS = 2, 20
+PROFILED_STEPS, PARITY_STEPS = 3, 3
+# each training step runs 3 forward SpMM passes and 2 backward ones: layer
+# 1 aggregates the leaf input, so its A^T pass never runs (bench.py:152-155)
+PASSES_PER_STEP = 5
 
 
 def log(*a):
@@ -77,10 +116,10 @@ def phase_device(torch):
 
 # -- phase 2 ------------------------------------------------------------------
 def phase_build(csrc):
-    for name in sorted(csrc.SOURCES):
-        t0 = time.perf_counter()
-        csrc.build(name)
-        log(f'[build] {name} in {time.perf_counter() - t0:.2f} s')
+    t0 = time.perf_counter()
+    csrc.build_all()
+    log(f"[build] {', '.join(sorted(csrc.SOURCES))} (one nvcc each, in "
+        f'parallel) in {time.perf_counter() - t0:.2f} s')
     for name, text in csrc.build_logs.items():
         fn, spill = None, ''
         for line in text.splitlines():
@@ -93,9 +132,8 @@ def phase_build(csrc):
                 spill = f'spill stores {m.group(1)} B, loads {m.group(2)} B'
             m = re.search(r'Used (\d+) registers', line)
             if m and fn:
-                inst = re.search(r'ILi(\d+)ELi(\d+)E', fn)
-                tag = (f'<VEC={inst.group(1)}, LANES={inst.group(2)}>'
-                       if inst else fn)
+                args = re.findall(r'Li(\d+)E', fn)
+                tag = f"<{', '.join(args)}>" if args else fn
                 log(f'[build] {name}{tag}: {m.group(1)} registers, {spill}')
 
 
@@ -340,7 +378,10 @@ def device_kernels(torch, fn, calls):
     wall_ms = start.elapsed_time(end) / calls
     total, count = {}, {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # a user annotation on the device timeline (the optimizer's
+        # Optimizer.step range) spans kernels that are counted already
+        if (ev.device_type == DeviceType.CUDA
+                and not getattr(ev, 'is_user_annotation', False)):
             total[ev.name] = total.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us()
             count[ev.name] = count.get(ev.name, 0) + 1
@@ -427,6 +468,567 @@ def phase_timings(torch, seed):
     return shapes
 
 
+# -- training graphs ----------------------------------------------------------
+def gcn_norm_np(coo, n):
+    """``bench.py``'s host-side D^-1/2 (A+I) D^-1/2 (``bench.py:44-57``):
+    one self loop appended per node, degrees over destinations."""
+    loops = np.arange(n, dtype=coo.dtype)
+    row = np.concatenate([coo[0], loops])
+    col = np.concatenate([coo[1], loops])
+    deg = np.bincount(col, minlength=n).astype(np.float64)
+    dinv = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+    return np.stack([row, col]), (dinv[row] * dinv[col]).astype(np.float32)
+
+
+def path_b_graph(kind, seed):
+    """``bench.py``'s graph (``bench.py:61-77``): x, a random COO and
+    labels from ``seed``; GCN gets the host-normalised weights, GraphSAGE
+    and GIN unit weights."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((PB_NODES, TR_F)).astype(np.float32)
+    coo = rng.integers(0, PB_NODES, (2, PB_EDGES)).astype(np.int32)
+    y = rng.integers(0, TR_CLASSES, PB_NODES)
+    if kind == 'GCN':
+        coo, w = gcn_norm_np(coo, PB_NODES)
+    else:
+        w = np.ones(PB_EDGES, np.float32)
+    return x, coo, w, y
+
+
+def path_a_graph(seed):
+    """``benchmarks/spmm_bench.py``'s clustered generator (``:103-114``):
+    communities of ``PA_CLUSTER`` nodes, 90 % of the edges inside one; then
+    x and labels from the same generator."""
+    rng = np.random.default_rng(seed)
+    n, e, cs = PA_NODES, PA_EDGES, PA_CLUSTER
+    comm = rng.integers(0, max(n // cs, 1), e)
+    intra = rng.random(e) < 0.9
+    s_loc = comm * cs + rng.integers(0, cs, e)
+    d_loc = comm * cs + rng.integers(0, cs, e)
+    s_rnd = rng.integers(0, n, e)
+    d_rnd = rng.integers(0, n, e)
+    coo = np.stack([np.where(intra, s_loc, s_rnd),
+                    np.where(intra, d_loc, d_rnd)])
+    coo = np.minimum(coo, n - 1).astype(np.int32)
+    x = rng.standard_normal((n, TR_F)).astype(np.float32)
+    y = rng.integers(0, TR_CLASSES, n)
+    return coo, x, y
+
+
+def build_path_a(torch, seed):
+    """Path A's cache, built on the card: ``cache_gcn_norm(EdgeIndex(coo),
+    block_sparse=True)`` as ``spmm_bench.py:128-130`` forces it."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    coo, x, y = path_a_graph(seed)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ei = cache_gcn_norm(EdgeIndex(coo, (PA_NODES, PA_NODES)),
+                        block_sparse=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    regime = spmm_regime(ei, TR_F)
+    check(regime == 'bsr', f'path A runs the {regime!r} regime, not bsr')
+    check(ei.bsr_perm is None, 'path A: an unexpected relabel')
+    nb = int(ei.bsr.vals.shape[0])
+    layout_bytes = sum(t.numel() * t.element_size()
+                       for layout in (ei.bsr, ei.bsr_t) for t in layout)
+    info = {'nodes': PA_NODES, 'edges_after_self_loops': ei.num_edges,
+            'blocks': nb, 'residual_edges': ei.bsr_res.num_edges,
+            'captured_frac': 1 - ei.bsr_res.num_edges / ei.num_edges,
+            'block_layouts_gb': layout_bytes / 1e9,
+            'cache_gb_on_card': (torch.cuda.memory_allocated() - mem0) / 1e9,
+            'build_s': build_s, 'regime': regime}
+    log(f'[path A] cache_gcn_norm(block_sparse=True) of {PA_NODES} nodes, '
+        f'{PA_EDGES} edges in {build_s:.3f} s (host numpy keys, block sums '
+        f'and transpose on the card): E = {ei.num_edges} with self loops, '
+        f'{nb} blocks of 128x128, {info["residual_edges"]} residual edges '
+        f'(captured {info["captured_frac"]:.4f}), both block layouts '
+        f'{info["block_layouts_gb"]:.3f} GB, the whole cache '
+        f'{info["cache_gb_on_card"]:.3f} GB on the card; regime {regime!r}')
+    return {'coo': coo, 'x': x, 'y': y, 'ei': ei, 'info': info}
+
+
+# -- phase 3, the block-sparse kernel and the segment-sum backward ------------
+def bsr_close(torch, layout, x, num_out):
+    """The kernel against its plain version on one layout; returns the max
+    abs error. Tolerance as for the segment-sum kernel."""
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import (bsr_matmul,
+                                                          bsr_spmm_plain)
+    out = bsr_matmul(layout, x, num_out)
+    torch.cuda.synchronize()
+    ref = bsr_spmm_plain(layout, x, num_out)
+    scale = bsr_spmm_plain(layout._replace(vals=layout.vals.abs()), x.abs(),
+                           num_out)
+    err = (out - ref).abs()
+    ok = bool((err <= 1e-5 + 1e-5 * scale).all())
+    del ref, scale
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def phase_bsr_vs_plain(torch, seed, pa):
+    """The BSR kernel against its plain version: F in {1, 10, 16, 64, 128}
+    on a rectangular graph whose sizes are not multiples of 128, with empty
+    block rows and padded edges, on both layouts; then path A's layouts at
+    F = 64 and 10."""
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import build_bsr_pair
+    rng = np.random.default_rng(seed + 2)
+    n_src, n_dst, e = 1000, 1300, 60_000
+    c = rng.integers(0, n_dst // 128 + 1, e)
+    coo = np.stack([np.clip(c * 128 + rng.integers(0, 128, e), 0, n_src - 1),
+                    np.clip(c * 128 + rng.integers(0, 128, e), 0,
+                            n_dst - 1)])
+    coo = np.concatenate([coo, rng.integers(0, n_src, (2, 500))], 1)
+    coo = coo[:, (coo[1] // 128) % 4 != 2]       # empty dst block rows
+    coo = np.concatenate([coo, [[n_src] * 16, [n_dst] * 16]], 1).astype(
+        np.int32)                                 # padded edges
+    w = rng.random(coo.shape[1]).astype(np.float32)
+    fwd, bwd, _ = build_bsr_pair(coo, w, n_src, n_dst, device='cuda')
+    check(bool((torch.diff(fwd.row_ptr) == 0).any()),
+          'phase 3 BSR case has no empty block row')
+    cases = []
+    for f in (1, 10, 16, 64, 128):
+        cases.append((f'rectangular {n_src}->{n_dst} F={f}', fwd,
+                      rng.standard_normal((n_src, f)), n_dst))
+        cases.append((f'rectangular {n_src}->{n_dst} F={f} transposed', bwd,
+                      rng.standard_normal((n_dst, f)), n_src))
+    ei = pa['ei']
+    for f in (TR_F, TR_CLASSES):
+        cases.append((f'path A N={PA_NODES} F={f}', ei.bsr,
+                      pa['x'][:, :f], PA_NODES))
+        cases.append((f'path A N={PA_NODES} F={f} transposed', ei.bsr_t,
+                      rng.standard_normal((PA_NODES, f)), PA_NODES))
+    worst = 0.0
+    for label, layout, x, num_out in cases:
+        xt = torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                             device='cuda')
+        err, ok = bsr_close(torch, layout, xt, num_out)
+        worst = max(worst, err)
+        log(f"[kernel] bsr_spmm {label}: max abs err {err:.3e} "
+            f"{'ok' if ok else 'FAILED'}")
+        check(ok, f'bsr_spmm disagrees with its plain version: {label}')
+    return worst
+
+
+def segment_backward_cases(torch, seed, pa):
+    """(label, EdgeIndex on the card, COO weights) at the serving, path-A
+    residual and path-B shapes, each with the widths its passes take."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    _, coo, w_np = serving_graph(seed)
+    serving = EdgeIndex(coo, (N_NODES, N_NODES), device='cuda').fill_cache()
+    _, coo_b, w_b, _ = path_b_graph('GCN', seed)
+    path_b = EdgeIndex(coo_b, (PB_NODES, PB_NODES),
+                       device='cuda').fill_cache()
+    res = pa['ei'].bsr_res
+    return [(f'serving N={N_NODES}', serving,
+             torch.as_tensor(w_np, device='cuda'), (WIDTH, N_OUT)),
+            (f'path A residual E={res.num_edges}', res, res.weight,
+             (TR_F, TR_CLASSES)),
+            (f'path B N={PB_NODES}', path_b,
+             torch.as_tensor(w_b, device='cuda'), (TR_F, TR_CLASSES))]
+
+
+def phase_segment_backward_vs_plain(torch, seed, pa):
+    """The segment-sum kernel through its autograd Function (forward over
+    the CSC, ``grad_x`` over the CSR) against the plain version's autograd
+    on the same inputs. Tolerance: 1e-5 + 1e-5 of each row's sum of |w * x|
+    (forward) or |w * g| (backward) terms."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_plain)
+    rng = np.random.default_rng(seed + 3)
+    worst = 0.0
+    for label, ei, w, widths in segment_backward_cases(torch, seed, pa):
+        csc, csr = ei.csc, ei.csr
+        w_csc = w[csc.perm].contiguous()
+        w_csr = w[csr.perm].contiguous()
+        n_src, n_dst = ei.sparse_size
+        for f in widths:
+            x = torch.as_tensor(rng.standard_normal((n_src, f)).astype(
+                np.float32), device='cuda').requires_grad_()
+            g = torch.as_tensor(rng.standard_normal((n_dst, f)).astype(
+                np.float32), device='cuda')
+            out = segment_spmm(csc.indptr, csc.indices, w_csc, x,
+                               (csr.indptr, csr.indices, w_csr))
+            out.backward(g)
+            torch.cuda.synchronize()
+            xr = x.detach().clone().requires_grad_()
+            ref = segment_spmm_plain(csc.indptr, csc.indices, w_csc, xr)
+            ref.backward(g)
+            with torch.no_grad():
+                fwd_scale = segment_spmm_plain(csc.indptr, csc.indices,
+                                               w_csc.abs(), x.abs())
+                bwd_scale = segment_spmm_plain(csr.indptr, csr.indices,
+                                               w_csr.abs(), g.abs())
+                errs = []
+                for a, b, scale in ((out, ref, fwd_scale),
+                                    (x.grad, xr.grad, bwd_scale)):
+                    err = (a - b).abs()
+                    errs.append((float(err.max()),
+                                 bool((err <= 1e-5 + 1e-5 * scale).all())))
+            worst = max(worst, errs[0][0], errs[1][0])
+            ok = errs[0][1] and errs[1][1]
+            log(f'[kernel] segment_spmm {label} F={f}: forward max abs err '
+                f'{errs[0][0]:.3e}, backward grad_x max abs err '
+                f"{errs[1][0]:.3e} {'ok' if ok else 'FAILED'}")
+            check(ok, f'segment_spmm backward disagrees with the plain '
+                      f'version: {label} F={f}')
+    return worst
+
+
+# -- phases 7 and 8, training -------------------------------------------------
+def train_model(torch, kind, device, seed):
+    """``bench.py``'s model for ``kind``, weights from ``seed``."""
+    from pytorch_geometric_tpu_torch.nn.models import GCN, GIN, GraphSAGE
+    g = torch.Generator().manual_seed(seed)
+    if kind == 'GCN':
+        return GCN(TR_F, TR_HIDDEN, TR_LAYERS, TR_CLASSES, device=device,
+                   generator=g, conv_kwargs={'normalize': False,
+                                             'add_self_loops': False})
+    cls = {'GraphSAGE': GraphSAGE, 'GIN': GIN}[kind]
+    return cls(TR_F, TR_HIDDEN, TR_LAYERS, TR_CLASSES, device=device,
+               generator=g)
+
+
+def train_step(torch, model, opt, x, ei, y):
+    """One full-batch step as ``bench.py`` runs it: softmax cross-entropy,
+    mean over the nodes, backward, Adam. Returns the loss, on the device."""
+    opt.zero_grad(set_to_none=True)
+    loss = torch.nn.functional.cross_entropy(model(x, ei), y)
+    loss.backward()
+    opt.step()
+    return loss
+
+
+def parity_run(torch, kind, state, x, ei, y, device):
+    """``PARITY_STEPS`` steps from ``state``: the losses and the first
+    step's gradients."""
+    model = train_model(torch, kind, device, 0)
+    model.load_state_dict({k: v.to(device) for k, v in state.items()})
+    opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+    losses, grads = [], None
+    for i in range(PARITY_STEPS):
+        losses.append(train_step(torch, model, opt, x, ei, y).item())
+        if i == 0:
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()}
+    return losses, grads
+
+
+def check_parity(torch, tag, card, cpu, grads_too):
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(l_card, l_cpu)]
+    log(f'[{tag}] losses over {PARITY_STEPS} steps, card {l_card} vs CPU '
+        f'plain path {l_cpu}: max relative diff {max(rel):.3e}')
+    check(max(rel) <= 1e-4, f'{tag}: losses differ from the CPU plain path '
+                            f'by {max(rel)} relative')
+    out = {'losses_card': l_card, 'losses_cpu': l_cpu,
+           'max_loss_rel_diff': max(rel)}
+    if grads_too:
+        worst = 0.0
+        for k, ref in g_cpu.items():
+            d = float((g_card[k] - ref).abs().max())
+            lim = 1e-4 * float(ref.abs().max())
+            worst = max(worst, d / max(float(ref.abs().max()), 1e-30))
+            check(d <= lim, f'{tag}: first-step gradient of {k} differs by '
+                            f'{d} (limit {lim})')
+        log(f'[{tag}] first-step gradients: max |card - CPU| / max|CPU| '
+            f'{worst:.3e} over {len(g_cpu)} tensors')
+        out['max_grad_rel_diff'] = worst
+    return out
+
+
+def profile_steps(torch, step, tag):
+    rows_wall = device_kernels(torch, step, PROFILED_STEPS)
+    if rows_wall is None:
+        return {}
+    rows, wall = rows_wall
+    busy = sum(t for _, t, _ in rows)
+    check(busy <= 1.05 * wall, f'{tag}: device busy {busy} ms exceeds the '
+                               f'wall {wall} ms of the same steps')
+    log(f'[{tag}] torch.profiler, {PROFILED_STEPS} steps: device busy '
+        f'{busy:.4f} ms per step of a {wall:.4f} ms wall (CUDA events over '
+        f'the same steps), idle share {1 - busy / wall:.4f}')
+    for name, t, n in rows[:10]:
+        log(f'[{tag}]   {t:.4f} ms  x{n:g}  {name[:90]}')
+    return {'device_busy_ms_per_step': busy, 'profiled_ms_per_step': wall,
+            'device_idle_share': 1 - busy / wall,
+            'kernels_per_step': [[name[:80], t, n] for name, t, n in rows[:8]]}
+
+
+def timed_steps(torch, step, warmup, steps):
+    """``warmup`` then ``steps`` steps: (ms per step on the card's clock,
+    host seconds for the steps, host ms to issue one step)."""
+    for _ in range(warmup):
+        step()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        loss = step()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss)), 'non-finite loss')
+    return start.elapsed_time(end) / steps, wall_s, enqueue_ms, loss.item()
+
+
+def phase_path_a(torch, seed, pa):
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import bsr_matmul
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    ei = pa['ei']
+    x = torch.as_tensor(pa['x'], device='cuda')
+    y = torch.as_tensor(pa['y'], device='cuda')
+    model = train_model(torch, 'GCN', None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+
+    def step():
+        return train_step(torch, model, opt, x, ei, y)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bsr_matmul.launches = segment_spmm.launches = 0
+    ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
+    prof = profile_steps(torch, step, 'path A')
+    launches = {'bsr_spmm': bsr_matmul.launches,
+                'segment_spmm': segment_spmm.launches}
+    n_steps = PA_WARMUP + PA_STEPS + PROFILED_STEPS
+    log(f'[path A] GCN training step over the BSR cache: {ms:.4f} ms per '
+        f'step on the card (CUDA events, {PA_STEPS} steps after '
+        f'{PA_WARMUP} warm-up); the host issues one in {enqueue_ms:.4f} ms; '
+        f'loss after {PA_WARMUP + PA_STEPS} steps {last:.6f}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
+    log(f'[path A] launches in {n_steps} steps: {launches}')
+    for name, n in launches.items():
+        check(n == PASSES_PER_STEP * n_steps,
+              f'path A: {name} launched {n} times in {n_steps} steps, '
+              f'expected {PASSES_PER_STEP} per step')
+    card = parity_run(torch, 'GCN', state, x, ei, y, 'cuda')
+    t0 = time.perf_counter()
+    ei_cpu = cache_gcn_norm(EdgeIndex(pa['coo'], (PA_NODES, PA_NODES),
+                                      device='cpu'), block_sparse=False)
+    check(spmm_regime(ei_cpu) == 'plain', 'path A CPU reference regime')
+    cpu = parity_run(torch, 'GCN', state, torch.from_numpy(pa['x']),
+                     ei_cpu, torch.from_numpy(pa['y']), 'cpu')
+    log(f'[path A] CPU plain path (segment sum over all {ei_cpu.num_edges} '
+        f'edges) for {PARITY_STEPS} steps in '
+        f'{time.perf_counter() - t0:.1f} s')
+    res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
+           'steps': n_steps, 'launches': launches,
+           'launches_per_step': {k: v / n_steps for k, v in launches.items()},
+           'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'cache': pa['info']}
+    res.update(prof)
+    res['parity'] = check_parity(torch, 'path A', card, cpu, True)
+    log(json.dumps({'metric': 'gcn_train_step_bsr', 'ms': ms,
+                    'nodes': PA_NODES, 'edges': PA_EDGES,
+                    'blocks': pa['info']['blocks'],
+                    'residual_edges': pa['info']['residual_edges']}))
+    return res
+
+
+def phase_path_b(torch, seed):
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import bsr_matmul
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    results = {}
+    for kind in ('GCN', 'GraphSAGE', 'GIN'):
+        x_np, coo, w_np, y_np = path_b_graph(kind, seed)
+        ei = EdgeIndex(coo, (PB_NODES, PB_NODES)).fill_cache(
+            dense_weight=w_np)
+        reduce = 'mean' if kind == 'GraphSAGE' else 'sum'
+        check(spmm_regime(ei, TR_F, reduce) == 'kernel',
+              f'path B {kind}: regime {spmm_regime(ei, TR_F, reduce)!r}')
+        x = torch.as_tensor(x_np, device='cuda')
+        y = torch.as_tensor(y_np, device='cuda')
+        model = train_model(torch, kind, None, seed)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+
+        def step():
+            return train_step(torch, model, opt, x, ei, y)
+
+        torch.cuda.synchronize()
+        bsr_matmul.launches = segment_spmm.launches = 0
+        ms, wall_s, enqueue_ms, last = timed_steps(torch, step, 2, PB_STEPS)
+        prof = profile_steps(torch, step, f'path B {kind}')
+        n_steps = 2 + PB_STEPS + PROFILED_STEPS
+        launches = {'segment_spmm': segment_spmm.launches,
+                    'bsr_spmm': bsr_matmul.launches}
+        check(launches['segment_spmm'] == PASSES_PER_STEP * n_steps
+              and launches['bsr_spmm'] == 0,
+              f'path B {kind}: launches {launches} in {n_steps} steps, '
+              f'expected {PASSES_PER_STEP} segment_spmm per step')
+        log(f'[path B {kind}] {PB_STEPS} steps in {wall_s:.4f} s on the '
+            f'host clock ({ms:.4f} ms per step on the card, the host issues '
+            f'one in {enqueue_ms:.4f} ms; bench.py reference eager '
+            f'{REFERENCE_EAGER_S[kind]} s on an unspecified GPU); final '
+            f'loss {last:.6f}; launches {launches} in {n_steps} steps')
+        card = parity_run(torch, kind, state, x, ei, y, 'cuda')
+        ei_cpu = EdgeIndex(coo, (PB_NODES, PB_NODES),
+                           device='cpu').fill_cache(dense_weight=w_np)
+        cpu = parity_run(torch, kind, state, torch.from_numpy(x_np), ei_cpu,
+                         torch.from_numpy(y_np), 'cpu')
+        res = {'seconds_per_500_steps': wall_s, 'ms_per_step': ms,
+               'host_enqueue_ms_per_step': enqueue_ms, 'steps': n_steps,
+               'launches': launches,
+               'launches_per_step': launches['segment_spmm'] / n_steps}
+        res.update(prof)
+        res['parity'] = check_parity(torch, f'path B {kind}', card, cpu,
+                                     False)
+        log(json.dumps({'metric': f'{kind.lower()}_train_500steps',
+                        'value': wall_s, 'unit': 's', 'ms_per_step': ms,
+                        'nodes': PB_NODES, 'edges': PB_EDGES}))
+        results[kind] = res
+    return results
+
+
+# -- phase 9, training-kernel timings -----------------------------------------
+def bsr_bound_ms(nb, nnz, n_row_blocks, n_src, num_out, f):
+    """Least time for one BSR pass: the blocks, their column ids and row
+    pointer, x and out once over the HBM rate, or the FLOPs this data needs,
+    ``2 * nnz * F`` over the blocks' ``nnz`` nonzeros (not the stored
+    zeros), over the f32 rate, whichever is larger."""
+    by = (nb * 128 * 128 * 4 + nb * 4 + (n_row_blocks + 1) * 4
+          + (n_src + num_out) * f * 4)
+    t_bytes = by / HBM_BYTES_PER_S
+    t_ops = 2.0 * nnz * f / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations', by)
+
+
+def bsr_library_call(torch, layout, n_src, x):
+    """``torch.sparse.mm`` on a BSR tensor of the same blocks (a yardstick;
+    the port never calls it): ``(fn, None)`` or ``(None, error)``."""
+    d_blocks = layout.row_ptr.shape[0] - 1
+    s_blocks = (n_src + 127) // 128
+    xp = x.new_zeros((s_blocks * 128, x.shape[1]))
+    xp[:n_src] = x
+    try:
+        a = torch.sparse_bsr_tensor(layout.row_ptr, layout.cols, layout.vals,
+                                    size=(d_blocks * 128, s_blocks * 128))
+        out = torch.sparse.mm(a, xp)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f'{type(e).__name__}: {str(e)[:200]}'
+    return (lambda: torch.sparse.mm(a, xp)), out
+
+
+def phase_training_timings(torch, seed, pa):
+    """Device time per call of the BSR kernel (both layouts, F = 64 and 10,
+    path A's shapes) and of the segment-sum backward pass (path B's GCN
+    graph, F = 64 and 10), beside the plain version, a library call and the
+    bound."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import (bsr_matmul,
+                                                          bsr_spmm_plain)
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_plain)
+    rng = np.random.default_rng(seed + 4)
+    ei = pa['ei']
+    bsr_rows = []
+    with torch.inference_mode():
+        for lay_name, layout in (('forward', ei.bsr),
+                                 ('transposed', ei.bsr_t)):
+            nb = int(layout.vals.shape[0])
+            nnz = int(torch.count_nonzero(layout.vals))
+            for f in (TR_F, TR_CLASSES):
+                x = torch.as_tensor(rng.standard_normal(
+                    (PA_NODES, f)).astype(np.float32), device='cuda')
+                b_ms, b_by, by = bsr_bound_ms(
+                    nb, nnz, layout.row_ptr.shape[0] - 1, PA_NODES, PA_NODES,
+                    f)
+                row = {'layout': lay_name, 'F': f, 'blocks': nb,
+                       'block_nonzeros': nnz,
+                       'bound_ms': b_ms, 'bound_by': b_by, 'bytes': by,
+                       'flops': 2.0 * nnz * f,
+                       'kernel_flops': 2.0 * nb * 128 * 128 * f}
+                fns = {'ms': lambda: bsr_matmul(layout, x, PA_NODES),
+                       'plain_ms': lambda: bsr_spmm_plain(layout, x,
+                                                          PA_NODES)}
+                lib, lib_out = bsr_library_call(torch, layout, PA_NODES, x)
+                if lib is None:
+                    row['library_ms'] = None
+                    row['library_error'] = lib_out
+                else:
+                    ref = bsr_spmm_plain(layout, x, PA_NODES)
+                    check(bool(torch.allclose(lib_out[:PA_NODES], ref,
+                                              rtol=1e-4, atol=1e-4)),
+                          f'torch.sparse.mm (BSR) disagrees at F={f}')
+                    fns['library_ms'] = lib
+                for key, fn in fns.items():
+                    row[key.replace('ms', 'event_ms')] = time_ms(
+                        torch, fn, reps=20, warmup=3)
+                    row[key] = device_ms(torch, fn, calls=10)
+                bsr_rows.append(row)
+                lib_txt = (f"{row['library_ms']:.4f} ms" if lib else
+                           f"none ({row['library_error']})")
+                log(f"[timing] bsr_spmm {lay_name} F={f}, device time per "
+                    f"call: kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, torch.sparse.mm (BSR) "
+                    f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}), kernel at "
+                    f"{100 * b_ms / row['ms']:.1f}% of the bound; CUDA-event "
+                    f"wall per call: kernel {row['event_ms']:.4f} ms")
+        _, coo, w_np, _ = path_b_graph('GCN', seed)
+        pb = EdgeIndex(coo, (PB_NODES, PB_NODES), device='cuda').fill_cache()
+        csr = pb.csr
+        w_t = torch.as_tensor(w_np, device='cuda')[csr.perm].contiguous()
+        a_t = torch.sparse_csr_tensor(csr.indptr, csr.indices, w_t,
+                                      size=(PB_NODES, PB_NODES))
+        e = coo.shape[1]
+        seg_rows = []
+        for f in (TR_F, TR_CLASSES):
+            g = torch.as_tensor(rng.standard_normal((PB_NODES, f)).astype(
+                np.float32), device='cuda')
+            lib = torch.sparse.mm(a_t, g)
+            check(bool(torch.allclose(lib, segment_spmm_plain(
+                csr.indptr, csr.indices, w_t, g), rtol=1e-4, atol=1e-4)),
+                f'torch.sparse.mm (CSR) disagrees at F={f}')
+            fns = {'ms': lambda: segment_spmm(csr.indptr, csr.indices, w_t,
+                                              g),
+                   'plain_ms': lambda: segment_spmm_plain(
+                       csr.indptr, csr.indices, w_t, g),
+                   'library_ms': lambda: torch.sparse.mm(a_t, g)}
+            b_ms, b_by = bound_ms(PB_NODES, PB_NODES, e, f, True)
+            row = {'pass': 'backward grad_x = A^T g', 'F': f,
+                   'n_src': PB_NODES, 'n_dst': PB_NODES, 'edges': e,
+                   'bound_ms': b_ms, 'bound_by': b_by,
+                   'bytes': spmm_bytes(PB_NODES, PB_NODES, e, f, True)}
+            for key, fn in fns.items():
+                row[key.replace('ms', 'event_ms')] = time_ms(torch, fn)
+                row[key] = device_ms(torch, fn)
+            seg_rows.append(row)
+            log(f"[timing] segment_spmm backward (A^T g over the CSR) path "
+                f"B F={f}, device time per call: kernel {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
+                f"{row['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+                f"kernel at {100 * b_ms / row['ms']:.1f}% of the bound; "
+                f"CUDA-event wall per call: kernel {row['event_ms']:.4f} ms")
+    return bsr_rows, seg_rows
+
+
+def per_step(rows, picks):
+    """Sum ``ms``-like keys of ``rows`` over the passes ``picks`` of one
+    training step; ``library_ms`` is None when any pass lacks one."""
+    out = {}
+    for key in ('ms', 'plain_ms', 'bound_ms', 'library_ms'):
+        vals = [next(r for r in rows if all(r[k] == v for k, v in p.items())
+                     ).get(key) for p in picks]
+        out[key] = None if any(v is None for v in vals) else sum(vals)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -448,8 +1050,14 @@ def main():
     phase_device(torch)
     phase_build(csrc)
     worst = phase_kernel_vs_plain(torch, args.seed)
+    pa = build_path_a(torch, args.seed)
+    worst_bsr = phase_bsr_vs_plain(torch, args.seed, pa)
+    worst_bwd = phase_segment_backward_vs_plain(torch, args.seed, pa)
     serving = phase_serving(torch, args.seed, args.iters, args.warmup)
     shapes = phase_timings(torch, args.seed)
+    path_a = phase_path_a(torch, args.seed, pa)
+    path_b = phase_path_b(torch, args.seed)
+    bsr_rows, seg_bwd_rows = phase_training_timings(torch, args.seed, pa)
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -458,20 +1066,55 @@ def main():
         per_fwd[key] = sum(by_f[f][key] for f in per_fwd['F'])
     bound_by = ('bytes' if all(s['bound_by'] == 'bytes' for s in shapes)
                 else 'operations')
+    seg_launches = {'serving_gcn': serving['GCN']['launches'],
+                    'path_a': path_a['launches']['segment_spmm']}
+    seg_launches.update({f'path_b_{k.lower()}': v['launches']['segment_spmm']
+                         for k, v in path_b.items()})
+    # a path A step: forward layout at F = 64 (layers 1, 2) and 10 (layer
+    # 3), transposed layout at 10 (layer 3) and 64 (layer 2)
+    bsr_step = per_step(bsr_rows, [
+        {'layout': 'forward', 'F': TR_F}, {'layout': 'forward', 'F': TR_F},
+        {'layout': 'forward', 'F': TR_CLASSES},
+        {'layout': 'transposed', 'F': TR_CLASSES},
+        {'layout': 'transposed', 'F': TR_F}])
+    log(json.dumps({'paths': {'serving': serving, 'path_a': path_a,
+                              'path_b': path_b}}))
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',
         'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:74',
-        'launches': serving['GCN']['launches'],
+        'launches': sum(seg_launches.values()),
+        'launches_by_path': seg_launches,
         'launches_per_forward': serving['GCN']['launches']
         // serving['GCN']['forwards'],
-        'max_abs_err': worst,
+        'launches_per_step': {'path_a': path_a['launches_per_step'][
+            'segment_spmm'], **{f'path_b_{k.lower()}': v['launches_per_step']
+                                for k, v in path_b.items()}},
+        'max_abs_err': max(worst, worst_bwd),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
         'library_ms': per_fwd['library_ms'],
-        'times_are': 'per GCN forward: 2 launches at F=128, 1 at F=16',
-        'per_shape': shapes, 'serving': serving}]}))
+        'times_are': 'per GCN serving forward: 2 launches at F=128, 1 at '
+                     'F=16; the backward pass per call in '
+                     'backward_per_shape',
+        'per_shape': shapes, 'backward_per_shape': seg_bwd_rows}, {
+        'name': 'bsr_spmm', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/bsr_spmm.py:114',
+        'launches': path_a['launches']['bsr_spmm'],
+        'launches_by_path': {'path_a': path_a['launches']['bsr_spmm']},
+        'launches_per_step': {'path_a': path_a['launches_per_step'][
+            'bsr_spmm']},
+        'max_abs_err': worst_bsr,
+        'ms': bsr_step['ms'], 'plain_ms': bsr_step['plain_ms'],
+        'bound_ms': bsr_step['bound_ms'],
+        'bound_by': max(('bytes', 'operations'), key=lambda b: sum(
+            r['bound_ms'] for r in bsr_rows if r['bound_by'] == b)),
+        'library_ms': bsr_step['library_ms'],
+        'times_are': 'per path A training step: the forward layout at F=64 '
+                     'twice and F=10, the transposed layout at F=10 and F=64',
+        'per_shape': bsr_rows}]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -11,9 +11,10 @@ from typing import Union
 import torch
 
 # Kernel SpMM dispatch (ops/spmm.py), the counterpart of ``use_pallas_spmm``:
-# True -> a sum/mean SpMM on a CUDA tensor takes the hand-written kernel;
-# False -> it raises, since the port has no other CUDA arm yet. A CPU tensor
-# takes the plain version either way.
+# True -> a sum/mean SpMM on a CUDA tensor takes the hand-written kernels
+# (segment-sum, or block-sparse over a baked cache); False -> it raises,
+# since the port has no other CUDA arm yet. A CPU tensor takes the plain
+# versions either way.
 use_kernel_spmm: bool = True
 
 

@@ -18,13 +18,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parent / '_build'
 
 # library name -> source file in this directory
-SOURCES = {'segment_spmm': 'segment_spmm.cu'}
+SOURCES = {'segment_spmm': 'segment_spmm.cu', 'bsr_spmm': 'bsr_spmm.cu'}
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -59,27 +59,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
+def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together. Raises ``RuntimeError`` with
+    the compiler's output if a build fails."""
+    targets = {name: library_path(name) for name in names}
+    todo = {name: t for name, t in targets.items() if not t.is_file()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, target in todo.items():
+        # write under a name of this process, then rename: several
+        # processes may build the same library at once
+        tmp = target.with_name(f'{target.stem}.{os.getpid()}.tmp')
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
+             str(SOURCE_DIR / SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f'CUDA build of {name} failed (nvcc exit '
+                          f'{proc.returncode}):\n{build_logs[name]}')
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return targets
+
+
 def build(name: str) -> Path:
-    """Compile the library ``name`` unless it is built already. Raises
-    ``RuntimeError`` with the compiler's output if the build fails."""
-    target = library_path(name)
-    if target.is_file():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # write under a name of this process, then rename: several processes
-    # may build the same library at once
-    tmp = target.with_name(f'{target.stem}.{os.getpid()}.tmp')
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-         str(SOURCE_DIR / SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    build_logs[name] = proc.stdout
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'CUDA build of {name} failed (nvcc exit '
-                           f'{proc.returncode}):\n{proc.stdout}')
-    os.replace(tmp, target)
-    return target
+    """Compile the library ``name`` unless it is built already."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,6 +13,13 @@ row); they sort past ``indptr[-1]`` and every segment op drops them.
 In the port ``indptr`` and ``indices`` are int32 (what the CUDA kernel
 reads) and ``perm`` is int64 (what torch indexing takes). ``BlockedCSC`` is
 a TPU tile layout and is not ported: the Hopper kernel reads plain CSC.
+
+``fill_cache(dense_weight=..., block_sparse=...)`` may bake the weighted
+adjacency into a block-sparse cache (``ops/bsr_spmm.py``): the forward and
+transposed block layouts ``bsr`` / ``bsr_t``, the residual edges
+``bsr_res`` (an EdgeIndex of its own, in original ids, with its weights
+carried) and, when a hubs-first relabel was baked in, ``bsr_perm`` /
+``bsr_inv`` (``perm[new] = old``).
 """
 
 from typing import NamedTuple, Optional, Tuple, Union
@@ -21,6 +28,10 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+
+# The JAX package bakes a dense [ns, nd] adjacency up to this many entries
+# (PGT_DENSE_SPMM_ENTRIES' default); past it, fill_cache considers blocks.
+DENSE_MAX_ENTRIES = 250_000_000
 
 
 class CSR(NamedTuple):
@@ -47,7 +58,11 @@ class EdgeIndex:
                  csr: Optional[CSR] = None, csc: Optional[CSR] = None,
                  num_real_edges: Optional[int] = None,
                  weight: Optional[torch.Tensor] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 bsr=None, bsr_t=None,
+                 bsr_res: Optional['EdgeIndex'] = None,
+                 bsr_perm: Optional[torch.Tensor] = None,
+                 bsr_inv: Optional[torch.Tensor] = None):
         if device is None and isinstance(coo, torch.Tensor):
             device = coo.device
         self.device = resolve_device(device)
@@ -71,6 +86,9 @@ class EdgeIndex:
         # per-edge weights (COO order) carried by fill_cache(dense_weight=)
         # and applied by spmm when the caller passes none
         self.weight = weight
+        # the block-sparse cache (ops/bsr_spmm.py), weights baked in
+        self.bsr, self.bsr_t, self.bsr_res = bsr, bsr_t, bsr_res
+        self.bsr_perm, self.bsr_inv = bsr_perm, bsr_inv
 
     # -- basic accessors ----------------------------------------------------
     @property
@@ -100,7 +118,8 @@ class EdgeIndex:
         return (f'EdgeIndex(E={self.num_edges}, '
                 f'sparse_size={self.sparse_size}, device={self.device}, '
                 f"csr={'cached' if self.csr is not None else None}, "
-                f"csc={'cached' if self.csc is not None else None})")
+                f"csc={'cached' if self.csc is not None else None}, "
+                f"bsr={'cached' if self.bsr is not None else None})")
 
     # -- cached orientations ------------------------------------------------
     def get_csr(self) -> CSR:
@@ -117,18 +136,21 @@ class EdgeIndex:
                    block_sparse: Optional[bool] = None, cache_dtype=None,
                    auto: bool = False,
                    windowed: Optional[bool] = None) -> 'EdgeIndex':
-        """Return a copy with both CSR and CSC materialised.
+        """Return a copy with both CSR and CSC materialised, and
+        ``dense_weight`` ([E] per-edge weights, COO order) cached.
 
-        ``dense_weight`` ([E] per-edge weights) is carried as ``weight``
-        for the sparse path, the branch the JAX package takes when it bakes
-        no dense or block-sparse cache. The dense, block-sparse, windowed
-        and auto caches are not ported yet and raise."""
-        if block_sparse:
-            _not_ported('fill_cache(block_sparse=True)',
-                        'Queue 2, kernel 2: the BSR regime')
+        As in the JAX package (``edge_index.py:360-470``): with
+        ``block_sparse=True``, or with ``block_sparse=None`` when
+        ``ns * nd`` exceeds the dense cap and the blocks pay
+        (``bsr_profitable``), the weights are baked into a block-sparse
+        cache and not carried. Otherwise (where the JAX package bakes a
+        dense adjacency, which the port has not yet, or declines to bake)
+        they are carried as ``weight`` for the sparse path. The dense-cache
+        dtypes, windowed and auto caches are not ported yet and raise."""
         if cache_dtype is not None:
             _not_ported('fill_cache(cache_dtype=...)',
-                        'Queue 1, item 3: the dense bf16/int8 regimes')
+                        'Queue 1, item 3: the dense bf16/int8 regimes, and '
+                        'Queue 2, kernel 2 bf16')
         if windowed:
             _not_ported('fill_cache(windowed=True)',
                         'Queue 1, item 3: the windowed regime')
@@ -136,20 +158,76 @@ class EdgeIndex:
             _not_ported('fill_cache(auto=True)',
                         'Queue 1, item 3: the regime policy')
         weight = self.weight
-        if dense_weight is not None:
-            weight = torch.as_tensor(dense_weight, device=self.device)
+        bsr = dict(bsr=self.bsr, bsr_t=self.bsr_t, bsr_res=self.bsr_res,
+                   bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv)
+        if dense_weight is not None and self.bsr is None:
+            ns, nd = self.sparse_size
+            baked = None
+            if block_sparse or (block_sparse is None
+                                and ns * nd > DENSE_MAX_ENTRIES):
+                baked = self._bake_bsr(dense_weight, force=bool(block_sparse))
+            if baked is None:
+                weight = torch.as_tensor(dense_weight, device=self.device)
+            else:
+                bsr, weight = baked, None
         return EdgeIndex(self.coo, self.sparse_size, csr=self.get_csr(),
                          csc=self.get_csc(),
                          num_real_edges=self.num_real_edges, weight=weight,
-                         device=self.device)
+                         device=self.device, **bsr)
+
+    def _bake_bsr(self, dense_weight, force: bool):
+        """The block-sparse cache of ``dense_weight`` (a dict of the
+        ``bsr*`` fields), or ``None`` when it is not forced and does not
+        pay."""
+        from .ops.bsr_spmm import (bsr_profitable, build_bsr_pair,
+                                   choose_block_order)
+        ns, nd = self.sparse_size
+        coo = self.coo.cpu().numpy()
+        if isinstance(dense_weight, torch.Tensor):
+            dense_weight = dense_weight.detach().cpu()
+        w = np.asarray(dense_weight)
+        # a hubs-first relabel where it concentrates the edges into fewer
+        # blocks; spmm un-permutes, so callers never see it
+        perm, inv, cap, in_blk = choose_block_order(coo, ns, nd)
+        if perm is not None:
+            # padded endpoints (the == ns sentinel) pass through
+            coo = np.concatenate([inv, [ns]])[np.minimum(
+                coo.astype(np.int64), ns)]
+        if not force and not bsr_profitable(coo, ns, nd, capture=cap,
+                                            in_blk=in_blk):
+            return None
+        fwd, bwd, res = build_bsr_pair(coo, w, ns, nd, device=self.device,
+                                       in_blk=in_blk)
+        out = dict(bsr=fwd, bsr_t=bwd, bsr_res=None, bsr_perm=None,
+                   bsr_inv=None)
+        if res is not None:
+            r_src, r_dst, r_w = res
+            if perm is not None:
+                # residual back to the original ids: x and out are not
+                # permuted on the gather path
+                r_src, r_dst = perm[r_src], perm[r_dst]
+            out['bsr_res'] = EdgeIndex(
+                np.stack([r_src, r_dst]).astype(np.int32), (ns, nd),
+                device=self.device).fill_cache(dense_weight=r_w,
+                                               block_sparse=False)
+        if perm is not None:
+            out['bsr_perm'] = torch.as_tensor(perm, device=self.device)
+            out['bsr_inv'] = torch.as_tensor(inv, device=self.device)
+        return out
 
     def flip(self) -> 'EdgeIndex':
-        """Transpose: swap src/dst, swap cached orientations."""
+        """Transpose: swap src/dst, swap cached orientations and block
+        layouts, and flip the residual. A relabel is square, so ``A^T``
+        keeps the same ``bsr_perm``."""
         return EdgeIndex(self.coo.flip(0),
                          (self.sparse_size[1], self.sparse_size[0]),
                          csr=self.csc, csc=self.csr,
                          num_real_edges=self.num_real_edges,
-                         weight=self.weight, device=self.device)
+                         weight=self.weight, device=self.device,
+                         bsr=self.bsr_t, bsr_t=self.bsr,
+                         bsr_res=(None if self.bsr_res is None
+                                  else self.bsr_res.flip()),
+                         bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv)
 
     # -- SpMM ---------------------------------------------------------------
     def matmul(self, x: torch.Tensor,

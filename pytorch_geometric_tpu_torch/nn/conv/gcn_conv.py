@@ -58,10 +58,14 @@ def cache_gcn_norm(edge_index: EdgeIndex, improved: bool = False,
                    block_sparse: Optional[bool] = None, cache_dtype=None,
                    auto: bool = False) -> EdgeIndex:
     """``GCNConv(cached=True)`` as a one-time transform: compute
-    D^-1/2 (A+I) D^-1/2 once on the host and carry it as the EdgeIndex's
+    D^-1/2 (A+I) D^-1/2 once on the host and cache it through
+    ``fill_cache(dense_weight=..., block_sparse=...)``: baked into the
+    block-sparse cache (``block_sparse=True``, or a graph too big for a
+    dense adjacency whose blocks pay), else carried as the EdgeIndex's
     ``weight``. Use with ``GCNConv(..., normalize=False,
-    add_self_loops=False)``. The dense, block-sparse and auto caches of the
-    JAX package are not ported yet (``fill_cache`` raises for them)."""
+    add_self_loops=False)``. The dense and auto caches of the JAX package
+    are not ported yet (``fill_cache`` raises for ``cache_dtype`` and
+    ``auto``)."""
     coo = edge_index.coo.cpu().numpy()
     n = edge_index.num_src_nodes
     row, col = coo[0].astype(np.int64), coo[1].astype(np.int64)

@@ -1,0 +1,369 @@
+"""Block-sparse (BSR) cached-adjacency SpMM: the host layout build, the
+hand-written Hopper kernel's wrapper, its plain PyTorch version, and the
+differentiable ``bsr_spmm``.
+
+Counterpart of ``pytorch_geometric_tpu/ops/bsr_spmm.py``. A cached,
+weight-baked adjacency (``GCNConv(cached=True)`` through
+``cache_gcn_norm(block_sparse=...)``) whose ``[N, N]`` does not fit is kept as
+its nonempty 128x128 blocks, sorted by (dst block, src block); ``out = A @ x``
+streams those blocks. Edges in blocks too sparse to pay for a 64 KB block
+stay on the gather path as a residual (``fill_cache`` keeps it beside the
+blocks).
+
+The kernel (``csrc/bsr_spmm.cu``) replaces the TPU kernel ``_make_kernel``
+(``ops/bsr_spmm.py:114``, launched at ``:184`` by ``_bsr_matmul_impl``). The
+TPU kernel zero-initialises each dst row on its ``first`` block of a
+sequential grid; Hopper blocks run in no order, so the port's layout carries
+a block-row pointer ``row_ptr`` instead of ``first`` flags, and a dst row
+with no blocks needs no spliced zero block.
+
+Bound on the card: the ``NB * 64 KB`` block stream plus x and out over
+3.35 TB/s. The ``2 * nnz * F`` FLOPs the function needs (nnz: nonzeros in
+the blocks) take far less at 67 TFLOP/s; the kernel's dense blocks do
+``2 * NB * 128^2 * F``. Measured times are in PERF.md.
+
+The build is numpy on the host (block keys, the block-fill split, the
+hubs-first relabel); the block values are summed on the EdgeIndex's device
+in float64 and stored as float32, and the transposed layout (the backward's)
+is the forward's blocks transposed on the device.
+"""
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .segment import ptr2index
+
+BS = 128                  # block edge (nodes per block, both dims)
+MIN_FILL = 16             # edges a block needs to be stored dense
+MIN_CAPTURE = 0.5         # share of edges the blocks must capture
+MAX_ENTRIES = 500_000_000  # block entries the profitability gate allows
+SAMPLE_ABOVE = 32_000_000  # edges past which the relabel check samples
+
+
+class BSR(NamedTuple):
+    """Nonempty-block adjacency, sorted by (dst block, src block).
+
+    vals:    [NB, BS, BS] float32 block values (``vals[k, d_local,
+             s_local]``)
+    cols:    [NB] int32 src block of each block
+    row_ptr: [num_row_blocks + 1] int32; dst block row ``r`` owns blocks
+             ``row_ptr[r] .. row_ptr[r+1]-1`` (:func:`block_rows` expands
+             it)
+    """
+    vals: torch.Tensor
+    cols: torch.Tensor
+    row_ptr: torch.Tensor
+
+
+def num_blocks(n: int) -> int:
+    """Block rows (or columns) that cover ``n`` nodes; at least one."""
+    return max((n + BS - 1) // BS, 1)
+
+
+def block_rows(bsr: BSR) -> torch.Tensor:
+    """[NB] int64 dst block row of each block, from ``row_ptr``."""
+    return ptr2index(bsr.row_ptr.long(), bsr.cols.shape[0])
+
+
+def _valid_edges(coo: np.ndarray, num_src: int, num_dst: int):
+    src = coo[0].astype(np.int64)
+    dst = coo[1].astype(np.int64)
+    return src, dst, (src < num_src) & (dst < num_dst)
+
+
+def _layout(rows: np.ndarray, cols: np.ndarray, vals: torch.Tensor,
+            n_row_blocks: int) -> BSR:
+    dev = vals.device
+    row_ptr = np.searchsorted(rows, np.arange(n_row_blocks + 1))
+    return BSR(vals=vals,
+               cols=torch.as_tensor(cols.astype(np.int32), device=dev),
+               row_ptr=torch.as_tensor(row_ptr.astype(np.int32),
+                                       device=dev))
+
+
+def build_bsr(coo: np.ndarray, weight: np.ndarray, num_src: int,
+              num_dst: int, device='cpu') -> BSR:
+    """Bucket the edges into BS x BS blocks and dense-fill the nonempty ones
+    on ``device``. Padded edges (an endpoint >= its size) are dropped;
+    duplicate edges add up."""
+    src, dst, valid = _valid_edges(coo, num_src, num_dst)
+    src, dst = src[valid], dst[valid]
+    w = np.asarray(weight, np.float64)[valid]
+    s_blocks = num_blocks(num_src)
+    key = (dst // BS) * s_blocks + (src // BS)
+    uniq, slot = np.unique(key, return_inverse=True)
+    nb = len(uniq)
+    flat = slot * (BS * BS) + (dst % BS) * BS + (src % BS)
+    # float64 sums, then float32, as the JAX package's np.bincount build
+    vals = torch.zeros(nb * BS * BS, dtype=torch.float64, device=device)
+    vals.index_add_(0, torch.as_tensor(flat, device=device),
+                    torch.as_tensor(w, device=device))
+    vals = vals.to(torch.float32).view(nb, BS, BS)
+    return _layout(uniq // s_blocks, uniq % s_blocks, vals,
+                   num_blocks(num_dst))
+
+
+def transpose_bsr(bsr: BSR, num_src: int) -> BSR:
+    """The layout of ``A^T`` (aggregating onto the sources): the same blocks,
+    each transposed, sorted by (src block, dst block)."""
+    rows = block_rows(bsr).cpu().numpy()
+    cols = bsr.cols.cpu().numpy()
+    order = np.lexsort((rows, cols))
+    vals = bsr.vals[torch.as_tensor(order, device=bsr.vals.device)]
+    return _layout(cols[order], rows[order],
+                   vals.transpose(1, 2).contiguous(), num_blocks(num_src))
+
+
+def bsr_stats(coo: np.ndarray, num_src: int, num_dst: int):
+    """(number of nonempty blocks, mean edges per nonempty block)."""
+    src, dst, valid = _valid_edges(coo, num_src, num_dst)
+    e = int(valid.sum())
+    if e == 0:
+        return 0, 0.0
+    s_blocks = num_blocks(num_src)
+    nb = len(np.unique((dst[valid] // BS) * s_blocks + (src[valid] // BS)))
+    return nb, e / nb
+
+
+def block_fill_mask(coo: np.ndarray, num_src: int,
+                    num_dst: int) -> np.ndarray:
+    """Boolean mask of the edges that land in blocks with >= ``MIN_FILL``
+    edges (the ones worth storing as dense blocks)."""
+    src, dst, valid = _valid_edges(coo, num_src, num_dst)
+    s_blocks = num_blocks(num_src)
+    key = np.where(valid, (dst // BS) * s_blocks + (src // BS), -1)
+    uniq, inv, counts = np.unique(key, return_inverse=True,
+                                  return_counts=True)
+    dense_blk = (counts >= MIN_FILL) & (uniq >= 0)
+    return dense_blk[inv] & valid
+
+
+def split_by_block_fill(coo: np.ndarray, weight: np.ndarray, num_src: int,
+                        num_dst: int):
+    """Split the edges into (dense-block part, residual part):
+    ``(coo_blk, w_blk, coo_res, w_res, captured_fraction)``."""
+    w = np.asarray(weight)
+    _, _, valid = _valid_edges(coo, num_src, num_dst)
+    in_blk = block_fill_mask(coo, num_src, num_dst)
+    res = valid & ~in_blk
+    frac = float(in_blk.sum()) / max(int(valid.sum()), 1)
+    return coo[:, in_blk], w[in_blk], coo[:, res], w[res], frac
+
+
+def build_bsr_pair(coo: np.ndarray, weight: np.ndarray, num_src: int,
+                   num_dst: int, device='cpu',
+                   in_blk: Optional[np.ndarray] = None
+                   ) -> Tuple[BSR, BSR, Optional[Tuple[np.ndarray, ...]]]:
+    """The forward (dst-major) and transposed (src-major) layouts of the
+    edges in dense-enough blocks, and the residual ``(src, dst, w)`` numpy
+    arrays of the edges left on the gather path (``None`` if every edge was
+    captured). ``in_blk``: a block-fill mask computed already."""
+    res = None
+    w = np.asarray(weight)
+    if in_blk is None:
+        in_blk = block_fill_mask(coo, num_src, num_dst)
+    _, _, valid = _valid_edges(coo, num_src, num_dst)
+    res_m = valid & ~in_blk
+    if res_m.any():
+        res = (coo[0, res_m].astype(np.int32), coo[1, res_m].astype(np.int32),
+               w[res_m].astype(np.float32))
+        coo, w = coo[:, in_blk], w[in_blk]
+    fwd = build_bsr(coo, w, num_src, num_dst, device)
+    return fwd, transpose_bsr(fwd, num_src), res
+
+
+def _sampled_capture(coo: np.ndarray, num_src: int, num_dst: int,
+                     frac: float) -> float:
+    """Capture estimate from an edge sample: the share of sampled edges in
+    blocks whose sampled count reaches ``MIN_FILL * frac`` (at least 2)."""
+    src, dst, valid = _valid_edges(coo, num_src, num_dst)
+    if not valid.any():
+        return 0.0
+    s_blocks = num_blocks(num_src)
+    key = (dst[valid] // BS) * s_blocks + (src[valid] // BS)
+    _, counts = np.unique(key, return_counts=True)
+    need = max(int(np.ceil(MIN_FILL * frac)), 2)
+    return float(counts[counts >= need].sum() / counts.sum())
+
+
+def choose_block_order(coo: np.ndarray, num_src: int, num_dst: int):
+    """``(perm, inv, capture_frac, in_blk_mask)`` of a hubs-first relabel if
+    it clearly improves block fill, else ``(None, None, cap, mask)``.
+
+    Square adjacency only (the same permutation must apply to rows and
+    columns); ``(None,) * 4`` otherwise. ``perm[new] = old``. Past
+    ``SAMPLE_ABOVE`` edges both captures are first estimated from a sample,
+    and the relabel is skipped when neither could pass the gate."""
+    if num_src != num_dst:
+        return None, None, None, None
+    from ..utils.reorder import degree_order
+    n = num_src
+    e = coo.shape[1]
+    if e > SAMPLE_ABOVE:
+        frac = min(1.0, 16e6 / e)
+        rng = np.random.default_rng(0)
+        samp = coo[:, rng.integers(0, e, int(e * frac))]
+        est0 = _sampled_capture(samp, n, n, frac)
+        perm_s = degree_order(coo, n)
+        inv_s = np.empty(n, np.int64)
+        inv_s[perm_s] = np.arange(n)
+        inv_ext = np.concatenate([inv_s, [n]])
+        est1 = _sampled_capture(inv_ext[np.minimum(
+            samp.astype(np.int64), n)], n, n, frac)
+        if max(est0, est1) < 0.8 * MIN_CAPTURE:
+            return None, None, max(est0, est1), None
+
+    def capture_of(c):
+        m = block_fill_mask(c, n, n)
+        valid = (c[0] < n) & (c[1] < n)
+        return float(m.sum()) / max(int(valid.sum()), 1), m
+
+    cap0, mask0 = capture_of(coo)
+    if cap0 >= 0.85:            # natural order already block-dense
+        return None, None, cap0, mask0
+    perm = degree_order(coo, n)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    # padded endpoints (the == n sentinel) survive the relabel
+    inv_ext = np.concatenate([inv, [n]])
+    cap1, mask1 = capture_of(inv_ext[np.minimum(coo.astype(np.int64), n)])
+    if cap1 > cap0 * 1.25 and cap1 - cap0 > 0.05:
+        return perm, inv, cap1, mask1
+    return None, None, cap0, mask0
+
+
+def bsr_profitable(coo: np.ndarray, num_src: int, num_dst: int,
+                   max_entries: int = MAX_ENTRIES,
+                   capture: Optional[float] = None,
+                   in_blk: Optional[np.ndarray] = None) -> bool:
+    """Gate for the block cache: at least ``MIN_CAPTURE`` of the edges land
+    in dense-enough blocks, and the captured blocks hold at most
+    ``max_entries`` values. ``capture`` / ``in_blk`` (from
+    :func:`choose_block_order`) skip the re-analysis."""
+    if capture is not None and capture < MIN_CAPTURE:
+        return False
+    if capture is not None and in_blk is not None:
+        coo_blk = coo[:, in_blk]
+    else:
+        coo_blk, _, _, _, frac = split_by_block_fill(
+            coo, np.ones(coo.shape[1], np.float32), num_src, num_dst)
+        if frac < MIN_CAPTURE:
+            return False
+    if coo_blk.shape[1] == 0:
+        return False
+    nb, _ = bsr_stats(coo_blk, num_src, num_dst)
+    return nb * BS * BS <= max_entries
+
+
+# -- the kernel and its plain version ----------------------------------------
+def bsr_spmm_plain(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
+    """The plain PyTorch version of one pass: gather each block's x tile,
+    ``bmm``, ``index_add_`` into the block rows."""
+    n_src, f = x.shape
+    s_blocks = num_blocks(n_src)
+    d_blocks = bsr.row_ptr.shape[0] - 1
+    xp = x.new_zeros((s_blocks * BS, f))
+    xp[:n_src] = x
+    tiles = xp.view(s_blocks, BS, f)[bsr.cols.long()]
+    prod = torch.bmm(bsr.vals, tiles)
+    out = x.new_zeros((d_blocks, BS, f)).index_add_(0, block_rows(bsr), prod)
+    return out.view(d_blocks * BS, f)[:num_out]
+
+
+def _check(bsr: BSR, x: torch.Tensor, num_out: int):
+    if bsr.vals.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f'bsr_matmul takes float32 blocks and x, got '
+                        f'{bsr.vals.dtype} and {x.dtype} (the bf16 arm is '
+                        'ROADMAP Queue 2, kernel 2 bf16)')
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError('bsr_matmul takes a contiguous 2-D x, got shape '
+                         f'{tuple(x.shape)} strides {x.stride()}')
+    nb = bsr.vals.shape[0]
+    if (bsr.vals.dim() != 3 or tuple(bsr.vals.shape[1:]) != (BS, BS)
+            or not bsr.vals.is_contiguous()):
+        raise ValueError(f'bsr_matmul takes contiguous [NB, {BS}, {BS}] '
+                         f'blocks, got {tuple(bsr.vals.shape)}')
+    for name, t, n in (('vals', bsr.vals, nb), ('cols', bsr.cols, nb),
+                       ('row_ptr', bsr.row_ptr, num_blocks(num_out) + 1)):
+        if t.device != x.device:
+            raise ValueError(f'bsr_matmul: {name} is on {t.device}, x on '
+                             f'{x.device}')
+        if name != 'vals' and (t.dtype != torch.int32 or t.dim() != 1
+                               or t.shape[0] != n or not t.is_contiguous()):
+            raise ValueError(f'bsr_matmul takes a contiguous [{n}] int32 '
+                             f'{name}, got {t.dtype} shape '
+                             f'{tuple(t.shape)}')
+
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from .. import csrc
+        fn = csrc.load('bsr_spmm').pgt_bsr_spmm_f32
+        v, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [v, v, v, v, v, ll, ll, ll, ll, ll, v]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
+    """One pass ``out [num_out, F] = A @ x`` over the block layout. A CPU
+    tensor runs :func:`bsr_spmm_plain`; a CUDA tensor launches the kernel
+    (built at first use) or raises. Not differentiable: see
+    :func:`bsr_spmm`."""
+    _check(bsr, x, num_out)
+    if x.device.type == 'cpu':
+        return bsr_spmm_plain(bsr, x, num_out)
+    if x.device.type != 'cuda':
+        raise ValueError(f'bsr_matmul runs on cpu or cuda, not {x.device}')
+    if bsr.vals.data_ptr() % 16:
+        raise ValueError('bsr_matmul: the block values must be 16-byte '
+                         'aligned')
+    fn = _kernel()
+    out = torch.empty((num_out, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(bsr.row_ptr.data_ptr(), bsr.cols.data_ptr(),
+                 bsr.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+                 bsr.row_ptr.shape[0] - 1, num_out, x.shape[0], x.shape[1],
+                 bsr.vals.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f'bsr_matmul kernel launch failed: CUDA error '
+                           f'{err}')
+    bsr_matmul.launches += 1
+    return out
+
+
+bsr_matmul.launches = 0
+
+
+class _BsrSpmm(torch.autograd.Function):
+    """``A @ x`` with ``grad_x = A^T @ g`` through the same kernel over the
+    transposed layout; the block values are constants."""
+
+    @staticmethod
+    def forward(ctx, x, bsr, bsr_t, num_dst, num_src):
+        ctx.bsr_t, ctx.num_src = bsr_t, num_src
+        return bsr_matmul(bsr, x, num_dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad_x = bsr_matmul(ctx.bsr_t, g.contiguous(), ctx.num_src)
+        return grad_x, None, None, None, None
+
+
+def bsr_spmm(bsr: BSR, bsr_t: BSR, x: torch.Tensor, num_dst: int,
+             num_src: int) -> torch.Tensor:
+    """``out = A @ x`` over the block layout, differentiable in ``x``
+    (``bsr_t`` is the transposed layout the backward runs over)."""
+    return _BsrSpmm.apply(x, bsr, bsr_t, num_dst, num_src)

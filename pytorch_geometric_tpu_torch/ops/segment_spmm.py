@@ -23,19 +23,20 @@ shape) stays in the 50 MB L2, so the ``E * F`` gathered reads mostly hit L2.
 Measured times against this bound are in PERF.md.
 
 The wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; it never falls back from one to the other.
+for CUDA tensors; it never falls back from one to the other. Given the same
+matrix in source-major order (``transpose``), it is differentiable:
+``grad_x = A^T g`` is the same kernel over that CSR, as the JAX package's
+``_spmm_blocked_bwd`` (``ops/pallas_spmm.py:267-277``) runs its kernel over
+the transposed layout, and ``grad_w[e] = <x[src_e], g[dst_e]>`` is plain
+PyTorch, as the JAX package leaves it to XLA (``:278-281``).
 """
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .segment import ptr2index
-
-_TRAINING_SLICE = ('the kernel SpMM has no backward yet: training through '
-                   'it is ROADMAP Queue 2, kernel 1 backward; run serving '
-                   'under torch.inference_mode()')
 
 
 def segment_spmm_plain(indptr: torch.Tensor, src: torch.Tensor,
@@ -100,23 +101,14 @@ def _kernel():
     return _fn
 
 
-def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
-                 w: Optional[torch.Tensor],
-                 x: torch.Tensor) -> torch.Tensor:
-    """``out[d] = sum_{k in [indptr[d], indptr[d+1])} w[k] * x[src[k]]``.
-
-    ``indptr [n_dst + 1]`` int32, ``src [E]`` int32, ``w [E]`` float32 or
-    ``None`` (all ones), ``x [n_src, F]`` float32, all contiguous and on one
-    device. A CPU tensor runs :func:`segment_spmm_plain`; a CUDA tensor
-    launches the kernel (built at first use) or raises."""
-    _check(indptr, src, w, x)
+def _launch(indptr: torch.Tensor, src: torch.Tensor,
+            w: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """One pass: the plain version for a CPU tensor, the kernel (built at
+    first use) for a CUDA tensor, counted in ``segment_spmm.launches``."""
     if x.device.type == 'cpu':
         return segment_spmm_plain(indptr, src, w, x)
     if x.device.type != 'cuda':
         raise ValueError(f'segment_spmm runs on cpu or cuda, not {x.device}')
-    if torch.is_grad_enabled() and (
-            x.requires_grad or (w is not None and w.requires_grad)):
-        raise NotImplementedError(_TRAINING_SLICE)
     fn = _kernel()
     n_dst = indptr.shape[0] - 1
     out = torch.empty((n_dst, x.shape[1]), dtype=torch.float32,
@@ -132,6 +124,82 @@ def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
                            f'{err}')
     segment_spmm.launches += 1
     return out
+
+
+def _edge_dot(indptr: torch.Tensor, src: torch.Tensor, x: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """``grad_w[k] = <x[src[k]], g[dst[k]]>`` per CSC slot; 0 for padded
+    slots and sources outside ``[0, n_src)``."""
+    n_dst, n_src = g.shape[0], x.shape[0]
+    if n_dst == 0 or n_src == 0:
+        return x.new_zeros(src.shape[0])
+    dst = ptr2index(indptr.long(), src.shape[0])
+    s = src.long()
+    valid = (dst < n_dst) & (s >= 0) & (s < n_src)
+    dot = (x[s.clamp(0, n_src - 1)] * g[dst.clamp(max=n_dst - 1)]).sum(-1)
+    return torch.where(valid, dot, 0.0)
+
+
+class _SegmentSpmm(torch.autograd.Function):
+    """The kernel pass with its backward: ``grad_x`` through the kernel over
+    the source-major CSR, ``grad_w`` as a per-edge dot, each only when
+    needed."""
+
+    @staticmethod
+    def forward(ctx, x, w, indptr, src, transpose):
+        ctx.transpose = transpose
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              indptr, src)
+        return _launch(indptr, src, w, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, indptr, src = ctx.saved_tensors
+        g = g.contiguous()
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[0]:
+            grad_x = _launch(*ctx.transpose, g)
+        if ctx.needs_input_grad[1]:
+            grad_w = _edge_dot(indptr, src, x, g)
+        return grad_x, grad_w, None, None, None
+
+
+def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
+                 w: Optional[torch.Tensor], x: torch.Tensor,
+                 transpose: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                           Optional[torch.Tensor]]] = None
+                 ) -> torch.Tensor:
+    """``out[d] = sum_{k in [indptr[d], indptr[d+1])} w[k] * x[src[k]]``.
+
+    ``indptr [n_dst + 1]`` int32, ``src [E]`` int32, ``w [E]`` float32 or
+    ``None`` (all ones), ``x [n_src, F]`` float32, all contiguous and on one
+    device. A CPU tensor runs :func:`segment_spmm_plain`; a CUDA tensor
+    launches the kernel (built at first use) or raises.
+
+    ``transpose = (indptr_t [n_src + 1], dst_t [E], w_t [E] or None)``: the
+    same matrix in source-major order, with ``w_t`` the weights in that
+    order. It is needed when ``x`` requires a gradient; ``w`` may require
+    one without it."""
+    _check(indptr, src, w, x)
+    needs_x = x.requires_grad
+    needs_w = w is not None and w.requires_grad
+    if not torch.is_grad_enabled() or not (needs_x or needs_w):
+        return _launch(indptr, src, w, x)
+    if needs_x:
+        if transpose is None:
+            raise ValueError(
+                'segment_spmm: x requires a gradient, so pass transpose='
+                '(indptr_t, dst_t, w_t), the matrix in source-major order')
+        t_indptr, t_dst, t_w = transpose
+        if t_indptr.shape[0] != x.shape[0] + 1:
+            raise ValueError(f'segment_spmm: transpose indptr has '
+                             f'{t_indptr.shape[0]} entries for '
+                             f'{x.shape[0]} sources')
+        _check(t_indptr, t_dst, t_w, x)
+        if t_w is not None and t_w.requires_grad:
+            raise ValueError('segment_spmm: the transposed weights are '
+                             'constants; pass w_t detached')
+    return _SegmentSpmm.apply(x, w, indptr, src, transpose)
 
 
 segment_spmm.launches = 0

@@ -3,22 +3,32 @@
 Counterpart of ``pytorch_geometric_tpu/ops/spmm.py``:
 ``out[dst] = reduce over incoming edges of edge_weight * x[src]``.
 
-The ladder has two arms in the port so far:
+The ladder has three arms in the port so far:
 
+  * ``'bsr'``: a block-sparse cache baked by ``fill_cache`` (weights in the
+    blocks, no weight passed) with ``reduce`` in sum|mean -> the block
+    kernel (``ops/bsr_spmm.py``) over the nonempty 128x128 blocks, un-doing
+    the hubs-first relabel around it when one was baked in, plus the
+    residual edges through the segment-sum kernel; ``mean`` divides by the
+    destination degree. Differentiable in ``x``: both kernels run their
+    backward over the transposed layouts.
   * ``'kernel'``: ``reduce`` in sum|mean on a CUDA tensor -> the hand-written
     segment-sum kernel (``ops/segment_spmm.py``) over the cached (or freshly
-    built) CSC; ``mean`` divides by the CSC degree. This is the JAX
-    package's ``'pallas'`` regime. There is no edge-count threshold: the JAX
-    package's ``_PALLAS_MIN_EDGES`` was a TPU measurement.
+    built) CSC, with its backward over the CSR; ``mean`` divides by the CSC
+    degree. This is the JAX package's ``'pallas'`` regime. There is no
+    edge-count threshold: the JAX package's ``_PALLAS_MIN_EDGES`` was a TPU
+    measurement.
   * ``'plain'``: CPU tensors (the same CSC sum through the kernel's plain
     version), and ``min``/``max``, which gather and scatter as the JAX
     package's XLA gather path does.
 
-A sum/mean on a CUDA tensor with ``backend.use_kernel_spmm = False`` raises:
-the plain version never stands in for the kernel on the card.
+A block-sparse cache runs the ``'bsr'`` arm on the CPU too, through the
+kernels' plain versions. A sum/mean on a CUDA tensor with
+``backend.use_kernel_spmm = False`` raises: the plain version never stands in
+for a kernel on the card.
 
-The dense, block-sparse, windowed and chunked regimes are not ported yet
-(ROADMAP Queue 1, item 3).
+The dense, windowed and chunked regimes are not ported yet (ROADMAP Queue 1,
+item 3).
 """
 
 from typing import Optional, Union
@@ -26,21 +36,60 @@ from typing import Optional, Union
 import torch
 
 from .. import backend
-from ..edge_index import EdgeIndex
+from ..edge_index import CSR, EdgeIndex
+from .bsr_spmm import bsr_spmm
 from .scatter import scatter
 from .segment_spmm import segment_spmm
 
 
 def spmm_regime(adj: EdgeIndex, num_feats: int = 64, reduce: str = 'sum',
                 has_edge_weight: bool = False) -> str:
-    """Which arm :func:`spmm` runs for this adjacency: ``'kernel'`` (the JAX
-    package's ``'pallas'``) or ``'plain'``. ``num_feats`` and
-    ``has_edge_weight`` are accepted for signature parity with the JAX
-    package; neither changes the arm."""
-    del num_feats, has_edge_weight
-    if reduce in ('sum', 'mean') and adj.device.type == 'cuda':
+    """Which arm :func:`spmm` runs for this adjacency: ``'bsr'``,
+    ``'kernel'`` (the JAX package's ``'pallas'``) or ``'plain'``.
+    ``num_feats`` is accepted for signature parity with the JAX package and
+    does not change the arm."""
+    del num_feats
+    simple = reduce in ('sum', 'mean')
+    if (adj.bsr is not None and adj.bsr_t is not None and simple
+            and not has_edge_weight):
+        return 'bsr'
+    if simple and adj.device.type == 'cuda':
         return 'kernel'
     return 'plain'
+
+
+def _kernel_spmm(adj: EdgeIndex, x: torch.Tensor,
+                 edge_weight: Optional[torch.Tensor],
+                 csc: CSR) -> torch.Tensor:
+    """Sum over ``csc`` (``adj``'s) through the segment-sum kernel; when
+    ``x`` needs a gradient, hand the kernel the CSR as well, for
+    ``grad_x = A^T g``."""
+    w = None if edge_weight is None else \
+        edge_weight[csc.perm].to(x.dtype).contiguous()
+    transpose = None
+    if torch.is_grad_enabled() and x.requires_grad:
+        csr = adj.get_csr()
+        w_t = None if edge_weight is None else \
+            edge_weight.detach()[csr.perm].to(x.dtype).contiguous()
+        transpose = (csr.indptr, csr.indices, w_t)
+    return segment_spmm(csc.indptr, csc.indices, w, x.contiguous(),
+                        transpose)
+
+
+def _bsr_arm(adj: EdgeIndex, x: torch.Tensor) -> torch.Tensor:
+    """Sum over the baked blocks, un-doing the hubs-first relabel around
+    them, plus the residual tail through the segment-sum kernel."""
+    xb = x if adj.bsr_perm is None else x[adj.bsr_perm]
+    out = bsr_spmm(adj.bsr, adj.bsr_t, xb.contiguous(), adj.num_dst_nodes,
+                   adj.num_src_nodes)
+    if adj.bsr_perm is not None:
+        # the blocks hold P A P^T: out_old[o] = out_new[inv[o]]
+        out = out[adj.bsr_inv]
+    if adj.bsr_res is not None:
+        # the scattered tail the block split left on the gather path
+        res = adj.bsr_res
+        out = out + _kernel_spmm(res, x, res.weight, res.get_csc())
+    return out
 
 
 def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
@@ -65,17 +114,20 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
     if edge_weight is None:
         edge_weight = adj.weight
     num_out = adj.num_dst_nodes
+    regime = spmm_regime(adj, x.shape[1], reduce, edge_weight is not None)
 
     if reduce in ('sum', 'mean'):
         if x.device.type == 'cuda' and not backend.use_kernel_spmm:
             raise RuntimeError(
                 'backend.use_kernel_spmm is False, and the port has no other '
-                f'CUDA arm for reduce={reduce!r} yet; move the tensors to the '
-                'CPU to run the plain version')
-        csc = adj.get_csc()
-        w = None if edge_weight is None else \
-            edge_weight[csc.perm].to(x.dtype).contiguous()
-        out = segment_spmm(csc.indptr, csc.indices, w, x.contiguous())
+                'CUDA arm for a sum or mean yet; move the tensors to the CPU '
+                'to run the plain versions')
+        # 'kernel', or 'plain' on the CPU: the CSC sum (the segment-sum
+        # wrapper runs its plain version on a CPU tensor)
+        csc = (adj.get_csc() if regime != 'bsr' or reduce == 'mean'
+               else None)
+        out = (_bsr_arm(adj, x) if regime == 'bsr'
+               else _kernel_spmm(adj, x, edge_weight, csc))
         if reduce == 'mean':
             deg = torch.diff(csc.indptr).to(out.dtype)
             out = out / deg.clamp(min=1)[:, None]

@@ -1,11 +1,14 @@
 """The hand-written CUDA kernels of the PyTorch port against their plain
-PyTorch versions, on the card. Every test here needs a CUDA card, carries
-the ``cuda`` marker and skips without one; the card's machine has no JAX,
-so this file imports none (run it there with ``--noconftest``, see the
+PyTorch versions, on the card: the segment-sum kernel forward and backward,
+the block-sparse (BSR) kernel on both layouts, and training steps through
+both against the CPU. Every test here needs a CUDA card, carries the
+``cuda`` marker and skips without one; the card's machine has no JAX, so
+this file imports none (run it there with ``--noconftest``, see the
 README).
 
 Tolerance: f32 sums in another order: 1e-5 plus 1e-5 of the row's sum of
-|w * x| terms."""
+|w * x| terms per kernel pass; 1e-4 of the largest magnitude for gradients
+and training losses."""
 
 import numpy as np
 import pytest
@@ -13,9 +16,13 @@ import torch
 
 from pytorch_geometric_tpu_torch import EdgeIndex, backend
 from pytorch_geometric_tpu_torch.nn.models import GCN, GIN, GraphSAGE
+from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import (segment_spmm,
                                              segment_spmm_plain, spmm,
                                              spmm_regime)
+from pytorch_geometric_tpu_torch.ops.bsr_spmm import (BSR, bsr_matmul,
+                                                      bsr_spmm_plain,
+                                                      build_bsr_pair)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,7 +101,8 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         segment_spmm(csc.indptr, csc.indices, None, xt.half())
     with pytest.raises(ValueError, match='is on cpu'):
         segment_spmm(csc.indptr.cpu(), csc.indices, None, xt)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # a gradient of x needs the matrix in source-major order as well
+    with pytest.raises(ValueError, match='transpose'):
         segment_spmm(csc.indptr, csc.indices, None,
                      xt.clone().requires_grad_())
 
@@ -149,3 +157,178 @@ def test_plain_knob_runs_no_kernel(dev, monkeypatch):
     assert segment_spmm.launches == before
     assert spmm_regime(ei, reduce='max') == 'plain'
     spmm(ei, xt, reduce='max')
+
+
+# -- the segment-sum kernel's backward ----------------------------------------
+@pytest.mark.parametrize('f', [1, 10, 64])
+@pytest.mark.parametrize('n_src,n_dst', [(500, 500), (300, 800)])
+def test_kernel_backward_matches_plain_autograd(dev, f, n_src, n_dst):
+    """grad_x (the kernel over the CSR) and grad_w against autograd through
+    the plain version on the same card."""
+    coo, w, x = _case(n_src, n_dst, 6000, f, seed=f + n_src)
+    ei = EdgeIndex(coo, (n_src, n_dst), device=dev).fill_cache()
+    c = torch.randn(n_dst, f, device=dev,
+                    generator=torch.Generator(dev).manual_seed(f))
+    xt = torch.as_tensor(x, device=dev).requires_grad_()
+    wt = torch.as_tensor(w, device=dev).requires_grad_()
+    before = segment_spmm.launches
+    (spmm(ei, xt, wt) * c).sum().backward()
+    assert segment_spmm.launches == before + 2     # forward, grad_x
+    xr = xt.detach().clone().requires_grad_()
+    wr = wt.detach().clone().requires_grad_()
+    csc = ei.csc
+    ref = segment_spmm_plain(csc.indptr, csc.indices,
+                             wr[csc.perm].contiguous(), xr)
+    (ref * c).sum().backward()
+    for got, want in ((xt.grad, xr.grad), (wt.grad, wr.grad)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+# -- the block-sparse kernel --------------------------------------------------
+def _bsr_case(n_src, n_dst, e, seed):
+    """Edges clustered in 128-blocks along the diagonal, some dst block rows
+    left empty, plus a scattered tail; padded edges."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, max(n_dst, n_src) // 128 + 1, e)
+    src = np.clip(c * 128 + rng.integers(0, 128, e), 0, n_src - 1)
+    dst = np.clip(c * 128 + rng.integers(0, 128, e), 0, n_dst - 1)
+    tail = np.stack([rng.integers(0, n_src, 200),
+                     rng.integers(0, n_dst, 200)])
+    coo = np.concatenate([np.stack([src, dst]), tail], 1)
+    coo = coo[:, (coo[1] // 128) % 3 != 1]      # empty dst block rows
+    pad = np.stack([np.full(5, n_src), np.full(5, n_dst)])
+    coo = np.concatenate([coo, pad], 1).astype(np.int32)
+    return coo, rng.random(coo.shape[1]).astype(np.float32), rng
+
+
+def _bsr_close(layout, x, num_out):
+    before = bsr_matmul.launches
+    out = bsr_matmul(layout, x, num_out)
+    torch.cuda.synchronize()
+    assert bsr_matmul.launches == before + 1
+    ref = bsr_spmm_plain(layout, x, num_out)
+    scale = bsr_spmm_plain(layout._replace(vals=layout.vals.abs()),
+                           x.abs(), num_out)
+    _close(out, ref, scale)
+    return out
+
+
+@pytest.mark.parametrize('f', [1, 10, 16, 33, 64, 128, 130])
+@pytest.mark.parametrize('n_src,n_dst', [(600, 600), (300, 700)])
+def test_bsr_kernel_matches_plain(dev, f, n_src, n_dst):
+    coo, w, rng = _bsr_case(n_src, n_dst, 20_000, seed=f + n_dst)
+    fwd, bwd, _ = build_bsr_pair(coo, w, n_src, n_dst, device=dev)
+    assert (torch.diff(fwd.row_ptr) == 0).any()    # an empty block row
+    x = torch.as_tensor(rng.standard_normal((n_src, f)).astype(np.float32),
+                        device=dev)
+    out = _bsr_close(fwd, x, n_dst)
+    g = torch.as_tensor(rng.standard_normal((n_dst, f)).astype(np.float32),
+                        device=dev)
+    _bsr_close(bwd, g, n_src)
+    empty_rows = torch.nonzero(torch.diff(fwd.row_ptr) == 0).flatten()
+    for r in empty_rows.tolist():
+        assert not out[r * 128:(r + 1) * 128].any()
+
+
+def test_bsr_kernel_unaligned_x_and_no_blocks(dev):
+    coo, w, rng = _bsr_case(500, 500, 8000, seed=3)
+    fwd, _, _ = build_bsr_pair(coo, w, 500, 500, device=dev)
+    base = torch.as_tensor(rng.standard_normal(500 * 16).astype(np.float32),
+                           device=dev)
+    xt = torch.cat([base.new_zeros(1), base])[1:].view(500, 16)
+    assert xt.is_contiguous() and xt.data_ptr() % 16 != 0
+    _bsr_close(fwd, xt, 500)
+    none = BSR(vals=torch.zeros(0, 128, 128, device=dev),
+               cols=torch.zeros(0, dtype=torch.int32, device=dev),
+               row_ptr=torch.zeros(5, dtype=torch.int32, device=dev))
+    out = bsr_matmul(none, torch.ones(300, 8, device=dev), 500)
+    torch.cuda.synchronize()
+    assert out.shape == (500, 8) and not out.any()
+
+
+def test_bsr_kernel_raises_on_a_failed_launch(dev):
+    """A launch the card refuses (an F tile grid past 65535) raises instead
+    of returning an unwritten output."""
+    coo, w, _ = _bsr_case(128, 128, 2000, seed=4)
+    fwd, _, _ = build_bsr_pair(coo, w, 128, 128, device=dev)
+    x = torch.zeros(1, 64 * 65536, device=dev)
+    before = bsr_matmul.launches
+    with pytest.raises(RuntimeError, match='launch failed'):
+        bsr_matmul(fwd, x, 1)
+    assert bsr_matmul.launches == before
+
+
+def _powerlaw_case(n, e, seed, n_pad=40):
+    """Scrambled power-law graph: its natural order scatters the hubs, so
+    fill_cache bakes a hubs-first relabel; padded edges."""
+    rng = np.random.default_rng(seed)
+    pw = np.arange(1, n + 1) ** -0.9
+    pw /= pw.sum()
+    sc = rng.permutation(n)
+    coo = np.stack([sc[rng.choice(n, e, p=pw)], sc[rng.choice(n, e, p=pw)]])
+    coo = np.concatenate([coo, np.full((2, n_pad), n)], 1).astype(np.int32)
+    return coo, rng.random(coo.shape[1]).astype(np.float32), rng
+
+
+@pytest.mark.parametrize('graph', ['clustered', 'powerlaw-relabel'])
+@pytest.mark.parametrize('reduce', ['sum', 'mean'])
+@pytest.mark.parametrize('transpose', [False, True])
+def test_spmm_bsr_on_card_matches_cpu(dev, reduce, transpose, graph):
+    """The 'bsr' arm (blocks + residual) with its backward, on the card
+    against the CPU's plain versions; on the power-law graph also the
+    relabel (``x[bsr_perm]`` before the blocks, ``out[bsr_inv]`` after)."""
+    n = 900 if graph == 'clustered' else 3000
+    coo, w, rng = (_bsr_case(n, n, 30_000, seed=5) if graph == 'clustered'
+                   else _powerlaw_case(n, 6000, seed=1))
+    outs, grads = [], []
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    c = rng.standard_normal((n, 24)).astype(np.float32)
+    for d in (dev, 'cpu'):
+        ei = EdgeIndex(coo, (n, n), device=d).fill_cache(
+            dense_weight=w, block_sparse=True)
+        assert spmm_regime(ei) == 'bsr' and ei.bsr_res is not None
+        assert (ei.bsr_perm is None) == (graph == 'clustered')
+        xt = torch.as_tensor(x, device=d).requires_grad_()
+        before = (bsr_matmul.launches, segment_spmm.launches)
+        out = spmm(ei, xt, reduce=reduce, transpose=transpose)
+        (out * torch.as_tensor(c, device=d)).sum().backward()
+        launched = (bsr_matmul.launches - before[0],
+                    segment_spmm.launches - before[1])
+        assert launched == ((2, 2) if d == dev else (0, 0))
+        outs.append(out.detach().cpu())
+        grads.append(xt.grad.cpu())
+    for got, ref in zip((outs[0], grads[0]), (outs[1], grads[1])):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize('block_sparse', [True, False])
+def test_gcn_training_steps_on_card_match_cpu(dev, block_sparse):
+    """Three Adam steps of a 3-layer GCN over cache_gcn_norm, through the
+    BSR arm or the segment-sum arm, on the card against the CPU."""
+    coo, _, rng = _bsr_case(1000, 1000, 30_000, seed=6)
+    x = rng.standard_normal((1000, 16)).astype(np.float32)
+    y = rng.integers(0, 5, 1000)
+    losses = []
+    for d in (dev, 'cpu'):
+        ei = cache_gcn_norm(EdgeIndex(coo, (1000, 1000), device=d),
+                            block_sparse=block_sparse)
+        assert spmm_regime(ei) == ('bsr' if block_sparse else (
+            'kernel' if d == dev else 'plain'))
+        model = GCN(16, 16, 3, 5, device=d,
+                    generator=torch.Generator().manual_seed(0),
+                    conv_kwargs={'normalize': False,
+                                 'add_self_loops': False})
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        xt = torch.as_tensor(x, device=d)
+        yt = torch.as_tensor(y, device=d)
+        run = []
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(model(xt, ei), yt)
+            loss.backward()
+            opt.step()
+            run.append(loss.item())
+        losses.append(run)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)

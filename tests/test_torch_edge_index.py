@@ -93,7 +93,8 @@ def test_carried_weight_matches_jax_baked_cache(transpose):
     np.testing.assert_array_equal(out, out2)
 
 
-@pytest.mark.parametrize('kwargs', [{'block_sparse': True},
+@pytest.mark.parametrize('kwargs', [{'block_sparse': True,
+                                     'cache_dtype': torch.bfloat16},
                                     {'cache_dtype': torch.bfloat16},
                                     {'windowed': True}, {'auto': True}])
 def test_unported_caches_raise(kwargs):

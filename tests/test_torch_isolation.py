@@ -16,7 +16,9 @@ import pytorch_geometric_tpu_torch as pkg
 from pytorch_geometric_tpu_torch import EdgeIndex
 from pytorch_geometric_tpu_torch.nn.conv import GCNConv
 from pytorch_geometric_tpu_torch.nn.models import GCN, GIN, GraphSAGE
+from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import segment_spmm, spmm
+from pytorch_geometric_tpu_torch.ops.bsr_spmm import BSR, bsr_matmul
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(pkg.__file__).resolve().parent
@@ -41,7 +43,7 @@ def test_import_loads_no_jax():
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15   # every module was imported
+    assert int(res.stdout.split()[-1]) >= 24   # every module was imported
 
 
 @pytest.mark.parametrize('path', sorted(
@@ -80,6 +82,10 @@ def test_entry_points_need_a_card_by_default(no_card):
     assert out.shape == (3, 2) and out.device.type == 'cpu'
     # a raw COO follows x's device: here the CPU
     assert spmm(torch.from_numpy(coo), torch.ones(3, 2)).device.type == 'cpu'
+    # the block-sparse cache is built on the EdgeIndex's device
+    bsr = cache_gcn_norm(ei, block_sparse=True)
+    assert bsr.bsr.vals.device.type == 'cpu'
+    assert bsr.bsr_t.row_ptr.device.type == 'cpu'
 
 
 def test_wrapper_never_runs_plain_on_a_cuda_tensor():
@@ -90,6 +96,10 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
     x = torch.zeros(2, 4, device='meta')
     with pytest.raises(ValueError, match='cpu or cuda'):
         segment_spmm(ip, src, None, x)
+    layout = BSR(vals=torch.zeros(0, 128, 128, device='meta'), cols=src,
+                 row_ptr=torch.zeros(2, dtype=torch.int32, device='meta'))
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        bsr_matmul(layout, x, 2)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
