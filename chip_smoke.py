@@ -43,7 +43,28 @@ checks them:
      the first 3 losses against the CPU plain path;
   9. training-kernel timings: the BSR kernel at F = 64 and 10 on both
      layouts (``torch.sparse.mm`` on a BSR tensor of the same blocks as the
-     yardstick), and the segment-sum backward pass at path B's shapes.
+     yardstick), and the segment-sum backward pass at path B's shapes;
+ 10. the attention kernels against their plain versions: the multi-head
+     GAT mix kernel over H in {1, 4, 8} and F in {1, 10, 16, 64} (p_s !=
+     p_u, v absent, empty rows, padded slots) and its backward pass, and
+     the segment-max kernel (``-inf`` entries, masked edges, empty rows),
+     which must be bitwise equal; both also at path C's shapes;
+ 11. path C, GAT serving: the attention bench's graph
+     (``benchmarks/attention_bench.py:45-47``: 100,000 nodes, 2,000,000
+     random edges from ``--seed``) plus one self loop per node added on the
+     host by ``add_remaining_self_loops`` (``examples/gat_fused.py:45``),
+     ``fill_cache(blocked=True)``, ``GAT(64, 256, 3, 10, heads=4,
+     add_self_loops=False)``, f32, nothing cut: ms per forward, launches
+     per forward, a profile and idle share, the output held against the CPU
+     plain path with the same weights;
+ 12. path D, GAT training on the same cell (cross-entropy, Adam 1e-2): ms
+     per step, launches per step, a profile, 3 steps held against the CPU
+     plain path;
+ 13. attention-kernel timings at path C's shapes: the mix at H*F = 256 and
+     40, the stabiliser pass, the backward pass at 256 (yardstick: H
+     ``torch.sparse.mm`` CSR calls, or ``torch.segment_reduce`` for the
+     stabiliser), and the segment max at [2.1M, 4] (yardstick
+     ``torch.segment_reduce(..., 'max')``).
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--iters 20]`` from the root of a
 checkout, on a machine with one CUDA card. The last line of standard output
@@ -54,6 +75,7 @@ It also exits non-zero when no card is visible or the package is missing.
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -85,6 +107,13 @@ PROFILED_STEPS, PARITY_STEPS = 3, 3
 # each training step runs 3 forward SpMM passes and 2 backward ones: layer
 # 1 aggregates the leaf input, so its A^T pass never runs (bench.py:152-155)
 PASSES_PER_STEP = 5
+# paths C and D: the attention bench's graph (benchmarks/attention_bench.py:
+# 45-47, H = 4 heads of 64) under bench.py's 3 layers and 10 classes
+PC_NODES, PC_EDGES, PC_F, PC_HIDDEN, PC_HEADS = 100_000, 2_000_000, 64, 256, 4
+PC_LAYERS, PC_CLASSES = 3, 10
+# per layer, a forward runs the mix kernel twice (the stabiliser sum and the
+# mix); a training step adds grad_v, since v = lin_src(x) needs a gradient
+MIX_PER_FORWARD, MIX_PER_STEP = 2 * PC_LAYERS, 3 * PC_LAYERS
 
 
 def log(*a):
@@ -133,7 +162,7 @@ def phase_build(csrc):
             m = re.search(r'Used (\d+) registers', line)
             if m and fn:
                 args = re.findall(r'Li(\d+)E', fn)
-                tag = f"<{', '.join(args)}>" if args else fn
+                tag = f"<{', '.join(args)}>" if args else ''
                 log(f'[build] {name}{tag}: {m.group(1)} registers, {spill}')
 
 
@@ -251,9 +280,10 @@ def cpu_reference(torch, model, kind, x_np, coo, w_np):
         return ref(torch.from_numpy(x_np), ei, **kw)
 
 
-def compare(torch, kind, out, ref):
+def compare(torch, kind, out, ref, shape=None):
     out = out.float().cpu()
-    check(tuple(out.shape) == (N_NODES, N_OUT),
+    shape = shape or (N_NODES, N_OUT)
+    check(tuple(out.shape) == shape,
           f'{kind}: output shape {tuple(out.shape)}')
     check(bool(torch.isfinite(out).all()), f'{kind}: non-finite output')
     diff = float((out - ref).abs().max())
@@ -356,32 +386,42 @@ def phase_serving(torch, seed, iters, warmup):
 
 
 PROFILED_FORWARDS = 5
+PROFILE_ATTEMPTS = 6
 
 
-def device_kernels(torch, fn, calls):
+def device_kernels(torch, fn, calls, warm=False):
     """Device time per call by kernel name, from ``torch.profiler`` over
     ``calls`` calls of ``fn``, and the wall per call over the same calls
     (CUDA events): ``([(name, ms, launches), ...], wall_ms)``, longest
-    first; ``None`` when the trace holds no device time."""
+    first; ``None`` when the trace holds no device time. With ``warm``, a
+    first window of ``calls`` calls runs under the profiler's warm-up
+    stage and only the second window is kept."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
+    windows = 2 if warm else 1
+    sched = schedule(wait=0, warmup=1, active=1, repeat=1) if warm else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            if warm:
+                prof.step()
     wall_ms = start.elapsed_time(end) / calls
     total, count = {}, {}
     for ev in prof.events():
         # a user annotation on the device timeline (the optimizer's
-        # Optimizer.step range) spans kernels that are counted already
+        # Optimizer.step range, the schedule's ProfilerStep#) spans kernels
+        # that are counted already
         if (ev.device_type == DeviceType.CUDA
-                and not getattr(ev, 'is_user_annotation', False)):
+                and not getattr(ev, 'is_user_annotation', False)
+                and not ev.name.startswith('ProfilerStep')):
             total[ev.name] = total.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us()
             count[ev.name] = count.get(ev.name, 0) + 1
@@ -415,10 +455,36 @@ def time_ms(torch, fn, reps=200, warmup=50):
 
 def device_ms(torch, fn, calls=100):
     """Device time per call: the summed time of every kernel one call runs,
-    from ``torch.profiler``; host issue time and gaps are not in it."""
-    kernels = device_kernels(torch, fn, calls)
-    check(kernels is not None, 'the profiler saw no device time')
-    return sum(t for _, t, _ in kernels[0])
+    from ``torch.profiler``; host issue time and gaps are not in it.
+
+    The profiler now and then loses device events: a whole window, or some
+    launches of a kernel (up to half the calls of a window), which would
+    understate the time. A window whose launches of every kernel are a
+    whole multiple of ``calls`` is taken as it is; otherwise it is profiled
+    again, up to ``PROFILE_ATTEMPTS`` windows. If none is whole, each
+    kernel counts its recorded mean time per launch times its launches per
+    call, ``ceil(recorded / calls)``: right while fewer than ``calls`` of
+    its launches are lost."""
+    est = None
+    for _ in range(PROFILE_ATTEMPTS):
+        got = device_kernels(torch, fn, calls, warm=True)
+        if got is None:
+            continue
+        rows, wall = got
+        lost = [(name, n) for name, _, n in rows
+                if abs(n - round(n)) >= 1e-9]
+        est = sum(t / n * math.ceil(n - 1e-9) for _, t, n in rows)
+        check(est <= 1.05 * wall, f'device time {est} ms per call exceeds '
+                                  f'the wall {wall} ms')
+        if not lost:
+            return est
+        log('[profile] a window lost launches: ' + ', '.join(
+            f'{name[:40]} x{n:g}' for name, n in lost))
+    check(est is not None, 'the profiler saw no device time in '
+                           f'{PROFILE_ATTEMPTS} windows')
+    log(f'[profile] no whole window in {PROFILE_ATTEMPTS}: lost launches '
+        'counted at their recorded mean time')
+    return est
 
 
 def phase_timings(torch, seed):
@@ -1029,6 +1095,451 @@ def per_step(rows, picks):
     return out
 
 
+# -- phases 10 to 13, attention ----------------------------------------------
+def build_path_c(torch, seed):
+    """Path C's graph and cache: random COO from ``seed`` (as
+    ``attention_bench.py`` draws it), one self loop per node added on the
+    host by the port's ``add_remaining_self_loops``, then
+    ``fill_cache(blocked=True)`` on the card; x and labels from the same
+    generator."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.utils import add_remaining_self_loops
+    rng = np.random.default_rng(seed)
+    n = PC_NODES
+    coo = rng.integers(0, n, (2, PC_EDGES)).astype(np.int32)
+    coo, _ = add_remaining_self_loops(torch.from_numpy(coo), num_nodes=n)
+    coo = coo.numpy()
+    x = rng.standard_normal((n, PC_F)).astype(np.float32)
+    y = rng.integers(0, PC_CLASSES, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ei = EdgeIndex(coo, (n, n)).fill_cache(blocked=True)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    check(ei.num_edges == PC_EDGES + n, f'path C has {ei.num_edges} edges')
+    log(f'[path C] EdgeIndex + fill_cache(blocked=True) of {n} nodes, '
+        f'{ei.num_edges} edges (both sorts and slot orders on the card): '
+        f'{build_ms:.3f} ms')
+    return {'coo': coo, 'x': x, 'y': y, 'ei': ei, 'build_ms': build_ms}
+
+
+def gat_model(torch, device, seed):
+    from pytorch_geometric_tpu_torch.nn.models import GAT
+    return GAT(PC_F, PC_HIDDEN, PC_LAYERS, PC_CLASSES, heads=PC_HEADS,
+               conv_kwargs={'add_self_loops': False}, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def mix_close(torch, blk, p_s, p_u, v, f):
+    """The mix kernel against its plain version on the same card tensors;
+    tolerance 1e-5 + 1e-5 of the row's sum of |p * v| terms (f32 sums in
+    another order). Returns (max abs err, ok)."""
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_mix,
+                                                           gat_mix_plain)
+    s, u = gat_mix(blk.indptr, blk.src, p_s, p_u, v, f)
+    torch.cuda.synchronize()
+    rs, ru = gat_mix_plain(blk.indptr, blk.src, p_s, p_u, v, f)
+    worst, ok = 0.0, True
+    pairs = []
+    if p_s is not None:
+        ss, _ = gat_mix_plain(blk.indptr, blk.src, p_s.abs(), None, None, f)
+        pairs.append((s, rs, ss))
+    if v is not None:
+        _, su = gat_mix_plain(blk.indptr, blk.src, None, p_u.abs(), v.abs(),
+                              f)
+        pairs.append((u, ru, su))
+    for out, ref, scale in pairs:
+        err = (out - ref).abs()
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        ok = ok and bool((err <= 1e-5 + 1e-5 * scale).all())
+    return worst, ok
+
+
+def attention_cases(torch, seed):
+    """A bipartite graph (700 sources, 1000 destinations, half of them
+    empty, 64 padded edges) with its slot orders on the card."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    rng = np.random.default_rng(seed + 5)
+    n_src, n_dst, e = 700, 1000, 20_000
+    dst = rng.choice(n_dst, n_dst // 2, replace=False)[
+        rng.integers(0, n_dst // 2, e)]
+    coo = np.stack([np.concatenate([rng.integers(0, n_src, e),
+                                    np.full(64, n_src)]),
+                    np.concatenate([dst, np.full(64, n_dst)])])
+    return EdgeIndex(coo.astype(np.int32), (n_src, n_dst),
+                     device='cuda').fill_cache(blocked=True), rng
+
+
+def phase_gat_mix_vs_plain(torch, seed, pc):
+    """The mix kernel over H in {1, 4, 8} and F in {1, 10, 16, 64}, with
+    p_s != p_u, and with v absent (the stabiliser pass); its backward pass
+    (grad_v over the source-major order); then path C's shapes."""
+    ei, rng = attention_cases(torch, seed)
+    worst = 0.0
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device='cuda')
+
+    cases = []
+    n_src, n_dst = ei.sparse_size
+    for h in (1, 4, 8):
+        s_slots = ei.blocked.src.shape[0]
+        p_s, p_u = t(rng.random((s_slots, h))), t(rng.random((s_slots, h)))
+        cases.append((f'bipartite H={h} stabiliser (v absent)', ei.blocked,
+                      p_s, None, None, 0))
+        for f in (1, 10, 16, 64):
+            cases.append((f'bipartite H={h} F={f} p_s != p_u', ei.blocked,
+                          p_s, p_u, t(rng.standard_normal((n_src, h * f))),
+                          f))
+            cases.append((f'bipartite H={h} F={f} backward (grad_v over '
+                          f'the CSR)', ei.blocked_t, None,
+                          p_u[ei.blocked_t.t_pos].contiguous(),
+                          t(rng.standard_normal((n_dst, h * f))), f))
+    blk, blk_t = pc['ei'].blocked, pc['ei'].blocked_t
+    s_slots = blk.src.shape[0]
+    p = t(rng.random((s_slots, PC_HEADS)))
+    for f, hf in ((PC_HIDDEN // PC_HEADS, PC_HIDDEN), (PC_CLASSES,
+                                                       PC_HEADS * PC_CLASSES)):
+        cases.append((f'path C H={PC_HEADS} F={f}', blk, p, p,
+                      t(rng.standard_normal((PC_NODES, hf))), f))
+    cases.append((f'path C H={PC_HEADS} stabiliser', blk, p, None, None, 0))
+    cases.append((f'path C H={PC_HEADS} F={PC_HIDDEN // PC_HEADS} backward',
+                  blk_t, None, p[blk_t.t_pos].contiguous(),
+                  t(rng.standard_normal((PC_NODES, PC_HIDDEN))),
+                  PC_HIDDEN // PC_HEADS))
+    for label, lay, p_s, p_u, v, f in cases:
+        err, ok = mix_close(torch, lay, p_s, p_u, v, f)
+        worst = max(worst, err)
+        log(f"[kernel] gat_mix {label}: max abs err {err:.3e} "
+            f"{'ok' if ok else 'FAILED'}")
+        check(ok, f'gat_mix disagrees with its plain version: {label}')
+    # the whole fused aggregation with its autograd, card against CPU
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_aggregate
+    coo = ei.coo.cpu().numpy()
+    e = coo.shape[1]
+    logits = (rng.standard_normal((e, 4)) * 3).astype(np.float32)
+    v = rng.standard_normal((n_src, 4, 16)).astype(np.float32)
+    c = rng.standard_normal((n_dst, 4, 16)).astype(np.float32)
+    mask = rng.random(e) < 0.8
+    res = []
+    for d, graph in (('cuda', ei), ('cpu', EdgeIndex(
+            coo, (n_src, n_dst), device='cpu').fill_cache(blocked=True))):
+        lt = torch.as_tensor(logits, device=d).requires_grad_()
+        vt = torch.as_tensor(v, device=d).requires_grad_()
+        out = gat_aggregate(graph, lt, vt,
+                            edge_mask=torch.as_tensor(mask, device=d))
+        (out * torch.as_tensor(c, device=d)).sum().backward()
+        res.append([x.detach().cpu() for x in (out, lt.grad, vt.grad)])
+    for name, got, ref in zip(('out', 'grad logits', 'grad v'), *res):
+        d = float((got - ref).abs().max())
+        lim = 1e-4 * float(ref.abs().max())
+        log(f'[kernel] gat_aggregate autograd, card vs CPU, {name}: max abs '
+            f"diff {d:.3e} (limit {lim:.3e}) {'ok' if d <= lim else 'FAILED'}")
+        check(d <= lim, f'gat_aggregate {name} differs from the CPU by {d}')
+    return worst
+
+
+def phase_segment_max_vs_plain(torch, seed, pc):
+    """The segment-max kernel against its plain version, bitwise: H in {1,
+    3, 4, 8, 40}, -inf entries and masked (all -inf) edges, empty rows and
+    padded slots; then path C's slots at H = 4."""
+    from pytorch_geometric_tpu_torch.ops.segment_max import (
+        segment_max_blocked, segment_max_plain)
+    ei, rng = attention_cases(torch, seed + 1)
+    cases = []
+    for h in (1, 3, 4, 8, 40):
+        vals = rng.standard_normal((ei.blocked.src.shape[0], h)) * 10
+        vals[rng.random(vals.shape) < 0.2] = -np.inf
+        vals[rng.random(vals.shape[0]) < 0.3] = -np.inf      # masked edges
+        cases.append((f'bipartite H={h}', ei.blocked, vals,
+                      ei.num_dst_nodes))
+    vals = rng.standard_normal((pc['ei'].num_edges, PC_HEADS)) * 3
+    vals[rng.random(vals.shape[0]) < 0.1] = -np.inf
+    cases.append((f'path C [{vals.shape[0]}, {PC_HEADS}]', pc['ei'].blocked,
+                  vals, PC_NODES))
+    worst = 0.0
+    for label, lay, vals, n in cases:
+        v = torch.as_tensor(vals.astype(np.float32), device='cuda')
+        out = segment_max_blocked(v, lay, n)
+        torch.cuda.synchronize()
+        ref = segment_max_plain(lay.indptr, v)
+        same = bool(torch.equal(out, ref))
+        # -inf against -inf is no difference
+        err = float(torch.where(out == ref, 0.0, (out - ref).abs()).max())
+        worst = max(worst, err)
+        n_inf = int(torch.isneginf(out).any(1).sum())
+        log(f"[kernel] segment_max {label}: bitwise equal {same}, max abs "
+            f"err {err:.3e} ({n_inf} rows -inf)")
+        check(same, f'segment_max differs from its plain version: {label}')
+    return worst
+
+
+def phase_path_c(torch, seed, iters, warmup, pc):
+    """GAT serving on path C: ms per forward, launches, profile, the output
+    against the CPU plain path with the same weights."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
+    from pytorch_geometric_tpu_torch.ops.segment_max import \
+        segment_max_blocked
+    ei = pc['ei']
+    x = torch.as_tensor(pc['x'], device='cuda')
+    model = gat_model(torch, None, seed).eval()
+    n_fwd = warmup + iters + PROFILED_FORWARDS
+    torch.cuda.synchronize()
+    gat_mix.launches = segment_max_blocked.launches = 0
+    with torch.inference_mode():
+        for _ in range(warmup):
+            out = model(x, ei)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            out = model(x, ei)
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        breakdown = profile_forwards(torch, lambda: model(x, ei))
+    launches = gat_mix.launches
+    log(f'[path C] gat_mix launches: {launches} in {n_fwd} forwards; '
+        f'segment_max launches: {segment_max_blocked.launches}')
+    check(launches == MIX_PER_FORWARD * n_fwd,
+          f'path C: {launches} mix launches in {n_fwd} forwards, expected '
+          f'{MIX_PER_FORWARD} per forward')
+    ref_model = gat_model(torch, 'cpu', 0).eval()
+    ref_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
+                       device='cpu').fill_cache(blocked=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = ref_model(torch.from_numpy(pc['x']), ei_cpu)
+    log(f'[path C] CPU plain path forward in {time.perf_counter() - t0:.1f} '
+        f's')
+    diff, agree = compare(torch, 'path C', out, ref,
+                          (PC_NODES, PC_CLASSES))
+    res = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enqueue_ms,
+           'forwards': n_fwd, 'launches': launches,
+           'launches_per_forward': launches / n_fwd,
+           'edges': ei.num_edges, 'cache_build_ms': pc['build_ms'],
+           'max_abs_diff_vs_cpu': diff, 'argmax_agreement': agree}
+    log(f'[path C] {ms:.4f} ms per forward on the card (CUDA events, '
+        f'{iters} forwards after {warmup}); the host issues one in '
+        f'{enqueue_ms:.4f} ms')
+    if breakdown is not None:
+        rows, prof_ms = breakdown
+        busy = sum(t for _, t, _ in rows)
+        check(busy <= 1.05 * prof_ms, f'path C: device busy {busy} ms '
+                                      f'exceeds the wall {prof_ms} ms')
+        res.update(device_busy_ms_per_forward=busy,
+                   profiled_ms_per_forward=prof_ms,
+                   device_idle_share=1 - busy / prof_ms,
+                   kernels_per_forward=[[n[:80], t, c]
+                                        for n, t, c in rows[:12]])
+        log(f'[path C] torch.profiler, {PROFILED_FORWARDS} forwards: device '
+            f'busy {busy:.4f} ms per forward of a {prof_ms:.4f} ms wall, '
+            f'idle share {1 - busy / prof_ms:.4f}')
+        for name, t, n in rows[:12]:
+            log(f'[path C]   {t:.4f} ms  x{n:g}  {name[:90]}')
+    log(json.dumps({'metric': 'gat_inference_fwd', 'ms': ms,
+                    'nodes': PC_NODES, 'edges': ei.num_edges,
+                    'heads': PC_HEADS, 'hidden': PC_HIDDEN}))
+    return res
+
+
+def gat_parity_run(torch, state, x, ei, y, device):
+    model = gat_model(torch, device, 0)
+    model.load_state_dict({k: v.to(device) for k, v in state.items()})
+    opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+    losses, grads = [], None
+    for i in range(PARITY_STEPS):
+        losses.append(train_step(torch, model, opt, x, ei, y).item())
+        if i == 0:
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()}
+    return losses, grads
+
+
+def phase_path_d(torch, seed, pc):
+    """GAT training on path C's cell: ms per step, launches per step, a
+    profile, 3 steps against the CPU plain path."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
+    ei = pc['ei']
+    x = torch.as_tensor(pc['x'], device='cuda')
+    y = torch.as_tensor(pc['y'], device='cuda')
+    model = gat_model(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+
+    def step():
+        return train_step(torch, model, opt, x, ei, y)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    gat_mix.launches = 0
+    ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
+    prof = profile_steps(torch, step, 'path D')
+    launches = gat_mix.launches
+    n_steps = PA_WARMUP + PA_STEPS + PROFILED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f'[path D] GAT training step: {ms:.4f} ms per step on the card (CUDA '
+        f'events, {PA_STEPS} steps after {PA_WARMUP}); the host issues one '
+        f'in {enqueue_ms:.4f} ms; loss after {PA_WARMUP + PA_STEPS} steps '
+        f'{last:.6f}; peak memory {peak:.3f} GB; gat_mix launches {launches} '
+        f'in {n_steps} steps')
+    check(launches == MIX_PER_STEP * n_steps,
+          f'path D: {launches} mix launches in {n_steps} steps, expected '
+          f'{MIX_PER_STEP} per step')
+    card = gat_parity_run(torch, state, x, ei, y, 'cuda')
+    ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
+                       device='cpu').fill_cache(blocked=True)
+    t0 = time.perf_counter()
+    cpu = gat_parity_run(torch, state, torch.from_numpy(pc['x']), ei_cpu,
+                         torch.from_numpy(pc['y']), 'cpu')
+    log(f'[path D] CPU plain path, {PARITY_STEPS} steps in '
+        f'{time.perf_counter() - t0:.1f} s')
+    res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
+           'steps': n_steps, 'launches': launches,
+           'launches_per_step': launches / n_steps, 'peak_memory_gb': peak}
+    res.update(prof)
+    res['parity'] = check_parity(torch, 'path D', card, cpu, True)
+    log(json.dumps({'metric': 'gat_train_step', 'ms': ms,
+                    'nodes': PC_NODES, 'edges': ei.num_edges}))
+    return res
+
+
+def mix_bytes(n_src, n_dst, slots, h, f, p_reads, out_s):
+    """Bytes one mix pass must move: v, the p arrays, src, indptr and the
+    outputs once each (the stabiliser pass reads no v and no src)."""
+    by = p_reads * slots * h * 4 + (n_dst + 1) * 4 + (n_dst * h * 4
+                                                      if out_s else 0)
+    if f:
+        by += (n_src + n_dst) * h * f * 4 + slots * 4
+    return by
+
+
+def timed_row(torch, fns, info, by, flops):
+    """``info`` plus the bound from ``by`` bytes and ``flops``, and each of
+    ``fns`` timed on the card (device time and CUDA-event wall)."""
+    t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    row = {'bytes': by, 'flops': flops,
+           'bound_ms': max(t_bytes, t_ops) * 1e3,
+           'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+    row.update(info)
+    for key, fn in fns.items():
+        row[key.replace('ms', 'event_ms')] = time_ms(torch, fn, reps=20,
+                                                     warmup=3)
+        row[key] = device_ms(torch, fn, calls=10)
+    return row
+
+
+def phase_attention_timings(torch, seed, pc):
+    """At path C's shapes: the mix at H*F = 256 and 40, the stabiliser
+    pass, the backward pass at 256, and the segment max at [E, 4]; each
+    with the plain version, a library yardstick and the bound."""
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_mix,
+                                                           gat_mix_plain)
+    from pytorch_geometric_tpu_torch.ops.segment_max import (
+        segment_max_blocked, segment_max_plain)
+    rng = np.random.default_rng(seed + 6)
+    blk, blk_t = pc['ei'].blocked, pc['ei'].blocked_t
+    n, h, slots = PC_NODES, PC_HEADS, blk.src.shape[0]
+    e = int(blk.indptr[-1])
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device='cuda')
+
+    p = t(rng.random((slots, h)))
+    p_t = p[blk_t.t_pos].contiguous()
+    rows = []
+
+    def library_mix(lay, pp, v, f):
+        """H ``torch.sparse.mm`` CSR calls, one per head (a yardstick; the
+        port never calls it), checked against the plain version."""
+        mats = [torch.sparse_csr_tensor(lay.indptr, lay.src,
+                                        pp[:, k].contiguous(), size=(n, n))
+                for k in range(h)]
+        vs = [v.view(n, h, f)[:, k].contiguous() for k in range(h)]
+
+        def call():
+            return [torch.sparse.mm(a, b) for a, b in zip(mats, vs)]
+
+        _, ref = gat_mix_plain(lay.indptr, lay.src, None, pp, v, f)
+        lib = torch.stack(call(), 1).reshape(n, h * f)
+        check(bool(torch.allclose(lib, ref, rtol=1e-4, atol=1e-4)),
+              f'torch.sparse.mm disagrees at F={f}')
+        return call
+
+    with torch.inference_mode():
+        for f in (PC_HIDDEN // h, PC_CLASSES):
+            v = t(rng.standard_normal((n, h * f)))
+            fns = {'ms': lambda: gat_mix(blk.indptr, blk.src, p, p, v, f),
+                   'plain_ms': lambda: gat_mix_plain(blk.indptr, blk.src, p,
+                                                     p, v, f),
+                   'library_ms': library_mix(blk, p, v, f)}
+            rows.append(timed_row(
+                torch, fns, {'pass': 'mix (s, u)', 'H': h, 'F': f,
+                             'HF': h * f, 'slots': e},
+                mix_bytes(n, n, e, h, f, 1, True), 2.0 * e * h * f + e * h))
+        z = p
+        offsets = blk.indptr.long()
+        fns = {'ms': lambda: gat_mix(blk.indptr, blk.src, z, None, None),
+               'plain_ms': lambda: gat_mix_plain(blk.indptr, blk.src, z,
+                                                 None, None, 0),
+               'library_ms': lambda: torch.segment_reduce(
+                   z, 'sum', offsets=offsets)}
+        check(bool(torch.allclose(fns['library_ms'](), fns['plain_ms']()[0],
+                                  rtol=1e-4, atol=1e-4)),
+              'torch.segment_reduce (sum) disagrees')
+        rows.append(timed_row(
+            torch, fns, {'pass': 'stabiliser s0 (v absent)', 'H': h, 'F': 0,
+                         'HF': 0, 'slots': e},
+            mix_bytes(n, n, e, h, 0, 1, True), 1.0 * e * h))
+        f = PC_HIDDEN // h
+        gu = t(rng.standard_normal((n, h * f)))
+        fns = {'ms': lambda: gat_mix(blk_t.indptr, blk_t.src, None, p_t, gu,
+                                     f),
+               'plain_ms': lambda: gat_mix_plain(blk_t.indptr, blk_t.src,
+                                                 None, p_t, gu, f),
+               'library_ms': library_mix(blk_t, p_t, gu, f)}
+        rows.append(timed_row(
+            torch, fns, {'pass': 'backward grad_v (u only, over the CSR)',
+                         'H': h, 'F': f, 'HF': h * f, 'slots': e},
+            mix_bytes(n, n, e, h, f, 1, False), 2.0 * e * h * f))
+        for r in rows:
+            log(f"[timing] gat_mix {r['pass']} H*F={r['HF']}, device time "
+                f"per call: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel at "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; "
+                f"CUDA-event wall per call: kernel {r['event_ms']:.4f} ms")
+        vals = rng.standard_normal((slots, h)) * 3
+        vals[rng.random(slots) < 0.1] = -np.inf
+        vals = t(vals)
+        fns = {'ms': lambda: segment_max_blocked(vals, blk, n),
+               'plain_ms': lambda: segment_max_plain(blk.indptr, vals),
+               'library_ms': lambda: torch.segment_reduce(
+                   vals, 'max', offsets=offsets)}
+        by = slots * h * 4 + (n + 1) * 4 + n * h * 4
+        max_row = timed_row(torch, fns, {'H': h, 'slots': e}, by,
+                            1.0 * e * h)
+        log(f"[timing] segment_max [{e}, {h}], device time per call: kernel "
+            f"{max_row['ms']:.4f} ms, plain {max_row['plain_ms']:.4f} ms, "
+            f"torch.segment_reduce {max_row['library_ms']:.4f} ms; bound "
+            f"{max_row['bound_ms']:.4f} ms ({max_row['bound_by']}), kernel "
+            f"at {100 * max_row['bound_ms'] / max_row['ms']:.1f}% of the "
+            f"bound; CUDA-event wall per call: kernel "
+            f"{max_row['event_ms']:.4f} ms")
+    return rows, max_row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1058,6 +1569,12 @@ def main():
     path_a = phase_path_a(torch, args.seed, pa)
     path_b = phase_path_b(torch, args.seed)
     bsr_rows, seg_bwd_rows = phase_training_timings(torch, args.seed, pa)
+    pc = build_path_c(torch, args.seed)
+    worst_mix = phase_gat_mix_vs_plain(torch, args.seed, pc)
+    worst_max = phase_segment_max_vs_plain(torch, args.seed, pc)
+    path_c = phase_path_c(torch, args.seed, args.iters, args.warmup, pc)
+    path_d = phase_path_d(torch, args.seed, pc)
+    mix_rows, max_row = phase_attention_timings(torch, args.seed, pc)
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -1077,8 +1594,17 @@ def main():
         {'layout': 'forward', 'F': TR_CLASSES},
         {'layout': 'transposed', 'F': TR_CLASSES},
         {'layout': 'transposed', 'F': TR_F}])
+    # a path C forward: per layer the stabiliser pass and the mix, at
+    # H*F = 256 in layers 1-2 and 40 in layer 3
+    by_pass = {(r['pass'].split()[0], r['HF']): r for r in mix_rows}
+    mix_fwd = [by_pass[('mix', PC_HIDDEN)], by_pass[('mix', PC_HIDDEN)],
+               by_pass[('mix', PC_HEADS * PC_CLASSES)]] + \
+        [by_pass[('stabiliser', 0)]] * PC_LAYERS
+    mix_sum = {k: sum(r[k] for r in mix_fwd)
+               for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
     log(json.dumps({'paths': {'serving': serving, 'path_a': path_a,
-                              'path_b': path_b}}))
+                              'path_b': path_b, 'path_c': path_c,
+                              'path_d': path_d}}))
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',
@@ -1114,7 +1640,42 @@ def main():
         'library_ms': bsr_step['library_ms'],
         'times_are': 'per path A training step: the forward layout at F=64 '
                      'twice and F=10, the transposed layout at F=10 and F=64',
-        'per_shape': bsr_rows}]}))
+        'per_shape': bsr_rows}, {
+        'name': 'gat_mix', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/gat_mix.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:74',
+        'replaces_site': 'pytorch_geometric_tpu/ops/pallas_spmm.py:212 '
+                         '(segment_sum_blocked, from ops/gat_fused.py:80, '
+                         ':111, :161)',
+        'launches': path_c['launches'] + path_d['launches'],
+        'launches_by_path': {'path_c': path_c['launches'],
+                             'path_d': path_d['launches']},
+        'launches_per_forward': path_c['launches_per_forward'],
+        'launches_per_step': path_d['launches_per_step'],
+        'max_abs_err': worst_mix,
+        'ms': mix_sum['ms'], 'plain_ms': mix_sum['plain_ms'],
+        'bound_ms': mix_sum['bound_ms'],
+        'bound_by': ('bytes' if all(r['bound_by'] == 'bytes'
+                                    for r in mix_fwd) else 'operations'),
+        'library_ms': mix_sum['library_ms'],
+        'times_are': 'per path C forward: the mix at H*F=256 twice and 40 '
+                     'once, the stabiliser pass three times; the backward '
+                     'pass per call in per_shape',
+        'per_shape': mix_rows}, {
+        'name': 'segment_max', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/segment_max.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:327',
+        'launches': 0,
+        'launches_note': 'no path of the JAX package or of the port calls '
+                         'segment_max_blocked (ops/gat_fused.py:29 only '
+                         'imports it); its launches are the comparison and '
+                         'timing phases, which do not count',
+        'max_abs_err': worst_max,
+        'ms': max_row['ms'], 'plain_ms': max_row['plain_ms'],
+        'bound_ms': max_row['bound_ms'], 'bound_by': max_row['bound_by'],
+        'library_ms': max_row['library_ms'],
+        'times_are': f'one call at [{max_row["slots"]}, {PC_HEADS}]',
+        'per_shape': [max_row]}]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -11,8 +11,15 @@ Padded edges point both endpoints at ``num_nodes`` (one past the last real
 row); they sort past ``indptr[-1]`` and every segment op drops them.
 
 In the port ``indptr`` and ``indices`` are int32 (what the CUDA kernel
-reads) and ``perm`` is int64 (what torch indexing takes). ``BlockedCSC`` is
-a TPU tile layout and is not ported: the Hopper kernel reads plain CSC.
+reads) and ``perm`` is int64 (what torch indexing takes).
+
+``fill_cache(blocked=True)`` also builds ``blocked`` / ``blocked_t``, the
+port's counterparts of the JAX package's ``BlockedCSC`` pair, which the
+fused attention aggregation (``ops/gat_fused.py``) runs over. The TPU pads
+every 128-node destination block to 1024-edge chunks for its MXU kernel;
+the Hopper kernels read plain CSC, so a :class:`Slots` is the CSC (and
+``blocked_t`` the CSR) in slot order, with the maps between slots and
+edges that the JAX layout carries (``perm``, ``inv_pos``, ``t_pos``).
 
 ``fill_cache(dense_weight=..., block_sparse=...)`` may bake the weighted
 adjacency into a block-sparse cache (``ops/bsr_spmm.py``): the forward and
@@ -42,6 +49,30 @@ class CSR(NamedTuple):
     perm: torch.Tensor
 
 
+class Slots(NamedTuple):
+    """One orientation in slot order, the port's ``BlockedCSC``.
+
+    Slot ``k`` is position ``k`` of the sorted orientation (the CSC for
+    ``blocked``, the CSR for ``blocked_t``), so every edge has a slot;
+    slots at or past ``indptr[-1]`` hold the padded edges and are no
+    row's, which ``dst`` marks.
+
+    indptr:  [N+1] int32, the orientation's row pointer
+    src:     [E] int32, the other endpoint of each slot's edge
+    dst:     [E] int64, each slot's row (``N`` for a padded slot)
+    perm:    [E] int64, slot -> original edge (the orientation's ``perm``)
+    inv_pos: [E] int64, original edge -> slot (the inverse of ``perm``)
+    t_pos:   [E] int64, slot -> the slot of the same edge in the other
+             orientation
+    """
+    indptr: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
+    perm: torch.Tensor
+    inv_pos: torch.Tensor
+    t_pos: torch.Tensor
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f'{what} is not ported to the PyTorch package yet (ROADMAP: {item})')
@@ -62,7 +93,9 @@ class EdgeIndex:
                  bsr=None, bsr_t=None,
                  bsr_res: Optional['EdgeIndex'] = None,
                  bsr_perm: Optional[torch.Tensor] = None,
-                 bsr_inv: Optional[torch.Tensor] = None):
+                 bsr_inv: Optional[torch.Tensor] = None,
+                 blocked: Optional[Slots] = None,
+                 blocked_t: Optional[Slots] = None):
         if device is None and isinstance(coo, torch.Tensor):
             device = coo.device
         self.device = resolve_device(device)
@@ -89,6 +122,8 @@ class EdgeIndex:
         # the block-sparse cache (ops/bsr_spmm.py), weights baked in
         self.bsr, self.bsr_t, self.bsr_res = bsr, bsr_t, bsr_res
         self.bsr_perm, self.bsr_inv = bsr_perm, bsr_inv
+        # the slot orders of the fused attention aggregation
+        self.blocked, self.blocked_t = blocked, blocked_t
 
     # -- basic accessors ----------------------------------------------------
     @property
@@ -132,12 +167,14 @@ class EdgeIndex:
             return self.csc
         return _build_sorted(self.col, self.row, self.num_dst_nodes)
 
-    def fill_cache(self, dense_weight=None,
+    def fill_cache(self, blocked: bool = True, dense_weight=None,
                    block_sparse: Optional[bool] = None, cache_dtype=None,
                    auto: bool = False,
                    windowed: Optional[bool] = None) -> 'EdgeIndex':
-        """Return a copy with both CSR and CSC materialised, and
-        ``dense_weight`` ([E] per-edge weights, COO order) cached.
+        """Return a copy with both CSR and CSC materialised, the slot
+        orders ``blocked`` / ``blocked_t`` built when ``blocked``, and
+        ``dense_weight`` ([E] per-edge weights, COO order) cached. The
+        parameters come in the JAX package's order.
 
         As in the JAX package (``edge_index.py:360-470``): with
         ``block_sparse=True``, or with ``block_sparse=None`` when
@@ -170,10 +207,14 @@ class EdgeIndex:
                 weight = torch.as_tensor(dense_weight, device=self.device)
             else:
                 bsr, weight = baked, None
-        return EdgeIndex(self.coo, self.sparse_size, csr=self.get_csr(),
-                         csc=self.get_csc(),
+        csr, csc = self.get_csr(), self.get_csc()
+        blk, blk_t = self.blocked, self.blocked_t
+        if blocked and blk is None:
+            blk, blk_t = _link_slots(csc, csr, self.num_edges)
+        return EdgeIndex(self.coo, self.sparse_size, csr=csr, csc=csc,
                          num_real_edges=self.num_real_edges, weight=weight,
-                         device=self.device, **bsr)
+                         device=self.device, blocked=blk, blocked_t=blk_t,
+                         **bsr)
 
     def _bake_bsr(self, dense_weight, force: bool):
         """The block-sparse cache of ``dense_weight`` (a dict of the
@@ -208,7 +249,8 @@ class EdgeIndex:
                 r_src, r_dst = perm[r_src], perm[r_dst]
             out['bsr_res'] = EdgeIndex(
                 np.stack([r_src, r_dst]).astype(np.int32), (ns, nd),
-                device=self.device).fill_cache(dense_weight=r_w,
+                device=self.device).fill_cache(blocked=False,
+                                               dense_weight=r_w,
                                                block_sparse=False)
         if perm is not None:
             out['bsr_perm'] = torch.as_tensor(perm, device=self.device)
@@ -216,9 +258,9 @@ class EdgeIndex:
         return out
 
     def flip(self) -> 'EdgeIndex':
-        """Transpose: swap src/dst, swap cached orientations and block
-        layouts, and flip the residual. A relabel is square, so ``A^T``
-        keeps the same ``bsr_perm``."""
+        """Transpose: swap src/dst, swap cached orientations, slot orders
+        and block layouts, and flip the residual. A relabel is square, so
+        ``A^T`` keeps the same ``bsr_perm``."""
         return EdgeIndex(self.coo.flip(0),
                          (self.sparse_size[1], self.sparse_size[0]),
                          csr=self.csc, csc=self.csr,
@@ -227,7 +269,8 @@ class EdgeIndex:
                          bsr=self.bsr_t, bsr_t=self.bsr,
                          bsr_res=(None if self.bsr_res is None
                                   else self.bsr_res.flip()),
-                         bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv)
+                         bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv,
+                         blocked=self.blocked_t, blocked_t=self.blocked)
 
     # -- SpMM ---------------------------------------------------------------
     def matmul(self, x: torch.Tensor,
@@ -245,3 +288,23 @@ def _build_sorted(key: torch.Tensor, other: torch.Tensor, n: int) -> CSR:
     return CSR(indptr=indptr.to(torch.int32),
                indices=other[perm].to(torch.int32).contiguous(),
                perm=perm)
+
+
+def _link_slots(csc: CSR, csr: CSR, e: int) -> Tuple[Slots, Slots]:
+    """The two slot orders of one edge set, each knowing where its edges
+    sit in the other (``_link_blocked_pair`` of the JAX package, built on
+    the edge index's device)."""
+    from .ops.segment import ptr2index
+    pos = torch.arange(e, device=csc.perm.device)
+
+    def inverse(perm):
+        return torch.empty_like(perm).index_copy_(0, perm, pos)
+
+    inv_c, inv_r = inverse(csc.perm), inverse(csr.perm)
+
+    def one(o: CSR, inv, inv_other) -> Slots:
+        return Slots(indptr=o.indptr, src=o.indices,
+                     dst=ptr2index(o.indptr.long(), e), perm=o.perm,
+                     inv_pos=inv, t_pos=inv_other[o.perm])
+
+    return one(csc, inv_c, inv_r), one(csr, inv_r, inv_c)

@@ -1,4 +1,4 @@
 from .mlp import MLP
-from .basic_gnn import BasicGNN, GCN, GraphSAGE, GIN
+from .basic_gnn import BasicGNN, GAT, GCN, GraphSAGE, GIN
 
-__all__ = ['MLP', 'BasicGNN', 'GCN', 'GraphSAGE', 'GIN']
+__all__ = ['MLP', 'BasicGNN', 'GAT', 'GCN', 'GraphSAGE', 'GIN']

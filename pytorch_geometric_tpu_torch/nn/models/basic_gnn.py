@@ -1,10 +1,10 @@
-"""BasicGNN model family: GCN, GraphSAGE and GIN.
+"""BasicGNN model family: GCN, GraphSAGE, GIN and GAT.
 
 Counterpart of ``pytorch_geometric_tpu/nn/models/basic_gnn.py``. Stacks
 ``num_layers`` convolutions with activation, optional layer norm, dropout,
 jumping-knowledge aggregation and a final projection. ``norm='batch_norm'``,
-``GAT``, ``PNA``, ``EdgeCNN`` and ``basic_gnn_inference`` are not ported
-yet (ROADMAP Queue 1).
+``PNA``, ``EdgeCNN`` and ``basic_gnn_inference`` are not ported yet
+(ROADMAP Queue 1).
 """
 
 from typing import Any, Callable, Dict, Optional
@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..conv import GCNConv, GINConv, SAGEConv
+from ..conv import GATConv, GATv2Conv, GCNConv, GINConv, SAGEConv
 from ..inits import linear
 from .mlp import MLP
 from ...backend import resolve_device
@@ -21,6 +21,7 @@ from ...backend import resolve_device
 
 class BasicGNN(nn.Module):
     supports_edge_weight = False
+    supports_edge_attr = False
 
     def __init__(self, in_channels: int, hidden_channels: int,
                  num_layers: int, out_channels: Optional[int] = None,
@@ -52,7 +53,7 @@ class BasicGNN(nn.Module):
             is_last = i == num_layers - 1
             ch = (out_channels if is_last and self._final_in_loop
                   else hidden_channels)
-            convs.append(self.init_conv(ch_in, ch, device, generator))
+            convs.append(self.init_conv(ch_in, ch, i, device, generator))
             ch_in = ch
         self.convs = nn.ModuleList(convs)
         # norm/act/dropout are skipped on the last layer when jk is None
@@ -67,18 +68,21 @@ class BasicGNN(nn.Module):
             self.lin_out = linear(width, out_channels, device=device,
                                   generator=generator)
 
-    def init_conv(self, in_channels: int, out_channels: int, device,
-                  generator) -> nn.Module:
+    def init_conv(self, in_channels: int, out_channels: int, idx: int,
+                  device, generator) -> nn.Module:
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor, edge_index,
                 edge_weight: Optional[torch.Tensor] = None,
+                edge_attr: Optional[torch.Tensor] = None,
                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xs = []
         for i, conv in enumerate(self.convs):
             kwargs = {}
             if self.supports_edge_weight and edge_weight is not None:
                 kwargs['edge_weight'] = edge_weight
+            if self.supports_edge_attr and edge_attr is not None:
+                kwargs['edge_attr'] = edge_attr
             x = conv(x, edge_index, edge_mask=edge_mask, **kwargs)
             if i == self.num_layers - 1 and self.jk is None:
                 xs.append(x)
@@ -101,7 +105,7 @@ class GCN(BasicGNN):
     """Stack of GCNConv."""
     supports_edge_weight = True
 
-    def init_conv(self, in_channels, out_channels, device, generator):
+    def init_conv(self, in_channels, out_channels, idx, device, generator):
         return GCNConv(in_channels, out_channels, **self.conv_kwargs,
                        device=device, generator=generator)
 
@@ -109,7 +113,7 @@ class GCN(BasicGNN):
 class GraphSAGE(BasicGNN):
     """Stack of SAGEConv."""
 
-    def init_conv(self, in_channels, out_channels, device, generator):
+    def init_conv(self, in_channels, out_channels, idx, device, generator):
         return SAGEConv(in_channels, out_channels, **self.conv_kwargs,
                         device=device, generator=generator)
 
@@ -118,7 +122,32 @@ class GIN(BasicGNN):
     """Stack of GINConv with 2-layer MLPs ``[in, out, out]`` (plain last
     layer; BasicGNN's own norm/act run afterwards)."""
 
-    def init_conv(self, in_channels, out_channels, device, generator):
+    def init_conv(self, in_channels, out_channels, idx, device, generator):
         mlp = MLP(in_channels, [out_channels, out_channels], act=self.act,
                   device=device, generator=generator)
         return GINConv(mlp, **self.conv_kwargs)
+
+
+class GAT(BasicGNN):
+    """Stack of GATConv, or GATv2Conv with ``v2=True``: hidden layers
+    concatenate ``heads`` heads of ``hidden_channels // heads`` channels;
+    the final layer averages its heads. The convs' attention dropout is
+    ``dropout``; as in the JAX package, the model runs them
+    deterministically."""
+    supports_edge_attr = True
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 num_layers: int, out_channels: Optional[int] = None,
+                 v2: bool = False, heads: int = 1, **kwargs):
+        # read by init_conv, which BasicGNN.__init__ calls
+        self.v2, self.heads = v2, heads
+        super().__init__(in_channels, hidden_channels, num_layers,
+                         out_channels, **kwargs)
+
+    def init_conv(self, in_channels, out_channels, idx, device, generator):
+        concat = not (idx == self.num_layers - 1 and self._final_in_loop)
+        ch = out_channels // self.heads if concat else out_channels
+        cls = GATv2Conv if self.v2 else GATConv
+        return cls(in_channels, ch, heads=self.heads, concat=concat,
+                   dropout=self.dropout, **self.conv_kwargs, device=device,
+                   generator=generator)

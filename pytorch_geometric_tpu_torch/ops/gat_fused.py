@@ -1,0 +1,271 @@
+"""Fused attention aggregation: GAT's softmax-weighted multi-head sum
+through the hand-written Hopper mix kernel, with its plain PyTorch version
+and its launch count.
+
+Counterpart of ``pytorch_geometric_tpu/ops/gat_fused.py``. GAT's hot path is
+``softmax_per_dst(logits) -> weighted segment-sum``; the JAX package fuses
+the numerator and denominator into one pass of its blocked segment-sum
+kernel over the per-edge messages ``[p_s | p_u * v[src]]``:
+
+    out[n] = (sum_e p_u,e * v[src_e]) / (sum_e p_s,e),  p = exp(l - m[dst])
+
+with a per-destination stabiliser ``m`` taken from a log-sum-exp bound
+through the same kernel, not from a scatter-max. The port keeps that
+arithmetic exactly and runs every pass through ``csrc/gat_mix.cu``, which
+replaces the TPU kernel ``_chunk_kernel`` (``ops/pallas_spmm.py:74``) at
+its second launch site (``:212``): the stabiliser sum ``s0`` (``v``
+absent), the mix ``(s, u)``, and in the backward ``grad_v`` over the
+source-major slot order. The kernel forms each message in registers, so
+the ``[E, H * F]`` message array is never written.
+
+Bound on the card: bytes; see the kernel's source. Measured times against
+the bound are in PERF.md.
+
+The wrapper :func:`gat_mix` runs :func:`gat_mix_plain` for CPU tensors and
+launches the kernel for CUDA tensors; it never falls back from one to the
+other.
+"""
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .gather import take_rows
+from .segment import ptr2index
+
+
+def gat_mix_plain(indptr: torch.Tensor, src: torch.Tensor,
+                  p_s: Optional[torch.Tensor], p_u: Optional[torch.Tensor],
+                  v: Optional[torch.Tensor], f: int
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The plain PyTorch version: gather, multiply, ``index_add_``.
+
+    ``s`` sums ``p_s`` over every slot of a row; ``u`` skips a slot whose
+    source lies outside ``[0, v.shape[0])``. Slots past ``indptr[-1]`` are
+    not read."""
+    n_dst = indptr.shape[0] - 1
+    e = min(int(indptr[-1]), src.shape[0])
+    dst = ptr2index(indptr.long(), e).long()
+    s = u = None
+    if p_s is not None:
+        s = p_s.new_zeros((n_dst, p_s.shape[1])).index_add_(0, dst, p_s[:e])
+    if v is not None:
+        n_src, h = v.shape[0], p_u.shape[1]
+        sl = src[:e].long()
+        valid = (sl >= 0) & (sl < n_src)
+        vg = v.view(n_src, h, f)[sl.clamp(0, max(n_src - 1, 0))] \
+            if n_src > 0 else v.new_zeros((e, h, f))
+        msg = torch.where(valid[:, None, None], vg * p_u[:e, :, None], 0.0)
+        u = v.new_zeros((n_dst, h * f)).index_add_(0, dst,
+                                                   msg.view(e, h * f))
+    return s, u
+
+
+def _check(indptr, src, p_s, p_u, v, f):
+    dev = indptr.device
+    for name, t, dt, dim in (('indptr', indptr, torch.int32, 1),
+                             ('src', src, torch.int32, 1),
+                             ('p_s', p_s, torch.float32, 2),
+                             ('p_u', p_u, torch.float32, 2),
+                             ('v', v, torch.float32, 2)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f'gat_mix: {name} is on {t.device}, indptr on '
+                             f'{dev}')
+        if t.dtype != dt:
+            raise TypeError(f'gat_mix takes {dt} {name}, got {t.dtype} (the '
+                            'bf16 arm is ROADMAP Queue 2, kernel 1 bf16)')
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f'gat_mix takes a contiguous {dim}-D {name}, '
+                             f'got shape {tuple(t.shape)} strides '
+                             f'{t.stride()}')
+    if indptr.shape[0] < 1:
+        raise ValueError('gat_mix: indptr needs n_dst + 1 >= 1 entries')
+    if p_s is None and v is None:
+        raise ValueError('gat_mix: nothing to compute (p_s and v are None)')
+    e = src.shape[0]
+    for name, p in (('p_s', p_s), ('p_u', p_u)):
+        if p is not None and p.shape[0] != e:
+            raise ValueError(f'gat_mix: {name} has {p.shape[0]} slots, src '
+                             f'{e}')
+    if v is not None:
+        if p_u is None:
+            raise ValueError('gat_mix: v needs p_u')
+        if p_s is not None and p_s.shape[1] != p_u.shape[1]:
+            raise ValueError('gat_mix: p_s and p_u have different heads')
+        if f <= 0 or v.shape[1] != p_u.shape[1] * f:
+            raise ValueError(f'gat_mix: v has {v.shape[1]} columns for '
+                             f'{p_u.shape[1]} heads of {f}')
+
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from .. import csrc
+        fn = csrc.load('gat_mix').pgt_gat_mix_f32
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, vp]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
+            p_s: Optional[torch.Tensor], p_u: Optional[torch.Tensor],
+            v: Optional[torch.Tensor], f: int = 0
+            ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``s[d] = sum_k p_s[k]`` and ``u[d, h] = sum_k p_u[k, h] *
+    v[src[k], h]`` over the slots ``k`` of row ``d``.
+
+    ``indptr [n_dst + 1]`` and ``src [S]`` int32; ``p_s``, ``p_u [S, H]``
+    and ``v [n_src, H * f]`` float32, all contiguous and on one device.
+    ``p_s`` None gives no ``s``; ``v`` None gives no ``u``. Returns
+    ``(s [n_dst, H] or None, u [n_dst, H * f] or None)``. A CPU tensor runs
+    :func:`gat_mix_plain`; a CUDA tensor launches the kernel (built at first
+    use) or raises. Not differentiable: :func:`gat_aggregate` wraps it."""
+    _check(indptr, src, p_s, p_u, v, f)
+    if indptr.device.type == 'cpu':
+        return gat_mix_plain(indptr, src, p_s, p_u, v, f)
+    if indptr.device.type != 'cuda':
+        raise ValueError(f'gat_mix runs on cpu or cuda, not {indptr.device}')
+    fn = _kernel()
+    n_dst = indptr.shape[0] - 1
+    h = (p_s if p_s is not None else p_u).shape[1]
+    s = None if p_s is None else torch.empty(
+        (n_dst, h), dtype=torch.float32, device=indptr.device)
+    u = None if v is None else torch.empty(
+        (n_dst, h * f), dtype=torch.float32, device=indptr.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(indptr.device):
+        stream = torch.cuda.current_stream(indptr.device).cuda_stream
+        err = fn(indptr.data_ptr(), src.data_ptr(), ptr(p_s), ptr(p_u),
+                 ptr(v), ptr(s), ptr(u), n_dst,
+                 0 if v is None else v.shape[0], src.shape[0], h, f, stream)
+    if err != 0:
+        raise RuntimeError(f'gat_mix kernel launch failed: CUDA error {err}')
+    gat_mix.launches += 1
+    return s, u
+
+
+gat_mix.launches = 0
+
+
+class _SlotGather(torch.autograd.Function):
+    """Per-edge data into slot order; the backward is the gather by the
+    inverse positions (``inv_pos``), not a scatter (``_slot_gather`` of the
+    JAX package). Every edge has a slot, padded ones past ``indptr[-1]``;
+    :func:`gat_aggregate` masks those through ``dst``."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_pos):
+        ctx.save_for_backward(inv_pos)
+        return take_rows(x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_pos, = ctx.saved_tensors
+        return take_rows(g, inv_pos), None, None
+
+
+def _slot_gather(x: torch.Tensor, slots) -> torch.Tensor:
+    return _SlotGather.apply(x, slots.perm, slots.inv_pos)
+
+
+class _GatMix(torch.autograd.Function):
+    """``(s, u)`` of :func:`gat_mix` over ``blk`` with its backward
+    (``_gat_mix_bwd`` of the JAX package): ``grad_v`` is the same kernel
+    over the source-major slot order ``blk_t``, with ``p_u`` gathered by
+    ``t_pos`` and ``gu`` in the place of ``v``; ``grad_p_s`` and
+    ``grad_p_u`` are plain gathers and dots, as XLA does them there."""
+
+    @staticmethod
+    def forward(ctx, p_s, p_u, v, blk, blk_t, num_dst):
+        num_src, h, f = v.shape
+        ctx.blk, ctx.blk_t, ctx.num_dst = blk, blk_t, num_dst
+        ctx.save_for_backward(p_u, v)
+        s, u = gat_mix(blk.indptr, blk.src, p_s, p_u,
+                       v.reshape(num_src, h * f), f)
+        return s, u.view(num_dst, h, f)
+
+    @staticmethod
+    def backward(ctx, gs, gu):
+        p_u, v = ctx.saved_tensors
+        blk, blk_t, num_dst = ctx.blk, ctx.blk_t, ctx.num_dst
+        num_src, h, f = v.shape
+        grad_p_s = grad_p_u = grad_v = None
+        dsafe = blk.dst.clamp(max=max(num_dst - 1, 0))
+        ssafe = blk.src.long().clamp(0, max(num_src - 1, 0))
+        valid = ((blk.dst < num_dst) & (blk.src >= 0)
+                 & (blk.src < num_src))[:, None]
+        if ctx.needs_input_grad[0]:
+            grad_p_s = torch.where(valid, take_rows(gs, dsafe), 0.0)
+        if ctx.needs_input_grad[1]:
+            prod = (gu.reshape(num_dst, h, f)[dsafe]
+                    * v[ssafe]).sum(-1)
+            grad_p_u = torch.where(valid, prod, 0.0)
+        if ctx.needs_input_grad[2]:
+            p_t = take_rows(p_u, blk_t.t_pos)
+            _, gv = gat_mix(blk_t.indptr, blk_t.src, None, p_t,
+                            gu.reshape(num_dst, h * f).contiguous(), f)
+            grad_v = gv.view(num_src, h, f)
+        return grad_p_s, grad_p_u, grad_v, None, None, None
+
+
+def fused_gat_available(edge_index) -> bool:
+    return (getattr(edge_index, 'blocked', None) is not None
+            and getattr(edge_index, 'blocked_t', None) is not None)
+
+
+def gat_aggregate(edge_index, logits: torch.Tensor, v: torch.Tensor,
+                  edge_mask: Optional[torch.Tensor] = None,
+                  numerator_scale: Optional[torch.Tensor] = None,
+                  return_alpha_sum: bool = False):
+    """Softmax-weighted multi-head aggregation over ``dst``.
+
+    logits: ``[E, H]`` raw attention logits in original edge order;
+    v: ``[N_src, H, F]`` per-head values. Returns ``[N_dst, H, F]`` (and the
+    softmax denominator ``[N_dst, H]`` if requested). ``edge_mask`` drops
+    edges; ``numerator_scale [E, H]`` scales the numerator only (attention
+    dropout). Requires ``edge_index.fill_cache(blocked=True)``."""
+    blk, blk_t = edge_index.blocked, edge_index.blocked_t
+    if blk is None or blk_t is None:
+        raise ValueError('gat_aggregate needs the slot orders: call '
+                         'edge_index.fill_cache(blocked=True)')
+    num_dst = edge_index.num_dst_nodes
+    h, f = logits.shape[1], v.shape[-1]
+    invalid = edge_index.coo[1] >= num_dst
+    if edge_mask is not None:
+        invalid = invalid | ~edge_mask
+    logits = torch.where(invalid[:, None], float('-inf'), logits)
+    # reorder to slots once; everything downstream runs in slot order
+    l_slot = _slot_gather(logits, blk)
+    # per-dst stabiliser from the log-sum-exp bound m = G + log(sum exp(l -
+    # G)), which lies in [max, max + log deg]: softmax is invariant to any
+    # per-row constant, and this is the JAX package's arithmetic exactly
+    ls = l_slot.detach()
+    finite = torch.isfinite(ls)
+    g = torch.where(finite, ls, float('-inf')).amax(dim=0)
+    g = torch.where(torch.isfinite(g), g, 0.0)
+    z = torch.where(finite, torch.exp(torch.clamp(ls - g, min=-85.0)), 0.0)
+    s0, _ = gat_mix(blk.indptr, blk.src, z.contiguous(), None, None)
+    m = torch.where(s0 > 0, g + torch.log(torch.clamp(s0, min=1e-38)),
+                    g - 85.0)
+    p_slot = torch.exp(l_slot - take_rows(
+        m, blk.dst.clamp(max=max(num_dst - 1, 0))))
+    p_slot = torch.where((blk.dst < num_dst)[:, None], p_slot, 0.0)
+    p_u = p_slot
+    if numerator_scale is not None:
+        p_u = p_slot * _slot_gather(numerator_scale, blk)
+    s, u = _GatMix.apply(p_slot, p_u, v.contiguous(), blk, blk_t, num_dst)
+    out = u / torch.clamp(s, min=1e-16)[:, :, None]
+    if return_alpha_sum:
+        return out, s
+    return out

@@ -1,11 +1,11 @@
 """Self-loop utilities.
 
-Counterpart of ``pytorch_geometric_tpu/utils/loop.py``
-(``add_remaining_self_loops``) and of ``maybe_num_nodes`` from
+Counterpart of ``pytorch_geometric_tpu/utils/loop.py`` (``add_self_loops``,
+``add_remaining_self_loops``) and of ``maybe_num_nodes`` from
 ``utils/core.py``.
 """
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -20,6 +20,32 @@ def maybe_num_nodes(edge_index, num_nodes: Optional[int] = None) -> int:
     return int(coo.max()) + 1 if coo.numel() else 0
 
 
+def _unwrap(edge_index):
+    if isinstance(edge_index, EdgeIndex):
+        return edge_index.coo, edge_index.sparse_size
+    return edge_index, None
+
+
+def add_self_loops(
+        edge_index, edge_weight: Optional[torch.Tensor] = None,
+        fill_value: Union[float, str] = 1.0,
+        num_nodes: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Append ``(i, i)`` for every node; existing loops stay. The output
+    has ``E + N`` edges, and ``edge_weight`` (if given) grows by ``N``
+    entries of ``fill_value``."""
+    coo, size = _unwrap(edge_index)
+    n = maybe_num_nodes(coo if size is None else None,
+                        num_nodes if num_nodes is not None
+                        else (size[0] if size else None))
+    loops = torch.arange(n, dtype=coo.dtype, device=coo.device)
+    out = torch.cat([coo, torch.stack([loops, loops])], dim=1)
+    if edge_weight is not None:
+        loop_w = edge_weight.new_full((n,), fill_value)
+        edge_weight = torch.cat([edge_weight, loop_w])
+    return out, edge_weight
+
+
 def add_remaining_self_loops(
         edge_index, edge_weight: Optional[torch.Tensor] = None,
         fill_value: float = 1.0, num_nodes: Optional[int] = None,
@@ -30,10 +56,7 @@ def add_remaining_self_loops(
     Static-shape variant, as in the JAX package: existing loops stay in
     place with weight 0 instead of being removed, so the output has
     ``E + N`` edges."""
-    if isinstance(edge_index, EdgeIndex):
-        coo, size = edge_index.coo, edge_index.sparse_size
-    else:
-        coo, size = edge_index, None
+    coo, size = _unwrap(edge_index)
     n = maybe_num_nodes(coo if size is None else None,
                         num_nodes if num_nodes is not None
                         else (size[0] if size else None))

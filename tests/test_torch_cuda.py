@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels of the PyTorch port against their plain
 PyTorch versions, on the card: the segment-sum kernel forward and backward,
-the block-sparse (BSR) kernel on both layouts, and training steps through
-both against the CPU. Every test here needs a CUDA card, carries the
+the block-sparse (BSR) kernel on both layouts, training steps through both
+against the CPU, the multi-head GAT mix kernel forward and backward, the
+segment-max kernel (bitwise), and the fused GATConv / GAT model on the card
+against the CPU. Every test here needs a CUDA card, carries the
 ``cuda`` marker and skips without one; the card's machine has no JAX, so
 this file imports none (run it there with ``--noconftest``, see the
 README).
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from pytorch_geometric_tpu_torch import EdgeIndex, backend
-from pytorch_geometric_tpu_torch.nn.models import GCN, GIN, GraphSAGE
+from pytorch_geometric_tpu_torch.nn.conv import GATConv, GATv2Conv
+from pytorch_geometric_tpu_torch.nn.models import GAT, GCN, GIN, GraphSAGE
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import (segment_spmm,
                                              segment_spmm_plain, spmm,
@@ -23,6 +26,11 @@ from pytorch_geometric_tpu_torch.ops import (segment_spmm,
 from pytorch_geometric_tpu_torch.ops.bsr_spmm import (BSR, bsr_matmul,
                                                       bsr_spmm_plain,
                                                       build_bsr_pair)
+from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_aggregate,
+                                                       gat_mix,
+                                                       gat_mix_plain)
+from pytorch_geometric_tpu_torch.ops.segment_max import (
+    segment_max_blocked, segment_max_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -330,5 +338,165 @@ def test_gcn_training_steps_on_card_match_cpu(dev, block_sparse):
             loss.backward()
             opt.step()
             run.append(loss.item())
+        losses.append(run)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+
+
+# -- the GAT mix kernel -------------------------------------------------------
+def _slots(n_src, n_dst, e, dev, seed, n_pad=8):
+    coo, _, _ = _case(n_src, n_dst, e, 1, seed, n_pad)
+    return EdgeIndex(coo, (n_src, n_dst), device=dev).fill_cache(
+        blocked=True)
+
+
+@pytest.mark.parametrize('h', [1, 4, 8])
+@pytest.mark.parametrize('f', [0, 1, 10, 16, 64])
+@pytest.mark.parametrize('n_src,n_dst', [(500, 500), (300, 800)])
+def test_gat_mix_kernel_matches_plain(dev, h, f, n_src, n_dst):
+    """``(s, u)`` with p_s != p_u over empty rows and padded slots; f = 0
+    is the stabiliser pass (v absent, s only). Tolerance: 1e-5 + 1e-5 of
+    the row's sum of |p * v| terms."""
+    ei = _slots(n_src, n_dst, 6000, dev, seed=h + f + n_dst)
+    blk = ei.blocked
+    g = torch.Generator(dev).manual_seed(h * 100 + f)
+    e = blk.src.shape[0]
+    p_s = torch.rand(e, h, device=dev, generator=g)
+    p_u = torch.rand(e, h, device=dev, generator=g)
+    v = (torch.randn(n_src, h * f, device=dev, generator=g) if f else None)
+    before = gat_mix.launches
+    s, u = gat_mix(blk.indptr, blk.src, p_s, p_u if f else None, v, f)
+    torch.cuda.synchronize()
+    assert gat_mix.launches == before + 1
+    rs, ru = gat_mix_plain(blk.indptr, blk.src, p_s, p_u, v, f)
+    _close(s, rs, rs)                      # p_s >= 0: its sum is its scale
+    if f:
+        _, scale = gat_mix_plain(blk.indptr, blk.src, None, p_u, v.abs(), f)
+        _close(u, ru, scale)
+    else:
+        assert u is None
+    empty = torch.diff(blk.indptr) == 0
+    assert empty.any() and not s[empty].any()
+
+
+def test_gat_mix_kernel_unaligned_and_refusals(dev):
+    ei = _slots(200, 200, 1500, dev, seed=9)
+    blk = ei.blocked
+    e = blk.src.shape[0]
+    p = torch.rand(e, 2, device=dev)
+    base = torch.randn(200 * 2 * 8 + 1, device=dev)
+    v = base[1:].view(200, 16)           # 4 bytes past a 16-byte boundary
+    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    _, u = gat_mix(blk.indptr, blk.src, None, p, v, 8)
+    _, ru = gat_mix_plain(blk.indptr, blk.src, None, p, v, 8)
+    _, scale = gat_mix_plain(blk.indptr, blk.src, None, p, v.abs(), 8)
+    _close(u, ru, scale)
+    with pytest.raises(TypeError, match='float32'):
+        gat_mix(blk.indptr, blk.src, p.half(), None, None)
+    with pytest.raises(ValueError, match='is on cpu'):
+        gat_mix(blk.indptr, blk.src, p.cpu(), None, None)
+    with pytest.raises(ValueError, match='heads of'):
+        gat_mix(blk.indptr, blk.src, None, p, v, 5)
+
+
+@pytest.mark.parametrize('h,f', [(1, 8), (4, 16), (4, 10)])
+def test_gat_aggregate_on_card_matches_cpu(dev, h, f):
+    """The fused aggregation's forward (2 launches) and backward (grad_v,
+    1 launch) on the card against the plain versions on the CPU, with an
+    edge mask and a numerator scale."""
+    rng = np.random.default_rng(h + f)
+    coo, _, _ = _case(300, 400, 5000, 1, seed=h * f)
+    e = coo.shape[1]
+    logits = (rng.standard_normal((e, h)) * 3).astype(np.float32)
+    v = rng.standard_normal((300, h, f)).astype(np.float32)
+    c = rng.standard_normal((400, h, f)).astype(np.float32)
+    mask = rng.random(e) < 0.8
+    scale = (rng.random((e, h)) < 0.7).astype(np.float32) / 0.7
+    res = []
+    for d in (dev, 'cpu'):
+        ei = EdgeIndex(coo, (300, 400), device=d).fill_cache(blocked=True)
+        lt = torch.as_tensor(logits, device=d).requires_grad_()
+        vt = torch.as_tensor(v, device=d).requires_grad_()
+        before = gat_mix.launches
+        out = gat_aggregate(ei, lt, vt, edge_mask=torch.as_tensor(
+            mask, device=d), numerator_scale=torch.as_tensor(scale, device=d))
+        assert gat_mix.launches - before == (2 if d == dev else 0)
+        (out * torch.as_tensor(c, device=d)).sum().backward()
+        assert gat_mix.launches - before == (3 if d == dev else 0)
+        res.append([t.detach().cpu() for t in (out, lt.grad, vt.grad)])
+    for got, ref in zip(*res):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+# -- the segment-max kernel ---------------------------------------------------
+@pytest.mark.parametrize('h', [1, 3, 4, 8, 32, 40])
+@pytest.mark.parametrize('n_src,n_dst', [(500, 500), (300, 800)])
+def test_segment_max_kernel_bitwise(dev, h, n_src, n_dst):
+    """Bitwise equal to its plain version: -inf entries, masked (all -inf)
+    edges, empty rows, padded slots."""
+    ei = _slots(n_src, n_dst, 6000, dev, seed=h + n_dst)
+    blk = ei.blocked
+    g = torch.Generator(dev).manual_seed(h)
+    e = blk.src.shape[0]
+    vals = torch.randn(e, h, device=dev, generator=g) * 10
+    vals[torch.rand(e, h, device=dev, generator=g) < 0.2] = float('-inf')
+    vals[torch.rand(e, device=dev, generator=g) < 0.3] = float('-inf')
+    before = segment_max_blocked.launches
+    out = segment_max_blocked(vals, blk, n_dst)
+    torch.cuda.synchronize()
+    assert segment_max_blocked.launches == before + 1
+    ref = segment_max_plain(blk.indptr, vals)
+    assert torch.equal(out, ref)
+    empty = torch.diff(blk.indptr) == 0
+    assert empty.any() and torch.isneginf(out[empty]).all()
+
+
+# -- GAT on the card ----------------------------------------------------------
+@pytest.mark.parametrize('cls', [GATConv, GATv2Conv])
+def test_fused_gatconv_on_card(dev, cls, monkeypatch):
+    """A fused conv on the card launches the mix kernel twice per forward
+    (stabiliser and mix) and agrees with the CPU; with the kernel knob off
+    it raises instead of running the plain branch on the card."""
+    coo, _, x = _case(400, 400, 5000, 12, seed=13, n_pad=0)
+    outs = []
+    for d in (dev, 'cpu'):
+        conv = cls(12, 8, heads=4, add_self_loops=False, device=d,
+                   generator=torch.Generator().manual_seed(0))
+        ei = EdgeIndex(coo, (400, 400), device=d).fill_cache(blocked=True)
+        before = gat_mix.launches
+        with torch.inference_mode():
+            outs.append(conv(torch.as_tensor(x, device=d), ei).cpu())
+        assert gat_mix.launches - before == (2 if d == dev else 0)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=1e-4 * float(outs[1].abs().max()))
+    monkeypatch.setattr(backend, 'use_kernel_spmm', False)
+    with pytest.raises(RuntimeError, match='use_kernel_spmm'):
+        conv.to(dev)(torch.as_tensor(x, device=dev),
+                     EdgeIndex(coo, (400, 400), device=dev).fill_cache())
+
+
+def test_gat_training_steps_on_card_match_cpu(dev):
+    """Three Adam steps of a 3-layer GAT on the fused branch: 9 mix
+    launches per step (stabiliser, mix and grad_v per layer); losses
+    against the CPU."""
+    coo, _, x = _case(800, 800, 12_000, 16, seed=14, n_pad=0)
+    y = np.random.default_rng(0).integers(0, 5, 800)
+    losses = []
+    for d in (dev, 'cpu'):
+        ei = EdgeIndex(coo, (800, 800), device=d).fill_cache(blocked=True)
+        model = GAT(16, 32, 3, 5, heads=4, device=d,
+                    generator=torch.Generator().manual_seed(0),
+                    conv_kwargs={'add_self_loops': False})
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        xt, yt = torch.as_tensor(x, device=d), torch.as_tensor(y, device=d)
+        run = []
+        before = gat_mix.launches
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(model(xt, ei), yt)
+            loss.backward()
+            opt.step()
+            run.append(loss.item())
+        assert gat_mix.launches - before == (27 if d == dev else 0)
         losses.append(run)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)

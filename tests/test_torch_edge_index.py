@@ -93,6 +93,57 @@ def test_carried_weight_matches_jax_baked_cache(transpose):
     np.testing.assert_array_equal(out, out2)
 
 
+@pytest.mark.parametrize('call', ['positional', 'keyword'])
+def test_fill_cache_takes_blocked_first(call):
+    """``fill_cache(True)`` and ``fill_cache(blocked=True)`` mean what they
+    mean in the JAX package: the first parameter is ``blocked``. Both build
+    the same CSR / CSC as the JAX package, and the slot orders."""
+    coo = _coo(40, 55, 300, 6, seed=11)
+    args, kw = ((True,), {}) if call == 'positional' else ((),
+                                                            {'blocked': True})
+    j = JEdgeIndex(coo, (40, 55)).fill_cache(*args, **kw)
+    t = EdgeIndex(coo, (40, 55), device='cpu').fill_cache(*args, **kw)
+    _same_layout(t.csr, j.csr)
+    _same_layout(t.csc, j.csc)
+    assert t.weight is None and t.bsr is None
+    assert t.blocked is not None and t.blocked_t is not None
+    assert EdgeIndex(coo, (40, 55), device='cpu').fill_cache(
+        False).blocked is None
+
+
+@pytest.mark.parametrize('n_src,n_dst,n_pad', [(40, 40, 0), (30, 55, 5)])
+def test_slot_orders_match_jax_blocked(n_src, n_dst, n_pad):
+    """Each edge's slot in the port's slot orders holds the same edge as in
+    the JAX package's blocked layouts, the edges in no JAX slot sit in no
+    row's slot (past ``indptr[-1]``), and ``t_pos`` links the two orders;
+    ``flip`` swaps them."""
+    coo = _coo(n_src, n_dst, 300, n_pad, seed=n_dst + n_pad)
+    e = coo.shape[1]
+    j = JEdgeIndex(coo, (n_src, n_dst)).fill_cache(blocked=True)
+    t = EdgeIndex(coo, (n_src, n_dst), device='cpu').fill_cache()
+    for ts, js, own, other, n in ((t.blocked, j.blocked, 1, 0, n_dst),
+                                  (t.blocked_t, j.blocked_t, 0, 1, n_src)):
+        jperm, jinv = np.asarray(js.perm), np.asarray(js.inv_pos)
+        jin = jinv < len(jperm)
+        inv = ts.inv_pos.numpy()
+        nnz = int(ts.indptr[-1])
+        np.testing.assert_array_equal(inv < nnz, jin)
+        np.testing.assert_array_equal(ts.perm.numpy()[inv], np.arange(e))
+        np.testing.assert_array_equal(jperm[jinv[jin]], np.arange(e)[jin])
+        # each slot's row and other endpoint are its edge's
+        real = np.arange(e) < nnz
+        edges = ts.perm.numpy()[real]
+        np.testing.assert_array_equal(ts.dst.numpy()[real], coo[own][edges])
+        np.testing.assert_array_equal(ts.src.numpy()[real],
+                                      coo[other][edges])
+        assert (ts.dst.numpy()[~real] == n).all()
+    # t_pos: each slot's edge sits at t_pos in the other order
+    assert torch.equal(t.csr.perm[t.blocked.t_pos], t.csc.perm)
+    assert torch.equal(t.csc.perm[t.blocked_t.t_pos], t.csr.perm)
+    f = t.flip()
+    assert f.blocked is t.blocked_t and f.blocked_t is t.blocked
+
+
 @pytest.mark.parametrize('kwargs', [{'block_sparse': True,
                                      'cache_dtype': torch.bfloat16},
                                     {'cache_dtype': torch.bfloat16},

@@ -7,6 +7,7 @@ import ast
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,11 +15,13 @@ import torch
 
 import pytorch_geometric_tpu_torch as pkg
 from pytorch_geometric_tpu_torch import EdgeIndex
-from pytorch_geometric_tpu_torch.nn.conv import GCNConv
-from pytorch_geometric_tpu_torch.nn.models import GCN, GIN, GraphSAGE
+from pytorch_geometric_tpu_torch.nn.conv import GATConv, GATv2Conv, GCNConv
+from pytorch_geometric_tpu_torch.nn.models import GAT, GCN, GIN, GraphSAGE
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import segment_spmm, spmm
 from pytorch_geometric_tpu_torch.ops.bsr_spmm import BSR, bsr_matmul
+from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
+from pytorch_geometric_tpu_torch.ops.segment_max import segment_max_blocked
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(pkg.__file__).resolve().parent
@@ -71,9 +74,10 @@ def test_entry_points_need_a_card_by_default(no_card):
     coo = np.array([[0, 1, 2], [1, 2, 0]], np.int32)
     with pytest.raises(RuntimeError, match='no CUDA card'):
         EdgeIndex(coo, (3, 3))
-    with pytest.raises(RuntimeError, match='no CUDA card'):
-        GCNConv(4, 4)
-    for cls in (GCN, GraphSAGE, GIN):
+    for conv in (GCNConv, GATConv, GATv2Conv):
+        with pytest.raises(RuntimeError, match='no CUDA card'):
+            conv(4, 4)
+    for cls in (GCN, GraphSAGE, GIN, GAT):
         with pytest.raises(RuntimeError, match='no CUDA card'):
             cls(4, 8, 2, 2)
     # asked for the CPU, they run there
@@ -82,6 +86,10 @@ def test_entry_points_need_a_card_by_default(no_card):
     assert out.shape == (3, 2) and out.device.type == 'cpu'
     # a raw COO follows x's device: here the CPU
     assert spmm(torch.from_numpy(coo), torch.ones(3, 2)).device.type == 'cpu'
+    # so does a fused GAT over the slot orders
+    out = GAT(4, 8, 2, 2, heads=2, device='cpu',
+              conv_kwargs={'add_self_loops': False})(torch.ones(3, 4), ei)
+    assert out.shape == (3, 2) and ei.blocked.perm.device.type == 'cpu'
     # the block-sparse cache is built on the EdgeIndex's device
     bsr = cache_gcn_norm(ei, block_sparse=True)
     assert bsr.bsr.vals.device.type == 'cpu'
@@ -100,6 +108,11 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
                  row_ptr=torch.zeros(2, dtype=torch.int32, device='meta'))
     with pytest.raises(ValueError, match='cpu or cuda'):
         bsr_matmul(layout, x, 2)
+    p = torch.zeros(0, 2, device='meta')
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        gat_mix(ip, src, p, None, None)
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        segment_max_blocked(p, SimpleNamespace(indptr=ip), 2)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
