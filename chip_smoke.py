@@ -64,7 +64,29 @@ checks them:
      40, the stabiliser pass, the backward pass at 256 (yardstick: H
      ``torch.sparse.mm`` CSR calls, or ``torch.segment_reduce`` for the
      stabiliser), and the segment max at [2.1M, 4] (yardstick
-     ``torch.segment_reduce(..., 'max')``).
+     ``torch.segment_reduce(..., 'max')``);
+ 14. the precision ladder's kernels against their plain versions on the
+     card: the segment-sum kernel's bf16 arm (forward and ``grad_x``;
+     narrow, unaligned, weighted and unweighted, empty rows, the serving
+     shapes), the BSR kernel's tensor-core bf16 arm (F in {1, 10, 16, 64,
+     128}, the rectangular graph, both layouts, path E's layouts) and the
+     mix kernel's bf16 arm (path C's shapes too);
+ 15. path E, GCN training over bf16 blocks: path A's graph cached through
+     ``cache_gcn_norm(block_sparse=True, cache_dtype=torch.bfloat16)``
+     (``spmm_bench.py --bsr --bf16``), 20 steps after 2, 5 bf16 block
+     launches per step, 3 steps against the CPU plain path over the same
+     cache;
+ 16. path F, ``bench.py``'s accelerator regime (``bench.py:80-90``): path
+     B's graphs and models over ``fill_cache(dense_weight=w,
+     cache_dtype=torch.bfloat16)``, 500 steps each, no kernel launched;
+ 17. path G, the dense serving ladder of ``inference_bench.py:67-78``: the
+     f32, bf16 and int8 dense caches of the serving graph (cap lifted as at
+     ``:55``), ms per forward and edges/s, each against the reference its
+     bench holds it to;
+ 18. path H, bf16-feature serving (``products_bench.py:77-82``'s bf16
+     input): GraphSAGE and GIN forwards on the serving graph from bf16
+     features, one bf16 segment-sum launch per forward;
+ 19. timings of the bf16 kernels at their paths' shapes.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--iters 20]`` from the root of a
 checkout, on a machine with one CUDA card. The last line of standard output
@@ -76,6 +98,7 @@ It also exits non-zero when no card is visible or the package is missing.
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -90,6 +113,8 @@ ROOT = Path(__file__).resolve().parent
 # peaks the bounds below are taken against.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# and its dense bf16 tensor-core rate
+BF16_FLOP_PER_S = 989e12
 
 N_NODES, N_EDGES, WIDTH, N_LAYERS, N_OUT = 30_000, 1_000_000, 128, 3, 16
 
@@ -123,6 +148,39 @@ def log(*a):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def counters():
+    """(name, wrapper, attribute) of every kernel arm's launch count."""
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import bsr_matmul
+    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
+    from pytorch_geometric_tpu_torch.ops.segment_max import \
+        segment_max_blocked
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    return [('segment_spmm', segment_spmm, 'launches'),
+            ('segment_spmm_bf16', segment_spmm, 'launches_bf16'),
+            ('bsr_spmm', bsr_matmul, 'launches'),
+            ('bsr_spmm_bf16', bsr_matmul, 'launches_bf16'),
+            ('gat_mix', gat_mix, 'launches'),
+            ('gat_mix_bf16', gat_mix, 'launches_bf16'),
+            ('segment_max', segment_max_blocked, 'launches')]
+
+
+def reset_counts():
+    """Every kernel arm's launch count to 0, just before a path runs."""
+    for _, fn, attr in counters():
+        setattr(fn, attr, 0)
+
+
+def launch_counts():
+    return {name: getattr(fn, attr) for name, fn, attr in counters()}
+
+
+def check_counts(tag, counts, want, over):
+    """Every arm launched as often as ``want`` says, and the others never."""
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f'{tag}: {name} launched {n} times in '
+                                      f'{over}, expected {want.get(name, 0)}')
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -161,7 +219,8 @@ def phase_build(csrc):
                 spill = f'spill stores {m.group(1)} B, loads {m.group(2)} B'
             m = re.search(r'Used (\d+) registers', line)
             if m and fn:
-                args = re.findall(r'Li(\d+)E', fn)
+                args = (['bf16'] if '__nv_bfloat16' in fn else []) + \
+                    re.findall(r'Li(\d+)E', fn)
                 tag = f"<{', '.join(args)}>" if args else ''
                 log(f'[build] {name}{tag}: {m.group(1)} registers, {spill}')
 
@@ -300,7 +359,6 @@ def compare(torch, kind, out, ref, shape=None):
 
 def phase_serving(torch, seed, iters, warmup):
     from pytorch_geometric_tpu_torch import EdgeIndex
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
     x_np, coo, w_np = serving_graph(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -316,7 +374,7 @@ def phase_serving(torch, seed, iters, warmup):
         kw = {'edge_weight': w} if kind == 'GCN' else {}
         n_fwd = warmup + iters + PROFILED_FORWARDS if kind == 'GCN' else 1
         torch.cuda.synchronize()
-        segment_spmm.launches = 0
+        reset_counts()
         with torch.inference_mode():
             if kind == 'GCN':
                 for _ in range(warmup):
@@ -338,16 +396,16 @@ def phase_serving(torch, seed, iters, warmup):
                 out = model(x, ei, **kw)
                 torch.cuda.synchronize()
                 ms = None
-        launches = segment_spmm.launches
-        log(f'[{kind}] segment_spmm launches: {launches} in {n_fwd} '
-            f'forwards')
-        check(launches == N_LAYERS * n_fwd,
-              f'{kind}: {launches} kernel launches in {n_fwd} forwards, '
-              f'expected {N_LAYERS} per forward')
+        counts = launch_counts()
+        launches = counts['segment_spmm']
+        log(f'[{kind}] launches in {n_fwd} forwards: {counts}')
+        check_counts(kind, counts, {'segment_spmm': N_LAYERS * n_fwd},
+                     f'{n_fwd} forwards')
         diff, agree = compare(torch, kind, out,
                               cpu_reference(torch, model, kind, x_np, coo,
                                             w_np))
-        res = {'launches': launches, 'forwards': n_fwd,
+        res = {'launches': launches, 'launch_counts': counts,
+               'forwards': n_fwd,
                'max_abs_diff_vs_cpu': diff, 'argmax_agreement': agree}
         if ms is not None:
             res.update(ms_per_forward=ms, edges_per_s=3 * N_EDGES / (ms / 1e3),
@@ -464,7 +522,8 @@ def device_ms(torch, fn, calls=100):
     again, up to ``PROFILE_ATTEMPTS`` windows. If none is whole, each
     kernel counts its recorded mean time per launch times its launches per
     call, ``ceil(recorded / calls)``: right while fewer than ``calls`` of
-    its launches are lost."""
+    its launches are lost. A window that reads more device time than its
+    wall is profiled again too."""
     est = None
     for _ in range(PROFILE_ATTEMPTS):
         got = device_kernels(torch, fn, calls, warm=True)
@@ -473,15 +532,19 @@ def device_ms(torch, fn, calls=100):
         rows, wall = got
         lost = [(name, n) for name, _, n in rows
                 if abs(n - round(n)) >= 1e-9]
-        est = sum(t / n * math.ceil(n - 1e-9) for _, t, n in rows)
-        check(est <= 1.05 * wall, f'device time {est} ms per call exceeds '
-                                  f'the wall {wall} ms')
+        window = sum(t / n * math.ceil(n - 1e-9) for _, t, n in rows)
+        if window > 1.05 * wall:
+            # a window that lost launches can also misread the rest
+            log(f'[profile] a window read {window:.4f} ms of device time per '
+                f'call against a {wall:.4f} ms wall; profiled again')
+            continue
+        est = window
         if not lost:
             return est
         log('[profile] a window lost launches: ' + ', '.join(
             f'{name[:40]} x{n:g}' for name, n in lost))
-    check(est is not None, 'the profiler saw no device time in '
-                           f'{PROFILE_ATTEMPTS} windows')
+    check(est is not None, 'the profiler saw no device time within the '
+                           f'wall in {PROFILE_ATTEMPTS} windows')
     log(f'[profile] no whole window in {PROFILE_ATTEMPTS}: lost launches '
         'counted at their recorded mean time')
     return est
@@ -519,10 +582,8 @@ def phase_timings(torch, seed):
             row = {'F': f, 'n_src': N_NODES, 'n_dst': N_NODES, 'edges': e,
                    'bound_ms': b_ms, 'bound_by': b_by,
                    'bytes': spmm_bytes(N_NODES, N_NODES, e, f, True)}
-            for key, fn in fns.items():
-                row[key.replace('ms', 'event_ms')] = time_ms(torch, fn)
-                row[key] = device_ms(torch, fn)
-            shapes.append(row)
+            shapes.append(timed_fns(torch, row, fns, reps=200, warmup=50,
+                                    calls=100))
             log(f"[timing] segment_spmm F={f}, device time per call: kernel "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"torch.sparse.mm {row['library_ms']:.4f} ms; bound "
@@ -581,38 +642,46 @@ def path_a_graph(seed):
     return coo, x, y
 
 
-def build_path_a(torch, seed):
-    """Path A's cache, built on the card: ``cache_gcn_norm(EdgeIndex(coo),
-    block_sparse=True)`` as ``spmm_bench.py:128-130`` forces it."""
+def build_path_a(torch, seed, bf16=False):
+    """Path A's cache (path E's with ``bf16``), built on the card:
+    ``cache_gcn_norm(EdgeIndex(coo), block_sparse=True)`` as
+    ``spmm_bench.py:128-130`` forces it, the blocks bf16 under ``--bf16``."""
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
     from pytorch_geometric_tpu_torch.ops import spmm_regime
+    tag = 'path E' if bf16 else 'path A'
     coo, x, y = path_a_graph(seed)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     ei = cache_gcn_norm(EdgeIndex(coo, (PA_NODES, PA_NODES)),
-                        block_sparse=True)
+                        block_sparse=True,
+                        cache_dtype=torch.bfloat16 if bf16 else None)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     regime = spmm_regime(ei, TR_F)
-    check(regime == 'bsr', f'path A runs the {regime!r} regime, not bsr')
-    check(ei.bsr_perm is None, 'path A: an unexpected relabel')
+    check(regime == 'bsr', f'{tag} runs the {regime!r} regime, not bsr')
+    check(ei.bsr_perm is None, f'{tag}: an unexpected relabel')
+    want = torch.bfloat16 if bf16 else torch.float32
+    check(ei.bsr.vals.dtype == want and ei.bsr_t.vals.dtype == want,
+          f'{tag}: blocks are {ei.bsr.vals.dtype}')
     nb = int(ei.bsr.vals.shape[0])
     layout_bytes = sum(t.numel() * t.element_size()
                        for layout in (ei.bsr, ei.bsr_t) for t in layout)
     info = {'nodes': PA_NODES, 'edges_after_self_loops': ei.num_edges,
-            'blocks': nb, 'residual_edges': ei.bsr_res.num_edges,
+            'blocks': nb, 'block_dtype': str(want),
+            'residual_edges': ei.bsr_res.num_edges,
             'captured_frac': 1 - ei.bsr_res.num_edges / ei.num_edges,
             'block_layouts_gb': layout_bytes / 1e9,
             'cache_gb_on_card': (torch.cuda.memory_allocated() - mem0) / 1e9,
             'build_s': build_s, 'regime': regime}
-    log(f'[path A] cache_gcn_norm(block_sparse=True) of {PA_NODES} nodes, '
-        f'{PA_EDGES} edges in {build_s:.3f} s (host numpy keys, block sums '
-        f'and transpose on the card): E = {ei.num_edges} with self loops, '
-        f'{nb} blocks of 128x128, {info["residual_edges"]} residual edges '
-        f'(captured {info["captured_frac"]:.4f}), both block layouts '
-        f'{info["block_layouts_gb"]:.3f} GB, the whole cache '
+    log(f'[{tag}] cache_gcn_norm(block_sparse=True'
+        f"{', cache_dtype=torch.bfloat16' if bf16 else ''}) of {PA_NODES} "
+        f'nodes, {PA_EDGES} edges in {build_s:.3f} s (host numpy keys, block '
+        f'sums and transpose on the card): E = {ei.num_edges} with self '
+        f'loops, {nb} blocks of 128x128 {want}, {info["residual_edges"]} '
+        f'residual edges (captured {info["captured_frac"]:.4f}), both block '
+        f'layouts {info["block_layouts_gb"]:.3f} GB, the whole cache '
         f'{info["cache_gb_on_card"]:.3f} GB on the card; regime {regime!r}')
     return {'coo': coo, 'x': x, 'y': y, 'ei': ei, 'info': info}
 
@@ -634,11 +703,14 @@ def bsr_close(torch, layout, x, num_out):
     return (float(err.max()) if err.numel() else 0.0), ok
 
 
-def phase_bsr_vs_plain(torch, seed, pa):
+def phase_bsr_vs_plain(torch, seed, pa, bf16=False):
     """The BSR kernel against its plain version: F in {1, 10, 16, 64, 128}
     on a rectangular graph whose sizes are not multiples of 128, with empty
     block rows and padded edges, on both layouts; then path A's layouts at
-    F = 64 and 10."""
+    F = 64 and 10. With ``bf16`` the tensor-core arm: the same cases with
+    bf16 blocks, and path E's layouts (``pa`` is path E's cache). Both arms
+    multiply exactly in float32, so both take the float32 row-scaled
+    limit."""
     from pytorch_geometric_tpu_torch.ops.bsr_spmm import build_bsr_pair
     rng = np.random.default_rng(seed + 2)
     n_src, n_dst, e = 1000, 1300, 60_000
@@ -654,6 +726,11 @@ def phase_bsr_vs_plain(torch, seed, pa):
     fwd, bwd, _ = build_bsr_pair(coo, w, n_src, n_dst, device='cuda')
     check(bool((torch.diff(fwd.row_ptr) == 0).any()),
           'phase 3 BSR case has no empty block row')
+    if bf16:
+        fwd = fwd._replace(vals=fwd.vals.to(torch.bfloat16))
+        bwd = bwd._replace(vals=bwd.vals.to(torch.bfloat16))
+    name, path = ('bsr_spmm bf16', 'path E') if bf16 else ('bsr_spmm',
+                                                           'path A')
     cases = []
     for f in (1, 10, 16, 64, 128):
         cases.append((f'rectangular {n_src}->{n_dst} F={f}', fwd,
@@ -662,9 +739,9 @@ def phase_bsr_vs_plain(torch, seed, pa):
                       rng.standard_normal((n_dst, f)), n_src))
     ei = pa['ei']
     for f in (TR_F, TR_CLASSES):
-        cases.append((f'path A N={PA_NODES} F={f}', ei.bsr,
+        cases.append((f'{path} N={PA_NODES} F={f}', ei.bsr,
                       pa['x'][:, :f], PA_NODES))
-        cases.append((f'path A N={PA_NODES} F={f} transposed', ei.bsr_t,
+        cases.append((f'{path} N={PA_NODES} F={f} transposed', ei.bsr_t,
                       rng.standard_normal((PA_NODES, f)), PA_NODES))
     worst = 0.0
     for label, layout, x, num_out in cases:
@@ -672,9 +749,9 @@ def phase_bsr_vs_plain(torch, seed, pa):
                              device='cuda')
         err, ok = bsr_close(torch, layout, xt, num_out)
         worst = max(worst, err)
-        log(f"[kernel] bsr_spmm {label}: max abs err {err:.3e} "
+        log(f"[kernel] {name} {label}: max abs err {err:.3e} "
             f"{'ok' if ok else 'FAILED'}")
-        check(ok, f'bsr_spmm disagrees with its plain version: {label}')
+        check(ok, f'{name} disagrees with its plain version: {label}')
     return worst
 
 
@@ -757,17 +834,17 @@ def train_model(torch, kind, device, seed):
                generator=g)
 
 
-def train_step(torch, model, opt, x, ei, y):
+def train_step(torch, model, opt, x, ei, y, **kw):
     """One full-batch step as ``bench.py`` runs it: softmax cross-entropy,
     mean over the nodes, backward, Adam. Returns the loss, on the device."""
     opt.zero_grad(set_to_none=True)
-    loss = torch.nn.functional.cross_entropy(model(x, ei), y)
+    loss = torch.nn.functional.cross_entropy(model(x, ei, **kw), y)
     loss.backward()
     opt.step()
     return loss
 
 
-def parity_run(torch, kind, state, x, ei, y, device):
+def parity_run(torch, kind, state, x, ei, y, device, **kw):
     """``PARITY_STEPS`` steps from ``state``: the losses and the first
     step's gradients."""
     model = train_model(torch, kind, device, 0)
@@ -775,27 +852,30 @@ def parity_run(torch, kind, state, x, ei, y, device):
     opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
     losses, grads = [], None
     for i in range(PARITY_STEPS):
-        losses.append(train_step(torch, model, opt, x, ei, y).item())
+        losses.append(train_step(torch, model, opt, x, ei, y, **kw).item())
         if i == 0:
             grads = {k: p.grad.detach().cpu().clone()
                      for k, p in model.named_parameters()}
     return losses, grads
 
 
-def check_parity(torch, tag, card, cpu, grads_too):
+def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4):
+    """Losses within ``tol`` relative at each step, first-step gradients
+    within ``tol`` of each parameter's largest magnitude."""
     (l_card, g_card), (l_cpu, g_cpu) = card, cpu
     rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(l_card, l_cpu)]
     log(f'[{tag}] losses over {PARITY_STEPS} steps, card {l_card} vs CPU '
-        f'plain path {l_cpu}: max relative diff {max(rel):.3e}')
-    check(max(rel) <= 1e-4, f'{tag}: losses differ from the CPU plain path '
-                            f'by {max(rel)} relative')
+        f'plain path {l_cpu}: max relative diff {max(rel):.3e} (limit '
+        f'{tol:g})')
+    check(max(rel) <= tol, f'{tag}: losses differ from the CPU plain path '
+                           f'by {max(rel)} relative')
     out = {'losses_card': l_card, 'losses_cpu': l_cpu,
            'max_loss_rel_diff': max(rel)}
     if grads_too:
         worst = 0.0
         for k, ref in g_cpu.items():
             d = float((g_card[k] - ref).abs().max())
-            lim = 1e-4 * float(ref.abs().max())
+            lim = tol * float(ref.abs().max())
             worst = max(worst, d / max(float(ref.abs().max()), 1e-30))
             check(d <= lim, f'{tag}: first-step gradient of {k} differs by '
                             f'{d} (limit {lim})')
@@ -843,12 +923,38 @@ def timed_steps(torch, step, warmup, steps):
     return start.elapsed_time(end) / steps, wall_s, enqueue_ms, loss.item()
 
 
-def phase_path_a(torch, seed, pa):
+def ei_to_cpu(torch, ei):
+    """A copy of an EdgeIndex and every cache it holds on the CPU."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+
+    def mv(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        if isinstance(v, EdgeIndex):
+            return ei_to_cpu(torch, v)
+        if isinstance(v, tuple):
+            vals = [mv(a) for a in v]
+            return type(v)(*vals) if hasattr(v, '_fields') else tuple(vals)
+        return v
+
+    names = ('csr', 'csc', 'weight', 'bsr', 'bsr_t', 'bsr_res', 'bsr_perm',
+             'bsr_inv', 'blocked', 'blocked_t', 'dense_adj', 'dense_scale')
+    return EdgeIndex(ei.coo.cpu(), ei.sparse_size,
+                     num_real_edges=ei.num_real_edges, device='cpu',
+                     **{k: mv(getattr(ei, k)) for k in names})
+
+
+def phase_path_a(torch, seed, pa, bf16=False):
+    """GCN training over the block cache: path A (float32 blocks), or with
+    ``bf16`` path E (bf16 blocks through the tensor-core arm). Path A is
+    held against the CPU plain segment sum over all the edges; path E
+    against the CPU plain path over the same bf16 cache, within 1e-3 (bf16
+    roundings of a layer's input flip where the card's and the CPU's
+    float32 sums differ in the last bit)."""
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
     from pytorch_geometric_tpu_torch.ops import spmm_regime
-    from pytorch_geometric_tpu_torch.ops.bsr_spmm import bsr_matmul
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    tag = 'path E' if bf16 else 'path A'
     ei = pa['ei']
     x = torch.as_tensor(pa['x'], device='cuda')
     y = torch.as_tensor(pa['y'], device='cuda')
@@ -862,40 +968,48 @@ def phase_path_a(torch, seed, pa):
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    bsr_matmul.launches = segment_spmm.launches = 0
+    reset_counts()
     ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
-    prof = profile_steps(torch, step, 'path A')
-    launches = {'bsr_spmm': bsr_matmul.launches,
-                'segment_spmm': segment_spmm.launches}
+    prof = profile_steps(torch, step, tag)
+    counts = launch_counts()
     n_steps = PA_WARMUP + PA_STEPS + PROFILED_STEPS
-    log(f'[path A] GCN training step over the BSR cache: {ms:.4f} ms per '
+    bsr_key = 'bsr_spmm_bf16' if bf16 else 'bsr_spmm'
+    launches = {bsr_key: counts[bsr_key],
+                'segment_spmm': counts['segment_spmm']}
+    log(f'[{tag}] GCN training step over the BSR cache: {ms:.4f} ms per '
         f'step on the card (CUDA events, {PA_STEPS} steps after '
         f'{PA_WARMUP} warm-up); the host issues one in {enqueue_ms:.4f} ms; '
         f'loss after {PA_WARMUP + PA_STEPS} steps {last:.6f}; peak memory '
         f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
-    log(f'[path A] launches in {n_steps} steps: {launches}')
-    for name, n in launches.items():
-        check(n == PASSES_PER_STEP * n_steps,
-              f'path A: {name} launched {n} times in {n_steps} steps, '
-              f'expected {PASSES_PER_STEP} per step')
+    log(f'[{tag}] launches in {n_steps} steps: {counts}')
+    check_counts(tag, counts, {k: PASSES_PER_STEP * n_steps
+                               for k in launches}, f'{n_steps} steps')
     card = parity_run(torch, 'GCN', state, x, ei, y, 'cuda')
     t0 = time.perf_counter()
-    ei_cpu = cache_gcn_norm(EdgeIndex(pa['coo'], (PA_NODES, PA_NODES),
-                                      device='cpu'), block_sparse=False)
-    check(spmm_regime(ei_cpu) == 'plain', 'path A CPU reference regime')
+    if bf16:
+        ei_cpu = ei_to_cpu(torch, ei)
+        check(spmm_regime(ei_cpu) == 'bsr', f'{tag} CPU reference regime')
+    else:
+        ei_cpu = cache_gcn_norm(EdgeIndex(pa['coo'], (PA_NODES, PA_NODES),
+                                          device='cpu'), block_sparse=False)
+        check(spmm_regime(ei_cpu) == 'plain', f'{tag} CPU reference regime')
     cpu = parity_run(torch, 'GCN', state, torch.from_numpy(pa['x']),
                      ei_cpu, torch.from_numpy(pa['y']), 'cpu')
-    log(f'[path A] CPU plain path (segment sum over all {ei_cpu.num_edges} '
-        f'edges) for {PARITY_STEPS} steps in '
-        f'{time.perf_counter() - t0:.1f} s')
+    log(f'[{tag}] CPU plain path ('
+        + ('the same bf16 blocks and residual' if bf16 else
+           f'segment sum over all {ei_cpu.num_edges} edges')
+        + f') for {PARITY_STEPS} steps in {time.perf_counter() - t0:.1f} s')
+    del ei_cpu
     res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
-           'steps': n_steps, 'launches': launches,
+           'steps': n_steps, 'launches': launches, 'launch_counts': counts,
            'launches_per_step': {k: v / n_steps for k, v in launches.items()},
            'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
            'cache': pa['info']}
     res.update(prof)
-    res['parity'] = check_parity(torch, 'path A', card, cpu, True)
-    log(json.dumps({'metric': 'gcn_train_step_bsr', 'ms': ms,
+    res['parity'] = check_parity(torch, tag, card, cpu, True,
+                                 tol=1e-3 if bf16 else 1e-4)
+    log(json.dumps({'metric': 'gcn_train_step_bsr_bf16' if bf16 else
+                    'gcn_train_step_bsr', 'ms': ms,
                     'nodes': PA_NODES, 'edges': PA_EDGES,
                     'blocks': pa['info']['blocks'],
                     'residual_edges': pa['info']['residual_edges']}))
@@ -905,15 +1019,16 @@ def phase_path_a(torch, seed, pa):
 def phase_path_b(torch, seed):
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.ops import spmm_regime
-    from pytorch_geometric_tpu_torch.ops.bsr_spmm import bsr_matmul
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
     results = {}
     for kind in ('GCN', 'GraphSAGE', 'GIN'):
         x_np, coo, w_np, y_np = path_b_graph(kind, seed)
-        ei = EdgeIndex(coo, (PB_NODES, PB_NODES)).fill_cache(
-            dense_weight=w_np)
+        # bench.py's CPU branch (bench.py:87-90): no baked cache, GCN's
+        # weights passed per call, GraphSAGE and GIN unweighted
+        ei = EdgeIndex(coo, (PB_NODES, PB_NODES)).fill_cache()
+        kw = ({'edge_weight': torch.as_tensor(w_np, device='cuda')}
+              if kind == 'GCN' else {})
         reduce = 'mean' if kind == 'GraphSAGE' else 'sum'
-        check(spmm_regime(ei, TR_F, reduce) == 'kernel',
+        check(spmm_regime(ei, TR_F, reduce, bool(kw)) == 'kernel',
               f'path B {kind}: regime {spmm_regime(ei, TR_F, reduce)!r}')
         x = torch.as_tensor(x_np, device='cuda')
         y = torch.as_tensor(y_np, device='cuda')
@@ -923,32 +1038,33 @@ def phase_path_b(torch, seed):
         opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
 
         def step():
-            return train_step(torch, model, opt, x, ei, y)
+            return train_step(torch, model, opt, x, ei, y, **kw)
 
         torch.cuda.synchronize()
-        bsr_matmul.launches = segment_spmm.launches = 0
+        reset_counts()
         ms, wall_s, enqueue_ms, last = timed_steps(torch, step, 2, PB_STEPS)
         prof = profile_steps(torch, step, f'path B {kind}')
         n_steps = 2 + PB_STEPS + PROFILED_STEPS
-        launches = {'segment_spmm': segment_spmm.launches,
-                    'bsr_spmm': bsr_matmul.launches}
-        check(launches['segment_spmm'] == PASSES_PER_STEP * n_steps
-              and launches['bsr_spmm'] == 0,
-              f'path B {kind}: launches {launches} in {n_steps} steps, '
-              f'expected {PASSES_PER_STEP} segment_spmm per step')
+        counts = launch_counts()
+        launches = {'segment_spmm': counts['segment_spmm'],
+                    'bsr_spmm': counts['bsr_spmm']}
+        check_counts(f'path B {kind}', counts,
+                     {'segment_spmm': PASSES_PER_STEP * n_steps},
+                     f'{n_steps} steps')
         log(f'[path B {kind}] {PB_STEPS} steps in {wall_s:.4f} s on the '
             f'host clock ({ms:.4f} ms per step on the card, the host issues '
             f'one in {enqueue_ms:.4f} ms; bench.py reference eager '
             f'{REFERENCE_EAGER_S[kind]} s on an unspecified GPU); final '
             f'loss {last:.6f}; launches {launches} in {n_steps} steps')
-        card = parity_run(torch, kind, state, x, ei, y, 'cuda')
+        card = parity_run(torch, kind, state, x, ei, y, 'cuda', **kw)
         ei_cpu = EdgeIndex(coo, (PB_NODES, PB_NODES),
-                           device='cpu').fill_cache(dense_weight=w_np)
+                           device='cpu').fill_cache()
         cpu = parity_run(torch, kind, state, torch.from_numpy(x_np), ei_cpu,
-                         torch.from_numpy(y_np), 'cpu')
+                         torch.from_numpy(y_np), 'cpu',
+                         **{k: v.cpu() for k, v in kw.items()})
         res = {'seconds_per_500_steps': wall_s, 'ms_per_step': ms,
                'host_enqueue_ms_per_step': enqueue_ms, 'steps': n_steps,
-               'launches': launches,
+               'launches': launches, 'launch_counts': counts,
                'launches_per_step': launches['segment_spmm'] / n_steps}
         res.update(prof)
         res['parity'] = check_parity(torch, f'path B {kind}', card, cpu,
@@ -961,15 +1077,18 @@ def phase_path_b(torch, seed):
 
 
 # -- phase 9, training-kernel timings -----------------------------------------
-def bsr_bound_ms(nb, nnz, n_row_blocks, n_src, num_out, f):
-    """Least time for one BSR pass: the blocks, their column ids and row
-    pointer, x and out once over the HBM rate, or the FLOPs this data needs,
-    ``2 * nnz * F`` over the blocks' ``nnz`` nonzeros (not the stored
-    zeros), over the f32 rate, whichever is larger."""
-    by = (nb * 128 * 128 * 4 + nb * 4 + (n_row_blocks + 1) * 4
+def bsr_bound_ms(nb, nnz, n_row_blocks, n_src, num_out, f, val_bytes=4,
+                 flop_rate=F32_FLOP_PER_S):
+    """Least time for one BSR pass: the blocks (``val_bytes`` a value),
+    their column ids and row pointer, x and out (float32) once over the HBM
+    rate, or the FLOPs this data needs, ``2 * nnz * F`` over the blocks'
+    ``nnz`` nonzeros (not the stored zeros), over ``flop_rate`` (the f32
+    rate, or the bf16 tensor-core rate for bf16 blocks), whichever is
+    larger."""
+    by = (nb * 128 * 128 * val_bytes + nb * 4 + (n_row_blocks + 1) * 4
           + (n_src + num_out) * f * 4)
     t_bytes = by / HBM_BYTES_PER_S
-    t_ops = 2.0 * nnz * f / F32_FLOP_PER_S
+    t_ops = 2.0 * nnz * f / flop_rate
     return (max(t_bytes, t_ops) * 1e3,
             'bytes' if t_bytes >= t_ops else 'operations', by)
 
@@ -1033,11 +1152,7 @@ def phase_training_timings(torch, seed, pa):
                                               rtol=1e-4, atol=1e-4)),
                           f'torch.sparse.mm (BSR) disagrees at F={f}')
                     fns['library_ms'] = lib
-                for key, fn in fns.items():
-                    row[key.replace('ms', 'event_ms')] = time_ms(
-                        torch, fn, reps=20, warmup=3)
-                    row[key] = device_ms(torch, fn, calls=10)
-                bsr_rows.append(row)
+                bsr_rows.append(timed_fns(torch, row, fns))
                 lib_txt = (f"{row['library_ms']:.4f} ms" if lib else
                            f"none ({row['library_error']})")
                 log(f"[timing] bsr_spmm {lay_name} F={f}, device time per "
@@ -1071,10 +1186,8 @@ def phase_training_timings(torch, seed, pa):
                    'n_src': PB_NODES, 'n_dst': PB_NODES, 'edges': e,
                    'bound_ms': b_ms, 'bound_by': b_by,
                    'bytes': spmm_bytes(PB_NODES, PB_NODES, e, f, True)}
-            for key, fn in fns.items():
-                row[key.replace('ms', 'event_ms')] = time_ms(torch, fn)
-                row[key] = device_ms(torch, fn)
-            seg_rows.append(row)
+            seg_rows.append(timed_fns(torch, row, fns, reps=200, warmup=50,
+                                      calls=100))
             log(f"[timing] segment_spmm backward (A^T g over the CSR) path "
                 f"B F={f}, device time per call: kernel {row['ms']:.4f} ms, "
                 f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
@@ -1280,15 +1393,12 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     """GAT serving on path C: ms per forward, launches, profile, the output
     against the CPU plain path with the same weights."""
     from pytorch_geometric_tpu_torch import EdgeIndex
-    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
-    from pytorch_geometric_tpu_torch.ops.segment_max import \
-        segment_max_blocked
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
     model = gat_model(torch, None, seed).eval()
     n_fwd = warmup + iters + PROFILED_FORWARDS
     torch.cuda.synchronize()
-    gat_mix.launches = segment_max_blocked.launches = 0
+    reset_counts()
     with torch.inference_mode():
         for _ in range(warmup):
             out = model(x, ei)
@@ -1304,12 +1414,11 @@ def phase_path_c(torch, seed, iters, warmup, pc):
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
         breakdown = profile_forwards(torch, lambda: model(x, ei))
-    launches = gat_mix.launches
-    log(f'[path C] gat_mix launches: {launches} in {n_fwd} forwards; '
-        f'segment_max launches: {segment_max_blocked.launches}')
-    check(launches == MIX_PER_FORWARD * n_fwd,
-          f'path C: {launches} mix launches in {n_fwd} forwards, expected '
-          f'{MIX_PER_FORWARD} per forward')
+    counts = launch_counts()
+    launches = counts['gat_mix']
+    log(f'[path C] launches in {n_fwd} forwards: {counts}')
+    check_counts('path C', counts, {'gat_mix': MIX_PER_FORWARD * n_fwd},
+                 f'{n_fwd} forwards')
     ref_model = gat_model(torch, 'cpu', 0).eval()
     ref_model.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
@@ -1323,7 +1432,7 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     diff, agree = compare(torch, 'path C', out, ref,
                           (PC_NODES, PC_CLASSES))
     res = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enqueue_ms,
-           'forwards': n_fwd, 'launches': launches,
+           'forwards': n_fwd, 'launches': launches, 'launch_counts': counts,
            'launches_per_forward': launches / n_fwd,
            'edges': ei.num_edges, 'cache_build_ms': pc['build_ms'],
            'max_abs_diff_vs_cpu': diff, 'argmax_agreement': agree}
@@ -1368,7 +1477,6 @@ def phase_path_d(torch, seed, pc):
     """GAT training on path C's cell: ms per step, launches per step, a
     profile, 3 steps against the CPU plain path."""
     from pytorch_geometric_tpu_torch import EdgeIndex
-    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
     y = torch.as_tensor(pc['y'], device='cuda')
@@ -1382,20 +1490,20 @@ def phase_path_d(torch, seed, pc):
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    gat_mix.launches = 0
+    reset_counts()
     ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
     prof = profile_steps(torch, step, 'path D')
-    launches = gat_mix.launches
+    counts = launch_counts()
+    launches = counts['gat_mix']
     n_steps = PA_WARMUP + PA_STEPS + PROFILED_STEPS
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f'[path D] GAT training step: {ms:.4f} ms per step on the card (CUDA '
         f'events, {PA_STEPS} steps after {PA_WARMUP}); the host issues one '
         f'in {enqueue_ms:.4f} ms; loss after {PA_WARMUP + PA_STEPS} steps '
-        f'{last:.6f}; peak memory {peak:.3f} GB; gat_mix launches {launches} '
-        f'in {n_steps} steps')
-    check(launches == MIX_PER_STEP * n_steps,
-          f'path D: {launches} mix launches in {n_steps} steps, expected '
-          f'{MIX_PER_STEP} per step')
+        f'{last:.6f}; peak memory {peak:.3f} GB; launches in {n_steps} '
+        f'steps: {counts}')
+    check_counts('path D', counts, {'gat_mix': MIX_PER_STEP * n_steps},
+                 f'{n_steps} steps')
     card = gat_parity_run(torch, state, x, ei, y, 'cuda')
     ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
                        device='cpu').fill_cache(blocked=True)
@@ -1405,7 +1513,7 @@ def phase_path_d(torch, seed, pc):
     log(f'[path D] CPU plain path, {PARITY_STEPS} steps in '
         f'{time.perf_counter() - t0:.1f} s')
     res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
-           'steps': n_steps, 'launches': launches,
+           'steps': n_steps, 'launches': launches, 'launch_counts': counts,
            'launches_per_step': launches / n_steps, 'peak_memory_gb': peak}
     res.update(prof)
     res['parity'] = check_parity(torch, 'path D', card, cpu, True)
@@ -1424,19 +1532,25 @@ def mix_bytes(n_src, n_dst, slots, h, f, p_reads, out_s):
     return by
 
 
-def timed_row(torch, fns, info, by, flops):
-    """``info`` plus the bound from ``by`` bytes and ``flops``, and each of
-    ``fns`` timed on the card (device time and CUDA-event wall)."""
+def timed_fns(torch, row, fns, reps=20, warmup=3, calls=10):
+    """``row`` with each of ``fns`` (key ``*ms``) timed on the card: device
+    time (``device_ms``) and CUDA-event wall (``*event_ms``)."""
+    for key, fn in fns.items():
+        row[key.replace('ms', 'event_ms')] = time_ms(torch, fn, reps=reps,
+                                                     warmup=warmup)
+        row[key] = device_ms(torch, fn, calls=calls)
+    return row
+
+
+def timed_row(torch, fns, info, by, flops, **timing):
+    """``info`` plus the bound from ``by`` bytes and ``flops`` (float32
+    rate), and each of ``fns`` timed on the card."""
     t_bytes, t_ops = by / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     row = {'bytes': by, 'flops': flops,
            'bound_ms': max(t_bytes, t_ops) * 1e3,
            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
     row.update(info)
-    for key, fn in fns.items():
-        row[key.replace('ms', 'event_ms')] = time_ms(torch, fn, reps=20,
-                                                     warmup=3)
-        row[key] = device_ms(torch, fn, calls=10)
-    return row
+    return timed_fns(torch, row, fns, **timing)
 
 
 def phase_attention_timings(torch, seed, pc):
@@ -1540,6 +1654,554 @@ def phase_attention_timings(torch, seed, pc):
     return rows, max_row
 
 
+# -- phases 14 to 19, the precision ladder -----------------------------------
+def bf16_ok(torch, out, ref, scale):
+    """``out`` within one bf16 ulp of ``ref`` plus the float32 row-scaled
+    limit ``1e-5 + 1e-5 * scale``: both sum in float32 in another order,
+    and a sum on a rounding boundary can land one bf16 ulp apart. Returns
+    (max abs err, ok)."""
+    ref = ref.float()
+    _, e = torch.frexp(ref)
+    ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+    err = (out.float() - ref).abs()
+    ok = bool((err <= ulp + 1e-5 + 1e-5 * scale.float()).all())
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def phase_kernel_bf16_vs_plain(torch, seed):
+    """The segment-sum kernel's bf16 arm against its plain version, forward
+    over the CSC and ``grad_x`` over the CSR through its autograd Function:
+    a bipartite graph (700 -> 1000, half the rows empty, 64 padded edges)
+    at F in {1, 10, 16, 24, 128}, the serving graph at F = 128 and 16, each
+    weighted (bf16 weights) and unweighted; then an x 2 bytes past a 16-byte
+    boundary."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_plain)
+    rng = np.random.default_rng(seed + 7)
+    n_src, n_dst, e = 700, 1000, 20_000
+    dst = rng.choice(n_dst, n_dst // 2, replace=False)[
+        rng.integers(0, n_dst // 2, e)]
+    coo = np.stack([np.concatenate([rng.integers(0, n_src, e),
+                                    np.full(64, n_src)]),
+                    np.concatenate([dst, np.full(64, n_dst)])])
+    bip = EdgeIndex(coo.astype(np.int32), (n_src, n_dst),
+                    device='cuda').fill_cache(blocked=False)
+    _, s_coo, s_w = serving_graph(seed)
+    srv = EdgeIndex(s_coo, (N_NODES, N_NODES), device='cuda').fill_cache(
+        blocked=False)
+    graphs = [(f'bipartite {n_src}->{n_dst} E={e}+64 pad', bip,
+               rng.random(coo.shape[1]), (1, 10, 16, 24, 128)),
+              (f'serving N={N_NODES} E={s_coo.shape[1]}', srv, s_w,
+               (WIDTH, N_OUT))]
+
+    def bf(a):
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device='cuda').bfloat16()
+
+    worst = 0.0
+    for label, ei, w_np, widths in graphs:
+        csc, csr = ei.csc, ei.csr
+        n_s, n_d = ei.sparse_size
+        w = bf(w_np)
+        for f in widths:
+            for weighted in (True, False):
+                w_c = w[csc.perm].contiguous() if weighted else None
+                w_r = w[csr.perm].contiguous() if weighted else None
+                x = bf(rng.standard_normal((n_s, f))).requires_grad_()
+                g = bf(rng.standard_normal((n_d, f)))
+                out = segment_spmm(csc.indptr, csc.indices, w_c, x,
+                                   (csr.indptr, csr.indices, w_r))
+                out.backward(g)
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    xd = x.detach()
+                    a_c = None if w_c is None else w_c.abs()
+                    a_r = None if w_r is None else w_r.abs()
+                    e1, ok1 = bf16_ok(
+                        torch, out,
+                        segment_spmm_plain(csc.indptr, csc.indices, w_c, xd),
+                        segment_spmm_plain(csc.indptr, csc.indices, a_c,
+                                           xd.abs()))
+                    e2, ok2 = bf16_ok(
+                        torch, x.grad,
+                        segment_spmm_plain(csr.indptr, csr.indices, w_r, g),
+                        segment_spmm_plain(csr.indptr, csr.indices, a_r,
+                                           g.abs()))
+                worst = max(worst, e1, e2)
+                tag = (f"{label} F={f} "
+                       f"{'weighted' if weighted else 'unweighted'}")
+                log(f'[kernel] segment_spmm bf16 {tag}: forward max abs err '
+                    f'{e1:.3e}, grad_x {e2:.3e} '
+                    f"{'ok' if ok1 and ok2 else 'FAILED'}")
+                check(ok1 and ok2, f'segment_spmm bf16 disagrees with its '
+                                   f'plain version: {tag}')
+    csc = bip.csc
+    base = bf(rng.standard_normal(n_src * 16 + 1))
+    x = base[1:].view(n_src, 16)
+    check(x.data_ptr() % 16 != 0, 'the unaligned case is aligned')
+    with torch.no_grad():
+        err, ok = bf16_ok(torch, segment_spmm(csc.indptr, csc.indices, None,
+                                              x),
+                          segment_spmm_plain(csc.indptr, csc.indices, None,
+                                             x),
+                          segment_spmm_plain(csc.indptr, csc.indices, None,
+                                             x.abs()))
+    worst = max(worst, err)
+    log(f"[kernel] segment_spmm bf16 bipartite F=16, x 2 bytes past a 16-byte "
+        f"boundary: max abs err {err:.3e} {'ok' if ok else 'FAILED'}")
+    check(ok, 'segment_spmm bf16 disagrees on an unaligned x')
+    return worst
+
+
+def phase_gat_mix_bf16_vs_plain(torch, seed, pc):
+    """The mix kernel's bf16 arm (p_s, p_u and v all bf16) against its
+    plain version: the bipartite slot orders at H in {1, 4, 8} and F in
+    {1, 10, 16, 64}, the stabiliser pass, the backward pass over the
+    source-major order; then path C's shapes."""
+    ei, rng = attention_cases(torch, seed + 2)
+    n_src, n_dst = ei.sparse_size
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_mix,
+                                                           gat_mix_plain)
+
+    def bf(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device='cuda').bfloat16()
+
+    cases = []
+    for h in (1, 4, 8):
+        slots = ei.blocked.src.shape[0]
+        p_s, p_u = bf(rng.random((slots, h))), bf(rng.random((slots, h)))
+        cases.append((f'bipartite H={h} stabiliser', ei.blocked, p_s, None,
+                      None, 0))
+        for f in (1, 10, 16, 64):
+            cases.append((f'bipartite H={h} F={f} p_s != p_u', ei.blocked,
+                          p_s, p_u, bf(rng.standard_normal((n_src, h * f))),
+                          f))
+            cases.append((f'bipartite H={h} F={f} backward', ei.blocked_t,
+                          None, p_u[ei.blocked_t.t_pos].contiguous(),
+                          bf(rng.standard_normal((n_dst, h * f))), f))
+    blk = pc['ei'].blocked
+    p = bf(rng.random((blk.src.shape[0], PC_HEADS)))
+    f = PC_HIDDEN // PC_HEADS
+    cases.append((f'path C H={PC_HEADS} F={f}', blk, p, p,
+                  bf(rng.standard_normal((PC_NODES, PC_HIDDEN))), f))
+    cases.append((f'path C H={PC_HEADS} stabiliser', blk, p, None, None, 0))
+    worst = 0.0
+    for label, lay, p_s, p_u, v, f in cases:
+        s, u = gat_mix(lay.indptr, lay.src, p_s, p_u, v, f)
+        torch.cuda.synchronize()
+        rs, ru = gat_mix_plain(lay.indptr, lay.src, p_s, p_u, v, f)
+        pairs = []
+        if p_s is not None:
+            pairs.append((s, rs, rs))                # p_s >= 0
+        if v is not None:
+            _, su = gat_mix_plain(lay.indptr, lay.src, None, p_u, v.abs(), f)
+            pairs.append((u, ru, su))
+        ok, case_err = True, 0.0
+        for out, ref, scale in pairs:
+            err, good = bf16_ok(torch, out, ref, scale)
+            case_err, ok = max(case_err, err), ok and good
+        worst = max(worst, case_err)
+        log(f"[kernel] gat_mix bf16 {label}: max abs err {case_err:.3e} "
+            f"{'ok' if ok else 'FAILED'}")
+        check(ok, f'gat_mix bf16 disagrees with its plain version: {label}')
+    return worst
+
+
+def phase_path_f(torch, seed):
+    """``bench.py``'s accelerator regime (``bench.py:80-90``): path B's
+    graph and models over ``fill_cache(dense_weight=w,
+    cache_dtype=torch.bfloat16)`` (GCN's normalised weights, GraphSAGE's
+    and GIN's unit weights), 500 steps each; the dense bf16 products are
+    PyTorch's matmuls, so no kernel of the port launches. 3 losses against
+    the CPU plain path over the same cache, within 1e-3 (bf16 roundings of
+    a layer's input flip where the float32 sums differ in the last bit)."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    results = {}
+    for kind in ('GCN', 'GraphSAGE', 'GIN'):
+        x_np, coo, w_np, y_np = path_b_graph(kind, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ei = EdgeIndex(coo, (PB_NODES, PB_NODES)).fill_cache(
+            dense_weight=w_np, cache_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        reduce = 'mean' if kind == 'GraphSAGE' else 'sum'
+        regime = spmm_regime(ei, TR_F, reduce)
+        check(regime == 'dense-cached'
+              and ei.dense_adj.dtype == torch.bfloat16,
+              f'path F {kind}: regime {regime!r}, {ei.dense_adj}')
+        x = torch.as_tensor(x_np, device='cuda')
+        y = torch.as_tensor(y_np, device='cuda')
+        model = train_model(torch, kind, None, seed)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+
+        def step():
+            return train_step(torch, model, opt, x, ei, y)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, wall_s, enqueue_ms, last = timed_steps(torch, step, 2, PB_STEPS)
+        prof = profile_steps(torch, step, f'path F {kind}')
+        counts = launch_counts()
+        n_steps = 2 + PB_STEPS + PROFILED_STEPS
+        check(not any(counts.values()),
+              f'path F {kind}: kernels launched {counts}')
+        log(f'[path F {kind}] dense bf16 cache ({PB_NODES}^2, built in '
+            f'{build_ms:.3f} ms): {PB_STEPS} steps in {wall_s:.4f} s on the '
+            f'host clock ({ms:.4f} ms per step on the card, the host issues '
+            f'one in {enqueue_ms:.4f} ms); final loss {last:.6f}; no kernel '
+            f'launched in {n_steps} steps')
+        card = parity_run(torch, kind, state, x, ei, y, 'cuda')
+        ei_cpu = EdgeIndex(coo, (PB_NODES, PB_NODES), device='cpu'
+                           ).fill_cache(dense_weight=w_np,
+                                        cache_dtype=torch.bfloat16)
+        cpu = parity_run(torch, kind, state, torch.from_numpy(x_np), ei_cpu,
+                         torch.from_numpy(y_np), 'cpu')
+        res = {'seconds_per_500_steps': wall_s, 'ms_per_step': ms,
+               'host_enqueue_ms_per_step': enqueue_ms, 'steps': n_steps,
+               'cache_build_ms': build_ms, 'launches': counts}
+        res.update(prof)
+        res['parity'] = check_parity(torch, f'path F {kind}', card, cpu,
+                                     False, tol=1e-3)
+        log(json.dumps({'metric': f'{kind.lower()}_train_500steps',
+                        'arm': 'dense-bf16', 'value': wall_s, 'unit': 's',
+                        'ms_per_step': ms, 'nodes': PB_NODES,
+                        'edges': PB_EDGES}))
+        results[kind] = res
+        del ei, ei_cpu
+    return results
+
+
+def phase_path_g(torch, seed, iters, warmup):
+    """The dense serving ladder of ``inference_bench.py:67-78``: GCN over
+    the f32, bf16 and int8 dense caches of the serving graph, with the cap
+    lifted as at ``:55``. f32 against the CPU plain sparse path (1e-4 of the
+    largest output: float32 sums in another order, TF32 off); bf16 against
+    the f32 dense arm, relative < 2e-2 (``tests/test_dense_spmm.py:114``);
+    int8 < 3e-2 (``tests/test_int8_spmm.py:39``); argmax agreement with
+    the sparse arm printed, not held (random weights)."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    x_np, coo, w_np = serving_graph(seed)
+    x = torch.as_tensor(x_np, device='cuda')
+    model = build_model(torch, 'GCN', None, seed).eval()
+    ref = cpu_reference(torch, model, 'GCN', x_np, coo, w_np)
+    old_cap = os.environ.get('PGT_DENSE_SPMM_ENTRIES')
+    os.environ['PGT_DENSE_SPMM_ENTRIES'] = str(N_NODES * N_NODES + 1)
+    results, outs = {}, {}
+    try:
+        for arm, dt in (('f32', None), ('bf16', torch.bfloat16),
+                        ('int8', torch.int8)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ei = EdgeIndex(coo, (N_NODES, N_NODES)).fill_cache(
+                dense_weight=w_np, cache_dtype=dt)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            build_peak = torch.cuda.max_memory_allocated() / 1e9
+            check(spmm_regime(ei) == 'dense-cached',
+                  f'path G {arm}: regime {spmm_regime(ei)!r}')
+            cache_gb = ei.dense_adj.numel() * ei.dense_adj.element_size() / 1e9
+            reset_counts()
+            with torch.inference_mode():
+                for _ in range(warmup):
+                    out = model(x, ei)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(iters):
+                    out = model(x, ei)
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end) / iters
+                breakdown = profile_forwards(torch, lambda: model(x, ei))
+            counts = launch_counts()
+            check(not any(counts.values()),
+                  f'path G {arm}: kernels launched {counts}')
+            outs[arm] = out.float().cpu()
+            res = {'ms_per_forward': ms,
+                   'edges_per_s': 3 * N_EDGES / (ms / 1e3),
+                   'cache_build_s': build_s, 'cache_gb': cache_gb,
+                   'build_peak_gb': build_peak, 'launches': counts,
+                   'argmax_agreement_vs_sparse': float(
+                       (outs[arm].argmax(-1) == ref.argmax(-1)).double()
+                       .mean())}
+            if arm == 'f32':
+                diff, _ = compare(torch, 'path G f32', out, ref)
+                res['max_abs_diff_vs_cpu_sparse'] = diff
+            else:
+                base = outs['f32']
+                rel = float((outs[arm] - base).abs().max()
+                            / base.abs().max())
+                lim = 2e-2 if arm == 'bf16' else 3e-2
+                res['max_rel_diff_vs_f32_dense'] = rel
+                log(f'[path G {arm}] against the f32 dense arm: max |diff| '
+                    f'/ max |f32| {rel:.3e} (limit {lim:g})')
+                check(rel < lim, f'path G {arm}: {rel} relative to f32')
+            if breakdown is not None:
+                rows, prof_ms = breakdown
+                busy = sum(t for _, t, _ in rows)
+                res.update(device_busy_ms_per_forward=busy,
+                           profiled_ms_per_forward=prof_ms,
+                           device_idle_share=1 - busy / prof_ms,
+                           kernels_per_forward=[[n[:80], t, c]
+                                                for n, t, c in rows[:6]])
+                log(f'[path G {arm}] torch.profiler: device busy {busy:.4f} '
+                    f'ms per forward of {prof_ms:.4f} ms, idle share '
+                    f'{1 - busy / prof_ms:.4f}; top: ' + '; '.join(
+                        f'{n[:50]} {t:.4f} ms x{c:g}' for n, t, c in rows[:3]))
+            log(f"[path G {arm}] dense {arm} cache ({cache_gb:.3f} GB, built "
+                f"in {build_s:.3f} s, build peak {build_peak:.3f} GB): "
+                f"{ms:.4f} ms per forward, {res['edges_per_s']:.4e} edges/s; "
+                f"argmax agreement with the sparse arm "
+                f"{res['argmax_agreement_vs_sparse']:.6f}")
+            log(json.dumps({'metric': 'gcn_inference_fwd',
+                            'arm': f'dense-{arm}', 'ms': ms,
+                            'edges_per_s': res['edges_per_s'],
+                            'nodes': N_NODES, 'edges': N_EDGES,
+                            'hidden': WIDTH, 'iters': iters}))
+            results[arm] = res
+            del ei, out
+            torch.cuda.empty_cache()
+    finally:
+        if old_cap is None:
+            os.environ.pop('PGT_DENSE_SPMM_ENTRIES', None)
+        else:
+            os.environ['PGT_DENSE_SPMM_ENTRIES'] = old_cap
+    return results
+
+
+def phase_path_h(torch, seed, iters, warmup):
+    """bf16-feature serving: GraphSAGE and GIN on the serving graph from
+    bf16 features over ``fill_cache()``, the JAX ``'pallas'`` regime with
+    bf16 messages. Layer 1 aggregates bf16 (one bf16 segment-sum launch per
+    forward); the float32 parameters promote the rest (two float32
+    launches). Against the CPU plain path from the same bf16 input and
+    weights, within 1e-2 of the largest output (a bf16 rounding of a layer-1
+    sum can flip where the two sum orders differ), argmax agreement >=
+    0.99."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    x_np, coo, _ = serving_graph(seed)
+    ei = EdgeIndex(coo, (N_NODES, N_NODES)).fill_cache()
+    ei_cpu = EdgeIndex(coo, (N_NODES, N_NODES), device='cpu').fill_cache()
+    xb = torch.as_tensor(x_np, device='cuda').bfloat16()
+    results = {}
+    for kind in ('GraphSAGE', 'GIN'):
+        model = build_model(torch, kind, None, seed).eval()
+        n_fwd = warmup + iters + PROFILED_FORWARDS
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.inference_mode():
+            for _ in range(warmup):
+                out = model(xb, ei)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(iters):
+                out = model(xb, ei)
+            end.record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / iters
+            breakdown = profile_forwards(torch, lambda: model(xb, ei))
+        counts = launch_counts()
+        check_counts(f'path H {kind}', counts,
+                     {'segment_spmm_bf16': n_fwd,
+                      'segment_spmm': (N_LAYERS - 1) * n_fwd},
+                     f'{n_fwd} forwards')
+        ref_model = build_model(torch, kind, 'cpu', 0).eval()
+        ref_model.load_state_dict({k: v.cpu()
+                                   for k, v in model.state_dict().items()})
+        with torch.inference_mode():
+            ref = ref_model(xb.cpu(), ei_cpu)
+        out = out.float().cpu()
+        check(tuple(out.shape) == (N_NODES, N_OUT)
+              and bool(torch.isfinite(out).all()),
+              f'path H {kind}: output {tuple(out.shape)}')
+        diff = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        agree = float((out.argmax(-1) == ref.argmax(-1)).double().mean())
+        log(f'[path H {kind}] bf16 features: {ms:.4f} ms per forward on the '
+            f'card (CUDA events, {iters} forwards), the host issues one in '
+            f'{enqueue_ms:.4f} ms; launches {counts} in {n_fwd} forwards; '
+            f'vs the CPU plain path from the same bf16 input: max abs diff '
+            f'{diff:.3e} (max |ref| {scale:.3e}), argmax agreement '
+            f'{agree:.6f}')
+        check(diff <= 1e-2 * max(1.0, scale),
+              f'path H {kind}: max abs diff {diff}')
+        check(agree >= 0.99, f'path H {kind}: argmax agreement {agree}')
+        res = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward':
+               enqueue_ms, 'edges_per_s': 3 * N_EDGES / (ms / 1e3),
+               'forwards': n_fwd, 'launches': counts,
+               'max_abs_diff_vs_cpu': diff, 'argmax_agreement': agree}
+        if breakdown is not None:
+            rows, prof_ms = breakdown
+            busy = sum(t for _, t, _ in rows)
+            res.update(device_busy_ms_per_forward=busy,
+                       profiled_ms_per_forward=prof_ms,
+                       device_idle_share=1 - busy / prof_ms)
+            log(f'[path H {kind}] torch.profiler: device busy {busy:.4f} ms '
+                f'per forward of {prof_ms:.4f} ms, idle share '
+                f'{1 - busy / prof_ms:.4f}')
+        results[kind] = res
+    return results
+
+
+def sparse_library_call(torch, indptr, cols, vals, n_rows, n_cols, x):
+    """``torch.sparse.mm`` on a CSR tensor (a yardstick; the port never
+    calls it): ``(fn, out)`` or ``(None, error)``."""
+    try:
+        a = torch.sparse_csr_tensor(indptr, cols, vals, size=(n_rows, n_cols))
+        out = torch.sparse.mm(a, x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f'{type(e).__name__}: {str(e)[:200]}'
+    return (lambda: torch.sparse.mm(a, x)), out
+
+
+def phase_bf16_timings(torch, seed, pe, pc):
+    """Device time per call of each bf16 kernel at its path's shapes, with
+    its plain version, a library call where one computes the same function
+    in bf16 (``torch.sparse.mm`` on a bf16 CSR or BSR tensor; its output is
+    bf16, so it is held to the plain version within 1e-2 of the largest
+    magnitude), and the bound: the segment sum at path H's layer 1 (F =
+    128, unweighted), the BSR kernel on path E's layouts at F = 64 and 10,
+    the mix at path C's H*F = 256."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.bsr_spmm import (bsr_matmul,
+                                                          bsr_spmm_plain)
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_mix,
+                                                           gat_mix_plain)
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_plain)
+    rng = np.random.default_rng(seed + 8)
+
+    def lib_row(info, lib, ref):
+        """The library call's ``fns`` entry, or its error in ``info``."""
+        fn, out = lib
+        if fn is None:
+            info['library_ms'], info['library_error'] = None, out
+            return {}
+        d = float((out.float()[:ref.shape[0]] - ref.float()).abs().max())
+        check(d <= 1e-2 * float(ref.float().abs().max()),
+              f"library call disagrees with the plain version by {d}")
+        return {'library_ms': fn}
+
+    def lib_txt(row):
+        return (f"{row['library_ms']:.4f} ms" if row['library_ms'] is not None
+                else f"none ({row['library_error']})")
+
+    rows = {}
+    with torch.inference_mode():
+        # kernel 1 bf16: path H's layer-1 aggregation
+        x_np, coo, _ = serving_graph(seed)
+        csc = EdgeIndex(coo, (N_NODES, N_NODES), device='cuda').fill_cache(
+            blocked=False).csc
+        e = coo.shape[1]
+        xb = torch.as_tensor(x_np, device='cuda').bfloat16()
+        fns = {'ms': lambda: segment_spmm(csc.indptr, csc.indices, None, xb),
+               'plain_ms': lambda: segment_spmm_plain(csc.indptr,
+                                                      csc.indices, None, xb)}
+        info = {'F': WIDTH, 'edges': e, 'weighted': False}
+        fns.update(lib_row(info, sparse_library_call(
+            torch, csc.indptr, csc.indices,
+            torch.ones(e, dtype=torch.bfloat16, device='cuda'), N_NODES,
+            N_NODES, xb), fns['plain_ms']()))
+        # bf16 x and out, the indices, once each
+        row = timed_row(torch, fns, info,
+                        2 * N_NODES * WIDTH * 2 + (N_NODES + 1) * 4 + e * 4,
+                        2.0 * e * WIDTH, reps=200, warmup=50, calls=100)
+        rows['segment_spmm_bf16'] = [row]
+        log(f"[timing] segment_spmm bf16 F={WIDTH} (path H layer 1), device "
+            f"time per call: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, torch.sparse.mm (bf16 CSR) "
+            f"{lib_txt(row)}; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), kernel at "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound; "
+            f"CUDA-event wall per call: kernel {row['event_ms']:.4f} ms")
+        # kernel 2 bf16: path E's layouts
+        rows['bsr_spmm_bf16'] = []
+        for lay_name, layout in (('forward', pe['ei'].bsr),
+                                 ('transposed', pe['ei'].bsr_t)):
+            nb = int(layout.vals.shape[0])
+            nnz = int(torch.count_nonzero(layout.vals))
+            for f in (TR_F, TR_CLASSES):
+                x = torch.as_tensor(rng.standard_normal(
+                    (PA_NODES, f)).astype(np.float32), device='cuda')
+                b_ms, b_by, by = bsr_bound_ms(
+                    nb, nnz, layout.row_ptr.shape[0] - 1, PA_NODES,
+                    PA_NODES, f, val_bytes=2, flop_rate=BF16_FLOP_PER_S)
+                row = {'layout': lay_name, 'F': f, 'blocks': nb,
+                       'block_nonzeros': nnz, 'bound_ms': b_ms,
+                       'bound_by': b_by, 'bytes': by,
+                       'flops': 2.0 * nnz * f,
+                       'kernel_flops': 2.0 * nb * 128 * 128 * f}
+                fns = {'ms': lambda: bsr_matmul(layout, x, PA_NODES),
+                       'plain_ms': lambda: bsr_spmm_plain(layout, x,
+                                                          PA_NODES)}
+                fns.update(lib_row(row, bsr_library_call(
+                    torch, layout, PA_NODES, x.bfloat16()),
+                    fns['plain_ms']()))
+                rows['bsr_spmm_bf16'].append(timed_fns(torch, row, fns))
+                log(f"[timing] bsr_spmm bf16 {lay_name} F={f}, device time "
+                    f"per call: kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, torch.sparse.mm (bf16 BSR) "
+                    f"{lib_txt(row)}; bound {b_ms:.4f} ms ({b_by}), kernel "
+                    f"at {100 * b_ms / row['ms']:.1f}% of the bound; "
+                    f"CUDA-event wall per call: kernel {row['event_ms']:.4f} "
+                    f"ms")
+        # the mix's bf16 arm at path C's hidden width
+        blk = pc['ei'].blocked
+        n, h = PC_NODES, PC_HEADS
+        f = PC_HIDDEN // h
+        slots, e = blk.src.shape[0], int(blk.indptr[-1])
+        p = torch.as_tensor(rng.random((slots, h)).astype(np.float32),
+                            device='cuda').bfloat16()
+        v = torch.as_tensor(rng.standard_normal((n, h * f)).astype(
+            np.float32), device='cuda').bfloat16()
+        fns = {'ms': lambda: gat_mix(blk.indptr, blk.src, p, p, v, f),
+               'plain_ms': lambda: gat_mix_plain(blk.indptr, blk.src, p, p,
+                                                 v, f)}
+        _, ref = fns['plain_ms']()
+        mats = [torch.sparse_csr_tensor(blk.indptr, blk.src,
+                                        p[:, k].contiguous(), size=(n, n))
+                for k in range(h)]
+        vs = [v.view(n, h, f)[:, k].contiguous() for k in range(h)]
+        try:
+            lib_out = torch.stack([torch.sparse.mm(a, b)
+                                   for a, b in zip(mats, vs)], 1)
+            torch.cuda.synchronize()
+            lib = (lambda: [torch.sparse.mm(a, b) for a, b in zip(mats, vs)],
+                   lib_out.reshape(n, h * f))
+        except (RuntimeError, NotImplementedError, TypeError) as err:
+            lib = (None, f'{type(err).__name__}: {str(err)[:200]}')
+        info = {'pass': 'mix (s, u)', 'H': h, 'F': f, 'HF': h * f,
+                'slots': e}
+        fns.update(lib_row(info, lib, ref))
+        # p, v, s, u in bf16, the indices, once each
+        row = timed_row(torch, fns, info,
+                        slots * h * 2 + (n + 1) * 4 + n * h * 2
+                        + 2 * n * h * f * 2 + slots * 4,
+                        2.0 * e * h * f + e * h)
+        rows['gat_mix_bf16'] = [row]
+        log(f"[timing] gat_mix bf16 mix H*F={h * f}, device time per call: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"{h} torch.sparse.mm (bf16 CSR) {lib_txt(row)}; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), kernel at "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound; "
+            f"CUDA-event wall per call: kernel {row['event_ms']:.4f} ms")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1561,6 +2223,7 @@ def main():
     phase_device(torch)
     phase_build(csrc)
     worst = phase_kernel_vs_plain(torch, args.seed)
+    worst_seg_bf16 = phase_kernel_bf16_vs_plain(torch, args.seed)
     pa = build_path_a(torch, args.seed)
     worst_bsr = phase_bsr_vs_plain(torch, args.seed, pa)
     worst_bwd = phase_segment_backward_vs_plain(torch, args.seed, pa)
@@ -1569,12 +2232,22 @@ def main():
     path_a = phase_path_a(torch, args.seed, pa)
     path_b = phase_path_b(torch, args.seed)
     bsr_rows, seg_bwd_rows = phase_training_timings(torch, args.seed, pa)
+    del pa
+    torch.cuda.empty_cache()
+    pe = build_path_a(torch, args.seed, bf16=True)
+    worst_bsr_bf16 = phase_bsr_vs_plain(torch, args.seed, pe, bf16=True)
+    path_e = phase_path_a(torch, args.seed, pe, bf16=True)
+    path_f = phase_path_f(torch, args.seed)
+    path_g = phase_path_g(torch, args.seed, args.iters, args.warmup)
+    path_h = phase_path_h(torch, args.seed, args.iters, args.warmup)
     pc = build_path_c(torch, args.seed)
     worst_mix = phase_gat_mix_vs_plain(torch, args.seed, pc)
     worst_max = phase_segment_max_vs_plain(torch, args.seed, pc)
+    worst_mix_bf16 = phase_gat_mix_bf16_vs_plain(torch, args.seed, pc)
     path_c = phase_path_c(torch, args.seed, args.iters, args.warmup, pc)
     path_d = phase_path_d(torch, args.seed, pc)
     mix_rows, max_row = phase_attention_timings(torch, args.seed, pc)
+    bf16_rows = phase_bf16_timings(torch, args.seed, pe, pc)
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -1583,17 +2256,32 @@ def main():
         per_fwd[key] = sum(by_f[f][key] for f in per_fwd['F'])
     bound_by = ('bytes' if all(s['bound_by'] == 'bytes' for s in shapes)
                 else 'operations')
-    seg_launches = {'serving_gcn': serving['GCN']['launches'],
-                    'path_a': path_a['launches']['segment_spmm']}
-    seg_launches.update({f'path_b_{k.lower()}': v['launches']['segment_spmm']
-                         for k, v in path_b.items()})
+    # every path's measured counts, all arms, keyed by path
+    path_counts = {f'serving_{k.lower()}': v['launch_counts']
+                   for k, v in serving.items()}
+    path_counts.update(path_a=path_a['launch_counts'],
+                       path_c=path_c['launch_counts'],
+                       path_d=path_d['launch_counts'],
+                       path_e=path_e['launch_counts'])
+    for tag, res in (('b', path_b), ('f', path_f), ('g', path_g),
+                     ('h', path_h)):
+        path_counts.update({f'path_{tag}_{k.lower()}': v.get(
+            'launch_counts', v['launches']) for k, v in res.items()})
+
+    def by_path(name):
+        return {p: c[name] for p, c in path_counts.items()}
+
+    seg_bf16 = bf16_rows['segment_spmm_bf16'][0]
+    mix_bf16 = bf16_rows['gat_mix_bf16'][0]
     # a path A step: forward layout at F = 64 (layers 1, 2) and 10 (layer
     # 3), transposed layout at 10 (layer 3) and 64 (layer 2)
-    bsr_step = per_step(bsr_rows, [
+    step_picks = [
         {'layout': 'forward', 'F': TR_F}, {'layout': 'forward', 'F': TR_F},
         {'layout': 'forward', 'F': TR_CLASSES},
         {'layout': 'transposed', 'F': TR_CLASSES},
-        {'layout': 'transposed', 'F': TR_F}])
+        {'layout': 'transposed', 'F': TR_F}]
+    bsr_step = per_step(bsr_rows, step_picks)
+    bsr_bf16_step = per_step(bf16_rows['bsr_spmm_bf16'], step_picks)
     # a path C forward: per layer the stabiliser pass and the mix, at
     # H*F = 256 in layers 1-2 and 40 in layer 3
     by_pass = {(r['pass'].split()[0], r['HF']): r for r in mix_rows}
@@ -1604,13 +2292,15 @@ def main():
                for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
     log(json.dumps({'paths': {'serving': serving, 'path_a': path_a,
                               'path_b': path_b, 'path_c': path_c,
-                              'path_d': path_d}}))
+                              'path_d': path_d, 'path_e': path_e,
+                              'path_f': path_f, 'path_g': path_g,
+                              'path_h': path_h}}))
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',
         'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:74',
-        'launches': sum(seg_launches.values()),
-        'launches_by_path': seg_launches,
+        'launches': sum(by_path('segment_spmm').values()),
+        'launches_by_path': by_path('segment_spmm'),
         'launches_per_forward': serving['GCN']['launches']
         // serving['GCN']['forwards'],
         'launches_per_step': {'path_a': path_a['launches_per_step'][
@@ -1628,8 +2318,8 @@ def main():
         'name': 'bsr_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
         'replaces': 'pytorch_geometric_tpu/ops/bsr_spmm.py:114',
-        'launches': path_a['launches']['bsr_spmm'],
-        'launches_by_path': {'path_a': path_a['launches']['bsr_spmm']},
+        'launches': sum(by_path('bsr_spmm').values()),
+        'launches_by_path': by_path('bsr_spmm'),
         'launches_per_step': {'path_a': path_a['launches_per_step'][
             'bsr_spmm']},
         'max_abs_err': worst_bsr,
@@ -1647,9 +2337,8 @@ def main():
         'replaces_site': 'pytorch_geometric_tpu/ops/pallas_spmm.py:212 '
                          '(segment_sum_blocked, from ops/gat_fused.py:80, '
                          ':111, :161)',
-        'launches': path_c['launches'] + path_d['launches'],
-        'launches_by_path': {'path_c': path_c['launches'],
-                             'path_d': path_d['launches']},
+        'launches': sum(by_path('gat_mix').values()),
+        'launches_by_path': by_path('gat_mix'),
         'launches_per_forward': path_c['launches_per_forward'],
         'launches_per_step': path_d['launches_per_step'],
         'max_abs_err': worst_mix,
@@ -1665,7 +2354,8 @@ def main():
         'name': 'segment_max', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_max.cu',
         'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:327',
-        'launches': 0,
+        'launches': sum(by_path('segment_max').values()),
+        'launches_by_path': by_path('segment_max'),
         'launches_note': 'no path of the JAX package or of the port calls '
                          'segment_max_blocked (ops/gat_fused.py:29 only '
                          'imports it); its launches are the comparison and '
@@ -1675,7 +2365,61 @@ def main():
         'bound_ms': max_row['bound_ms'], 'bound_by': max_row['bound_by'],
         'library_ms': max_row['library_ms'],
         'times_are': f'one call at [{max_row["slots"]}, {PC_HEADS}]',
-        'per_shape': [max_row]}]}))
+        'per_shape': [max_row]}, {
+        'name': 'segment_spmm_bf16', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:74',
+        'replaces_site': 'pytorch_geometric_tpu/ops/pallas_spmm.py:212 '
+                         '(segment_sum_blocked with bf16 messages, '
+                         ':199-229)',
+        'launches': sum(by_path('segment_spmm_bf16').values()),
+        'launches_by_path': by_path('segment_spmm_bf16'),
+        'launches_per_forward': {k: v['launches']['segment_spmm_bf16']
+                                 / v['forwards'] for k, v in path_h.items()},
+        'max_abs_err': worst_seg_bf16,
+        'ms': seg_bf16['ms'], 'plain_ms': seg_bf16['plain_ms'],
+        'bound_ms': seg_bf16['bound_ms'], 'bound_by': seg_bf16['bound_by'],
+        'library_ms': seg_bf16['library_ms'],
+        'times_are': f'one call at path H layer 1 (F={WIDTH}, unweighted), '
+                     'one per forward',
+        'per_shape': [seg_bf16]}, {
+        'name': 'bsr_spmm_bf16', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/bsr_spmm.py:114',
+        'replaces_arm': 'bf16 blocks, pytorch_geometric_tpu/ops/bsr_spmm.py:'
+                        '129-140',
+        'launches': sum(by_path('bsr_spmm_bf16').values()),
+        'launches_by_path': by_path('bsr_spmm_bf16'),
+        'launches_per_step': {'path_e': path_e['launches_per_step'][
+            'bsr_spmm_bf16']},
+        'max_abs_err': worst_bsr_bf16,
+        'ms': bsr_bf16_step['ms'], 'plain_ms': bsr_bf16_step['plain_ms'],
+        'bound_ms': bsr_bf16_step['bound_ms'],
+        'bound_by': max(('bytes', 'operations'), key=lambda b: sum(
+            r['bound_ms'] for r in bf16_rows['bsr_spmm_bf16']
+            if r['bound_by'] == b)),
+        'library_ms': bsr_bf16_step['library_ms'],
+        'times_are': 'per path E training step: the forward layout at F=64 '
+                     'twice and F=10, the transposed layout at F=10 and F=64',
+        'per_shape': bf16_rows['bsr_spmm_bf16']}, {
+        'name': 'gat_mix_bf16', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/gat_mix.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:74',
+        'replaces_site': 'pytorch_geometric_tpu/ops/pallas_spmm.py:212 '
+                         '(segment_sum_blocked from ops/gat_fused.py:76-81 '
+                         'with p_s, p_u and v all bf16)',
+        'launches': sum(by_path('gat_mix_bf16').values()),
+        'launches_by_path': by_path('gat_mix_bf16'),
+        'launches_note': 'no model path feeds the mix bf16 (GATConv\'s float32 '
+                         'parameters promote v and the logits); its launches '
+                         'are the comparison and timing phases, which do not '
+                         'count',
+        'max_abs_err': worst_mix_bf16,
+        'ms': mix_bf16['ms'], 'plain_ms': mix_bf16['plain_ms'],
+        'bound_ms': mix_bf16['bound_ms'], 'bound_by': mix_bf16['bound_by'],
+        'library_ms': mix_bf16['library_ms'],
+        'times_are': f'one mix call at path C H*F={PC_HIDDEN}',
+        'per_shape': [mix_bf16]}]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

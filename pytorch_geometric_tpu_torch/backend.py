@@ -13,8 +13,8 @@ import torch
 # Kernel SpMM dispatch (ops/spmm.py), the counterpart of ``use_pallas_spmm``:
 # True -> a sum/mean SpMM on a CUDA tensor takes the hand-written kernels
 # (segment-sum, or block-sparse over a baked cache); False -> it raises,
-# since the port has no other CUDA arm yet. A CPU tensor takes the plain
-# versions either way.
+# since the port has no other sparse CUDA arm yet. A baked dense cache runs
+# its matrix product either way, and a CPU tensor takes the plain versions.
 use_kernel_spmm: bool = True
 
 

@@ -4,8 +4,8 @@ ctypes.
 Each source in this directory is compiled on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to ``pytorch_geometric_tpu_torch/_build/`` under a name keyed by
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+a hash of the source, the shared headers (``*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: the package imports on a machine without
 ``nvcc`` or a card, where only the plain versions of the kernels run.
@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parent / '_build'
@@ -36,6 +36,7 @@ build_logs: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, object] = {}
 
 
 def nvcc_path() -> str:
@@ -56,6 +57,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = SOURCE_DIR / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SOURCE_DIR.glob('*.cuh')):
+        h.update(header.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
@@ -104,3 +107,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence):
+    """The C entry point ``symbol`` of the library ``name`` (built first if
+    needed), bound once with ``argtypes`` and an int result, the
+    ``cudaGetLastError()`` every entry point returns."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn

@@ -1,5 +1,6 @@
-// Block-sparse (BSR) SpMM over cached 128x128 adjacency blocks, float32, for
-// Hopper (sm_90a).
+// Block-sparse (BSR) SpMM over cached 128x128 adjacency blocks, for Hopper
+// (sm_90a): float32 blocks (`pgt_bsr_spmm_f32`) and bfloat16 blocks on the
+// tensor cores (`pgt_bsr_spmm_bf16`, at the end of this file).
 //
 //   out[r*128 + i, :] = sum_{k = row_ptr[r]}^{row_ptr[r+1]-1}
 //                       sum_{j < 128} vals[k, i, j] * x[cols[k]*128 + j, :]
@@ -39,6 +40,7 @@
 // Plain C interface, bound from Python with ctypes; every launch returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -218,5 +220,223 @@ extern "C" int pgt_bsr_spmm_f32(const void* row_ptr, const void* cols,
   else
     err = launch<4>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src, f, nb,
                     vec4, s);
+  return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 arm: the TPU kernel's bf16 branch (pytorch_geometric_tpu/ops/
+// bsr_spmm.py:129-140, blocks stored bf16 by fill_cache(cache_dtype=bf16),
+// edge_index.py:444-451), one MXU pass of bf16 blocks times x rounded to bf16
+// with float32 accumulation, the result float32. Here that pass runs on the
+// tensor cores, `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`: a
+// product of two bf16 values is exact in float32, so this is the same sum in
+// another order.
+//
+//   * One CTA per (dst block row, F tile of FT = 16, 32 or 64 columns) loops
+//     over the row's blocks through `row_ptr`, as the float32 kernel does; its
+//     8 warps each own 16 output rows x FT columns in float32 fragments, and
+//     each output tile is written once, with no atomics.
+//   * Per block: the 32 KB bf16 value block is copied with 16-byte `cp.async`
+//     into shared memory (rows padded to 136 bf16, so the fragment loads of a
+//     warp hit 32 distinct banks), and the 128 x FT x tile is read as float32,
+//     rounded to bf16 (`__floats2bfloat162_rn`, the round-to-nearest-even of
+//     `astype`) with zeros past n_src and f, and stored transposed (column n
+//     holds its 128 k values contiguous), which is the layout of the mma's
+//     "col" B fragment. Then 8 k-steps of 16.
+//   * Two blocks are in flight: the next block's values are copied while the
+//     current block's products run (about 100 KB of shared memory at FT = 64,
+//     so two CTAs share an SM).
+//
+// Bound on the card: bytes. At path E's F = 64 (39,439 blocks of 32 KB: 1.29
+// GB per layout, plus 64 MB of x and 64 MB of out) the least time is about
+// (1.29 + 0.064 + 0.064) GB / 3.35 TB/s = 0.42 ms; the 2 * NB * 128^2 * F =
+// 82.7 GFLOP the dense blocks take run at 989 TFLOP/s in about 0.08 ms. x
+// tiles are re-read once per block (as in the float32 kernel) and come mostly
+// from L2. Simple and right first: TMA and wgmma are later work.
+
+namespace {
+
+constexpr int LDH = BS + 8;  // bf16 per staged row: 272 bytes, 16-byte aligned
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c[0..3] += A (16 x 16, row-major fragment a[0..3]) * B (16 x 8, "col"
+// fragment b[0..1]), float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int FT>
+__global__ void __launch_bounds__(kThreads, 2)
+bsr_spmm_bf16_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ cols,
+                     const __nv_bfloat16* __restrict__ vals,
+                     const float* __restrict__ x, float* __restrict__ out,
+                     long long num_out, long long n_src, long long f,
+                     long long nb) {
+  constexpr int NT = FT / 8;  // m16n8 tiles across a warp's FT columns
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem4);  // [2][BS][LDH]
+  __nv_bfloat16* Bs = As + 2 * BS * LDH;  // [2][FT][LDH], Bs[n][k]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group and pair
+  const long long rb = blockIdx.x;
+  const long long f0 = (long long)blockIdx.y * FT;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  const long long kbeg = max((long long)__ldg(row_ptr + rb), 0LL);
+  const long long kend = min((long long)__ldg(row_ptr + rb + 1), nb);
+
+  // value block k into buffer buf: 2048 chunks of 16 bytes, 16 to a row
+  auto stage_a = [&](long long k, int buf) {
+    const char* src = reinterpret_cast<const char*>(vals + k * BS * BS);
+    __nv_bfloat16* dst = As + buf * BS * LDH;
+#pragma unroll
+    for (int q = 0; q < (BS * BS / 8) / kThreads; ++q) {
+      const int idx = tid + q * kThreads;
+      cp_async16(dst + (idx >> 4) * LDH + 8 * (idx & 15),
+                 src + (size_t)idx * 16);
+    }
+  };
+  // x tile of block k into buffer buf, transposed, two k values a word
+  auto stage_b = [&](long long k, int buf) {
+    const long long s0 = (long long)__ldg(cols + k) * BS;
+    __nv_bfloat16* dst = Bs + buf * FT * LDH;
+#pragma unroll 4
+    for (int idx = tid; idx < FT * (BS / 2); idx += kThreads) {
+      const int n = idx % FT, kp = idx / FT;
+      const long long s = s0 + 2 * kp, col = f0 + n;
+      float lo = 0.f, hi = 0.f;
+      if (col < f) {
+        if (s < n_src) lo = __ldg(x + s * f + col);
+        if (s + 1 < n_src) hi = __ldg(x + (s + 1) * f + col);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * LDH + 2 * kp) =
+          __floats2bfloat162_rn(lo, hi);
+    }
+  };
+
+  if (kbeg < kend) {
+    stage_a(kbeg, 0);
+    cp_async_commit();
+    stage_b(kbeg, 0);
+  }
+  for (long long k = kbeg; k < kend; ++k) {
+    const int cur = (int)((k - kbeg) & 1);
+    if (k + 1 < kend) {
+      stage_a(k + 1, cur ^ 1);  // its buffer was last read before the sync
+      cp_async_commit();        // that ended the previous iteration
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // block k's values and x tile are in shared memory
+
+    const __nv_bfloat16* A = As + cur * BS * LDH + warp * 16 * LDH;
+    const __nv_bfloat16* B = Bs + cur * FT * LDH;
+#pragma unroll
+    for (int kk = 0; kk < BS; kk += 16) {
+      uint32_t a[4];
+      a[0] = ld_pair(A + g * LDH + kk + 2 * t);
+      a[1] = ld_pair(A + (g + 8) * LDH + kk + 2 * t);
+      a[2] = ld_pair(A + g * LDH + kk + 8 + 2 * t);
+      a[3] = ld_pair(A + (g + 8) * LDH + kk + 8 + 2 * t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const __nv_bfloat16* bj = B + (j * 8 + g) * LDH + kk + 2 * t;
+        const uint32_t b[2] = {ld_pair(bj), ld_pair(bj + 8)};
+        mma_bf16(acc[j], a, b);
+      }
+    }
+    if (k + 1 < kend) stage_b(k + 1, cur ^ 1);
+    __syncthreads();  // buffer cur is consumed before it is refilled
+  }
+
+  // c[0], c[1]: row g, columns 2t, 2t + 1; c[2], c[3]: row g + 8
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const long long col = f0 + j * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = rb * BS + warp * 16 + g + 8 * h;
+      if (row >= num_out) continue;
+      if (col < f) out[row * f + col] = acc[j][2 * h];
+      if (col + 1 < f) out[row * f + col + 1] = acc[j][2 * h + 1];
+    }
+  }
+}
+
+template <int FT>
+cudaError_t launch_bf16(const int* row_ptr, const int* cols,
+                        const __nv_bfloat16* vals, const float* x, float* out,
+                        long long n_row_blocks, long long num_out,
+                        long long n_src, long long f, long long nb,
+                        cudaStream_t stream) {
+  const size_t smem = (size_t)2 * (BS + FT) * LDH * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      bsr_spmm_bf16_kernel<FT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)n_row_blocks, (unsigned)((f + FT - 1) / FT));
+  bsr_spmm_bf16_kernel<FT><<<grid, kThreads, smem, stream>>>(
+      row_ptr, cols, vals, x, out, num_out, n_src, f, nb);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// As pgt_bsr_spmm_f32, with vals [nb, 128, 128] bfloat16 (16-byte aligned);
+// x stays float32 and is rounded to bf16 on the way in, out is float32.
+extern "C" int pgt_bsr_spmm_bf16(const void* row_ptr, const void* cols,
+                                 const void* vals, const void* x, void* out,
+                                 long long n_row_blocks, long long num_out,
+                                 long long n_src, long long f, long long nb,
+                                 void* stream) {
+  if (n_row_blocks <= 0 || num_out <= 0 || f <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int* rp = static_cast<const int*>(row_ptr);
+  const int* cp = static_cast<const int*>(cols);
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(vals);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  cudaError_t err;
+  if (f <= 16)
+    err = launch_bf16<16>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src,
+                          f, nb, s);
+  else if (f <= 32)
+    err = launch_bf16<32>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src,
+                          f, nb, s);
+  else
+    err = launch_bf16<64>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src,
+                          f, nb, s);
   return (int)err;
 }

@@ -1,5 +1,5 @@
-// Multi-head softmax mix over a destination-sorted CSC, float32, for Hopper
-// (sm_90a):
+// Multi-head softmax mix over a destination-sorted CSC, for Hopper (sm_90a),
+// float32 (`pgt_gat_mix_f32`) and bfloat16 (`pgt_gat_mix_bf16`):
 //
 //   s[d, h]    = sum_{k = indptr[d]}^{indptr[d+1]-1} p_s[k, h]
 //   u[d, h, :] = sum_{k = indptr[d]}^{indptr[d+1]-1} p_u[k, h] * v[src[k], h, :]
@@ -34,92 +34,55 @@
 // from device memory when it does not. The edge loop is unrolled by four so
 // that four independent row loads are in flight per lane.
 //
+// The bf16 arm takes p_s, p_u and v all bf16 (what `_gat_mix` feeds the
+// kernel when all three are bf16, ops/gat_fused.py:76-81, whose messages
+// `p_u * v[src]` XLA forms in bf16): each message is bf16(p_u * v), the
+// sums run in float32 and s and u are rounded to bf16 once, on the store.
+//
 // Plain C interface, bound from Python with ctypes; every launch returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "vec.cuh"
+
 namespace {
 
-template <int VEC>
-struct Vec {
-  float v[VEC];
-};
-
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> load_vec(const float* __restrict__ p);
-
-template <>
-__device__ __forceinline__ Vec<4> load_vec<4>(const float* __restrict__ p) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  Vec<4> r;
-  r.v[0] = t.x;
-  r.v[1] = t.y;
-  r.v[2] = t.z;
-  r.v[3] = t.w;
-  return r;
-}
-
-template <>
-__device__ __forceinline__ Vec<2> load_vec<2>(const float* __restrict__ p) {
-  const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-  Vec<2> r;
-  r.v[0] = t.x;
-  r.v[1] = t.y;
-  return r;
-}
-
-template <>
-__device__ __forceinline__ Vec<1> load_vec<1>(const float* __restrict__ p) {
-  Vec<1> r;
-  r.v[0] = __ldg(p);
-  return r;
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float* acc);
-
-template <>
-__device__ __forceinline__ void store_vec<4>(float* __restrict__ p, const float* acc) {
-  *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-}
-
-template <>
-__device__ __forceinline__ void store_vec<2>(float* __restrict__ p, const float* acc) {
-  *reinterpret_cast<float2*>(p) = make_float2(acc[0], acc[1]);
-}
-
-template <>
-__device__ __forceinline__ void store_vec<1>(float* __restrict__ p, const float* acc) {
-  *p = acc[0];
-}
+using pgt::load_vec;
+using pgt::Msg;
+using pgt::store_vec;
+using pgt::to_float;
 
 // One slot's message for this lane's columns: p_u[k, head] * v[src[k], col:]
-// accumulated into acc; nothing for an inactive lane or a source out of range.
-template <int VEC>
+// added to acc; nothing for an inactive lane or a source out of range.
+template <typename T, int VEC>
 __device__ __forceinline__ void mix_slot(float* acc, const int* __restrict__ src,
-                                         const float* __restrict__ p_u,
-                                         const float* __restrict__ v, long long k,
+                                         const T* __restrict__ p_u,
+                                         const T* __restrict__ v, long long k,
                                          long long n_src, long long hf, int h,
                                          int head, long long col, bool active) {
   const int s = __ldg(src + k);
   if (!active || s < 0 || s >= n_src) return;
-  const float w = __ldg(p_u + k * h + head);
-  const Vec<VEC> t = load_vec<VEC>(v + (long long)s * hf + col);
+  const float w = to_float(p_u[k * h + head]);
+  float t[VEC];
+  load_vec<T, VEC>(v + (long long)s * hf + col, t);
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = fmaf(w, t.v[i], acc[i]);
+  for (int i = 0; i < VEC; ++i) acc[i] = Msg<T>::add(acc[i], w, t[i], true);
 }
 
 constexpr int kThreads = 256;
 
-template <int VEC, int LANES>
+template <typename T, int VEC, int LANES>
 __global__ void __launch_bounds__(kThreads)
-gat_mix_f32_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
-                   const float* __restrict__ p_s, const float* __restrict__ p_u,
-                   const float* __restrict__ v, float* __restrict__ s_out,
-                   float* __restrict__ u_out, long long n_dst, long long n_src,
-                   long long n_edges, int h, int f) {
+gat_mix_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
+               const T* __restrict__ p_s, const T* __restrict__ p_u,
+               const T* __restrict__ v, T* __restrict__ s_out,
+               T* __restrict__ u_out, long long n_dst, long long n_src,
+               long long n_edges, int h, int f) {
   constexpr int kRowsPerWarp = 32 / LANES;
   const int lane = threadIdx.x & 31;
   const long long warp =
@@ -134,8 +97,8 @@ gat_mix_f32_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
   if (s_out != nullptr) {
     for (int c = glane; c < h; c += LANES) {
       float acc = 0.f;
-      for (long long k = beg; k < end; ++k) acc += __ldg(p_s + k * h + c);
-      s_out[row * h + c] = acc;
+      for (long long k = beg; k < end; ++k) acc += to_float(p_s[k * h + c]);
+      store_vec<T, 1>(s_out + row * h + c, &acc);
     }
   }
   if (u_out == nullptr) return;
@@ -153,40 +116,42 @@ gat_mix_f32_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
 
     long long k = beg;
     for (; k + 4 <= end; k += 4) {
-      mix_slot<VEC>(acc, src, p_u, v, k, n_src, hf, h, head, col, active);
-      mix_slot<VEC>(acc, src, p_u, v, k + 1, n_src, hf, h, head, col, active);
-      mix_slot<VEC>(acc, src, p_u, v, k + 2, n_src, hf, h, head, col, active);
-      mix_slot<VEC>(acc, src, p_u, v, k + 3, n_src, hf, h, head, col, active);
+      mix_slot<T, VEC>(acc, src, p_u, v, k, n_src, hf, h, head, col, active);
+      mix_slot<T, VEC>(acc, src, p_u, v, k + 1, n_src, hf, h, head, col,
+                       active);
+      mix_slot<T, VEC>(acc, src, p_u, v, k + 2, n_src, hf, h, head, col,
+                       active);
+      mix_slot<T, VEC>(acc, src, p_u, v, k + 3, n_src, hf, h, head, col,
+                       active);
     }
     for (; k < end; ++k)
-      mix_slot<VEC>(acc, src, p_u, v, k, n_src, hf, h, head, col, active);
-    if (active) store_vec<VEC>(u_out + row * hf + col, acc);
+      mix_slot<T, VEC>(acc, src, p_u, v, k, n_src, hf, h, head, col, active);
+    if (active) store_vec<T, VEC>(u_out + row * hf + col, acc);
   }
 }
 
-template <int VEC, int LANES>
-cudaError_t launch(const int* indptr, const int* src, const float* p_s,
-                   const float* p_u, const float* v, float* s_out,
-                   float* u_out, long long n_dst, long long n_src,
-                   long long n_edges, int h, int f, cudaStream_t stream) {
+template <typename T, int VEC, int LANES>
+cudaError_t launch(const int* indptr, const int* src, const T* p_s,
+                   const T* p_u, const T* v, T* s_out, T* u_out,
+                   long long n_dst, long long n_src, long long n_edges, int h,
+                   int f, cudaStream_t stream) {
   constexpr long long kRowsPerBlock = (kThreads / 32) * (32 / LANES);
   const long long blocks = (n_dst + kRowsPerBlock - 1) / kRowsPerBlock;
-  gat_mix_f32_kernel<VEC, LANES><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  gat_mix_kernel<T, VEC, LANES><<<(unsigned)blocks, kThreads, 0, stream>>>(
       indptr, src, p_s, p_u, v, s_out, u_out, n_dst, n_src, n_edges, h, f);
   return cudaGetLastError();
 }
 
 // Lanes per row: the smallest power of two that covers the row's widest
 // pass (the vector columns of u, or the H heads of s), at most a warp.
-template <int VEC>
+template <typename T, int VEC>
 cudaError_t dispatch(long long width, const int* indptr, const int* src,
-                     const float* p_s, const float* p_u, const float* v,
-                     float* s_out, float* u_out, long long n_dst,
-                     long long n_src, long long n_edges, int h, int f,
-                     cudaStream_t stream) {
-#define PGT_LAUNCH(L)                                                        \
-  return launch<VEC, L>(indptr, src, p_s, p_u, v, s_out, u_out, n_dst, n_src, \
-                        n_edges, h, f, stream)
+                     const T* p_s, const T* p_u, const T* v, T* s_out,
+                     T* u_out, long long n_dst, long long n_src,
+                     long long n_edges, int h, int f, cudaStream_t stream) {
+#define PGT_LAUNCH(L)                                                      \
+  return launch<T, VEC, L>(indptr, src, p_s, p_u, v, s_out, u_out, n_dst, \
+                           n_src, n_edges, h, f, stream)
   if (width <= 1) PGT_LAUNCH(1);
   if (width <= 2) PGT_LAUNCH(2);
   if (width <= 4) PGT_LAUNCH(4);
@@ -198,6 +163,45 @@ cudaError_t dispatch(long long width, const int* indptr, const int* src,
 
 bool aligned(const void* p, int bytes) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The widest vector (at most 16 bytes, in `vecs`, widest first) that F
+// divides and v and u are aligned to; then the launch over the row's
+// widest pass.
+template <typename T>
+cudaError_t run(const void* indptr, const void* src, const void* p_s,
+                const void* p_u, const void* v, void* s_out, void* u_out,
+                long long n_dst, long long n_src, long long n_edges, int h,
+                int f, void* stream) {
+  if (n_dst <= 0 || h <= 0 || (s_out == nullptr && u_out == nullptr))
+    return cudaSuccess;
+  if (u_out != nullptr && f <= 0) u_out = nullptr;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(indptr);
+  const int* sp = static_cast<const int*>(src);
+  const T* ps = static_cast<const T*>(p_s);
+  const T* pu = static_cast<const T*>(p_u);
+  const T* vp = static_cast<const T*>(v);
+  T* so = static_cast<T*>(s_out);
+  T* uo = static_cast<T*>(u_out);
+  const long long hs = so ? h : 0;
+  const long long hf = uo ? (long long)h * f : 0;
+  constexpr int kMax = 16 / (int)sizeof(T);  // 4 floats or 8 bf16
+  auto fits = [&](int vec) {
+    const int bytes = vec * (int)sizeof(T);
+    return f % vec == 0 && aligned(vp, bytes) && aligned(uo, bytes);
+  };
+  auto go = [&](auto vec_tag) {
+    constexpr int VEC = decltype(vec_tag)::value;
+    const long long width = hf / VEC > hs ? hf / VEC : hs;
+    return dispatch<T, VEC>(width, ip, sp, ps, pu, vp, so, uo, n_dst, n_src,
+                            n_edges, h, f, st);
+  };
+  if (fits(kMax)) return go(std::integral_constant<int, kMax>());
+  if (fits(kMax / 2)) return go(std::integral_constant<int, kMax / 2>());
+  if (kMax / 4 > 1 && fits(kMax / 4))
+    return go(std::integral_constant<int, (kMax / 4 > 1 ? kMax / 4 : 1)>());
+  return go(std::integral_constant<int, 1>());
 }
 
 }  // namespace
@@ -213,33 +217,18 @@ extern "C" int pgt_gat_mix_f32(const void* indptr, const void* src,
                                long long n_dst, long long n_src,
                                long long n_edges, int h, int f,
                                void* stream) {
-  if (n_dst <= 0 || h <= 0 || (s_out == nullptr && u_out == nullptr))
-    return (int)cudaSuccess;
-  if (u_out != nullptr && f <= 0) u_out = nullptr;
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int* ip = static_cast<const int*>(indptr);
-  const int* sp = static_cast<const int*>(src);
-  const float* ps = static_cast<const float*>(p_s);
-  const float* pu = static_cast<const float*>(p_u);
-  const float* vp = static_cast<const float*>(v);
-  float* so = static_cast<float*>(s_out);
-  float* uo = static_cast<float*>(u_out);
-  const long long hs = so ? h : 0;
-  const long long hf = uo ? (long long)h * f : 0;
-  // vector loads need F a multiple of the vector (so none straddles two
-  // heads or two rows) and v and u aligned to it; else narrower ones
-  const int vec = (f % 4 == 0 && aligned(vp, 16) && aligned(uo, 16)) ? 4
-                  : (f % 2 == 0 && aligned(vp, 8) && aligned(uo, 8)) ? 2
-                                                                     : 1;
-  cudaError_t err;
-  if (vec == 4)
-    err = dispatch<4>(hf / 4 > hs ? hf / 4 : hs, ip, sp, ps, pu, vp, so, uo,
-                      n_dst, n_src, n_edges, h, f, st);
-  else if (vec == 2)
-    err = dispatch<2>(hf / 2 > hs ? hf / 2 : hs, ip, sp, ps, pu, vp, so, uo,
-                      n_dst, n_src, n_edges, h, f, st);
-  else
-    err = dispatch<1>(hf > hs ? hf : hs, ip, sp, ps, pu, vp, so, uo, n_dst,
-                      n_src, n_edges, h, f, st);
-  return (int)err;
+  return (int)run<float>(indptr, src, p_s, p_u, v, s_out, u_out, n_dst,
+                         n_src, n_edges, h, f, stream);
+}
+
+// The same with p_s, p_u, v, s_out and u_out all bfloat16: messages
+// bf16(p_u * v), float32 sums, s and u rounded once.
+extern "C" int pgt_gat_mix_bf16(const void* indptr, const void* src,
+                                const void* p_s, const void* p_u,
+                                const void* v, void* s_out, void* u_out,
+                                long long n_dst, long long n_src,
+                                long long n_edges, int h, int f,
+                                void* stream) {
+  return (int)run<__nv_bfloat16>(indptr, src, p_s, p_u, v, s_out, u_out,
+                                 n_dst, n_src, n_edges, h, f, stream);
 }

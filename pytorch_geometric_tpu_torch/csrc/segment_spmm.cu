@@ -1,4 +1,5 @@
-// Segment-sum SpMM over a destination-sorted CSC, float32, for Hopper (sm_90a).
+// Segment-sum SpMM over a destination-sorted CSC, for Hopper (sm_90a):
+// float32 (`pgt_segment_spmm_f32`) and bfloat16 (`pgt_segment_spmm_bf16`).
 //
 //   out[d, :] = sum_{k = indptr[d]}^{indptr[d+1]-1} w[k] * x[src[k], :]
 //
@@ -27,84 +28,70 @@
 // The edge loop is unrolled by four so that four independent row loads are in
 // flight per lane.
 //
+// The bf16 arm is the TPU kernel's bf16-message path (ops/pallas_spmm.py:
+// 199-229: bf16 messages streamed, widened on chip, summed in float32, the
+// result in the messages' dtype). Each message is formed as XLA forms
+// `x[src] * w` in bf16: the product of two bf16 values (exact in float32)
+// rounded once to bf16, or x itself when w is absent; the sum runs in float32
+// registers and is rounded to bf16 once, on the store. Rows move 8 bf16 (16
+// bytes) or 4 (8 bytes) a lane, so the gathered bytes are half the float32
+// arm's.
+//
 // Plain C interface, bound from Python with ctypes; every launch returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec.cuh"
+
 namespace {
 
-template <int VEC>
-struct Vec {
-  float v[VEC];
-};
+using pgt::load_vec;
+using pgt::Msg;
+using pgt::store_vec;
 
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> load_vec(const float* __restrict__ p);
-
-template <>
-__device__ __forceinline__ Vec<4> load_vec<4>(const float* __restrict__ p) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  Vec<4> r;
-  r.v[0] = t.x;
-  r.v[1] = t.y;
-  r.v[2] = t.z;
-  r.v[3] = t.w;
-  return r;
+// The edge weight as float32, 1 when there is none.
+__device__ __forceinline__ float weight_of(const float* __restrict__ w,
+                                           long long k) {
+  return w ? __ldg(w + k) : 1.f;
 }
 
-template <>
-__device__ __forceinline__ Vec<1> load_vec<1>(const float* __restrict__ p) {
-  Vec<1> r;
-  r.v[0] = __ldg(p);
-  return r;
+__device__ __forceinline__ float weight_of(const __nv_bfloat16* __restrict__ w,
+                                           long long k) {
+  return w ? __bfloat162float(w[k]) : 1.f;
 }
 
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> load_or_zero(const float* __restrict__ x,
-                                                 int s, long long n_src,
-                                                 long long f, long long col,
-                                                 bool active) {
+template <typename T, int VEC>
+__device__ __forceinline__ void load_or_zero(const T* __restrict__ x, int s,
+                                             long long n_src, long long f,
+                                             long long col, bool active,
+                                             float* v) {
   if (active && s >= 0 && s < n_src) {
-    return load_vec<VEC>(x + (long long)s * f + col);
+    load_vec<T, VEC>(x + (long long)s * f + col, v);
+    return;
   }
-  Vec<VEC> z;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) z.v[i] = 0.f;
-  return z;
+  for (int i = 0; i < VEC; ++i) v[i] = 0.f;
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float* acc);
-
-template <>
-__device__ __forceinline__ void store_vec<4>(float* __restrict__ p, const float* acc) {
-  *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-}
-
-template <>
-__device__ __forceinline__ void store_vec<1>(float* __restrict__ p, const float* acc) {
-  *p = acc[0];
-}
-
-template <int VEC>
-__device__ __forceinline__ void fma_vec(float* acc, float wk, const Vec<VEC>& t) {
+template <typename T, int VEC>
+__device__ __forceinline__ void add_vec(float* acc, float wk, const float* t,
+                                        bool weighted) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wk, t.v[i], acc[i]);
+  for (int i = 0; i < VEC; ++i) acc[i] = Msg<T>::add(acc[i], wk, t[i], weighted);
 }
 
 constexpr int kThreads = 256;
 
-template <int VEC, int LANES>
+template <typename T, int VEC, int LANES>
 __global__ void __launch_bounds__(kThreads)
-segment_spmm_f32_kernel(const int* __restrict__ indptr,
-                        const int* __restrict__ src,
-                        const float* __restrict__ w,
-                        const float* __restrict__ x,
-                        float* __restrict__ out,
-                        long long n_dst, long long n_src, long long f,
-                        long long n_edges) {
+segment_spmm_kernel(const int* __restrict__ indptr,
+                    const int* __restrict__ src, const T* __restrict__ w,
+                    const T* __restrict__ x, T* __restrict__ out,
+                    long long n_dst, long long n_src, long long f,
+                    long long n_edges) {
   constexpr int kRowsPerWarp = 32 / LANES;
   const int lane = threadIdx.x & 31;
   const long long warp =
@@ -116,6 +103,7 @@ segment_spmm_f32_kernel(const int* __restrict__ indptr,
       min(max((long long)__ldg(indptr + row), 0LL), n_edges);
   const long long end = min((long long)__ldg(indptr + row + 1), n_edges);
   const long long fv = f / VEC;  // vector columns in a row
+  const bool weighted = w != nullptr;
 
   for (long long c0 = 0; c0 < fv; c0 += LANES) {
     const long long c = c0 + glane;
@@ -131,54 +119,62 @@ segment_spmm_f32_kernel(const int* __restrict__ indptr,
       const int s1 = __ldg(src + k + 1);
       const int s2 = __ldg(src + k + 2);
       const int s3 = __ldg(src + k + 3);
-      const float w0 = w ? __ldg(w + k) : 1.f;
-      const float w1 = w ? __ldg(w + k + 1) : 1.f;
-      const float w2 = w ? __ldg(w + k + 2) : 1.f;
-      const float w3 = w ? __ldg(w + k + 3) : 1.f;
-      const Vec<VEC> t0 = load_or_zero<VEC>(x, s0, n_src, f, col, active);
-      const Vec<VEC> t1 = load_or_zero<VEC>(x, s1, n_src, f, col, active);
-      const Vec<VEC> t2 = load_or_zero<VEC>(x, s2, n_src, f, col, active);
-      const Vec<VEC> t3 = load_or_zero<VEC>(x, s3, n_src, f, col, active);
-      fma_vec<VEC>(acc, w0, t0);
-      fma_vec<VEC>(acc, w1, t1);
-      fma_vec<VEC>(acc, w2, t2);
-      fma_vec<VEC>(acc, w3, t3);
+      const float w0 = weight_of(w, k);
+      const float w1 = weight_of(w, k + 1);
+      const float w2 = weight_of(w, k + 2);
+      const float w3 = weight_of(w, k + 3);
+      float t0[VEC], t1[VEC], t2[VEC], t3[VEC];
+      load_or_zero<T, VEC>(x, s0, n_src, f, col, active, t0);
+      load_or_zero<T, VEC>(x, s1, n_src, f, col, active, t1);
+      load_or_zero<T, VEC>(x, s2, n_src, f, col, active, t2);
+      load_or_zero<T, VEC>(x, s3, n_src, f, col, active, t3);
+      add_vec<T, VEC>(acc, w0, t0, weighted);
+      add_vec<T, VEC>(acc, w1, t1, weighted);
+      add_vec<T, VEC>(acc, w2, t2, weighted);
+      add_vec<T, VEC>(acc, w3, t3, weighted);
     }
     for (; k < end; ++k) {
       const int s = __ldg(src + k);
-      const float wk = w ? __ldg(w + k) : 1.f;
-      fma_vec<VEC>(acc, wk, load_or_zero<VEC>(x, s, n_src, f, col, active));
+      const float wk = weight_of(w, k);
+      float t[VEC];
+      load_or_zero<T, VEC>(x, s, n_src, f, col, active, t);
+      add_vec<T, VEC>(acc, wk, t, weighted);
     }
-    if (active) store_vec<VEC>(out + row * f + col, acc);
+    if (active) store_vec<T, VEC>(out + row * f + col, acc);
   }
 }
 
-template <int VEC, int LANES>
-cudaError_t launch(const int* indptr, const int* src, const float* w,
-                   const float* x, float* out, long long n_dst,
-                   long long n_src, long long f, long long n_edges,
-                   cudaStream_t stream) {
+template <typename T, int VEC, int LANES>
+cudaError_t launch(const int* indptr, const int* src, const T* w, const T* x,
+                   T* out, long long n_dst, long long n_src, long long f,
+                   long long n_edges, cudaStream_t stream) {
   constexpr long long kRowsPerBlock = (kThreads / 32) * (32 / LANES);
   const long long blocks = (n_dst + kRowsPerBlock - 1) / kRowsPerBlock;
-  segment_spmm_f32_kernel<VEC, LANES><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  segment_spmm_kernel<T, VEC, LANES><<<(unsigned)blocks, kThreads, 0, stream>>>(
       indptr, src, w, x, out, n_dst, n_src, f, n_edges);
   return cudaGetLastError();
 }
 
 // Lanes per row: the smallest power of two that covers the row's vector
 // columns, at most a whole warp.
-template <int VEC>
-cudaError_t dispatch(const int* indptr, const int* src, const float* w,
-                     const float* x, float* out, long long n_dst,
-                     long long n_src, long long f, long long n_edges,
-                     cudaStream_t stream) {
+template <typename T, int VEC>
+cudaError_t dispatch(const int* indptr, const int* src, const T* w,
+                     const T* x, T* out, long long n_dst, long long n_src,
+                     long long f, long long n_edges, cudaStream_t stream) {
   const long long fv = f / VEC;
-  if (fv <= 1) return launch<VEC, 1>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream);
-  if (fv <= 2) return launch<VEC, 2>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream);
-  if (fv <= 4) return launch<VEC, 4>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream);
-  if (fv <= 8) return launch<VEC, 8>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream);
-  if (fv <= 16) return launch<VEC, 16>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream);
-  return launch<VEC, 32>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream);
+#define PGT_LAUNCH(L) \
+  return launch<T, VEC, L>(indptr, src, w, x, out, n_dst, n_src, f, n_edges, stream)
+  if (fv <= 1) PGT_LAUNCH(1);
+  if (fv <= 2) PGT_LAUNCH(2);
+  if (fv <= 4) PGT_LAUNCH(4);
+  if (fv <= 8) PGT_LAUNCH(8);
+  if (fv <= 16) PGT_LAUNCH(16);
+  PGT_LAUNCH(32);
+#undef PGT_LAUNCH
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
@@ -200,10 +196,37 @@ extern "C" int pgt_segment_spmm_f32(const void* indptr, const void* src,
   float* op = static_cast<float*>(out);
   // 16-byte vector loads need a row stride and both bases that are multiples
   // of four floats; anything else takes the scalar path.
-  const bool vec4 = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec4 = f % 4 == 0 && aligned(x, 16) && aligned(out, 16);
   const cudaError_t err =
-      vec4 ? dispatch<4>(ip, sp, wp, xp, op, n_dst, n_src, f, n_edges, s)
-           : dispatch<1>(ip, sp, wp, xp, op, n_dst, n_src, f, n_edges, s);
+      vec4 ? dispatch<float, 4>(ip, sp, wp, xp, op, n_dst, n_src, f, n_edges, s)
+           : dispatch<float, 1>(ip, sp, wp, xp, op, n_dst, n_src, f, n_edges, s);
+  return (int)err;
+}
+
+// The same with w [n_edges] bfloat16 or null, x [n_src, f] and out [n_dst, f]
+// bfloat16: messages bf16(w * x), float32 sums, out rounded once.
+extern "C" int pgt_segment_spmm_bf16(const void* indptr, const void* src,
+                                     const void* w, const void* x, void* out,
+                                     long long n_dst, long long n_src,
+                                     long long f, long long n_edges,
+                                     void* stream) {
+  if (n_dst <= 0 || f <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(indptr);
+  const int* sp = static_cast<const int*>(src);
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+  // 16-byte loads of 8 values, else 8-byte loads of 4, else scalars
+  cudaError_t err;
+  if (f % 8 == 0 && aligned(x, 16) && aligned(out, 16))
+    err = dispatch<__nv_bfloat16, 8>(ip, sp, wp, xp, op, n_dst, n_src, f,
+                                     n_edges, s);
+  else if (f % 4 == 0 && aligned(x, 8) && aligned(out, 8))
+    err = dispatch<__nv_bfloat16, 4>(ip, sp, wp, xp, op, n_dst, n_src, f,
+                                     n_edges, s);
+  else
+    err = dispatch<__nv_bfloat16, 1>(ip, sp, wp, xp, op, n_dst, n_src, f,
+                                     n_edges, s);
   return (int)err;
 }

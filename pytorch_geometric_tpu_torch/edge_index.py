@@ -21,14 +21,19 @@ the Hopper kernels read plain CSC, so a :class:`Slots` is the CSC (and
 ``blocked_t`` the CSR) in slot order, with the maps between slots and
 edges that the JAX layout carries (``perm``, ``inv_pos``, ``t_pos``).
 
-``fill_cache(dense_weight=..., block_sparse=...)`` may bake the weighted
-adjacency into a block-sparse cache (``ops/bsr_spmm.py``): the forward and
-transposed block layouts ``bsr`` / ``bsr_t``, the residual edges
-``bsr_res`` (an EdgeIndex of its own, in original ids, with its weights
-carried) and, when a hubs-first relabel was baked in, ``bsr_perm`` /
-``bsr_inv`` (``perm[new] = old``).
+``fill_cache(dense_weight=..., block_sparse=..., cache_dtype=...)`` bakes
+the weighted adjacency, in the JAX package's order: a dense ``dense_adj``
+``[n_dst, n_src]`` (float32, bfloat16, or int8 with the two-sided scales
+``dense_scale``, ``ops/dense_spmm.py``) while ``n_src * n_dst`` is within the
+cap, else a block-sparse cache (``ops/bsr_spmm.py``): the forward and
+transposed block layouts ``bsr`` / ``bsr_t`` (float32 or bfloat16 blocks),
+the residual edges ``bsr_res`` (an EdgeIndex of its own, in original ids,
+with its weights carried) and, when a hubs-first relabel was baked in,
+``bsr_perm`` / ``bsr_inv`` (``perm[new] = old``). Weights that neither
+cache takes are carried as ``weight``.
 """
 
+import os
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -36,9 +41,16 @@ import torch
 
 from .backend import resolve_device
 
-# The JAX package bakes a dense [ns, nd] adjacency up to this many entries
-# (PGT_DENSE_SPMM_ENTRIES' default); past it, fill_cache considers blocks.
+# fill_cache bakes a dense [nd, ns] adjacency up to this many entries, read
+# from PGT_DENSE_SPMM_ENTRIES at call time as in the JAX package
+# (edge_index.py:372); past it, it considers blocks.
 DENSE_MAX_ENTRIES = 250_000_000
+
+
+def dense_cap() -> int:
+    """The dense cache's entry cap: ``PGT_DENSE_SPMM_ENTRIES`` when set."""
+    return int(float(os.environ.get('PGT_DENSE_SPMM_ENTRIES',
+                                    DENSE_MAX_ENTRIES)))
 
 
 class CSR(NamedTuple):
@@ -95,7 +107,10 @@ class EdgeIndex:
                  bsr_perm: Optional[torch.Tensor] = None,
                  bsr_inv: Optional[torch.Tensor] = None,
                  blocked: Optional[Slots] = None,
-                 blocked_t: Optional[Slots] = None):
+                 blocked_t: Optional[Slots] = None,
+                 dense_adj: Optional[torch.Tensor] = None,
+                 dense_scale: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None):
         if device is None and isinstance(coo, torch.Tensor):
             device = coo.device
         self.device = resolve_device(device)
@@ -124,6 +139,12 @@ class EdgeIndex:
         self.bsr_perm, self.bsr_inv = bsr_perm, bsr_inv
         # the slot orders of the fused attention aggregation
         self.blocked, self.blocked_t = blocked, blocked_t
+        # the dense cache (ops/dense_spmm.py), weights baked in: [nd, ns];
+        # int8 with its scales (r [nd], c [ns]), A ~= diag(r) Q diag(c)
+        self.dense_adj, self.dense_scale = dense_adj, dense_scale
+        # an int8 cache's transpose, materialised at the first flip: the
+        # card's int8 matmul takes a row-major left operand
+        self._dense_t: Optional[torch.Tensor] = None
 
     # -- basic accessors ----------------------------------------------------
     @property
@@ -150,10 +171,12 @@ class EdgeIndex:
         return self.coo[i]
 
     def __repr__(self):
+        dense = None if self.dense_adj is None else self.dense_adj.dtype
         return (f'EdgeIndex(E={self.num_edges}, '
                 f'sparse_size={self.sparse_size}, device={self.device}, '
                 f"csr={'cached' if self.csr is not None else None}, "
                 f"csc={'cached' if self.csc is not None else None}, "
+                f'dense={dense}, '
                 f"bsr={'cached' if self.bsr is not None else None})")
 
     # -- cached orientations ------------------------------------------------
@@ -173,40 +196,55 @@ class EdgeIndex:
                    windowed: Optional[bool] = None) -> 'EdgeIndex':
         """Return a copy with both CSR and CSC materialised, the slot
         orders ``blocked`` / ``blocked_t`` built when ``blocked``, and
-        ``dense_weight`` ([E] per-edge weights, COO order) cached. The
-        parameters come in the JAX package's order.
+        ``dense_weight`` ([E] per-edge weights, COO order) baked or
+        carried. The parameters come in the JAX package's order.
 
-        As in the JAX package (``edge_index.py:360-470``): with
-        ``block_sparse=True``, or with ``block_sparse=None`` when
-        ``ns * nd`` exceeds the dense cap and the blocks pay
-        (``bsr_profitable``), the weights are baked into a block-sparse
-        cache and not carried. Otherwise (where the JAX package bakes a
-        dense adjacency, which the port has not yet, or declines to bake)
-        they are carried as ``weight`` for the sparse path. The dense-cache
-        dtypes, windowed and auto caches are not ported yet and raise."""
-        if cache_dtype is not None:
-            _not_ported('fill_cache(cache_dtype=...)',
-                        'Queue 1, item 3: the dense bf16/int8 regimes, and '
-                        'Queue 2, kernel 2 bf16')
+        The decision is the JAX package's (``edge_index.py:364-470``):
+
+          * ``n_src * n_dst`` within :func:`dense_cap` and not
+            ``block_sparse``: a dense adjacency ``dense_adj``, stored as
+            ``cache_dtype`` (``None`` or ``torch.float32``,
+            ``torch.bfloat16``, or ``torch.int8`` with ``dense_scale``; the
+            int8 cache serves inference only);
+          * else, unless ``block_sparse=False``: the block-sparse cache when
+            forced (``block_sparse=True``) or when the blocks pay
+            (``bsr_profitable``), its blocks ``torch.bfloat16`` when
+            ``cache_dtype`` says so (float32 otherwise);
+          * weights that no cache took are carried as ``weight`` for the
+            sparse path. New weights replace carried ones either way: a
+            baked cache drops them (the block cache's residual keeps its
+            own weights), else ``dense_weight`` is carried in their place.
+
+        The windowed and auto caches are not ported yet and raise."""
         if windowed:
             _not_ported('fill_cache(windowed=True)',
                         'Queue 1, item 3: the windowed regime')
         if auto:
             _not_ported('fill_cache(auto=True)',
                         'Queue 1, item 3: the regime policy')
+        if cache_dtype not in (None, torch.float32, torch.bfloat16,
+                               torch.int8):
+            raise ValueError(f'fill_cache: cache_dtype {cache_dtype} is not '
+                             'one of float32, bfloat16, int8')
         weight = self.weight
+        dense, scale = self.dense_adj, self.dense_scale
         bsr = dict(bsr=self.bsr, bsr_t=self.bsr_t, bsr_res=self.bsr_res,
                    bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv)
-        if dense_weight is not None and self.bsr is None:
+        if dense_weight is not None and dense is None and self.bsr is None:
             ns, nd = self.sparse_size
-            baked = None
-            if block_sparse or (block_sparse is None
-                                and ns * nd > DENSE_MAX_ENTRIES):
-                baked = self._bake_bsr(dense_weight, force=bool(block_sparse))
-            if baked is None:
-                weight = torch.as_tensor(dense_weight, device=self.device)
-            else:
-                bsr, weight = baked, None
+            if ns * nd <= dense_cap() and not block_sparse:
+                from .ops.dense_spmm import build_dense_cache
+                dense, scale = build_dense_cache(
+                    self.coo, torch.as_tensor(dense_weight,
+                                              device=self.device),
+                    ns, nd, cache_dtype)
+            elif block_sparse is not False:
+                baked = self._bake_bsr(dense_weight, bool(block_sparse),
+                                       cache_dtype == torch.bfloat16)
+                if baked is not None:
+                    bsr = baked
+            weight = (None if dense is not None or bsr['bsr'] is not None
+                      else torch.as_tensor(dense_weight, device=self.device))
         csr, csc = self.get_csr(), self.get_csc()
         blk, blk_t = self.blocked, self.blocked_t
         if blocked and blk is None:
@@ -214,12 +252,12 @@ class EdgeIndex:
         return EdgeIndex(self.coo, self.sparse_size, csr=csr, csc=csc,
                          num_real_edges=self.num_real_edges, weight=weight,
                          device=self.device, blocked=blk, blocked_t=blk_t,
-                         **bsr)
+                         dense_adj=dense, dense_scale=scale, **bsr)
 
-    def _bake_bsr(self, dense_weight, force: bool):
+    def _bake_bsr(self, dense_weight, force: bool, bf16: bool):
         """The block-sparse cache of ``dense_weight`` (a dict of the
-        ``bsr*`` fields), or ``None`` when it is not forced and does not
-        pay."""
+        ``bsr*`` fields), its blocks bfloat16 when ``bf16``, or ``None``
+        when it is not forced and does not pay."""
         from .ops.bsr_spmm import (bsr_profitable, build_bsr_pair,
                                    choose_block_order)
         ns, nd = self.sparse_size
@@ -239,6 +277,11 @@ class EdgeIndex:
             return None
         fwd, bwd, res = build_bsr_pair(coo, w, ns, nd, device=self.device,
                                        in_blk=in_blk)
+        if bf16:
+            # the blocks are summed and stored float32 first, then rounded:
+            # the JAX package's double rounding (edge_index.py:444-451)
+            fwd = fwd._replace(vals=fwd.vals.to(torch.bfloat16))
+            bwd = bwd._replace(vals=bwd.vals.to(torch.bfloat16))
         out = dict(bsr=fwd, bsr_t=bwd, bsr_res=None, bsr_perm=None,
                    bsr_inv=None)
         if res is not None:
@@ -247,11 +290,12 @@ class EdgeIndex:
                 # residual back to the original ids: x and out are not
                 # permuted on the gather path
                 r_src, r_dst = perm[r_src], perm[r_dst]
+            # its weights carried, for the segment-sum kernel
             out['bsr_res'] = EdgeIndex(
                 np.stack([r_src, r_dst]).astype(np.int32), (ns, nd),
-                device=self.device).fill_cache(blocked=False,
-                                               dense_weight=r_w,
-                                               block_sparse=False)
+                device=self.device,
+                weight=torch.as_tensor(r_w, device=self.device)).fill_cache(
+                    blocked=False)
         if perm is not None:
             out['bsr_perm'] = torch.as_tensor(perm, device=self.device)
             out['bsr_inv'] = torch.as_tensor(inv, device=self.device)
@@ -260,17 +304,34 @@ class EdgeIndex:
     def flip(self) -> 'EdgeIndex':
         """Transpose: swap src/dst, swap cached orientations, slot orders
         and block layouts, and flip the residual. A relabel is square, so
-        ``A^T`` keeps the same ``bsr_perm``."""
-        return EdgeIndex(self.coo.flip(0),
-                         (self.sparse_size[1], self.sparse_size[0]),
-                         csr=self.csc, csc=self.csr,
-                         num_real_edges=self.num_real_edges,
-                         weight=self.weight, device=self.device,
-                         bsr=self.bsr_t, bsr_t=self.bsr,
-                         bsr_res=(None if self.bsr_res is None
-                                  else self.bsr_res.flip()),
-                         bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv,
-                         blocked=self.blocked_t, blocked_t=self.blocked)
+        ``A^T`` keeps the same ``bsr_perm``. The dense cache becomes its
+        transpose (a view, or for int8 the copy kept at the first flip),
+        and ``A = diag(r) Q diag(c)`` gives ``A^T = diag(c) Q^T diag(r)``:
+        the scale pair swaps."""
+        dense = self.dense_adj
+        if dense is not None:
+            if dense.dtype == torch.int8:
+                if self._dense_t is None:
+                    self._dense_t = dense.t().contiguous()
+                dense = self._dense_t
+            else:
+                dense = dense.t()
+        out = EdgeIndex(self.coo.flip(0),
+                        (self.sparse_size[1], self.sparse_size[0]),
+                        csr=self.csc, csc=self.csr,
+                        num_real_edges=self.num_real_edges,
+                        weight=self.weight, device=self.device,
+                        bsr=self.bsr_t, bsr_t=self.bsr,
+                        bsr_res=(None if self.bsr_res is None
+                                 else self.bsr_res.flip()),
+                        bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv,
+                        blocked=self.blocked_t, blocked_t=self.blocked,
+                        dense_adj=dense,
+                        dense_scale=(None if self.dense_scale is None
+                                     else self.dense_scale[::-1]))
+        if dense is not None and dense.dtype == torch.int8:
+            out._dense_t = self.dense_adj
+        return out
 
     # -- SpMM ---------------------------------------------------------------
     def matmul(self, x: torch.Tensor,

@@ -59,13 +59,15 @@ def cache_gcn_norm(edge_index: EdgeIndex, improved: bool = False,
                    auto: bool = False) -> EdgeIndex:
     """``GCNConv(cached=True)`` as a one-time transform: compute
     D^-1/2 (A+I) D^-1/2 once on the host and cache it through
-    ``fill_cache(dense_weight=..., block_sparse=...)``: baked into the
-    block-sparse cache (``block_sparse=True``, or a graph too big for a
-    dense adjacency whose blocks pay), else carried as the EdgeIndex's
-    ``weight``. Use with ``GCNConv(..., normalize=False,
-    add_self_loops=False)``. The dense and auto caches of the JAX package
-    are not ported yet (``fill_cache`` raises for ``cache_dtype`` and
-    ``auto``)."""
+    ``fill_cache(dense_weight=..., block_sparse=..., cache_dtype=...)``:
+    baked into a dense adjacency while ``N * N`` is within the dense cap
+    and ``block_sparse`` is not set (float32, or ``cache_dtype``
+    ``torch.bfloat16`` or ``torch.int8``), else into the block-sparse
+    cache (``block_sparse=True``, or a graph past the cap whose blocks
+    pay; bf16 blocks with ``cache_dtype=torch.bfloat16``), else carried as
+    the EdgeIndex's ``weight``. Use with ``GCNConv(..., normalize=False,
+    add_self_loops=False)``. The auto cache of the JAX package is not
+    ported yet (``fill_cache`` raises for ``auto``)."""
     coo = edge_index.coo.cpu().numpy()
     n = edge_index.num_src_nodes
     row, col = coo[0].astype(np.int64), coo[1].astype(np.int64)

@@ -17,15 +17,24 @@ sequential grid; Hopper blocks run in no order, so the port's layout carries
 a block-row pointer ``row_ptr`` instead of ``first`` flags, and a dst row
 with no blocks needs no spliced zero block.
 
-Bound on the card: the ``NB * 64 KB`` block stream plus x and out over
-3.35 TB/s. The ``2 * nnz * F`` FLOPs the function needs (nnz: nonzeros in
-the blocks) take far less at 67 TFLOP/s; the kernel's dense blocks do
+The blocks are float32 or bfloat16 (``fill_cache(cache_dtype=bf16)``), as
+the TPU kernel's two arms (``:129-146``): float32 blocks take exact float32
+FMAs on the CUDA cores; bf16 blocks take one tensor-core pass
+(``mma.sync`` bf16 with float32 accumulation) over x rounded to bf16, as
+the TPU's one DEFAULT MXU pass does. Either way the result is float32, cast
+to x's dtype.
+
+Bound on the card: the block stream (``NB * 64 KB`` float32, ``NB * 32
+KB`` bf16) plus x and out over 3.35 TB/s. The ``2 * nnz * F`` FLOPs the
+function needs (nnz: nonzeros in the blocks) take far less at 67 TFLOP/s
+(float32) or 989 TFLOP/s (bf16 tensor cores); the kernels' dense blocks do
 ``2 * NB * 128^2 * F``. Measured times are in PERF.md.
 
 The build is numpy on the host (block keys, the block-fill split, the
 hubs-first relabel); the block values are summed on the EdgeIndex's device
-in float64 and stored as float32, and the transposed layout (the backward's)
-is the forward's blocks transposed on the device.
+in float64 and stored as float32 (then rounded to bf16 by ``fill_cache``
+when asked), and the transposed layout (the backward's) is the forward's
+blocks transposed on the device.
 """
 
 import ctypes
@@ -46,8 +55,8 @@ SAMPLE_ABOVE = 32_000_000  # edges past which the relabel check samples
 class BSR(NamedTuple):
     """Nonempty-block adjacency, sorted by (dst block, src block).
 
-    vals:    [NB, BS, BS] float32 block values (``vals[k, d_local,
-             s_local]``)
+    vals:    [NB, BS, BS] float32 or bfloat16 block values (``vals[k,
+             d_local, s_local]``)
     cols:    [NB] int32 src block of each block
     row_ptr: [num_row_blocks + 1] int32; dst block row ``r`` owns blocks
              ``row_ptr[r] .. row_ptr[r+1]-1`` (:func:`block_rows` expands
@@ -258,26 +267,31 @@ def bsr_profitable(coo: np.ndarray, num_src: int, num_dst: int,
     return nb * BS * BS <= max_entries
 
 
-# -- the kernel and its plain version ----------------------------------------
+# -- the kernels and their plain version -------------------------------------
 def bsr_spmm_plain(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
     """The plain PyTorch version of one pass: gather each block's x tile,
-    ``bmm``, ``index_add_`` into the block rows."""
+    ``bmm``, ``index_add_`` into the block rows, all in float32; bf16
+    blocks multiply x rounded to bf16 (the products of two bf16 values are
+    exact in float32, as on the tensor cores). The result is in x's
+    dtype."""
     n_src, f = x.shape
     s_blocks = num_blocks(n_src)
     d_blocks = bsr.row_ptr.shape[0] - 1
-    xp = x.new_zeros((s_blocks * BS, f))
-    xp[:n_src] = x
+    bf16 = bsr.vals.dtype == torch.bfloat16
+    xp = x.new_zeros((s_blocks * BS, f), dtype=torch.float32)
+    xp[:n_src] = x.to(torch.bfloat16) if bf16 else x
     tiles = xp.view(s_blocks, BS, f)[bsr.cols.long()]
-    prod = torch.bmm(bsr.vals, tiles)
-    out = x.new_zeros((d_blocks, BS, f)).index_add_(0, block_rows(bsr), prod)
-    return out.view(d_blocks * BS, f)[:num_out]
+    prod = torch.bmm(bsr.vals.float(), tiles)
+    out = xp.new_zeros((d_blocks, BS, f)).index_add_(0, block_rows(bsr),
+                                                     prod)
+    return out.view(d_blocks * BS, f)[:num_out].to(x.dtype)
 
 
 def _check(bsr: BSR, x: torch.Tensor, num_out: int):
-    if bsr.vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f'bsr_matmul takes float32 blocks and x, got '
-                        f'{bsr.vals.dtype} and {x.dtype} (the bf16 arm is '
-                        'ROADMAP Queue 2, kernel 2 bf16)')
+    for name, t in (('blocks', bsr.vals), ('x', x)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f'bsr_matmul takes float32 or bfloat16 {name}, '
+                            f'got {t.dtype}')
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError('bsr_matmul takes a contiguous 2-D x, got shape '
                          f'{tuple(x.shape)} strides {x.stride()}')
@@ -298,25 +312,20 @@ def _check(bsr: BSR, x: torch.Tensor, num_out: int):
                              f'{tuple(t.shape)}')
 
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from .. import csrc
-        fn = csrc.load('bsr_spmm').pgt_bsr_spmm_f32
-        v, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [v, v, v, v, v, ll, ll, ll, ll, ll, v]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(arm: str):
+    """The library's entry point of ``arm``, 'f32' or 'bf16'."""
+    from .. import csrc
+    v, ll = ctypes.c_void_p, ctypes.c_longlong
+    return csrc.function('bsr_spmm', f'pgt_bsr_spmm_{arm}',
+                         [v, v, v, v, v, ll, ll, ll, ll, ll, v])
 
 
 def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
-    """One pass ``out [num_out, F] = A @ x`` over the block layout. A CPU
-    tensor runs :func:`bsr_spmm_plain`; a CUDA tensor launches the kernel
-    (built at first use) or raises. Not differentiable: see
+    """One pass ``out [num_out, F] = A @ x`` over the block layout, in x's
+    dtype. A CPU tensor runs :func:`bsr_spmm_plain`; a CUDA tensor launches
+    the kernel of the blocks' dtype (built at first use; float32 blocks
+    count in ``bsr_matmul.launches``, bf16 ones in
+    ``bsr_matmul.launches_bf16``) or raises. Not differentiable: see
     :func:`bsr_spmm`."""
     _check(bsr, x, num_out)
     if x.device.type == 'cpu':
@@ -326,28 +335,37 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
     if bsr.vals.data_ptr() % 16:
         raise ValueError('bsr_matmul: the block values must be 16-byte '
                          'aligned')
-    fn = _kernel()
+    bf16 = bsr.vals.dtype == torch.bfloat16
+    fn = _kernel('bf16' if bf16 else 'f32')
+    # both kernels read x as float32 (the bf16 one rounds it on the way
+    # in) and write a float32 result
+    xf = x.float()
     out = torch.empty((num_out, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(bsr.row_ptr.data_ptr(), bsr.cols.data_ptr(),
-                 bsr.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+                 bsr.vals.data_ptr(), xf.data_ptr(), out.data_ptr(),
                  bsr.row_ptr.shape[0] - 1, num_out, x.shape[0], x.shape[1],
                  bsr.vals.shape[0], stream)
     if err != 0:
         raise RuntimeError(f'bsr_matmul kernel launch failed: CUDA error '
                            f'{err}')
-    bsr_matmul.launches += 1
-    return out
+    if bf16:
+        bsr_matmul.launches_bf16 += 1
+    else:
+        bsr_matmul.launches += 1
+    return out.to(x.dtype)
 
 
 bsr_matmul.launches = 0
+bsr_matmul.launches_bf16 = 0
 
 
 class _BsrSpmm(torch.autograd.Function):
     """``A @ x`` with ``grad_x = A^T @ g`` through the same kernel over the
-    transposed layout; the block values are constants."""
+    transposed layout (bf16 blocks round ``g`` to bf16, as ``_bsr_bwd``
+    does); the block values are constants."""
 
     @staticmethod
     def forward(ctx, x, bsr, bsr_t, num_dst, num_src):

@@ -23,7 +23,11 @@ the bound are in PERF.md.
 
 The wrapper :func:`gat_mix` runs :func:`gat_mix_plain` for CPU tensors and
 launches the kernel for CUDA tensors; it never falls back from one to the
-other.
+other. It takes ``p_s``, ``p_u`` and ``v`` all float32 or all bf16 (the JAX
+package's bf16 messages, ``gat_fused.py:76-81``: ``bf16(p_u * v)`` summed in
+float32, ``s`` and ``u`` rounded to bf16 once); each arm counts its own
+launches (``gat_mix.launches``, ``gat_mix.launches_bf16``). No model path
+feeds it bf16: GATConv's float32 parameters promote ``v`` and the logits.
 """
 
 import ctypes
@@ -39,7 +43,9 @@ def gat_mix_plain(indptr: torch.Tensor, src: torch.Tensor,
                   p_s: Optional[torch.Tensor], p_u: Optional[torch.Tensor],
                   v: Optional[torch.Tensor], f: int
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The plain PyTorch version: gather, multiply, ``index_add_``.
+    """The plain PyTorch version: gather, multiply (in the inputs' dtype,
+    so a bf16 message is rounded as the kernel rounds it), ``index_add_``
+    in float32, the results in the inputs' dtype.
 
     ``s`` sums ``p_s`` over every slot of a row; ``u`` skips a slot whose
     source lies outside ``[0, v.shape[0])``. Slots past ``indptr[-1]`` are
@@ -49,7 +55,8 @@ def gat_mix_plain(indptr: torch.Tensor, src: torch.Tensor,
     dst = ptr2index(indptr.long(), e).long()
     s = u = None
     if p_s is not None:
-        s = p_s.new_zeros((n_dst, p_s.shape[1])).index_add_(0, dst, p_s[:e])
+        s = p_s.new_zeros((n_dst, p_s.shape[1]), dtype=torch.float32
+                          ).index_add_(0, dst, p_s[:e].float()).to(p_s.dtype)
     if v is not None:
         n_src, h = v.shape[0], p_u.shape[1]
         sl = src[:e].long()
@@ -57,34 +64,41 @@ def gat_mix_plain(indptr: torch.Tensor, src: torch.Tensor,
         vg = v.view(n_src, h, f)[sl.clamp(0, max(n_src - 1, 0))] \
             if n_src > 0 else v.new_zeros((e, h, f))
         msg = torch.where(valid[:, None, None], vg * p_u[:e, :, None], 0.0)
-        u = v.new_zeros((n_dst, h * f)).index_add_(0, dst,
-                                                   msg.view(e, h * f))
+        u = v.new_zeros((n_dst, h * f), dtype=torch.float32).index_add_(
+            0, dst, msg.view(e, h * f).float()).to(v.dtype)
     return s, u
+
+
+def _data_dtype(p_s, p_u, v) -> torch.dtype:
+    """The one dtype of the given ``p_s``, ``p_u``, ``v``: float32 or
+    bfloat16."""
+    dts = {t.dtype for t in (p_s, p_u, v) if t is not None}
+    if len(dts) != 1 or not dts <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f'gat_mix takes p_s, p_u and v all float32 or all '
+                        f'bfloat16, got {sorted(map(str, dts))}')
+    return dts.pop()
 
 
 def _check(indptr, src, p_s, p_u, v, f):
     dev = indptr.device
-    for name, t, dt, dim in (('indptr', indptr, torch.int32, 1),
-                             ('src', src, torch.int32, 1),
-                             ('p_s', p_s, torch.float32, 2),
-                             ('p_u', p_u, torch.float32, 2),
-                             ('v', v, torch.float32, 2)):
+    if p_s is None and v is None:
+        raise ValueError('gat_mix: nothing to compute (p_s and v are None)')
+    dt = _data_dtype(p_s, p_u, v)
+    for name, t, dim in (('indptr', indptr, 1), ('src', src, 1),
+                         ('p_s', p_s, 2), ('p_u', p_u, 2), ('v', v, 2)):
         if t is None:
             continue
         if t.device != dev:
             raise ValueError(f'gat_mix: {name} is on {t.device}, indptr on '
                              f'{dev}')
-        if t.dtype != dt:
-            raise TypeError(f'gat_mix takes {dt} {name}, got {t.dtype} (the '
-                            'bf16 arm is ROADMAP Queue 2, kernel 1 bf16)')
+        if name in ('indptr', 'src') and t.dtype != torch.int32:
+            raise TypeError(f'gat_mix takes int32 {name}, got {t.dtype}')
         if t.dim() != dim or not t.is_contiguous():
             raise ValueError(f'gat_mix takes a contiguous {dim}-D {name}, '
                              f'got shape {tuple(t.shape)} strides '
                              f'{t.stride()}')
     if indptr.shape[0] < 1:
         raise ValueError('gat_mix: indptr needs n_dst + 1 >= 1 entries')
-    if p_s is None and v is None:
-        raise ValueError('gat_mix: nothing to compute (p_s and v are None)')
     e = src.shape[0]
     for name, p in (('p_s', p_s), ('p_u', p_u)):
         if p is not None and p.shape[0] != e:
@@ -98,21 +112,15 @@ def _check(indptr, src, p_s, p_u, v, f):
         if f <= 0 or v.shape[1] != p_u.shape[1] * f:
             raise ValueError(f'gat_mix: v has {v.shape[1]} columns for '
                              f'{p_u.shape[1]} heads of {f}')
+    return dt
 
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from .. import csrc
-        fn = csrc.load('gat_mix').pgt_gat_mix_f32
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, vp]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(arm: str):
+    """The library's entry point of ``arm``, 'f32' or 'bf16'."""
+    from .. import csrc
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    return csrc.function('gat_mix', f'pgt_gat_mix_{arm}',
+                         [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, vp])
 
 
 def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
@@ -123,23 +131,25 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
     v[src[k], h]`` over the slots ``k`` of row ``d``.
 
     ``indptr [n_dst + 1]`` and ``src [S]`` int32; ``p_s``, ``p_u [S, H]``
-    and ``v [n_src, H * f]`` float32, all contiguous and on one device.
-    ``p_s`` None gives no ``s``; ``v`` None gives no ``u``. Returns
-    ``(s [n_dst, H] or None, u [n_dst, H * f] or None)``. A CPU tensor runs
-    :func:`gat_mix_plain`; a CUDA tensor launches the kernel (built at first
-    use) or raises. Not differentiable: :func:`gat_aggregate` wraps it."""
-    _check(indptr, src, p_s, p_u, v, f)
+    and ``v [n_src, H * f]`` all float32 or all bfloat16, all contiguous
+    and on one device. ``p_s`` None gives no ``s``; ``v`` None gives no
+    ``u``. Returns ``(s [n_dst, H] or None, u [n_dst, H * f] or None)`` in
+    the inputs' dtype. A CPU tensor runs :func:`gat_mix_plain`; a CUDA
+    tensor launches the kernel of its dtype (built at first use) or raises.
+    Not differentiable: :func:`gat_aggregate` wraps it."""
+    dt = _check(indptr, src, p_s, p_u, v, f)
     if indptr.device.type == 'cpu':
         return gat_mix_plain(indptr, src, p_s, p_u, v, f)
     if indptr.device.type != 'cuda':
         raise ValueError(f'gat_mix runs on cpu or cuda, not {indptr.device}')
-    fn = _kernel()
+    bf16 = dt == torch.bfloat16
+    fn = _kernel('bf16' if bf16 else 'f32')
     n_dst = indptr.shape[0] - 1
     h = (p_s if p_s is not None else p_u).shape[1]
     s = None if p_s is None else torch.empty(
-        (n_dst, h), dtype=torch.float32, device=indptr.device)
+        (n_dst, h), dtype=dt, device=indptr.device)
     u = None if v is None else torch.empty(
-        (n_dst, h * f), dtype=torch.float32, device=indptr.device)
+        (n_dst, h * f), dtype=dt, device=indptr.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -151,11 +161,15 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
                  0 if v is None else v.shape[0], src.shape[0], h, f, stream)
     if err != 0:
         raise RuntimeError(f'gat_mix kernel launch failed: CUDA error {err}')
-    gat_mix.launches += 1
+    if bf16:
+        gat_mix.launches_bf16 += 1
+    else:
+        gat_mix.launches += 1
     return s, u
 
 
 gat_mix.launches = 0
+gat_mix.launches_bf16 = 0
 
 
 class _SlotGather(torch.autograd.Function):

@@ -62,19 +62,11 @@ def _check(indptr, vals, num_segments):
                          f'layout has {indptr.shape[0] - 1} rows')
 
 
-_fn = None
-
-
 def _kernel():
-    global _fn
-    if _fn is None:
-        from .. import csrc
-        fn = csrc.load('segment_max').pgt_segment_max_f32
-        v, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [v, v, v, ll, ll, ctypes.c_int, v]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    from .. import csrc
+    v, ll = ctypes.c_void_p, ctypes.c_longlong
+    return csrc.function('segment_max', 'pgt_segment_max_f32',
+                         [v, v, v, ll, ll, ctypes.c_int, v])
 
 
 def segment_max_blocked(vals: torch.Tensor, layout,

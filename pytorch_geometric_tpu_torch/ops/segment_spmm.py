@@ -22,6 +22,12 @@ once, no atomics, so the sum is deterministic. x (15 MB at the serving
 shape) stays in the 50 MB L2, so the ``E * F`` gathered reads mostly hit L2.
 Measured times against this bound are in PERF.md.
 
+Two arms, as the TPU kernel streams float32 or bf16 messages: float32 x
+(weights float32 or absent), and bf16 x (weights bf16 or absent), whose
+messages are ``bf16(x[src] * w)`` summed in float32 and rounded to bf16 once
+(``ops/pallas_spmm.py:199-229``); each counts its own launches
+(``segment_spmm.launches``, ``segment_spmm.launches_bf16``).
+
 The wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; it never falls back from one to the other. Given the same
 matrix in source-major order (``transpose``), it is differentiable:
@@ -42,7 +48,9 @@ from .segment import ptr2index
 def segment_spmm_plain(indptr: torch.Tensor, src: torch.Tensor,
                        w: Optional[torch.Tensor],
                        x: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: gather, multiply, ``index_add_``.
+    """The plain PyTorch version: gather, multiply (in x's dtype, so a bf16
+    message is rounded as the kernel rounds it), ``index_add_`` in float32,
+    the result in x's dtype.
 
     Edges past ``indptr[-1]`` (padding) are not read; an edge whose source
     lies outside ``[0, x.shape[0])`` contributes nothing."""
@@ -56,20 +64,21 @@ def segment_spmm_plain(indptr: torch.Tensor, src: torch.Tensor,
         x.new_zeros((e, x.shape[1]))
     if w is not None:
         msg = msg * w[:e, None]
-    msg = torch.where(valid[:, None], msg, 0.0)
-    return x.new_zeros((n_dst, x.shape[1])).index_add_(0, dst, msg)
+    msg = torch.where(valid[:, None], msg, 0.0).float()
+    out = msg.new_zeros((n_dst, x.shape[1])).index_add_(0, dst, msg)
+    return out.to(x.dtype)
 
 
 def _check(indptr, src, w, x):
     dev = x.device
-    if x.dtype != torch.float32:
-        raise TypeError(f'segment_spmm takes float32 x, got {x.dtype} '
-                        '(the bf16 arm is ROADMAP Queue 2, kernel 1 bf16)')
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'segment_spmm takes float32 or bfloat16 x, got '
+                        f'{x.dtype}')
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError('segment_spmm takes a contiguous 2-D x, got shape '
                          f'{tuple(x.shape)} strides {x.stride()}')
     for name, t, dt in (('indptr', indptr, torch.int32),
-                        ('src', src, torch.int32), ('w', w, torch.float32)):
+                        ('src', src, torch.int32), ('w', w, x.dtype)):
         if t is None:
             continue
         if t.device != dev:
@@ -86,33 +95,27 @@ def _check(indptr, src, w, x):
                          f'{src.shape[0]}')
 
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from .. import csrc
-        fn = csrc.load('segment_spmm').pgt_segment_spmm_f32
-        v, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [v, v, v, v, v, ll, ll, ll, ll, v]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(arm: str):
+    """The library's entry point of ``arm``, 'f32' or 'bf16'."""
+    from .. import csrc
+    v, ll = ctypes.c_void_p, ctypes.c_longlong
+    return csrc.function('segment_spmm', f'pgt_segment_spmm_{arm}',
+                         [v, v, v, v, v, ll, ll, ll, ll, v])
 
 
 def _launch(indptr: torch.Tensor, src: torch.Tensor,
             w: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """One pass: the plain version for a CPU tensor, the kernel (built at
-    first use) for a CUDA tensor, counted in ``segment_spmm.launches``."""
+    """One pass: the plain version for a CPU tensor, the kernel of x's
+    dtype (built at first use) for a CUDA tensor, counted in
+    ``segment_spmm.launches`` (float32) or ``segment_spmm.launches_bf16``."""
     if x.device.type == 'cpu':
         return segment_spmm_plain(indptr, src, w, x)
     if x.device.type != 'cuda':
         raise ValueError(f'segment_spmm runs on cpu or cuda, not {x.device}')
-    fn = _kernel()
+    bf16 = x.dtype == torch.bfloat16
+    fn = _kernel('bf16' if bf16 else 'f32')
     n_dst = indptr.shape[0] - 1
-    out = torch.empty((n_dst, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((n_dst, x.shape[1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(indptr.data_ptr(), src.data_ptr(),
@@ -122,7 +125,10 @@ def _launch(indptr: torch.Tensor, src: torch.Tensor,
     if err != 0:
         raise RuntimeError(f'segment_spmm kernel launch failed: CUDA error '
                            f'{err}')
-    segment_spmm.launches += 1
+    if bf16:
+        segment_spmm.launches_bf16 += 1
+    else:
+        segment_spmm.launches += 1
     return out
 
 
@@ -171,10 +177,11 @@ def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
                  ) -> torch.Tensor:
     """``out[d] = sum_{k in [indptr[d], indptr[d+1])} w[k] * x[src[k]]``.
 
-    ``indptr [n_dst + 1]`` int32, ``src [E]`` int32, ``w [E]`` float32 or
-    ``None`` (all ones), ``x [n_src, F]`` float32, all contiguous and on one
-    device. A CPU tensor runs :func:`segment_spmm_plain`; a CUDA tensor
-    launches the kernel (built at first use) or raises.
+    ``indptr [n_dst + 1]`` int32, ``src [E]`` int32, ``x [n_src, F]``
+    float32 or bfloat16 and ``w [E]`` of x's dtype or ``None`` (all ones),
+    all contiguous and on one device; the result has x's dtype. A CPU
+    tensor runs :func:`segment_spmm_plain`; a CUDA tensor launches the
+    kernel (built at first use) or raises.
 
     ``transpose = (indptr_t [n_src + 1], dst_t [E], w_t [E] or None)``: the
     same matrix in source-major order, with ``w_t`` the weights in that
@@ -203,3 +210,4 @@ def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
 
 
 segment_spmm.launches = 0
+segment_spmm.launches_bf16 = 0

@@ -3,21 +3,32 @@
 Counterpart of ``pytorch_geometric_tpu/ops/spmm.py``:
 ``out[dst] = reduce over incoming edges of edge_weight * x[src]``.
 
-The ladder has three arms in the port so far:
+The ladder has four arms in the port so far, checked in the JAX package's
+order:
 
+  * ``'dense-cached'``: a dense adjacency baked by ``fill_cache`` (weights
+    in it, no weight passed) with ``reduce`` in sum|mean -> one matrix
+    product (``ops/dense_spmm.py``: float32, bf16 operands with a float32
+    result, or int8 for inference), then the mean's division by the CSC
+    degree and the cast back to ``x``'s dtype. PyTorch's matmuls, as the
+    JAX package leaves these to XLA; it runs whatever
+    ``backend.use_kernel_spmm`` says.
   * ``'bsr'``: a block-sparse cache baked by ``fill_cache`` (weights in the
     blocks, no weight passed) with ``reduce`` in sum|mean -> the block
     kernel (``ops/bsr_spmm.py``) over the nonempty 128x128 blocks, un-doing
     the hubs-first relabel around it when one was baked in, plus the
     residual edges through the segment-sum kernel; ``mean`` divides by the
     destination degree. Differentiable in ``x``: both kernels run their
-    backward over the transposed layouts.
+    backward over the transposed layouts. bf16 blocks take the block
+    kernel's tensor-core arm.
   * ``'kernel'``: ``reduce`` in sum|mean on a CUDA tensor -> the hand-written
     segment-sum kernel (``ops/segment_spmm.py``) over the cached (or freshly
     built) CSC, with its backward over the CSR; ``mean`` divides by the CSC
     degree. This is the JAX package's ``'pallas'`` regime. There is no
     edge-count threshold: the JAX package's ``_PALLAS_MIN_EDGES`` was a TPU
-    measurement.
+    measurement. The message dtype is JAX's promotion of ``x`` and the
+    weights: bf16 ``x`` with no or bf16 weights takes the kernel's bf16 arm
+    (bf16 out), bf16 ``x`` with float32 weights the float32 arm.
   * ``'plain'``: CPU tensors (the same CSC sum through the kernel's plain
     version), and ``min``/``max``, which gather and scatter as the JAX
     package's XLA gather path does.
@@ -27,8 +38,8 @@ kernels' plain versions. A sum/mean on a CUDA tensor with
 ``backend.use_kernel_spmm = False`` raises: the plain version never stands in
 for a kernel on the card.
 
-The dense, windowed and chunked regimes are not ported yet (ROADMAP Queue 1,
-item 3).
+The uncached dense, windowed and chunked regimes are not ported yet (ROADMAP
+Queue 1, item 3).
 """
 
 from typing import Optional, Union
@@ -38,18 +49,21 @@ import torch
 from .. import backend
 from ..edge_index import CSR, EdgeIndex
 from .bsr_spmm import bsr_spmm
+from .dense_spmm import dense_spmm
 from .scatter import scatter
 from .segment_spmm import segment_spmm
 
 
 def spmm_regime(adj: EdgeIndex, num_feats: int = 64, reduce: str = 'sum',
                 has_edge_weight: bool = False) -> str:
-    """Which arm :func:`spmm` runs for this adjacency: ``'bsr'``,
-    ``'kernel'`` (the JAX package's ``'pallas'``) or ``'plain'``.
-    ``num_feats`` is accepted for signature parity with the JAX package and
-    does not change the arm."""
+    """Which arm :func:`spmm` runs for this adjacency: ``'dense-cached'``,
+    ``'bsr'``, ``'kernel'`` (the JAX package's ``'pallas'``) or
+    ``'plain'``. ``num_feats`` is accepted for signature parity with the
+    JAX package and does not change the arm."""
     del num_feats
     simple = reduce in ('sum', 'mean')
+    if adj.dense_adj is not None and simple and not has_edge_weight:
+        return 'dense-cached'
     if (adj.bsr is not None and adj.bsr_t is not None and simple
             and not has_edge_weight):
         return 'bsr'
@@ -63,14 +77,18 @@ def _kernel_spmm(adj: EdgeIndex, x: torch.Tensor,
                  csc: CSR) -> torch.Tensor:
     """Sum over ``csc`` (``adj``'s) through the segment-sum kernel; when
     ``x`` needs a gradient, hand the kernel the CSR as well, for
-    ``grad_x = A^T g``."""
+    ``grad_x = A^T g``. The messages take ``x``'s and the weights' promoted
+    dtype, as ``x[src] * w`` does in JAX."""
+    dt = x.dtype if edge_weight is None else torch.promote_types(
+        x.dtype, edge_weight.dtype)
+    x = x.to(dt)
     w = None if edge_weight is None else \
-        edge_weight[csc.perm].to(x.dtype).contiguous()
+        edge_weight[csc.perm].to(dt).contiguous()
     transpose = None
     if torch.is_grad_enabled() and x.requires_grad:
         csr = adj.get_csr()
         w_t = None if edge_weight is None else \
-            edge_weight.detach()[csr.perm].to(x.dtype).contiguous()
+            edge_weight.detach()[csr.perm].to(dt).contiguous()
         transpose = (csr.indptr, csr.indices, w_t)
     return segment_spmm(csc.indptr, csc.indices, w, x.contiguous(),
                         transpose)
@@ -115,6 +133,13 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
         edge_weight = adj.weight
     num_out = adj.num_dst_nodes
     regime = spmm_regime(adj, x.shape[1], reduce, edge_weight is not None)
+
+    if regime == 'dense-cached':
+        out = dense_spmm(adj.dense_adj, adj.dense_scale, x)
+        if reduce == 'mean':
+            deg = torch.diff(adj.get_csc().indptr).to(x.dtype)
+            out = out / deg.clamp(min=1)[:, None]
+        return out.to(x.dtype)
 
     if reduce in ('sum', 'mean'):
         if x.device.type == 'cuda' and not backend.use_kernel_spmm:

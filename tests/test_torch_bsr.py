@@ -244,14 +244,16 @@ def test_bsr_wrapper_checks_its_inputs():
         tbsr.bsr_matmul(meta, x.to('meta'), size[1])
 
 
-def test_cache_gcn_norm_block_sparse_matches_carried():
+def test_cache_gcn_norm_block_sparse_matches_carried(monkeypatch):
     """``cache_gcn_norm(block_sparse=True)`` bakes the same normalised
-    adjacency that the carried-weight cache applies edge by edge."""
+    adjacency that the carried-weight cache (past the dense cap, blocks
+    declined) applies edge by edge."""
     from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
     coo, size, _, rng = _case('clustered')
     ei = EdgeIndex(coo, size, device='cpu')
     baked = cache_gcn_norm(ei, block_sparse=True)
-    carried = cache_gcn_norm(ei)
+    monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '0')
+    carried = cache_gcn_norm(ei, block_sparse=False)
     assert baked.bsr is not None and baked.weight is None
     assert carried.bsr is None and carried.weight is not None
     x = torch.from_numpy(rng.standard_normal((size[0], 8)).astype(

@@ -2,15 +2,19 @@
 PyTorch versions, on the card: the segment-sum kernel forward and backward,
 the block-sparse (BSR) kernel on both layouts, training steps through both
 against the CPU, the multi-head GAT mix kernel forward and backward, the
-segment-max kernel (bitwise), and the fused GATConv / GAT model on the card
-against the CPU. Every test here needs a CUDA card, carries the
+segment-max kernel (bitwise), the fused GATConv / GAT model on the card
+against the CPU, and the precision ladder: the bf16 arms of the BSR,
+segment-sum and mix kernels, the dense float32 / bf16 / int8 caches, and
+bf16 calls that raise instead of falling back. Every test here needs a CUDA card, carries the
 ``cuda`` marker and skips without one; the card's machine has no JAX, so
 this file imports none (run it there with ``--noconftest``, see the
 README).
 
 Tolerance: f32 sums in another order: 1e-5 plus 1e-5 of the row's sum of
-|w * x| terms per kernel pass; 1e-4 of the largest magnitude for gradients
-and training losses."""
+|w * x| terms per kernel pass (the bf16 BSR arm too: its products are exact
+in float32); a bf16 output adds one bf16 ulp of the reference, for a sum on
+a rounding boundary; 1e-4 of the largest magnitude for gradients and
+training losses."""
 
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from pytorch_geometric_tpu_torch.ops import (segment_spmm,
 from pytorch_geometric_tpu_torch.ops.bsr_spmm import (BSR, bsr_matmul,
                                                       bsr_spmm_plain,
                                                       build_bsr_pair)
+from pytorch_geometric_tpu_torch.ops.dense_spmm import dense_spmm
 from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_aggregate,
                                                        gat_mix,
                                                        gat_mix_plain)
@@ -312,12 +317,16 @@ def test_spmm_bsr_on_card_matches_cpu(dev, reduce, transpose, graph):
 
 
 @pytest.mark.parametrize('block_sparse', [True, False])
-def test_gcn_training_steps_on_card_match_cpu(dev, block_sparse):
+def test_gcn_training_steps_on_card_match_cpu(dev, block_sparse,
+                                              monkeypatch):
     """Three Adam steps of a 3-layer GCN over cache_gcn_norm, through the
-    BSR arm or the segment-sum arm, on the card against the CPU."""
+    BSR arm or (past the dense cap, blocks declined, weights carried) the
+    segment-sum arm, on the card against the CPU."""
     coo, _, rng = _bsr_case(1000, 1000, 30_000, seed=6)
     x = rng.standard_normal((1000, 16)).astype(np.float32)
     y = rng.integers(0, 5, 1000)
+    if not block_sparse:
+        monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '0')
     losses = []
     for d in (dev, 'cpu'):
         ei = cache_gcn_norm(EdgeIndex(coo, (1000, 1000), device=d),
@@ -500,3 +509,263 @@ def test_gat_training_steps_on_card_match_cpu(dev):
         assert gat_mix.launches - before == (27 if d == dev else 0)
         losses.append(run)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+
+
+# -- the precision ladder -----------------------------------------------------
+def _bf16_close(out, ref, scale):
+    """Within one bf16 ulp of ``ref`` plus the row-scaled float32 limit."""
+    out, ref = out.float(), ref.float()
+    _, e = torch.frexp(ref)
+    ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+    err = (out - ref).abs()
+    assert bool((err <= ulp + 1e-5 + 1e-5 * scale.float()).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize('f', [1, 10, 16, 33, 64, 128, 130])
+@pytest.mark.parametrize('n_src,n_dst', [(600, 600), (300, 700)])
+def test_bsr_bf16_kernel_matches_plain(dev, f, n_src, n_dst):
+    """The tensor-core arm over bf16 blocks, both layouts, empty block
+    rows; float32 and bf16 x."""
+    coo, w, rng = _bsr_case(n_src, n_dst, 20_000, seed=f + n_dst)
+    fwd, bwd, _ = build_bsr_pair(coo, w, n_src, n_dst, device=dev)
+    for lay, n_in, n_out in ((fwd, n_src, n_dst), (bwd, n_dst, n_src)):
+        lay = lay._replace(vals=lay.vals.to(torch.bfloat16))
+        x = torch.as_tensor(rng.standard_normal((n_in, f)).astype(
+            np.float32), device=dev)
+        for xt in (x, x.bfloat16()):
+            before = (bsr_matmul.launches, bsr_matmul.launches_bf16)
+            out = bsr_matmul(lay, xt, n_out)
+            torch.cuda.synchronize()
+            assert (bsr_matmul.launches, bsr_matmul.launches_bf16) == (
+                before[0], before[1] + 1)
+            assert out.dtype == xt.dtype
+            ref = bsr_spmm_plain(lay, xt, n_out)
+            scale = bsr_spmm_plain(lay._replace(vals=lay.vals.abs()),
+                                   xt.abs(), n_out)
+            if xt.dtype == torch.float32:
+                _close(out, ref, scale)
+            else:
+                _bf16_close(out, ref, scale)
+        empty = torch.nonzero(torch.diff(lay.row_ptr) == 0).flatten()
+        for r in empty.tolist():
+            assert not out[r * 128:(r + 1) * 128].any()
+
+
+def test_bsr_bf16_kernel_refusals(dev):
+    """A bf16 call the kernel cannot take raises; nothing falls back."""
+    coo, w, _ = _bsr_case(128, 128, 2000, seed=4)
+    fwd, _, _ = build_bsr_pair(coo, w, 128, 128, device=dev)
+    lay = fwd._replace(vals=fwd.vals.to(torch.bfloat16))
+    before = bsr_matmul.launches_bf16
+    # an F tile grid past 65535 is a launch the card refuses
+    with pytest.raises(RuntimeError, match='launch failed'):
+        bsr_matmul(lay, torch.zeros(1, 64 * 65536, device=dev), 1)
+    # values 2 bytes past a 16-byte boundary cannot take cp.async
+    flat = torch.zeros(lay.vals.numel() + 8, dtype=torch.bfloat16,
+                       device=dev)
+    odd = flat[1:lay.vals.numel() + 1].view_as(lay.vals)
+    with pytest.raises(ValueError, match='16-byte'):
+        bsr_matmul(lay._replace(vals=odd), torch.ones(128, 8, device=dev),
+                   128)
+    assert bsr_matmul.launches_bf16 == before
+
+
+@pytest.mark.parametrize('f', [1, 10, 16, 24, 128, 130])
+@pytest.mark.parametrize('weighted', [True, False])
+@pytest.mark.parametrize('n_src,n_dst', [(500, 500), (300, 800)])
+def test_kernel_bf16_matches_plain(dev, f, weighted, n_src, n_dst):
+    """The segment-sum kernel's bf16 arm, forward and grad_x: bf16(w * x)
+    messages, float32 sums, bf16 out."""
+    coo, w, x = _case(n_src, n_dst, 6000, f, seed=f + n_dst)
+    ei = EdgeIndex(coo, (n_src, n_dst), device=dev).fill_cache()
+    csc, csr = ei.csc, ei.csr
+    wt = torch.as_tensor(w, device=dev).bfloat16()
+    w_csc = wt[csc.perm].contiguous() if weighted else None
+    w_csr = wt[csr.perm].contiguous() if weighted else None
+    xt = torch.as_tensor(x, device=dev).bfloat16().requires_grad_()
+    g = torch.randn(n_dst, f, device=dev,
+                    generator=torch.Generator(dev).manual_seed(f)).bfloat16()
+    before = segment_spmm.launches, segment_spmm.launches_bf16
+    out = segment_spmm(csc.indptr, csc.indices, w_csc, xt,
+                       (csr.indptr, csr.indices, w_csr))
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (segment_spmm.launches, segment_spmm.launches_bf16) == (
+        before[0], before[1] + 2)
+    assert out.dtype == xt.grad.dtype == torch.bfloat16
+    xr = xt.detach()
+    ref = segment_spmm_plain(csc.indptr, csc.indices, w_csc, xr)
+    gref = segment_spmm_plain(csr.indptr, csr.indices, w_csr, g)
+    abs_w = (None, None) if not weighted else (w_csc.abs(), w_csr.abs())
+    _bf16_close(out, ref, segment_spmm_plain(csc.indptr, csc.indices,
+                                             abs_w[0], xr.abs()))
+    _bf16_close(xt.grad, gref, segment_spmm_plain(csr.indptr, csr.indices,
+                                                  abs_w[1], g.abs()))
+
+
+def test_kernel_bf16_unaligned_and_refusals(dev, monkeypatch):
+    coo, w, x = _case(200, 200, 1500, 16, seed=3)
+    csc = EdgeIndex(coo, (200, 200), device=dev).fill_cache().csc
+    base = torch.as_tensor(x, device=dev).bfloat16().flatten()
+    # 2 bytes past a 16-byte boundary: F % 8 == 0, but scalar loads
+    xt = torch.cat([base.new_zeros(1), base])[1:].view(200, 16)
+    assert xt.data_ptr() % 16 != 0
+    out = segment_spmm(csc.indptr, csc.indices, None, xt)
+    _bf16_close(out, segment_spmm_plain(csc.indptr, csc.indices, None, xt),
+                segment_spmm_plain(csc.indptr, csc.indices, None, xt.abs()))
+    # bf16 x takes bf16 weights only; spmm promotes float32 weights instead
+    with pytest.raises(ValueError, match='w'):
+        segment_spmm(csc.indptr, csc.indices,
+                     torch.ones(csc.indices.shape[0], device=dev), xt)
+    ei = EdgeIndex(coo, (200, 200), device=dev).fill_cache()
+    wt = torch.as_tensor(w, device=dev)
+    before = segment_spmm.launches, segment_spmm.launches_bf16
+    assert spmm(ei, xt, wt).dtype == torch.float32
+    assert spmm(ei, xt).dtype == torch.bfloat16
+    assert (segment_spmm.launches, segment_spmm.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(backend, 'use_kernel_spmm', False)
+    with pytest.raises(RuntimeError, match='use_kernel_spmm'):
+        spmm(ei, xt)
+
+
+@pytest.mark.parametrize('h', [1, 4])
+@pytest.mark.parametrize('f', [0, 1, 10, 16, 64])
+def test_gat_mix_bf16_kernel_matches_plain(dev, h, f):
+    """The per-head form's bf16 arm: p_s, p_u and v all bf16."""
+    ei = _slots(300, 800, 6000, dev, seed=h + f)
+    blk = ei.blocked
+    g = torch.Generator(dev).manual_seed(h * 100 + f)
+    e = blk.src.shape[0]
+    p_s = torch.rand(e, h, device=dev, generator=g).bfloat16()
+    p_u = torch.rand(e, h, device=dev, generator=g).bfloat16()
+    v = (torch.randn(300, h * f, device=dev, generator=g).bfloat16()
+         if f else None)
+    before = gat_mix.launches, gat_mix.launches_bf16
+    s, u = gat_mix(blk.indptr, blk.src, p_s, p_u if f else None, v, f)
+    torch.cuda.synchronize()
+    assert (gat_mix.launches, gat_mix.launches_bf16) == (before[0],
+                                                         before[1] + 1)
+    rs, ru = gat_mix_plain(blk.indptr, blk.src, p_s, p_u, v, f)
+    assert s.dtype == torch.bfloat16
+    _bf16_close(s, rs, rs)
+    if f:
+        _, scale = gat_mix_plain(blk.indptr, blk.src, None, p_u, v.abs(), f)
+        _bf16_close(u, ru, scale)
+
+
+@pytest.mark.parametrize('cache', ['f32', 'bf16', 'int8'])
+@pytest.mark.parametrize('reduce,transpose', [('sum', False),
+                                              ('mean', False),
+                                              ('sum', True)])
+def test_dense_cache_on_card_matches_cpu(dev, cache, reduce, transpose):
+    """The dense arms launch no kernel of the port and agree with the CPU:
+    float32 and bf16 (exact products, float32 sums in another order) within
+    1e-5 of the largest magnitude, int8 (exact int32 products) within 1e-6;
+    the bf16 grad_x within one bf16 ulp."""
+    dt = {'f32': None, 'bf16': torch.bfloat16, 'int8': torch.int8}[cache]
+    coo, w, x = _case(300, 500, 6000, 24, seed=21, n_pad=0)
+    x = np.random.default_rng(0).standard_normal(
+        (500 if transpose else 300, 24)).astype(np.float32)
+    res = []
+    for d in (dev, 'cpu'):
+        ei = EdgeIndex(coo, (300, 500), device=d).fill_cache(
+            dense_weight=w, cache_dtype=dt)
+        assert spmm_regime(ei) == 'dense-cached'
+        xt = torch.as_tensor(x, device=d).requires_grad_(cache != 'int8')
+        before = (segment_spmm.launches, bsr_matmul.launches,
+                  bsr_matmul.launches_bf16, segment_spmm.launches_bf16)
+        out = spmm(ei, xt, reduce=reduce, transpose=transpose)
+        if cache != 'int8':
+            out.sum().backward()
+        assert (segment_spmm.launches, bsr_matmul.launches,
+                bsr_matmul.launches_bf16,
+                segment_spmm.launches_bf16) == before
+        res.append((out.detach().cpu(),
+                    None if xt.grad is None else xt.grad.cpu()))
+    (out, gx), (ref, gref) = res
+    tol = 1e-6 if cache == 'int8' else 1e-5
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=tol * float(ref.abs().max()))
+    if cache == 'bf16':
+        _bf16_close(gx, gref, torch.zeros_like(gref))
+    elif cache == 'f32':
+        torch.testing.assert_close(gx, gref, rtol=0,
+                                   atol=1e-5 * float(gref.abs().max()))
+
+
+def test_dense_int8_odd_sizes_on_card(dev):
+    """The card's int8 matmul takes K and N in multiples of 8 and more than
+    16 rows: the wrapper pads with zeros, which adds nothing."""
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.integers(-127, 128, (13, 37)).astype(np.int8),
+                        device=dev)
+    r = torch.rand(13, device=dev)
+    c = torch.rand(37, device=dev)
+    x = torch.as_tensor(rng.standard_normal((37, 5)).astype(np.float32),
+                        device=dev)
+    out = dense_spmm(q, (r, c), x)
+    ref = dense_spmm(q.cpu(), (r.cpu(), c.cpu()), x.cpu())
+    torch.testing.assert_close(out.cpu(), ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize('cls', [GraphSAGE, GIN])
+def test_bf16_features_on_card_match_cpu(dev, cls):
+    """bf16 features: layer 1 launches the segment-sum kernel's bf16 arm,
+    layers 2 and 3 its float32 arm; the float32 output agrees with the CPU
+    within 1e-2 of its largest magnitude (a flipped bf16 rounding in layer
+    1 moves a feature by up to 2^-8)."""
+    coo, _, x = _case(600, 600, 8000, 32, seed=22, n_pad=0)
+    outs = []
+    for d in (dev, 'cpu'):
+        model = cls(32, 32, 3, 8, device=d,
+                    generator=torch.Generator().manual_seed(0)).eval()
+        ei = EdgeIndex(coo, (600, 600), device=d).fill_cache()
+        before = segment_spmm.launches, segment_spmm.launches_bf16
+        with torch.inference_mode():
+            outs.append(model(torch.as_tensor(x, device=d).bfloat16(),
+                              ei).cpu())
+        launched = (segment_spmm.launches - before[0],
+                    segment_spmm.launches_bf16 - before[1])
+        assert launched == ((2, 1) if d == dev else (0, 0))
+    assert outs[0].dtype == torch.float32
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=1e-2 * float(outs[1].abs().max()))
+
+
+@pytest.mark.parametrize('block_sparse', [True, False])
+def test_gcn_training_over_bf16_caches_on_card(dev, block_sparse):
+    """Three Adam steps of GCN over the bf16 block cache (5 bf16 block
+    launches per step) or the dense bf16 cache (no kernel launch), on the
+    card against the CPU; losses within 1e-3 relative (bf16 roundings of
+    layer inputs can flip where the float32 sums differ in the last bit)."""
+    coo, _, rng = _bsr_case(1000, 1000, 30_000, seed=6)
+    x = rng.standard_normal((1000, 16)).astype(np.float32)
+    y = rng.integers(0, 5, 1000)
+    losses = []
+    for d in (dev, 'cpu'):
+        ei = cache_gcn_norm(EdgeIndex(coo, (1000, 1000), device=d),
+                            block_sparse=block_sparse,
+                            cache_dtype=torch.bfloat16)
+        assert spmm_regime(ei) == ('bsr' if block_sparse else
+                                   'dense-cached')
+        model = GCN(16, 16, 3, 5, device=d,
+                    generator=torch.Generator().manual_seed(0),
+                    conv_kwargs={'normalize': False,
+                                 'add_self_loops': False})
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        xt, yt = torch.as_tensor(x, device=d), torch.as_tensor(y, device=d)
+        before = bsr_matmul.launches_bf16
+        run = []
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(model(xt, ei), yt)
+            loss.backward()
+            opt.step()
+            run.append(loss.item())
+        assert bsr_matmul.launches_bf16 - before == (
+            15 if d == dev and block_sparse else 0)
+        losses.append(run)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3)

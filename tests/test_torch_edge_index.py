@@ -12,7 +12,7 @@ import torch
 from pytorch_geometric_tpu import EdgeIndex as JEdgeIndex
 from pytorch_geometric_tpu.ops import spmm as jspmm
 from pytorch_geometric_tpu_torch import EdgeIndex
-from pytorch_geometric_tpu_torch.ops import spmm
+from pytorch_geometric_tpu_torch.ops import spmm, spmm_regime
 
 
 def _coo(n_src, n_dst, e, n_pad, seed):
@@ -71,10 +71,11 @@ def test_flip_swaps_orientations():
 
 
 @pytest.mark.parametrize('transpose', [False, True])
-def test_carried_weight_matches_jax_baked_cache(transpose):
-    """fill_cache(dense_weight=w) carries w for the sparse path; the JAX
-    package bakes it into a dense adjacency on a graph this small. Both
-    must give the same A x."""
+def test_carried_weight_matches_jax_baked_cache(transpose, monkeypatch):
+    """Past the dense cap with the blocks declined, fill_cache(dense_weight=
+    w, block_sparse=False) carries w for the sparse path; the JAX package,
+    under its default cap, bakes it into a dense adjacency on a graph this
+    small. Both must give the same A x."""
     n_src, n_dst = 30, 45
     coo = _coo(n_src, n_dst, 250, 3, seed=9)
     rng = np.random.default_rng(1)
@@ -83,14 +84,50 @@ def test_carried_weight_matches_jax_baked_cache(transpose):
         np.float32)
     j = JEdgeIndex(coo, (n_src, n_dst)).fill_cache(dense_weight=w)
     assert j.dense_adj is not None
+    monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '0')
     t = EdgeIndex(coo, (n_src, n_dst), device='cpu').fill_cache(
-        dense_weight=w)
+        dense_weight=w, block_sparse=False)
+    assert t.dense_adj is None and t.bsr is None
     np.testing.assert_array_equal(t.weight.numpy(), w)
     ref = np.asarray(jspmm(j, jnp.asarray(x), transpose=transpose))
     out = t.matmul(torch.from_numpy(x), transpose=transpose).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
     out2 = spmm(t, torch.from_numpy(x), transpose=transpose).numpy()
     np.testing.assert_array_equal(out, out2)
+
+
+@pytest.mark.parametrize('carried_by', ['constructor', 'fill_cache'])
+@pytest.mark.parametrize('cache', ['dense', 'bsr', 'none'])
+def test_new_weights_replace_carried_weights(carried_by, cache, monkeypatch):
+    """An EdgeIndex that carries weights w1, given new weights w2 by
+    ``fill_cache(dense_weight=w2)``, serves w2: baked into a dense cache
+    under the cap, into the block cache past it, or carried in w1's place
+    when no cache is baked. ``A x`` equals the plain product with w2."""
+    n = 40
+    coo = _coo(n, n, 300, 4, seed=21)
+    rng = np.random.default_rng(5)
+    w1, w2 = rng.random((2, coo.shape[1])).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32))
+    base = EdgeIndex(coo, (n, n), device='cpu')
+    if carried_by == 'constructor':
+        t = EdgeIndex(coo, (n, n), device='cpu', weight=torch.from_numpy(w1))
+    else:
+        monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '0')
+        t = base.fill_cache(dense_weight=w1, block_sparse=False)
+        monkeypatch.delenv('PGT_DENSE_SPMM_ENTRIES')
+    np.testing.assert_array_equal(t.weight.numpy(), w1)
+    if cache != 'dense':
+        monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '0')
+    t2 = t.fill_cache(dense_weight=w2, block_sparse={
+        'dense': None, 'bsr': True, 'none': False}[cache])
+    want = {'dense': 'dense-cached', 'bsr': 'bsr', 'none': 'plain'}[cache]
+    assert spmm_regime(t2) == want
+    if cache == 'none':
+        np.testing.assert_array_equal(t2.weight.numpy(), w2)
+    else:
+        assert t2.weight is None
+    ref = spmm(base, x, edge_weight=torch.from_numpy(w2))
+    torch.testing.assert_close(t2.matmul(x), ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize('call', ['positional', 'keyword'])
@@ -149,9 +186,28 @@ def test_slot_orders_match_jax_blocked(n_src, n_dst, n_pad):
                                     {'cache_dtype': torch.bfloat16},
                                     {'windowed': True}, {'auto': True}])
 def test_unported_caches_raise(kwargs):
-    t = EdgeIndex(_coo(10, 10, 30, 0, seed=0), (10, 10), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        t.fill_cache(**kwargs)
+    """The windowed and auto caches are not ported and raise. The two
+    ``cache_dtype`` cases are ported: with weights they bake what the JAX
+    package bakes (bf16 blocks, a dense bf16 adjacency), bitwise."""
+    coo = _coo(10, 10, 30, 0, seed=0)
+    t = EdgeIndex(coo, (10, 10), device='cpu')
+    if 'cache_dtype' not in kwargs:
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            t.fill_cache(**kwargs)
+        return
+    w = np.random.default_rng(0).random(30).astype(np.float32)
+    got = t.fill_cache(dense_weight=w, **kwargs)
+    ref = JEdgeIndex(coo, (10, 10)).fill_cache(
+        dense_weight=w, **dict(kwargs, cache_dtype=jnp.bfloat16))
+    if kwargs.get('block_sparse'):
+        assert got.dense_adj is None and ref.dense_adj is None
+        got_v, ref_v = got.bsr.vals, ref.bsr.vals
+    else:
+        assert got.bsr is None and ref.bsr is None
+        got_v, ref_v = got.dense_adj, ref.dense_adj
+    assert got_v.dtype == torch.bfloat16 and got.weight is None
+    np.testing.assert_array_equal(got_v.float().numpy(),
+                                  np.asarray(ref_v, np.float32))
 
 
 def test_sparse_size_inferred_and_shape_checked():

@@ -11,9 +11,10 @@ Two paths, as ``chip_smoke.py`` drives them at full size:
 
   * A: GCN over ``cache_gcn_norm(block_sparse=True)``, the weights baked
     into 128x128 blocks, a residual tail on the segment-sum path;
-  * B: ``bench.py``'s protocol, cut to a few hundred nodes: GCN, GraphSAGE
-    and GIN over the segment-sum path, the port carrying the edge weights
-    (``fill_cache(dense_weight=w)``), the JAX side passing them.
+  * B: ``bench.py``'s protocol as its CPU branch runs it, cut to a few
+    hundred nodes: GCN, GraphSAGE and GIN over the segment-sum path,
+    ``fill_cache()`` with GCN's weights passed as ``edge_weight`` on both
+    sides.
 
 Tolerances: gradients and losses 1e-4 (relative to the reference's largest
 magnitude; float32 sums and matmuls in another order through 3 layers)."""
@@ -145,10 +146,9 @@ def _setup(path, name):
             w = np.ones(coo.shape[1], np.float32)
         jei = JEdgeIndex(coo, (n, n)).fill_cache()
         jkw = {'edge_weight': jnp.asarray(w)} if name == 'GCN' else {}
-        tei = EdgeIndex(coo, (n, n), device='cpu').fill_cache(
-            dense_weight=w)
+        tei = EdgeIndex(coo, (n, n), device='cpu').fill_cache()
         assert jspmm_regime(jei, has_edge_weight=name == 'GCN') == 'pallas'
-        assert spmm_regime(tei) == 'plain' and tei.weight is not None
+        assert spmm_regime(tei, has_edge_weight=name == 'GCN') == 'plain'
     x = rng.standard_normal((n, 16)).astype(np.float32)
     y = rng.integers(0, N_CLASSES, n)
     return jei, jkw, tei, x, y
@@ -188,16 +188,17 @@ def _jax_run(name, jei, jkw, x, y):
     return params, grads0, losses
 
 
-def _port_run(name, params, tei, x, y):
+def _port_run(name, params, tei, jkw, x, y):
     tm = getattr(models, name)(16, HIDDEN, 3, N_CLASSES, device='cpu',
                                **_model_kwargs(name))
     tm.load_state_dict(flax_to_state_dict(params))
     opt = torch.optim.Adam(tm.parameters(), lr=1e-2)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    kw = {k: torch.from_numpy(np.array(v)) for k, v in jkw.items()}
     losses, grads0 = [], None
     for i in range(STEPS):
         opt.zero_grad(set_to_none=True)
-        loss = F.cross_entropy(tm(xt, tei), yt)
+        loss = F.cross_entropy(tm(xt, tei, **kw), yt)
         loss.backward()
         if i == 0:
             grads0 = {k: p.grad.clone() for k, p in tm.named_parameters()}
@@ -211,7 +212,7 @@ def _port_run(name, params, tei, x, y):
 def test_training_matches_jax(path, name):
     jei, jkw, tei, x, y = _setup(path, name)
     params, jgrads, jlosses = _jax_run(name, jei, jkw, x, y)
-    tgrads, tlosses = _port_run(name, params, tei, x, y)
+    tgrads, tlosses = _port_run(name, params, tei, jkw, x, y)
     ref = flax_to_state_dict(jgrads)
     assert sorted(ref) == sorted(tgrads)
     for k in ref:
