@@ -55,16 +55,21 @@ checks them:
      host by ``add_remaining_self_loops`` (``examples/gat_fused.py:45``),
      ``fill_cache(blocked=True)``, ``GAT(64, 256, 3, 10, heads=4,
      add_self_loops=False)``, f32, nothing cut: ms per forward, launches
-     per forward, a profile and idle share, the output held against the CPU
-     plain path with the same weights;
+     per forward, a profile (a whole window, in which the mix kernel's 6
+     launches per forward are checked) and idle share, the output held
+     against the CPU plain path with the same weights;
  12. path D, GAT training on the same cell (cross-entropy, Adam 1e-2): ms
-     per step, launches per step, a profile, 3 steps held against the CPU
-     plain path;
+     per step, launches per step, a profile (a whole window, 9 mix
+     launches per step checked), 3 steps held against the CPU plain
+     path;
  13. attention-kernel timings at path C's shapes: the mix at H*F = 256 and
      40, the stabiliser pass, the backward pass at 256 (yardstick: H
      ``torch.sparse.mm`` CSR calls, or ``torch.segment_reduce`` for the
      stabiliser), and the segment max at [2.1M, 4] (yardstick
-     ``torch.segment_reduce(..., 'max')``);
+     ``torch.segment_reduce(..., 'max')``); the mix kernel's slice-width
+     sweep (W in {256, 128, 64, 32}) at H*F = 256, forward, backward and
+     bf16, each width's output bitwise equal to one slice's; the segment
+     max at every lanes-per-row width, each output bitwise equal;
  14. the precision ladder's kernels against their plain versions on the
      card: the segment-sum kernel's bf16 arm (forward and ``grad_x``;
      narrow, unaligned, weighted and unweighted, empty rows, the serving
@@ -87,6 +92,9 @@ checks them:
      input): GraphSAGE and GIN forwards on the serving graph from bf16
      features, one bf16 segment-sum launch per forward;
  19. timings of the bf16 kernels at their paths' shapes.
+
+Every profile of a path is a whole window (``whole_window``): it follows a
+warm-up window, and a window that lost launches is profiled again.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--iters 20]`` from the root of a
 checkout, on a machine with one CUDA card. The last line of standard output
@@ -139,6 +147,8 @@ PC_LAYERS, PC_CLASSES = 3, 10
 # per layer, a forward runs the mix kernel twice (the stabiliser sum and the
 # mix); a training step adds grad_v, since v = lin_src(x) needs a gradient
 MIX_PER_FORWARD, MIX_PER_STEP = 2 * PC_LAYERS, 3 * PC_LAYERS
+# the mix kernel's name in a profile (every template instance holds it)
+MIX_KERNEL = 'gat_mix_kernel'
 
 
 def log(*a):
@@ -372,7 +382,6 @@ def phase_serving(torch, seed, iters, warmup):
     for kind in ('GCN', 'GraphSAGE', 'GIN'):
         model = build_model(torch, kind, None, seed).eval()
         kw = {'edge_weight': w} if kind == 'GCN' else {}
-        n_fwd = warmup + iters + PROFILED_FORWARDS if kind == 'GCN' else 1
         torch.cuda.synchronize()
         reset_counts()
         with torch.inference_mode():
@@ -392,10 +401,11 @@ def phase_serving(torch, seed, iters, warmup):
                 torch.cuda.synchronize()
                 ms = start.elapsed_time(end) / iters
                 breakdown = profile_forwards(torch, lambda: model(x, ei, **kw))
+                n_fwd = warmup + iters + breakdown[2]
             else:
                 out = model(x, ei, **kw)
                 torch.cuda.synchronize()
-                ms = None
+                ms, n_fwd = None, 1
         counts = launch_counts()
         launches = counts['segment_spmm']
         log(f'[{kind}] launches in {n_fwd} forwards: {counts}')
@@ -413,27 +423,26 @@ def phase_serving(torch, seed, iters, warmup):
             log(f'[{kind}] {ms:.4f} ms per forward on the card (CUDA events, '
                 f'{iters} forwards); the host issues one in '
                 f'{enqueue_ms:.4f} ms')
-            if breakdown is not None:
-                rows, prof_ms = breakdown
-                busy = sum(t for _, t, _ in rows)
-                # busy and wall from the same profiled forwards; the kernels
-                # run on one stream, so busy cannot exceed the wall
-                check(busy <= 1.05 * prof_ms,
-                      f'{kind}: device busy {busy} ms exceeds the wall '
-                      f'{prof_ms} ms of the same forwards')
-                res.update(device_busy_ms_per_forward=busy,
-                           profiled_ms_per_forward=prof_ms,
-                           device_idle_share=1 - busy / prof_ms,
-                           busy_over_timed_forward=busy / ms,
-                           kernels_per_forward=rows[:12])
-                log(f'[{kind}] torch.profiler, {PROFILED_FORWARDS} forwards: '
-                    f'device busy {busy:.4f} ms per forward of a '
-                    f'{prof_ms:.4f} ms wall (CUDA events over the same '
-                    f'forwards), idle share {res["device_idle_share"]:.4f}; '
-                    f'busy / unprofiled forward '
-                    f'{res["busy_over_timed_forward"]:.4f}')
-                for name, t, n in rows[:12]:
-                    log(f'[{kind}]   {t:.4f} ms  x{n:g}  {name[:90]}')
+            rows, prof_ms, _ = breakdown
+            busy = sum(t for _, t, _ in rows)
+            # busy and wall from the same profiled forwards; the kernels run
+            # on one stream, so busy cannot exceed the wall
+            check(busy <= 1.05 * prof_ms,
+                  f'{kind}: device busy {busy} ms exceeds the wall '
+                  f'{prof_ms} ms of the same forwards')
+            res.update(device_busy_ms_per_forward=busy,
+                       profiled_ms_per_forward=prof_ms,
+                       device_idle_share=1 - busy / prof_ms,
+                       busy_over_timed_forward=busy / ms,
+                       kernels_per_forward=rows[:12])
+            log(f'[{kind}] torch.profiler, a whole window of '
+                f'{PROFILED_FORWARDS} forwards: device busy {busy:.4f} ms per '
+                f'forward of a {prof_ms:.4f} ms wall (CUDA events over the '
+                f'same forwards), idle share {res["device_idle_share"]:.4f}; '
+                f'busy / unprofiled forward '
+                f'{res["busy_over_timed_forward"]:.4f}')
+            for name, t, n in rows[:12]:
+                log(f'[{kind}]   {t:.4f} ms  x{n:g}  {name[:90]}')
             log(json.dumps({'metric': 'gcn_inference_fwd', 'arm':
                             'sparse-f32', 'ms': ms,
                             'edges_per_s': res['edges_per_s'],
@@ -490,8 +499,10 @@ def device_kernels(torch, fn, calls, warm=False):
                    for k, v in total.items()), key=lambda r: -r[1]), wall_ms
 
 
-def profile_forwards(torch, fwd):
-    return device_kernels(torch, fwd, PROFILED_FORWARDS)
+def profile_forwards(torch, fwd, expect=None):
+    """``(rows, wall_ms, forwards_run)`` over a whole window of
+    ``PROFILED_FORWARDS`` forwards (``whole_window``)."""
+    return whole_window(torch, fwd, PROFILED_FORWARDS, expect)
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -511,43 +522,70 @@ def time_ms(torch, fn, reps=200, warmup=50):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, calls=100):
-    """Device time per call: the summed time of every kernel one call runs,
-    from ``torch.profiler``; host issue time and gaps are not in it.
+def launches_of(rows, part):
+    """Launches per call of the kernels whose name holds ``part``."""
+    return sum(n for name, _, n in rows if part in name)
+
+
+def whole_window(torch, fn, calls, expect=None):
+    """Device time per call by kernel name over one whole profiled window
+    of ``calls`` calls of ``fn``: ``(rows, wall_ms, calls_run)``, rows as
+    ``device_kernels`` gives them, ``calls_run`` every call of ``fn`` made
+    here, warm-up windows included.
 
     The profiler now and then loses device events: a whole window, or some
     launches of a kernel (up to half the calls of a window), which would
-    understate the time. A window whose launches of every kernel are a
-    whole multiple of ``calls`` is taken as it is; otherwise it is profiled
-    again, up to ``PROFILE_ATTEMPTS`` windows. If none is whole, each
-    kernel counts its recorded mean time per launch times its launches per
-    call, ``ceil(recorded / calls)``: right while fewer than ``calls`` of
-    its launches are lost. A window that reads more device time than its
-    wall is profiled again too."""
-    est = None
+    understate the time. Each window follows a warm-up window. A window
+    whose launches of every kernel are a whole multiple of ``calls`` (and,
+    for each name part in ``expect``, the launches per call it gives) is
+    taken as it is; otherwise it is profiled again, up to
+    ``PROFILE_ATTEMPTS`` windows. If none is whole, each kernel counts its
+    recorded mean time per launch times its launches per call,
+    ``ceil(recorded / calls)``: right while fewer than ``calls`` of its
+    launches are lost. A window that reads more device time than its wall
+    is profiled again too."""
+    est, run = None, 0
     for _ in range(PROFILE_ATTEMPTS):
         got = device_kernels(torch, fn, calls, warm=True)
+        run += 2 * calls
         if got is None:
             continue
         rows, wall = got
         lost = [(name, n) for name, _, n in rows
                 if abs(n - round(n)) >= 1e-9]
-        window = sum(t / n * math.ceil(n - 1e-9) for _, t, n in rows)
+        rows = [(name, t / n * math.ceil(n - 1e-9), math.ceil(n - 1e-9))
+                for name, t, n in rows]
+        window = sum(t for _, t, _ in rows)
         if window > 1.05 * wall:
             # a window that lost launches can also misread the rest
             log(f'[profile] a window read {window:.4f} ms of device time per '
                 f'call against a {wall:.4f} ms wall; profiled again')
             continue
-        est = window
+        lost += [(part, launches_of(rows, part))
+                 for part, n in (expect or {}).items()
+                 if launches_of(rows, part) != n]
+        est = rows, wall
         if not lost:
-            return est
+            return rows, wall, run
         log('[profile] a window lost launches: ' + ', '.join(
             f'{name[:40]} x{n:g}' for name, n in lost))
     check(est is not None, 'the profiler saw no device time within the '
                            f'wall in {PROFILE_ATTEMPTS} windows')
     log(f'[profile] no whole window in {PROFILE_ATTEMPTS}: lost launches '
         'counted at their recorded mean time')
-    return est
+    for part, n in (expect or {}).items():
+        check(launches_of(est[0], part) == n,
+              f'{part}: {launches_of(est[0], part)} launches per call in '
+              f'the profile, expected {n}')
+    return est[0], est[1], run
+
+
+def device_ms(torch, fn, calls=100):
+    """Device time per call: the summed time of every kernel one call runs,
+    from ``torch.profiler`` over a whole window (``whole_window``); host
+    issue time and gaps are not in it."""
+    rows, _, _ = whole_window(torch, fn, calls)
+    return sum(t for _, t, _ in rows)
 
 
 def phase_timings(torch, seed):
@@ -885,22 +923,22 @@ def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4):
     return out
 
 
-def profile_steps(torch, step, tag):
-    rows_wall = device_kernels(torch, step, PROFILED_STEPS)
-    if rows_wall is None:
-        return {}
-    rows, wall = rows_wall
+def profile_steps(torch, step, tag, expect=None):
+    """A whole window of ``PROFILED_STEPS`` steps (``whole_window``): the
+    profile's record and the steps run."""
+    rows, wall, run = whole_window(torch, step, PROFILED_STEPS, expect)
     busy = sum(t for _, t, _ in rows)
     check(busy <= 1.05 * wall, f'{tag}: device busy {busy} ms exceeds the '
                                f'wall {wall} ms of the same steps')
-    log(f'[{tag}] torch.profiler, {PROFILED_STEPS} steps: device busy '
-        f'{busy:.4f} ms per step of a {wall:.4f} ms wall (CUDA events over '
-        f'the same steps), idle share {1 - busy / wall:.4f}')
+    log(f'[{tag}] torch.profiler, a whole window of {PROFILED_STEPS} steps: '
+        f'device busy {busy:.4f} ms per step of a {wall:.4f} ms wall (CUDA '
+        f'events over the same steps), idle share {1 - busy / wall:.4f}')
     for name, t, n in rows[:10]:
         log(f'[{tag}]   {t:.4f} ms  x{n:g}  {name[:90]}')
     return {'device_busy_ms_per_step': busy, 'profiled_ms_per_step': wall,
             'device_idle_share': 1 - busy / wall,
-            'kernels_per_step': [[name[:80], t, n] for name, t, n in rows[:8]]}
+            'kernels_per_step': [[name[:80], t, n] for name, t, n in rows[:8]]
+            }, run
 
 
 def timed_steps(torch, step, warmup, steps):
@@ -970,9 +1008,9 @@ def phase_path_a(torch, seed, pa, bf16=False):
     torch.cuda.synchronize()
     reset_counts()
     ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
-    prof = profile_steps(torch, step, tag)
+    prof, prof_steps = profile_steps(torch, step, tag)
     counts = launch_counts()
-    n_steps = PA_WARMUP + PA_STEPS + PROFILED_STEPS
+    n_steps = PA_WARMUP + PA_STEPS + prof_steps
     bsr_key = 'bsr_spmm_bf16' if bf16 else 'bsr_spmm'
     launches = {bsr_key: counts[bsr_key],
                 'segment_spmm': counts['segment_spmm']}
@@ -1043,8 +1081,8 @@ def phase_path_b(torch, seed):
         torch.cuda.synchronize()
         reset_counts()
         ms, wall_s, enqueue_ms, last = timed_steps(torch, step, 2, PB_STEPS)
-        prof = profile_steps(torch, step, f'path B {kind}')
-        n_steps = 2 + PB_STEPS + PROFILED_STEPS
+        prof, prof_steps = profile_steps(torch, step, f'path B {kind}')
+        n_steps = 2 + PB_STEPS + prof_steps
         counts = launch_counts()
         launches = {'segment_spmm': counts['segment_spmm'],
                     'bsr_spmm': counts['bsr_spmm']}
@@ -1396,7 +1434,6 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
     model = gat_model(torch, None, seed).eval()
-    n_fwd = warmup + iters + PROFILED_FORWARDS
     torch.cuda.synchronize()
     reset_counts()
     with torch.inference_mode():
@@ -1413,7 +1450,9 @@ def phase_path_c(torch, seed, iters, warmup, pc):
         enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
-        breakdown = profile_forwards(torch, lambda: model(x, ei))
+        rows, prof_ms, n_prof = profile_forwards(
+            torch, lambda: model(x, ei), {MIX_KERNEL: MIX_PER_FORWARD})
+    n_fwd = warmup + iters + n_prof
     counts = launch_counts()
     launches = counts['gat_mix']
     log(f'[path C] launches in {n_fwd} forwards: {counts}')
@@ -1439,21 +1478,22 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     log(f'[path C] {ms:.4f} ms per forward on the card (CUDA events, '
         f'{iters} forwards after {warmup}); the host issues one in '
         f'{enqueue_ms:.4f} ms')
-    if breakdown is not None:
-        rows, prof_ms = breakdown
-        busy = sum(t for _, t, _ in rows)
-        check(busy <= 1.05 * prof_ms, f'path C: device busy {busy} ms '
-                                      f'exceeds the wall {prof_ms} ms')
-        res.update(device_busy_ms_per_forward=busy,
-                   profiled_ms_per_forward=prof_ms,
-                   device_idle_share=1 - busy / prof_ms,
-                   kernels_per_forward=[[n[:80], t, c]
-                                        for n, t, c in rows[:12]])
-        log(f'[path C] torch.profiler, {PROFILED_FORWARDS} forwards: device '
-            f'busy {busy:.4f} ms per forward of a {prof_ms:.4f} ms wall, '
-            f'idle share {1 - busy / prof_ms:.4f}')
-        for name, t, n in rows[:12]:
-            log(f'[path C]   {t:.4f} ms  x{n:g}  {name[:90]}')
+    busy = sum(t for _, t, _ in rows)
+    mix_ms = sum(t for name, t, _ in rows if MIX_KERNEL in name)
+    check(busy <= 1.05 * prof_ms, f'path C: device busy {busy} ms '
+                                  f'exceeds the wall {prof_ms} ms')
+    res.update(device_busy_ms_per_forward=busy,
+               profiled_ms_per_forward=prof_ms,
+               device_idle_share=1 - busy / prof_ms,
+               mix_ms_per_forward=mix_ms, mix_share_of_busy=mix_ms / busy,
+               kernels_per_forward=[[n[:80], t, c] for n, t, c in rows[:12]])
+    log(f'[path C] torch.profiler, a whole window of {PROFILED_FORWARDS} '
+        f'forwards ({MIX_PER_FORWARD} mix launches each): device busy '
+        f'{busy:.4f} ms per forward of a {prof_ms:.4f} ms wall, idle share '
+        f'{1 - busy / prof_ms:.4f}; the mix kernel {mix_ms:.4f} ms, '
+        f'{100 * mix_ms / busy:.1f}% of busy')
+    for name, t, n in rows[:12]:
+        log(f'[path C]   {t:.4f} ms  x{n:g}  {name[:90]}')
     log(json.dumps({'metric': 'gat_inference_fwd', 'ms': ms,
                     'nodes': PC_NODES, 'edges': ei.num_edges,
                     'heads': PC_HEADS, 'hidden': PC_HIDDEN}))
@@ -1492,10 +1532,11 @@ def phase_path_d(torch, seed, pc):
     torch.cuda.synchronize()
     reset_counts()
     ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
-    prof = profile_steps(torch, step, 'path D')
+    prof, prof_steps = profile_steps(torch, step, 'path D',
+                                     {MIX_KERNEL: MIX_PER_STEP})
     counts = launch_counts()
     launches = counts['gat_mix']
-    n_steps = PA_WARMUP + PA_STEPS + PROFILED_STEPS
+    n_steps = PA_WARMUP + PA_STEPS + prof_steps
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f'[path D] GAT training step: {ms:.4f} ms per step on the card (CUDA '
         f'events, {PA_STEPS} steps after {PA_WARMUP}); the host issues one '
@@ -1553,14 +1594,43 @@ def timed_row(torch, fns, info, by, flops, **timing):
     return timed_fns(torch, row, fns, **timing)
 
 
+SWEEP_SLICE_COLS = (PC_HIDDEN, 128, 64, 32)
+SWEEP_LANES = (1, 2, 4, 8, 16, 32)
+
+
+def slice_sweep(torch, label, call, hf, n_src, itemsize, rule):
+    """The mix kernel's device time per call at each slice width of
+    ``SWEEP_SLICE_COLS`` (``call(w)`` runs it at width ``w``), each output
+    held bitwise against the one-slice output."""
+    ref = call(hf)
+    rows = []
+    for w in SWEEP_SLICE_COLS:
+        out = call(w)
+        same = all(torch.equal(a, b) for a, b in zip(out, ref)
+                   if a is not None)
+        check(same, f'gat_mix {label}: slice width {w} changes the output')
+        ms = device_ms(torch, lambda: call(w), calls=10)
+        rows.append({'call': label, 'slice_cols': w, 'slices': hf // w,
+                     'slice_mb': n_src * w * itemsize / 1e6, 'ms': ms,
+                     'rule': w == rule})
+        log(f"[timing] gat_mix {label} slice width {w} ({hf // w} x "
+            f"{n_src * w * itemsize / 1e6:.1f} MB"
+            f"{', the rule' if w == rule else ''}): {ms:.4f} ms device time "
+            f"per call, output bitwise equal to one slice's")
+    return rows
+
+
 def phase_attention_timings(torch, seed, pc):
     """At path C's shapes: the mix at H*F = 256 and 40, the stabiliser
     pass, the backward pass at 256, and the segment max at [E, 4]; each
-    with the plain version, a library yardstick and the bound."""
-    from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_mix,
+    with the plain version, a library yardstick and the bound. Then the
+    mix's slice-width sweep at H*F = 256 (forward, backward, bf16) and the
+    segment max at every lanes-per-row width."""
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (card_slice_cols,
+                                                           gat_mix,
                                                            gat_mix_plain)
     from pytorch_geometric_tpu_torch.ops.segment_max import (
-        segment_max_blocked, segment_max_plain)
+        segment_max_blocked, segment_max_lanes, segment_max_plain)
     rng = np.random.default_rng(seed + 6)
     blk, blk_t = pc['ei'].blocked, pc['ei'].blocked_t
     n, h, slots = PC_NODES, PC_HEADS, blk.src.shape[0]
@@ -1591,16 +1661,18 @@ def phase_attention_timings(torch, seed, pc):
               f'torch.sparse.mm disagrees at F={f}')
         return call
 
+    vs = {}
     with torch.inference_mode():
         for f in (PC_HIDDEN // h, PC_CLASSES):
-            v = t(rng.standard_normal((n, h * f)))
+            v = vs[f] = t(rng.standard_normal((n, h * f)))
             fns = {'ms': lambda: gat_mix(blk.indptr, blk.src, p, p, v, f),
                    'plain_ms': lambda: gat_mix_plain(blk.indptr, blk.src, p,
                                                      p, v, f),
                    'library_ms': library_mix(blk, p, v, f)}
             rows.append(timed_row(
                 torch, fns, {'pass': 'mix (s, u)', 'H': h, 'F': f,
-                             'HF': h * f, 'slots': e},
+                             'HF': h * f, 'slots': e,
+                             'slice_cols': card_slice_cols(v, h, f)},
                 mix_bytes(n, n, e, h, f, 1, True), 2.0 * e * h * f + e * h))
         z = p
         offsets = blk.indptr.long()
@@ -1625,7 +1697,8 @@ def phase_attention_timings(torch, seed, pc):
                'library_ms': library_mix(blk_t, p_t, gu, f)}
         rows.append(timed_row(
             torch, fns, {'pass': 'backward grad_v (u only, over the CSR)',
-                         'H': h, 'F': f, 'HF': h * f, 'slots': e},
+                         'H': h, 'F': f, 'HF': h * f, 'slots': e,
+                         'slice_cols': card_slice_cols(gu, h, f)},
             mix_bytes(n, n, e, h, f, 1, False), 2.0 * e * h * f))
         for r in rows:
             log(f"[timing] gat_mix {r['pass']} H*F={r['HF']}, device time "
@@ -1633,16 +1706,38 @@ def phase_attention_timings(torch, seed, pc):
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel at "
                 f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; "
-                f"CUDA-event wall per call: kernel {r['event_ms']:.4f} ms")
+                f"CUDA-event wall per call: kernel {r['event_ms']:.4f} ms"
+                + (f"; slice width {r['slice_cols']}" if r['F'] else ''))
+        # the slice-width sweep at H*F = 256
+        hf = PC_HIDDEN
+        pb = p.bfloat16()
+        vb = vs[hf // h].bfloat16()
+        sweep = slice_sweep(
+            torch, 'mix f32 H*F=256',
+            lambda w: gat_mix(blk.indptr, blk.src, p, p, vs[hf // h],
+                              hf // h, slice_cols=w),
+            hf, n, 4, card_slice_cols(vs[hf // h], h, hf // h))
+        sweep += slice_sweep(
+            torch, 'backward grad_v f32 H*F=256',
+            lambda w: gat_mix(blk_t.indptr, blk_t.src, None, p_t, gu, hf // h,
+                              slice_cols=w),
+            hf, n, 4, card_slice_cols(gu, h, hf // h))
+        sweep_bf16 = slice_sweep(
+            torch, 'mix bf16 H*F=256',
+            lambda w: gat_mix(blk.indptr, blk.src, pb, pb, vb, hf // h,
+                              slice_cols=w),
+            hf, n, 2, card_slice_cols(vb, h, hf // h))
         vals = rng.standard_normal((slots, h)) * 3
         vals[rng.random(slots) < 0.1] = -np.inf
         vals = t(vals)
+        lanes = segment_max_lanes(slots, n)
         fns = {'ms': lambda: segment_max_blocked(vals, blk, n),
                'plain_ms': lambda: segment_max_plain(blk.indptr, vals),
                'library_ms': lambda: torch.segment_reduce(
                    vals, 'max', offsets=offsets)}
         by = slots * h * 4 + (n + 1) * 4 + n * h * 4
-        max_row = timed_row(torch, fns, {'H': h, 'slots': e}, by,
+        max_row = timed_row(torch, fns, {'H': h, 'slots': e,
+                                         'lanes_per_row': lanes}, by,
                             1.0 * e * h)
         log(f"[timing] segment_max [{e}, {h}], device time per call: kernel "
             f"{max_row['ms']:.4f} ms, plain {max_row['plain_ms']:.4f} ms, "
@@ -1650,8 +1745,20 @@ def phase_attention_timings(torch, seed, pc):
             f"{max_row['bound_ms']:.4f} ms ({max_row['bound_by']}), kernel "
             f"at {100 * max_row['bound_ms'] / max_row['ms']:.1f}% of the "
             f"bound; CUDA-event wall per call: kernel "
-            f"{max_row['event_ms']:.4f} ms")
-    return rows, max_row
+            f"{max_row['event_ms']:.4f} ms; {lanes} lanes per row at a mean "
+            f"run of {slots / n:.2f} slots")
+        ref = segment_max_blocked(vals, blk, n)
+        max_row['lanes_sweep'] = []
+        for g in SWEEP_LANES:
+            check(torch.equal(segment_max_blocked(vals, blk, n, lanes=g), ref),
+                  f'segment_max: {g} lanes per row changes the output')
+            ms = device_ms(torch, lambda: segment_max_blocked(vals, blk, n,
+                                                              lanes=g))
+            max_row['lanes_sweep'].append({'lanes_per_row': g, 'ms': ms})
+            log(f"[timing] segment_max [{e}, {h}] at {g} lanes per row"
+                f"{' (the rule)' if g == lanes else ''}: {ms:.4f} ms device "
+                f"time per call, output bitwise equal")
+    return rows, max_row, sweep, sweep_bf16
 
 
 # -- phases 14 to 19, the precision ladder -----------------------------------
@@ -1846,9 +1953,9 @@ def phase_path_f(torch, seed):
         torch.cuda.synchronize()
         reset_counts()
         ms, wall_s, enqueue_ms, last = timed_steps(torch, step, 2, PB_STEPS)
-        prof = profile_steps(torch, step, f'path F {kind}')
+        prof, prof_steps = profile_steps(torch, step, f'path F {kind}')
         counts = launch_counts()
-        n_steps = 2 + PB_STEPS + PROFILED_STEPS
+        n_steps = 2 + PB_STEPS + prof_steps
         check(not any(counts.values()),
               f'path F {kind}: kernels launched {counts}')
         log(f'[path F {kind}] dense bf16 cache ({PB_NODES}^2, built in '
@@ -1945,18 +2052,17 @@ def phase_path_g(torch, seed, iters, warmup):
                 log(f'[path G {arm}] against the f32 dense arm: max |diff| '
                     f'/ max |f32| {rel:.3e} (limit {lim:g})')
                 check(rel < lim, f'path G {arm}: {rel} relative to f32')
-            if breakdown is not None:
-                rows, prof_ms = breakdown
-                busy = sum(t for _, t, _ in rows)
-                res.update(device_busy_ms_per_forward=busy,
-                           profiled_ms_per_forward=prof_ms,
-                           device_idle_share=1 - busy / prof_ms,
-                           kernels_per_forward=[[n[:80], t, c]
-                                                for n, t, c in rows[:6]])
-                log(f'[path G {arm}] torch.profiler: device busy {busy:.4f} '
-                    f'ms per forward of {prof_ms:.4f} ms, idle share '
-                    f'{1 - busy / prof_ms:.4f}; top: ' + '; '.join(
-                        f'{n[:50]} {t:.4f} ms x{c:g}' for n, t, c in rows[:3]))
+            rows, prof_ms, _ = breakdown
+            busy = sum(t for _, t, _ in rows)
+            res.update(device_busy_ms_per_forward=busy,
+                       profiled_ms_per_forward=prof_ms,
+                       device_idle_share=1 - busy / prof_ms,
+                       kernels_per_forward=[[n[:80], t, c]
+                                            for n, t, c in rows[:6]])
+            log(f'[path G {arm}] torch.profiler, a whole window: device busy '
+                f'{busy:.4f} ms per forward of {prof_ms:.4f} ms, idle share '
+                f'{1 - busy / prof_ms:.4f}; top: ' + '; '.join(
+                    f'{n[:50]} {t:.4f} ms x{c:g}' for n, t, c in rows[:3]))
             log(f"[path G {arm}] dense {arm} cache ({cache_gb:.3f} GB, built "
                 f"in {build_s:.3f} s, build peak {build_peak:.3f} GB): "
                 f"{ms:.4f} ms per forward, {res['edges_per_s']:.4e} edges/s; "
@@ -1995,7 +2101,6 @@ def phase_path_h(torch, seed, iters, warmup):
     results = {}
     for kind in ('GraphSAGE', 'GIN'):
         model = build_model(torch, kind, None, seed).eval()
-        n_fwd = warmup + iters + PROFILED_FORWARDS
         torch.cuda.synchronize()
         reset_counts()
         with torch.inference_mode():
@@ -2013,6 +2118,7 @@ def phase_path_h(torch, seed, iters, warmup):
             torch.cuda.synchronize()
             ms = start.elapsed_time(end) / iters
             breakdown = profile_forwards(torch, lambda: model(xb, ei))
+        n_fwd = warmup + iters + breakdown[2]
         counts = launch_counts()
         check_counts(f'path H {kind}', counts,
                      {'segment_spmm_bf16': n_fwd,
@@ -2043,15 +2149,14 @@ def phase_path_h(torch, seed, iters, warmup):
                enqueue_ms, 'edges_per_s': 3 * N_EDGES / (ms / 1e3),
                'forwards': n_fwd, 'launches': counts,
                'max_abs_diff_vs_cpu': diff, 'argmax_agreement': agree}
-        if breakdown is not None:
-            rows, prof_ms = breakdown
-            busy = sum(t for _, t, _ in rows)
-            res.update(device_busy_ms_per_forward=busy,
-                       profiled_ms_per_forward=prof_ms,
-                       device_idle_share=1 - busy / prof_ms)
-            log(f'[path H {kind}] torch.profiler: device busy {busy:.4f} ms '
-                f'per forward of {prof_ms:.4f} ms, idle share '
-                f'{1 - busy / prof_ms:.4f}')
+        rows, prof_ms, _ = breakdown
+        busy = sum(t for _, t, _ in rows)
+        res.update(device_busy_ms_per_forward=busy,
+                   profiled_ms_per_forward=prof_ms,
+                   device_idle_share=1 - busy / prof_ms)
+        log(f'[path H {kind}] torch.profiler, a whole window: device busy '
+            f'{busy:.4f} ms per forward of {prof_ms:.4f} ms, idle share '
+            f'{1 - busy / prof_ms:.4f}')
         results[kind] = res
     return results
 
@@ -2079,7 +2184,8 @@ def phase_bf16_timings(torch, seed, pe, pc):
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.ops.bsr_spmm import (bsr_matmul,
                                                           bsr_spmm_plain)
-    from pytorch_geometric_tpu_torch.ops.gat_fused import (gat_mix,
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (card_slice_cols,
+                                                           gat_mix,
                                                            gat_mix_plain)
     from pytorch_geometric_tpu_torch.ops.segment_spmm import (
         segment_spmm, segment_spmm_plain)
@@ -2185,7 +2291,7 @@ def phase_bf16_timings(torch, seed, pe, pc):
         except (RuntimeError, NotImplementedError, TypeError) as err:
             lib = (None, f'{type(err).__name__}: {str(err)[:200]}')
         info = {'pass': 'mix (s, u)', 'H': h, 'F': f, 'HF': h * f,
-                'slots': e}
+                'slots': e, 'slice_cols': card_slice_cols(v, h, f)}
         fns.update(lib_row(info, lib, ref))
         # p, v, s, u in bf16, the indices, once each
         row = timed_row(torch, fns, info,
@@ -2193,7 +2299,8 @@ def phase_bf16_timings(torch, seed, pe, pc):
                         + 2 * n * h * f * 2 + slots * 4,
                         2.0 * e * h * f + e * h)
         rows['gat_mix_bf16'] = [row]
-        log(f"[timing] gat_mix bf16 mix H*F={h * f}, device time per call: "
+        log(f"[timing] gat_mix bf16 mix H*F={h * f} (slice width "
+            f"{row['slice_cols']}), device time per call: "
             f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"{h} torch.sparse.mm (bf16 CSR) {lib_txt(row)}; bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), kernel at "
@@ -2246,7 +2353,8 @@ def main():
     worst_mix_bf16 = phase_gat_mix_bf16_vs_plain(torch, args.seed, pc)
     path_c = phase_path_c(torch, args.seed, args.iters, args.warmup, pc)
     path_d = phase_path_d(torch, args.seed, pc)
-    mix_rows, max_row = phase_attention_timings(torch, args.seed, pc)
+    mix_rows, max_row, sweep, sweep_bf16 = phase_attention_timings(
+        torch, args.seed, pc)
     bf16_rows = phase_bf16_timings(torch, args.seed, pe, pc)
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
@@ -2347,10 +2455,11 @@ def main():
         'bound_by': ('bytes' if all(r['bound_by'] == 'bytes'
                                     for r in mix_fwd) else 'operations'),
         'library_ms': mix_sum['library_ms'],
+        'slice_cols': by_pass[('mix', PC_HIDDEN)]['slice_cols'],
         'times_are': 'per path C forward: the mix at H*F=256 twice and 40 '
                      'once, the stabiliser pass three times; the backward '
                      'pass per call in per_shape',
-        'per_shape': mix_rows}, {
+        'per_shape': mix_rows, 'slice_sweep': sweep}, {
         'name': 'segment_max', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_max.cu',
         'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:327',
@@ -2364,6 +2473,7 @@ def main():
         'ms': max_row['ms'], 'plain_ms': max_row['plain_ms'],
         'bound_ms': max_row['bound_ms'], 'bound_by': max_row['bound_by'],
         'library_ms': max_row['library_ms'],
+        'lanes_per_row': max_row['lanes_per_row'],
         'times_are': f'one call at [{max_row["slots"]}, {PC_HEADS}]',
         'per_shape': [max_row]}, {
         'name': 'segment_spmm_bf16', 'route': 'cuda',
@@ -2418,8 +2528,9 @@ def main():
         'ms': mix_bf16['ms'], 'plain_ms': mix_bf16['plain_ms'],
         'bound_ms': mix_bf16['bound_ms'], 'bound_by': mix_bf16['bound_by'],
         'library_ms': mix_bf16['library_ms'],
+        'slice_cols': mix_bf16['slice_cols'],
         'times_are': f'one mix call at path C H*F={PC_HIDDEN}',
-        'per_shape': [mix_bf16]}]}))
+        'per_shape': [mix_bf16], 'slice_sweep': sweep_bf16}]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -18,8 +18,12 @@ absent), the mix ``(s, u)``, and in the backward ``grad_v`` over the
 source-major slot order. The kernel forms each message in registers, so
 the ``[E, H * F]`` message array is never written.
 
-Bound on the card: bytes; see the kernel's source. Measured times against
-the bound are in PERF.md.
+Bound on the card: bytes; see the kernel's source. The kernel gathers one
+row of ``v`` per slot, and those gathers can only be fast from L2, so it
+cuts the ``H * F`` columns into slices of ``W`` columns
+(:func:`mix_slice_cols`, from the card's L2 size) and the whole card
+gathers from one slice at a time. Measured times against the bound are in
+PERF.md.
 
 The wrapper :func:`gat_mix` runs :func:`gat_mix_plain` for CPU tensors and
 launches the kernel for CUDA tensors; it never falls back from one to the
@@ -69,6 +73,43 @@ def gat_mix_plain(indptr: torch.Tensor, src: torch.Tensor,
     return s, u
 
 
+# The share of the card's L2 that one slice of v may fill, from the
+# slice-width sweep of chip_smoke.py (PERF.md): on an H100 (50 MiB of L2,
+# two partitions) a 25.6 MB slice beat one of 12.8 MB, which re-reads the
+# slot streams twice as often, and one of 51.2 MB, which does not stay
+# resident.
+MIX_L2_SHARE = 0.5
+# the least bytes of a row that one slice gathers: one 128-byte line
+MIX_MIN_SLICE_BYTES = 128
+
+
+def mix_slice_cols(n_src: int, h: int, f: int, itemsize: int,
+                   l2_bytes: int) -> int:
+    """Columns per slice of ``v [n_src, h * f]`` for the mix kernel: the
+    widest divisor ``W`` of ``h * f`` that is a multiple of the 16-byte
+    vector (``16 // itemsize`` elements), gathers at least
+    ``MIX_MIN_SLICE_BYTES`` of a row, and whose slice ``n_src * W *
+    itemsize`` fits in ``MIX_L2_SHARE`` of ``l2_bytes``; the narrowest such
+    divisor when none fits; ``h * f`` (one slice) when the vector does not
+    divide it."""
+    hf = h * f
+    vec = max(16 // itemsize, 1)
+    if hf <= 0 or hf % vec:
+        return hf
+    least = max(vec, MIX_MIN_SLICE_BYTES // itemsize)
+    widths = [w for w in range(vec, hf + 1, vec)
+              if hf % w == 0 and (w >= least or w == hf)]
+    budget = MIX_L2_SHARE * l2_bytes
+    fit = [w for w in widths if n_src * w * itemsize <= budget]
+    return max(fit) if fit else min(widths)
+
+
+def card_slice_cols(v: torch.Tensor, h: int, f: int) -> int:
+    """:func:`mix_slice_cols` for ``v`` on its card, from the card's L2."""
+    l2 = torch.cuda.get_device_properties(v.device).L2_cache_size
+    return mix_slice_cols(v.shape[0], h, f, v.element_size(), l2)
+
+
 def _data_dtype(p_s, p_u, v) -> torch.dtype:
     """The one dtype of the given ``p_s``, ``p_u``, ``v``: float32 or
     bfloat16."""
@@ -79,7 +120,7 @@ def _data_dtype(p_s, p_u, v) -> torch.dtype:
     return dts.pop()
 
 
-def _check(indptr, src, p_s, p_u, v, f):
+def _check(indptr, src, p_s, p_u, v, f, slice_cols=None):
     dev = indptr.device
     if p_s is None and v is None:
         raise ValueError('gat_mix: nothing to compute (p_s and v are None)')
@@ -112,6 +153,11 @@ def _check(indptr, src, p_s, p_u, v, f):
         if f <= 0 or v.shape[1] != p_u.shape[1] * f:
             raise ValueError(f'gat_mix: v has {v.shape[1]} columns for '
                              f'{p_u.shape[1]} heads of {f}')
+        if slice_cols is not None and (
+                slice_cols <= 0 or v.shape[1] % slice_cols
+                or v.shape[1] // slice_cols > 65535):
+            raise ValueError(f'gat_mix: slice_cols {slice_cols} does not '
+                             f'tile the {v.shape[1]} columns of v')
     return dt
 
 
@@ -120,12 +166,14 @@ def _kernel(arm: str):
     from .. import csrc
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return csrc.function('gat_mix', f'pgt_gat_mix_{arm}',
-                         [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, vp])
+                         [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i,
+                          vp])
 
 
 def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
             p_s: Optional[torch.Tensor], p_u: Optional[torch.Tensor],
-            v: Optional[torch.Tensor], f: int = 0
+            v: Optional[torch.Tensor], f: int = 0,
+            slice_cols: Optional[int] = None
             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``s[d] = sum_k p_s[k]`` and ``u[d, h] = sum_k p_u[k, h] *
     v[src[k], h]`` over the slots ``k`` of row ``d``.
@@ -136,8 +184,11 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
     ``u``. Returns ``(s [n_dst, H] or None, u [n_dst, H * f] or None)`` in
     the inputs' dtype. A CPU tensor runs :func:`gat_mix_plain`; a CUDA
     tensor launches the kernel of its dtype (built at first use) or raises.
-    Not differentiable: :func:`gat_aggregate` wraps it."""
-    dt = _check(indptr, src, p_s, p_u, v, f)
+    ``slice_cols`` (a divisor of ``H * f``) sets the kernel's slice width;
+    None takes :func:`mix_slice_cols` for the card. The output is the same
+    bits for every width. Not differentiable: :func:`gat_aggregate` wraps
+    it."""
+    dt = _check(indptr, src, p_s, p_u, v, f, slice_cols)
     if indptr.device.type == 'cpu':
         return gat_mix_plain(indptr, src, p_s, p_u, v, f)
     if indptr.device.type != 'cuda':
@@ -150,6 +201,12 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
         (n_dst, h), dtype=dt, device=indptr.device)
     u = None if v is None else torch.empty(
         (n_dst, h * f), dtype=dt, device=indptr.device)
+    if v is None:
+        w = 0
+    elif slice_cols is None:
+        w = card_slice_cols(v, h, f)
+    else:
+        w = slice_cols
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -158,7 +215,8 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
         stream = torch.cuda.current_stream(indptr.device).cuda_stream
         err = fn(indptr.data_ptr(), src.data_ptr(), ptr(p_s), ptr(p_u),
                  ptr(v), ptr(s), ptr(u), n_dst,
-                 0 if v is None else v.shape[0], src.shape[0], h, f, stream)
+                 0 if v is None else v.shape[0], src.shape[0], h, f, w,
+                 stream)
     if err != 0:
         raise RuntimeError(f'gat_mix kernel launch failed: CUDA error {err}')
     if bf16:

@@ -16,11 +16,14 @@ its plain version.
 
 Bound on the card: bytes, the values once (``S * H * 4``) plus indptr and
 the output. The kernel (``csrc/segment_max.cu``) gives each destination
-row one warp, which reads the row's contiguous ``H``-wide slots with no
-atomics; a maximum is exact, so kernel and plain version agree bitwise.
+row a group of lanes (:func:`segment_max_lanes`, from the mean run length),
+which reads the row's contiguous ``H``-wide slots in 16-byte loads where it
+can and merges through warp shuffles, with no atomics; a maximum is exact,
+so kernel and plain version agree bitwise.
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -28,6 +31,20 @@ from .segment import ptr2index
 
 SENTINEL = -3.4e38   # the TPU kernel's finite stand-in for -inf
 EMPTY_BELOW = -3e38  # a maximum at or below this is returned as -inf
+
+
+def segment_max_lanes(n_slots: int, n_dst: int) -> int:
+    """Lanes of a warp per destination row for the kernel: the least power
+    of two in [1, 32] at which each lane reads at most 8 slots of a row of
+    the mean run length ``n_slots / n_dst`` (more than 4 where that takes
+    more than one lane): two batches of the kernel's four loads. Fewer
+    lanes per row serve more rows per warp and merge in fewer shuffles; at
+    path C's mean of 21 slots, 4 lanes beat 2 and 8 (PERF.md)."""
+    mean = n_slots / max(n_dst, 1)
+    lanes = 1
+    while lanes < 32 and mean > 8 * lanes:
+        lanes *= 2
+    return lanes
 
 
 def segment_max_plain(indptr: torch.Tensor, vals: torch.Tensor
@@ -66,18 +83,24 @@ def _kernel():
     from .. import csrc
     v, ll = ctypes.c_void_p, ctypes.c_longlong
     return csrc.function('segment_max', 'pgt_segment_max_f32',
-                         [v, v, v, ll, ll, ctypes.c_int, v])
+                         [v, v, v, ll, ll, ctypes.c_int, ctypes.c_int, v])
 
 
-def segment_max_blocked(vals: torch.Tensor, layout,
-                        num_segments: int) -> torch.Tensor:
+def segment_max_blocked(vals: torch.Tensor, layout, num_segments: int,
+                        lanes: Optional[int] = None) -> torch.Tensor:
     """``[num_segments, H]`` row maxima of slot-ordered ``vals [S, H]``
     (float32, contiguous) over ``layout`` (a :class:`~..edge_index.Slots`,
     or anything with its int32 ``indptr``). A CPU tensor runs
     :func:`segment_max_plain`; a CUDA tensor launches the kernel (built at
-    first use) or raises. Counted in ``segment_max_blocked.launches``."""
+    first use) or raises. ``lanes`` (a power of two in [1, 32]) sets the
+    kernel's lanes per row; None takes :func:`segment_max_lanes`. Counted
+    in ``segment_max_blocked.launches``."""
     indptr = layout.indptr
     _check(indptr, vals, num_segments)
+    if lanes is not None and (lanes < 1 or lanes > 32
+                              or lanes & (lanes - 1)):
+        raise ValueError(f'segment_max: lanes {lanes} is not a power of two '
+                         'in [1, 32]')
     if vals.device.type == 'cpu':
         return segment_max_plain(indptr, vals)
     if vals.device.type != 'cuda':
@@ -88,7 +111,9 @@ def segment_max_blocked(vals: torch.Tensor, layout,
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = fn(indptr.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                 num_segments, vals.shape[0], vals.shape[1], stream)
+                 num_segments, vals.shape[0], vals.shape[1],
+                 lanes or segment_max_lanes(vals.shape[0], num_segments),
+                 stream)
     if err != 0:
         raise RuntimeError(f'segment_max kernel launch failed: CUDA error '
                            f'{err}')

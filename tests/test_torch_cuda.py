@@ -769,3 +769,121 @@ def test_gcn_training_over_bf16_caches_on_card(dev, block_sparse):
             15 if d == dev and block_sparse else 0)
         losses.append(run)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3)
+
+
+# -- the redesigned mix and segment-max kernels -------------------------------
+def _divisors(n):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+def _mix_inputs(dev, dtype, h, f, layout, seed, offset=0):
+    """A slot order of a bipartite graph (300 -> 800, empty rows, padded
+    slots) with p_s, p_u and v of ``dtype``: the forward layout (s and u
+    over the CSC, v over the sources) or the backward one (u only over the
+    CSR, v over the destinations, as ``grad_v`` runs it). ``offset``
+    elements in front of v leave it that far past a 16-byte boundary."""
+    ei = _slots(300, 800, 6000, dev, seed=seed)
+    blk = ei.blocked if layout == 'forward' else ei.blocked_t
+    n_rows = 300 if layout == 'forward' else 800
+    g = torch.Generator(dev).manual_seed(seed)
+    e = blk.src.shape[0]
+    p_s = (torch.rand(e, h, device=dev, generator=g).to(dtype)
+           if layout == 'forward' else None)
+    p_u = torch.rand(e, h, device=dev, generator=g).to(dtype)
+    base = torch.randn(n_rows * h * f + offset, device=dev,
+                       generator=g).to(dtype)
+    return blk, p_s, p_u, base[offset:].view(n_rows, h * f)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('h', [1, 4, 8])
+@pytest.mark.parametrize('f', [1, 10, 16, 33, 64])
+@pytest.mark.parametrize('layout', ['forward', 'backward'])
+def test_gat_mix_bitwise_across_slice_widths(dev, dtype, h, f, layout):
+    """Every slice width that tiles H*F gives the same bits (each output
+    element is the same sum in the same order, whatever the slice and the
+    vector width), and one slice agrees with the plain version: 1e-5 +
+    1e-5 of the row's sum of |p * v| terms, plus one bf16 ulp in bf16."""
+    blk, p_s, p_u, v = _mix_inputs(dev, dtype, h, f, layout,
+                                   seed=h * 100 + f)
+    ref = gat_mix(blk.indptr, blk.src, p_s, p_u, v, f, slice_cols=h * f)
+    for w in _divisors(h * f):
+        before = gat_mix.launches + gat_mix.launches_bf16
+        out = gat_mix(blk.indptr, blk.src, p_s, p_u, v, f, slice_cols=w)
+        assert gat_mix.launches + gat_mix.launches_bf16 == before + 1
+        for a, b in zip(out, ref):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b), f'slice width {w}'
+    torch.cuda.synchronize()
+    close = _close if dtype == torch.float32 else _bf16_close
+    rs, ru = gat_mix_plain(blk.indptr, blk.src, p_s, p_u, v, f)
+    _, scale = gat_mix_plain(blk.indptr, blk.src, None, p_u, v.abs(), f)
+    close(ref[1], ru, scale)
+    if p_s is not None:
+        close(ref[0], rs, rs)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('offset', [1, 2])
+def test_gat_mix_slices_of_an_unaligned_v(dev, dtype, offset):
+    """A v 1 or 2 elements past a 16-byte boundary takes narrower vectors
+    (which then also straddle heads at F = 10): the same bits as an
+    aligned copy, at every slice width."""
+    h, f = 4, 10
+    blk, p_s, p_u, v = _mix_inputs(dev, dtype, h, f, 'forward', seed=7,
+                                   offset=offset)
+    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    ref = gat_mix(blk.indptr, blk.src, p_s, p_u, v.clone(), f)
+    for w in _divisors(h * f):
+        out = gat_mix(blk.indptr, blk.src, p_s, p_u, v, f, slice_cols=w)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def test_gat_mix_refuses_a_slice_width_that_does_not_tile(dev):
+    blk, p_s, p_u, v = _mix_inputs(dev, torch.float32, 4, 10, 'forward', 3)
+    for w in (0, 3, 80):
+        with pytest.raises(ValueError, match='slice_cols'):
+            gat_mix(blk.indptr, blk.src, p_s, p_u, v, 10, slice_cols=w)
+
+
+@pytest.mark.parametrize('lanes', [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize('h', [1, 3, 4, 8, 12, 40])
+def test_segment_max_long_rows_at_every_width(dev, lanes, h):
+    """Rows longer than 32 * lanes slots beside short and empty ones, at
+    every lanes-per-row width, with H a multiple of 4 (16-byte loads, a
+    shuffle tree over the copies, or units walked per lane for H = 40) and
+    not (scalars): bitwise equal to the plain version."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(lanes * 100 + h)
+    n_dst = 40
+    lens = rng.integers(0, 9, n_dst)
+    lens[::7] = 64 * lanes + rng.integers(1, 50, len(lens[::7]))
+    lens[3] = 0
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    vals = rng.standard_normal((int(indptr[-1]) + 5, h)) * 10  # 5 padded
+    vals[rng.random(vals.shape) < 0.2] = -np.inf
+    vals[rng.random(vals.shape[0]) < 0.3] = -np.inf            # masked slots
+    lay = SimpleNamespace(indptr=torch.as_tensor(indptr, device=dev))
+    vt = torch.as_tensor(vals.astype(np.float32), device=dev)
+    out = segment_max_blocked(vt, lay, n_dst, lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(out, segment_max_plain(lay.indptr, vt))
+    assert torch.isneginf(out[3]).all()
+
+
+def test_segment_max_unaligned_values_and_refusals(dev):
+    """Values 4 bytes past a 16-byte boundary read as scalars, bitwise
+    equal; a lanes width that is not a power of two in [1, 32] raises."""
+    ei = _slots(300, 800, 6000, dev, seed=5)
+    blk = ei.blocked
+    e = blk.src.shape[0]
+    base = torch.randn(e * 4 + 1, device=dev)
+    vals = base[1:].view(e, 4)
+    assert vals.data_ptr() % 16 != 0
+    ref = segment_max_plain(blk.indptr, vals)
+    for lanes in (None, 1, 8, 32):
+        assert torch.equal(segment_max_blocked(vals, blk, 800, lanes=lanes),
+                           ref)
+    for lanes in (0, 3, 64):
+        with pytest.raises(ValueError, match='power of two'):
+            segment_max_blocked(vals, blk, 800, lanes=lanes)
