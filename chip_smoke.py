@@ -7,7 +7,8 @@ checks them:
   1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
   2. build: every CUDA kernel of the paths, from the sources in this checkout
      (one ``nvcc`` per source, all started together), with the register and
-     spill report;
+     spill report, and the count of ``HGMMA`` (``wgmma``) instructions in the
+     block-sparse library's SASS (``cuobjdump -sass``);
   3. each kernel against its plain PyTorch version on the card: the
      segment-sum kernel forward over narrow, unaligned, weighted, unweighted,
      bipartite and empty-row cases and the serving shapes; the block-sparse
@@ -33,9 +34,10 @@ checks them:
      250000 --edges 5000000 --bsr``, seed ``--seed``) cached through
      ``cache_gcn_norm(block_sparse=True)``, ``bench.py``'s model (GCN 64 ->
      64 -> 64 -> 10, softmax cross-entropy, Adam 1e-2); the build's time and
-     size, ms per step, launches per step, a ``torch.profiler`` breakdown and
-     idle share, and 3 steps held against the CPU plain path from the same
-     weights (losses each step, the first step's gradients);
+     size, ms per step, launches per step, a ``torch.profiler`` breakdown,
+     kernel 2's share of it (pre-pass included) and idle share, and 3 steps
+     held against the CPU plain path from the same weights (losses each
+     step, the first step's gradients);
   8. path B, ``bench.py``'s protocol (10,000 nodes, 200,000 random edges,
      F = 64, hidden 64, 3 layers, 10 classes, Adam 1e-2, 500 steps) for GCN,
      GraphSAGE and GIN through the segment-sum kernel forward and backward:
@@ -43,7 +45,9 @@ checks them:
      the first 3 losses against the CPU plain path;
   9. training-kernel timings: the BSR kernel at F = 64 and 10 on both
      layouts (``torch.sparse.mm`` on a BSR tensor of the same blocks as the
-     yardstick), and the segment-sum backward pass at path B's shapes;
+     yardstick), with its pre-pass's share, the rate of the bytes it must
+     move and the HGMMA count; and the segment-sum backward pass at path B's
+     shapes;
  10. the attention kernels against their plain versions: the multi-head
      GAT mix kernel over H in {1, 4, 8} and F in {1, 10, 16, 64} (p_s !=
      p_u, v absent, empty rows, padded slots) and its backward pass, and
@@ -149,6 +153,10 @@ PC_LAYERS, PC_CLASSES = 3, 10
 MIX_PER_FORWARD, MIX_PER_STEP = 2 * PC_LAYERS, 3 * PC_LAYERS
 # the mix kernel's name in a profile (every template instance holds it)
 MIX_KERNEL = 'gat_mix_kernel'
+# kernel 2's two launches per call, its pre-pass and the kernel proper
+BSR_PREP, BSR_MAIN = 'bsr_prep_kernel', 'bsr_spmm_kernel'
+# the count of HGMMA (wgmma) instructions in a built library's SASS
+HGMMA = {}
 
 
 def log(*a):
@@ -212,11 +220,27 @@ def phase_device(torch):
 
 
 # -- phase 2 ------------------------------------------------------------------
+def sass_count(lib, opcode):
+    """How often ``opcode`` appears in the SASS of the built library
+    ``lib`` (``cuobjdump -sass``), or "not available" without the tool."""
+    tool = Path('/usr/local/cuda/bin/cuobjdump')
+    if not tool.is_file():
+        return 'not available'
+    sass = subprocess.run([str(tool), '-sass', str(lib)],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        return 'not available'
+    return len(re.findall(rf'\b{opcode}\b', sass.stdout))
+
+
 def phase_build(csrc):
     t0 = time.perf_counter()
-    csrc.build_all()
+    libs = csrc.build_all()
     log(f"[build] {', '.join(sorted(csrc.SOURCES))} (one nvcc each, in "
         f'parallel) in {time.perf_counter() - t0:.2f} s')
+    HGMMA['bsr_spmm'] = sass_count(libs['bsr_spmm'], 'HGMMA')
+    log(f"[build] bsr_spmm: {HGMMA['bsr_spmm']} HGMMA instructions in its "
+        'SASS (cuobjdump -sass)')
     for name, text in csrc.build_logs.items():
         fn, spill = None, ''
         for line in text.splitlines():
@@ -937,6 +961,11 @@ def profile_steps(torch, step, tag, expect=None):
         log(f'[{tag}]   {t:.4f} ms  x{n:g}  {name[:90]}')
     return {'device_busy_ms_per_step': busy, 'profiled_ms_per_step': wall,
             'device_idle_share': 1 - busy / wall,
+            'kernel2_ms_per_step': sum(t for name, t, _ in rows
+                                       if BSR_PREP in name
+                                       or BSR_MAIN in name),
+            'kernel2_prep_ms_per_step': sum(t for name, t, _ in rows
+                                            if BSR_PREP in name),
             'kernels_per_step': [[name[:80], t, n] for name, t, n in rows[:8]]
             }, run
 
@@ -1020,6 +1049,11 @@ def phase_path_a(torch, seed, pa, bf16=False):
         f'loss after {PA_WARMUP + PA_STEPS} steps {last:.6f}; peak memory '
         f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
     log(f'[{tag}] launches in {n_steps} steps: {counts}')
+    log(f"[{tag}] kernel 2 (pre-pass and kernel) "
+        f"{prof['kernel2_ms_per_step']:.4f} ms of the "
+        f"{prof['device_busy_ms_per_step']:.4f} ms busy per step (share "
+        f"{prof['kernel2_ms_per_step'] / prof['device_busy_ms_per_step']:.4f}"
+        f"), its pre-pass {prof['kernel2_prep_ms_per_step']:.4f} ms")
     check_counts(tag, counts, {k: PASSES_PER_STEP * n_steps
                                for k in launches}, f'{n_steps} steps')
     card = parity_run(torch, 'GCN', state, x, ei, y, 'cuda')
@@ -1190,11 +1224,15 @@ def phase_training_timings(torch, seed, pa):
                                               rtol=1e-4, atol=1e-4)),
                           f'torch.sparse.mm (BSR) disagrees at F={f}')
                     fns['library_ms'] = lib
-                bsr_rows.append(timed_fns(torch, row, fns))
+                bsr_rows.append(bsr_timed(torch, row, fns))
                 lib_txt = (f"{row['library_ms']:.4f} ms" if lib else
                            f"none ({row['library_error']})")
                 log(f"[timing] bsr_spmm {lay_name} F={f}, device time per "
-                    f"call: kernel {row['ms']:.4f} ms, plain "
+                    f"call: kernel {row['ms']:.4f} ms (pre-pass "
+                    f"{row['prep_ms']:.4f}, kernel proper "
+                    f"{row['main_ms']:.4f}; {row['tb_per_s']:.3f} TB/s of "
+                    f"the bytes it must move; HGMMA in the SASS: "
+                    f"{row['hgmma_in_sass']}), plain "
                     f"{row['plain_ms']:.4f} ms, torch.sparse.mm (BSR) "
                     f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}), kernel at "
                     f"{100 * b_ms / row['ms']:.1f}% of the bound; CUDA-event "
@@ -1239,7 +1277,7 @@ def per_step(rows, picks):
     """Sum ``ms``-like keys of ``rows`` over the passes ``picks`` of one
     training step; ``library_ms`` is None when any pass lacks one."""
     out = {}
-    for key in ('ms', 'plain_ms', 'bound_ms', 'library_ms'):
+    for key in ('ms', 'prep_ms', 'plain_ms', 'bound_ms', 'library_ms'):
         vals = [next(r for r in rows if all(r[k] == v for k, v in p.items())
                      ).get(key) for p in picks]
         out[key] = None if any(v is None for v in vals) else sum(vals)
@@ -1571,6 +1609,20 @@ def mix_bytes(n_src, n_dst, slots, h, f, p_reads, out_s):
     if f:
         by += (n_src + n_dst) * h * f * 4 + slots * 4
     return by
+
+
+def bsr_timed(torch, row, fns):
+    """``timed_fns`` for a kernel-2 row, plus the pre-pass's and the kernel
+    proper's device time per call (a second whole window of the kernel),
+    the rate of the bytes the row must move at its measured time, and the
+    HGMMA count of the built library."""
+    timed_fns(torch, row, fns)
+    rows, _, _ = whole_window(torch, fns['ms'], 10)
+    row['prep_ms'] = sum(t for name, t, _ in rows if BSR_PREP in name)
+    row['main_ms'] = sum(t for name, t, _ in rows if BSR_MAIN in name)
+    row['tb_per_s'] = row['bytes'] / (row['ms'] * 1e-3) / 1e12
+    row['hgmma_in_sass'] = HGMMA.get('bsr_spmm', 'not available')
+    return row
 
 
 def timed_fns(torch, row, fns, reps=20, warmup=3, calls=10):
@@ -2257,9 +2309,13 @@ def phase_bf16_timings(torch, seed, pe, pc):
                 fns.update(lib_row(row, bsr_library_call(
                     torch, layout, PA_NODES, x.bfloat16()),
                     fns['plain_ms']()))
-                rows['bsr_spmm_bf16'].append(timed_fns(torch, row, fns))
+                rows['bsr_spmm_bf16'].append(bsr_timed(torch, row, fns))
                 log(f"[timing] bsr_spmm bf16 {lay_name} F={f}, device time "
-                    f"per call: kernel {row['ms']:.4f} ms, plain "
+                    f"per call: kernel {row['ms']:.4f} ms (pre-pass "
+                    f"{row['prep_ms']:.4f}, kernel proper "
+                    f"{row['main_ms']:.4f}; {row['tb_per_s']:.3f} TB/s of "
+                    f"the bytes it must move; HGMMA in the SASS: "
+                    f"{row['hgmma_in_sass']}), plain "
                     f"{row['plain_ms']:.4f} ms, torch.sparse.mm (bf16 BSR) "
                     f"{lib_txt(row)}; bound {b_ms:.4f} ms ({b_by}), kernel "
                     f"at {100 * b_ms / row['ms']:.1f}% of the bound; "
@@ -2431,13 +2487,15 @@ def main():
         'launches_per_step': {'path_a': path_a['launches_per_step'][
             'bsr_spmm']},
         'max_abs_err': worst_bsr,
-        'ms': bsr_step['ms'], 'plain_ms': bsr_step['plain_ms'],
+        'ms': bsr_step['ms'], 'prep_ms': bsr_step['prep_ms'],
+        'plain_ms': bsr_step['plain_ms'],
         'bound_ms': bsr_step['bound_ms'],
         'bound_by': max(('bytes', 'operations'), key=lambda b: sum(
             r['bound_ms'] for r in bsr_rows if r['bound_by'] == b)),
         'library_ms': bsr_step['library_ms'],
         'times_are': 'per path A training step: the forward layout at F=64 '
                      'twice and F=10, the transposed layout at F=10 and F=64',
+        'hgmma_in_sass': HGMMA.get('bsr_spmm', 'not available'),
         'per_shape': bsr_rows}, {
         'name': 'gat_mix', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/gat_mix.cu',
@@ -2503,7 +2561,8 @@ def main():
         'launches_per_step': {'path_e': path_e['launches_per_step'][
             'bsr_spmm_bf16']},
         'max_abs_err': worst_bsr_bf16,
-        'ms': bsr_bf16_step['ms'], 'plain_ms': bsr_bf16_step['plain_ms'],
+        'ms': bsr_bf16_step['ms'], 'prep_ms': bsr_bf16_step['prep_ms'],
+        'plain_ms': bsr_bf16_step['plain_ms'],
         'bound_ms': bsr_bf16_step['bound_ms'],
         'bound_by': max(('bytes', 'operations'), key=lambda b: sum(
             r['bound_ms'] for r in bf16_rows['bsr_spmm_bf16']
@@ -2511,6 +2570,7 @@ def main():
         'library_ms': bsr_bf16_step['library_ms'],
         'times_are': 'per path E training step: the forward layout at F=64 '
                      'twice and F=10, the transposed layout at F=10 and F=64',
+        'hgmma_in_sass': HGMMA.get('bsr_spmm', 'not available'),
         'per_shape': bf16_rows['bsr_spmm_bf16']}, {
         'name': 'gat_mix_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/gat_mix.cu',

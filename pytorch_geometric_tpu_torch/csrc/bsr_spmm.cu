@@ -1,45 +1,74 @@
 // Block-sparse (BSR) SpMM over cached 128x128 adjacency blocks, for Hopper
-// (sm_90a): float32 blocks (`pgt_bsr_spmm_f32`) and bfloat16 blocks on the
-// tensor cores (`pgt_bsr_spmm_bf16`, at the end of this file).
+// (sm_90a), both arms on the tensor cores through `wgmma`: float32 blocks
+// (`pgt_bsr_spmm_f32`, a 3xTF32 split) and bfloat16 blocks
+// (`pgt_bsr_spmm_bf16`, one bf16 pass).
 //
 //   out[r*128 + i, :] = sum_{k = row_ptr[r]}^{row_ptr[r+1]-1}
 //                       sum_{j < 128} vals[k, i, j] * x[cols[k]*128 + j, :]
 //
 // Replaces the TPU kernel `_make_kernel` (pytorch_geometric_tpu/ops/
 // bsr_spmm.py:114, launched at :184 by `_bsr_matmul_impl`, forward and, over
-// the transposed layout, backward). The TPU kernel walks a sequential grid
-// (f_tiles, NB) and carries each dst row's sum in its resident output tile,
-// zeroed on the row's `first` block. Hopper CTAs run in no order and carry
-// nothing, so:
+// the transposed layout, backward; its bf16 branch at :129-140). The TPU
+// kernel walks a sequential grid and carries each dst row's sum in its
+// resident output tile. Here:
 //
-//   * one CTA owns one (dst block row, F tile) and loops over that row's
-//     blocks through `row_ptr` (built once at fill_cache time), keeping the
-//     128 x FT output tile in registers; it writes the tile once, with no
-//     atomics, so the result is deterministic; a row with no blocks writes
-//     zeros (the JAX layout's spliced zero blocks are not needed);
-//   * F is tiled by FT = 16, 32 or 64 columns (the smallest that covers a
-//     narrow F), and the ragged F edge, the ragged last node block and
-//     sources past n_src are masked, instead of padding F to 128 (which at
-//     F = 10 would multiply the work by 12.8);
-//   * exact float32: plain FMAs on the CUDA cores. TF32 tensor cores keep
-//     about three decimal digits, and the TPU kernel's f32 arm is HIGHEST.
+//   * A pre-pass (`bsr_prep_kernel`) lays x out once per call as the main
+//     kernel reads it: per 128-row source tile, per F tile of FT columns
+//     and per K-chunk, one contiguous run holding the `wgmma` B operand in
+//     its K-major, unswizzled core-matrix layout ([k group][n][16 B]),
+//     F padded to FT and rows past n_src zeroed; float32 x as TF32 `x_hi`
+//     and `x_lo` (`cvt.rna`), bf16 as x rounded to nearest even (what the
+//     JAX package's `x.astype(bf16)` does). It also zeroes the row counter.
+//   * One persistent CTA per SM takes work items (dst block row, F tile)
+//     from that counter, in the order `order` gives: the rows by descending
+//     block count, so the longest rows start first and the short ones fill
+//     the tail. Each output row is written once by one CTA, with no atomics
+//     on the output, so the result is deterministic.
+//   * The CTA is one producer thread (a warp of its own) and two consumer
+//     warpgroups. The producer keeps a ring of stages in shared memory full
+//     with TMA copies that complete on `mbarrier`s: a stage is a K-chunk of
+//     one block, 256 bytes of each of its 128 rows (64 float32 columns,
+//     half a block; or a whole bf16 block), as two tensor-map boxes of 128
+//     rows by 128 bytes with the 128-byte swizzle, so the consumers'
+//     16-byte fragment loads of 8 rows hit distinct banks; plus the chunk's
+//     x run, one `cp.async.bulk`. Three copies a chunk: the first design
+//     copied each 256-byte row on its own (129 copies a chunk) and was
+//     bound by starting the copies, at 0.94 TB/s. The values are streamed
+//     once (L2 evict-first); x runs are re-read by every block of their source
+//     tile and come mostly from L2. A small header in each stage tells the
+//     consumers the row, the F tile, and whether the chunk ends the row.
+//     The tensor map comes from cuTensorMapEncodeTiled, looked up
+//     through the runtime, so the library links no libcuda.
+//   * Each consumer warpgroup owns 64 of the block's 128 rows and runs
+//     `wgmma.m64nFTk8` (TF32) or `k16` (bf16) with A, the block values, from
+//     registers and B, the x run, from shared memory. Both operands must be
+//     K-major for TF32; the values are K-major already. A thread loads its
+//     A fragments as 16-byte vectors: the K order inside a chunk is
+//     permuted (`perm` below) so that one vector holds what a thread needs
+//     for two k-steps, and the pre-pass applies the same permutation to x,
+//     so the sum is unchanged.
+//   * float32: each value v is split in registers, hi = cvt.rna.tf32(v),
+//     lo = cvt.rna.tf32(v - hi), and each k-step runs hi*x_hi, hi*x_lo
+//     and lo*x_hi, which keeps about 22 bits of each product (one TF32 pass
+//     keeps 11). The tensor cores need not round to nearest when they add
+//     into their accumulator, so each chunk's products go to a fresh
+//     accumulator (24 updates at most) that is then added to the row's
+//     float32 sum with ordinary FADDs: even with every update truncated the
+//     error stays within 1e-5 of the row's sum of |a*x|, the limit the
+//     kernel is held to (tests/test_torch_bsr_plan.py emulates it).
+//   * bf16: one pass, bf16 blocks times x rounded to bf16, float32
+//     accumulation per block as above.
 //
-// Per block the CTA stages the 64 KB value block (rows padded to 132 floats,
-// so the two row groups of a warp read disjoint banks) and the 128 x FT x
-// tile in shared memory, then each of its 256 threads accumulates an 8 x TN
-// micro-tile (rows ty + 16m, columns tx*TN .. tx*TN+TN-1), reading four A
-// values per 16-byte shared load. About 100 KB of shared memory per CTA lets
-// two CTAs share an SM, so one loads while the other computes.
+// Bound on the card: the bytes (the NB * 64 KB, or 32 KB, block stream plus
+// x and out over 3.35 TB/s). The dense blocks take 3 * 2 * NB * 128^2 * FT
+// TF32 FLOPs (495 TFLOP/s) or 2 * NB * 128^2 * FT bf16 ones (989), below
+// the bytes at the paths' F. Measured times are in PERF.md.
 //
-// Bound on the card: the bytes, the NB * 64 KB block stream plus x and out
-// over 3.35 TB/s. The function needs 2 * (nonzeros in the blocks) * F FLOPs,
-// far fewer; this kernel multiplies every stored zero too, 2 * NB * 128^2 * F
-// FLOPs, which over the 67 TFLOP/s of the CUDA cores sets its own floor above
-// the byte bound at F = 64. Measured times are in PERF.md.
-//
-// Plain C interface, bound from Python with ctypes; every launch returns
-// cudaGetLastError().
+// Plain C interface, bound from Python with ctypes; every entry point
+// returns cudaGetLastError() after its launches. The launch plan (FT, the
+// number of stages) comes from the caller (`ops/bsr_spmm.py::bsr_plan`).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,396 +76,691 @@
 namespace {
 
 constexpr int BS = 128;
-constexpr int kThreads = 256;
-constexpr int LDA = BS + 4;  // floats per staged value-block row
+constexpr int ROW_BYTES = 256;  // one staged run of a block row
+constexpr int BOX_BYTES = 128;  // the TMA box's row: one 128-byte swizzle span
+constexpr int VALS_STAGE = BS * ROW_BYTES;
+constexpr int HEAD_BYTES = 1024;  // barriers and headers, before the ring
+constexpr int MAX_STAGES = 8;
+constexpr int kConsumerWarps = 8;  // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 32;
 
-template <int TN>
-__device__ __forceinline__ void load_b(const float* p, float* b);
+enum : int { kLast = 1, kEmpty = 2, kEnd = 4 };
 
-template <>
-__device__ __forceinline__ void load_b<1>(const float* p, float* b) {
-  b[0] = p[0];
+struct Header {
+  int row, ft, flags, pad;
+};
+
+// float32 blocks: 64-column chunks, two per block, x as TF32 hi and lo
+struct F32Arm {
+  using T = float;
+  static constexpr int KC = 64, CPB = 2, HL = 2, EPU = 4;
+  // logical k (8 per k-step) -> column of the chunk
+  static __host__ __device__ int perm(int l) {
+    const int step = l >> 3, j = l & 7;
+    return 16 * (step >> 1) + 4 * (j & 3) + 2 * (step & 1) + (j >> 2);
+  }
+};
+
+// bf16 blocks: the whole block is one 128-column chunk, x as bf16
+struct Bf16Arm {
+  using T = __nv_bfloat16;
+  static constexpr int KC = 128, CPB = 1, HL = 1, EPU = 8;
+  // logical k (16 per k-step) -> column of the chunk
+  static __host__ __device__ int perm(int l) {
+    const int step = l >> 4, j = l & 15;
+    return 32 * (step >> 1) + 8 * ((j & 7) >> 1) + 4 * (step & 1) +
+           2 * (j >> 3) + (j & 1);
+  }
+};
+
+template <class Arm, int FT>
+__host__ __device__ constexpr int x_chunk_bytes() {
+  return Arm::HL * Arm::KC * FT * (int)sizeof(typename Arm::T);
 }
 
-template <>
-__device__ __forceinline__ void load_b<2>(const float* p, float* b) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  b[0] = t.x;
-  b[1] = t.y;
+template <class Arm, int FT>
+__host__ __device__ constexpr int stage_bytes() {
+  return VALS_STAGE + x_chunk_bytes<Arm, FT>();
 }
 
-template <>
-__device__ __forceinline__ void load_b<4>(const float* p, float* b) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  b[0] = t.x;
-  b[1] = t.y;
-  b[2] = t.z;
-  b[3] = t.w;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float lane_of(const float4& v, int q) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try(bar, parity)) {
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+// `bytes` (a multiple of 16) from global to shared, completing on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the box of `map` at (column c0, row c1) to shared memory, completing on
+// `bar`, with the L2 policy `pol`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar,
+                                         uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+      "l"(pol)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void pin(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+// A K-major, unswizzled shared-memory operand: core matrices of 8 rows x 16
+// bytes, `lbo` bytes apart along K and `sbo` bytes apart along N.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x N float32, the warpgroup's fragments) = or += A (64 x K, four
+// registers a thread) * B (K x N in shared memory, descriptor b); `acc`
+// zero overwrites d.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// TN columns per thread; the CTA's F tile is FT = 16 * TN columns wide.
-template <int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-bsr_spmm_f32_kernel(const int* __restrict__ row_ptr,
-                    const int* __restrict__ cols,
-                    const float* __restrict__ vals,
-                    const float* __restrict__ x, float* __restrict__ out,
-                    long long num_out, long long n_src, long long f,
-                    long long nb, bool vec4) {
-  constexpr int FT = 16 * TN;
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // [BS][LDA]
-  float* Bs = As + BS * LDA;                    // [BS][FT]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column group
-  const int ty = tid >> 4;  // row group: rows ty + 16m
-  const long long rb = blockIdx.x;
-  const long long f0 = (long long)blockIdx.y * FT;
-
-  float acc[8][TN];
+// One chunk's A fragments for the thread's two rows, r = g and r + 8 of
+// its warp's 16: 16-byte unit U = 4p + t of each 256-byte chunk row, the
+// vector p holding k-steps 2p, 2p + 1. The chunk lies in two 16 KB TMA
+// boxes of 128-byte rows, unit u of row r at (u ^ (r % 8)) (the 128-byte
+// swizzle), so the 8 rows of a warp's loads fall on distinct banks.
+__device__ __forceinline__ void load_rows(const unsigned char* vals, int r,
+                                          int t, uint4 (&v)[2][4]) {
 #pragma unroll
-  for (int m = 0; m < 8; ++m)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
-
-  const long long kbeg = max((long long)__ldg(row_ptr + rb), 0LL);
-  const long long kend = min((long long)__ldg(row_ptr + rb + 1), nb);
-
-  for (long long k = kbeg; k < kend; ++k) {
-    const long long s0 = (long long)__ldg(cols + k) * BS;
-    const float4* a4 = reinterpret_cast<const float4*>(vals + k * BS * BS);
-    __syncthreads();  // the previous block's tiles are consumed
-    // value block: 4096 float4, a warp reads one 512-byte row; streamed
-    // once, so evict-first in L2 to leave room for x
-#pragma unroll 4
-    for (int q = 0; q < (BS * BS / 4) / kThreads; ++q) {
-      const int idx = tid + q * kThreads;
-      *reinterpret_cast<float4*>(As + (idx >> 5) * LDA + 4 * (idx & 31)) =
-          __ldcs(a4 + idx);
+    for (int p = 0; p < 4; ++p) {
+      const int row = r + 8 * h, u = 4 * (p & 1) + t;
+      v[h][p] = *reinterpret_cast<const uint4*>(
+          vals + (p >> 1) * (BS * BOX_BYTES) + row * BOX_BYTES +
+          ((u ^ (row & 7)) << 4));
     }
-    // x tile: rows s0 .. s0+127, columns f0 .. f0+FT-1, zero past the edges
-    if (vec4) {
-      constexpr int V = FT / 4;
-      for (int idx = tid; idx < BS * V; idx += kThreads) {
-        const int r = idx / V, c = idx % V;
-        const long long s = s0 + r, col = f0 + 4 * c;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (s < n_src && col < f)
-          v = __ldg(reinterpret_cast<const float4*>(x + s * f + col));
-        *reinterpret_cast<float4*>(Bs + r * FT + 4 * c) = v;
-      }
-    } else {
-      for (int idx = tid; idx < BS * FT; idx += kThreads) {
-        const int r = idx / FT, c = idx % FT;
-        const long long s = s0 + r, col = f0 + c;
-        Bs[r * FT + c] = (s < n_src && col < f) ? __ldg(x + s * f + col) : 0.f;
+}
+
+// The consumers' work on one staged chunk: d = this chunk's A * B.
+template <int FT>
+__device__ __forceinline__ void chunk_f32(const unsigned char* vals, int r,
+                                          int t, uint32_t xb, float* d) {
+  constexpr uint32_t LBO = FT / 8 * 128, HALF = FT * F32Arm::KC * 4;
+  uint4 v[2][4];
+  load_rows(vals, r, t, v);
+  uint32_t ah[8][4], al[8][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int sb = 0; sb < 2; ++sb) {
+      // a0: row g, a1: row g + 8, a2 / a3 the same rows four k later
+      const uint32_t raw[4] = {word(v[0][p], 2 * sb), word(v[1][p], 2 * sb),
+                               word(v[0][p], 2 * sb + 1),
+                               word(v[1][p], 2 * sb + 1)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = __uint_as_float(raw[i]);
+        ah[2 * p + sb][i] = tf32_rna(a);
+        al[2 * p + sb][i] = tf32_rna(a - __uint_as_float(ah[2 * p + sb][i]));
       }
     }
-    __syncthreads();
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const uint32_t off = 2 * s * LBO;
+    const uint64_t bh = desc(xb + off, LBO, 128);
+    const uint64_t bl = desc(xb + HALF + off, LBO, 128);
+    Wgmma<FT>::tf32(d, ah[s], bh, s);
+    Wgmma<FT>::tf32(d, ah[s], bl, 1);
+    Wgmma<FT>::tf32(d, al[s], bh, 1);
+  }
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int i = 0; i < FT / 2; ++i) pin(d[i]);
+}
 
-#pragma unroll 2
-    for (int j = 0; j < BS; j += 4) {
-      float4 a[8];
+template <int FT>
+__device__ __forceinline__ void chunk_bf16(const unsigned char* vals, int r,
+                                           int t, uint32_t xb, float* d) {
+  constexpr uint32_t LBO = FT / 8 * 128;
+  uint4 v[2][4];
+  load_rows(vals, r, t, v);
+  uint32_t a[8][4];
 #pragma unroll
-      for (int m = 0; m < 8; ++m)
-        a[m] = *reinterpret_cast<const float4*>(As + (ty + 16 * m) * LDA + j);
+  for (int p = 0; p < 4; ++p)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float b[TN];
-        load_b<TN>(Bs + (j + q) * FT + tx * TN, b);
+    for (int sb = 0; sb < 2; ++sb) {
+      a[2 * p + sb][0] = word(v[0][p], 2 * sb);
+      a[2 * p + sb][1] = word(v[1][p], 2 * sb);
+      a[2 * p + sb][2] = word(v[0][p], 2 * sb + 1);
+      a[2 * p + sb][3] = word(v[1][p], 2 * sb + 1);
+    }
+  wg_fence();
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const float av = lane_of(a[m], q);
+  for (int s = 0; s < 8; ++s)
+    Wgmma<FT>::bf16(d, a[s], desc(xb + 2 * s * LBO, LBO, 128), s);
+  wg_commit();
+  wg_wait_all();
 #pragma unroll
-          for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(av, b[n], acc[m][n]);
+  for (int i = 0; i < FT / 2; ++i) pin(d[i]);
+}
+
+template <class Arm, int FT>
+__global__ void __launch_bounds__(kThreads, 1)
+bsr_spmm_kernel(const __grid_constant__ CUtensorMap vals,
+                const int* __restrict__ row_ptr, const int* __restrict__ cols,
+                const int* __restrict__ order,
+                const typename Arm::T* __restrict__ xs,
+                float* __restrict__ out, int* __restrict__ counter,
+                int n_items, int n_ft, long long num_out, long long f,
+                long long nb, int stages) {
+  using T = typename Arm::T;
+  constexpr int XB = x_chunk_bytes<Arm, FT>();
+  constexpr int SB = stage_bytes<Arm, FT>();
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t full0 = smem_u32(smem), empty0 = full0 + 8 * MAX_STAGES;
+  Header* headers = reinterpret_cast<Header*>(smem + 16 * MAX_STAGES);
+  unsigned char* ring = smem + HEAD_BYTES;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // -- the producer: one thread --------------------------------------------
+    if (lane != 0) return;
+    const uint64_t pol = evict_first_policy();
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      const int item = atomicAdd(counter, 1);
+      if (item >= n_items) break;
+      const int r = __ldg(order + item / n_ft), ft = item % n_ft;
+      const long long kb = max((long long)__ldg(row_ptr + r), 0LL);
+      const long long ke = max(min((long long)__ldg(row_ptr + r + 1), nb), kb);
+      const int nch = (int)(ke - kb) * Arm::CPB;
+      for (int c = 0; c < max(nch, 1); ++c) {
+        const uint32_t full = full0 + 8 * stage;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        headers[stage] = {r, ft,
+                          (c == max(nch, 1) - 1 ? kLast : 0) |
+                              (nch == 0 ? kEmpty : 0),
+                          0};
+        if (nch == 0) {
+          mbar_arrive(full);
+        } else {
+          const long long k = kb + c / Arm::CPB;
+          const int part = c % Arm::CPB;
+          const uint32_t dst = smem_u32(ring + (size_t)stage * SB);
+          mbar_expect_tx(full, VALS_STAGE + XB);
+          // two boxes of 128 rows x 128 bytes: the chunk's 256-byte rows
+          constexpr int BOX_COLS = BOX_BYTES / (int)sizeof(T);
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            tma_load(dst + b * BS * BOX_BYTES, &vals,
+                     part * Arm::KC + b * BOX_COLS, (int)(k * BS), full, pol);
+          const size_t chunk =
+              ((size_t)__ldg(cols + k) * n_ft + ft) * Arm::CPB + part;
+          bulk_copy(dst + VALS_STAGE,
+                    reinterpret_cast<const char*>(xs) + chunk * XB, XB, full);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
-  }
-
+    mbar_wait(empty0 + 8 * stage, phase ^ 1);
+    headers[stage].flags = kEnd;
+    mbar_arrive(full0 + 8 * stage);
+  } else {
+    // -- the consumer warpgroups ---------------------------------------------
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int row_in_block = wg * 64 + (warp & 3) * 16 + g;  // and + 8
+    float total[FT / 2], d[FT / 2];
 #pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const long long row = rb * BS + ty + 16 * m;
-    if (row >= num_out) continue;
+    for (int i = 0; i < FT / 2; ++i) total[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const Header h = headers[stage];
+      if (h.flags & kEnd) break;
+      if (!(h.flags & kEmpty)) {
+        const unsigned char* base = ring + (size_t)stage * SB;
+        const uint32_t xb = smem_u32(base + VALS_STAGE);
+        if constexpr (Arm::HL == 2)
+          chunk_f32<FT>(base, row_in_block, t, xb, d);
+        else
+          chunk_bf16<FT>(base, row_in_block, t, xb, d);
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const long long col = f0 + tx * TN + n;
-      if (col < f) out[row * f + col] = acc[m][n];
+        for (int i = 0; i < FT / 2; ++i) total[i] += d[i];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (h.flags & kLast) {
+        // d[4j + 2h + e]: row g + 8h, column 8j + 2t + e
+        const long long col0 = (long long)h.ft * FT + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long row = (long long)h.row * BS + row_in_block + 8 * hh;
+          if (row >= num_out) continue;
+          float* o = out + row * f;
+#pragma unroll
+          for (int j = 0; j < FT / 8; ++j) {
+            const long long col = col0 + 8 * j;
+            const float v0 = total[4 * j + 2 * hh];
+            const float v1 = total[4 * j + 2 * hh + 1];
+            if (col + 1 < f && (f & 1) == 0) {
+              *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+            } else {
+              if (col < f) o[col] = v0;
+              if (col + 1 < f) o[col + 1] = v1;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < FT / 2; ++i) total[i] = 0.f;
+      }
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
 }
 
-template <int TN>
-cudaError_t launch(const int* row_ptr, const int* cols, const float* vals,
-                   const float* x, float* out, long long n_row_blocks,
-                   long long num_out, long long n_src, long long f,
-                   long long nb, bool vec4, cudaStream_t stream) {
-  constexpr int FT = 16 * TN;
-  const size_t smem = (size_t)(BS * LDA + BS * FT) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bsr_spmm_f32_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+__device__ __forceinline__ void store_unit(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_unit(__nv_bfloat16* p, const float* v) {
+  uint4 w;
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  const __nv_bfloat162 c = __floats2bfloat162_rn(v[4], v[5]);
+  const __nv_bfloat162 e = __floats2bfloat162_rn(v[6], v[7]);
+  w.x = *reinterpret_cast<const uint32_t*>(&a);
+  w.y = *reinterpret_cast<const uint32_t*>(&b);
+  w.z = *reinterpret_cast<const uint32_t*>(&c);
+  w.w = *reinterpret_cast<const uint32_t*>(&e);
+  *reinterpret_cast<uint4*>(p) = w;
+}
+
+// The pre-pass: one thread per 16-byte unit of the laid-out x, index
+// [source tile][F tile][chunk][hi/lo][k group][n][EPU k values]; also
+// zeroes the row counter the main kernel takes its work from.
+template <class Arm, int FT>
+__global__ void __launch_bounds__(256)
+bsr_prep_kernel(const float* __restrict__ x, typename Arm::T* __restrict__ xs,
+            long long n_src, long long f, long long n_units, int n_ft,
+            int* __restrict__ counter) {
+  constexpr int EPU = Arm::EPU, KG = Arm::KC / EPU;
+  constexpr int PER_CHUNK = Arm::HL * KG * FT;
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u == 0) *counter = 0;
+  if (u >= n_units) return;
+  const long long chunk = u / PER_CHUNK;
+  const int w = (int)(u % PER_CHUNK);
+  const int hl = w / (KG * FT), kg = (w / FT) % KG, nn = w % FT;
+  const int part = (int)(chunk % Arm::CPB);
+  const long long ft = (chunk / Arm::CPB) % n_ft;
+  const long long tile = chunk / ((long long)Arm::CPB * n_ft);
+  const long long n = ft * FT + nn;
+  float v[EPU];
+#pragma unroll
+  for (int e = 0; e < EPU; ++e) {
+    const long long s =
+        tile * BS + part * Arm::KC + Arm::perm(kg * EPU + e);
+    float a = (s < n_src && n < f) ? __ldg(x + s * f + n) : 0.f;
+    if constexpr (Arm::HL == 2) {
+      const float hi = __uint_as_float(tf32_rna(a));
+      a = hl ? __uint_as_float(tf32_rna(a - hi)) : hi;
+    }
+    v[e] = a;
+  }
+  store_unit(xs + u * EPU, v);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (the library
+// links no libcuda); null where it is missing.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      return (EncodeTiled) nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of the blocks, a [nb * 128, 128] matrix, in boxes of 128
+// rows by 128 bytes, 128-byte swizzled; nb = 0 leaves it zero (no copy
+// reads it).
+template <class Arm>
+cudaError_t vals_map(CUtensorMap* map, const void* vals, long long nb) {
+  *map = CUtensorMap{};
+  if (nb == 0) return cudaSuccess;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  using T = typename Arm::T;
+  const cuuint64_t dims[2] = {BS, (cuuint64_t)nb * BS};
+  const cuuint64_t strides[1] = {BS * sizeof(T)};
+  const cuuint32_t box[2] = {BOX_BYTES / sizeof(T), BS};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(vals), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class Arm, int FT>
+cudaError_t launch(const int* row_ptr, const int* cols, const int* order,
+                   const void* vals, const float* x, void* xs, float* out,
+                   int* counter, long long n_row_blocks, long long num_out,
+                   long long n_src, long long f, long long nb, int stages,
+                   cudaStream_t stream) {
+  using T = typename Arm::T;
+  const int n_ft = (int)((f + FT - 1) / FT);
+  const long long tiles = (n_src + BS - 1) / BS;
+  const long long n_units =
+      tiles * n_ft * Arm::CPB *
+      (long long)(Arm::HL * (Arm::KC / Arm::EPU) * FT);
+  const long long prep_blocks = n_units > 0 ? (n_units + 255) / 256 : 1;
+  bsr_prep_kernel<Arm, FT><<<(unsigned)prep_blocks, 256, 0, stream>>>(
+      x, static_cast<T*>(xs), n_src, f, n_units, n_ft, counter);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)n_row_blocks, (unsigned)((f + FT - 1) / FT));
-  bsr_spmm_f32_kernel<TN><<<grid, kThreads, smem, stream>>>(
-      row_ptr, cols, vals, x, out, num_out, n_src, f, nb, vec4);
+  // a refused call also leaves its error as the thread's last error: take
+  // it, so that it is reported once, here, and not by a later launch
+  const int smem = HEAD_BYTES + stages * stage_bytes<Arm, FT>();
+  err = cudaFuncSetAttribute(bsr_spmm_kernel<Arm, FT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return cudaGetLastError(), err;
+  CUtensorMap map;
+  err = vals_map<Arm>(&map, vals, nb);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return cudaGetLastError(), err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return cudaGetLastError(), err;
+  const long long n_items = n_row_blocks * n_ft;
+  const int grid = (int)(n_items < sms ? n_items : sms);
+  bsr_spmm_kernel<Arm, FT><<<grid, kThreads, smem, stream>>>(
+      map, row_ptr, cols, order, static_cast<const T*>(xs), out, counter,
+      (int)n_items, n_ft, num_out, f, nb, stages);
   return cudaGetLastError();
+}
+
+template <class Arm>
+int run(const void* row_ptr, const void* cols, const void* order,
+        const void* vals, const void* x, void* xs, void* out, void* counter,
+        long long n_row_blocks, long long num_out, long long n_src,
+        long long f, long long nb, int ft, int stages, void* stream) {
+  if (n_row_blocks <= 0 || num_out <= 0 || f <= 0) return (int)cudaSuccess;
+  if (stages < 2 || stages > MAX_STAGES || n_row_blocks * ((f + 15) / 16) >
+                                               0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int* rp = static_cast<const int*>(row_ptr);
+  const int* cp = static_cast<const int*>(cols);
+  const int* op = static_cast<const int*>(order);
+  const float* xp = static_cast<const float*>(x);
+  float* outp = static_cast<float*>(out);
+  int* ctr = static_cast<int*>(counter);
+  cudaError_t err;
+  switch (ft) {
+    case 16:
+      err = launch<Arm, 16>(rp, cp, op, vals, xp, xs, outp, ctr, n_row_blocks,
+                            num_out, n_src, f, nb, stages, s);
+      break;
+    case 32:
+      err = launch<Arm, 32>(rp, cp, op, vals, xp, xs, outp, ctr, n_row_blocks,
+                            num_out, n_src, f, nb, stages, s);
+      break;
+    case 64:
+      err = launch<Arm, 64>(rp, cp, op, vals, xp, xs, outp, ctr, n_row_blocks,
+                            num_out, n_src, f, nb, stages, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // namespace
 
 // row_ptr [n_row_blocks + 1] int32 (the blocks of dst block row r are
 // row_ptr[r] .. row_ptr[r+1]-1), cols [nb] int32 (src block of each block),
-// vals [nb, 128, 128] float32 (vals[k, d_local, s_local]), x [n_src, f]
-// float32 row-major, out [num_out, f] float32 with num_out <= 128 *
-// n_row_blocks. vals must be 16-byte aligned. Runs on `stream` and does not
-// synchronise. Returns cudaGetLastError() after the launch.
+// order [n_row_blocks] int32 (the rows in the order they are taken), vals
+// [nb, 128, 128] float32 (vals[k, d_local, s_local], 16-byte aligned), x
+// [n_src, f] float32 row-major (any alignment), xs the pre-pass's scratch
+// (ceil(n_src / 128) * ceil(f / ft) * 1024 * ft bytes, 16-byte aligned),
+// out [num_out, f] float32 with num_out <= 128 * n_row_blocks, counter one
+// int32 of scratch. ft in {16, 32, 64} is the F tile, stages the ring's
+// depth (2 .. 8). Runs on `stream` and does not synchronise. Returns
+// cudaGetLastError() after the launches.
 extern "C" int pgt_bsr_spmm_f32(const void* row_ptr, const void* cols,
-                                const void* vals, const void* x, void* out,
-                                long long n_row_blocks, long long num_out,
-                                long long n_src, long long f, long long nb,
+                                const void* order, const void* vals,
+                                const void* x, void* xs, void* out,
+                                void* counter, long long n_row_blocks,
+                                long long num_out, long long n_src,
+                                long long f, long long nb, int ft, int stages,
                                 void* stream) {
-  if (n_row_blocks <= 0 || num_out <= 0 || f <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const int* cp = static_cast<const int*>(cols);
-  const float* vp = static_cast<const float*>(vals);
-  const float* xp = static_cast<const float*>(x);
-  float* op = static_cast<float*>(out);
-  // 16-byte x loads need a row stride of whole float4s and an aligned base
-  const bool vec4 = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  cudaError_t err;
-  if (f <= 16)
-    err = launch<1>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src, f, nb,
-                    vec4, s);
-  else if (f <= 32)
-    err = launch<2>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src, f, nb,
-                    vec4, s);
-  else
-    err = launch<4>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src, f, nb,
-                    vec4, s);
-  return (int)err;
+  return run<F32Arm>(row_ptr, cols, order, vals, x, xs, out, counter,
+                     n_row_blocks, num_out, n_src, f, nb, ft, stages, stream);
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 arm: the TPU kernel's bf16 branch (pytorch_geometric_tpu/ops/
-// bsr_spmm.py:129-140, blocks stored bf16 by fill_cache(cache_dtype=bf16),
-// edge_index.py:444-451), one MXU pass of bf16 blocks times x rounded to bf16
-// with float32 accumulation, the result float32. Here that pass runs on the
-// tensor cores, `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`: a
-// product of two bf16 values is exact in float32, so this is the same sum in
-// another order.
-//
-//   * One CTA per (dst block row, F tile of FT = 16, 32 or 64 columns) loops
-//     over the row's blocks through `row_ptr`, as the float32 kernel does; its
-//     8 warps each own 16 output rows x FT columns in float32 fragments, and
-//     each output tile is written once, with no atomics.
-//   * Per block: the 32 KB bf16 value block is copied with 16-byte `cp.async`
-//     into shared memory (rows padded to 136 bf16, so the fragment loads of a
-//     warp hit 32 distinct banks), and the 128 x FT x tile is read as float32,
-//     rounded to bf16 (`__floats2bfloat162_rn`, the round-to-nearest-even of
-//     `astype`) with zeros past n_src and f, and stored transposed (column n
-//     holds its 128 k values contiguous), which is the layout of the mma's
-//     "col" B fragment. Then 8 k-steps of 16.
-//   * Two blocks are in flight: the next block's values are copied while the
-//     current block's products run (about 100 KB of shared memory at FT = 64,
-//     so two CTAs share an SM).
-//
-// Bound on the card: bytes. At path E's F = 64 (39,439 blocks of 32 KB: 1.29
-// GB per layout, plus 64 MB of x and 64 MB of out) the least time is about
-// (1.29 + 0.064 + 0.064) GB / 3.35 TB/s = 0.42 ms; the 2 * NB * 128^2 * F =
-// 82.7 GFLOP the dense blocks take run at 989 TFLOP/s in about 0.08 ms. x
-// tiles are re-read once per block (as in the float32 kernel) and come mostly
-// from L2. Simple and right first: TMA and wgmma are later work.
-
-namespace {
-
-constexpr int LDH = BS + 8;  // bf16 per staged row: 272 bytes, 16-byte aligned
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c[0..3] += A (16 x 16, row-major fragment a[0..3]) * B (16 x 8, "col"
-// fragment b[0..1]), float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int FT>
-__global__ void __launch_bounds__(kThreads, 2)
-bsr_spmm_bf16_kernel(const int* __restrict__ row_ptr,
-                     const int* __restrict__ cols,
-                     const __nv_bfloat16* __restrict__ vals,
-                     const float* __restrict__ x, float* __restrict__ out,
-                     long long num_out, long long n_src, long long f,
-                     long long nb) {
-  constexpr int NT = FT / 8;  // m16n8 tiles across a warp's FT columns
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem4);  // [2][BS][LDH]
-  __nv_bfloat16* Bs = As + 2 * BS * LDH;  // [2][FT][LDH], Bs[n][k]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // the fragments' group and pair
-  const long long rb = blockIdx.x;
-  const long long f0 = (long long)blockIdx.y * FT;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  const long long kbeg = max((long long)__ldg(row_ptr + rb), 0LL);
-  const long long kend = min((long long)__ldg(row_ptr + rb + 1), nb);
-
-  // value block k into buffer buf: 2048 chunks of 16 bytes, 16 to a row
-  auto stage_a = [&](long long k, int buf) {
-    const char* src = reinterpret_cast<const char*>(vals + k * BS * BS);
-    __nv_bfloat16* dst = As + buf * BS * LDH;
-#pragma unroll
-    for (int q = 0; q < (BS * BS / 8) / kThreads; ++q) {
-      const int idx = tid + q * kThreads;
-      cp_async16(dst + (idx >> 4) * LDH + 8 * (idx & 15),
-                 src + (size_t)idx * 16);
-    }
-  };
-  // x tile of block k into buffer buf, transposed, two k values a word
-  auto stage_b = [&](long long k, int buf) {
-    const long long s0 = (long long)__ldg(cols + k) * BS;
-    __nv_bfloat16* dst = Bs + buf * FT * LDH;
-#pragma unroll 4
-    for (int idx = tid; idx < FT * (BS / 2); idx += kThreads) {
-      const int n = idx % FT, kp = idx / FT;
-      const long long s = s0 + 2 * kp, col = f0 + n;
-      float lo = 0.f, hi = 0.f;
-      if (col < f) {
-        if (s < n_src) lo = __ldg(x + s * f + col);
-        if (s + 1 < n_src) hi = __ldg(x + (s + 1) * f + col);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * LDH + 2 * kp) =
-          __floats2bfloat162_rn(lo, hi);
-    }
-  };
-
-  if (kbeg < kend) {
-    stage_a(kbeg, 0);
-    cp_async_commit();
-    stage_b(kbeg, 0);
-  }
-  for (long long k = kbeg; k < kend; ++k) {
-    const int cur = (int)((k - kbeg) & 1);
-    if (k + 1 < kend) {
-      stage_a(k + 1, cur ^ 1);  // its buffer was last read before the sync
-      cp_async_commit();        // that ended the previous iteration
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // block k's values and x tile are in shared memory
-
-    const __nv_bfloat16* A = As + cur * BS * LDH + warp * 16 * LDH;
-    const __nv_bfloat16* B = Bs + cur * FT * LDH;
-#pragma unroll
-    for (int kk = 0; kk < BS; kk += 16) {
-      uint32_t a[4];
-      a[0] = ld_pair(A + g * LDH + kk + 2 * t);
-      a[1] = ld_pair(A + (g + 8) * LDH + kk + 2 * t);
-      a[2] = ld_pair(A + g * LDH + kk + 8 + 2 * t);
-      a[3] = ld_pair(A + (g + 8) * LDH + kk + 8 + 2 * t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* bj = B + (j * 8 + g) * LDH + kk + 2 * t;
-        const uint32_t b[2] = {ld_pair(bj), ld_pair(bj + 8)};
-        mma_bf16(acc[j], a, b);
-      }
-    }
-    if (k + 1 < kend) stage_b(k + 1, cur ^ 1);
-    __syncthreads();  // buffer cur is consumed before it is refilled
-  }
-
-  // c[0], c[1]: row g, columns 2t, 2t + 1; c[2], c[3]: row g + 8
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const long long col = f0 + j * 8 + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = rb * BS + warp * 16 + g + 8 * h;
-      if (row >= num_out) continue;
-      if (col < f) out[row * f + col] = acc[j][2 * h];
-      if (col + 1 < f) out[row * f + col + 1] = acc[j][2 * h + 1];
-    }
-  }
-}
-
-template <int FT>
-cudaError_t launch_bf16(const int* row_ptr, const int* cols,
-                        const __nv_bfloat16* vals, const float* x, float* out,
-                        long long n_row_blocks, long long num_out,
-                        long long n_src, long long f, long long nb,
-                        cudaStream_t stream) {
-  const size_t smem = (size_t)2 * (BS + FT) * LDH * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      bsr_spmm_bf16_kernel<FT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)n_row_blocks, (unsigned)((f + FT - 1) / FT));
-  bsr_spmm_bf16_kernel<FT><<<grid, kThreads, smem, stream>>>(
-      row_ptr, cols, vals, x, out, num_out, n_src, f, nb);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// As pgt_bsr_spmm_f32, with vals [nb, 128, 128] bfloat16 (16-byte aligned);
-// x stays float32 and is rounded to bf16 on the way in, out is float32.
+// As pgt_bsr_spmm_f32, with vals [nb, 128, 128] bfloat16; x stays float32
+// and is rounded to bf16 by the pre-pass (xs: a quarter of the bytes), out
+// is float32.
 extern "C" int pgt_bsr_spmm_bf16(const void* row_ptr, const void* cols,
-                                 const void* vals, const void* x, void* out,
-                                 long long n_row_blocks, long long num_out,
-                                 long long n_src, long long f, long long nb,
-                                 void* stream) {
-  if (n_row_blocks <= 0 || num_out <= 0 || f <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const int* cp = static_cast<const int*>(cols);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(vals);
-  const float* xp = static_cast<const float*>(x);
-  float* op = static_cast<float*>(out);
-  cudaError_t err;
-  if (f <= 16)
-    err = launch_bf16<16>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src,
-                          f, nb, s);
-  else if (f <= 32)
-    err = launch_bf16<32>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src,
-                          f, nb, s);
-  else
-    err = launch_bf16<64>(rp, cp, vp, xp, op, n_row_blocks, num_out, n_src,
-                          f, nb, s);
-  return (int)err;
+                                 const void* order, const void* vals,
+                                 const void* x, void* xs, void* out,
+                                 void* counter, long long n_row_blocks,
+                                 long long num_out, long long n_src,
+                                 long long f, long long nb, int ft,
+                                 int stages, void* stream) {
+  return run<Bf16Arm>(row_ptr, cols, order, vals, x, xs, out, counter,
+                      n_row_blocks, num_out, n_src, f, nb, ft, stages,
+                      stream);
 }

@@ -18,17 +18,26 @@ a block-row pointer ``row_ptr`` instead of ``first`` flags, and a dst row
 with no blocks needs no spliced zero block.
 
 The blocks are float32 or bfloat16 (``fill_cache(cache_dtype=bf16)``), as
-the TPU kernel's two arms (``:129-146``): float32 blocks take exact float32
-FMAs on the CUDA cores; bf16 blocks take one tensor-core pass
-(``mma.sync`` bf16 with float32 accumulation) over x rounded to bf16, as
-the TPU's one DEFAULT MXU pass does. Either way the result is float32, cast
-to x's dtype.
+the TPU kernel's two arms (``:129-146``); both run on Hopper's tensor cores
+(``wgmma``). float32 blocks take three TF32 passes over a hi/lo split of
+the blocks and of x (``hi*hi + hi*lo + lo*hi``, about 22 bits a product,
+held to the float32 limit); bf16 blocks take one pass over x rounded to
+bf16, as the TPU's one DEFAULT MXU pass does. Either way the result is
+float32, cast to x's dtype.
+
+The host-side pieces around the kernel are Python the CPU tests reach: the
+launch plan (:func:`bsr_plan`: the F tile, the K-chunk, the ring's
+stages), the order the rows are taken in (:func:`row_order`, kept in
+``BSR.order``), and the plain versions of the kernel's pre-pass
+(:func:`bsr_prep_plain`: x laid out per source tile as the kernel's
+``wgmma`` B operand, K permuted as :func:`chunk_perm` says) and of the
+TF32 rounding (:func:`tf32_round`).
 
 Bound on the card: the block stream (``NB * 64 KB`` float32, ``NB * 32
 KB`` bf16) plus x and out over 3.35 TB/s. The ``2 * nnz * F`` FLOPs the
-function needs (nnz: nonzeros in the blocks) take far less at 67 TFLOP/s
-(float32) or 989 TFLOP/s (bf16 tensor cores); the kernels' dense blocks do
-``2 * NB * 128^2 * F``. Measured times are in PERF.md.
+function needs (nnz: nonzeros in the blocks) take far less; the kernel's
+dense blocks do ``3 * 2 * NB * 128^2 * FT`` TF32 FLOPs (495 TFLOP/s) or a
+third of that in bf16 (989 TFLOP/s). Measured times are in PERF.md.
 
 The build is numpy on the host (block keys, the block-fill split, the
 hubs-first relabel); the block values are summed on the EdgeIndex's device
@@ -61,10 +70,14 @@ class BSR(NamedTuple):
     row_ptr: [num_row_blocks + 1] int32; dst block row ``r`` owns blocks
              ``row_ptr[r] .. row_ptr[r+1]-1`` (:func:`block_rows` expands
              it)
+    order:   [num_row_blocks] int32, the dst block rows by descending block
+             count (:func:`row_order`), the order the kernel takes them in;
+             ``None`` has the wrapper compute it per call
     """
     vals: torch.Tensor
     cols: torch.Tensor
     row_ptr: torch.Tensor
+    order: Optional[torch.Tensor] = None
 
 
 def num_blocks(n: int) -> int:
@@ -83,6 +96,13 @@ def _valid_edges(coo: np.ndarray, num_src: int, num_dst: int):
     return src, dst, (src < num_src) & (dst < num_dst)
 
 
+def row_order(row_ptr) -> np.ndarray:
+    """The dst block rows by descending block count, ties in row order: the
+    longest rows start first and the short ones fill the tail."""
+    counts = np.diff(np.asarray(row_ptr, np.int64))
+    return np.argsort(-counts, kind='stable').astype(np.int32)
+
+
 def _layout(rows: np.ndarray, cols: np.ndarray, vals: torch.Tensor,
             n_row_blocks: int) -> BSR:
     dev = vals.device
@@ -90,7 +110,8 @@ def _layout(rows: np.ndarray, cols: np.ndarray, vals: torch.Tensor,
     return BSR(vals=vals,
                cols=torch.as_tensor(cols.astype(np.int32), device=dev),
                row_ptr=torch.as_tensor(row_ptr.astype(np.int32),
-                                       device=dev))
+                                       device=dev),
+               order=torch.as_tensor(row_order(row_ptr), device=dev))
 
 
 def build_bsr(coo: np.ndarray, weight: np.ndarray, num_src: int,
@@ -312,22 +333,123 @@ def _check(bsr: BSR, x: torch.Tensor, num_out: int):
                              f'{tuple(t.shape)}')
 
 
+# -- the kernel's launch plan and the plain versions of its pre-pass ----------
+SMEM_BYTES = 232_448      # shared memory a CTA may use on Hopper
+HEAD_BYTES = 1024         # the kernel's barriers and stage headers
+ROW_BYTES = 256           # a staged run of one block row (a K-chunk)
+MAX_STAGES = 8            # the ring's barrier arrays
+F_TILES = (16, 32, 64)    # the kernel's FT instances (wgmma N)
+
+
+class BsrPlan(NamedTuple):
+    """How the kernel runs one call: ``ft`` output columns per work item
+    (``n_ft`` tiles cover F), K-chunks of ``kc`` columns (``chunks`` per
+    block), the pre-pass's run of ``x_bytes`` per (source tile, F tile,
+    chunk), ``stages`` ring stages of ``stage_bytes``, ``smem_bytes`` of
+    shared memory."""
+    ft: int
+    n_ft: int
+    kc: int
+    chunks: int
+    x_bytes: int
+    stage_bytes: int
+    stages: int
+    smem_bytes: int
+
+
+def bsr_plan(f: int, bf16: bool) -> BsrPlan:
+    """The launch plan for F = ``f`` columns: the narrowest F tile that
+    covers a narrow F, else tiles of 64; a K-chunk is 256 bytes of a block
+    row (64 float32 or 128 bf16 columns); as many stages as shared memory
+    holds, at most ``MAX_STAGES``."""
+    ft = next((t for t in F_TILES if f <= t), F_TILES[-1])
+    kc = ROW_BYTES // (2 if bf16 else 4)
+    # float32 x is staged twice, as TF32 hi and lo
+    x_bytes = (1 if bf16 else 2) * kc * ft * (2 if bf16 else 4)
+    stage = BS * ROW_BYTES + x_bytes
+    stages = min(MAX_STAGES, (SMEM_BYTES - HEAD_BYTES) // stage)
+    return BsrPlan(ft=ft, n_ft=-(-max(f, 1) // ft), kc=kc, chunks=BS // kc,
+                   x_bytes=x_bytes, stage_bytes=stage, stages=stages,
+                   smem_bytes=HEAD_BYTES + stages * stage)
+
+
+def chunk_perm(bf16: bool) -> np.ndarray:
+    """``perm[l]``: the chunk column that logical k ``l`` of the kernel's
+    ``wgmma`` k-steps reads. A thread's A fragment holds, per k-step, two k
+    values (TF32, 4 apart) or two pairs (bf16, 8 apart); the permutation
+    puts what it needs for two k-steps in one 16-byte run of the row. The
+    pre-pass lays x out in the same order, so the sum is the same."""
+    if bf16:
+        l = np.arange(128)
+        step, j = l >> 4, l & 15
+        return (32 * (step >> 1) + 8 * ((j & 7) >> 1) + 4 * (step & 1)
+                + 2 * (j >> 3) + (j & 1))
+    l = np.arange(64)
+    step, j = l >> 3, l & 7
+    return 16 * (step >> 1) + 4 * (j & 3) + 2 * (step & 1) + (j >> 2)
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``; NaN stays NaN."""
+    bits = v.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(v), v, r)
+
+
+def tf32_split(v: torch.Tensor):
+    """``(hi, lo)``: ``hi`` = v rounded to TF32, ``lo`` = the remainder
+    rounded to TF32, as the kernel splits both operands."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
+
+
+def bsr_prep_plain(x: torch.Tensor, plan: BsrPlan,
+                   bf16: bool) -> torch.Tensor:
+    """The plain version of the kernel's pre-pass: x ``[n_src, F]`` laid out
+    as ``[source tile, F tile, chunk, hi/lo, k group, n, k in group]`` (bf16
+    has no hi/lo axis; float32 x gives TF32 ``hi`` and ``lo``), k in the
+    order :func:`chunk_perm` gives, F padded to the tiles and rows past
+    ``n_src`` zero. Each ``[k group, n, k in group]`` run is the kernel's
+    ``wgmma`` B operand: 8-row by 16-byte core matrices, K-major."""
+    n_src, f = x.shape
+    tiles = num_blocks(n_src)
+    epu = 8 if bf16 else 4                 # k values in 16 bytes
+    xp = x.new_zeros((tiles * BS, plan.n_ft * plan.ft), dtype=torch.float32)
+    xp[:n_src, :f] = x
+    # [tile, chunk, logical k, F tile, n]
+    perm = torch.as_tensor(chunk_perm(bf16), device=x.device)
+    v = xp.view(tiles, plan.chunks, plan.kc, plan.n_ft, plan.ft)[:, :, perm]
+    v = v.view(tiles, plan.chunks, plan.kc // epu, epu, plan.n_ft, plan.ft)
+    # -> [tile, F tile, chunk, k group, n, k in group]
+    v = v.permute(0, 4, 1, 2, 5, 3)
+    if bf16:
+        return v.to(torch.bfloat16).contiguous()
+    return torch.stack(tf32_split(v.contiguous()), 3)
+
+
 def _kernel(arm: str):
     """The library's entry point of ``arm``, 'f32' or 'bf16'."""
     from .. import csrc
-    v, ll = ctypes.c_void_p, ctypes.c_longlong
+    v, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return csrc.function('bsr_spmm', f'pgt_bsr_spmm_{arm}',
-                         [v, v, v, v, v, ll, ll, ll, ll, ll, v])
+                         [v] * 8 + [ll] * 5 + [i, i, v])
 
 
 def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
     """One pass ``out [num_out, F] = A @ x`` over the block layout, in x's
     dtype. A CPU tensor runs :func:`bsr_spmm_plain`; a CUDA tensor launches
-    the kernel of the blocks' dtype (built at first use; float32 blocks
-    count in ``bsr_matmul.launches``, bf16 ones in
+    the pre-pass and the kernel of the blocks' dtype (built at first use;
+    float32 blocks count in ``bsr_matmul.launches``, bf16 ones in
     ``bsr_matmul.launches_bf16``) or raises. Not differentiable: see
     :func:`bsr_spmm`."""
     _check(bsr, x, num_out)
+    if bsr.order is not None and (bsr.order.device != x.device
+                                  or bsr.order.dtype != torch.int32
+                                  or tuple(bsr.order.shape)
+                                  != (bsr.row_ptr.shape[0] - 1,)):
+        raise ValueError('bsr_matmul takes an int32 order of one entry per '
+                         'block row, on x\'s device')
     if x.device.type == 'cpu':
         return bsr_spmm_plain(bsr, x, num_out)
     if x.device.type != 'cuda':
@@ -336,18 +458,25 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
         raise ValueError('bsr_matmul: the block values must be 16-byte '
                          'aligned')
     bf16 = bsr.vals.dtype == torch.bfloat16
+    n_src, f = x.shape
+    plan = bsr_plan(f, bf16)
     fn = _kernel('bf16' if bf16 else 'f32')
-    # both kernels read x as float32 (the bf16 one rounds it on the way
-    # in) and write a float32 result
+    # the pre-pass reads x as float32 (and rounds it to bf16 for bf16
+    # blocks); the kernel writes a float32 result
     xf = x.float()
-    out = torch.empty((num_out, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
+    xs = torch.empty(num_blocks(n_src) * plan.n_ft * plan.chunks
+                     * plan.x_bytes, dtype=torch.uint8, device=x.device)
+    counter = torch.empty(1, dtype=torch.int32, device=x.device)
+    order = bsr.order if bsr.order is not None else torch.as_tensor(
+        row_order(bsr.row_ptr.cpu().numpy()), device=x.device)
+    out = torch.empty((num_out, f), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(bsr.row_ptr.data_ptr(), bsr.cols.data_ptr(),
-                 bsr.vals.data_ptr(), xf.data_ptr(), out.data_ptr(),
-                 bsr.row_ptr.shape[0] - 1, num_out, x.shape[0], x.shape[1],
-                 bsr.vals.shape[0], stream)
+                 order.data_ptr(), bsr.vals.data_ptr(), xf.data_ptr(),
+                 xs.data_ptr(), out.data_ptr(), counter.data_ptr(),
+                 bsr.row_ptr.shape[0] - 1, num_out, n_src, f,
+                 bsr.vals.shape[0], plan.ft, plan.stages, stream)
     if err != 0:
         raise RuntimeError(f'bsr_matmul kernel launch failed: CUDA error '
                            f'{err}')

@@ -4,7 +4,10 @@ Counterpart of ``pytorch_geometric_tpu/ops/scatter.py`` for the reductions
 this port serves: ``sum`` (alias ``add``), ``mean``, ``min`` and ``max``
 along dim 0. As in the JAX package, an index outside ``[0, dim_size)`` is
 dropped (padded edges point at ``dim_size``), ``mask`` drops elements, and
-an empty segment comes out as 0 for every reduction.
+an empty segment comes out as 0 for every reduction. As there, a min or max
+output equal to the reduction's identity (``+inf`` / ``-inf`` for floats,
+``iinfo.max`` / ``iinfo.min`` for integers) also becomes 0, empty segment or
+not.
 """
 
 from typing import Optional
@@ -41,5 +44,14 @@ def scatter(src: torch.Tensor, index: torch.Tensor, dim_size: int,
     # min / max: empty segments keep the zero they start from
     out = src.new_zeros(shape).scatter_reduce_(
         0, idx, src, reduce='amin' if reduce == 'min' else 'amax',
-        include_self=False)
-    return out[:dim_size]
+        include_self=False)[:dim_size]
+    return torch.where(out == _identity(reduce, src.dtype), 0, out)
+
+
+def _identity(reduce: str, dtype: torch.dtype):
+    """The identity of ``reduce`` ('min' or 'max') in ``dtype``, as the JAX
+    package's ``_identity``."""
+    if dtype.is_floating_point:
+        return float('inf') if reduce == 'min' else float('-inf')
+    info = torch.iinfo(dtype)
+    return info.max if reduce == 'min' else info.min

@@ -1,20 +1,23 @@
 """The hand-written CUDA kernels of the PyTorch port against their plain
 PyTorch versions, on the card: the segment-sum kernel forward and backward,
-the block-sparse (BSR) kernel on both layouts, training steps through both
-against the CPU, the multi-head GAT mix kernel forward and backward, the
-segment-max kernel (bitwise), the fused GATConv / GAT model on the card
-against the CPU, and the precision ladder: the bf16 arms of the BSR,
-segment-sum and mix kernels, the dense float32 / bf16 / int8 caches, and
-bf16 calls that raise instead of falling back. Every test here needs a CUDA card, carries the
+the block-sparse (BSR) kernel on both layouts (rows longer than its ring,
+one-block and empty rows, unaligned x views, two launches bitwise equal,
+refused launches), training steps through both against the CPU, the
+multi-head GAT mix kernel forward and backward, the segment-max kernel
+(bitwise), the fused GATConv / GAT model on the card against the CPU, and
+the precision ladder: the bf16 arms of the BSR, segment-sum and mix
+kernels, the dense float32 / bf16 / int8 caches, and bf16 calls that raise
+instead of falling back. Every test here needs a CUDA card, carries the
 ``cuda`` marker and skips without one; the card's machine has no JAX, so
 this file imports none (run it there with ``--noconftest``, see the
 README).
 
 Tolerance: f32 sums in another order: 1e-5 plus 1e-5 of the row's sum of
 |w * x| terms per kernel pass (the bf16 BSR arm too: its products are exact
-in float32); a bf16 output adds one bf16 ulp of the reference, for a sum on
-a rounding boundary; 1e-4 of the largest magnitude for gradients and
-training losses."""
+in float32; the float32 BSR arm's 3xTF32 split keeps about 22 bits of each
+product, well inside it); a bf16 output adds one bf16 ulp of the
+reference, for a sum on a rounding boundary; 1e-4 of the largest magnitude
+for gradients and training losses."""
 
 import numpy as np
 import pytest
@@ -27,7 +30,10 @@ from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import (segment_spmm,
                                              segment_spmm_plain, spmm,
                                              spmm_regime)
-from pytorch_geometric_tpu_torch.ops.bsr_spmm import (BSR, bsr_matmul,
+import pytorch_geometric_tpu_torch.ops.bsr_spmm as bsr_spmm_module
+from pytorch_geometric_tpu_torch.ops.bsr_spmm import (MAX_STAGES,
+                                                      SMEM_BYTES, BSR,
+                                                      bsr_matmul, bsr_plan,
                                                       bsr_spmm_plain,
                                                       build_bsr_pair)
 from pytorch_geometric_tpu_torch.ops.dense_spmm import dense_spmm
@@ -227,7 +233,10 @@ def _bsr_close(layout, x, num_out):
     return out
 
 
-@pytest.mark.parametrize('f', [1, 10, 16, 33, 64, 128, 130])
+BSR_WIDTHS = [1, 8, 10, 16, 17, 33, 64, 65, 128, 130]
+
+
+@pytest.mark.parametrize('f', BSR_WIDTHS)
 @pytest.mark.parametrize('n_src,n_dst', [(600, 600), (300, 700)])
 def test_bsr_kernel_matches_plain(dev, f, n_src, n_dst):
     coo, w, rng = _bsr_case(n_src, n_dst, 20_000, seed=f + n_dst)
@@ -260,16 +269,112 @@ def test_bsr_kernel_unaligned_x_and_no_blocks(dev):
     assert out.shape == (500, 8) and not out.any()
 
 
-def test_bsr_kernel_raises_on_a_failed_launch(dev):
-    """A launch the card refuses (an F tile grid past 65535) raises instead
-    of returning an unwritten output."""
+def _deep_ring(monkeypatch):
+    """Plans whose ring is deeper than shared memory holds: a launch the
+    card refuses."""
+    plan = bsr_spmm_module.bsr_plan
+    assert plan(64, False).stage_bytes * MAX_STAGES > SMEM_BYTES
+    monkeypatch.setattr(bsr_spmm_module, 'bsr_plan', lambda f, bf16: plan(
+        f, bf16)._replace(stages=MAX_STAGES))
+
+
+def test_bsr_kernel_raises_on_a_failed_launch(dev, monkeypatch):
+    """A launch the card refuses (a ring deeper than shared memory holds)
+    raises instead of returning an unwritten output."""
     coo, w, _ = _bsr_case(128, 128, 2000, seed=4)
     fwd, _, _ = build_bsr_pair(coo, w, 128, 128, device=dev)
-    x = torch.zeros(1, 64 * 65536, device=dev)
+    x = torch.zeros(128, 64, device=dev)
     before = bsr_matmul.launches
-    with pytest.raises(RuntimeError, match='launch failed'):
-        bsr_matmul(fwd, x, 1)
+    with monkeypatch.context() as m:
+        _deep_ring(m)
+        with pytest.raises(RuntimeError, match='launch failed'):
+            bsr_matmul(fwd, x, 128)
     assert bsr_matmul.launches == before
+    # the refusal is reported once: the next launch runs
+    bsr_matmul(fwd, x, 128)
+    torch.cuda.synchronize()
+    assert bsr_matmul.launches == before + 1
+
+
+def _long_rows_case(n, seed):
+    """Dst block rows with many blocks (more than the ring has stages),
+    rows with one block, empty rows, and padded edges."""
+    rng = np.random.default_rng(seed)
+    nb_rows = -(-n // 128)
+    parts = []
+    for r in range(nb_rows):
+        kind = r % 3
+        dst = r * 128 + rng.integers(0, 128, 3000)
+        if kind == 0:                      # blocks in every source tile
+            src = rng.integers(0, n, 3000)
+        elif kind == 1:                    # one block
+            c = rng.integers(0, nb_rows)
+            src = c * 128 + rng.integers(0, 128, 3000)
+        else:                              # empty
+            continue
+        parts.append(np.stack([src, dst]))
+    coo = np.concatenate(parts, 1)
+    coo = np.minimum(coo, n - 1)
+    pad = np.stack([np.full(7, n), np.full(7, n)])
+    coo = np.concatenate([coo, pad], 1).astype(np.int32)
+    return coo, rng.random(coo.shape[1]).astype(np.float32), rng
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('f', BSR_WIDTHS)
+def test_bsr_kernel_long_short_and_empty_rows(dev, bf16, f):
+    """Both arms, both layouts: rows of 11 blocks (the ring holds 3-5
+    chunks), one-block rows and empty rows; two launches bitwise equal (each
+    output row is written once, with no atomics)."""
+    n = 1400
+    coo, w, rng = _long_rows_case(n, seed=f)
+    fwd, bwd, _ = build_bsr_pair(coo, w, n, n, device=dev)
+    counts = torch.diff(fwd.row_ptr)
+    stages = bsr_plan(f, bf16).stages
+    assert int(counts.max()) * (1 if bf16 else 2) > stages
+    assert (counts == 1).any() and (counts == 0).any()
+    for lay in (fwd, bwd):
+        if bf16:
+            lay = lay._replace(vals=lay.vals.to(torch.bfloat16))
+        x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32),
+                            device=dev)
+        before = (bsr_matmul.launches, bsr_matmul.launches_bf16)
+        out = bsr_matmul(lay, x, n)
+        again = bsr_matmul(lay, x, n)
+        torch.cuda.synchronize()
+        assert (bsr_matmul.launches, bsr_matmul.launches_bf16) == (
+            (before[0], before[1] + 2) if bf16 else
+            (before[0] + 2, before[1]))
+        assert torch.equal(out, again)
+        ref = bsr_spmm_plain(lay, x, n)
+        scale = bsr_spmm_plain(lay._replace(vals=lay.vals.abs()), x.abs(),
+                               n)
+        _close(out, ref, scale)
+        for r in torch.nonzero(torch.diff(lay.row_ptr) == 0).flatten(
+                ).tolist():
+            assert not out[r * 128:(r + 1) * 128].any()
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('offset', [1, 2, 3])
+def test_bsr_kernel_unaligned_x_views(dev, bf16, offset):
+    """x views 4, 8 and 12 bytes past a 16-byte boundary, at F = 10 (rows
+    of 40 bytes) and 64; a layout without a row order."""
+    coo, w, rng = _long_rows_case(700, seed=11)
+    fwd, _, _ = build_bsr_pair(coo, w, 700, 700, device=dev)
+    lay = BSR(vals=fwd.vals.to(torch.bfloat16) if bf16 else fwd.vals,
+              cols=fwd.cols, row_ptr=fwd.row_ptr)
+    for f in (10, 64):
+        base = torch.as_tensor(rng.standard_normal(700 * f + 4).astype(
+            np.float32), device=dev)
+        xt = base[offset:offset + 700 * f].view(700, f)
+        assert xt.data_ptr() % 16 != 0
+        out = bsr_matmul(lay, xt, 700)
+        torch.cuda.synchronize()
+        ref = bsr_spmm_plain(lay, xt, 700)
+        scale = bsr_spmm_plain(lay._replace(vals=lay.vals.abs()), xt.abs(),
+                               700)
+        _close(out, ref, scale)
 
 
 def _powerlaw_case(n, e, seed, n_pad=40):
@@ -522,7 +627,7 @@ def _bf16_close(out, ref, scale):
         float(err.max())
 
 
-@pytest.mark.parametrize('f', [1, 10, 16, 33, 64, 128, 130])
+@pytest.mark.parametrize('f', BSR_WIDTHS)
 @pytest.mark.parametrize('n_src,n_dst', [(600, 600), (300, 700)])
 def test_bsr_bf16_kernel_matches_plain(dev, f, n_src, n_dst):
     """The tensor-core arm over bf16 blocks, both layouts, empty block
@@ -552,16 +657,18 @@ def test_bsr_bf16_kernel_matches_plain(dev, f, n_src, n_dst):
             assert not out[r * 128:(r + 1) * 128].any()
 
 
-def test_bsr_bf16_kernel_refusals(dev):
+def test_bsr_bf16_kernel_refusals(dev, monkeypatch):
     """A bf16 call the kernel cannot take raises; nothing falls back."""
     coo, w, _ = _bsr_case(128, 128, 2000, seed=4)
     fwd, _, _ = build_bsr_pair(coo, w, 128, 128, device=dev)
     lay = fwd._replace(vals=fwd.vals.to(torch.bfloat16))
     before = bsr_matmul.launches_bf16
-    # an F tile grid past 65535 is a launch the card refuses
-    with pytest.raises(RuntimeError, match='launch failed'):
-        bsr_matmul(lay, torch.zeros(1, 64 * 65536, device=dev), 1)
-    # values 2 bytes past a 16-byte boundary cannot take cp.async
+    # a ring deeper than shared memory holds is a launch the card refuses
+    with monkeypatch.context() as m:
+        _deep_ring(m)
+        with pytest.raises(RuntimeError, match='launch failed'):
+            bsr_matmul(lay, torch.zeros(128, 64, device=dev), 128)
+    # values 2 bytes past a 16-byte boundary cannot take the bulk copies
     flat = torch.zeros(lay.vals.numel() + 8, dtype=torch.bfloat16,
                        device=dev)
     odd = flat[1:lay.vals.numel() + 1].view_as(lay.vals)

@@ -196,18 +196,31 @@ def test_take_rows_equals_indexing(width):
 
 
 # -- softmax and self loops ---------------------------------------------------
+@pytest.mark.parametrize('padded', [False, True])
 @pytest.mark.parametrize('masked', [False, True])
-def test_softmax_matches_jax(masked):
+def test_softmax_matches_jax(masked, padded):
+    """With ``padded``, some indices equal ``num_segments`` (the padding
+    convention): JAX drops them from the segment max and sum and clamps the
+    gathers (``n + 1`` segments under a mask)."""
     rng = np.random.default_rng(7)
     e, n = 2500, 300
     src = (rng.normal(size=(e, 4)) * 5).astype(np.float32)
     idx = rng.integers(0, n, e)
+    if padded:
+        idx[rng.random(e) < 0.1] = n
     mask = rng.random(e) < 0.6 if masked else None
     ref = jsoftmax(jnp.asarray(src), jnp.asarray(idx), n,
                    mask=None if mask is None else jnp.asarray(mask))
     out = softmax(torch.from_numpy(src), torch.from_numpy(idx), n,
                   mask=None if mask is None else torch.from_numpy(mask))
+    assert np.isfinite(out.numpy()).all()
     _close(out, ref, what='softmax')
+    if padded and not masked:
+        small = softmax(torch.tensor([0.5, 1.0, 2.0, 0.3]),
+                        torch.tensor([0, 0, 1, 2]), 2)
+        _close(small, jsoftmax(jnp.asarray([0.5, 1.0, 2.0, 0.3]),
+                               jnp.asarray([0, 0, 1, 2]), 2),
+               what='softmax, one padded edge')
 
 
 def test_add_self_loops_matches_jax():

@@ -142,6 +142,62 @@ def test_scatter_matches_jax(reduce):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _extreme_rows(dtype, rng, n):
+    """``[n, 5]`` values of ``dtype`` with the min/max identities (float
+    ``+-inf``, integer ``iinfo`` extremes) mixed among ordinary values."""
+    if np.issubdtype(dtype, np.floating):
+        lo, hi = -np.inf, np.inf
+        vals = rng.standard_normal((n, 5)).astype(dtype)
+    else:
+        lo, hi = np.iinfo(dtype).min, np.iinfo(dtype).max
+        vals = rng.integers(-50, 50, (n, 5)).astype(dtype)
+    pick = rng.random((n, 5))
+    vals[pick < 0.3] = lo
+    vals[pick > 0.7] = hi
+    return vals
+
+
+@pytest.mark.parametrize('reduce', ['min', 'max'])
+@pytest.mark.parametrize('dtype', [np.float32, np.int32])
+def test_scatter_identities_match_jax(reduce, dtype):
+    """A min/max output equal to the reduction's identity is 0, as in the
+    JAX package, empty segment or not; the other extreme stays."""
+    rng = np.random.default_rng(9)
+    src = _extreme_rows(dtype, rng, 200)
+    index = rng.integers(0, 45, 200).astype(np.int32)  # 40 segments
+    index[:12] = 3                                       # a long segment
+    src[:12, 0] = src[0, 0]                              # all one extreme
+    for m in (None, rng.random(200) > 0.2):
+        ref = np.asarray(jscatter(
+            jnp.asarray(src), jnp.asarray(index), 40, reduce,
+            mask=None if m is None else jnp.asarray(m)))
+        out = scatter(_t(src), _t(index), 40, reduce,
+                      mask=None if m is None else _t(m)).numpy()
+        assert out.dtype == ref.dtype
+        np.testing.assert_array_equal(out, ref)
+    small = np.array([[-np.inf, 1], [-np.inf, 2], [3, np.inf]], np.float32)
+    out = scatter(_t(small), torch.tensor([0, 0, 1]), 3, reduce).numpy()
+    want = ([[0, 2], [3, np.inf], [0, 0]] if reduce == 'max' else
+            [[-np.inf, 1], [3, 0], [0, 0]])
+    np.testing.assert_array_equal(out, np.array(want, np.float32))
+
+
+@pytest.mark.parametrize('reduce', ['min', 'max'])
+@pytest.mark.parametrize('n_src,n_dst', [(120, 120), (80, 140)])
+def test_spmm_reduce_with_infinities_matches_jax(reduce, n_src, n_dst):
+    coo, _, _ = _graph(n_src, n_dst, 1500, 5, seed=12, n_pad=4)
+    x = _extreme_rows(np.float32, np.random.default_rng(13), n_src)
+    # every message of column 0 is -inf and of column 1 +inf: each segment's
+    # max (min) there is the identity
+    x[:, 0], x[:, 1] = -np.inf, np.inf
+    j = JEdgeIndex(coo, (n_src, n_dst)).fill_cache()
+    t = EdgeIndex(coo, (n_src, n_dst), device='cpu').fill_cache()
+    ref = np.asarray(jspmm(j, jnp.asarray(x), reduce=reduce))
+    out = spmm(t, _t(x), reduce=reduce).numpy()
+    assert np.isinf(ref).any()          # the other extreme survives
+    np.testing.assert_array_equal(out, ref)
+
+
 def test_ptr_index_roundtrip_matches_jax():
     rng = np.random.default_rng(6)
     index = np.sort(rng.integers(0, 30, 200)).astype(np.int32)
