@@ -11,7 +11,10 @@ checks them:
      block-sparse library's SASS (``cuobjdump -sass``);
   3. each kernel against its plain PyTorch version on the card: the
      segment-sum kernel forward over narrow, unaligned, weighted, unweighted,
-     bipartite and empty-row cases and the serving shapes; the block-sparse
+     bipartite and empty-row cases and the serving shapes, and on the
+     bipartite cases every plan branch (load width, lanes, lane groups,
+     staged or direct) with and without a base, two launches and both modes
+     bitwise equal; the block-sparse
      (BSR) kernel over F in {1, 10, 16, 64, 128}, a rectangular graph whose
      sizes are not multiples of 128, empty block rows, both layouts, and
      path A's shapes; the segment-sum kernel's backward (``grad_x`` from its
@@ -27,8 +30,10 @@ checks them:
   5. GraphSAGE and GIN: one forward each on the same graph, same checks;
   6. segment-sum kernel timings at the serving shapes (kernel, plain
      version, a library call as a yardstick only, and the bound from the
-     bytes the work must move): device time from ``torch.profiler``, and
-     CUDA-event wall time beside it;
+     bytes the work must move; the launch plan, the share of the bound and
+     the rate of the gathered x rows): device time from ``torch.profiler``,
+     and CUDA-event wall time beside it; the lane-group and mode sweep at F
+     = 16;
   7. path A, GCN training over the block-sparse cache: the repo's BSR
      configuration (``benchmarks/spmm_bench.py --clustered 2400 --nodes
      250000 --edges 5000000 --bsr``, seed ``--seed``) cached through
@@ -37,7 +42,9 @@ checks them:
      size, ms per step, launches per step, a ``torch.profiler`` breakdown,
      kernel 2's share of it (pre-pass included) and idle share, and 3 steps
      held against the CPU plain path from the same weights (losses each
-     step, the first step's gradients);
+     step, the first step's gradients); the profile's add launches, of
+     which none may add two same-shape tensors (the residual lands on the
+     block product inside the segment-sum kernel);
   8. path B, ``bench.py``'s protocol (10,000 nodes, 200,000 random edges,
      F = 64, hidden 64, 3 layers, 10 classes, Adam 1e-2, 500 steps) for GCN,
      GraphSAGE and GIN through the segment-sum kernel forward and backward:
@@ -46,8 +53,10 @@ checks them:
   9. training-kernel timings: the BSR kernel at F = 64 and 10 on both
      layouts (``torch.sparse.mm`` on a BSR tensor of the same blocks as the
      yardstick), with its pre-pass's share, the rate of the bytes it must
-     move and the HGMMA count; and the segment-sum backward pass at path B's
-     shapes;
+     move and the HGMMA count; the segment-sum kernel at path B's shapes
+     (forward and ``A^T g``) and at path A's residual with a base (forward
+     and backward; yardstick ``torch.addmm``), and its sweep at path B's
+     forward shapes and the residual;
  10. the attention kernels against their plain versions: the multi-head
      GAT mix kernel over H in {1, 4, 8} and F in {1, 10, 16, 64} (p_s !=
      p_u, v absent, empty rows, padded slots) and its backward pass, and
@@ -95,7 +104,8 @@ checks them:
  18. path H, bf16-feature serving (``products_bench.py:77-82``'s bf16
      input): GraphSAGE and GIN forwards on the serving graph from bf16
      features, one bf16 segment-sum launch per forward;
- 19. timings of the bf16 kernels at their paths' shapes.
+ 19. timings of the bf16 kernels at their paths' shapes, and the
+     segment-sum bf16 arm's sweep at path H's layer 1.
 
 Every profile of a path is a whole window (``whole_window``): it follows a
 warm-up window, and a window that lost launches is profiled again.
@@ -155,6 +165,8 @@ MIX_PER_FORWARD, MIX_PER_STEP = 2 * PC_LAYERS, 3 * PC_LAYERS
 MIX_KERNEL = 'gat_mix_kernel'
 # kernel 2's two launches per call, its pre-pass and the kernel proper
 BSR_PREP, BSR_MAIN = 'bsr_prep_kernel', 'bsr_spmm_kernel'
+# kernel 1's name in a profile, and PyTorch's add kernel
+SEG_MAIN, ADD = 'segment_spmm_kernel', 'CUDAFunctor_add'
 # the count of HGMMA (wgmma) instructions in a built library's SASS
 HGMMA = {}
 
@@ -274,17 +286,157 @@ def serving_graph(seed):
     return x, coo, (dis[coo[0]] * dis[coo[1]]).astype(np.float32)
 
 
-def spmm_bytes(n_src, n_dst, e, f, weighted):
-    """Bytes the function must move: x and out once, indptr, src and w."""
-    return ((n_src + n_dst) * f * 4 + (n_dst + 1) * 4 + e * 4
-            + (e * 4 if weighted else 0))
+def spmm_bytes(n_src, n_dst, e, f, weighted, itemsize=4, base=False):
+    """Bytes the function must move: x, base (when given) and out once,
+    indptr, src and w."""
+    return ((n_src + n_dst * (2 if base else 1)) * f * itemsize
+            + (n_dst + 1) * 4 + e * 4 + (e * itemsize if weighted else 0))
 
 
-def bound_ms(n_src, n_dst, e, f, weighted):
-    t_bytes = spmm_bytes(n_src, n_dst, e, f, weighted) / HBM_BYTES_PER_S
+def bound_ms(n_src, n_dst, e, f, weighted, itemsize=4, base=False):
+    """The least time of one segment-sum pass: its bytes over the HBM rate
+    or its ``2 * E * F`` FLOPs (float32 FMAs, both arms) over the float32
+    rate, the larger, with which of the two it is."""
+    t_bytes = spmm_bytes(n_src, n_dst, e, f, weighted, itemsize,
+                         base) / HBM_BYTES_PER_S
     t_ops = 2.0 * e * f / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations')
+
+
+def segment_plans(f, itemsize, x_ptr):
+    """Every plan of kernel 1 for F = f that the rule's lanes allow: each
+    load width of the arm that divides F and suits x's address, the lanes
+    that cover a row at that width, each lane-group count a warp holds, the
+    staged and the direct mode."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import VEC_WIDTHS
+    plans = []
+    for vec in VEC_WIDTHS[itemsize]:
+        if f % vec or x_ptr % (vec * itemsize):
+            continue
+        lanes = 1
+        while lanes < min(-(-f // vec), 32):
+            lanes *= 2
+        g = 1
+        while lanes * g <= 32:
+            plans += [(vec, lanes, g, 32 // (lanes * g), st) for st in (1, 0)]
+            g *= 2
+    return plans
+
+
+def segment_close(torch, indptr, src, w, x, out, base=None):
+    """Kernel 1's output against its plain version on the same inputs:
+    (max abs err, ok) within the float32 limit, one bf16 ulp more for bf16
+    (``bf16_ok``)."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import \
+        segment_spmm_plain
+    ref = segment_spmm_plain(indptr, src, w, x, base)
+    scale = segment_spmm_plain(indptr, src, None if w is None else
+                               w.float().abs(), x.float().abs())
+    if x.dtype == torch.bfloat16:
+        return bf16_ok(torch, out, ref, scale)
+    err = (out - ref).abs()
+    return ((float(err.max()) if err.numel() else 0.0),
+            bool((err <= 1e-5 + 1e-5 * scale).all()))
+
+
+def segment_timed(torch, label, indptr, src, w, x, base=None):
+    """One timing row of kernel 1 on these inputs: its launch plan, the
+    device time (``timed_fns``) of the kernel, of its plain version and of
+    the one library call that computes the same function
+    (``torch.sparse.mm`` on a CSR tensor of the matrix, ``torch.addmm``
+    with a base; a yardstick the port never calls), the bound from the
+    bytes the function must move, the share of it the kernel reaches, and
+    the rate of the x rows it gathers (``E * F * itemsize`` over its
+    time)."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_plan, segment_spmm, segment_spmm_plain)
+    n_dst, (n_src, f) = indptr.shape[0] - 1, x.shape
+    e, item = int(indptr[-1]), x.element_size()
+    plan = segment_plan(f, item, n_dst, src.shape[0], x.data_ptr(), 0,
+                        0 if base is None else base.data_ptr())
+    fns = {'ms': lambda: segment_spmm(indptr, src, w, x, base=base),
+           'plain_ms': lambda: segment_spmm_plain(indptr, src, w, x, base)}
+    call = ('torch.sparse.mm (CSR)' if base is None else
+            'torch.addmm (base + CSR @ x)')
+    row = {'shape': label, 'F': f, 'dtype': str(x.dtype).split('.')[-1],
+           'n_src': n_src, 'n_dst': n_dst, 'edges': e,
+           'weighted': w is not None, 'base': base is not None,
+           'plan': list(plan), 'library_call': call,
+           'bytes': spmm_bytes(n_src, n_dst, e, f, w is not None, item,
+                               base is not None),
+           'gathered_bytes': e * f * item, 'flops': 2.0 * e * f}
+    row['bound_ms'], row['bound_by'] = bound_ms(
+        n_src, n_dst, e, f, w is not None, item, base is not None)
+    try:
+        a = torch.sparse_csr_tensor(
+            indptr, src, w if w is not None else torch.ones(
+                e, dtype=x.dtype, device=x.device), size=(n_dst, n_src))
+
+        def lib():
+            return (torch.sparse.mm(a, x) if base is None
+                    else torch.addmm(base, a, x))
+        ref = fns['plain_ms']().float()
+        d = float((lib().float() - ref).abs().max())
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        row['library_ms'] = None
+        row['library_error'] = f'{type(err).__name__}: {str(err)[:200]}'
+    else:
+        lim = (1e-2 if x.dtype == torch.bfloat16 else 1e-4) * max(
+            1.0, float(ref.abs().max()))
+        check(d <= lim, f'{call} disagrees with the plain version by {d} '
+                        f'({label})')
+        fns['library_ms'] = lib
+    timed_fns(torch, row, fns, reps=200, warmup=50, calls=100)
+    row['share'] = row['bound_ms'] / row['ms']
+    row['gathered_tb_per_s'] = row['gathered_bytes'] / (row['ms'] * 1e-3) \
+        / 1e12
+    lib_txt = (f"{row['library_ms']:.4f} ms" if row['library_ms'] is not None
+               else f"none ({row['library_error']})")
+    log(f"[timing] segment_spmm {label}: plan {tuple(plan)} (vec, lanes, "
+        f"groups, rows per warp); device time per call: kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, {call} "
+        f"{lib_txt}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"share {100 * row['share']:.1f}%; gathered x rows "
+        f"{row['gathered_bytes'] / 1e6:.1f} MB at "
+        f"{row['gathered_tb_per_s']:.3f} TB/s; CUDA-event wall per "
+        f"back-to-back call: kernel {row['event_ms']:.4f} ms")
+    return row
+
+
+def plan_sweep(torch, label, indptr, src, w, x):
+    """Kernel 1's device time per call at every lane-group count the
+    rule's lanes allow (the rule's load width and lanes), in both modes,
+    each output held to its plain version within the limit; the rows that
+    justify ``segment_plan``'s ``MIN_GROUP_RUN`` and ``STAGED_MAX_LANES``."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_plan, segment_spmm)
+    n_dst, f = indptr.shape[0] - 1, x.shape[1]
+    rule = segment_plan(f, x.element_size(), n_dst, src.shape[0],
+                        x.data_ptr(), 0)
+    mean = src.shape[0] / max(n_dst, 1)
+    rows, g = [], 1
+    while rule.lanes * g <= 32:
+        for staged in (1, 0):
+            plan = (rule.vec, rule.lanes, g, 32 // (rule.lanes * g), staged)
+            err, ok = segment_close(torch, indptr, src, w, x, segment_spmm(
+                indptr, src, w, x, plan=plan))
+            check(ok, f'segment_spmm {label} plan {plan} disagrees with its '
+                      f'plain version by {err}')
+            ms = device_ms(torch, lambda: segment_spmm(indptr, src, w, x,
+                                                       plan=plan), calls=100)
+            is_rule = plan == tuple(rule)
+            rows.append({'shape': label, 'plan': list(plan), 'groups': g,
+                         'staged': staged, 'mean_edges_per_group': mean / g,
+                         'ms': ms, 'max_abs_err': err, 'rule': is_rule})
+            log(f"[sweep] segment_spmm {label} plan {plan}: {mean / g:.1f} "
+                f"mean edges a lane group, "
+                f"{'staged' if staged else 'direct'}, {ms:.4f} ms device "
+                f"time per call, max abs err {err:.3e}"
+                f"{' (the rule)' if is_rule else ''}")
+        g *= 2
+    return rows
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -345,6 +497,33 @@ def phase_kernel_vs_plain(torch, seed):
             f'{float(err.max()) if err.numel() else 0.0:.3e} '
             f"{'ok' if ok else 'FAILED'}")
         check(ok, f'segment_spmm disagrees with its plain version: {label}')
+        if not label.startswith('bipartite'):
+            continue
+        # every plan branch at this width, with and without a base; two
+        # launches of each bitwise equal
+        base = torch.as_tensor(np.random.default_rng(seed + 9).standard_normal(
+            ref.shape).astype(np.float32), device='cuda')
+        errs, first = [], {}
+        for plan in segment_plans(x.shape[1], 4, x.data_ptr()):
+            for b in (None, base):
+                out = segment_spmm(indptr, src, w, x, base=b, plan=plan)
+                again = segment_spmm(indptr, src, w, x, base=b, plan=plan)
+                err, ok = segment_close(torch, indptr, src, w, x, out, b)
+                # the staged and direct modes take the same sums in order
+                other = first.setdefault((plan[:4], b is None), out)
+                same = bool(torch.equal(out, again)
+                            and torch.equal(out, other))
+                errs.append(err)
+                check(ok and same, f'segment_spmm {label} plan {plan} base '
+                                   f'{b is not None}: max abs err {err}, '
+                                   'bitwise equal to another launch and to '
+                                   f'the other mode: {same}')
+        worst = max(worst, *errs)
+        log(f'[kernel] segment_spmm {label}: '
+            f"{len(segment_plans(x.shape[1], 4, x.data_ptr()))} plans "
+            f'(vec, lanes, groups, staged) with and without a base: max abs '
+            f'err {max(errs):.3e}, two launches of each and both modes '
+            'bitwise equal, ok')
     return worst
 
 
@@ -613,48 +792,24 @@ def device_ms(torch, fn, calls=100):
 
 
 def phase_timings(torch, seed):
-    """Per serving shape: the kernel, its plain version and
+    """Per serving shape (F = 128 and 16): kernel 1, its plain version and
     ``torch.sparse.mm`` on a CSR tensor (a yardstick the port never calls),
-    each on the same inputs, L2 warm as in a forward. ``ms`` is device time
-    (``device_ms``); ``event_ms`` is the wall per back-to-back call."""
+    each on the same inputs, L2 warm as in a forward (``segment_timed``);
+    then the lane-group sweep at F = 16 (``plan_sweep``)."""
     from pytorch_geometric_tpu_torch import EdgeIndex
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
-        segment_spmm, segment_spmm_plain)
     x_np, coo, w_np = serving_graph(seed)
     ei = EdgeIndex(coo, (N_NODES, N_NODES), device='cuda').fill_cache()
     csc = ei.csc
     w = torch.as_tensor(w_np, device='cuda')[csc.perm].contiguous()
-    e = coo.shape[1]
-    a = torch.sparse_csr_tensor(csc.indptr, csc.indices, w,
-                                size=(N_NODES, N_NODES))
     shapes = []
     with torch.inference_mode():
         for f in (WIDTH, N_OUT):
             x = torch.as_tensor(x_np[:, :f].copy(), device='cuda')
-            lib = torch.sparse.mm(a, x)
-            check(bool(torch.allclose(lib, segment_spmm_plain(
-                csc.indptr, csc.indices, w, x), rtol=1e-4, atol=1e-4)),
-                f'torch.sparse.mm disagrees at F={f}')
-            fns = {'ms': lambda: segment_spmm(csc.indptr, csc.indices, w,
-                                              x),
-                   'plain_ms': lambda: segment_spmm_plain(
-                       csc.indptr, csc.indices, w, x),
-                   'library_ms': lambda: torch.sparse.mm(a, x)}
-            b_ms, b_by = bound_ms(N_NODES, N_NODES, e, f, True)
-            row = {'F': f, 'n_src': N_NODES, 'n_dst': N_NODES, 'edges': e,
-                   'bound_ms': b_ms, 'bound_by': b_by,
-                   'bytes': spmm_bytes(N_NODES, N_NODES, e, f, True)}
-            shapes.append(timed_fns(torch, row, fns, reps=200, warmup=50,
-                                    calls=100))
-            log(f"[timing] segment_spmm F={f}, device time per call: kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"torch.sparse.mm {row['library_ms']:.4f} ms; bound "
-                f"{b_ms:.4f} ms ({b_by}), kernel at "
-                f"{100 * b_ms / row['ms']:.1f}% of the bound; CUDA-event "
-                f"wall per back-to-back call: kernel {row['event_ms']:.4f}, "
-                f"plain {row['plain_event_ms']:.4f}, torch.sparse.mm "
-                f"{row['library_event_ms']:.4f} ms")
-    return shapes
+            shapes.append(segment_timed(torch, f'serving F={f}', csc.indptr,
+                                        csc.indices, w, x))
+        sweep = plan_sweep(torch, f'serving F={N_OUT}', csc.indptr,
+                           csc.indices, w, x)
+    return shapes, sweep
 
 
 # -- training graphs ----------------------------------------------------------
@@ -966,6 +1121,14 @@ def profile_steps(torch, step, tag, expect=None):
                                        or BSR_MAIN in name),
             'kernel2_prep_ms_per_step': sum(t for name, t, _ in rows
                                             if BSR_PREP in name),
+            'kernel1_ms_per_step': sum(t for name, t, _ in rows
+                                       if SEG_MAIN in name),
+            'add_launches_per_step': launches_of(rows, ADD),
+            # out + res, and autograd's sum of two gradients, are adds of
+            # two same-shape tensors: PyTorch's vectorised kernel
+            'same_shape_add_launches_per_step': sum(
+                n for name, _, n in rows if ADD in name
+                and 'vectorized_elementwise_kernel' in name),
             'kernels_per_step': [[name[:80], t, n] for name, t, n in rows[:8]]
             }, run
 
@@ -1053,7 +1216,16 @@ def phase_path_a(torch, seed, pa, bf16=False):
         f"{prof['kernel2_ms_per_step']:.4f} ms of the "
         f"{prof['device_busy_ms_per_step']:.4f} ms busy per step (share "
         f"{prof['kernel2_ms_per_step'] / prof['device_busy_ms_per_step']:.4f}"
-        f"), its pre-pass {prof['kernel2_prep_ms_per_step']:.4f} ms")
+        f"), its pre-pass {prof['kernel2_prep_ms_per_step']:.4f} ms; kernel "
+        f"1 (the residual onto the block product) "
+        f"{prof['kernel1_ms_per_step']:.4f} ms; {ADD} launches per step "
+        f"{prof['add_launches_per_step']:g}, of two same-shape tensors "
+        f"{prof['same_shape_add_launches_per_step']:g}")
+    # the residual's sum lands on the block product inside kernel 1, and
+    # the backward's two gradient parts are one pass too: no separate add
+    check(prof['same_shape_add_launches_per_step'] == 0,
+          f"{tag}: {prof['same_shape_add_launches_per_step']} same-shape "
+          f'{ADD} launches per step; the residual add should be in kernel 1')
     check_counts(tag, counts, {k: PASSES_PER_STEP * n_steps
                                for k in launches}, f'{n_steps} steps')
     card = parity_run(torch, 'GCN', state, x, ei, y, 'cuda')
@@ -1184,14 +1356,16 @@ def bsr_library_call(torch, layout, n_src, x):
 
 def phase_training_timings(torch, seed, pa):
     """Device time per call of the BSR kernel (both layouts, F = 64 and 10,
-    path A's shapes) and of the segment-sum backward pass (path B's GCN
-    graph, F = 64 and 10), beside the plain version, a library call and the
-    bound."""
+    path A's shapes) and of kernel 1 (``segment_timed``): path B's GCN
+    graph forward (CSC) and ``A^T g`` (CSR) at F = 64 and 10, and path A's
+    residual, forward and backward at F = 64 and 10 with a base (its
+    yardstick ``torch.addmm``: the base plus the CSR product in one call);
+    beside the plain version, a library call and the bound. Then kernel 1's
+    lane-group sweep at path B's forward shapes and the residual's F =
+    64."""
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.ops.bsr_spmm import (bsr_matmul,
                                                           bsr_spmm_plain)
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
-        segment_spmm, segment_spmm_plain)
     rng = np.random.default_rng(seed + 4)
     ei = pa['ei']
     bsr_rows = []
@@ -1239,37 +1413,42 @@ def phase_training_timings(torch, seed, pa):
                     f"wall per call: kernel {row['event_ms']:.4f} ms")
         _, coo, w_np, _ = path_b_graph('GCN', seed)
         pb = EdgeIndex(coo, (PB_NODES, PB_NODES), device='cuda').fill_cache()
-        csr = pb.csr
-        w_t = torch.as_tensor(w_np, device='cuda')[csr.perm].contiguous()
-        a_t = torch.sparse_csr_tensor(csr.indptr, csr.indices, w_t,
-                                      size=(PB_NODES, PB_NODES))
-        e = coo.shape[1]
-        seg_rows = []
-        for f in (TR_F, TR_CLASSES):
-            g = torch.as_tensor(rng.standard_normal((PB_NODES, f)).astype(
-                np.float32), device='cuda')
-            lib = torch.sparse.mm(a_t, g)
-            check(bool(torch.allclose(lib, segment_spmm_plain(
-                csr.indptr, csr.indices, w_t, g), rtol=1e-4, atol=1e-4)),
-                f'torch.sparse.mm (CSR) disagrees at F={f}')
-            fns = {'ms': lambda: segment_spmm(csr.indptr, csr.indices, w_t,
-                                              g),
-                   'plain_ms': lambda: segment_spmm_plain(
-                       csr.indptr, csr.indices, w_t, g),
-                   'library_ms': lambda: torch.sparse.mm(a_t, g)}
-            b_ms, b_by = bound_ms(PB_NODES, PB_NODES, e, f, True)
-            row = {'pass': 'backward grad_x = A^T g', 'F': f,
-                   'n_src': PB_NODES, 'n_dst': PB_NODES, 'edges': e,
-                   'bound_ms': b_ms, 'bound_by': b_by,
-                   'bytes': spmm_bytes(PB_NODES, PB_NODES, e, f, True)}
-            seg_rows.append(timed_fns(torch, row, fns, reps=200, warmup=50,
-                                      calls=100))
-            log(f"[timing] segment_spmm backward (A^T g over the CSR) path "
-                f"B F={f}, device time per call: kernel {row['ms']:.4f} ms, "
-                f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
-                f"{row['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
-                f"kernel at {100 * b_ms / row['ms']:.1f}% of the bound; "
-                f"CUDA-event wall per call: kernel {row['event_ms']:.4f} ms")
+        w_b = torch.as_tensor(w_np, device='cuda')
+        seg_rows = {'path_b': [], 'residual': [], 'sweep': []}
+        for lay_name, lay in (('forward', pb.csc), ('backward A^T g', pb.csr)):
+            w_l = w_b[lay.perm].contiguous()
+            for f in (TR_F, TR_CLASSES):
+                x = torch.as_tensor(rng.standard_normal((PB_NODES, f)).astype(
+                    np.float32), device='cuda')
+                row = segment_timed(torch, f'path B {lay_name} F={f}',
+                                    lay.indptr, lay.indices, w_l, x)
+                row['pass'] = lay_name
+                seg_rows['path_b'].append(row)
+                if lay_name == 'forward':
+                    seg_rows['sweep'] += plan_sweep(
+                        torch, f'path B forward F={f}', lay.indptr,
+                        lay.indices, w_l, x)
+        # path A's residual, its base the block product: the CSC in the
+        # forward, the CSR (grad_x) in the backward
+        res = pa['ei'].bsr_res
+        for lay_name, lay in (('forward', res.get_csc()),
+                              ('backward', res.get_csr())):
+            w_l = res.weight[lay.perm].contiguous()
+            for f in (TR_F, TR_CLASSES):
+                x, base = (torch.as_tensor(rng.standard_normal(
+                    (PA_NODES, f)).astype(np.float32), device='cuda')
+                    for _ in range(2))
+                row = segment_timed(
+                    torch, f'path A residual {lay_name} F={f} with base',
+                    lay.indptr, lay.indices, w_l, x, base)
+                row['pass'] = lay_name
+                seg_rows['residual'].append(row)
+        csc = res.get_csc()
+        seg_rows['sweep'] += plan_sweep(
+            torch, f'path A residual forward F={TR_F}', csc.indptr,
+            csc.indices, res.weight[csc.perm].contiguous(),
+            torch.as_tensor(rng.standard_normal((PA_NODES, TR_F)).astype(
+                np.float32), device='cuda'))
     return bsr_rows, seg_rows
 
 
@@ -2232,15 +2411,14 @@ def phase_bf16_timings(torch, seed, pe, pc):
     bf16, so it is held to the plain version within 1e-2 of the largest
     magnitude), and the bound: the segment sum at path H's layer 1 (F =
     128, unweighted), the BSR kernel on path E's layouts at F = 64 and 10,
-    the mix at path C's H*F = 256."""
+    the mix at path C's H*F = 256; then kernel 1's lane-group sweep at
+    path H's layer 1."""
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.ops.bsr_spmm import (bsr_matmul,
                                                           bsr_spmm_plain)
     from pytorch_geometric_tpu_torch.ops.gat_fused import (card_slice_cols,
                                                            gat_mix,
                                                            gat_mix_plain)
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
-        segment_spmm, segment_spmm_plain)
     rng = np.random.default_rng(seed + 8)
 
     def lib_row(info, lib, ref):
@@ -2260,32 +2438,17 @@ def phase_bf16_timings(torch, seed, pe, pc):
 
     rows = {}
     with torch.inference_mode():
-        # kernel 1 bf16: path H's layer-1 aggregation
+        # kernel 1 bf16: path H's layer-1 aggregation, and its lane-group
+        # sweep
         x_np, coo, _ = serving_graph(seed)
         csc = EdgeIndex(coo, (N_NODES, N_NODES), device='cuda').fill_cache(
             blocked=False).csc
-        e = coo.shape[1]
         xb = torch.as_tensor(x_np, device='cuda').bfloat16()
-        fns = {'ms': lambda: segment_spmm(csc.indptr, csc.indices, None, xb),
-               'plain_ms': lambda: segment_spmm_plain(csc.indptr,
-                                                      csc.indices, None, xb)}
-        info = {'F': WIDTH, 'edges': e, 'weighted': False}
-        fns.update(lib_row(info, sparse_library_call(
-            torch, csc.indptr, csc.indices,
-            torch.ones(e, dtype=torch.bfloat16, device='cuda'), N_NODES,
-            N_NODES, xb), fns['plain_ms']()))
-        # bf16 x and out, the indices, once each
-        row = timed_row(torch, fns, info,
-                        2 * N_NODES * WIDTH * 2 + (N_NODES + 1) * 4 + e * 4,
-                        2.0 * e * WIDTH, reps=200, warmup=50, calls=100)
-        rows['segment_spmm_bf16'] = [row]
-        log(f"[timing] segment_spmm bf16 F={WIDTH} (path H layer 1), device "
-            f"time per call: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, torch.sparse.mm (bf16 CSR) "
-            f"{lib_txt(row)}; bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), kernel at "
-            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound; "
-            f"CUDA-event wall per call: kernel {row['event_ms']:.4f} ms")
+        label = f'bf16 F={WIDTH} (path H layer 1)'
+        rows['segment_spmm_bf16'] = [segment_timed(
+            torch, label, csc.indptr, csc.indices, None, xb)]
+        rows['segment_spmm_bf16_sweep'] = plan_sweep(
+            torch, label, csc.indptr, csc.indices, None, xb)
         # kernel 2 bf16: path E's layouts
         rows['bsr_spmm_bf16'] = []
         for lay_name, layout in (('forward', pe['ei'].bsr),
@@ -2391,10 +2554,10 @@ def main():
     worst_bsr = phase_bsr_vs_plain(torch, args.seed, pa)
     worst_bwd = phase_segment_backward_vs_plain(torch, args.seed, pa)
     serving = phase_serving(torch, args.seed, args.iters, args.warmup)
-    shapes = phase_timings(torch, args.seed)
+    shapes, serving_sweep = phase_timings(torch, args.seed)
     path_a = phase_path_a(torch, args.seed, pa)
     path_b = phase_path_b(torch, args.seed)
-    bsr_rows, seg_bwd_rows = phase_training_timings(torch, args.seed, pa)
+    bsr_rows, seg_rows = phase_training_timings(torch, args.seed, pa)
     del pa
     torch.cuda.empty_cache()
     pe = build_path_a(torch, args.seed, bf16=True)
@@ -2417,7 +2580,8 @@ def main():
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
     by_f = {s['F']: s for s in shapes}
     for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
-        per_fwd[key] = sum(by_f[f][key] for f in per_fwd['F'])
+        vals = [by_f[f][key] for f in per_fwd['F']]
+        per_fwd[key] = None if None in vals else sum(vals)
     bound_by = ('bytes' if all(s['bound_by'] == 'bytes' for s in shapes)
                 else 'operations')
     # every path's measured counts, all arms, keyed by path
@@ -2445,6 +2609,13 @@ def main():
         {'layout': 'transposed', 'F': TR_CLASSES},
         {'layout': 'transposed', 'F': TR_F}]
     bsr_step = per_step(bsr_rows, step_picks)
+    # path A's residual in a step: the forward at F = 64 twice and 10, the
+    # backward (grad_x) at 10 and 64
+    residual_step = per_step(seg_rows['residual'], [
+        {'pass': 'forward', 'F': TR_F}, {'pass': 'forward', 'F': TR_F},
+        {'pass': 'forward', 'F': TR_CLASSES},
+        {'pass': 'backward', 'F': TR_CLASSES},
+        {'pass': 'backward', 'F': TR_F}])
     bsr_bf16_step = per_step(bf16_rows['bsr_spmm_bf16'], step_picks)
     # a path C forward: per layer the stabiliser pass and the mix, at
     # H*F = 256 in layers 1-2 and 40 in layer 3
@@ -2476,9 +2647,17 @@ def main():
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
         'library_ms': per_fwd['library_ms'],
         'times_are': 'per GCN serving forward: 2 launches at F=128, 1 at '
-                     'F=16; the backward pass per call in '
-                     'backward_per_shape',
-        'per_shape': shapes, 'backward_per_shape': seg_bwd_rows}, {
+                     'F=16; path B\'s forward and backward passes per call '
+                     'in path_b_per_shape, path A\'s residual (with the '
+                     'block product as base) per call in residual_per_shape '
+                     'and per step in residual_per_step',
+        'per_shape': shapes,
+        'backward_per_shape': [r for r in seg_rows['path_b']
+                               if r['pass'] != 'forward'],
+        'path_b_per_shape': seg_rows['path_b'],
+        'residual_per_shape': seg_rows['residual'],
+        'residual_per_step': residual_step,
+        'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
         'replaces': 'pytorch_geometric_tpu/ops/bsr_spmm.py:114',
@@ -2550,7 +2729,8 @@ def main():
         'library_ms': seg_bf16['library_ms'],
         'times_are': f'one call at path H layer 1 (F={WIDTH}, unweighted), '
                      'one per forward',
-        'per_shape': [seg_bf16]}, {
+        'per_shape': [seg_bf16],
+        'plan_sweep': bf16_rows['segment_spmm_bf16_sweep']}, {
         'name': 'bsr_spmm_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
         'replaces': 'pytorch_geometric_tpu/ops/bsr_spmm.py:114',

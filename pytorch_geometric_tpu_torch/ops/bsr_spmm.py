@@ -1,6 +1,5 @@
 """Block-sparse (BSR) cached-adjacency SpMM: the host layout build, the
-hand-written Hopper kernel's wrapper, its plain PyTorch version, and the
-differentiable ``bsr_spmm``.
+hand-written Hopper kernel's wrapper and its plain PyTorch version.
 
 Counterpart of ``pytorch_geometric_tpu/ops/bsr_spmm.py``. A cached,
 weight-baked adjacency (``GCNConv(cached=True)`` through
@@ -441,8 +440,9 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
     dtype. A CPU tensor runs :func:`bsr_spmm_plain`; a CUDA tensor launches
     the pre-pass and the kernel of the blocks' dtype (built at first use;
     float32 blocks count in ``bsr_matmul.launches``, bf16 ones in
-    ``bsr_matmul.launches_bf16``) or raises. Not differentiable: see
-    :func:`bsr_spmm`."""
+    ``bsr_matmul.launches_bf16``) or raises. Not differentiable: ``spmm``'s
+    block arm (``ops/spmm.py``) runs it forward and, over the transposed
+    layout, backward."""
     _check(bsr, x, num_out)
     if bsr.order is not None and (bsr.order.device != x.device
                                   or bsr.order.dtype != torch.int32
@@ -489,28 +489,3 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
 
 bsr_matmul.launches = 0
 bsr_matmul.launches_bf16 = 0
-
-
-class _BsrSpmm(torch.autograd.Function):
-    """``A @ x`` with ``grad_x = A^T @ g`` through the same kernel over the
-    transposed layout (bf16 blocks round ``g`` to bf16, as ``_bsr_bwd``
-    does); the block values are constants."""
-
-    @staticmethod
-    def forward(ctx, x, bsr, bsr_t, num_dst, num_src):
-        ctx.bsr_t, ctx.num_src = bsr_t, num_src
-        return bsr_matmul(bsr, x, num_dst)
-
-    @staticmethod
-    def backward(ctx, g):
-        grad_x = None
-        if ctx.needs_input_grad[0]:
-            grad_x = bsr_matmul(ctx.bsr_t, g.contiguous(), ctx.num_src)
-        return grad_x, None, None, None, None
-
-
-def bsr_spmm(bsr: BSR, bsr_t: BSR, x: torch.Tensor, num_dst: int,
-             num_src: int) -> torch.Tensor:
-    """``out = A @ x`` over the block layout, differentiable in ``x``
-    (``bsr_t`` is the transposed layout the backward runs over)."""
-    return _BsrSpmm.apply(x, bsr, bsr_t, num_dst, num_src)

@@ -17,10 +17,12 @@ order:
     blocks, no weight passed) with ``reduce`` in sum|mean -> the block
     kernel (``ops/bsr_spmm.py``) over the nonempty 128x128 blocks, un-doing
     the hubs-first relabel around it when one was baked in, plus the
-    residual edges through the segment-sum kernel; ``mean`` divides by the
-    destination degree. Differentiable in ``x``: both kernels run their
-    backward over the transposed layouts. bf16 blocks take the block
-    kernel's tensor-core arm.
+    residual edges through the segment-sum kernel, which takes the block
+    product as its ``base`` (``out + segment_sum(...)`` in one pass, as XLA
+    fuses the JAX package's add); ``mean`` divides by the destination
+    degree. Differentiable in ``x``: both kernels run their backward over
+    the transposed layouts, the residual's again onto the block product.
+    bf16 blocks take the block kernel's tensor-core arm.
   * ``'kernel'``: ``reduce`` in sum|mean on a CUDA tensor -> the hand-written
     segment-sum kernel (``ops/segment_spmm.py``) over the cached (or freshly
     built) CSC, with its backward over the CSR; ``mean`` divides by the CSC
@@ -48,7 +50,7 @@ import torch
 
 from .. import backend
 from ..edge_index import CSR, EdgeIndex
-from .bsr_spmm import bsr_spmm
+from .bsr_spmm import bsr_matmul
 from .dense_spmm import dense_spmm
 from .scatter import scatter
 from .segment_spmm import segment_spmm
@@ -94,20 +96,60 @@ def _kernel_spmm(adj: EdgeIndex, x: torch.Tensor,
                         transpose)
 
 
+def _residual_pass(res: EdgeIndex, x: torch.Tensor, base: torch.Tensor,
+                   csr: bool) -> torch.Tensor:
+    """``base + R x`` (``R`` the residual's CSC) or ``base + R^T x`` (its
+    CSR, ``csr``) in one segment-sum pass, in the promoted dtype of ``x``
+    and the residual's weights, as ``out + res`` promotes. Runs inside
+    :class:`_BsrArm`, where autograd records nothing."""
+    layout = res.get_csr() if csr else res.get_csc()
+    w = res.weight
+    dt = x.dtype if w is None else torch.promote_types(x.dtype, w.dtype)
+    if w is not None:
+        w = w.detach()[layout.perm].to(dt).contiguous()
+    return segment_spmm(layout.indptr, layout.indices, w,
+                        x.to(dt).contiguous(), base=base.to(dt).contiguous())
+
+
+class _BsrArm(torch.autograd.Function):
+    """The block product plus the residual tail as one pass each way: the
+    block kernel's output (its relabel un-done by a gather) is the ``base``
+    the segment-sum kernel adds its residual sum to, so no separate add
+    runs. Backward: ``bsr_t``'s product of ``g`` (relabelled the same way)
+    is the base of the residual's CSR pass. The blocks and the residual's
+    weights are constants."""
+
+    @staticmethod
+    def forward(ctx, x, adj):
+        ctx.adj, ctx.dtype = adj, x.dtype
+        xb = x if adj.bsr_perm is None else x[adj.bsr_perm]
+        out = bsr_matmul(adj.bsr, xb.contiguous(), adj.num_dst_nodes)
+        if adj.bsr_perm is not None:
+            # the blocks hold P A P^T: out_old[o] = out_new[inv[o]]
+            out = out[adj.bsr_inv]
+        if adj.bsr_res is not None:
+            out = _residual_pass(adj.bsr_res, x, out, csr=False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        adj = ctx.adj
+        gb = g if adj.bsr_perm is None else g[adj.bsr_perm]
+        grad = bsr_matmul(adj.bsr_t, gb.contiguous(), adj.num_src_nodes)
+        if adj.bsr_perm is not None:
+            grad = grad[adj.bsr_inv]
+        if adj.bsr_res is not None:
+            grad = _residual_pass(adj.bsr_res, g, grad, csr=True)
+        return grad.to(ctx.dtype), None
+
+
 def _bsr_arm(adj: EdgeIndex, x: torch.Tensor) -> torch.Tensor:
     """Sum over the baked blocks, un-doing the hubs-first relabel around
-    them, plus the residual tail through the segment-sum kernel."""
-    xb = x if adj.bsr_perm is None else x[adj.bsr_perm]
-    out = bsr_spmm(adj.bsr, adj.bsr_t, xb.contiguous(), adj.num_dst_nodes,
-                   adj.num_src_nodes)
-    if adj.bsr_perm is not None:
-        # the blocks hold P A P^T: out_old[o] = out_new[inv[o]]
-        out = out[adj.bsr_inv]
-    if adj.bsr_res is not None:
-        # the scattered tail the block split left on the gather path
-        res = adj.bsr_res
-        out = out + _kernel_spmm(res, x, res.weight, res.get_csc())
-    return out
+    them, plus the residual tail through the segment-sum kernel with the
+    block product as its base (:class:`_BsrArm`)."""
+    return _BsrArm.apply(x, adj)
 
 
 def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,

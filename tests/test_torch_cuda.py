@@ -994,3 +994,184 @@ def test_segment_max_unaligned_values_and_refusals(dev):
     for lanes in (0, 3, 64):
         with pytest.raises(ValueError, match='power of two'):
             segment_max_blocked(vals, blk, 800, lanes=lanes)
+
+
+# -- the segment-sum kernel's launch plans, base operand and refusals --------
+def _hub_csc(n_src, n_dst, e, f, seed, hub=5000, n_pad=24, n_bad=20):
+    """A destination-sorted CSC built in numpy: a third of the rows empty,
+    a ``hub``-edge row, padded edges past ``indptr[-1]`` and sources outside
+    ``[0, n_src)``; ``(indptr, src, w, x)`` as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(n_dst, max(1, 2 * n_dst // 3), replace=False)
+    dst = np.concatenate([rows[rng.integers(0, len(rows), e)],
+                          np.full(hub, rows[0])])
+    src = rng.integers(0, n_src, len(dst))
+    order = np.argsort(dst, kind='stable')
+    dst, src = dst[order], src[order]
+    bad = rng.choice(len(src), n_bad, replace=False)
+    src[bad] = np.where(np.arange(n_bad) % 2, -1, n_src + 3)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(dst,
+                                                        minlength=n_dst))])
+    src = np.concatenate([src, rng.integers(0, n_src, n_pad)])
+    return (indptr.astype(np.int32), src.astype(np.int32),
+            rng.random(len(src)).astype(np.float32),
+            rng.standard_normal((n_src, f)).astype(np.float32))
+
+
+def _plans(f, itemsize):
+    """Every plan the kernel takes for F = f at aligned pointers: each load
+    width of the arm that divides F, each lanes count from the one that
+    covers the row down to a quarter of it (more column passes), each lane
+    group count the team allows."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import VEC_WIDTHS
+    plans = []
+    for vec in VEC_WIDTHS[itemsize]:
+        if f % vec:
+            continue
+        need = 1
+        while need < min(-(-f // vec), 32):
+            need *= 2
+        for lanes in sorted({need, max(need // 4, 1)}):
+            g = 1
+            while lanes * g <= 32:
+                plans.append((vec, lanes, g, 32 // (lanes * g)))
+                g *= 2
+    return plans
+
+
+PLAN_CASES = [(f, p) for f in (1, 10, 16, 24, 64, 128, 130)
+              for p in _plans(f, 4)]
+
+
+@pytest.mark.parametrize('f,plan', PLAN_CASES)
+def test_segment_kernel_every_plan_matches_plain(dev, f, plan):
+    """Every plan branch of the float32 arm, with and without base, over a
+    5,000-edge hub row, empty rows, padded edges and sources out of range;
+    two launches bitwise equal, and the staged and direct modes bitwise
+    equal (the same sums in the same order)."""
+    indptr, src, w, x = _hub_csc(300, 400, 6000, f, seed=f)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in
+         (('indptr', indptr), ('src', src), ('w', w), ('x', x))}
+    base = torch.randn(400, f, device=dev)
+    for weighted in (True, False):
+        wt = t['w'] if weighted else None
+        scale = segment_spmm_plain(t['indptr'], t['src'],
+                                   None if wt is None else wt.abs(),
+                                   t['x'].abs())
+        for b in (None, base):
+            before = segment_spmm.launches
+            out = segment_spmm(t['indptr'], t['src'], wt, t['x'], base=b,
+                               plan=plan + (1,))
+            again = segment_spmm(t['indptr'], t['src'], wt, t['x'], base=b,
+                                 plan=plan + (1,))
+            direct = segment_spmm(t['indptr'], t['src'], wt, t['x'], base=b,
+                                  plan=plan + (0,))
+            torch.cuda.synchronize()
+            assert segment_spmm.launches == before + 3
+            assert torch.equal(out, again) and torch.equal(out, direct)
+            _close(out, segment_spmm_plain(t['indptr'], t['src'], wt, t['x'],
+                                           b), scale)
+
+
+BF16_PLAN_CASES = [(f, p) for f in (1, 10, 16, 24, 128)
+                   for p in _plans(f, 2)]
+
+
+@pytest.mark.parametrize('f,plan', BF16_PLAN_CASES)
+def test_segment_bf16_kernel_every_plan_matches_plain(dev, f, plan):
+    """Every plan branch of the bf16 arm, both modes, with and without a
+    bf16 base."""
+    indptr, src, w, x = _hub_csc(300, 400, 6000, f, seed=f + 1)
+    ip, sp = (torch.as_tensor(a, device=dev) for a in (indptr, src))
+    xb = torch.as_tensor(x, device=dev).bfloat16()
+    base = torch.randn(400, f, device=dev).bfloat16()
+    for wt in (torch.as_tensor(w, device=dev).bfloat16(), None):
+        scale = segment_spmm_plain(ip, sp, None if wt is None else
+                                   wt.float().abs(), xb.float().abs())
+        for b in (None, base):
+            before = segment_spmm.launches_bf16
+            out = segment_spmm(ip, sp, wt, xb, base=b, plan=plan + (1,))
+            again = segment_spmm(ip, sp, wt, xb, base=b, plan=plan + (1,))
+            direct = segment_spmm(ip, sp, wt, xb, base=b, plan=plan + (0,))
+            torch.cuda.synchronize()
+            assert segment_spmm.launches_bf16 == before + 3
+            assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+            assert torch.equal(out, direct)
+            _bf16_close(out, segment_spmm_plain(ip, sp, wt, xb, b), scale)
+
+
+def test_segment_kernel_f10_x_8_byte_aligned(dev):
+    """F = 10 with x 8 bytes but not 16 bytes past an aligned address: the
+    plan takes 8-byte loads (and 4-byte ones past a 4-byte offset)."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_plan
+    indptr, src, w, x = _hub_csc(300, 400, 6000, 10, seed=5)
+    ip, sp, wt = (torch.as_tensor(a, device=dev) for a in (indptr, src, w))
+    flat = torch.as_tensor(x, device=dev).flatten()
+    for pad, vec in ((2, 2), (1, 1)):
+        xt = torch.cat([flat.new_zeros(pad), flat])[pad:].view(300, 10)
+        assert xt.is_contiguous() and xt.data_ptr() % 16 == 4 * pad
+        plan = segment_plan(10, 4, 400, len(src), xt.data_ptr(), 0)
+        assert plan.vec == vec
+        out = segment_spmm(ip, sp, wt, xt)
+        _close(out, segment_spmm_plain(ip, sp, wt, xt),
+               segment_spmm_plain(ip, sp, wt.abs(), xt.abs()))
+
+
+def test_segment_kernel_refuses_a_plan_that_does_not_tile(dev):
+    """The C entry points return an error for a plan that does not tile
+    and launch nothing; the wrapper raises before calling them; the next
+    launch runs."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import _kernel
+    indptr, src, w, x = _hub_csc(64, 80, 500, 16, seed=6, hub=50)
+    ip, sp, xt = (torch.as_tensor(a, device=dev) for a in (indptr, src, x))
+    before = segment_spmm.launches, segment_spmm.launches_bf16
+    with pytest.raises(ValueError, match='does not tile'):
+        segment_spmm(ip, sp, None, xt, plan=(4, 4, 4, 4))
+    out = torch.full((80, 16), 7.0, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for plan in ((4, 4, 4, 4, 1), (4, 12, 1, 2, 1), (8, 4, 1, 8, 1),
+                 (4, 4, 1, 4, 0), (4, 4, 1, 8, 2)):
+        err = _kernel('f32')(ip.data_ptr(), sp.data_ptr(), None,
+                             xt.data_ptr(), None, out.data_ptr(), 80, 64, 16,
+                             len(src), *plan, stream)
+        assert err != 0, plan
+    xb, ob = xt.bfloat16(), out.bfloat16()
+    assert _kernel('bf16')(ip.data_ptr(), sp.data_ptr(), None, xb.data_ptr(),
+                           None, ob.data_ptr(), 80, 64, 16, len(src), 2, 8,
+                           1, 4, 1, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((ob == 7.0).all())
+    assert (segment_spmm.launches, segment_spmm.launches_bf16) == before
+    out = segment_spmm(ip, sp, None, xt)
+    torch.cuda.synchronize()
+    assert segment_spmm.launches == before[0] + 1
+    _close(out, segment_spmm_plain(ip, sp, None, xt),
+           segment_spmm_plain(ip, sp, None, xt.abs()))
+
+
+def test_segment_kernel_base_gradient_and_bsr_fusion(dev):
+    """``base``'s gradient is ``g``; the block arm runs the block kernel
+    and one segment-sum pass each way, and no separate add."""
+    indptr, src, w, x = _hub_csc(200, 200, 3000, 24, seed=7, hub=300)
+    ip, sp, wt = (torch.as_tensor(a, device=dev) for a in (indptr, src, w))
+    xt = torch.as_tensor(x, device=dev)
+    base = torch.randn(200, 24, device=dev, requires_grad=True)
+    out = segment_spmm(ip, sp, wt, xt, base=base)
+    g = torch.randn(200, 24, device=dev)
+    out.backward(g)
+    assert torch.equal(base.grad, g)
+    _close(out.detach(), segment_spmm_plain(ip, sp, wt, xt) + base.detach(),
+           segment_spmm_plain(ip, sp, wt.abs(), xt.abs()))
+    coo, wb, rng = _bsr_case(900, 900, 30_000, seed=5)
+    ei = EdgeIndex(coo, (900, 900), device=dev).fill_cache(
+        dense_weight=wb, block_sparse=True)
+    assert spmm_regime(ei) == 'bsr' and ei.bsr_res is not None
+    xg = torch.randn(900, 24, device=dev, requires_grad=True)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spmm(ei, xg).sum().backward()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == 'CUDA']
+    assert sum('segment_spmm_kernel' in n for n in names) == 2
+    assert not any('CUDAFunctor_add' in n for n in names), names
