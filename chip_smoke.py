@@ -105,7 +105,26 @@ checks them:
      input): GraphSAGE and GIN forwards on the serving graph from bf16
      features, one bf16 segment-sum launch per forward;
  19. timings of the bf16 kernels at their paths' shapes, and the
-     segment-sum bf16 arm's sweep at path H's layer 1.
+     segment-sum bf16 arm's sweep at path H's layer 1;
+ 20. ``loader/scan_train.py`` at ``benchmarks/products_bench.py``'s sampled
+     training (2,449,029 x 100 features on the card; the batches are the
+     first 8 of its loader's epoch over its products-like graph, sampled on
+     the host by a copy of the JAX package's numpy sampler: batch 512,
+     fan-outs [15, 10]; GraphSAGE 100 -> 64 -> 47, K = 8): the batches'
+     fill, one ``scan_fn`` replay and 8 ``step_fn`` replays against 8 eager
+     steps from one state, ms per step of each, and the message gather's
+     forward and backward by ``index_select`` and by indexing at the
+     batches' shape.
+
+Every path of phases 4, 7, 8, 11, 12 and 15-18 (serving GCN; paths A, B,
+C, D, E, F, G, H) also runs captured, through ``compat.compile`` (a CUDA
+graph: 2 eager warm-ups, the capture, then replays): ms per forward or step,
+device busy time and idle share over replays, the launches a replay holds
+(equal to the eager per-call counts) times the replays; a forward's output
+against the eager one (bitwise or not) and the CPU plain path, a step's 5
+losses (the last 3 replays) and the first replayed step's gradients against
+the eager step from the same weights with ``Adam(capturable=True)``. Paths
+B and F print ``bench.py``'s one-line JSON, eager and captured.
 
 Every profile of a path is a whole window (``whole_window``): it follows a
 warm-up window, and a window that lost launches is profiled again.
@@ -169,6 +188,20 @@ BSR_PREP, BSR_MAIN = 'bsr_prep_kernel', 'bsr_spmm_kernel'
 SEG_MAIN, ADD = 'segment_spmm_kernel', 'CUDAFunctor_add'
 # the count of HGMMA (wgmma) instructions in a built library's SASS
 HGMMA = {}
+# compat.compile's eager warm-up calls before the call that captures
+CAPTURE_WARMUP = 2
+# the reference's compiled seconds per 500 steps (BASELINE.md:11-13,
+# torch.compile on an unspecified GPU), beside the eager ones above
+REFERENCE_COMPILED_S = {'GCN': 1.6978, 'GraphSAGE': 1.4498, 'GIN': 1.4727}
+# bench.py's metric names (bench.py:26)
+BENCH_NAMES = {'GCN': 'gcn', 'GraphSAGE': 'sage', 'GIN': 'gin'}
+# the scan phase: products_bench.py's sampled training (:38-40, :171-196):
+# ogbn-products' node and edge counts, F and classes, batch 512, fan-outs
+# [15, 10], GraphSAGE hidden 64 over 2 layers, Adam 1e-3, K = 8 steps a
+# dispatch; the batches come from its graph and its loader's epoch
+N_PRODUCTS, E_PRODUCTS, PR_F, PR_CLASSES = 2_449_029, 123_718_280, 100, 47
+PR_BATCH, PR_FANOUTS, PR_HIDDEN, PR_LR, PR_K = 512, (15, 10), 64, 1e-3, 8
+PR_REPS = 10
 
 
 def log(*a):
@@ -180,30 +213,18 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def counters():
-    """(name, wrapper, attribute) of every kernel arm's launch count."""
-    from pytorch_geometric_tpu_torch.ops.bsr_spmm import bsr_matmul
-    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
-    from pytorch_geometric_tpu_torch.ops.segment_max import \
-        segment_max_blocked
-    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
-    return [('segment_spmm', segment_spmm, 'launches'),
-            ('segment_spmm_bf16', segment_spmm, 'launches_bf16'),
-            ('bsr_spmm', bsr_matmul, 'launches'),
-            ('bsr_spmm_bf16', bsr_matmul, 'launches_bf16'),
-            ('gat_mix', gat_mix, 'launches'),
-            ('gat_mix_bf16', gat_mix, 'launches_bf16'),
-            ('segment_max', segment_max_blocked, 'launches')]
-
-
 def reset_counts():
     """Every kernel arm's launch count to 0, just before a path runs."""
-    for _, fn, attr in counters():
+    from pytorch_geometric_tpu_torch.compat import launch_counters
+    for _, fn, attr in launch_counters():
         setattr(fn, attr, 0)
 
 
 def launch_counts():
-    return {name: getattr(fn, attr) for name, fn, attr in counters()}
+    """Every kernel arm's launch count: the host calls that launched it (a
+    graph's replays are counted by its compiled callable)."""
+    from pytorch_geometric_tpu_torch.compat import launch_counts as counts
+    return counts()
 
 
 def check_counts(tag, counts, want, over):
@@ -589,20 +610,8 @@ def phase_serving(torch, seed, iters, warmup):
         reset_counts()
         with torch.inference_mode():
             if kind == 'GCN':
-                for _ in range(warmup):
-                    out = model(x, ei, **kw)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                start.record()
-                for _ in range(iters):
-                    out = model(x, ei, **kw)
-                end.record()
-                # the host's time to issue the forwards, before waiting
-                enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
-                torch.cuda.synchronize()
-                ms = start.elapsed_time(end) / iters
+                ms, enqueue_ms, _, out = timed_calls(
+                    torch, lambda: model(x, ei, **kw), iters, warmup)
                 breakdown = profile_forwards(torch, lambda: model(x, ei, **kw))
                 n_fwd = warmup + iters + breakdown[2]
             else:
@@ -614,9 +623,8 @@ def phase_serving(torch, seed, iters, warmup):
         log(f'[{kind}] launches in {n_fwd} forwards: {counts}')
         check_counts(kind, counts, {'segment_spmm': N_LAYERS * n_fwd},
                      f'{n_fwd} forwards')
-        diff, agree = compare(torch, kind, out,
-                              cpu_reference(torch, model, kind, x_np, coo,
-                                            w_np))
+        ref = cpu_reference(torch, model, kind, x_np, coo, w_np)
+        diff, agree = compare(torch, kind, out, ref)
         res = {'launches': launches, 'launch_counts': counts,
                'forwards': n_fwd,
                'max_abs_diff_vs_cpu': diff, 'argmax_agreement': agree}
@@ -651,6 +659,12 @@ def phase_serving(torch, seed, iters, warmup):
                             'edges_per_s': res['edges_per_s'],
                             'nodes': N_NODES, 'edges': N_EDGES,
                             'hidden': WIDTH, 'iters': iters}))
+            cap, cap_out = captured_serving(
+                torch, 'serving GCN captured', lambda x: model(x, ei, **kw),
+                x, out, iters, warmup, {'segment_spmm': N_LAYERS})
+            cap['max_abs_diff_vs_cpu'], cap['argmax_agreement'] = compare(
+                torch, 'serving GCN captured', cap_out, ref)
+            res['captured'] = cap
         results[kind] = res
     return results
 
@@ -709,20 +723,26 @@ def profile_forwards(torch, fwd, expect=None):
 
 
 # -- phase 6 ------------------------------------------------------------------
-def time_ms(torch, fn, reps=200, warmup=50):
-    """Wall time per call on the card's clock (CUDA events around ``reps``
-    back-to-back calls). Where one call's device work is shorter than the
-    host's time to issue it, this measures the host."""
+def timed_calls(torch, fn, iters, warmup):
+    """``warmup`` then ``iters`` back-to-back calls of ``fn``: (ms per call
+    on the card's clock (CUDA events), host ms to issue one, host seconds
+    until the calls finished, the last call's result). Where one call's
+    device work is shorter than the host's time to issue it, the card's
+    clock measures the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return start.elapsed_time(end) / iters, enqueue_ms, wall_s, out
 
 
 def launches_of(rows, part):
@@ -1051,6 +1071,13 @@ def train_model(torch, kind, device, seed):
                generator=g)
 
 
+def from_state(torch, build, state):
+    """``build()`` (a model on the card) with the weights ``state``."""
+    model = build()
+    model.load_state_dict({k: v.cuda() for k, v in state.items()})
+    return model
+
+
 def train_step(torch, model, opt, x, ei, y, **kw):
     """One full-batch step as ``bench.py`` runs it: softmax cross-entropy,
     mean over the nodes, backward, Adam. Returns the loss, on the device."""
@@ -1134,23 +1161,12 @@ def profile_steps(torch, step, tag, expect=None):
 
 
 def timed_steps(torch, step, warmup, steps):
-    """``warmup`` then ``steps`` steps: (ms per step on the card's clock,
-    host seconds for the steps, host ms to issue one step)."""
-    for _ in range(warmup):
-        step()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(steps):
-        loss = step()
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    """:func:`timed_calls` over training steps: (ms per step on the card's
+    clock, host seconds for the steps, host ms to issue one step, the last
+    loss), which must be finite."""
+    ms, enqueue_ms, wall_s, loss = timed_calls(torch, step, steps, warmup)
     check(bool(torch.isfinite(loss)), 'non-finite loss')
-    return start.elapsed_time(end) / steps, wall_s, enqueue_ms, loss.item()
+    return ms, wall_s, enqueue_ms, loss.item()
 
 
 def ei_to_cpu(torch, ei):
@@ -1252,8 +1268,18 @@ def phase_path_a(torch, seed, pa, bf16=False):
     res.update(prof)
     res['parity'] = check_parity(torch, tag, card, cpu, True,
                                  tol=1e-3 if bf16 else 1e-4)
+    cap = captured_training(
+        torch, f'{tag} captured', lambda: from_state(
+            torch, lambda: train_model(torch, 'GCN', None, seed), state),
+        x, ei, y, None, {k: PASSES_PER_STEP for k in launches}, PA_STEPS,
+        1e-3 if bf16 else 1e-4)
+    check(cap['same_shape_add_launches_per_step'] == 0,
+          f"{tag} captured: {cap['same_shape_add_launches_per_step']} "
+          f'same-shape {ADD} launches per step')
+    res['captured'] = cap
     log(json.dumps({'metric': 'gcn_train_step_bsr_bf16' if bf16 else
                     'gcn_train_step_bsr', 'ms': ms,
+                    'ms_captured': cap['ms_per_step'],
                     'nodes': PA_NODES, 'edges': PA_EDGES,
                     'blocks': pa['info']['blocks'],
                     'residual_edges': pa['info']['residual_edges']}))
@@ -1313,11 +1339,36 @@ def phase_path_b(torch, seed):
         res.update(prof)
         res['parity'] = check_parity(torch, f'path B {kind}', card, cpu,
                                      False)
-        log(json.dumps({'metric': f'{kind.lower()}_train_500steps',
-                        'value': wall_s, 'unit': 's', 'ms_per_step': ms,
-                        'nodes': PB_NODES, 'edges': PB_EDGES}))
+        cap = captured_training(
+            torch, f'path B {kind} captured', lambda: from_state(
+                torch, lambda: train_model(torch, kind, None, seed), state),
+            x, ei, y, kw.get('edge_weight'),
+            {'segment_spmm': PASSES_PER_STEP}, PB_STEPS, 1e-4)
+        res['captured'] = cap
+        for mode, secs in (('eager', wall_s),
+                           ('captured', cap['seconds_for_steps'])):
+            log(json.dumps(bench_line(torch, kind, secs, mode, 'sparse-f32',
+                                      1.5 * PB_EDGES * TR_F * 4
+                                      + PB_NODES * TR_F * 4 + PB_EDGES * 4)))
         results[kind] = res
     return results
+
+
+def bench_line(torch, kind, secs, mode, adj, pass_bytes):
+    """``bench.py``'s one-line JSON (``bench.py:150-175``) for ``secs``
+    per 500 steps: its byte count per SpMM pass, 5 passes a step, the rate
+    against the H100's 3.35 TB/s (not the v5e's 819 GB/s of
+    ``bench.py:172``), and ``vs_baseline`` against ``BASELINE.md:11-13``'s
+    eager seconds (``vs_baseline_compiled``: its compiled ones)."""
+    gbps = PASSES_PER_STEP * PB_STEPS * pass_bytes / 1e9 / secs
+    return {'metric': f'{BENCH_NAMES[kind]}_train_500steps', 'value': secs,
+            'unit': 's', 'vs_baseline': REFERENCE_EAGER_S[kind] / secs,
+            'vs_baseline_compiled': REFERENCE_COMPILED_S[kind] / secs,
+            'backend': 'cuda', 'mode': mode,
+            'edges_per_s': PASSES_PER_STEP / 2 * PB_STEPS * PB_EDGES / secs,
+            'spmm_gbps': gbps,
+            'pct_roofline': 100 * gbps / (HBM_BYTES_PER_S / 1e9),
+            'adj_dtype': adj, 'device': torch.cuda.get_device_name(0)}
 
 
 # -- phase 9, training-kernel timings -----------------------------------------
@@ -1654,19 +1705,8 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     torch.cuda.synchronize()
     reset_counts()
     with torch.inference_mode():
-        for _ in range(warmup):
-            out = model(x, ei)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(iters):
-            out = model(x, ei)
-        end.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / iters
+        ms, enqueue_ms, _, out = timed_calls(torch, lambda: model(x, ei),
+                                             iters, warmup)
         rows, prof_ms, n_prof = profile_forwards(
             torch, lambda: model(x, ei), {MIX_KERNEL: MIX_PER_FORWARD})
     n_fwd = warmup + iters + n_prof
@@ -1687,7 +1727,13 @@ def phase_path_c(torch, seed, iters, warmup, pc):
         f's')
     diff, agree = compare(torch, 'path C', out, ref,
                           (PC_NODES, PC_CLASSES))
-    res = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enqueue_ms,
+    cap, cap_out = captured_serving(
+        torch, 'path C captured', lambda x: model(x, ei), x, out, iters,
+        warmup, {'gat_mix': MIX_PER_FORWARD})
+    cap['max_abs_diff_vs_cpu'], cap['argmax_agreement'] = compare(
+        torch, 'path C captured', cap_out, ref, (PC_NODES, PC_CLASSES))
+    res = {'captured': cap,
+           'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enqueue_ms,
            'forwards': n_fwd, 'launches': launches, 'launch_counts': counts,
            'launches_per_forward': launches / n_fwd,
            'edges': ei.num_edges, 'cache_build_ms': pc['build_ms'],
@@ -1712,6 +1758,7 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     for name, t, n in rows[:12]:
         log(f'[path C]   {t:.4f} ms  x{n:g}  {name[:90]}')
     log(json.dumps({'metric': 'gat_inference_fwd', 'ms': ms,
+                    'ms_captured': cap['ms_per_forward'],
                     'nodes': PC_NODES, 'edges': ei.num_edges,
                     'heads': PC_HEADS, 'hidden': PC_HIDDEN}))
     return res
@@ -1775,7 +1822,12 @@ def phase_path_d(torch, seed, pc):
            'launches_per_step': launches / n_steps, 'peak_memory_gb': peak}
     res.update(prof)
     res['parity'] = check_parity(torch, 'path D', card, cpu, True)
+    res['captured'] = captured_training(
+        torch, 'path D captured', lambda: from_state(
+            torch, lambda: gat_model(torch, None, seed), state),
+        x, ei, y, None, {'gat_mix': MIX_PER_STEP}, PA_STEPS, 1e-4)
     log(json.dumps({'metric': 'gat_train_step', 'ms': ms,
+                    'ms_captured': res['captured']['ms_per_step'],
                     'nodes': PC_NODES, 'edges': ei.num_edges}))
     return res
 
@@ -1808,8 +1860,8 @@ def timed_fns(torch, row, fns, reps=20, warmup=3, calls=10):
     """``row`` with each of ``fns`` (key ``*ms``) timed on the card: device
     time (``device_ms``) and CUDA-event wall (``*event_ms``)."""
     for key, fn in fns.items():
-        row[key.replace('ms', 'event_ms')] = time_ms(torch, fn, reps=reps,
-                                                     warmup=warmup)
+        row[key.replace('ms', 'event_ms')] = timed_calls(
+            torch, fn, reps, warmup)[0]
         row[key] = device_ms(torch, fn, calls=calls)
     return row
 
@@ -2206,10 +2258,16 @@ def phase_path_f(torch, seed):
         res.update(prof)
         res['parity'] = check_parity(torch, f'path F {kind}', card, cpu,
                                      False, tol=1e-3)
-        log(json.dumps({'metric': f'{kind.lower()}_train_500steps',
-                        'arm': 'dense-bf16', 'value': wall_s, 'unit': 's',
-                        'ms_per_step': ms, 'nodes': PB_NODES,
-                        'edges': PB_EDGES}))
+        cap = captured_training(
+            torch, f'path F {kind} captured', lambda: from_state(
+                torch, lambda: train_model(torch, kind, None, seed), state),
+            x, ei, y, None, {}, PB_STEPS, 1e-3)
+        res['captured'] = cap
+        for mode, secs in (('eager', wall_s),
+                           ('captured', cap['seconds_for_steps'])):
+            log(json.dumps(bench_line(torch, kind, secs, mode, 'bfloat16',
+                                      PB_NODES * PB_NODES * 2
+                                      + 2 * PB_NODES * TR_F * 4)))
         results[kind] = res
         del ei, ei_cpu
     return results
@@ -2248,17 +2306,8 @@ def phase_path_g(torch, seed, iters, warmup):
             cache_gb = ei.dense_adj.numel() * ei.dense_adj.element_size() / 1e9
             reset_counts()
             with torch.inference_mode():
-                for _ in range(warmup):
-                    out = model(x, ei)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                start.record()
-                for _ in range(iters):
-                    out = model(x, ei)
-                end.record()
-                torch.cuda.synchronize()
-                ms = start.elapsed_time(end) / iters
+                ms, _, _, out = timed_calls(torch, lambda: model(x, ei),
+                                            iters, warmup)
                 breakdown = profile_forwards(torch, lambda: model(x, ei))
             counts = launch_counts()
             check(not any(counts.values()),
@@ -2271,18 +2320,27 @@ def phase_path_g(torch, seed, iters, warmup):
                    'argmax_agreement_vs_sparse': float(
                        (outs[arm].argmax(-1) == ref.argmax(-1)).double()
                        .mean())}
+            cap, cap_out = captured_serving(
+                torch, f'path G {arm} captured', lambda x: model(x, ei), x,
+                out, iters, warmup, {})
+            res['captured'] = cap
             if arm == 'f32':
                 diff, _ = compare(torch, 'path G f32', out, ref)
                 res['max_abs_diff_vs_cpu_sparse'] = diff
+                cap['max_abs_diff_vs_cpu_sparse'], _ = compare(
+                    torch, 'path G f32 captured', cap_out, ref)
             else:
                 base = outs['f32']
-                rel = float((outs[arm] - base).abs().max()
-                            / base.abs().max())
                 lim = 2e-2 if arm == 'bf16' else 3e-2
-                res['max_rel_diff_vs_f32_dense'] = rel
-                log(f'[path G {arm}] against the f32 dense arm: max |diff| '
-                    f'/ max |f32| {rel:.3e} (limit {lim:g})')
-                check(rel < lim, f'path G {arm}: {rel} relative to f32')
+                for key, tag, got in (
+                        ('max_rel_diff_vs_f32_dense', arm, outs[arm]),
+                        ('captured_max_rel_diff_vs_f32_dense',
+                         f'{arm} captured', cap_out.float().cpu())):
+                    rel = float((got - base).abs().max() / base.abs().max())
+                    res[key] = rel
+                    log(f'[path G {tag}] against the f32 dense arm: max '
+                        f'|diff| / max |f32| {rel:.3e} (limit {lim:g})')
+                    check(rel < lim, f'path G {tag}: {rel} relative to f32')
             rows, prof_ms, _ = breakdown
             busy = sum(t for _, t, _ in rows)
             res.update(device_busy_ms_per_forward=busy,
@@ -2301,11 +2359,12 @@ def phase_path_g(torch, seed, iters, warmup):
                 f"{res['argmax_agreement_vs_sparse']:.6f}")
             log(json.dumps({'metric': 'gcn_inference_fwd',
                             'arm': f'dense-{arm}', 'ms': ms,
+                            'ms_captured': cap['ms_per_forward'],
                             'edges_per_s': res['edges_per_s'],
                             'nodes': N_NODES, 'edges': N_EDGES,
                             'hidden': WIDTH, 'iters': iters}))
             results[arm] = res
-            del ei, out
+            del ei, out, cap_out
             torch.cuda.empty_cache()
     finally:
         if old_cap is None:
@@ -2335,19 +2394,8 @@ def phase_path_h(torch, seed, iters, warmup):
         torch.cuda.synchronize()
         reset_counts()
         with torch.inference_mode():
-            for _ in range(warmup):
-                out = model(xb, ei)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            for _ in range(iters):
-                out = model(xb, ei)
-            end.record()
-            enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / iters
+            ms, enqueue_ms, _, out = timed_calls(
+                torch, lambda: model(xb, ei), iters, warmup)
             breakdown = profile_forwards(torch, lambda: model(xb, ei))
         n_fwd = warmup + iters + breakdown[2]
         counts = launch_counts()
@@ -2360,7 +2408,7 @@ def phase_path_h(torch, seed, iters, warmup):
                                    for k, v in model.state_dict().items()})
         with torch.inference_mode():
             ref = ref_model(xb.cpu(), ei_cpu)
-        out = out.float().cpu()
+        eager_out, out = out, out.float().cpu()
         check(tuple(out.shape) == (N_NODES, N_OUT)
               and bool(torch.isfinite(out).all()),
               f'path H {kind}: output {tuple(out.shape)}')
@@ -2388,6 +2436,24 @@ def phase_path_h(torch, seed, iters, warmup):
         log(f'[path H {kind}] torch.profiler, a whole window: device busy '
             f'{busy:.4f} ms per forward of {prof_ms:.4f} ms, idle share '
             f'{1 - busy / prof_ms:.4f}')
+        cap, cap_out = captured_serving(
+            torch, f'path H {kind} captured', lambda x: model(x, ei), xb,
+            eager_out, iters, warmup,
+            {'segment_spmm_bf16': 1, 'segment_spmm': N_LAYERS - 1})
+        cap_out = cap_out.float().cpu()
+        cap['max_abs_diff_vs_cpu'] = float((cap_out - ref).abs().max())
+        cap['argmax_agreement'] = float(
+            (cap_out.argmax(-1) == ref.argmax(-1)).double().mean())
+        log(f"[path H {kind} captured] vs the CPU plain path: max abs diff "
+            f"{cap['max_abs_diff_vs_cpu']:.3e}, argmax agreement "
+            f"{cap['argmax_agreement']:.6f}")
+        check(cap['max_abs_diff_vs_cpu'] <= 1e-2 * max(1.0, scale),
+              f"path H {kind} captured: max abs diff "
+              f"{cap['max_abs_diff_vs_cpu']}")
+        check(cap['argmax_agreement'] >= 0.99,
+              f"path H {kind} captured: argmax agreement "
+              f"{cap['argmax_agreement']}")
+        res['captured'] = cap
         results[kind] = res
     return results
 
@@ -2528,6 +2594,498 @@ def phase_bf16_timings(torch, seed, pe, pc):
     return rows
 
 
+# -- the captured paths (compat.compile) -------------------------------------
+def replay_expect(per_call):
+    """Per call, the launches a profile of replays must show of each port
+    kernel, from the wrappers' per-call counts (both arms of a kernel share
+    its name)."""
+    out = {}
+    for part, arms in ((SEG_MAIN, ('segment_spmm', 'segment_spmm_bf16')),
+                       (BSR_MAIN, ('bsr_spmm', 'bsr_spmm_bf16')),
+                       (MIX_KERNEL, ('gat_mix', 'gat_mix_bf16'))):
+        n = sum(per_call.get(a, 0) for a in arms)
+        if n:
+            out[part] = n
+    return out
+
+
+def check_replays(tag, compiled, counts, per_call, over):
+    """The counts of a captured path: the wrappers counted the eager
+    warm-ups only (``per_call`` each), the graph holds ``per_call``
+    launches, and the replays made the rest. Returns the launches of the
+    whole path, warm-ups and replays."""
+    check_counts(tag, counts, {k: n * CAPTURE_WARMUP
+                               for k, n in per_call.items()},
+                 f'{CAPTURE_WARMUP} eager warm-ups')
+    want = {k: n for k, n in per_call.items() if n}
+    check(compiled.launches_per_replay == want,
+          f'{tag}: launches per replay {compiled.launches_per_replay}, '
+          f'expected the eager per-call counts {want}')
+    replayed = compiled.replay_launches()
+    total = {k: counts[k] + replayed.get(k, 0) for k in counts}
+    log(f'[{tag}] launches: {CAPTURE_WARMUP} eager warm-ups counted '
+        f'{ {k: v for k, v in counts.items() if v} }, the graph holds '
+        f'{compiled.launches_per_replay} per replay, {compiled.replays} '
+        f'replays in {over}: {total} in all')
+    return total
+
+
+def captured_serving(torch, tag, fwd, x, eager_out, iters, warmup,
+                     per_call):
+    """``fwd(x)`` through ``compat.compile`` under inference mode: 2 eager
+    warm-ups, the capture (replayed once), then ``iters`` timed replays
+    after ``warmup``; a whole-window profile of the replays, which must
+    show the port's kernels (``replay_expect``); the launch counts
+    (``check_replays``); the output against the eager one. Returns ``(res,
+    out)``; the caller holds ``out`` against the CPU plain path."""
+    from pytorch_geometric_tpu_torch import compat
+    comp = compat.compile(fwd)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        for _ in range(CAPTURE_WARMUP + 1):
+            out = comp(x)
+        check(comp.captures == 1 and comp.replays == 1,
+              f'{tag}: {comp.captures} captures, {comp.replays} replays')
+        ms, enqueue_ms, _, _ = timed_calls(torch, lambda: comp(x), iters,
+                                          warmup)
+        rows, prof_ms, _ = profile_forwards(torch, lambda: comp(x),
+                                            replay_expect(per_call))
+    torch.cuda.synchronize()
+    launches = check_replays(tag, comp, launch_counts(), per_call,
+                             f'{comp.replays} forwards')
+    bitwise = bool(torch.equal(out, eager_out))
+    diff = float((out.float() - eager_out.float()).abs().max())
+    busy = sum(t for _, t, _ in rows)
+    res = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enqueue_ms,
+           'replays': comp.replays,
+           'launches_per_replay': comp.launches_per_replay,
+           'launch_counts': launches,
+           'bitwise_equal_to_eager': bitwise, 'max_abs_diff_vs_eager': diff,
+           'device_busy_ms_per_forward': busy,
+           'profiled_ms_per_forward': prof_ms,
+           'device_idle_share': 1 - busy / prof_ms,
+           'kernels_per_forward': [[n[:80], t, c] for n, t, c in rows[:8]]}
+    log(f'[{tag}] compat.compile (a CUDA graph): {ms:.4f} ms per forward on '
+        f'the card (CUDA events, {iters} replays after {warmup}), the host '
+        f'issues one in {enqueue_ms:.4f} ms; device busy {busy:.4f} ms per '
+        f'forward of a {prof_ms:.4f} ms wall (torch.profiler), idle share '
+        f"{res['device_idle_share']:.4f}; output bitwise equal to the eager "
+        f'forward: {bitwise} (max abs diff {diff:.3e})')
+    del comp
+    return res, out
+
+
+def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
+                      tol):
+    """A training step through ``compat.compile`` from the weights
+    ``make_model`` gives, with ``Adam(capturable=True)``; ``x``, ``ei``,
+    ``y`` and ``w`` (GCN's per-call weights, or None) are read in place.
+
+    Parity: 5 steps (2 eager warm-ups, the capture replayed once, 2
+    replays) against 5 eager steps of the same step from the same weights:
+    each loss within ``tol`` relative, the gradients of the first replayed
+    step (the third) within ``tol`` of each tensor's largest magnitude,
+    with whether they are bitwise equal. Then ``steps`` timed replays after
+    2 (ms per step, the host seconds they took), a whole-window profile
+    that must show the port's kernels (``replay_expect``) and the launch
+    counts."""
+    from pytorch_geometric_tpu_torch import compat
+
+    def new():
+        model = make_model()
+        opt = torch.optim.Adam(model.parameters(), lr=TR_LR, capturable=True)
+
+        def step(x, ei, y, w):
+            opt.zero_grad(set_to_none=True)
+            kw = {} if w is None else {'edge_weight': w}
+            loss = torch.nn.functional.cross_entropy(model(x, ei, **kw), y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return model, step
+
+    n = CAPTURE_WARMUP + PARITY_STEPS
+    runs = []
+    for compiled in (False, True):
+        model, step = new()
+        if compiled:
+            step = compat.compile(step, static_argnums=(0, 1, 2, 3))
+            torch.cuda.synchronize()
+            reset_counts()
+        losses, grads = [], None
+        for i in range(n):
+            losses.append(step(x, ei, y, w))
+            if i == CAPTURE_WARMUP:
+                grads = {k: p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+        runs.append((torch.stack(losses).cpu(), grads, step))
+    (l_eager, g_eager, _), (l_cap, g_cap, comp) = runs
+    check(comp.captures == 1 and comp.replays == PARITY_STEPS,
+          f'{tag}: {comp.captures} captures, {comp.replays} replays')
+    rel = float(((l_cap - l_eager).abs() / l_eager.abs()).max())
+    losses_bitwise = bool(torch.equal(l_cap, l_eager))
+    grad_rel, grads_bitwise = 0.0, True
+    for k, ref in g_eager.items():
+        d = float((g_cap[k] - ref).abs().max())
+        grads_bitwise = grads_bitwise and bool(torch.equal(g_cap[k], ref))
+        grad_rel = max(grad_rel, d / max(float(ref.abs().max()), 1e-30))
+    log(f'[{tag}] compat.compile step vs the eager step, same weights and '
+        f'capturable Adam, {n} steps ({CAPTURE_WARMUP} eager warm-ups, then '
+        f'replays): losses {l_cap.tolist()} vs {l_eager.tolist()}, max '
+        f'relative diff {rel:.3e} (limit {tol:g}), bitwise {losses_bitwise}; '
+        f'gradients of step {CAPTURE_WARMUP + 1} (the first replay): max '
+        f'|diff| / max|eager| {grad_rel:.3e}, bitwise {grads_bitwise}')
+    check(rel <= tol, f'{tag}: captured losses differ from the eager ones by '
+                      f'{rel} relative')
+    check(grad_rel <= tol, f'{tag}: captured gradients differ from the '
+                           f'eager ones by {grad_rel} of their largest')
+    ms, wall_s, enqueue_ms, last = timed_steps(
+        torch, lambda: comp(x, ei, y, w), 2, steps)
+    prof, _ = profile_steps(torch, lambda: comp(x, ei, y, w), tag,
+                            replay_expect(per_step))
+    torch.cuda.synchronize()
+    launches = check_replays(tag, comp, launch_counts(), per_step,
+                             f'{comp.replays} steps')
+    res = {'ms_per_step': ms, 'seconds_for_steps': wall_s,
+           'timed_steps': steps, 'host_enqueue_ms_per_step': enqueue_ms,
+           'final_loss': last, 'replays': comp.replays,
+           'launches_per_replay': comp.launches_per_replay,
+           'launch_counts': launches,
+           'parity_vs_eager': {
+               'losses_captured': l_cap.tolist(),
+               'losses_eager': l_eager.tolist(), 'max_loss_rel_diff': rel,
+               'losses_bitwise': losses_bitwise,
+               'max_grad_rel_diff': grad_rel,
+               'grads_bitwise': grads_bitwise}}
+    res.update(prof)
+    log(f'[{tag}] compat.compile: {ms:.4f} ms per step on the card (CUDA '
+        f'events, {steps} replays after 2), {wall_s:.4f} s for the {steps} '
+        f'steps on the host clock; the host issues one in {enqueue_ms:.4f} '
+        f'ms; final loss {last:.6f}')
+    del comp
+    return res
+
+
+# -- the sampled scan (loader/scan_train.py) ----------------------------------
+def products_graph(n, e, seed):
+    """``benchmarks/products_bench.py::build_products_like`` (``:44-65``):
+    ``e`` directed edges over ``n`` nodes, 60 % inside communities of 2,400
+    nodes and the rest toward hub-skewed ids, ids scrambled; ``[2, e]``
+    int32 (source, destination)."""
+    rng = np.random.default_rng(seed)
+    csize = 2400
+    n_comm = max(n // csize, 1)
+    src = rng.integers(0, n, e, dtype=np.int64)
+    intra = rng.random(e) < 0.6
+    comm = np.minimum(src // csize, n_comm - 1)
+    dst_intra = comm * csize + rng.integers(0, csize, e)
+    dst_hub = (n * rng.random(e) ** 3).astype(np.int64)
+    dst = np.minimum(np.where(intra, dst_intra, dst_hub), n - 1)
+    perm = rng.permutation(n)
+    return np.stack([perm[src], perm[dst]]).astype(np.int32)
+
+
+def sample_batch(colptr, row, seeds, fanouts, rng):
+    """One structure-only batch of the JAX package's ``NeighborSampler``
+    without replacement, its numpy path (``sampler/neighbor_sampler.py:
+    41-73, 403-446``) vectorised, and ``NeighborLoader``'s
+    ``filter_features=False`` fields (``loader/neighbor_loader.py:42-50``):
+    per hop, up to ``fanout`` in-neighbours of each frontier node at strided
+    positions with jitter; a node seen before keeps its local id (first
+    occurrence, seeds first) and only new ones join the next frontier; each
+    hop's edges fill its slots from the front, the rest padded (both ends
+    ``n_cap``); padded nodes have ``n_id`` 0."""
+    from types import SimpleNamespace
+    caps = [len(seeds)]
+    for f in fanouts:
+        caps.append(caps[-1] * f)
+    n_cap = sum(caps)
+    e_caps = [caps[h] * f for h, f in enumerate(fanouts)]
+    nodes = np.asarray(seeds, np.int64)   # distinct: one epoch's batch
+    frontier = np.arange(len(nodes))      # local ids
+    rows = np.full(sum(e_caps), n_cap, np.int64)
+    cols = np.full(sum(e_caps), n_cap, np.int64)
+    base = 0
+    for hop, fanout in enumerate(fanouts):
+        if not len(frontier):
+            break
+        g_front = nodes[frontier]
+        deg = colptr[g_front + 1] - colptr[g_front]
+        k = np.arange(fanout)[None, :]
+        valid = k < np.minimum(deg, fanout)[:, None]
+        big = deg[:, None] > fanout
+        pick = (k * deg[:, None]) // fanout
+        jitter = rng.integers(0, np.maximum(deg[:, None] // fanout, 1),
+                              (len(g_front), fanout))
+        last = np.maximum(deg[:, None] - 1, 0)
+        offs = np.minimum(np.where(big, pick + jitter, np.minimum(k, last)),
+                          last)
+        pos = np.minimum(colptr[g_front][:, None] + offs, len(row) - 1)
+        g = row[pos][valid].astype(np.int64)
+        dst = np.repeat(frontier, fanout)[valid.reshape(-1)]
+        fresh = ~np.isin(g, nodes)
+        uniq, first = np.unique(g[fresh], return_index=True)
+        new = uniq[np.argsort(first)]
+        frontier = np.arange(len(nodes), len(nodes) + len(new))
+        nodes = np.concatenate([nodes, new])
+        order = np.argsort(nodes)
+        rows[base:base + len(g)] = order[np.searchsorted(nodes, g,
+                                                         sorter=order)]
+        cols[base:base + len(g)] = dst
+        base += e_caps[hop]
+    node_mask = np.arange(n_cap) < len(nodes)
+    n_id = np.zeros(n_cap, np.int32)
+    n_id[:len(nodes)] = nodes
+    return SimpleNamespace(num_nodes=n_cap, batch_size=len(seeds),
+                           n_id=n_id, node_mask=node_mask,
+                           edge_index=np.stack([rows, cols]).astype(np.int32),
+                           edge_mask=rows < n_cap)
+
+
+def products_batches(coo, n, batch, fanouts, k, seed):
+    """The first ``k`` batches of ``products_bench.py``'s loader
+    (``:171-174``: ``NeighborLoader(batch_size=batch, shuffle=True,
+    filter_features=False)``) over ``coo``: the loader's epoch order and
+    per-batch seeds (``loader/neighbor_loader.py:127-150``, its ``seed``),
+    the in-neighbour lists by destination (``sampler/neighbor_sampler.py:
+    26-38``), and :func:`sample_batch`."""
+    order = np.argsort(coo[1], kind='stable')
+    row = coo[0][order]
+    colptr = np.searchsorted(coo[1][order], np.arange(n + 1))
+    del order
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    draws = [int(rng.integers(0, 2 ** 62)) for _ in range(k)]
+    return [sample_batch(colptr, row, perm[i * batch:(i + 1) * batch],
+                         fanouts, np.random.default_rng(draws[i]))
+            for i in range(k)]
+
+
+def batch_fill(batches, fanouts):
+    """The share of node and edge slots the batches fill, the real edges per
+    hop, and the padded edges (all gathered from one clamped row)."""
+    bs = batches[0].batch_size
+    caps = [bs]
+    for f in fanouts:
+        caps.append(caps[-1] * f)
+    e_caps = [caps[h] * f for h, f in enumerate(fanouts)]
+    n_cap, e_cap = sum(caps), sum(e_caps)
+    nodes = np.array([b.node_mask.sum() for b in batches])
+    edges = np.array([b.edge_mask.sum() for b in batches])
+    hop_edges, lo = [], 0
+    for c in e_caps:
+        hop_edges.append(float(np.mean([b.edge_mask[lo:lo + c].sum()
+                                        for b in batches])))
+        lo += c
+    return {'n_cap': n_cap, 'edge_slots': e_cap,
+            'nodes_per_batch': float(nodes.mean()),
+            'node_fill': float(nodes.mean() / n_cap),
+            'edges_per_batch': float(edges.mean()),
+            'edge_fill': float(edges.mean() / e_cap),
+            'edges_per_hop': hop_edges, 'edge_slots_per_hop': e_caps,
+            'padded_edges_per_batch': float(e_cap - edges.mean())}
+
+
+def gather_ab(torch, x, idx, reps):
+    """The message gather's forward and backward at one shape, as
+    ``index_select`` (the port's, backward a scatter-add with atomics) and
+    as indexing (backward sorts the indices, then adds each index's repeats
+    in order): device ms of each (``device_ms``; the CUDA-event wall, which
+    can be the host's issue time, beside it) and the largest gap between
+    their gradients over the largest gradient."""
+    g = torch.randn((idx.numel(), x.shape[1]), device='cuda',
+                    generator=torch.Generator(device='cuda').manual_seed(1))
+    x = x.detach().requires_grad_(True)
+    out = {}
+    for name, gather in (('index_select', lambda: x.index_select(0, idx)),
+                         ('indexing', lambda: x[idx])):
+        def call():
+            x.grad = None
+            gather().backward(g)
+        out[name + '_event_ms'] = timed_calls(torch, call, reps, 2)[0]
+        out[name + '_ms'] = device_ms(torch, call, calls=reps)
+        out[name + '_grad'] = x.grad.clone()
+    a, b = out.pop('index_select_grad'), out.pop('indexing_grad')
+    out['grad_max_rel_diff'] = float((a - b).abs().max() / b.abs().max())
+    return out
+
+
+def phase_scan_train(torch, seed, reps):
+    """``loader/scan_train.py`` at ``products_bench.py``'s sampled training
+    (``:171-196``): X [N_PRODUCTS, 100] float32 and Y (47 classes) made on
+    the card from ``seed``; the first K = 8 batches of its loader's epoch
+    (512 seeds, fan-outs [15, 10]) over its products-like graph
+    (:func:`products_graph`, seed ``seed``; ``:770`` uses 0), sampled on
+    the host (:func:`products_batches`); ``GraphSAGE(100 -> 64 -> 47)``, 2
+    layers, ``Adam(1e-3, capturable=True)``.
+
+    From one state S (parameters and Adam moments, restored in place so
+    the graphs' addresses hold): 8 eager steps (the step's body), 8
+    ``step_fn`` replays and one ``scan_fn`` replay, the last two held
+    against the first (loss and parameters within 1e-5). Then ms per step
+    of each: eager steps, ``step_fn`` replays, ``scan_fn`` replays over K.
+    The step aggregates a raw COO with an edge mask, which takes the gather
+    path in both packages (``nn/message_passing.py:88-106``): no kernel of
+    the port runs, and none may be counted. Last, the gather of the first
+    layer's messages at the first batch's shape, by ``index_select`` and by
+    indexing (:func:`gather_ab`)."""
+    from pytorch_geometric_tpu_torch.loader import (make_device_train_step,
+                                                    stack_batches)
+    from pytorch_geometric_tpu_torch.nn.models import GraphSAGE
+    tag = 'scan_train'
+    t0 = time.perf_counter()
+    coo = products_graph(N_PRODUCTS, E_PRODUCTS, seed)
+    t1 = time.perf_counter()
+    batches = products_batches(coo, N_PRODUCTS, PR_BATCH, PR_FANOUTS, PR_K,
+                               seed)
+    del coo
+    fill = batch_fill(batches, PR_FANOUTS)
+    log(f'[{tag}] products_bench graph ({N_PRODUCTS} nodes, {E_PRODUCTS} '
+        f'edges, seed {seed}) built in {t1 - t0:.1f} s, {PR_K} batches '
+        f'sampled in {time.perf_counter() - t1:.1f} s on the host; per '
+        f"batch {fill['nodes_per_batch']:.1f} of {fill['n_cap']} node slots "
+        f"(fill {fill['node_fill']:.4f}), {fill['edges_per_batch']:.1f} of "
+        f"{fill['edge_slots']} edge slots (fill {fill['edge_fill']:.4f}; "
+        f"by hop {fill['edges_per_hop']} of {fill['edge_slots_per_hop']}), "
+        f"{fill['padded_edges_per_batch']:.1f} padded edges")
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    X = torch.randn((N_PRODUCTS, PR_F), generator=gen, device='cuda')
+    Y = torch.randint(0, PR_CLASSES, (N_PRODUCTS,), generator=gen,
+                      device='cuda')
+    stacked = stack_batches(batches, device='cuda')
+    rows = [{k: v[i] for k, v in stacked.items()} for i in range(PR_K)]
+    n_cap = batches[0].num_nodes
+    n_slots = batches[0].edge_index.shape[1]
+    model = GraphSAGE(PR_F, PR_HIDDEN, 2, PR_CLASSES,
+                      generator=torch.Generator().manual_seed(seed))
+    opt = torch.optim.Adam(model.parameters(), lr=PR_LR, capturable=True)
+    step_fn, scan_fn = make_device_train_step(model, opt)
+    torch.cuda.synchronize()
+    reset_counts()
+    # the two compiled callables' warm-ups and captures (the first call
+    # of step_fn fills Adam's moments)
+    for i in range(CAPTURE_WARMUP + 1):
+        step_fn(X, Y, rows[i])
+    for _ in range(CAPTURE_WARMUP + 1):
+        scan_fn(X, Y, stacked)
+    check(step_fn.captures == 1 and scan_fn.captures == 1,
+          f'{tag}: captures {step_fn.captures}, {scan_fn.captures}')
+    tensors = [p for p in model.parameters()] + [
+        v for st in opt.state.values() for v in st.values()
+        if isinstance(v, torch.Tensor)]
+    state = [t.detach().clone() for t in tensors]
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(tensors, state):
+                t.copy_(s)
+
+    def params():
+        return [p.detach().clone() for p in model.parameters()]
+
+    restore()
+    for r in rows:
+        l_eager = step_fn.__wrapped__(X, Y, r)
+    p_eager = params()
+    restore()
+    for r in rows:
+        l_step = step_fn(X, Y, r)
+    p_step = params()
+    restore()
+    l_scan = scan_fn(X, Y, stacked)
+    p_scan = params()
+    torch.cuda.synchronize()
+    worst = {}
+    for name, ls, ps in (('step_fn', l_step, p_step),
+                         ('scan_fn', l_scan, p_scan)):
+        d = max(float((a - b).abs().max()) for a, b in zip(ps, p_eager))
+        rel = abs(float(ls) - float(l_eager)) / abs(float(l_eager))
+        worst[name] = {'loss': float(ls), 'loss_rel_diff': rel,
+                       'max_param_abs_diff': d}
+        check(rel <= 1e-5 and d <= 1e-5,
+              f'{tag}: {name} from S: loss {float(ls)} vs {float(l_eager)} '
+              f'eager ({rel:.3e} relative), parameters {d:.3e} apart')
+    d = max(float((a - b).abs().max()) for a, b in zip(p_scan, p_step))
+    log(f'[{tag}] from one state, {PR_K} steps: eager loss '
+        f'{float(l_eager):.6f}, step_fn x {PR_K} replays {float(l_step):.6f}, '
+        f'one scan_fn replay {float(l_scan):.6f}; parameters: step_fn vs '
+        f"eager {worst['step_fn']['max_param_abs_diff']:.3e}, scan_fn vs "
+        f"eager {worst['scan_fn']['max_param_abs_diff']:.3e}, scan_fn vs "
+        f'step_fn {d:.3e} (limit 1e-5; scatter-mean sums with atomics)')
+    restore()
+
+    def eager_steps():
+        for r in rows:
+            step_fn.__wrapped__(X, Y, r)
+
+    def step_replays():
+        for r in rows:
+            step_fn(X, Y, r)
+
+    eager_ms, eager_enq, _, _ = timed_calls(torch, eager_steps, reps, 1)
+    step_ms, step_enq, _, _ = timed_calls(torch, step_replays, reps, 1)
+    scan_ms, scan_enq, _, _ = timed_calls(
+        torch, lambda: scan_fn(X, Y, stacked), reps, 1)
+    prof_rows, prof_ms, _ = whole_window(
+        torch, lambda: scan_fn(X, Y, stacked), PROFILED_STEPS)
+    busy = sum(t for _, t, _ in prof_rows)
+    counts = launch_counts()
+    check(not any(counts.values()) and not step_fn.launches_per_replay
+          and not scan_fn.launches_per_replay,
+          f'{tag}: port kernels launched: {counts}, per replay '
+          f'{step_fn.launches_per_replay}, {scan_fn.launches_per_replay}')
+    res = {'nodes': N_PRODUCTS, 'features': PR_F, 'classes': PR_CLASSES,
+           'x_gb': X.numel() * 4 / 1e9, 'batch': PR_BATCH,
+           'fanouts': list(PR_FANOUTS), 'n_cap': n_cap,
+           'edge_slots': n_slots, 'k': PR_K,
+           'edge_index_dtype': str(stacked['edge_index'].dtype),
+           'fill': fill,
+           'ms_per_step_eager': eager_ms / PR_K,
+           'ms_per_step_step_fn': step_ms / PR_K,
+           'ms_per_step_scan_fn': scan_ms / PR_K,
+           'host_enqueue_ms_per_step': {'eager': eager_enq / PR_K,
+                                        'step_fn': step_enq / PR_K,
+                                        'scan_fn': scan_enq / PR_K},
+           'scan_device_busy_ms_per_step': busy / PR_K,
+           'scan_device_idle_share': 1 - busy / prof_ms,
+           'parity': worst,
+           'scan_vs_step_fn_max_param_abs_diff': d,
+           'launch_counts': counts, 'step_fn_replays': step_fn.replays,
+           'scan_fn_replays': scan_fn.replays,
+           'kernels_per_scan': [[n[:80], t, c] for n, t, c in prof_rows[:8]]}
+    # the first layer's gather: x_j = x[src], padded edges clamped to the
+    # last row (nn/message_passing.py's _collect)
+    r = rows[0]
+    x1 = torch.where(r['node_mask'][:, None],
+                     X[torch.where(r['node_mask'], r['n_id'], 0).long()], 0.0)
+    j = r['edge_index'][0].long().clamp(0, n_cap - 1)
+    res['gather'] = gather_ab(torch, x1, j, reps)
+    log(f"[{tag}] layer-1 gather [{j.numel()}] of x [{n_cap}, {PR_F}], "
+        f"forward and backward, device time: index_select "
+        f"{res['gather']['index_select_ms']:.4f} ms, indexing "
+        f"{res['gather']['indexing_ms']:.4f} ms (torch.profiler; CUDA-event "
+        f"wall {res['gather']['index_select_event_ms']:.4f} / "
+        f"{res['gather']['indexing_event_ms']:.4f} ms); gradients "
+        f"{res['gather']['grad_max_rel_diff']:.3e} apart (relative to the "
+        'largest)')
+    log(f'[{tag}] products sampled shape ({N_PRODUCTS} x {PR_F} X, '
+        f"{res['x_gb']:.3f} GB; batch {PR_BATCH}, fan-outs {list(PR_FANOUTS)}"
+        f': n_cap {n_cap}, {n_slots} edge slots, edge ids '
+        f"{res['edge_index_dtype']}; K = {PR_K}): ms per step eager "
+        f"{res['ms_per_step_eager']:.4f}, step_fn replays "
+        f"{res['ms_per_step_step_fn']:.4f}, scan_fn "
+        f"{res['ms_per_step_scan_fn']:.4f} (CUDA events, {reps} rounds of "
+        f'{PR_K} steps); the scan replay busies the card '
+        f'{busy / PR_K:.4f} ms per step (torch.profiler), idle share '
+        f"{res['scan_device_idle_share']:.4f}; no port kernel runs here: a "
+        'raw COO with an edge mask takes the gather path in both packages')
+    del step_fn, scan_fn, X, Y
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2575,6 +3133,9 @@ def main():
     mix_rows, max_row, sweep, sweep_bf16 = phase_attention_timings(
         torch, args.seed, pc)
     bf16_rows = phase_bf16_timings(torch, args.seed, pe, pc)
+    del pe, pc
+    torch.cuda.empty_cache()
+    scan = phase_scan_train(torch, args.seed, PR_REPS)
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -2595,6 +3156,16 @@ def main():
                      ('h', path_h)):
         path_counts.update({f'path_{tag}_{k.lower()}': v.get(
             'launch_counts', v['launches']) for k, v in res.items()})
+
+    # the captured twins: eager warm-ups plus the graphs' replays
+    twins = {'serving_gcn': serving['GCN'], 'path_a': path_a,
+             'path_c': path_c, 'path_d': path_d, 'path_e': path_e}
+    for tag, res in (('b', path_b), ('f', path_f), ('g', path_g),
+                     ('h', path_h)):
+        twins.update({f'path_{tag}_{k.lower()}': v for k, v in res.items()})
+    path_counts.update({f'{name}_captured': v['captured']['launch_counts']
+                        for name, v in twins.items()})
+    path_counts['scan_train'] = scan['launch_counts']
 
     def by_path(name):
         return {p: c[name] for p, c in path_counts.items()}
@@ -2629,7 +3200,7 @@ def main():
                               'path_b': path_b, 'path_c': path_c,
                               'path_d': path_d, 'path_e': path_e,
                               'path_f': path_f, 'path_g': path_g,
-                              'path_h': path_h}}))
+                              'path_h': path_h, 'scan_train': scan}}))
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',

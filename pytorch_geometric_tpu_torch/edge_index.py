@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import compat
 from .backend import resolve_device
 
 # fill_cache bakes a dense [nd, ns] adjacency up to this many entries, read
@@ -95,7 +96,9 @@ class EdgeIndex:
     CSR/CSC orientations, on one device.
 
     ``device=None`` means the CUDA card (and raises when there is none); a
-    tensor ``coo`` brings its own device unless ``device`` is given."""
+    tensor ``coo`` brings its own device unless ``device`` is given. Without
+    ``sparse_size`` the size is read from the COO's largest id, a wait for
+    the card that raises while a CUDA graph captures (``compat.compile``)."""
 
     def __init__(self, coo, sparse_size: Optional[Tuple[int, int]] = None,
                  csr: Optional[CSR] = None, csc: Optional[CSR] = None,
@@ -124,6 +127,12 @@ class EdgeIndex:
             coo = coo.to(torch.int32)
         self.coo = coo
         if sparse_size is None:
+            if compat.is_compiling():
+                raise RuntimeError(
+                    'EdgeIndex: no sparse_size was given, and reading the '
+                    'largest node id from the COO waits for the card, which a '
+                    'CUDA graph capture forbids; pass sparse_size=(num_src, '
+                    'num_dst)')
             n = int(coo.max()) + 1 if coo.numel() else 0
             sparse_size = (n, n)
         self.sparse_size = tuple(int(s) for s in sparse_size)

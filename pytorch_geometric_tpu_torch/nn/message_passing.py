@@ -142,8 +142,17 @@ class MessagePassing(nn.Module):
                         f"message() wants '{name}' but '{base}' was not "
                         f'passed to propagate()')
                 src_val, dst_val = _pair(val)
-                out[name] = (src_val[j_safe] if name.endswith('_j')
-                             else dst_val[i_safe])
+                # index_select's gradient is a scatter-add, the transpose
+                # of XLA's gather (2.7x less device time forward and
+                # backward than indexing on products_bench's sampled
+                # batches on an H100, chip_smoke.py's scan phase); on the
+                # card it adds with atomics, so its sums' order, and the
+                # gradient's last bits, may change from run to run.
+                # Indexing's gradient sorts the indices and adds the
+                # repeats of one index serially.
+                out[name] = (src_val.index_select(0, j_safe)
+                             if name.endswith('_j')
+                             else dst_val.index_select(0, i_safe))
             elif name == 'index':
                 out[name] = i_idx
             elif name in ('size_i', 'dim_size'):

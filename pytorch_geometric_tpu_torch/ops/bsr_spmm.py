@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import compat
 from .segment import ptr2index
 
 BS = 128                  # block edge (nodes per block, both dims)
@@ -70,8 +71,11 @@ class BSR(NamedTuple):
              ``row_ptr[r] .. row_ptr[r+1]-1`` (:func:`block_rows` expands
              it)
     order:   [num_row_blocks] int32, the dst block rows by descending block
-             count (:func:`row_order`), the order the kernel takes them in;
-             ``None`` has the wrapper compute it per call
+             count (:func:`row_order`), the order the kernel takes them in.
+             Every layout built here carries it (:func:`build_bsr`,
+             :func:`transpose_bsr`); ``None`` (a layout built by hand) has
+             the wrapper compute it on the host at each eager call, and
+             raise under a capture
     """
     vals: torch.Tensor
     cols: torch.Tensor
@@ -440,9 +444,11 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
     dtype. A CPU tensor runs :func:`bsr_spmm_plain`; a CUDA tensor launches
     the pre-pass and the kernel of the blocks' dtype (built at first use;
     float32 blocks count in ``bsr_matmul.launches``, bf16 ones in
-    ``bsr_matmul.launches_bf16``) or raises. Not differentiable: ``spmm``'s
-    block arm (``ops/spmm.py``) runs it forward and, over the transposed
-    layout, backward."""
+    ``bsr_matmul.launches_bf16``) or raises. The counts are host calls: a
+    CUDA graph's replay counts nothing, and a capture's launches are kept
+    by the compiled callable (``compat.Compiled.launches_per_replay``). Not
+    differentiable: ``spmm``'s block arm (``ops/spmm.py``) runs it forward
+    and, over the transposed layout, backward."""
     _check(bsr, x, num_out)
     if bsr.order is not None and (bsr.order.device != x.device
                                   or bsr.order.dtype != torch.int32
@@ -450,6 +456,12 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
                                   != (bsr.row_ptr.shape[0] - 1,)):
         raise ValueError('bsr_matmul takes an int32 order of one entry per '
                          'block row, on x\'s device')
+    if bsr.order is None and compat.is_compiling():
+        raise RuntimeError(
+            'bsr_matmul: the layout has no row order, and computing one reads '
+            'row_ptr on the host, which a CUDA graph capture forbids; build '
+            'the layout with fill_cache (or build_bsr / transpose_bsr), which '
+            'fill BSR.order once')
     if x.device.type == 'cpu':
         return bsr_spmm_plain(bsr, x, num_out)
     if x.device.type != 'cuda':
@@ -487,5 +499,6 @@ def bsr_matmul(bsr: BSR, x: torch.Tensor, num_out: int) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-bsr_matmul.launches = 0
-bsr_matmul.launches_bf16 = 0
+compat.register_launch_counter('bsr_spmm', bsr_matmul)
+compat.register_launch_counter('bsr_spmm_bf16', bsr_matmul,
+                               'launches_bf16')

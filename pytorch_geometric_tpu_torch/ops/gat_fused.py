@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..compat import register_launch_counter
 from .gather import take_rows
 from .segment import ptr2index
 
@@ -186,8 +187,11 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
     tensor launches the kernel of its dtype (built at first use) or raises.
     ``slice_cols`` (a divisor of ``H * f``) sets the kernel's slice width;
     None takes :func:`mix_slice_cols` for the card. The output is the same
-    bits for every width. Not differentiable: :func:`gat_aggregate` wraps
-    it."""
+    bits for every width. Each launch counts in ``gat_mix.launches`` or
+    ``gat_mix.launches_bf16``. The counts are host calls: a CUDA graph's replay
+    counts nothing, and a capture's launches are kept by the compiled callable
+    (``compat.Compiled.launches_per_replay``). Not differentiable:
+    :func:`gat_aggregate` wraps it."""
     dt = _check(indptr, src, p_s, p_u, v, f, slice_cols)
     if indptr.device.type == 'cpu':
         return gat_mix_plain(indptr, src, p_s, p_u, v, f)
@@ -226,8 +230,8 @@ def gat_mix(indptr: torch.Tensor, src: torch.Tensor,
     return s, u
 
 
-gat_mix.launches = 0
-gat_mix.launches_bf16 = 0
+register_launch_counter('gat_mix', gat_mix)
+register_launch_counter('gat_mix_bf16', gat_mix, 'launches_bf16')
 
 
 class _SlotGather(torch.autograd.Function):

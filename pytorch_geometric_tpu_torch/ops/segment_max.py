@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..compat import register_launch_counter
 from .segment import ptr2index
 
 SENTINEL = -3.4e38   # the TPU kernel's finite stand-in for -inf
@@ -94,7 +95,9 @@ def segment_max_blocked(vals: torch.Tensor, layout, num_segments: int,
     :func:`segment_max_plain`; a CUDA tensor launches the kernel (built at
     first use) or raises. ``lanes`` (a power of two in [1, 32]) sets the
     kernel's lanes per row; None takes :func:`segment_max_lanes`. Counted
-    in ``segment_max_blocked.launches``."""
+    in ``segment_max_blocked.launches``. The counts are host calls: a CUDA
+    graph's replay counts nothing, and a capture's launches are kept by the
+    compiled callable (``compat.Compiled.launches_per_replay``)."""
     indptr = layout.indptr
     _check(indptr, vals, num_segments)
     if lanes is not None and (lanes < 1 or lanes > 32
@@ -121,4 +124,4 @@ def segment_max_blocked(vals: torch.Tensor, layout, num_segments: int,
     return out
 
 
-segment_max_blocked.launches = 0
+register_launch_counter('segment_max', segment_max_blocked)

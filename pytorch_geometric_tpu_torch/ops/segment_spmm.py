@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..compat import register_launch_counter
 from .segment import ptr2index
 
 # the load widths (values a lane moves at once) of each arm, widest first:
@@ -222,7 +223,9 @@ def _launch(indptr: torch.Tensor, src: torch.Tensor,
     """One pass: the plain version for a CPU tensor, the kernel of x's
     dtype (built at first use) under ``plan`` (None: :func:`segment_plan`)
     for a CUDA tensor, counted in ``segment_spmm.launches`` (float32) or
-    ``segment_spmm.launches_bf16``."""
+    ``segment_spmm.launches_bf16``. The counts are host calls: a CUDA graph's
+    replay counts nothing, and a capture's launches are kept by the compiled
+    callable (``compat.Compiled.launches_per_replay``)."""
     n_dst, f = indptr.shape[0] - 1, x.shape[1]
     ptrs = (x.data_ptr(), 0 if base is None else base.data_ptr())
     if plan is not None:
@@ -308,7 +311,9 @@ def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
     and on one device; the result has x's dtype. A CPU tensor runs
     :func:`segment_spmm_plain`; a CUDA tensor launches the kernel (built at
     first use) or raises. ``plan`` sets the forward pass's launch plan (it
-    must tile, :func:`check_plan`); None takes :func:`segment_plan`.
+    must tile, :func:`check_plan`); None takes :func:`segment_plan`. Each
+    launch counts in ``segment_spmm.launches`` or ``launches_bf16`` (see
+    :func:`_launch`).
 
     ``transpose = (indptr_t [n_src + 1], dst_t [E], w_t [E] or None)``: the
     same matrix in source-major order, with ``w_t`` the weights in that
@@ -337,5 +342,6 @@ def segment_spmm(indptr: torch.Tensor, src: torch.Tensor,
     return _SegmentSpmm.apply(x, w, base, indptr, src, transpose, plan)
 
 
-segment_spmm.launches = 0
-segment_spmm.launches_bf16 = 0
+register_launch_counter('segment_spmm', segment_spmm)
+register_launch_counter('segment_spmm_bf16', segment_spmm,
+                        'launches_bf16')

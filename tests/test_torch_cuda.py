@@ -1175,3 +1175,180 @@ def test_segment_kernel_base_gradient_and_bsr_fusion(dev):
              if e.device_type.name == 'CUDA']
     assert sum('segment_spmm_kernel' in n for n in names) == 2
     assert not any('CUDAFunctor_add' in n for n in names), names
+
+
+# -- compat.compile: captured CUDA graphs -------------------------------------
+def _compiled_gcn_steps(dev, ei, x, y, compiled, calls):
+    """``calls`` Adam steps of a 3-layer GCN from seed-0 weights, eager or
+    through ``compat.compile``: the losses, the parameters after, and the
+    step callable."""
+    from pytorch_geometric_tpu_torch import compat
+    model = GCN(x.shape[1], 16, 3, 5, device=dev,
+                generator=torch.Generator().manual_seed(0),
+                conv_kwargs={'normalize': False, 'add_self_loops': False})
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2, capturable=True)
+
+    def step(x, ei, y):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(x, ei), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    if compiled:
+        step = compat.compile(step)
+    losses = torch.stack([step(x, ei, y) for _ in range(calls)])
+    return losses, [p.detach().clone() for p in model.parameters()], step
+
+
+def _gcn_case(dev, n, e, f, seed, block_sparse=None):
+    coo, _, rng = _bsr_case(n, n, e, seed=seed)
+    ei = cache_gcn_norm(EdgeIndex(coo, (n, n), device=dev),
+                        block_sparse=block_sparse)
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.integers(0, 5, n), device=dev)
+    return ei, x, y
+
+
+@pytest.mark.parametrize('block_sparse', [True, False])
+def test_captured_gcn_step_equals_eager_bitwise(dev, block_sparse,
+                                                monkeypatch):
+    """Five compiled GCN steps (two eager warm-ups, a capture replayed once,
+    two replays) take the eager steps bit for bit, through the block arm or
+    the segment-sum arm."""
+    if not block_sparse:
+        monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '0')
+    ei, x, y = _gcn_case(dev, 1000, 30_000, 16, seed=6,
+                         block_sparse=block_sparse)
+    assert spmm_regime(ei) == ('bsr' if block_sparse else 'kernel')
+    l_eager, p_eager, _ = _compiled_gcn_steps(dev, ei, x, y, False, 5)
+    l_cap, p_cap, step = _compiled_gcn_steps(dev, ei, x, y, True, 5)
+    assert step.captures == 1 and step.replays == 3
+    assert torch.equal(l_cap, l_eager), (l_cap, l_eager)
+    for a, b in zip(p_cap, p_eager):
+        assert torch.equal(a, b)
+
+
+def test_compiled_forward_captures_again_per_shape(dev):
+    """A second feature width is a second capture; each key replays its
+    own graph, results are fresh tensors that a later call leaves alone."""
+    from pytorch_geometric_tpu_torch import compat
+    ei, x, _ = _gcn_case(dev, 800, 20_000, 24, seed=8, block_sparse=False)
+    fwd = compat.compile(lambda x, ei: spmm(ei, x))
+    outs = []
+    with torch.inference_mode():
+        for f in (24, 8, 24, 8, 24, 8, 24, 8):
+            outs.append((f, fwd(x[:, :f].contiguous(), ei)))
+        ref = {f: spmm(ei, x[:, :f].contiguous()) for f in (24, 8)}
+    assert fwd.captures == 2 and fwd.replays == 4
+    for f, out in outs:
+        assert torch.equal(out, ref[f])
+    assert outs[-2][1].data_ptr() != outs[-4][1].data_ptr()
+
+
+def test_launches_per_replay_times_replays_is_the_eager_count(dev):
+    """The wrappers count host calls: the warm-ups count, the capture and
+    the replays do not; ``launches_per_replay`` times the replays makes up
+    the rest, and equals the eager per-step count."""
+    from pytorch_geometric_tpu_torch import compat
+    ei, x, y = _gcn_case(dev, 1000, 30_000, 16, seed=6, block_sparse=True)
+
+    def zero():
+        for _, fn, attr in compat.launch_counters():
+            setattr(fn, attr, 0)
+
+    zero()
+    _compiled_gcn_steps(dev, ei, x, y, False, 1)
+    per_step = compat.launch_counts()
+    assert per_step['bsr_spmm'] == 5 and per_step['segment_spmm'] == 5
+    zero()
+    _, _, step = _compiled_gcn_steps(dev, ei, x, y, True, 7)
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in per_step.items() if v}
+    assert step.launches_per_replay == per_step
+    assert step.replays == 5
+    host = compat.launch_counts()
+    for k, n in per_step.items():
+        assert host[k] == 2 * n                    # the eager warm-ups
+        assert step.replay_launches()[k] == 5 * n
+        assert host[k] + step.replay_launches()[k] == 7 * n
+
+
+def test_bsr_layout_without_order_raises_under_capture(dev):
+    """A hand-built layout (no ``order``) runs eagerly, reading its row
+    pointer on the host; under a capture it raises, naming fill_cache."""
+    from pytorch_geometric_tpu_torch import compat
+    coo, w, rng = _bsr_case(600, 600, 20_000, seed=9)
+    fwd, _, _ = build_bsr_pair(coo, w, 600, 600, device=dev)
+    bare = BSR(fwd.vals, fwd.cols, fwd.row_ptr)
+    x = torch.as_tensor(rng.standard_normal((600, 16)).astype(np.float32),
+                        device=dev)
+    f = compat.compile(lambda x: bsr_matmul(bare, x, 600), warmup=1)
+    assert torch.equal(f(x), bsr_matmul(fwd, x, 600))
+    with pytest.raises(RuntimeError, match='fill_cache'):
+        f(x)
+    assert f.captures == 0
+    # the card and the current stream are fine after the refused capture
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.equal(bsr_matmul(fwd, x, 600), bsr_matmul(fwd, x, 600))
+
+
+def test_host_sync_inside_a_compiled_function_raises(dev):
+    """``.item()`` waits for the card, which a capture forbids: the call
+    raises, and nothing runs the function eagerly in its place."""
+    from pytorch_geometric_tpu_torch import compat
+    calls = []
+
+    def f(x):
+        calls.append(1)
+        return x * x.sum().item()
+
+    g = compat.compile(f, warmup=0)
+    x = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError):
+        g(x)
+    assert len(calls) == 1 and g.captures == 0 and g.replays == 0
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.ones(3, device=dev).sum().item() == 3.0
+
+
+def test_gather_path_gradient_matches_plain_on_a_padded_batch(dev):
+    """The gather path (a raw COO with an edge mask) on the card against
+    the CPU plain path, on one padded batch of ``products_bench.py``'s
+    loader (``chip_smoke.py``'s copy of its graph at 0.2 % of its size and
+    of its sampler; batch 64, fan-outs [15, 10]). The card gathers messages
+    with ``index_select``, whose backward adds with atomics, so the sums may
+    come in another order on every run: loss within 1e-5 relative, each
+    gradient within 1e-5 of its largest magnitude, on two runs."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', Path(__file__).resolve().parent.parent / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n, e = 4898, 247_436
+    b = smoke.products_batches(smoke.products_graph(n, e, 0), n, 64,
+                               (15, 10), 1, 0)[0]
+    assert 0 < b.node_mask.mean() < 1 and 0 < b.edge_mask.mean() < 1
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((b.num_nodes, 32)).astype(np.float32)
+         * b.node_mask[:, None])
+    y = rng.integers(0, 7, b.batch_size)
+    runs = []
+    for d in ('cpu', dev, dev):
+        model = GraphSAGE(32, 16, 2, 7, device=d,
+                          generator=torch.Generator().manual_seed(0))
+        out = model(torch.as_tensor(x, device=d),
+                    torch.as_tensor(b.edge_index.astype(np.int64), device=d),
+                    edge_mask=torch.as_tensor(b.edge_mask, device=d))
+        loss = torch.nn.functional.cross_entropy(
+            out[:b.batch_size], torch.as_tensor(y, device=d))
+        loss.backward()
+        runs.append((loss.item(), [p.grad.cpu() for p in model.parameters()]))
+    (ref_loss, ref), cards = runs[0], runs[1:]
+    for got_loss, got in cards:
+        assert abs(got_loss - ref_loss) <= 1e-5 * abs(ref_loss)
+        for a, r in zip(got, ref):
+            assert float((a - r).abs().max()) <= 1e-5 * float(
+                r.abs().max()), (a - r).abs().max()

@@ -42,11 +42,14 @@ def test_import_loads_no_jax():
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         f'{FORBIDDEN!r})\n'
         'print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n'
-        'assert not bad, bad\n')
+        'assert not bad, bad\n'
+        'assert {"pytorch_geometric_tpu_torch.compat", '
+        '"pytorch_geometric_tpu_torch.loader.scan_train"} <= set('
+        'sys.modules)\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 24   # every module was imported
+    assert int(res.stdout.split()[-1]) >= 33   # every module was imported
 
 
 @pytest.mark.parametrize('path', sorted(
