@@ -73,8 +73,8 @@ checks them:
      against the CPU plain path with the same weights;
  12. path D, GAT training on the same cell (cross-entropy, Adam 1e-2): ms
      per step, launches per step, a profile (a whole window, 9 mix
-     launches per step checked), 3 steps held against the CPU plain
-     path;
+     launches and 3 launches of the per-edge dot kernel, ``grad_p_u``, per
+     step checked), and 3 steps held against the CPU plain path;
  13. attention-kernel timings at path C's shapes: the mix at H*F = 256 and
      40, the stabiliser pass, the backward pass at 256 (yardstick: H
      ``torch.sparse.mm`` CSR calls, or ``torch.segment_reduce`` for the
@@ -114,10 +114,30 @@ checks them:
      fill, one ``scan_fn`` replay and 8 ``step_fn`` replays against 8 eager
      steps from one state, ms per step of each, and the message gather's
      forward and backward by ``index_select`` and by indexing at the
-     batches' shape.
+     batches' shape;
+ 21. the per-edge dot kernel (``csrc/sddmm.cu``), both arms, against its
+     plain version: a bipartite graph in edge order and in slot order at
+     H*F = 256 and 40, one head as 2-D tables, out-of-range indices with a
+     mask, an empty edge list, and paths I's and D's shapes; float32 within
+     1e-5 of the largest output, bf16 within the mix's bf16 bound;
+ 22. path I, TransformerConv serving on path C's graph and slot orders at
+     ``attention_bench.py --qkv``'s shape: 3 layers (64 -> 4 x 64, 256 -> 4
+     x 64, 256 -> 4 x 10 averaged), beta gate and root weight in each, ReLU
+     between; ms per forward, launches (3 dot and 6 mix per forward), a
+     profile, the output against the CPU plain path at 1e-4 of its largest;
+ 23. path J, the same stack trained with Adam on path D's labels: ms per
+     step, launches (6 dot and 15 mix per step), a profile, 3 steps against
+     the CPU plain path;
+ 24. the dot kernel's timings at path I's shapes (edge order) and path D's
+     (slot order), H*F = 256 (both arms) and 40, with its plain version,
+     ``torch.sparse.sampled_addmm`` one call per head as the yardstick, and
+     the bound from the bytes each call must move; its slice-width sweep
+     (whole heads: 4, 2, 1) at H*F = 256 in both orders, each width's
+     output bitwise equal to one slice's.
 
-Every path of phases 4, 7, 8, 11, 12 and 15-18 (serving GCN; paths A, B,
-C, D, E, F, G, H) also runs captured, through ``compat.compile`` (a CUDA
+Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
+A, B, C, D, E, F, G, H, I, J) also runs captured, through
+``compat.compile`` (a CUDA
 graph: 2 eager warm-ups, the capture, then replays): ms per forward or step,
 device busy time and idle share over replays, the launches a replay holds
 (equal to the eager per-call counts) times the replays; a forward's output
@@ -182,6 +202,22 @@ PC_LAYERS, PC_CLASSES = 3, 10
 MIX_PER_FORWARD, MIX_PER_STEP = 2 * PC_LAYERS, 3 * PC_LAYERS
 # the mix kernel's name in a profile (every template instance holds it)
 MIX_KERNEL = 'gat_mix_kernel'
+# paths I and J: TransformerConv served and trained on path C's graph at
+# attention_bench.py --qkv's shape (:25-28, :58: H = 4 heads of 64), 3
+# layers of (heads, channels, concat), each with the beta gate and the root
+# weight, ReLU between
+PI_LAYERS = ((PC_HEADS, PC_HIDDEN // PC_HEADS, True),
+             (PC_HEADS, PC_HIDDEN // PC_HEADS, True),
+             (PC_HEADS, PC_CLASSES, False))
+# per layer a forward launches the dot kernel once (the scores) and the mix
+# kernel twice; a step adds the dot for grad_p_u, and grad_v and the two
+# score gradients (sddmm's backward) on the mix kernel
+DOT_PER_FORWARD, DOT_PER_STEP = PC_LAYERS, 2 * PC_LAYERS
+PI_MIX_PER_FORWARD, PI_MIX_PER_STEP = 2 * PC_LAYERS, 5 * PC_LAYERS
+# path D: the dot kernel computes grad_p_u, once per layer and step
+DOT_PER_GAT_STEP = PC_LAYERS
+# the dot kernel's name in a profile
+EDGE_DOT_KERNEL = 'edge_dot_kernel'
 # kernel 2's two launches per call, its pre-pass and the kernel proper
 BSR_PREP, BSR_MAIN = 'bsr_prep_kernel', 'bsr_spmm_kernel'
 # kernel 1's name in a profile, and PyTorch's add kernel
@@ -1103,9 +1139,12 @@ def parity_run(torch, kind, state, x, ei, y, device, **kw):
     return losses, grads
 
 
-def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4):
+def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4, cancelled=()):
     """Losses within ``tol`` relative at each step, first-step gradients
-    within ``tol`` of each parameter's largest magnitude."""
+    within ``tol`` of each parameter's largest magnitude; a parameter whose
+    name ends in one of ``cancelled`` (a gradient the model cancels
+    exactly, rounding noise on both devices) within ``tol`` of the largest
+    gradient of all."""
     (l_card, g_card), (l_cpu, g_cpu) = card, cpu
     rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(l_card, l_cpu)]
     log(f'[{tag}] losses over {PARITY_STEPS} steps, card {l_card} vs CPU '
@@ -1117,10 +1156,13 @@ def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4):
            'max_loss_rel_diff': max(rel)}
     if grads_too:
         worst = 0.0
+        largest = max(float(r.abs().max()) for r in g_cpu.values())
         for k, ref in g_cpu.items():
             d = float((g_card[k] - ref).abs().max())
-            lim = tol * float(ref.abs().max())
-            worst = max(worst, d / max(float(ref.abs().max()), 1e-30))
+            scale = largest if k.endswith(tuple(cancelled)) else float(
+                ref.abs().max())
+            lim = tol * scale
+            worst = max(worst, d / max(scale, 1e-30))
             check(d <= lim, f'{tag}: first-step gradient of {k} differs by '
                             f'{d} (limit {lim})')
         log(f'[{tag}] first-step gradients: max |card - CPU| / max|CPU| '
@@ -1150,6 +1192,10 @@ def profile_steps(torch, step, tag, expect=None):
                                             if BSR_PREP in name),
             'kernel1_ms_per_step': sum(t for name, t, _ in rows
                                        if SEG_MAIN in name),
+            'mix_ms_per_step': sum(t for name, t, _ in rows
+                                   if MIX_KERNEL in name),
+            'edge_dot_ms_per_step': sum(t for name, t, _ in rows
+                                        if EDGE_DOT_KERNEL in name),
             'add_launches_per_step': launches_of(rows, ADD),
             # out + res, and autograd's sum of two gradients, are adds of
             # two same-shape tensors: PyTorch's vectorised kernel
@@ -1764,8 +1810,10 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     return res
 
 
-def gat_parity_run(torch, state, x, ei, y, device):
-    model = gat_model(torch, device, 0)
+def gat_parity_run(torch, state, x, ei, y, device, build=None):
+    """``PARITY_STEPS`` steps of the model ``build`` makes (GAT by
+    default) from ``state``: the losses and the first step's gradients."""
+    model = (build or gat_model)(torch, device, 0)
     model.load_state_dict({k: v.to(device) for k, v in state.items()})
     opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
     losses, grads = [], None
@@ -1797,7 +1845,8 @@ def phase_path_d(torch, seed, pc):
     reset_counts()
     ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
     prof, prof_steps = profile_steps(torch, step, 'path D',
-                                     {MIX_KERNEL: MIX_PER_STEP})
+                                     {MIX_KERNEL: MIX_PER_STEP,
+                                      EDGE_DOT_KERNEL: DOT_PER_GAT_STEP})
     counts = launch_counts()
     launches = counts['gat_mix']
     n_steps = PA_WARMUP + PA_STEPS + prof_steps
@@ -1807,8 +1856,12 @@ def phase_path_d(torch, seed, pc):
         f'in {enqueue_ms:.4f} ms; loss after {PA_WARMUP + PA_STEPS} steps '
         f'{last:.6f}; peak memory {peak:.3f} GB; launches in {n_steps} '
         f'steps: {counts}')
-    check_counts('path D', counts, {'gat_mix': MIX_PER_STEP * n_steps},
+    check_counts('path D', counts, {'gat_mix': MIX_PER_STEP * n_steps,
+                                    'edge_dot': DOT_PER_GAT_STEP * n_steps},
                  f'{n_steps} steps')
+    log(f"[path D] the dot kernel (grad_p_u) "
+        f"{prof['edge_dot_ms_per_step']:.4f} ms per step, the mix "
+        f"{prof['mix_ms_per_step']:.4f} ms; the step {ms:.4f} ms")
     card = gat_parity_run(torch, state, x, ei, y, 'cuda')
     ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
                        device='cpu').fill_cache(blocked=True)
@@ -1825,7 +1878,8 @@ def phase_path_d(torch, seed, pc):
     res['captured'] = captured_training(
         torch, 'path D captured', lambda: from_state(
             torch, lambda: gat_model(torch, None, seed), state),
-        x, ei, y, None, {'gat_mix': MIX_PER_STEP}, PA_STEPS, 1e-4)
+        x, ei, y, None, {'gat_mix': MIX_PER_STEP,
+                         'edge_dot': DOT_PER_GAT_STEP}, PA_STEPS, 1e-4)
     log(json.dumps({'metric': 'gat_train_step', 'ms': ms,
                     'ms_captured': res['captured']['ms_per_step'],
                     'nodes': PC_NODES, 'edges': ei.num_edges}))
@@ -2042,6 +2096,374 @@ def phase_attention_timings(torch, seed, pc):
                 f"{' (the rule)' if g == lanes else ''}: {ms:.4f} ms device "
                 f"time per call, output bitwise equal")
     return rows, max_row, sweep, sweep_bf16
+
+
+# -- phases 21 to 24: the per-edge dot kernel, paths I and J ----------------
+def transformer_model(torch, device, seed):
+    """Paths I and J's model: ``PI_LAYERS`` TransformerConv layers from
+    ``PC_F`` inputs (beta gate and root weight each), ReLU between, random
+    weights from ``seed``."""
+    from pytorch_geometric_tpu_torch.nn.conv import TransformerConv
+    gen = torch.Generator().manual_seed(seed)
+    convs, width = [], PC_F
+    for h, c, concat in PI_LAYERS:
+        convs.append(TransformerConv(width, c, heads=h, concat=concat,
+                                     beta=True, root_weight=True,
+                                     device=device, generator=gen))
+        width = h * c if concat else c
+
+    class TransformerStack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList(convs)
+
+        def forward(self, x, ei):
+            for i, conv in enumerate(self.convs):
+                x = conv(x, ei)
+                if i < len(self.convs) - 1:
+                    x = torch.relu(x)
+            return x
+
+    return TransformerStack()
+
+
+def dot_close(torch, a, b, ia, ib, mask=None):
+    """The dot kernel against its plain version on the same card tensors:
+    float32 within 1e-5 of the largest output; bf16 within ``bf16_ok``'s
+    bound (one bf16 ulp plus 1e-5 + 1e-5 of the edge's sum of |a * b|
+    terms), the mix's bf16 arm's. Returns (max abs err, ok)."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (edge_dot,
+                                                          edge_dot_plain)
+    out = edge_dot(a, b, ia, ib, mask)
+    torch.cuda.synchronize()
+    ref = edge_dot_plain(a, b, ia, ib, mask)
+    if out.numel() == 0:
+        return 0.0, tuple(out.shape) == tuple(ref.shape)
+    err = float((out.float() - ref.float()).abs().max())
+    if a.dtype == torch.bfloat16:
+        scale = edge_dot_plain(a.float().abs(), b.float().abs(), ia, ib,
+                               mask)
+        return err, bf16_ok(torch, out, ref, scale)
+    return err, err <= 1e-5 * max(float(ref.abs().max()), 1e-30)
+
+
+def phase_edge_dot_vs_plain(torch, seed, pc):
+    """The dot kernel, both arms, against its plain version: a bipartite
+    graph in edge order and in slot order at H*F = 256 and 40, one head as
+    2-D tables, out-of-range indices (negative and past the tables) with a
+    mask, an empty edge list; then path I's shapes (edge order, the scores)
+    and path D's (slot order, grad_p_u). Returns the worst error of each
+    arm."""
+    ei, rng = attention_cases(torch, seed + 7)
+    n_src, n_dst = ei.sparse_size
+    coo, blk = ei.coo, ei.blocked
+    g = torch.Generator('cuda').manual_seed(seed)
+
+    def tables(na, nb, h, f):
+        return (torch.randn(na, h, f, device='cuda', generator=g),
+                torch.randn(nb, h, f, device='cuda', generator=g))
+
+    cases = []
+    for h, f in ((PC_HEADS, PC_HIDDEN // PC_HEADS), (PC_HEADS, PC_CLASSES)):
+        a, b = tables(n_src, n_dst, h, f)
+        cases.append((f'bipartite edge order H={h} F={f}', a, b, coo[0],
+                      coo[1], None))
+        cases.append((f'bipartite slot order H={h} F={f}', a, b, blk.src,
+                      blk.dst, None))
+    a, b = tables(n_src, n_dst, 1, 64)
+    cases.append(('bipartite H=1 2-D F=64', a[:, 0], b[:, 0], coo[0], coo[1],
+                  None))
+    a, b = tables(n_src, n_dst, PC_HEADS, PC_HIDDEN // PC_HEADS)
+    e = 30_000
+    ia = torch.randint(-3, n_src + 4, (e,), device='cuda', generator=g)
+    ib = torch.randint(-3, n_dst + 4, (e,), device='cuda', generator=g)
+    mask = torch.rand(e, device='cuda', generator=g) < 0.8
+    cases.append(('out-of-range indices and a mask', a, b, ia, ib, mask))
+    cases.append(('an empty edge list', a, b, ia[:0], ib[:0], None))
+    pa, pb = tables(PC_NODES, PC_NODES, PC_HEADS, PC_HIDDEN // PC_HEADS)
+    pe = pc['ei']
+    cases.append((f'path I scores [{pe.num_edges}, {PC_HEADS}, '
+                  f'{PC_HIDDEN // PC_HEADS}] (edge order)', pa, pb,
+                  pe.coo[0], pe.coo[1], None))
+    cases.append((f'path D grad_p_u [{pe.num_edges}, {PC_HEADS}, '
+                  f'{PC_HIDDEN // PC_HEADS}] (slot order)', pa, pb,
+                  pe.blocked.src, pe.blocked.dst, None))
+    pa10, pb10 = tables(PC_NODES, PC_NODES, PC_HEADS, PC_CLASSES)
+    cases.append((f'path I layer 3 [{pe.num_edges}, {PC_HEADS}, '
+                  f'{PC_CLASSES}]', pa10, pb10, pe.coo[0], pe.coo[1], None))
+    worst = {'f32': 0.0, 'bf16': 0.0}
+    with torch.inference_mode():
+        for label, a, b, ia, ib, m in cases:
+            for arm, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+                err, ok = dot_close(torch, a.to(dt), b.to(dt), ia, ib, m)
+                worst[arm] = max(worst[arm], err)
+                log(f"[kernel] edge_dot {arm} {label}: max abs err "
+                    f"{err:.3e} {'ok' if ok else 'FAILED'}")
+                check(ok, f'edge_dot {arm} disagrees with its plain version: '
+                          f'{label}')
+    log(f"[kernel] edge_dot worst error: float32 {worst['f32']:.3e} (limit "
+        f"1e-5 of the largest output), bf16 {worst['bf16']:.3e} (one bf16 "
+        f"ulp plus the float32 limit)")
+    return worst
+
+
+def phase_path_i(torch, seed, iters, warmup, pc):
+    """TransformerConv serving on path C's graph and slot orders: ms per
+    forward, launches (``DOT_PER_FORWARD`` dot and ``PI_MIX_PER_FORWARD``
+    mix launches per forward), a profile, the output against the CPU plain
+    path with the same weights at 1e-4 of its largest magnitude; then the
+    same forward captured."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    ei = pc['ei']
+    x = torch.as_tensor(pc['x'], device='cuda')
+    model = transformer_model(torch, None, seed).eval()
+    per_fwd = {'edge_dot': DOT_PER_FORWARD, 'gat_mix': PI_MIX_PER_FORWARD}
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        ms, enqueue_ms, _, out = timed_calls(torch, lambda: model(x, ei),
+                                             iters, warmup)
+        rows, prof_ms, n_prof = profile_forwards(
+            torch, lambda: model(x, ei), replay_expect(per_fwd))
+    n_fwd = warmup + iters + n_prof
+    counts = launch_counts()
+    log(f'[path I] launches in {n_fwd} forwards: {counts}')
+    check_counts('path I', counts, {k: n * n_fwd for k, n in per_fwd.items()},
+                 f'{n_fwd} forwards')
+    ref_model = transformer_model(torch, 'cpu', 0).eval()
+    ref_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
+                       device='cpu').fill_cache(blocked=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = ref_model(torch.from_numpy(pc['x']), ei_cpu)
+    log(f'[path I] CPU plain path forward in {time.perf_counter() - t0:.1f} '
+        f's')
+    shape = (PC_NODES, PC_CLASSES)
+    diff, agree = compare(torch, 'path I', out, ref, shape)
+    check(diff <= 1e-4 * float(ref.abs().max()),
+          f'path I: {diff} from the CPU plain path, past 1e-4 of its largest')
+    cap, cap_out = captured_serving(
+        torch, 'path I captured', lambda x: model(x, ei), x, out, iters,
+        warmup, per_fwd)
+    cap['max_abs_diff_vs_cpu'], cap['argmax_agreement'] = compare(
+        torch, 'path I captured', cap_out, ref, shape)
+    busy = sum(t for _, t, _ in rows)
+    dot_ms = sum(t for name, t, _ in rows if EDGE_DOT_KERNEL in name)
+    mix_ms = sum(t for name, t, _ in rows if MIX_KERNEL in name)
+    check(busy <= 1.05 * prof_ms, f'path I: device busy {busy} ms exceeds '
+                                  f'the wall {prof_ms} ms')
+    res = {'captured': cap, 'ms_per_forward': ms,
+           'host_enqueue_ms_per_forward': enqueue_ms, 'forwards': n_fwd,
+           'launches': counts['edge_dot'], 'launch_counts': counts,
+           'launches_per_forward': {k: counts[k] / n_fwd for k in per_fwd},
+           'launches_expected_per_forward': per_fwd,
+           'edges': ei.num_edges, 'layers': [list(c) for c in PI_LAYERS],
+           'max_abs_diff_vs_cpu': diff, 'max_abs_ref': float(
+               ref.abs().max()), 'argmax_agreement': agree,
+           'device_busy_ms_per_forward': busy,
+           'profiled_ms_per_forward': prof_ms,
+           'device_idle_share': 1 - busy / prof_ms,
+           'edge_dot_ms_per_forward': dot_ms, 'mix_ms_per_forward': mix_ms,
+           'kernels_per_forward': [[n[:80], t, c] for n, t, c in rows[:12]]}
+    log(f'[path I] TransformerConv x{PC_LAYERS} (H={PC_HEADS}, F='
+        f'{PC_HIDDEN // PC_HEADS}; beta, root weight): {ms:.4f} ms per '
+        f'forward on the card (CUDA events, {iters} forwards after {warmup}); '
+        f'the host issues one in {enqueue_ms:.4f} ms; device busy {busy:.4f} '
+        f'ms of a {prof_ms:.4f} ms wall, idle share {1 - busy / prof_ms:.4f}; '
+        f'the dot kernel {dot_ms:.4f} ms, the mix {mix_ms:.4f} ms; launches '
+        f'per forward {res["launches_per_forward"]} (expected {per_fwd})')
+    for name, t, n in rows[:12]:
+        log(f'[path I]   {t:.4f} ms  x{n:g}  {name[:90]}')
+    log(json.dumps({'metric': 'transformer_inference_fwd', 'ms': ms,
+                    'ms_captured': cap['ms_per_forward'],
+                    'nodes': PC_NODES, 'edges': ei.num_edges,
+                    'heads': PC_HEADS, 'hidden': PC_HIDDEN}))
+    return res
+
+
+def phase_path_j(torch, seed, pc):
+    """Path I's stack trained with Adam (labels as path D's): ms per step,
+    launches (``DOT_PER_STEP`` dot and ``PI_MIX_PER_STEP`` mix launches per
+    step), a profile, 3 steps against the CPU plain path (losses and
+    first-step gradients at 1e-4); then the step captured."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    ei = pc['ei']
+    x = torch.as_tensor(pc['x'], device='cuda')
+    y = torch.as_tensor(pc['y'], device='cuda')
+    model = transformer_model(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+    per_step = {'edge_dot': DOT_PER_STEP, 'gat_mix': PI_MIX_PER_STEP}
+
+    def step():
+        return train_step(torch, model, opt, x, ei, y)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, _, enqueue_ms, last = timed_steps(torch, step, PA_WARMUP, PA_STEPS)
+    prof, prof_steps = profile_steps(torch, step, 'path J',
+                                     replay_expect(per_step))
+    counts = launch_counts()
+    n_steps = PA_WARMUP + PA_STEPS + prof_steps
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f'[path J] TransformerConv training step: {ms:.4f} ms per step on '
+        f'the card (CUDA events, {PA_STEPS} steps after {PA_WARMUP}); the '
+        f'host issues one in {enqueue_ms:.4f} ms; loss after '
+        f'{PA_WARMUP + PA_STEPS} steps {last:.6f}; peak memory {peak:.3f} '
+        f'GB; launches in {n_steps} steps: {counts}')
+    check_counts('path J', counts, {k: n * n_steps
+                                    for k, n in per_step.items()},
+                 f'{n_steps} steps')
+    card = gat_parity_run(torch, state, x, ei, y, 'cuda', transformer_model)
+    ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
+                       device='cpu').fill_cache(blocked=True)
+    t0 = time.perf_counter()
+    cpu = gat_parity_run(torch, state, torch.from_numpy(pc['x']), ei_cpu,
+                         torch.from_numpy(pc['y']), 'cpu', transformer_model)
+    log(f'[path J] CPU plain path, {PARITY_STEPS} steps in '
+        f'{time.perf_counter() - t0:.1f} s')
+    res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
+           'steps': n_steps, 'launches': counts['edge_dot'],
+           'launch_counts': counts,
+           'launches_per_step': {k: counts[k] / n_steps for k in per_step},
+           'launches_expected_per_step': per_step, 'peak_memory_gb': peak}
+    res.update(prof)
+    # the softmax cancels a shift of every score of a destination, so the
+    # key biases' gradients are 0 but for rounding
+    res['parity'] = check_parity(torch, 'path J', card, cpu, True,
+                                 cancelled=('lin_key.bias',))
+    res['captured'] = captured_training(
+        torch, 'path J captured', lambda: from_state(
+            torch, lambda: transformer_model(torch, None, seed), state),
+        x, ei, y, None, per_step, PA_STEPS, 1e-4)
+    log(json.dumps({'metric': 'transformer_train_step', 'ms': ms,
+                    'ms_captured': res['captured']['ms_per_step'],
+                    'nodes': PC_NODES, 'edges': ei.num_edges}))
+    return res
+
+
+def dot_bytes(na, nb, e, h, f, itemsize, index_bytes):
+    """Bytes one dot call must move: a and b once, the two index arrays,
+    and the ``[E, H]`` output."""
+    return (na + nb) * h * f * itemsize + e * index_bytes + e * h * itemsize
+
+
+def sampled_addmm_call(torch, lay, a, b, n_dst, n_src, e):
+    """``torch.sparse.sampled_addmm`` on the slot-order CSR (rows the
+    destinations), one call per head, ``out[d, s] = <b[d], a[s]>`` (a
+    yardstick; the port never calls it), checked against the plain dot."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot_plain
+    h = a.shape[1]
+    mats = [torch.sparse_csr_tensor(
+        lay.indptr, lay.src[:e], torch.zeros(e, device='cuda', dtype=a.dtype),
+        size=(n_dst, n_src)) for _ in range(h)]
+    bs = [b[:, k].contiguous() for k in range(h)]
+    ats = [a[:, k].t().contiguous() for k in range(h)]
+
+    def call():
+        return [torch.sparse.sampled_addmm(m, bb, at, beta=0.0)
+                for m, bb, at in zip(mats, bs, ats)]
+
+    got = torch.stack([o.values() for o in call()], 1)
+    ref = edge_dot_plain(a, b, lay.src[:e], lay.dst[:e])
+    check(bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-4)),
+          'torch.sparse.sampled_addmm disagrees with the plain dot')
+    return call
+
+
+def phase_edge_dot_timings(torch, seed, pc, path_i, path_d):
+    """The dot kernel at path I's shapes (the scores in edge order, H*F =
+    256 and 40) and path D's (grad_p_u in slot order, 256 and 40), both
+    arms at 256: device time per call, the plain version's, the library
+    yardstick's (``sampled_addmm_call``; none takes bf16), and the bound
+    from the bytes the call must move."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (dot_slice_heads,
+                                                          edge_dot,
+                                                          edge_dot_plain)
+    ei = pc['ei']
+    blk = ei.blocked
+    n, e = PC_NODES, ei.num_edges
+    g = torch.Generator('cuda').manual_seed(seed + 8)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    rows, sweep = [], []
+    with torch.inference_mode():
+        for path, order, ia, ib in (('I', 'edge', ei.coo[0], ei.coo[1]),
+                                    ('D', 'slot', blk.src, blk.dst)):
+            for h, f in ((PC_HEADS, PC_HIDDEN // PC_HEADS),
+                         (PC_HEADS, PC_CLASSES)):
+                for dt in ((torch.float32, torch.bfloat16) if f > PC_CLASSES
+                           else (torch.float32,)):
+                    a = torch.randn(n, h, f, device='cuda', generator=g).to(dt)
+                    b = torch.randn(n, h, f, device='cuda', generator=g).to(dt)
+                    fns = {'ms': lambda: edge_dot(a, b, ia, ib),
+                           'plain_ms': lambda: edge_dot_plain(a, b, ia, ib)}
+                    if dt == torch.float32:
+                        fns['library_ms'] = sampled_addmm_call(
+                            torch, blk, a, b, n, n, e)
+                    itemsize = a.element_size()
+                    by = dot_bytes(n, n, e, h, f, itemsize,
+                                   ia.element_size() + ib.element_size())
+                    flops = 2.0 * e * h * f
+                    t_bytes = by / HBM_BYTES_PER_S
+                    t_ops = flops / (F32_FLOP_PER_S if dt == torch.float32
+                                     else BF16_FLOP_PER_S)
+                    rule = dot_slice_heads(n, h, f, itemsize, l2)
+                    row = {'path': path, 'order': order,
+                           'dtype': str(dt).split('.')[-1], 'H': h, 'F': f,
+                           'HF': h * f, 'edges': e, 'slice_heads': rule,
+                           'bytes': by, 'flops': flops,
+                           'bound_ms': max(t_bytes, t_ops) * 1e3,
+                           'bound_by': ('bytes' if t_bytes >= t_ops
+                                        else 'operations'),
+                           'library_ms': None}
+                    timed_fns(torch, row, fns)
+                    rows.append(row)
+                    log(f"[timing] edge_dot {row['dtype']} path {path} "
+                        f"({order} order) H*F={h * f}, device time per call: "
+                        f"kernel {row['ms']:.4f} ms, plain "
+                        f"{row['plain_ms']:.4f} ms, library "
+                        + (f"{row['library_ms']:.4f} ms"
+                           if row['library_ms'] is not None else 'none')
+                        + f"; bound {row['bound_ms']:.4f} ms "
+                        f"({row['bound_by']}), kernel at "
+                        f"{100 * row['bound_ms'] / row['ms']:.1f}% of the "
+                        f"bound; CUDA-event wall per call: kernel "
+                        f"{row['event_ms']:.4f} ms; {rule} heads a slice")
+                    if dt == torch.float32 and f > PC_CLASSES:
+                        sweep += dot_slice_sweep(torch, path, order, a, b,
+                                                 ia, ib, rule)
+    log(f"[timing] edge_dot launches per path I forward "
+        f"{path_i['launches_per_forward']['edge_dot']:g}, per path J step "
+        f"(see path J), per path D step "
+        f"{path_d['launch_counts']['edge_dot'] / path_d['steps']:g}")
+    return rows, sweep
+
+
+def dot_slice_sweep(torch, path, order, a, b, ia, ib, rule):
+    """The dot kernel's device time per call at every slice width (whole
+    heads, a divisor of H), each output bitwise equal to one slice's."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
+    h = a.shape[1]
+    ref = edge_dot(a, b, ia, ib, slice_heads=h)
+    out = []
+    for hs in [d for d in range(h, 0, -1) if h % d == 0]:
+        check(torch.equal(edge_dot(a, b, ia, ib, slice_heads=hs), ref),
+              f'edge_dot path {path}: {hs} heads a slice changes the output')
+        ms = device_ms(torch, lambda: edge_dot(a, b, ia, ib, slice_heads=hs),
+                       calls=10)
+        out.append({'path': path, 'order': order, 'slice_heads': hs,
+                    'slices': h // hs,
+                    'slice_mb': a.shape[0] * hs * a.shape[2]
+                    * a.element_size() / 1e6, 'ms': ms, 'rule': hs == rule})
+        log(f"[sweep] edge_dot path {path} ({order} order) {hs} of {h} "
+            f"heads a slice ({h // hs} x {out[-1]['slice_mb']:.1f} MB of a"
+            f"{', the rule' if hs == rule else ''}): {ms:.4f} ms device time "
+            f"per call, output bitwise equal to one slice's")
+    return out
 
 
 # -- phases 14 to 19, the precision ladder -----------------------------------
@@ -2602,7 +3024,8 @@ def replay_expect(per_call):
     out = {}
     for part, arms in ((SEG_MAIN, ('segment_spmm', 'segment_spmm_bf16')),
                        (BSR_MAIN, ('bsr_spmm', 'bsr_spmm_bf16')),
-                       (MIX_KERNEL, ('gat_mix', 'gat_mix_bf16'))):
+                       (MIX_KERNEL, ('gat_mix', 'gat_mix_bf16')),
+                       (EDGE_DOT_KERNEL, ('edge_dot', 'edge_dot_bf16'))):
         n = sum(per_call.get(a, 0) for a in arms)
         if n:
             out[part] = n
@@ -3128,10 +3551,15 @@ def main():
     worst_mix = phase_gat_mix_vs_plain(torch, args.seed, pc)
     worst_max = phase_segment_max_vs_plain(torch, args.seed, pc)
     worst_mix_bf16 = phase_gat_mix_bf16_vs_plain(torch, args.seed, pc)
+    worst_dot = phase_edge_dot_vs_plain(torch, args.seed, pc)
     path_c = phase_path_c(torch, args.seed, args.iters, args.warmup, pc)
     path_d = phase_path_d(torch, args.seed, pc)
+    path_i = phase_path_i(torch, args.seed, args.iters, args.warmup, pc)
+    path_j = phase_path_j(torch, args.seed, pc)
     mix_rows, max_row, sweep, sweep_bf16 = phase_attention_timings(
         torch, args.seed, pc)
+    dot_rows, dot_sweep = phase_edge_dot_timings(torch, args.seed, pc,
+                                                 path_i, path_d)
     bf16_rows = phase_bf16_timings(torch, args.seed, pe, pc)
     del pe, pc
     torch.cuda.empty_cache()
@@ -3151,7 +3579,9 @@ def main():
     path_counts.update(path_a=path_a['launch_counts'],
                        path_c=path_c['launch_counts'],
                        path_d=path_d['launch_counts'],
-                       path_e=path_e['launch_counts'])
+                       path_e=path_e['launch_counts'],
+                       path_i=path_i['launch_counts'],
+                       path_j=path_j['launch_counts'])
     for tag, res in (('b', path_b), ('f', path_f), ('g', path_g),
                      ('h', path_h)):
         path_counts.update({f'path_{tag}_{k.lower()}': v.get(
@@ -3159,7 +3589,8 @@ def main():
 
     # the captured twins: eager warm-ups plus the graphs' replays
     twins = {'serving_gcn': serving['GCN'], 'path_a': path_a,
-             'path_c': path_c, 'path_d': path_d, 'path_e': path_e}
+             'path_c': path_c, 'path_d': path_d, 'path_e': path_e,
+             'path_i': path_i, 'path_j': path_j}
     for tag, res in (('b', path_b), ('f', path_f), ('g', path_g),
                      ('h', path_h)):
         twins.update({f'path_{tag}_{k.lower()}': v for k, v in res.items()})
@@ -3196,11 +3627,20 @@ def main():
         [by_pass[('stabiliser', 0)]] * PC_LAYERS
     mix_sum = {k: sum(r[k] for r in mix_fwd)
                for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
+    # a path I forward: the scores at H*F = 256 in layers 1-2 and 40 in
+    # layer 3, float32, edge order
+    by_dot = {(r['path'], r['dtype'], r['HF']): r for r in dot_rows}
+    dot_fwd = [by_dot[('I', 'float32', PC_HIDDEN)]] * 2 + [
+        by_dot[('I', 'float32', PC_HEADS * PC_CLASSES)]]
+    dot_sum = {k: sum(r[k] for r in dot_fwd)
+               for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
+    dot_bf16 = by_dot[('I', 'bfloat16', PC_HIDDEN)]
     log(json.dumps({'paths': {'serving': serving, 'path_a': path_a,
                               'path_b': path_b, 'path_c': path_c,
                               'path_d': path_d, 'path_e': path_e,
                               'path_f': path_f, 'path_g': path_g,
-                              'path_h': path_h, 'scan_train': scan}}))
+                              'path_h': path_h, 'path_i': path_i,
+                              'path_j': path_j, 'scan_train': scan}}))
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',
@@ -3341,7 +3781,51 @@ def main():
         'library_ms': mix_bf16['library_ms'],
         'slice_cols': mix_bf16['slice_cols'],
         'times_are': f'one mix call at path C H*F={PC_HIDDEN}',
-        'per_shape': [mix_bf16], 'slice_sweep': sweep_bf16}]}))
+        'per_shape': [mix_bf16], 'slice_sweep': sweep_bf16}, {
+        'name': 'edge_dot', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/sddmm.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/sddmm.py:38',
+        'replaces_note': 'no Pallas body: XLA (a[src] * b[dst]).sum(-1) in '
+                         'ops/sddmm.py:38, ops/edge_attention.py:110, :139, '
+                         ':145, nn/conv/transformer_conv.py:65, '
+                         'nn/conv/gps_conv.py:230-233 and grad_p_u of '
+                         'ops/gat_fused.py:103-105',
+        'launches': sum(by_path('edge_dot').values()),
+        'launches_by_path': by_path('edge_dot'),
+        'launches_per_forward': {'path_i': path_i['launches_per_forward'][
+            'edge_dot']},
+        'launches_per_step': {
+            'path_j': path_j['launches_per_step']['edge_dot'],
+            'path_d': path_d['launch_counts']['edge_dot']
+            / path_d['steps']},
+        'max_abs_err': worst_dot['f32'],
+        'ms': dot_sum['ms'], 'plain_ms': dot_sum['plain_ms'],
+        'bound_ms': dot_sum['bound_ms'],
+        'bound_by': ('bytes' if all(r['bound_by'] == 'bytes'
+                                    for r in dot_fwd) else 'operations'),
+        'library_ms': dot_sum['library_ms'],
+        'times_are': 'per path I forward: the scores at H*F=256 twice and 40 '
+                     'once (edge order); path D\'s grad_p_u (slot order) per '
+                     'call in per_shape',
+        'slice_heads': by_dot[('I', 'float32', PC_HIDDEN)]['slice_heads'],
+        'per_shape': dot_rows, 'slice_sweep': dot_sweep}, {
+        'name': 'edge_dot_bf16', 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/sddmm.cu',
+        'replaces': 'pytorch_geometric_tpu/ops/sddmm.py:38',
+        'replaces_note': 'no Pallas body: the same XLA dot on bf16 inputs',
+        'launches': sum(by_path('edge_dot_bf16').values()),
+        'launches_by_path': by_path('edge_dot_bf16'),
+        'launches_note': 'no model path feeds the dot bf16 (the convs\' '
+                         'float32 parameters promote their inputs); its '
+                         'launches are the comparison and timing phases, '
+                         'which do not count',
+        'max_abs_err': worst_dot['bf16'],
+        'ms': dot_bf16['ms'], 'plain_ms': dot_bf16['plain_ms'],
+        'bound_ms': dot_bf16['bound_ms'], 'bound_by': dot_bf16['bound_by'],
+        'library_ms': None,
+        'library_note': 'torch.sparse.sampled_addmm takes no bf16',
+        'times_are': f'one call at path I H*F={PC_HIDDEN} (edge order)',
+        'per_shape': [dot_bf16]}]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

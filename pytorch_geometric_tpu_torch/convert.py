@@ -10,7 +10,11 @@ The JAX package's names map one to one onto the port's:
   * ``norm_i``  -> ``norms.i``       (BasicGNN and MLP layer norms)
   * ``lin_i``   -> ``lins.i``        (MLP layers)
   * ``kernel [in, out]`` -> ``weight [out, in]``; a LayerNorm's ``scale``
-    -> ``weight``; everything else keeps its name.
+    -> ``weight``; everything else keeps its name: the convs name their
+    submodules and parameters as the flax modules do (GATConv's
+    ``lin_src``, ``att_src``; TransformerConv's ``lin_query``, ``lin_key``,
+    ``lin_value``, ``lin_edge``, ``lin_skip``, ``lin_beta``; SuperGATConv's
+    ``lin``, ``att_l``, ``att_r``, ``bias``).
 """
 
 import re

@@ -3,7 +3,9 @@ from .gcn_conv import GCNConv, cache_gcn_norm, gcn_norm
 from .sage_conv import SAGEConv
 from .gin_conv import GINConv
 from .gat_conv import CuGraphGATConv, FusedGATConv, GATConv, GATv2Conv
+from .transformer_conv import TransformerConv
+from .supergat_conv import SuperGATConv
 
 __all__ = ['MessagePassing', 'GCNConv', 'cache_gcn_norm', 'gcn_norm',
            'SAGEConv', 'GINConv', 'GATConv', 'GATv2Conv', 'FusedGATConv',
-           'CuGraphGATConv']
+           'CuGraphGATConv', 'TransformerConv', 'SuperGATConv']

@@ -31,17 +31,13 @@ from torch import nn
 
 from ..inits import linear
 from ..message_passing import MessagePassing
-from ... import backend
 from ...backend import resolve_device
 from ...edge_index import EdgeIndex
-from ...ops.gat_fused import fused_gat_available, gat_aggregate
+from ...ops.edge_attention import ATTN_WIDE_BYTES
+from ...ops.gat_fused import fused_ok, gat_aggregate
 from ...ops.gather import take_rows
 from ...ops.softmax import softmax
 from ...utils.loop import add_self_loops as _add_self_loops
-
-# the JAX package's PGT_ATTN_WIDE_BYTES default: past this many bytes of
-# [E, H, C] messages an unfused conv takes the flash scan
-ATTN_WIDE_BYTES = 1e9
 
 
 def _glorot(shape, device, generator) -> nn.Parameter:
@@ -107,14 +103,7 @@ def _attend(conv, edge_index, coo, alpha, values, valid, j_idx, i_idx,
     """The fused, flash or plain branch over the activated logits
     ``alpha [E, H]``; returns ``[num_dst, H, C]`` and the weights."""
     fused = (not loops and not return_attention_weights
-             and fused_gat_available(edge_index))
-    if fused and not backend.use_kernel_spmm:
-        if values.device.type == 'cuda':
-            raise RuntimeError(
-                'backend.use_kernel_spmm is False, and the fused attention '
-                'aggregation has no other CUDA arm; move the tensors to the '
-                'CPU to run the plain versions')
-        fused = False
+             and fused_ok(edge_index, values))
     h, c = values.shape[1], values.shape[2]
     if fused:
         scale = _dropout_scale(conv.dropout, deterministic, alpha.shape,

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..edge_index import EdgeIndex
-from ..ops import scatter
+from ..ops import scatter, softmax
 
 
 def _endpoints(edge_index, flow: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -174,3 +174,13 @@ class MessagePassing(nn.Module):
         ukwargs = {k: kwargs[k] for k in params
                    if k not in ('inputs', 'kwargs') and k in kwargs}
         return self.update(out, **ukwargs)
+
+    # convenience for attention convs
+    @staticmethod
+    def edge_softmax(alpha: torch.Tensor, index: torch.Tensor,
+                     num_nodes: int,
+                     edge_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Softmax of ``alpha`` over each destination's incoming edges
+        (``ops.softmax``)."""
+        return softmax(alpha, index, num_nodes, mask=edge_mask)

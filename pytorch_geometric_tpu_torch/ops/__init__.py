@@ -1,4 +1,7 @@
+from .edge_dot import edge_dot, edge_dot_plain
 from .gat_fused import gat_aggregate, gat_mix, gat_mix_plain
+from .sddmm import (edge_softmax, edge_softmax_aggregate,
+                    multi_relation_softmax_aggregate, sddmm)
 from .scatter import scatter
 from .segment import ptr2index, index2ptr
 from .segment_max import segment_max_blocked, segment_max_plain
@@ -6,7 +9,9 @@ from .segment_spmm import segment_spmm, segment_spmm_plain
 from .softmax import softmax
 from .spmm import spmm, spmm_regime
 
-__all__ = ['gat_aggregate', 'gat_mix', 'gat_mix_plain', 'scatter',
+__all__ = ['gat_aggregate', 'gat_mix', 'gat_mix_plain', 'edge_dot',
+           'edge_dot_plain', 'edge_softmax', 'edge_softmax_aggregate',
+           'multi_relation_softmax_aggregate', 'sddmm', 'scatter',
            'ptr2index', 'index2ptr', 'segment_max_blocked',
            'segment_max_plain', 'segment_spmm', 'segment_spmm_plain',
            'softmax', 'spmm', 'spmm_regime']

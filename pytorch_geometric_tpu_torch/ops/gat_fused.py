@@ -39,8 +39,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import backend
 from ..compat import register_launch_counter
-from .gather import take_rows
+from .edge_dot import edge_dot
+from .gather import MIX_L2_SHARE, take_rows
 from .segment import ptr2index
 
 
@@ -74,12 +76,6 @@ def gat_mix_plain(indptr: torch.Tensor, src: torch.Tensor,
     return s, u
 
 
-# The share of the card's L2 that one slice of v may fill, from the
-# slice-width sweep of chip_smoke.py (PERF.md): on an H100 (50 MiB of L2,
-# two partitions) a 25.6 MB slice beat one of 12.8 MB, which re-reads the
-# slot streams twice as often, and one of 51.2 MB, which does not stay
-# resident.
-MIX_L2_SHARE = 0.5
 # the least bytes of a row that one slice gathers: one 128-byte line
 MIX_MIN_SLICE_BYTES = 128
 
@@ -259,8 +255,10 @@ class _GatMix(torch.autograd.Function):
     """``(s, u)`` of :func:`gat_mix` over ``blk`` with its backward
     (``_gat_mix_bwd`` of the JAX package): ``grad_v`` is the same kernel
     over the source-major slot order ``blk_t``, with ``p_u`` gathered by
-    ``t_pos`` and ``gu`` in the place of ``v``; ``grad_p_s`` and
-    ``grad_p_u`` are plain gathers and dots, as XLA does them there."""
+    ``t_pos`` and ``gu`` in the place of ``v``; ``grad_p_u[k] = <v[src_k],
+    gu[dst_k]>`` is the per-edge dot kernel over the slots
+    (``ops/edge_dot.py::edge_dot``), which never writes the two gathered
+    ``[E, H, F]`` operands; ``grad_p_s`` is a gather."""
 
     @staticmethod
     def forward(ctx, p_s, p_u, v, blk, blk_t, num_dst):
@@ -278,15 +276,15 @@ class _GatMix(torch.autograd.Function):
         num_src, h, f = v.shape
         grad_p_s = grad_p_u = grad_v = None
         dsafe = blk.dst.clamp(max=max(num_dst - 1, 0))
-        ssafe = blk.src.long().clamp(0, max(num_src - 1, 0))
         valid = ((blk.dst < num_dst) & (blk.src >= 0)
                  & (blk.src < num_src))[:, None]
         if ctx.needs_input_grad[0]:
             grad_p_s = torch.where(valid, take_rows(gs, dsafe), 0.0)
         if ctx.needs_input_grad[1]:
-            prod = (gu.reshape(num_dst, h, f)[dsafe]
-                    * v[ssafe]).sum(-1)
-            grad_p_u = torch.where(valid, prod, 0.0)
+            # the per-edge dot kernel: 0 where the slot's source or
+            # destination is out of range, as ``valid`` says
+            grad_p_u = edge_dot(v, gu.reshape(num_dst, h, f).contiguous(),
+                                blk.src, blk.dst)
         if ctx.needs_input_grad[2]:
             p_t = take_rows(p_u, blk_t.t_pos)
             _, gv = gat_mix(blk_t.indptr, blk_t.src, None, p_t,
@@ -298,6 +296,24 @@ class _GatMix(torch.autograd.Function):
 def fused_gat_available(edge_index) -> bool:
     return (getattr(edge_index, 'blocked', None) is not None
             and getattr(edge_index, 'blocked_t', None) is not None)
+
+
+def fused_ok(edge_index, x: torch.Tensor) -> bool:
+    """Whether an attention op takes its fused route over the slot orders
+    (the convs' fused branch, ``ops.softmax``'s ``edge_index=`` route):
+    they are cached and ``backend.use_kernel_spmm`` is on. With the knob
+    off the CPU takes the plain route and the card raises, since nothing
+    else stands in for the kernels there."""
+    if not fused_gat_available(edge_index):
+        return False
+    if not backend.use_kernel_spmm:
+        if x.device.type == 'cuda':
+            raise RuntimeError(
+                'backend.use_kernel_spmm is False, and the fused attention '
+                'route has no other CUDA arm; move the tensors to the CPU '
+                'to run the plain versions')
+        return False
+    return True
 
 
 def gat_aggregate(edge_index, logits: torch.Tensor, v: torch.Tensor,

@@ -14,6 +14,13 @@ import torch
 # rows of at most this many elements take the flat index
 NARROW = 16
 
+# The share of the card's L2 that one slice of a gathered table may fill
+# (the mix kernel's v, the dot kernel's a and b), from the slice-width sweep
+# of chip_smoke.py (PERF.md): on an H100 (50 MiB of L2, two partitions) a
+# 25.6 MB slice of v beat one of 12.8 MB, which re-reads the slot streams
+# twice as often, and one of 51.2 MB, which does not stay resident.
+MIX_L2_SHARE = 0.5
+
 
 def _flat_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     w = x.shape[1]

@@ -2,14 +2,20 @@
 
 Counterpart of ``pytorch_geometric_tpu/ops/softmax.py`` (``softmax`` with
 the semantics of ``_softmax_xla``). The JAX package leaves it to XLA, with
-no Pallas kernel, so the port's is plain PyTorch on either device. The
-fused route through the blocked layout (``edge_index=``, ``ops/sddmm.py``)
-is not ported yet (ROADMAP Queue 1, item 7).
+no Pallas kernel, so the port's is plain PyTorch on either device. Given an
+``edge_index`` with the slot orders cached, ``[E, H]`` logits take the fused
+route, ``ops/sddmm.py::edge_softmax`` (its denominators on the mix kernel),
+under the JAX package's condition; ``backend.use_kernel_spmm`` plays its
+``_use_pallas()`` there, and with the knob off a CUDA tensor on that route
+raises (``ops/gat_fused.py::fused_ok``).
 """
 
 from typing import Optional
 
 import torch
+
+from .gat_fused import fused_ok
+from .sddmm import edge_softmax, fused_softmax_available
 
 
 def _expand(index: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -17,7 +23,8 @@ def _expand(index: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def softmax(src: torch.Tensor, index: torch.Tensor, num_segments: int,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None,
+            edge_index=None) -> torch.Tensor:
     """Softmax of ``src`` (``[E]`` or ``[E, H]``) grouped by ``index``
     (e.g. GAT attention over the incoming edges of each destination).
 
@@ -26,7 +33,18 @@ def softmax(src: torch.Tensor, index: torch.Tensor, num_segments: int,
     all-masked segment gives zeros, not NaN. As in the JAX package, an
     index past the last segment (a padded edge, ``index == num_segments``)
     enters no segment's max or sum, and its gathers are clamped to the last
-    segment."""
+    segment.
+
+    When ``edge_index`` (an ``EdgeIndex`` with the slot orders cached whose
+    destinations are ``index``) is given, the softmax of ``[E, H]`` logits
+    runs through :func:`ops.sddmm.edge_softmax`; with
+    ``backend.use_kernel_spmm`` off that route raises for a CUDA tensor and
+    a CPU tensor takes the plain one."""
+    if (edge_index is not None and src.dim() == 2
+            and fused_softmax_available(edge_index)
+            and src.shape[0] == edge_index.blocked.inv_pos.shape[0]
+            and fused_ok(edge_index, src)):
+        return edge_softmax(edge_index, src, edge_mask=mask)
     index = index.long()
     n = num_segments
     if mask is not None:

@@ -1352,3 +1352,290 @@ def test_gather_path_gradient_matches_plain_on_a_padded_batch(dev):
         for a, r in zip(got, ref):
             assert float((a - r).abs().max()) <= 1e-5 * float(
                 r.abs().max()), (a - r).abs().max()
+
+
+# -- the per-edge dot kernel (csrc/sddmm.cu) ----------------------------------
+def _dot_case(dev, na, nb, e, h, f, seed, dtype=torch.float32):
+    """Tables, indices with out-of-range entries on both sides (negative and
+    past the end), and a mask."""
+    g = torch.Generator(dev).manual_seed(seed)
+    a = torch.randn(na, h, f, device=dev, generator=g).to(dtype)
+    b = torch.randn(nb, h, f, device=dev, generator=g).to(dtype)
+    ia = torch.randint(-2, na + 3, (e,), device=dev, generator=g)
+    ib = torch.randint(-2, nb + 3, (e,), device=dev, generator=g)
+    mask = torch.rand(e, device=dev, generator=g) < 0.85
+    return a, b, ia, ib, mask
+
+
+def _dot_close(out, a, b, ia, ib, mask, bf16=False):
+    """Against the plain version on the same card tensors: 1e-5 + 1e-5 of
+    the edge's sum of |a * b| terms (float32 sums in another order), one
+    bf16 ulp more for the bf16 arm."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot_plain
+    ref = edge_dot_plain(a, b, ia, ib, mask)
+    scale = edge_dot_plain(a.float().abs(), b.float().abs(), ia, ib, mask)
+    if bf16:
+        _bf16_close(out, ref, scale)
+    else:
+        _close(out, ref, scale)
+    return float((out.float() - ref.float()).abs().max()) if out.numel() \
+        else 0.0
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('h,f', [(4, 64), (4, 10), (1, 8), (1, 33), (8, 16),
+                                 (2, 3), (1, 256)])
+@pytest.mark.parametrize('index', [torch.int32, torch.int64])
+def test_edge_dot_kernel_matches_plain(dev, dtype, h, f, index):
+    """Every width the paths use (H*F = 256, 40, one head as 2-D tables) and
+    odd ones; out-of-range indices and a mask give 0; one launch each."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
+    a, b, ia, ib, mask = _dot_case(dev, 700, 500, 9000, h, f, seed=h * f,
+                                   dtype=dtype)
+    ia, ib = ia.to(index), ib.to(index)
+    bf16 = dtype == torch.bfloat16
+    attr = 'launches_bf16' if bf16 else 'launches'
+    before = getattr(edge_dot, attr)
+    out = edge_dot(a, b, ia, ib, mask)
+    torch.cuda.synchronize()
+    assert getattr(edge_dot, attr) == before + 1
+    assert out.shape == (9000, h) and out.dtype == dtype
+    _dot_close(out, a, b, ia, ib, mask, bf16)
+    bad = (ia < 0) | (ia >= 700) | (ib < 0) | (ib >= 500) | ~mask
+    assert bad.any() and not out[bad].any()
+    if h == 1:
+        flat = edge_dot(a[:, 0], b[:, 0], ia, ib, mask)
+        assert torch.equal(flat, out[:, 0])
+    # the same bits on a second launch
+    assert torch.equal(edge_dot(a, b, ia, ib, mask), out)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_edge_dot_strided_unaligned_and_refusals(dev, dtype):
+    """Rows with their own stride (a column half of a wider table), a
+    table 4 bytes past a 16-byte boundary, an empty edge list (no launch);
+    a half tensor, mixed dtypes and a table on another device raise."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
+    a, b, ia, ib, mask = _dot_case(dev, 300, 300, 4000, 4, 16, seed=3,
+                                   dtype=dtype)
+    wide = torch.cat([b.view(300, 64), b.view(300, 64)], 1)
+    out = edge_dot(a, wide[:, 64:].view(300, 4, 16), ia, ib, mask)
+    _dot_close(out, a, b, ia, ib, mask, dtype == torch.bfloat16)
+    flat = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(300, 4, 16)
+    assert flat.data_ptr() % 16 != 0
+    out = edge_dot(flat, b, ia, ib)
+    _dot_close(out, flat, b, ia, ib, None, dtype == torch.bfloat16)
+    before = edge_dot.launches + edge_dot.launches_bf16
+    empty = edge_dot(a, b, ia[:0], ib[:0])
+    assert empty.shape == (0, 4)
+    assert edge_dot.launches + edge_dot.launches_bf16 == before
+    with pytest.raises(TypeError, match='float32'):
+        edge_dot(a.half(), b.half(), ia, ib)
+    with pytest.raises(TypeError, match='float32'):
+        edge_dot(a.float(), b.bfloat16(), ia, ib)
+    with pytest.raises(ValueError, match='is on cpu'):
+        edge_dot(a, b.cpu(), ia, ib)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('h,f', [(4, 64), (4, 10), (6, 16)])
+def test_edge_dot_bitwise_across_slice_widths(dev, dtype, h, f):
+    """Every slice width (a divisor of H, in heads) gives the same bits as
+    one slice; a width that does not tile the heads raises."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
+    a, b, ia, ib, mask = _dot_case(dev, 900, 700, 20_000, h, f, seed=h + f,
+                                   dtype=dtype)
+    ref = edge_dot(a, b, ia, ib, mask, slice_heads=h)
+    _dot_close(ref, a, b, ia, ib, mask, dtype == torch.bfloat16)
+    for hs in range(1, h):
+        if h % hs == 0:
+            assert torch.equal(edge_dot(a, b, ia, ib, mask, slice_heads=hs),
+                               ref), hs
+    assert torch.equal(edge_dot(a, b, ia, ib, mask), ref)
+    with pytest.raises(ValueError, match='does not tile'):
+        edge_dot(a, b, ia, ib, slice_heads=h + 1)
+
+
+def test_gat_mix_grad_p_u_on_the_dot_kernel(dev):
+    """``_GatMix``'s backward: ``grad_p_u`` is one launch of the dot kernel
+    over the slot order and agrees with the plain dot ``<v[src], gu[dst]>``
+    (0 on padded slots)."""
+    from pytorch_geometric_tpu_torch.ops.gat_fused import _GatMix
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (edge_dot,
+                                                          edge_dot_plain)
+    ei = _slots(300, 400, 5000, dev, seed=21)
+    blk, blk_t = ei.blocked, ei.blocked_t
+    g = torch.Generator(dev).manual_seed(0)
+    e = blk.src.shape[0]
+    p = torch.rand(e, 4, device=dev, generator=g).requires_grad_()
+    v = torch.randn(300, 4, 16, device=dev, generator=g)
+    gu = torch.randn(400, 4, 16, device=dev, generator=g)
+    s, u = _GatMix.apply(p, p, v, blk, blk_t, 400)
+    before = edge_dot.launches
+    (u * gu).sum().backward()
+    torch.cuda.synchronize()
+    assert edge_dot.launches == before + 1
+    ref = edge_dot_plain(v, gu, blk.src, blk.dst)
+    scale = edge_dot_plain(v.abs(), gu.abs(), blk.src, blk.dst)
+    _close(p.grad, ref, scale)
+    assert not p.grad[blk.dst >= 400].any()
+
+
+def test_softmax_edge_index_route_on_card(dev, monkeypatch):
+    """``ops.softmax(edge_index=...)`` over cached slot orders on the card
+    runs ``edge_softmax`` (the mix kernel's ``s``-only passes) and agrees
+    with the plain route on the CPU; with the kernel knob off it raises,
+    as the convs' fused branch does, and launches nothing."""
+    from pytorch_geometric_tpu_torch.ops import softmax
+    coo, _, _ = _case(400, 400, 6000, 1, seed=24)
+    ei = EdgeIndex(coo, (400, 400), device=dev).fill_cache(blocked=True)
+    g = torch.Generator().manual_seed(1)
+    logits = torch.randn(coo.shape[1], 4, generator=g)
+    index = torch.as_tensor(coo[1]).long().clamp(max=399)
+    valid = torch.as_tensor(coo[1] < 400)
+    ref = softmax(logits, index, 400, mask=valid)
+    before = gat_mix.launches
+    out = softmax(logits.to(dev), index.to(dev), 400, mask=valid.to(dev),
+                  edge_index=ei)
+    assert gat_mix.launches > before
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5)
+    monkeypatch.setattr(backend, 'use_kernel_spmm', False)
+    before = gat_mix.launches
+    with pytest.raises(RuntimeError, match='use_kernel_spmm'):
+        softmax(logits.to(dev), index.to(dev), 400, mask=valid.to(dev),
+                edge_index=ei)
+    assert gat_mix.launches == before
+
+
+def _transformer(dev, seed=0):
+    from pytorch_geometric_tpu_torch.nn.conv import TransformerConv
+    gen = torch.Generator().manual_seed(seed)
+    return torch.nn.ModuleList([
+        TransformerConv(16, 8, heads=4, beta=True, device=dev, generator=gen),
+        TransformerConv(32, 10, heads=4, concat=False, beta=True, device=dev,
+                        generator=gen)])
+
+
+def _transformer_fwd(convs, x, ei):
+    return convs[1](torch.relu(convs[0](x, ei)), ei)
+
+
+def _named_results(out, x, module):
+    res = {'out': out.detach().cpu(), 'grad x': x.grad.cpu()}
+    res.update({k: p.grad.cpu() for k, p in module.named_parameters()})
+    return res
+
+
+def _results_close(got, ref):
+    """Each tensor within 1e-4 of its largest magnitude; a key bias's
+    gradient, which the softmax cancels exactly (it shifts every score of a
+    destination alike) and is rounding noise on both devices, within 1e-4
+    of the largest gradient."""
+    largest = max(float(r.abs().max()) for k, r in ref.items() if k != 'out')
+    for k, r in ref.items():
+        scale = largest if k.endswith('lin_key.bias') else float(
+            r.abs().max())
+        torch.testing.assert_close(got[k], r, rtol=0, atol=1e-4 * scale,
+                                   msg=k)
+
+
+def test_transformer_conv_on_card_matches_cpu(dev):
+    """Two fused TransformerConv layers (H*F = 32, then 40) on the card
+    against the CPU: the output and every gradient; per forward one dot
+    launch and two mix launches a layer, per backward two mix launches
+    (``sddmm``'s) and one dot launch (``grad_p_u``) a layer and ``grad_v``;
+    with the kernel knob off the card raises."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
+    coo, _, x = _case(600, 600, 9000, 16, seed=22, n_pad=6)
+    res = []
+    for d in (dev, 'cpu'):
+        convs = _transformer(d)
+        ei = EdgeIndex(coo, (600, 600), device=d).fill_cache(blocked=True)
+        xt = torch.as_tensor(x, device=d).requires_grad_()
+        b_dot, b_mix = edge_dot.launches, gat_mix.launches
+        out = _transformer_fwd(convs, xt, ei)
+        if d == dev:
+            assert (edge_dot.launches - b_dot, gat_mix.launches - b_mix) == \
+                (2, 4)
+        out.square().sum().backward()
+        if d == dev:
+            assert (edge_dot.launches - b_dot, gat_mix.launches - b_mix) == \
+                (4, 10)
+        res.append(_named_results(out, xt, convs))
+    _results_close(*res)
+    import pytorch_geometric_tpu_torch.backend as be
+    be.use_kernel_spmm = False
+    try:
+        with pytest.raises(RuntimeError, match='use_kernel_spmm'):
+            _transformer_fwd(_transformer(dev), torch.as_tensor(x, device=dev),
+                             EdgeIndex(coo, (600, 600),
+                                       device=dev).fill_cache(blocked=True))
+    finally:
+        be.use_kernel_spmm = True
+
+
+@pytest.mark.parametrize('conv', ['transformer-wide', 'supergat-MX',
+                                  'supergat-SD-fused'])
+def test_attention_convs_on_card_match_cpu(dev, conv):
+    """TransformerConv's wide branch (no slot orders) and SuperGATConv (MX
+    with self loops; SD fused) on the card against the CPU, output and
+    gradients at 1e-4 of the largest."""
+    from pytorch_geometric_tpu_torch.nn.conv import (SuperGATConv,
+                                                     TransformerConv)
+    coo, _, x = _case(500, 500, 8000, 16, seed=23, n_pad=4)
+    res = []
+    for d in (dev, 'cpu'):
+        gen = torch.Generator().manual_seed(1)
+        if conv == 'transformer-wide':
+            m = TransformerConv(16, 8, heads=4, beta=True, device=d,
+                                generator=gen)
+            ei = EdgeIndex(coo, (500, 500), device=d)
+        else:
+            att = conv.split('-')[1]
+            loops = conv == 'supergat-MX'
+            m = SuperGATConv(16, 8, heads=4, attention_type=att,
+                             add_self_loops=loops, device=d, generator=gen)
+            ei = EdgeIndex(coo, (500, 500), device=d).fill_cache(blocked=True)
+        xt = torch.as_tensor(x, device=d).requires_grad_()
+        out = m(xt, ei)
+        out.square().sum().backward()
+        res.append(_named_results(out, xt, m))
+    _results_close(*res)
+
+
+def test_captured_transformer_step_equals_eager_bitwise(dev):
+    """Five training steps of the fused TransformerConv stack through
+    ``compat.compile`` (two eager warm-ups, the capture, two replays) take
+    the eager steps bit for bit; the graph holds the eager per-step
+    launches of both kernels, dot and mix."""
+    from pytorch_geometric_tpu_torch import compat
+    coo, _, x = _case(800, 800, 12_000, 16, seed=24, n_pad=0)
+    y = torch.as_tensor(np.random.default_rng(0).integers(0, 10, 800),
+                        device=dev)
+    ei = EdgeIndex(coo, (800, 800), device=dev).fill_cache(blocked=True)
+    xt = torch.as_tensor(x, device=dev)
+    runs = []
+    for compiled in (False, True):
+        convs = _transformer(dev)
+        opt = torch.optim.Adam(convs.parameters(), lr=1e-2, capturable=True)
+
+        def step(x, ei, y):
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(
+                _transformer_fwd(convs, x, ei), y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        if compiled:
+            step = compat.compile(step)
+        losses = torch.stack([step(xt, ei, y) for _ in range(5)])
+        runs.append((losses, [p.detach().clone() for p in
+                              convs.parameters()], step))
+    (l_e, p_e, _), (l_c, p_c, comp) = runs
+    assert comp.captures == 1 and comp.replays == 3
+    assert torch.equal(l_c, l_e), (l_c, l_e)
+    for a, b in zip(p_c, p_e):
+        assert torch.equal(a, b)
+    assert comp.launches_per_replay == {'edge_dot': 4, 'gat_mix': 10}
+    assert comp.replay_launches() == {'edge_dot': 12, 'gat_mix': 30}

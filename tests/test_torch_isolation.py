@@ -15,12 +15,14 @@ import torch
 
 import pytorch_geometric_tpu_torch as pkg
 from pytorch_geometric_tpu_torch import EdgeIndex
-from pytorch_geometric_tpu_torch.nn.conv import GATConv, GATv2Conv, GCNConv
+from pytorch_geometric_tpu_torch.nn.conv import (GATConv, GATv2Conv, GCNConv,
+                                                 SuperGATConv, TransformerConv)
 from pytorch_geometric_tpu_torch.nn.models import GAT, GCN, GIN, GraphSAGE
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import segment_spmm, spmm
 from pytorch_geometric_tpu_torch.ops.bsr_spmm import BSR, bsr_matmul
 from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
+from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
 from pytorch_geometric_tpu_torch.ops.segment_max import segment_max_blocked
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -77,7 +79,7 @@ def test_entry_points_need_a_card_by_default(no_card):
     coo = np.array([[0, 1, 2], [1, 2, 0]], np.int32)
     with pytest.raises(RuntimeError, match='no CUDA card'):
         EdgeIndex(coo, (3, 3))
-    for conv in (GCNConv, GATConv, GATv2Conv):
+    for conv in (GCNConv, GATConv, GATv2Conv, TransformerConv, SuperGATConv):
         with pytest.raises(RuntimeError, match='no CUDA card'):
             conv(4, 4)
     for cls in (GCN, GraphSAGE, GIN, GAT):
@@ -116,6 +118,8 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
         gat_mix(ip, src, p, None, None)
     with pytest.raises(ValueError, match='cpu or cuda'):
         segment_max_blocked(p, SimpleNamespace(indptr=ip), 2)
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        edge_dot(x.view(2, 1, 4), x.view(2, 1, 4), src, src)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
