@@ -238,6 +238,21 @@ BENCH_NAMES = {'GCN': 'gcn', 'GraphSAGE': 'sage', 'GIN': 'gin'}
 N_PRODUCTS, E_PRODUCTS, PR_F, PR_CLASSES = 2_449_029, 123_718_280, 100, 47
 PR_BATCH, PR_FANOUTS, PR_HIDDEN, PR_LR, PR_K = 512, (15, 10), 64, 1e-3, 8
 PR_REPS = 10
+# paths K, L, M: the flash kernels' names in a profile, by counter; a
+# forward of each launches kernel (a) once per flash layer (2), a step adds
+# kernels (b) and (c) per flash layer
+FLASH_KERNELS = {'flash_fwd': 'flash_fwd_kernel',
+                 'flash_bwd_dst': 'flash_bwd_dst_kernel',
+                 'flash_bwd_src': 'flash_bwd_src_kernel'}
+FLASH_PER_FORWARD = {'flash_fwd': 2}
+FLASH_PER_STEP = {'flash_fwd': 2, 'flash_bwd_dst': 2, 'flash_bwd_src': 2}
+# path K's timed steps, and the scale of its check against the CPU; paths L
+# and M's
+PK_STEPS, PK_SMALL, PL_SMALL = 5, 0.01, 0.05
+# paths K, L, M: besides 1e-4 of the largest gradient of all, each gradient
+# is held to this share of its own largest (``flash_parity``); the readings
+# it rests on are in PERF.md
+FLASH_OWN_TOL = 1e-2
 
 
 def log(*a):
@@ -1139,12 +1154,16 @@ def parity_run(torch, kind, state, x, ei, y, device, **kw):
     return losses, grads
 
 
-def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4, cancelled=()):
+def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4, cancelled=(),
+                 own_tol=None):
     """Losses within ``tol`` relative at each step, first-step gradients
-    within ``tol`` of each parameter's largest magnitude; a parameter whose
-    name ends in one of ``cancelled`` (a gradient the model cancels
-    exactly, rounding noise on both devices) within ``tol`` of the largest
-    gradient of all."""
+    within ``tol`` of each parameter's own largest magnitude. A parameter
+    whose name ends in one of ``cancelled`` (a gradient the model cancels
+    exactly, rounding noise on both devices) is held within ``tol`` of the
+    largest gradient of all instead. With ``own_tol`` (a model that is not
+    smooth, ``flash_parity``) every other gradient is held within ``tol``
+    of the largest gradient of all and within ``own_tol`` of its own
+    largest. Every gradient's gap is logged before any is checked."""
     (l_card, g_card), (l_cpu, g_cpu) = card, cpu
     rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(l_card, l_cpu)]
     log(f'[{tag}] losses over {PARITY_STEPS} steps, card {l_card} vs CPU '
@@ -1157,10 +1176,24 @@ def check_parity(torch, tag, card, cpu, grads_too, tol=1e-4, cancelled=()):
     if grads_too:
         worst = 0.0
         largest = max(float(r.abs().max()) for r in g_cpu.values())
+        gaps = {k: float((g_card[k] - ref).abs().max())
+                / max(float(ref.abs().max()), 1e-30)
+                for k, ref in g_cpu.items()}
+        log(f'[{tag}] first-step gradient gaps, of each tensor\'s largest '
+            '(the tensor\'s largest over the largest of all; * cancelled): '
+            + ', '.join(
+                f'{k}{"*" if k.endswith(tuple(cancelled)) else ""} {v:.3e} '
+                f'({float(g_cpu[k].abs().max()) / largest:.1e})'
+                for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])))
         for k, ref in g_cpu.items():
             d = float((g_card[k] - ref).abs().max())
-            scale = largest if k.endswith(tuple(cancelled)) else float(
-                ref.abs().max())
+            own = float(ref.abs().max())
+            if k.endswith(tuple(cancelled)):
+                scale = largest
+            elif own_tol is not None:
+                scale = min(largest, own_tol / tol * own)
+            else:
+                scale = own
             lim = tol * scale
             worst = max(worst, d / max(scale, 1e-30))
             check(d <= lim, f'{tag}: first-step gradient of {k} differs by '
@@ -1810,12 +1843,13 @@ def phase_path_c(torch, seed, iters, warmup, pc):
     return res
 
 
-def gat_parity_run(torch, state, x, ei, y, device, build=None):
+def gat_parity_run(torch, state, x, ei, y, device, build=None, lr=TR_LR):
     """``PARITY_STEPS`` steps of the model ``build`` makes (GAT by
-    default) from ``state``: the losses and the first step's gradients."""
+    default) from ``state``, Adam at ``lr``: the losses and the first
+    step's gradients."""
     model = (build or gat_model)(torch, device, 0)
     model.load_state_dict({k: v.to(device) for k, v in state.items()})
-    opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
     losses, grads = [], None
     for i in range(PARITY_STEPS):
         losses.append(train_step(torch, model, opt, x, ei, y).item())
@@ -3025,7 +3059,8 @@ def replay_expect(per_call):
     for part, arms in ((SEG_MAIN, ('segment_spmm', 'segment_spmm_bf16')),
                        (BSR_MAIN, ('bsr_spmm', 'bsr_spmm_bf16')),
                        (MIX_KERNEL, ('gat_mix', 'gat_mix_bf16')),
-                       (EDGE_DOT_KERNEL, ('edge_dot', 'edge_dot_bf16'))):
+                       (EDGE_DOT_KERNEL, ('edge_dot', 'edge_dot_bf16')),
+                       *((k, (c,)) for c, k in FLASH_KERNELS.items())):
         n = sum(per_call.get(a, 0) for a in arms)
         if n:
             out[part] = n
@@ -3100,7 +3135,7 @@ def captured_serving(torch, tag, fwd, x, eager_out, iters, warmup,
 
 
 def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
-                      tol):
+                      tol, lr=TR_LR, sync_state=False, cancelled=()):
     """A training step through ``compat.compile`` from the weights
     ``make_model`` gives, with ``Adam(capturable=True)``; ``x``, ``ei``,
     ``y`` and ``w`` (GCN's per-call weights, or None) are read in place.
@@ -3112,12 +3147,28 @@ def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
     with whether they are bitwise equal. Then ``steps`` timed replays after
     2 (ms per step, the host seconds they took), a whole-window profile
     that must show the port's kernels (``replay_expect``) and the launch
-    counts."""
+    counts.
+
+    ``sync_state``: for a step that is not bitwise repeatable eagerly (its
+    sums use atomics), the eager run's parameters and Adam moments after
+    its 2 warm-ups are copied into the compiled run's before the capture,
+    so the compared gradients start from the same weights. Otherwise Adam
+    turns the rounding of gradients that cancel (near zero) into steps of
+    the full learning rate, and two eager runs of such a step part by more
+    than ``tol`` by step 3. ``cancelled``: as ``check_parity``'s, gradients
+    the model cancels exactly, held to ``tol`` of the largest of all."""
     from pytorch_geometric_tpu_torch import compat
+
+    def tensors(model, opt):
+        return [p for p in model.parameters()] + [
+            st[k] for p in model.parameters()
+            for st in (opt.state.get(p, {}),) for k in sorted(st)
+            if isinstance(st[k], torch.Tensor)]
 
     def new():
         model = make_model()
-        opt = torch.optim.Adam(model.parameters(), lr=TR_LR, capturable=True)
+        opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=True)
+        opts.append(opt)
 
         def step(x, ei, y, w):
             opt.zero_grad(set_to_none=True)
@@ -3130,7 +3181,7 @@ def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
         return model, step
 
     n = CAPTURE_WARMUP + PARITY_STEPS
-    runs = []
+    runs, opts, snap = [], [], None
     for compiled in (False, True):
         model, step = new()
         if compiled:
@@ -3139,6 +3190,17 @@ def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
             reset_counts()
         losses, grads = [], None
         for i in range(n):
+            if sync_state and i == CAPTURE_WARMUP:
+                held = tensors(model, opts[-1])
+                if snap is None:
+                    snap = [t.detach().clone() for t in held]
+                else:
+                    with torch.no_grad():
+                        for t, v in zip(held, snap):
+                            t.copy_(v)
+                    log(f'[{tag}] the eager run\'s weights and Adam moments '
+                        f'after {CAPTURE_WARMUP} steps copied in before the '
+                        'capture')
             losses.append(step(x, ei, y, w))
             if i == CAPTURE_WARMUP:
                 grads = {k: p.grad.detach().clone()
@@ -3149,11 +3211,18 @@ def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
           f'{tag}: {comp.captures} captures, {comp.replays} replays')
     rel = float(((l_cap - l_eager).abs() / l_eager.abs()).max())
     losses_bitwise = bool(torch.equal(l_cap, l_eager))
-    grad_rel, grads_bitwise = 0.0, True
+    grad_rel, grads_bitwise, by_tensor = 0.0, True, {}
+    largest = max(float(g.abs().max()) for g in g_eager.values())
     for k, ref in g_eager.items():
         d = float((g_cap[k] - ref).abs().max())
         grads_bitwise = grads_bitwise and bool(torch.equal(g_cap[k], ref))
-        grad_rel = max(grad_rel, d / max(float(ref.abs().max()), 1e-30))
+        scale = largest if k.endswith(tuple(cancelled)) else float(
+            ref.abs().max())
+        by_tensor[k] = d / max(scale, 1e-30)
+        grad_rel = max(grad_rel, by_tensor[k])
+    far = sorted(by_tensor.items(), key=lambda kv: -kv[1])[:3]
+    log(f'[{tag}] largest captured-vs-eager gradient gaps (of each '
+        f'tensor\'s largest): ' + ', '.join(f'{k} {v:.3e}' for k, v in far))
     log(f'[{tag}] compat.compile step vs the eager step, same weights and '
         f'capturable Adam, {n} steps ({CAPTURE_WARMUP} eager warm-ups, then '
         f'replays): losses {l_cap.tolist()} vs {l_eager.tolist()}, max '
@@ -3208,6 +3277,30 @@ def products_graph(n, e, seed):
     dst = np.minimum(np.where(intra, dst_intra, dst_hub), n - 1)
     perm = rng.permutation(n)
     return np.stack([perm[src], perm[dst]]).astype(np.int32)
+
+
+def products_gat(torch, device, seed):
+    """Path K's model, ``products_bench.py --gat``'s (``run_gat``,
+    ``:347-410``): ``GATConv(100, 16, heads=4)`` -> ReLU -> ``GATConv(64, 47,
+    heads=1, concat=False)``, default self loops, random weights from
+    ``seed``. Its parameter names are those of a flax ``Net`` whose convs
+    are named ``conv_0`` and ``conv_1``."""
+    from pytorch_geometric_tpu_torch.nn.conv import GATConv
+    gen = torch.Generator().manual_seed(seed)
+    convs = [GATConv(PR_F, PR_HIDDEN // 4, heads=4, device=device,
+                     generator=gen),
+             GATConv(PR_HIDDEN, PR_CLASSES, heads=1, concat=False,
+                     device=device, generator=gen)]
+
+    class ProductsGAT(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList(convs)
+
+        def forward(self, x, ei):
+            return self.convs[1](torch.relu(self.convs[0](x, ei)), ei)
+
+    return ProductsGAT()
 
 
 def sample_batch(colptr, row, seeds, fanouts, rng):
@@ -3335,7 +3428,7 @@ def gather_ab(torch, x, idx, reps):
     return out
 
 
-def phase_scan_train(torch, seed, reps):
+def phase_scan_train(torch, seed, reps, coo):
     """``loader/scan_train.py`` at ``products_bench.py``'s sampled training
     (``:171-196``): X [N_PRODUCTS, 100] float32 and Y (47 classes) made on
     the card from ``seed``; the first K = 8 batches of its loader's epoch
@@ -3358,15 +3451,12 @@ def phase_scan_train(torch, seed, reps):
                                                     stack_batches)
     from pytorch_geometric_tpu_torch.nn.models import GraphSAGE
     tag = 'scan_train'
-    t0 = time.perf_counter()
-    coo = products_graph(N_PRODUCTS, E_PRODUCTS, seed)
     t1 = time.perf_counter()
     batches = products_batches(coo, N_PRODUCTS, PR_BATCH, PR_FANOUTS, PR_K,
                                seed)
-    del coo
     fill = batch_fill(batches, PR_FANOUTS)
     log(f'[{tag}] products_bench graph ({N_PRODUCTS} nodes, {E_PRODUCTS} '
-        f'edges, seed {seed}) built in {t1 - t0:.1f} s, {PR_K} batches '
+        f'edges, seed {seed}): {PR_K} batches '
         f'sampled in {time.perf_counter() - t1:.1f} s on the host; per '
         f"batch {fill['nodes_per_batch']:.1f} of {fill['n_cap']} node slots "
         f"(fill {fill['node_fill']:.4f}), {fill['edges_per_batch']:.1f} of "
@@ -3509,6 +3599,682 @@ def phase_scan_train(torch, seed, reps):
     return res
 
 
+# -- the flash kernels and paths K, L, M --------------------------------------
+def plain_flash(torch):
+    """A context in which the flash routes run their plain versions on the
+    card: ``ops/flash_softmax.py``'s wrappers swapped for the chunked plain
+    scans (the routes look them up at call time). For holding a path
+    against the plain versions on the same card tensors; nothing counts."""
+    import contextlib
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = fs.flash_forward, fs.flash_backward
+        fs.flash_forward = (lambda ops, s, d, rel, n, chunk, plan=None:
+                            fs.flash_forward_plain(ops, s, d, rel, n, chunk))
+        fs.flash_backward = (lambda ops, s, d, rel, n, chunk, m, l, out, g,
+                             plan=None, plan_t=None: fs.flash_backward_plain(
+                                 ops, s, d, rel, n, chunk, m, l, out, g))
+        try:
+            yield
+        finally:
+            fs.flash_forward, fs.flash_backward = saved
+
+    return ctx()
+
+
+def scaled_cap(scale):
+    """A context in which ``PGT_ATTN_WIDE_BYTES`` is its value times
+    ``scale``: a graph cut to ``scale`` of its edges then takes, at every
+    layer, the branch its full size takes (the branch rule compares the
+    edges' bytes with the cap)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        old = os.environ.get('PGT_ATTN_WIDE_BYTES')
+        os.environ['PGT_ATTN_WIDE_BYTES'] = repr(float(old or 1e9) * scale)
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ['PGT_ATTN_WIDE_BYTES']
+            else:
+                os.environ['PGT_ATTN_WIDE_BYTES'] = old
+
+    return ctx()
+
+
+def small_path_c(seed, scale):
+    """Path C's generator at ``scale`` of its nodes and edges (random COO,
+    one self loop per node by ``add_remaining_self_loops``, x and labels
+    from the same generator)."""
+    import torch
+    from pytorch_geometric_tpu_torch.utils import add_remaining_self_loops
+    rng = np.random.default_rng(seed)
+    n, e = int(PC_NODES * scale), int(PC_EDGES * scale)
+    coo = rng.integers(0, n, (2, e)).astype(np.int32)
+    coo = add_remaining_self_loops(torch.from_numpy(coo), num_nodes=n)[0]
+    x = rng.standard_normal((n, PC_F)).astype(np.float32)
+    y = rng.integers(0, PC_CLASSES, n)
+    return coo.numpy(), x, y
+
+
+def flash_case(torch, form, h, c, seed, n_src=20_000, n_dst=12_000,
+               e=250_000):
+    """A bipartite flash case on the card: a third of the destinations
+    empty, one destination holding 55 % of the edges, 64 padded edges
+    (destination ``n_dst``) and 64 invalid ones (``n_dst + 5``); 2 relations
+    for the dot form. Returns ``(ops, s, d, rel, n_dst)``."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(n_dst, 2 * n_dst // 3, replace=False)
+    d = rows[rng.integers(0, len(rows), e)]
+    d[: 55 * e // 100] = rows[0]
+    d[-128:-64], d[-64:] = n_dst, n_dst + 5
+    d = d[rng.permutation(e)]
+    s = rng.integers(0, n_src, e)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    sw = h if form == 'gat' else h * c
+    src_tab = torch.randn(n_src, sw, device='cuda', generator=g)
+    dst_tab = torch.randn(n_dst, sw, device='cuda', generator=g)
+    val = (src_tab if form == 'gatv2' else
+           torch.randn(n_src, h * c, device='cuda', generator=g))
+    extra = rel = None
+    if form == 'gatv2':
+        extra = torch.randn(h * c, device='cuda', generator=g) / math.sqrt(c)
+    if form == 'dot':
+        extra = torch.rand(2, h, device='cuda', generator=g) / math.sqrt(c)
+        rel = torch.as_tensor(rng.integers(0, 2, e), device='cuda')
+    ops = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
+    return (ops, torch.as_tensor(s, device='cuda'),
+            torch.as_tensor(d, device='cuda'), rel, n_dst)
+
+
+def flash_route(torch, ops, s, d, n_dst, gcot, layout):
+    """The public flash route of ``ops``' form as a conv calls it, under
+    autograd on leaf copies of ``ops``' tables: ``gat_flash_attention``,
+    ``gatv2_flash_attention``, or ``hetero_edge_attention_multi`` of one
+    relation past the cap (or over a ``FlashLayout`` with its source-sorted
+    copy when ``layout``). So ``_FlashAttention`` builds its own plans and
+    routes its gradients. Returns the output ``[n_dst, H C]`` and the
+    tables' gradients for ``gcot`` in ``flash_backward``'s order (None
+    where the form has no such table)."""
+    from pytorch_geometric_tpu_torch.ops import edge_attention as ea
+    h, c = ops.heads, ops.columns
+    with torch.inference_mode(False), torch.enable_grad():
+        def leaf(t):
+            return t.detach().clone().requires_grad_()
+        s, d, gcot = s.clone(), d.clone(), gcot.clone()
+        src, dst = leaf(ops.src_tab), leaf(ops.dst_tab)
+        if ops.form == 'gat':
+            val = leaf(ops.val)
+            out = ea.gat_flash_attention(src, dst, val.view(-1, h, c), s, d,
+                                         n_dst, ops.slope)
+            leaves = (src, dst, val, None)
+        elif ops.form == 'gatv2':
+            att = leaf(ops.extra)
+            out = ea.gatv2_flash_attention(
+                src.view(-1, h, c), dst.view(-1, h, c), att.view(h, c), s,
+                d, n_dst, ops.slope)
+            leaves = (src, dst, None, att)
+        else:
+            val, p = leaf(ops.val), leaf(ops.extra[0])
+            lay = None
+            if layout:
+                lay = ea.build_union_flash_layout(
+                    [s.cpu().numpy()], [d.cpu().numpy()], [src.shape[0]],
+                    n_dst, device=s.device)
+            with scaled_cap(0.0):
+                out = ea.hetero_edge_attention_multi(
+                    [src.view(-1, h, c)], [val.view(-1, h, c)],
+                    dst.view(-1, h, c), [p], [s], [d], n_dst, layout=lay)
+            leaves = (src, dst, val, p)
+        out.backward(gcot.view(out.shape))
+    return (out.detach().reshape(n_dst, -1),
+            [None if t is None else t.grad for t in leaves])
+
+
+def flash_close(torch, ops, s, d, rel, n_dst, sorted_dst=False, route=False):
+    """Kernels (a), (b), (c) against the plain versions on the same card
+    tensors, the plain versions computed in float64 from the same float32
+    inputs (a float32 plain version sums a hub row's 137,500 terms with
+    atomics, in no fixed order, and rounds by about as much as the kernel
+    may): the output within 1e-5 of max(1, its largest), m's infinities
+    where the plain version has them, each gradient entry within 1e-4 of
+    that gradient's largest plus 1e-5 of the sum of the entry's terms'
+    magnitudes (``abs_terms``: every row's ``dlogit`` sums to zero, so the
+    gradients summed over a row's edges, or GATv2's ``att`` over all edges,
+    cancel, and their float32 terms round by more than the small sum they
+    leave); both launches twice, bitwise equal. With ``route`` (one
+    relation), ``flash_route``'s output and every input's gradient within
+    the same limits, and for the dot form its layout route too. Returns
+    ``(max abs err, max err over its limit)``."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    plan = fs.dst_plan(s, d, rel, n_dst, sorted_dst)
+    plan_t = fs.src_plan(s, d, rel, n_dst, ops.src_tab.shape[0])
+    chunk = 2_000_000
+    out, m, l = fs.flash_forward(ops, s, d, rel, n_dst, chunk, plan)
+    again = fs.flash_forward(ops, s, d, rel, n_dst, chunk, plan)
+    torch.cuda.synchronize()
+    src64 = ops.src_tab.double()
+    ops64 = ops._replace(
+        src_tab=src64, dst_tab=ops.dst_tab.double(),
+        val=src64 if ops.form == 'gatv2' else ops.val.double(),
+        extra=None if ops.extra is None else ops.extra.double())
+    ref = fs.flash_forward_plain(ops64, s, d, rel, n_dst, chunk)
+    check(all(torch.equal(a, b) for a, b in zip((out, m, l), again)),
+          'flash forward: two launches differ')
+    check(torch.equal(torch.isinf(m), torch.isinf(ref[1])),
+          'flash forward: m is -inf on other rows than the plain version\'s')
+    lim_out = 1e-5 * max(1.0, float(ref[0].abs().max()))
+    err = float((out.double() - ref[0]).abs().max())
+    check(err <= lim_out, f'flash forward: {err} from the plain version '
+                          f'(limit {lim_out})')
+    worst = (err, err / lim_out)
+    rel_err = {'out': err / max(float(ref[0].abs().max()), 1e-300)}
+    gcot = torch.randn(out.shape, device='cuda',
+                       generator=torch.Generator('cuda').manual_seed(1))
+    got = fs.flash_backward(ops, s, d, rel, n_dst, chunk, m, l, out, gcot,
+                            plan, plan_t)
+    twice = fs.flash_backward(ops, s, d, rel, n_dst, chunk, m, l, out, gcot,
+                              plan, plan_t)
+    torch.cuda.synchronize()
+    want = fs.flash_backward_plain(ops64, s, d, rel, n_dst, chunk, ref[1],
+                                   ref[2], ref[0], gcot.double())
+    terms = fs.flash_backward_plain(ops64, s, d, rel, n_dst, chunk, ref[1],
+                                    ref[2], ref[0], gcot.double(),
+                                    abs_terms=True)
+    for name, a, b, a2, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'), got,
+                                 want, twice, terms):
+        check((a is None) == (b is None), f'flash backward: {name} missing')
+        if a is None:
+            continue
+        check(torch.equal(a, a2), f'flash backward: two launches differ in '
+                                  f'{name}')
+        a = a.double()
+        lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
+        over = float(((a - b).abs() / lim).max())
+        err = float((a - b).abs().max())
+        rel_err[name] = err / max(float(b.abs().max()), 1e-300)
+        check(over <= 1.0, f'flash backward: {name} {err} from the plain '
+                           f'version ({over:.3f} of its limit)')
+        worst = (max(worst[0], err), max(worst[1], over))
+    for layout in ((False, True) if route and ops.form == 'dot' else
+                   (False,) if route else ()):
+        what = 'layout route' if layout else 'route'
+        out_r, grads = flash_route(torch, ops, s, d, n_dst, gcot, layout)
+        err = float((out_r.double() - ref[0]).abs().max())
+        check(err <= lim_out, f'flash {what}: output {err} from the plain '
+                              f'version (limit {lim_out})')
+        worst = (max(worst[0], err), max(worst[1], err / lim_out))
+        for name, a, b, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'),
+                                 grads, want, terms):
+            if b is None:
+                continue
+            check(a is not None, f'flash {what}: no gradient for {name}')
+            a = a.double().reshape(b.shape)
+            lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
+            over = float(((a - b).abs() / lim).max())
+            err = float((a - b).abs().max())
+            check(over <= 1.0, f'flash {what}: gradient {name} {err} from '
+                               f'the plain version ({over:.3f} of its '
+                               f'limit)')
+            worst = (max(worst[0], err), max(worst[1], over))
+        log(f'[kernel]   the {what} (plans, autograd): output and every '
+            'input\'s gradient within the same limits')
+    log('[kernel]   against the float64 plain version, each output\'s max '
+        'abs err over its largest: ' + ', '.join(
+            f'{k} {v:.2e}' for k, v in rel_err.items()))
+    return worst
+
+
+def phase_flash_vs_plain(torch, seed):
+    """Each flash kernel against its plain version in each logit form, H in
+    {1, 4, 8} and C in {1, 10, 16, 47, 64}, on ``flash_case``'s graph:
+    empty rows, padded and invalid edges, a destination of 137,500 edges
+    (269 pieces), 2 relations for the dot form; two launches bitwise
+    equal. Returns the worst (abs err, err over limit)."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    worst = (0.0, 0.0)
+    t0 = time.perf_counter()
+    for form in fs.FORMS:
+        for h in (1, 4, 8):
+            for c in (1, 10, 16, 47, 64):
+                case = flash_case(torch, form, h, c, seed + h + c)
+                with torch.inference_mode():
+                    err = flash_close(torch, *case)
+                worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+                log(f'[kernel] flash {form} H={h} C={c}: (a), (b), (c) '
+                    f'max abs err {err[0]:.3e}, {err[1]:.3f} of the limit, '
+                    'two launches bitwise equal')
+    log(f'[kernel] flash kernels, 45 cases in {time.perf_counter() - t0:.1f}'
+        f' s: worst abs err {worst[0]:.3e}, {worst[1]:.3f} of its limit '
+        '(forward 1e-5 of max(1, the largest output); a gradient entry 1e-4 '
+        'of that gradient\'s largest plus 1e-5 of the sum of its terms\' '
+        'magnitudes)')
+    return worst
+
+
+def gatv2_model(torch, device, seed):
+    """Path L's model: path C's GAT with ``GATv2Conv`` layers and default
+    self loops (64 -> 4 x 64, 256 -> 4 x 64, 256 -> 4 x 10 averaged)."""
+    from pytorch_geometric_tpu_torch.nn.models import GAT
+    return GAT(PC_F, PC_HIDDEN, PC_LAYERS, PC_CLASSES, heads=PC_HEADS,
+               v2=True, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def flash_serve_train(torch, tag, build, seed, x, ei, y, per_fwd, per_step,
+                      iters, steps, lr, sync_state=False, cancelled=()):
+    """A flash path served (``inference_mode``) and trained (softmax
+    cross-entropy, Adam at ``lr``), each eager and through
+    ``compat.compile``: ms per forward or step, the host's issue time,
+    launches (``per_fwd`` / ``per_step`` per call, every other kernel arm
+    none), whole-window profiles and idle shares, peak memory; the eager
+    step run twice from the same weights (is it bitwise repeatable?), and
+    ``sync_state`` for ``captured_training`` where it is not. Returns
+    ``(res, state, eager forward output)``."""
+    model = build(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    fwd = lambda: model(x, ei)      # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        ms, enq, _, out = timed_calls(torch, fwd, iters, 1)
+        rows, prof_ms, n_prof = profile_forwards(torch, fwd,
+                                                 replay_expect(per_fwd))
+    n_fwd = 1 + iters + n_prof
+    counts = launch_counts()
+    check_counts(tag, counts, {k: n * n_fwd for k, n in per_fwd.items()},
+                 f'{n_fwd} forwards')
+    check(bool(torch.isfinite(out).all()), f'{tag}: non-finite output')
+    busy = sum(t for _, t, _ in rows)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    flash_ms = {k: sum(t for name, t, _ in rows if v in name)
+                for k, v in FLASH_KERNELS.items()}
+    res = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enq,
+           'forwards': n_fwd, 'launch_counts': counts,
+           'launches_per_forward': {k: counts[k] / n_fwd for k in per_fwd},
+           'device_busy_ms_per_forward': busy,
+           'profiled_ms_per_forward': prof_ms,
+           'device_idle_share': 1 - busy / prof_ms,
+           'flash_ms_per_forward': flash_ms,
+           'peak_memory_gb_serving': serve_peak,
+           'kernels_per_forward': [[n[:80], t, c] for n, t, c in rows[:10]]}
+    log(f'[{tag}] serving: {ms:.4f} ms per forward (CUDA events, {iters} '
+        f'after 1), the host issues one in {enq:.4f} ms; device busy '
+        f'{busy:.4f} of a {prof_ms:.4f} ms wall, idle share '
+        f'{1 - busy / prof_ms:.4f}; flash kernels {flash_ms}; launches per '
+        f'forward {res["launches_per_forward"]}; peak memory {serve_peak:.3f}'
+        ' GB')
+    for name, t, n in rows[:8]:
+        log(f'[{tag}]   {t:.4f} ms  x{n:g}  {name[:90]}')
+    cap, cap_out = captured_serving(torch, f'{tag} captured', lambda x:
+                                    model(x, ei), x, out, iters, 1, per_fwd)
+    res['captured'] = cap
+    del model
+    model = from_state(torch, lambda: build(torch, None, seed), state)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+
+    def step():
+        return train_step(torch, model, opt, x, ei, y)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sms, _, senq, last = timed_steps(torch, step, 1, steps)
+    prof, prof_steps = profile_steps(torch, step, tag,
+                                     replay_expect(per_step))
+    n_steps = 1 + steps + prof_steps
+    counts = launch_counts()
+    check_counts(tag, counts, {k: n * n_steps for k, n in per_step.items()},
+                 f'{n_steps} steps')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    train = {'ms_per_step': sms, 'host_enqueue_ms_per_step': senq,
+             'steps': n_steps, 'launch_counts': counts,
+             'launches_per_step': {k: counts[k] / n_steps for k in per_step},
+             'peak_memory_gb': peak, 'loss_after': last}
+    train.update(prof)
+    log(f'[{tag}] training: {sms:.4f} ms per step (CUDA events, {steps} '
+        f'after 1), the host issues one in {senq:.4f} ms; loss {last:.6f}; '
+        f'launches per step {train["launches_per_step"]}; peak memory '
+        f'{peak:.3f} GB')
+    del model, opt
+    # the eager step's own repeatability on this card: two runs from the
+    # same weights, first-step gradients per tensor
+    runs = [gat_parity_run(torch, state, x, ei, y, 'cuda', build, lr)
+            for _ in range(2)]
+    gaps = {k: float((runs[0][1][k] - g).abs().max())
+            / max(float(g.abs().max()), 1e-30)
+            for k, g in runs[1][1].items()}
+    far = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+    train['eager_repeat_grad_gaps'] = dict(far)
+    train['eager_repeat_bitwise'] = all(v == 0 for v in gaps.values())
+    log(f'[{tag}] the eager step run twice from the same weights: '
+        f'first-step gradients bitwise equal: '
+        f'{train["eager_repeat_bitwise"]}; largest gaps ' + ', '.join(
+            f'{k} {v:.3e}' for k, v in far))
+    train['captured'] = captured_training(
+        torch, f'{tag} training captured', lambda: from_state(
+            torch, lambda: build(torch, None, seed), state), x, ei, y, None,
+        per_step, steps, 1e-4, lr=lr, sync_state=sync_state,
+        cancelled=cancelled)
+    res['training'] = train
+    return res, state, out
+
+
+def flash_parity(torch, tag, build, state, x, ei, y, lr, against,
+                 cancelled=()):
+    """The path's forward output and ``PARITY_STEPS`` training steps (losses,
+    first-step gradients) from ``state`` on the card, against the plain
+    versions on the same card tensors (``against='plain'``) or against the
+    CPU plain path (``against`` a tuple of CPU ``(x, ei, y)``): the output
+    within 1e-4 of max(1, its largest), losses within 1e-4 relative, each
+    first-step gradient within 1e-4 of the largest gradient of all and
+    within ``FLASH_OWN_TOL`` of its own largest (``check_parity``'s
+    ``own_tol``; ``cancelled`` as there).
+
+    Why not 1e-4 of its own largest: the model is not smooth (ReLU between
+    layers, leaky_relu in GAT's and GATv2's logits). Two computations that
+    round differently put a few pre-activations on opposite sides of a
+    kink, and each such node moves a weight gradient summed over all nodes
+    by a whole term: about 1e-3 of that gradient's own largest where it is
+    small, in most weights of the layers below a ReLU (path M at 0.05
+    scale: the kernels and the plain versions on the card within 6.5e-7 of
+    each other, both 1.3e-3 from the CPU in layer 1's ``lin_value``, while
+    outputs and losses agreed to 1e-7). The kernels, and the flash route's
+    plans and gradient wiring on the card, are held per entry and per input
+    at the paths' shapes in ``flash_close``."""
+    model = from_state(torch, lambda: build(torch, None, 0), state)
+    with torch.inference_mode():
+        out = model(x, ei)
+        if against == 'plain':
+            with plain_flash(torch):
+                ref = model(x, ei)
+        else:
+            cpu = build(torch, 'cpu', 0)
+            cpu.load_state_dict(state)
+            ref = cpu(against[0], against[1])
+    diff = float((out.cpu() - ref.cpu()).abs().max())
+    lim = 1e-4 * max(1.0, float(ref.abs().max()))
+    what = ('plain versions on the card' if against == 'plain'
+            else 'CPU plain path')
+    log(f'[{tag}] forward output vs the {what}: max abs diff {diff:.3e} '
+        f'(limit {lim:.3e})')
+    check(diff <= lim, f'{tag}: forward {diff} from its reference')
+    del model
+    card = gat_parity_run(torch, state, x, ei, y, 'cuda', build, lr)
+    t0 = time.perf_counter()
+    if against == 'plain':
+        with plain_flash(torch):
+            ref = gat_parity_run(torch, state, x, ei, y, 'cuda', build, lr)
+    else:
+        ref = gat_parity_run(torch, state, *against, 'cpu', build, lr)
+    log(f'[{tag}] reference steps in {time.perf_counter() - t0:.1f} s')
+    res = check_parity(torch, tag, card, ref, True, cancelled=cancelled,
+                       own_tol=FLASH_OWN_TOL)
+    res['max_abs_diff_forward'] = diff
+    return res
+
+
+def phase_path_k(torch, seed, coo, iters):
+    """Path K, ``products_bench.py --gat`` at full size: the products graph
+    (``products_graph``, 2,449,029 nodes, 123,718,280 edges; each layer
+    adds a self loop per node), X [N, 100] and Y from ``seed`` on the card,
+    ``products_gat`` (both layers past the cap, on the flash kernels), Adam
+    1e-3. Served and trained eager and captured (``flash_serve_train``);
+    held against the plain versions on the card (forward, 3 losses, first
+    step's gradients); then the same at ``products_graph``'s 0.01 scale
+    against the CPU plain path, the cap scaled with it (``scaled_cap``)."""
+    tag = 'path K'
+    ei = torch.as_tensor(coo, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((N_PRODUCTS, PR_F), generator=gen, device='cuda')
+    y = torch.randint(0, PR_CLASSES, (N_PRODUCTS,), generator=gen,
+                      device='cuda')
+    res, state, _ = flash_serve_train(
+        torch, tag, products_gat, seed, x, ei, y, FLASH_PER_FORWARD,
+        FLASH_PER_STEP, iters, PK_STEPS, PR_LR)
+    res['parity_vs_plain_on_card'] = flash_parity(
+        torch, tag, products_gat, state, x, ei, y, PR_LR, 'plain')
+    res.update(nodes=N_PRODUCTS, edges=E_PRODUCTS + N_PRODUCTS,
+               edges_per_s_training=2 * (E_PRODUCTS + N_PRODUCTS)
+               / (res['training']['captured']['ms_per_step'] / 1e3))
+    del x, y, ei
+    torch.cuda.empty_cache()
+    n, e = int(N_PRODUCTS * PK_SMALL), int(E_PRODUCTS * PK_SMALL)
+    small = products_graph(n, e, seed)
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((n, PR_F)).astype(np.float32)
+    ys = rng.integers(0, PR_CLASSES, n)
+    model = products_gat(torch, None, seed)
+    sstate = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    del model
+    with scaled_cap(PK_SMALL):
+        res['parity_small_vs_cpu'] = flash_parity(
+            torch, f'{tag} at {PK_SMALL} scale ({n} nodes, {e} edges)',
+            products_gat, sstate, torch.as_tensor(xs, device='cuda'),
+            torch.as_tensor(small, device='cuda'),
+            torch.as_tensor(ys, device='cuda'), PR_LR,
+            (torch.from_numpy(xs), torch.from_numpy(small),
+             torch.from_numpy(ys)))
+    log(json.dumps({'metric': 'products_fullgraph_gat_train_step',
+                    'ms': res['training']['ms_per_step'],
+                    'ms_captured': res['training']['captured'][
+                        'ms_per_step'], 'nodes': N_PRODUCTS,
+                    'edges': E_PRODUCTS, 'path': 'flash kernels'}))
+    return res
+
+
+def phase_path_lm(torch, seed, pc, iters):
+    """Path L (GATv2, ``gatv2_model``) and path M (path I's TransformerConv
+    stack, ``transformer_model``) on path C's graph as a plain COO (no slot
+    orders), Adam 1e-2 on path D's labels: layers 1-2 take the flash route
+    (L: 2.2M x 256 x 4 B of messages past the cap; M: the wide union's 2.1M
+    x 4 x 2 x 64 x 4 B), layer 3 the plain branch (L) or the wide op on the
+    dot kernel (M). Served and trained as path K, and checked as path K is:
+    against the plain versions on the card at full size, and against the
+    CPU plain path on path C's generator at ``PL_SMALL`` of its size, the
+    cap scaled with it (forward, 3 losses, first step's gradients).
+
+    Cancelled gradients, held to 1e-4 of the largest gradient of all (as
+    path J's key biases): TransformerConv's key bias, which the softmax
+    cancels exactly; and, in the captured step's check against the eager
+    one only, GATv2's ``lin_r``, which reaches the loss only through
+    ``x_r``, whose gradient sums each row's ``dlogit`` (which sums to zero)
+    times a leaky slope, so it is mostly rounding on both sides."""
+    ei = torch.as_tensor(pc['coo'], device='cuda')
+    x = torch.as_tensor(pc['x'], device='cuda')
+    y = torch.as_tensor(pc['y'], device='cuda')
+    coo_s, x_s, y_s = small_path_c(seed, PL_SMALL)
+    small = (torch.as_tensor(x_s, device='cuda'),
+             torch.as_tensor(coo_s, device='cuda'),
+             torch.as_tensor(y_s, device='cuda'))
+    cpu = (torch.from_numpy(x_s), torch.from_numpy(coo_s),
+           torch.from_numpy(y_s))
+    out = {}
+    for tag, build, per_fwd, per_step, cancelled, parity_cancelled in (
+            ('path L', gatv2_model, FLASH_PER_FORWARD, FLASH_PER_STEP,
+             ('lin_r.weight', 'lin_r.bias'), ()),
+            ('path M', transformer_model,
+             dict(FLASH_PER_FORWARD, edge_dot=1),
+             dict(FLASH_PER_STEP, edge_dot=2), ('lin_key.bias',),
+             ('lin_key.bias',))):
+        # layer 3 (the plain branch, the wide op) adds with atomics, so the
+        # eager step is not bitwise repeatable
+        res, state, _ = flash_serve_train(
+            torch, tag, build, seed, x, ei, y, per_fwd, per_step, iters,
+            PA_STEPS, TR_LR, sync_state=True, cancelled=cancelled)
+        res['parity_vs_plain_on_card'] = flash_parity(
+            torch, tag, build, state, x, ei, y, TR_LR, 'plain',
+            parity_cancelled)
+        t0 = time.perf_counter()
+        small_state = {k: v.detach().cpu().clone() for k, v in build(
+            torch, None, seed).state_dict().items()}
+        with scaled_cap(PL_SMALL):
+            res['parity_small_vs_cpu'] = flash_parity(
+                torch, f'{tag} at {PL_SMALL} scale ({len(x_s)} nodes, '
+                f'{coo_s.shape[1]} edges)', build, small_state, *small,
+                TR_LR, cpu, parity_cancelled)
+        log(f'[{tag}] CPU checks in {time.perf_counter() - t0:.1f} s')
+        res['edges'] = int(pc['coo'].shape[1])
+        out[tag] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_bytes(ops, plan, plan_t, n_dst, n_edges, kernel):
+    """Bytes one flash launch must move: its node tables read once, the
+    residuals it reads, the CSR it walks (int32 neighbours and relations,
+    int64 row and piece offsets) and its outputs written once."""
+    h, c = ops.heads, ops.columns
+    ns = ops.src_tab.shape[0]
+    tables = (ops.src_tab.numel() + ops.dst_tab.numel()
+              + (0 if ops.form == 'gatv2' else ops.val.numel())
+              + (0 if ops.extra is None else ops.extra.numel())) * 4
+    csr = n_edges * 4 * (2 if ops.form == 'dot' else 1)
+    if kernel == 'flash_fwd':
+        return tables + csr + 16 * (n_dst + 1) + n_dst * (h * c + 2 * h) * 4
+    if kernel == 'flash_bwd_dst':
+        return (tables + csr + 16 * (n_dst + 1)
+                + n_dst * (2 * h + 2 * h * c) * 4
+                + n_dst * (h + ops.dst_tab.shape[1]) * 4)
+    return (tables + csr + 16 * (ns + 1) + n_dst * (3 * h + h * c) * 4
+            + ns * ops.src_tab.shape[1] * 4
+            + (0 if ops.form == 'gatv2' else ns * h * c * 4))
+
+
+def flash_gathered(ops, n_edges, kernel):
+    """Bytes a launch gathers per edge list: per edge and head, the value
+    row and the logit operand (kernels a, b), or the output gradient row,
+    the destination's operand and its m, l, gdot (kernel c)."""
+    h, c = ops.heads, ops.columns
+    operand = h if ops.form == 'gat' else h * c
+    if kernel == 'flash_bwd_src':
+        return n_edges * 4 * (h * c + operand + 3 * h)
+    return n_edges * 4 * (h * c + (0 if ops.form == 'gatv2' else operand))
+
+
+def phase_flash_timings(torch, seed, coo, pc):
+    """Kernels (a), (b) and (c) at path K's two layers (products graph with
+    self loops: GAT H=4 C=16, then H=1 C=47) and path L's layer 1 (GATv2
+    H=4 C=64 on path C's graph with self loops), random tables from
+    ``seed``: each held against its plain version, then device time per
+    launch (``device_ms``), CUDA-event wall, the plain version's time (its
+    backward covers both passes), the bound (bytes once at 3.35 TB/s) and
+    the rate of gathered rows. No library yardstick: no one PyTorch call
+    computes a segment softmax-aggregation."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    g = torch.Generator(device='cuda').manual_seed(seed + 11)
+    rows = []
+    shapes = []
+    n = N_PRODUCTS
+    loops = np.arange(n, dtype=np.int32)
+    kd = torch.as_tensor(np.concatenate([coo[1], loops]), device='cuda')
+    ks = torch.as_tensor(np.concatenate([coo[0], loops]), device='cuda')
+    shapes.append(('K layer 1', 'gat', 4, 16, ks, kd, n, n))
+    shapes.append(('K layer 2', 'gat', 1, PR_CLASSES, ks, kd, n, n))
+    npc = PC_NODES
+    lp = np.arange(npc, dtype=np.int32)
+    keep = pc['coo'][0] != pc['coo'][1]
+    ls = torch.as_tensor(np.concatenate([pc['coo'][0][keep], lp]),
+                         device='cuda')
+    ld = torch.as_tensor(np.concatenate([pc['coo'][1][keep], lp]),
+                         device='cuda')
+    shapes.append(('L layer 1', 'gatv2', PC_HEADS, PC_HIDDEN // PC_HEADS, ls,
+                   ld, npc, npc))
+    # path M's layer 1: the union attention of one relation over path C's
+    # graph as it is (TransformerConv adds no loops), prior 1 / sqrt(C)
+    shapes.append(('M layer 1', 'dot', PC_HEADS, PC_HIDDEN // PC_HEADS,
+                   torch.as_tensor(pc['coo'][0], device='cuda'),
+                   torch.as_tensor(pc['coo'][1], device='cuda'), npc, npc))
+    worst = (0.0, 0.0)
+    for label, form, h, c, s, d, ns, nd in shapes:
+        sw = h if form == 'gat' else h * c
+        src_tab = torch.randn(ns, sw, device='cuda', generator=g)
+        dst_tab = torch.randn(nd, sw, device='cuda', generator=g)
+        val = (src_tab if form == 'gatv2' else
+               torch.randn(ns, h * c, device='cuda', generator=g))
+        extra = rel = None
+        if form == 'gatv2':
+            extra = (torch.randn(h * c, device='cuda', generator=g)
+                     / math.sqrt(c))
+        if form == 'dot':
+            extra = torch.full((1, h), 1 / math.sqrt(c), device='cuda')
+            rel = torch.zeros(s.shape[0], dtype=torch.int64, device='cuda')
+        ops = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
+        e = int(s.shape[0])
+        with torch.inference_mode():
+            log(f'[kernel] flash {label} ({form} H={h} C={c}, {e} edges) '
+                'against the plain version:')
+            err = flash_close(torch, ops, s.long(), d.long(), rel, nd,
+                              route=True)
+            worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+            order = torch.argsort(d.long(), stable=True)
+            sd, dd = s.long()[order], d.long()[order]
+            rd = None if rel is None else rel[order]
+            del order
+            plan = fs.dst_plan(sd, dd, rd, nd, True)
+            plan_t = fs.src_plan(sd, dd, rd, nd, ns)
+            out, m, l = fs.flash_forward(ops, sd, dd, rd, nd, 0, plan)
+            gcot = torch.randn(out.shape, device='cuda', generator=g)
+            gdot = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
+            calls = {
+                'flash_fwd': lambda: fs.flash_forward(ops, sd, dd, rd, nd,
+                                                      0, plan),
+                'flash_bwd_dst': lambda: fs.flash_backward_dst(
+                    ops, m, l, out, gcot, plan),
+                'flash_bwd_src': lambda: fs.flash_backward_src(
+                    ops, m, l, out, gcot, gdot, plan_t)}
+            plain = {
+                'flash_fwd': lambda: fs.flash_forward_plain(
+                    ops, sd, dd, rd, nd, 2_000_000),
+                'flash_bwd': lambda: fs.flash_backward_plain(
+                    ops, sd, dd, rd, nd, 2_000_000, m, l, out, gcot)}
+            plain_ms = {k: device_ms(torch, f, calls=1)
+                        for k, f in plain.items()}
+            for kernel, fn in calls.items():
+                by = flash_bytes(ops, plan, plan_t, nd, e, kernel)
+                gathered = flash_gathered(ops, e, kernel)
+                krows, _, _ = whole_window(torch, fn, 5)
+                ms = sum(t for name, t, _ in krows
+                         if FLASH_KERNELS[kernel] in name)
+                event_ms = timed_calls(torch, fn, 5, 1)[0]
+                row = {'shape': label, 'kernel': kernel, 'form': form, 'H': h,
+                       'C': c, 'edges': e, 'n_src': ns, 'n_dst': nd,
+                       'split_edges': plan.split, 'team_lanes':
+                       fs.team_lanes(c), 'bytes': by,
+                       'gathered_bytes': gathered, 'ms': ms,
+                       'event_ms': event_ms,
+                       'plain_ms': plain_ms['flash_fwd' if kernel ==
+                                            'flash_fwd' else 'flash_bwd'],
+                       'plain_covers': ('the forward' if kernel == 'flash_fwd'
+                                        else 'the whole backward (both '
+                                             'passes)'),
+                       'bound_ms': by / HBM_BYTES_PER_S * 1e3,
+                       'bound_by': 'bytes', 'library_ms': None,
+                       'library_note': 'no one PyTorch call computes a '
+                                       'segment softmax-aggregation',
+                       'gathered_tb_per_s': gathered / (ms / 1e3) / 1e12}
+                row['share'] = row['bound_ms'] / ms
+                rows.append(row)
+                log(f"[timing] {kernel} {label} ({form} H={h} C={c}, {e} "
+                    f"edges): device {ms:.4f} ms per launch [CUDA-event wall "
+                    f"{event_ms:.4f} ms], plain {row['plain_ms']:.4f} ms "
+                    f"({row['plain_covers']}), bound {row['bound_ms']:.4f} "
+                    f"ms (bytes), {100 * row['share']:.1f} % of it; gathered "
+                    f"rows {row['gathered_tb_per_s']:.3f} TB/s; library: none")
+        del ops, src_tab, dst_tab, val, plan, plan_t, out, m, l, gcot, gdot, \
+            rel, rd
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3561,9 +4327,27 @@ def main():
     dot_rows, dot_sweep = phase_edge_dot_timings(torch, args.seed, pc,
                                                  path_i, path_d)
     bf16_rows = phase_bf16_timings(torch, args.seed, pe, pc)
-    del pe, pc
+    del pe
+    worst_flash = phase_flash_vs_plain(torch, args.seed)
+    paths_lm = phase_path_lm(torch, args.seed, pc, args.iters)
+    pc_coo = {'coo': pc['coo']}
+    del pc
     torch.cuda.empty_cache()
-    scan = phase_scan_train(torch, args.seed, PR_REPS)
+    t0 = time.perf_counter()
+    coo = products_graph(N_PRODUCTS, E_PRODUCTS, args.seed)
+    log(f'[products] products_bench graph ({N_PRODUCTS} nodes, {E_PRODUCTS} '
+        f'edges, seed {args.seed}) built on the host in '
+        f'{time.perf_counter() - t0:.1f} s')
+    scan = phase_scan_train(torch, args.seed, PR_REPS, coo)
+    path_k = phase_path_k(torch, args.seed, coo, args.iters)
+    torch.cuda.empty_cache()
+    flash_rows, worst_flash_t = phase_flash_timings(torch, args.seed, coo,
+                                                    pc_coo)
+    del coo
+    worst_flash = (max(worst_flash[0], worst_flash_t[0]),
+                   max(worst_flash[1], worst_flash_t[1]))
+    flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
+                   'path_m': paths_lm['path M']}
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -3597,6 +4381,13 @@ def main():
     path_counts.update({f'{name}_captured': v['captured']['launch_counts']
                         for name, v in twins.items()})
     path_counts['scan_train'] = scan['launch_counts']
+    for name, res in flash_paths.items():
+        path_counts.update({
+            name: res['launch_counts'],
+            f'{name}_captured': res['captured']['launch_counts'],
+            f'{name}_training': res['training']['launch_counts'],
+            f'{name}_training_captured': res['training']['captured'][
+                'launch_counts']})
 
     def by_path(name):
         return {p: c[name] for p, c in path_counts.items()}
@@ -3640,7 +4431,55 @@ def main():
                               'path_d': path_d, 'path_e': path_e,
                               'path_f': path_f, 'path_g': path_g,
                               'path_h': path_h, 'path_i': path_i,
-                              'path_j': path_j, 'scan_train': scan}}))
+                              'path_j': path_j, 'scan_train': scan,
+                              **flash_paths}}))
+    # a path K training step launches each flash kernel once per layer: the
+    # rows of layer 1 (H=4, C=16) and layer 2 (H=1, C=47)
+    flash_step = {}
+    for k in FLASH_KERNELS:
+        picks = [r for r in flash_rows if r['kernel'] == k
+                 and r['shape'].startswith('K ')]
+        flash_step[k] = {key: sum(r[key] for r in picks)
+                         for key in ('ms', 'event_ms', 'plain_ms',
+                                     'bound_ms')}
+    flash_replaces = {
+        'flash_fwd': ('pytorch_geometric_tpu/ops/edge_attention.py:821',
+                      'no Pallas body: the forward lax.scans _gat_flash_fwd '
+                      ':821, _gatv2_flash_fwd :1091, _attention_flash_fwd '
+                      ':343'),
+        'flash_bwd_dst': ('pytorch_geometric_tpu/ops/edge_attention.py:871',
+                          'no Pallas body: the backward lax.scans '
+                          '_gat_flash_bwd :871, _gatv2_flash_bwd :1141, '
+                          '_attention_flash_bwd :398 (their destination '
+                          'sides)'),
+        'flash_bwd_src': ('pytorch_geometric_tpu/ops/edge_attention.py:871',
+                          'no Pallas body: the same backward scans\' source '
+                          'sides, over the source-sorted edges of '
+                          '_attention_flash_dual_bwd :498')}
+    flash_entries = [{
+        'name': k, 'route': 'cuda',
+        'source': 'pytorch_geometric_tpu_torch/csrc/flash_softmax.cu',
+        'replaces': flash_replaces[k][0],
+        'replaces_note': flash_replaces[k][1],
+        'launches': sum(by_path(k).values()),
+        'launches_by_path': by_path(k),
+        'launches_per_step': {name: res['training']['launches_per_step']
+                              .get(k, 0) for name, res in
+                              flash_paths.items()},
+        'max_abs_err': worst_flash[0],
+        'max_err_over_limit': worst_flash[1],
+        'ms': flash_step[k]['ms'], 'event_ms': flash_step[k]['event_ms'],
+        'plain_ms': flash_step[k]['plain_ms'],
+        'bound_ms': flash_step[k]['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None,
+        'library_note': 'no one PyTorch call computes a segment '
+                        'softmax-aggregation',
+        'times_are': 'per path K training step: one launch at layer 1 '
+                     '(GAT H=4, C=16) and one at layer 2 (H=1, C=47); the '
+                     'plain backward covers both passes; path L layer 1 in '
+                     'per_shape',
+        'per_shape': [r for r in flash_rows if r['kernel'] == k]}
+        for k in FLASH_KERNELS]
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_spmm.cu',
@@ -3825,7 +4664,7 @@ def main():
         'library_ms': None,
         'library_note': 'torch.sparse.sampled_addmm takes no bf16',
         'times_are': f'one call at path I H*F={PC_HIDDEN} (edge order)',
-        'per_shape': [dot_bf16]}]}))
+        'per_shape': [dot_bf16]}] + flash_entries}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -26,7 +26,7 @@ BUILD_DIR = SOURCE_DIR.parent / '_build'
 # library name -> source file in this directory
 SOURCES = {'segment_spmm': 'segment_spmm.cu', 'bsr_spmm': 'bsr_spmm.cu',
            'gat_mix': 'gat_mix.cu', 'segment_max': 'segment_max.cu',
-           'sddmm': 'sddmm.cu'}
+           'sddmm': 'sddmm.cu', 'flash_softmax': 'flash_softmax.cu'}
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

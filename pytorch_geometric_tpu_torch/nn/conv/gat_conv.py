@@ -2,8 +2,9 @@
 
 Counterpart of ``pytorch_geometric_tpu/nn/conv/gat_conv.py``. The attention
 coefficients are LeakyReLU -> softmax over each destination's incoming
-edges -> dropout; the message is ``alpha * x_j``. Two branches, chosen as
-the JAX package chooses them (``gat_conv.py:121-161``):
+edges -> dropout; the message is ``alpha * x_j``. Three branches, chosen as
+the JAX package chooses them (``gat_conv.py:121-161``, ``:237-273``), from
+shapes alone and before any per-edge array is built:
 
   * fused: when the edge index carries the slot orders
     (``fill_cache(blocked=True)``), the conv did not rewrite the edge set
@@ -14,12 +15,14 @@ the JAX package chooses them (``gat_conv.py:121-161``):
     plays the JAX package's ``_use_pallas()``: off, the CPU takes the plain
     branch, and the card raises, since the plain branch never stands in for
     the kernel there;
+  * flash: not fused, no attention weights, no ``edge_attr``, no active
+    dropout, and ``E * H * C * 4`` bytes of messages past
+    ``PGT_ATTN_WIDE_BYTES`` (read on every call, default 1e9): the
+    online-softmax scan of ``ops.edge_attention`` (``gat_flash_attention``,
+    ``gatv2_flash_attention``; the flash kernels on the card) over the
+    node-level logit parts, with no ``[E, .]`` float array;
   * plain: ``ops.softmax`` and a gather / ``index_add_`` in PyTorch on either
     device, as the JAX package leaves this branch to XLA.
-
-The JAX package's third branch, the online-softmax flash scan for graphs
-whose ``[E, H, C]`` messages pass ``ATTN_WIDE_BYTES``
-(``ops/edge_attention.py``, an XLA scan), is not ported yet and raises.
 """
 
 import math
@@ -33,7 +36,8 @@ from ..inits import linear
 from ..message_passing import MessagePassing
 from ...backend import resolve_device
 from ...edge_index import EdgeIndex
-from ...ops.edge_attention import ATTN_WIDE_BYTES
+from ...ops.edge_attention import (gat_flash_attention,
+                                    gatv2_flash_attention, wide_bytes_cap)
 from ...ops.gat_fused import fused_ok, gat_aggregate
 from ...ops.gather import take_rows
 from ...ops.softmax import softmax
@@ -97,27 +101,31 @@ def _self_loops(coo, edge_attr, edge_mask, num_dst, fill_value):
     return coo, edge_attr, edge_mask
 
 
-def _attend(conv, edge_index, coo, alpha, values, valid, j_idx, i_idx,
-            num_dst, loops, edge_attr, deterministic,
-            return_attention_weights, generator):
-    """The fused, flash or plain branch over the activated logits
-    ``alpha [E, H]``; returns ``[num_dst, H, C]`` and the weights."""
-    fused = (not loops and not return_attention_weights
-             and fused_ok(edge_index, values))
+def _branch(conv, edge_index, values, loops, n_edges, edge_attr,
+            deterministic, return_attention_weights) -> str:
+    """'fused', 'flash' or 'plain', as the JAX package decides, from shapes,
+    caches and ``PGT_ATTN_WIDE_BYTES`` only."""
+    if (not loops and not return_attention_weights
+            and fused_ok(edge_index, values)):
+        return 'fused'
     h, c = values.shape[1], values.shape[2]
-    if fused:
+    if (not return_attention_weights and edge_attr is None
+            and (conv.dropout == 0 or deterministic)
+            and n_edges * h * c * 4 > wide_bytes_cap()):
+        return 'flash'
+    return 'plain'
+
+
+def _attend(conv, branch, edge_index, alpha, values, valid, i_idx, j_idx,
+            num_dst, deterministic, generator):
+    """The fused or plain branch over the activated logits ``alpha [E,
+    H]``; returns ``[num_dst, H, C]`` and the weights."""
+    h, c = values.shape[1], values.shape[2]
+    if branch == 'fused':
         scale = _dropout_scale(conv.dropout, deterministic, alpha.shape,
                                alpha.device, generator)
         return gat_aggregate(edge_index, alpha, values, edge_mask=valid,
                              numerator_scale=scale), None
-    if (not return_attention_weights and edge_attr is None
-            and (conv.dropout == 0 or deterministic)
-            and coo.shape[1] * h * c * 4 > ATTN_WIDE_BYTES):
-        raise NotImplementedError(
-            'the flash attention scan (ops/edge_attention.py) is not ported '
-            'to the PyTorch package yet (ROADMAP: Queue 1, item 7); cache '
-            'the slot orders with fill_cache(blocked=True) and pass '
-            'add_self_loops=False to take the fused kernel')
     alpha = softmax(alpha, i_idx, num_dst, mask=valid)
     scale = _dropout_scale(conv.dropout, deterministic, alpha.shape,
                            alpha.device, generator)
@@ -206,6 +214,18 @@ class GATConv(MessagePassing):
                 coo, edge_attr, edge_mask, num_dst, self.fill_value)
         j_idx = coo[0].long().clamp(max=num_src - 1)
         i_idx = coo[1].long().clamp(max=num_dst - 1)
+        valid = coo[1] < num_dst
+        if edge_mask is not None:
+            valid = valid & edge_mask
+        branch = _branch(self, edge_index, xs, loops, coo.shape[1], edge_attr,
+                         deterministic, return_attention_weights)
+        if branch == 'flash':
+            # the node-level logit parts; leaky_relu runs inside the scan
+            out = gat_flash_attention(
+                alpha_src, alpha_dst, xs, j_idx,
+                torch.where(valid, i_idx, num_dst), num_dst,
+                negative_slope=self.negative_slope)
+            return _finish(self, out, coo, None, False)
         alpha = take_rows(alpha_src, j_idx) + take_rows(alpha_dst, i_idx)
         if edge_attr is not None:
             if self.lin_edge is None:
@@ -214,12 +234,8 @@ class GATConv(MessagePassing):
             ea = self.lin_edge(edge_attr).view(-1, h, c)
             alpha = alpha + (ea * self.att_edge).sum(-1)
         alpha = F.leaky_relu(alpha, self.negative_slope)
-        valid = coo[1] < num_dst
-        if edge_mask is not None:
-            valid = valid & edge_mask
-        out, alpha = _attend(self, edge_index, coo, alpha, xs, valid, j_idx,
-                             i_idx, num_dst, loops, edge_attr, deterministic,
-                             return_attention_weights, generator)
+        out, alpha = _attend(self, branch, edge_index, alpha, xs, valid, i_idx,
+                             j_idx, num_dst, deterministic, generator)
         return _finish(self, out, coo, alpha, return_attention_weights)
 
 
@@ -277,6 +293,18 @@ class GATv2Conv(MessagePassing):
                 coo, edge_attr, edge_mask, num_dst, self.fill_value)
         j_idx = coo[0].long().clamp(max=num_src - 1)
         i_idx = coo[1].long().clamp(max=num_dst - 1)
+        valid = coo[1] < num_dst
+        if edge_mask is not None:
+            valid = valid & edge_mask
+        branch = _branch(self, edge_index, x_l, loops, coo.shape[1],
+                         edge_attr, deterministic, return_attention_weights)
+        if branch == 'flash':
+            # the [E, H, C] joint features are formed per edge in the scan
+            out = gatv2_flash_attention(
+                x_l, x_r, self.att[0], j_idx,
+                torch.where(valid, i_idx, num_dst), num_dst,
+                negative_slope=self.negative_slope)
+            return _finish(self, out, coo, None, False)
         joint = x_l[j_idx] + x_r[i_idx]                  # [E, H, C]
         if edge_attr is not None:
             if self.lin_edge is None:
@@ -285,12 +313,8 @@ class GATv2Conv(MessagePassing):
             joint = joint + self.lin_edge(edge_attr).view(-1, h, c)
         joint = F.leaky_relu(joint, self.negative_slope)
         alpha = (joint * self.att).sum(-1)               # [E, H]
-        valid = coo[1] < num_dst
-        if edge_mask is not None:
-            valid = valid & edge_mask
-        out, alpha = _attend(self, edge_index, coo, alpha, x_l, valid, j_idx,
-                             i_idx, num_dst, loops, edge_attr, deterministic,
-                             return_attention_weights, generator)
+        out, alpha = _attend(self, branch, edge_index, alpha, x_l, valid,
+                             i_idx, j_idx, num_dst, deterministic, generator)
         return _finish(self, out, coo, alpha, return_attention_weights)
 
 

@@ -19,8 +19,8 @@ beta gate. Three branches, chosen as the JAX package chooses them
     ``ops.edge_attention.hetero_edge_attention_multi`` over the one
     relation, which multiplies by ``1 / sqrt(C)`` where the fused branch
     divides by ``sqrt(C)``, as the JAX package does. Past
-    ``PGT_ATTN_WIDE_BYTES`` the JAX package takes its flash scan, which is
-    not ported and raises (ROADMAP Queue 1, item 7);
+    ``PGT_ATTN_WIDE_BYTES`` that op takes its online-softmax flash scan
+    (the flash kernels on the card), as the JAX package's does;
   * explicit: ``edge_attr`` or ``return_attention_weights``: scores by
     :func:`ops.sddmm.gathered_dot`, ``ops.softmax``, and ``index_add_``.
 

@@ -1639,3 +1639,110 @@ def test_captured_transformer_step_equals_eager_bitwise(dev):
         assert torch.equal(a, b)
     assert comp.launches_per_replay == {'edge_dot': 4, 'gat_mix': 10}
     assert comp.replay_launches() == {'edge_dot': 12, 'gat_mix': 30}
+
+
+# -- the flash kernels (csrc/flash_softmax.cu) -----------------------------------
+def _flash_case(dev, form, h, c, n_src=300, n_dst=200, e=6000, n_rel=2,
+                seed=0):
+    """A bipartite case: empty rows, one destination with a third of the
+    edges (split into many pieces), invalid edges (``d = n_dst`` and
+    ``n_dst + 3``); 2 relations for the dot form."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(n_dst, n_dst // 2, replace=False)
+    d = rows[rng.integers(0, len(rows), e)]
+    d[: e // 3] = rows[0]
+    d[-20:-10], d[-10:] = n_dst, n_dst + 3
+    s = rng.integers(0, n_src, e)
+    sw = h if form == 'gat' else h * c
+    g = torch.Generator(device=dev).manual_seed(seed)
+    src_tab = torch.randn(n_src, sw, device=dev, generator=g)
+    dst_tab = torch.randn(n_dst, sw, device=dev, generator=g)
+    val = (src_tab if form == 'gatv2' else
+           torch.randn(n_src, h * c, device=dev, generator=g))
+    extra = rel = None
+    if form == 'gatv2':
+        extra = torch.randn(h * c, device=dev, generator=g)
+    if form == 'dot':
+        extra = torch.rand(n_rel, h, device=dev, generator=g) + 0.2
+        rel = torch.as_tensor(rng.integers(0, n_rel, e), device=dev)
+    ops = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
+    return (ops, torch.as_tensor(s, device=dev),
+            torch.as_tensor(d, device=dev), rel, n_dst)
+
+
+FLASH_SHAPES = [(form, h, c) for form in ('gat', 'gatv2', 'dot')
+                for h, c in ((1, 1), (4, 10), (8, 16), (1, 47), (4, 64))]
+
+
+@pytest.mark.parametrize('form,h,c', FLASH_SHAPES)
+def test_flash_kernels_match_plain(dev, form, h, c):
+    """Kernels (a), (b) and (c) against the plain versions on the same card
+    tensors (forward within 1e-5 of the largest output, gradients within
+    1e-4 of each one's largest), and two launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    ops, s, d, rel, nd = _flash_case(dev, form, h, c)
+    plan = fs.dst_plan(s, d, rel, nd, False, split=64)
+    plan_t = fs.src_plan(s, d, rel, nd, ops.src_tab.shape[0], split=64)
+    out, m, l = fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
+    ref = fs.flash_forward_plain(ops, s, d, rel, nd, 1000)
+    torch.cuda.synchronize()
+    scale = max(float(ref[0].abs().max()), 1.0)
+    assert float((out - ref[0]).abs().max()) <= 1e-5 * scale
+    assert torch.equal(torch.isinf(m), torch.isinf(ref[1]))
+    assert torch.equal(out, fs.flash_forward(ops, s, d, rel, nd, 1000,
+                                             plan)[0])
+    gcot = torch.randn_like(out)
+    got = fs.flash_backward(ops, s, d, rel, nd, 1000, m, l, out, gcot, plan,
+                            plan_t)
+    want = fs.flash_backward_plain(ops, s, d, rel, nd, 1000, ref[1], ref[2],
+                                   ref[0], gcot)
+    again = fs.flash_backward(ops, s, d, rel, nd, 1000, m, l, out, gcot,
+                              plan, plan_t)
+    for a, b, c2 in zip(got, want, again):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert float((a - b).abs().max()) <= 1e-4 * max(
+                float(b.abs().max()), 1e-30)
+            assert torch.equal(a, c2)
+
+
+def test_flash_kernels_refuse_bf16(dev):
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    ops, s, d, rel, nd = _flash_case(dev, 'gat', 2, 8)
+    ops = ops._replace(val=ops.val.bfloat16())
+    plan = fs.dst_plan(s, d, rel, nd, False)
+    with pytest.raises(NotImplementedError, match='Queue 1'):
+        fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
+
+
+@pytest.mark.parametrize('conv', ['gat', 'gatv2', 'transformer'])
+def test_flash_convs_on_card_match_cpu(dev, conv, monkeypatch):
+    """Each conv's flash branch (forced with ``PGT_ATTN_WIDE_BYTES = 0``,
+    default self loops) on the card against the CPU from the same weights:
+    output and parameter gradients within 1e-4 of their largest."""
+    from pytorch_geometric_tpu_torch.nn.conv import TransformerConv
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', '0')
+    coo, _, x = _case(500, 500, 8000, 12, seed=31, n_pad=0)
+    cls = {'gat': GATConv, 'gatv2': GATv2Conv,
+           'transformer': TransformerConv}[conv]
+    mods = [cls(12, 16, heads=4, device=d,
+                generator=torch.Generator().manual_seed(0))
+            for d in ('cpu', dev)]
+    res = []
+    fs.flash_forward.launches = 0
+    for mod, d in zip(mods, ('cpu', dev)):
+        out = mod(torch.as_tensor(x, device=d), torch.as_tensor(coo,
+                                                                device=d))
+        out.square().sum().backward()
+        res.append((out.detach().cpu(), {k: p.grad.cpu()
+                                         for k, p in mod.named_parameters()}))
+    assert fs.flash_forward.launches == 1
+    (o_cpu, g_cpu), (o_card, g_card) = res
+    assert float((o_card - o_cpu).abs().max()) <= 1e-4 * float(
+        o_cpu.abs().max())
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+    for k, g in g_cpu.items():
+        scale = largest if k == 'lin_key.bias' else float(g.abs().max())
+        assert float((g_card[k] - g).abs().max()) <= 1e-4 * scale, k

@@ -330,20 +330,25 @@ def test_attention_dropout_fused_equals_plain(v2):
     assert not torch.allclose(outs[0], conv(x, ei), atol=1e-3)
 
 
-def test_flash_branch_raises_and_aliases():
-    """Past ATTN_WIDE_BYTES an unfused conv would take the JAX package's
-    flash scan, which is not ported; the alias builds the slot orders."""
-    from pytorch_geometric_tpu_torch.nn.conv import gat_conv
+def test_flash_branch_raises_and_aliases(monkeypatch):
+    """Past ``PGT_ATTN_WIDE_BYTES`` an unfused conv takes the flash scan
+    (it raised before the scan was ported): the same output and gradients as
+    its plain branch; the alias builds the slot orders."""
     coo, rng = _graph(60, 60, 300, seed=4)
     conv = GATConv(4, 4, heads=2, device='cpu')
-    x = torch.ones(60, 4)
-    old = gat_conv.ATTN_WIDE_BYTES
-    try:
-        gat_conv.ATTN_WIDE_BYTES = 1
-        with pytest.raises(NotImplementedError, match='Queue 1, item 7'):
-            conv(x, EdgeIndex(coo, (60, 60), device='cpu'))
-    finally:
-        gat_conv.ATTN_WIDE_BYTES = old
+    x = torch.from_numpy(rng.normal(size=(60, 4)).astype(np.float32))
+    outs = []
+    for cap in ('1', '1e18'):
+        monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', cap)
+        conv.zero_grad()
+        out = conv(x, EdgeIndex(coo, (60, 60), device='cpu'))
+        out.square().sum().backward()
+        outs.append((out.detach(), [p.grad.clone()
+                                    for p in conv.parameters()]))
+    (flash, g_flash), (plain, g_plain) = outs
+    _close(flash, plain)
+    for a, b in zip(g_flash, g_plain):
+        _close(a, b)
     ei = FusedGATConv.to_graph_format(torch.from_numpy(coo), (60, 60))
     assert ei.blocked is not None and ei.blocked_t is not None
 

@@ -22,6 +22,7 @@ from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import cache_gcn_norm
 from pytorch_geometric_tpu_torch.ops import segment_spmm, spmm
 from pytorch_geometric_tpu_torch.ops.bsr_spmm import BSR, bsr_matmul
 from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix
+from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
 from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
 from pytorch_geometric_tpu_torch.ops.segment_max import segment_max_blocked
 
@@ -120,6 +121,19 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
         segment_max_blocked(p, SimpleNamespace(indptr=ip), 2)
     with pytest.raises(ValueError, match='cpu or cuda'):
         edge_dot(x.view(2, 1, 4), x.view(2, 1, 4), src, src)
+    # the flash kernels: the wrappers, and the two backward passes, which
+    # take no CPU tensor either
+    ops = fs.FlashOperands('gat', 1, x[:, :1], x[:, :1], x, None)
+    ml = torch.zeros(2, 1, device='meta')
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        fs.flash_forward(ops, src, src, None, 2, 8)
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        fs.flash_backward(ops, src, src, None, 2, 8, ml, ml, x, x)
+    plan = fs.csr_plan(src, src, None, 2)
+    with pytest.raises(ValueError, match='run on cuda'):
+        fs.flash_backward_dst(ops, ml, ml, x, x, plan)
+    with pytest.raises(ValueError, match='run on cuda'):
+        fs.flash_backward_src(ops, ml, ml, x, x, ml, plan)
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -464,18 +464,37 @@ def test_hetero_edge_attention_flat_table_matches_jax():
 
 
 def test_attention_raises_past_the_cap_and_with_a_layout(monkeypatch):
-    """Past ``PGT_ATTN_WIDE_BYTES`` and with a ``layout`` the JAX package
-    takes its flash scan, which is not ported: the port raises, naming the
-    roadmap item. At the cap itself it takes the wide op."""
+    """Past ``PGT_ATTN_WIDE_BYTES`` and with a ``layout`` the op takes the
+    flash scan, as the JAX package does (it raised before the scan was
+    ported): the wide op's output and gradients either way. At the cap
+    itself it takes the wide op."""
     rng = np.random.default_rng(18)
     (k, v, s, dd), = _attention_case(rng, 30, [(20, 100)], 2, 4, pad=0)
-    args = ([_t(k)], [_t(v)], _t(rng.standard_normal((30, 2, 4)).astype(
-        np.float32)), [torch.ones(2)], [_t(s)], [_t(dd)], 30)
-    assert tattn.hetero_edge_attention_multi(*args).shape == (30, 2, 4)
-    with pytest.raises(NotImplementedError, match='Queue 1, item 7'):
-        tattn.hetero_edge_attention_multi(*args, layout=object())
+    q = rng.standard_normal((30, 2, 4)).astype(np.float32)
+    calls = []
+    real = tattn._FlashAttention.apply
+    monkeypatch.setattr(tattn._FlashAttention, 'apply',
+                        lambda *a: (calls.append(1), real(*a))[1])
+
+    def run(layout=None):
+        kt, vt, qt = _t(k, True), _t(v, True), _t(q, True)
+        out = tattn.hetero_edge_attention_multi(
+            [kt], [vt], qt, [torch.ones(2)], [_t(s)], [_t(dd)], 30,
+            layout=layout)
+        out.square().sum().backward()
+        return out.detach(), kt.grad, vt.grad, qt.grad
+
+    wide = run()
+    assert calls == []
+    lay = tattn.build_union_flash_layout([s], [dd], [20], 30, device='cpu')
     monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', str(100 * 2 * 2 * 4 * 4))
-    assert tattn.hetero_edge_attention_multi(*args).shape == (30, 2, 4)
+    got = [run(), run(lay)]
+    assert len(calls) == 1
     monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', str(100 * 2 * 2 * 4 * 4 - 1))
-    with pytest.raises(NotImplementedError, match='Queue 1, item 7'):
-        tattn.hetero_edge_attention_multi(*args)
+    got.append(run())
+    assert len(calls) == 2
+    for res in got:
+        for a, b in zip(res, wide):
+            _close(a, b.numpy())
+
+

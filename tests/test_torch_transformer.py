@@ -196,8 +196,9 @@ def test_transformer_conv_matches_jax(label, kw, bipartite, cached, ea,
 def test_transformer_conv_kernel_knob_and_wide_cap(monkeypatch):
     """With ``backend.use_kernel_spmm`` off, the CPU takes the wide branch
     over the cached slot orders and agrees with the fused one; past
-    ``PGT_ATTN_WIDE_BYTES`` the uncached conv would take the JAX package's
-    flash scan, which raises; ``dropout`` is taken and never applied."""
+    ``PGT_ATTN_WIDE_BYTES`` the uncached conv takes the flash scan, as the
+    JAX package's does (it raised before the scan was ported), with the
+    fused branch's output; ``dropout`` is taken and never applied."""
     coo, rng = _graph(100, 100, 700, seed=3)
     x = torch.from_numpy(rng.normal(size=(100, 10)).astype(np.float32))
     ei = EdgeIndex(coo, (100, 100), device='cpu').fill_cache(blocked=True)
@@ -213,8 +214,8 @@ def test_transformer_conv_kernel_knob_and_wide_cap(monkeypatch):
     _close(wide, fused.detach().numpy(), what='wide vs fused')
     monkeypatch.setattr(backend, 'use_kernel_spmm', True)
     monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', '1000')
-    with pytest.raises(NotImplementedError, match='Queue 1, item 7'):
-        conv(x, EdgeIndex(coo, (100, 100), device='cpu'))
+    flash = conv(x, EdgeIndex(coo, (100, 100), device='cpu'))
+    _close(flash, fused.detach().numpy(), what='flash vs fused')
     assert torch.equal(conv(x, ei), fused)       # the fused branch is capless
 
 
