@@ -253,6 +253,29 @@ PK_STEPS, PK_SMALL, PL_SMALL = 5, 0.01, 0.05
 # is held to this share of its own largest (``flash_parity``); the readings
 # it rests on are in PERF.md
 FLASH_OWN_TOL = 1e-2
+# the flash kernels' device ms per launch as PERF.md's kernel table recorded
+# them before kernels (b) and (c) were redesigned (one team per (row, head),
+# float loads, no pipelining; one H100 80GB HBM3 at 700 W). Not measured by
+# this script: the timing phase's log quotes them, labelled as recorded,
+# beside its own readings, and no printed record holds them
+FLASH_RECORDED_BEFORE_MS = {
+    ('K layer 1', 'flash_fwd'): 26.4670, ('K layer 2', 'flash_fwd'): 18.1392,
+    ('L layer 1', 'flash_fwd'): 1.8081, ('M layer 1', 'flash_fwd'): 2.2224,
+    ('K layer 1', 'flash_bwd_dst'): 48.3509,
+    ('K layer 2', 'flash_bwd_dst'): 32.6856,
+    ('L layer 1', 'flash_bwd_dst'): 3.6835,
+    ('M layer 1', 'flash_bwd_dst'): 4.1929,
+    ('K layer 1', 'flash_bwd_src'): 52.3106,
+    ('K layer 2', 'flash_bwd_src'): 37.0180,
+    ('L layer 1', 'flash_bwd_src'): 3.4347,
+    ('M layer 1', 'flash_bwd_src'): 3.7467}
+# the A/B of kernels (b) and (c) in the timing phase: the wrappers' chosen
+# team shape, then each design choice varied alone (gathered floats a lane
+# per batch and batches in flight; one head a warp; float loads)
+FLASH_VARIANTS = (('chosen', {}),) + tuple(
+    (f'{f} floats, depth {p}', dict(batch_floats=f, depth=p))
+    for f in (8, 16) for p in (1, 2)) + (
+    ('one head a warp', dict(heads=1)), ('float loads', dict(vec=1)))
 
 
 def log(*a):
@@ -326,7 +349,7 @@ def phase_build(csrc):
     log(f"[build] bsr_spmm: {HGMMA['bsr_spmm']} HGMMA instructions in its "
         'SASS (cuobjdump -sass)')
     for name, text in csrc.build_logs.items():
-        fn, spill = None, ''
+        fn, spill, lines = None, '', []
         for line in text.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             if m:
@@ -340,7 +363,18 @@ def phase_build(csrc):
                 args = (['bf16'] if '__nv_bfloat16' in fn else []) + \
                     re.findall(r'Li(\d+)E', fn)
                 tag = f"<{', '.join(args)}>" if args else ''
-                log(f'[build] {name}{tag}: {m.group(1)} registers, {spill}')
+                lines.append((f'[build] {name}{tag}: {m.group(1)} registers, '
+                              f'{spill}', int(m.group(1)),
+                              not spill.startswith('spill stores 0 ')))
+        if len(lines) <= 48:
+            for text_line, _, _ in lines:
+                log(text_line)
+        else:
+            # a source of many template instances: the range only
+            log(f'[build] {name}: {len(lines)} kernels, '
+                f'{min(r for _, r, _ in lines)}-'
+                f'{max(r for _, r, _ in lines)} registers, '
+                f'{sum(sp for _, _, sp in lines)} of them spill')
 
 
 # -- graph --------------------------------------------------------------------
@@ -3736,7 +3770,8 @@ def flash_route(torch, ops, s, d, n_dst, gcot, layout):
             [None if t is None else t.grad for t in leaves])
 
 
-def flash_close(torch, ops, s, d, rel, n_dst, sorted_dst=False, route=False):
+def flash_close(torch, ops, s, d, rel, n_dst, sorted_dst=False, route=False,
+                keep=None):
     """Kernels (a), (b), (c) against the plain versions on the same card
     tensors, the plain versions computed in float64 from the same float32
     inputs (a float32 plain version sums a hub row's 137,500 terms with
@@ -3750,7 +3785,9 @@ def flash_close(torch, ops, s, d, rel, n_dst, sorted_dst=False, route=False):
     leave); both launches twice, bitwise equal. With ``route`` (one
     relation), ``flash_route``'s output and every input's gradient within
     the same limits, and for the dot form its layout route too. Returns
-    ``(max abs err, max err over its limit)``."""
+    ``(max abs err, max err over its limit)``; a ``keep`` dict receives the
+    output gradient and the float64 gradients and term magnitudes
+    (``gcot``, ``want``, ``terms``)."""
     from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
     plan = fs.dst_plan(s, d, rel, n_dst, sorted_dst)
     plan_t = fs.src_plan(s, d, rel, n_dst, ops.src_tab.shape[0])
@@ -3786,6 +3823,8 @@ def flash_close(torch, ops, s, d, rel, n_dst, sorted_dst=False, route=False):
     terms = fs.flash_backward_plain(ops64, s, d, rel, n_dst, chunk, ref[1],
                                     ref[2], ref[0], gcot.double(),
                                     abs_terms=True)
+    if keep is not None:
+        keep.update(gcot=gcot, want=want, terms=terms)
     for name, a, b, a2, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'), got,
                                  want, twice, terms):
         check((a is None) == (b is None), f'flash backward: {name} missing')
@@ -4152,12 +4191,65 @@ def flash_bytes(ops, plan, plan_t, n_dst, n_edges, kernel):
 def flash_gathered(ops, n_edges, kernel):
     """Bytes a launch gathers per edge list: per edge and head, the value
     row and the logit operand (kernels a, b), or the output gradient row,
-    the destination's operand and its m, l, gdot (kernel c)."""
+    the destination's row (GATv2, dot) and its record (m, l, gdot, a_dst;
+    kernel c)."""
     h, c = ops.heads, ops.columns
     operand = h if ops.form == 'gat' else h * c
     if kernel == 'flash_bwd_src':
-        return n_edges * 4 * (h * c + operand + 3 * h)
+        return n_edges * 4 * (h * c + 4 * h
+                              + (0 if ops.form == 'gat' else h * c))
     return n_edges * 4 * (h * c + (0 if ops.form == 'gatv2' else operand))
+
+
+def flash_variants(torch, label, ops, m, l, out, plan, plan_t, keep):
+    """The A/B of kernels (b) and (c) at one shape (``FLASH_VARIANTS``):
+    each variant's team shape for both kernels, its gradients held against
+    the float64 plain version within ``flash_close``'s limits, and its
+    device ms per launch of each kernel (``whole_window``); the chosen shape
+    is timed again last, for the drift. Returns the readings."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    h, c = ops.heads, ops.columns
+    gcot, want, terms = keep['gcot'], keep['want'], keep['terms']
+    readings, seen = [], set()
+    for name, kw in FLASH_VARIANTS + (('chosen again', {}),):
+        shapes = {k: fs.backward_shape(ops, k, gcot, out, **kw)
+                  for k in ('dst', 'src')}
+        key = tuple(shapes.values())
+        if name != 'chosen again' and key in seen:
+            continue
+        seen.add(key)
+        rec, d_dst, d_extra = fs.flash_backward_dst(ops, m, l, out, gcot,
+                                                    plan, shapes['dst'])
+        d_src, d_val = fs.flash_backward_src(ops, gcot, rec, plan_t,
+                                             shapes['src'])
+        torch.cuda.synchronize()
+        for what, a, b, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'),
+                                 (d_src, d_dst, d_val, d_extra), want,
+                                 terms):
+            if b is None:
+                continue
+            lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
+            over = float(((a.double() - b).abs() / lim).max())
+            check(over <= 1.0, f'flash {label} variant {name}: {what} '
+                               f'{over:.3f} of its limit')
+        ms = {}
+        for kernel, fn in (
+                ('flash_bwd_dst', lambda: fs.flash_backward_dst(
+                    ops, m, l, out, gcot, plan, shapes['dst'])),
+                ('flash_bwd_src', lambda: fs.flash_backward_src(
+                    ops, gcot, rec, plan_t, shapes['src']))):
+            krows, _, _ = whole_window(torch, fn, 5)
+            ms[kernel] = sum(t for nm, t, _ in krows
+                             if FLASH_KERNELS[kernel] in nm)
+        readings.append({'variant': name, 'shape_dst': shapes['dst']._asdict(),
+                         'shape_src': shapes['src']._asdict(), **ms})
+        log(f"[timing] flash A/B {label}, {name}: (b) "
+            f"{ms['flash_bwd_dst']:.4f} ms, (c) {ms['flash_bwd_src']:.4f} "
+            f"ms; (b) {tuple(shapes['dst'])}, (c) {tuple(shapes['src'])} "
+            "(vec, lanes, heads, slots, nv, unroll, depth); gradients within "
+            "the limits")
+        del rec, d_dst, d_extra, d_src, d_val
+    return readings
 
 
 def phase_flash_timings(torch, seed, coo, pc):
@@ -4167,7 +4259,10 @@ def phase_flash_timings(torch, seed, coo, pc):
     ``seed``: each held against its plain version, then device time per
     launch (``device_ms``), CUDA-event wall, the plain version's time (its
     backward covers both passes), the bound (bytes once at 3.35 TB/s) and
-    the rate of gathered rows. No library yardstick: no one PyTorch call
+    the rate of gathered rows; the log quotes beside them the times recorded
+    before kernels (b) and (c) were redesigned (``FLASH_RECORDED_BEFORE_MS``,
+    in no printed record); then the A/B of (b) and (c)
+    (``flash_variants``). No library yardstick: no one PyTorch call
     computes a segment softmax-aggregation."""
     from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
     g = torch.Generator(device='cuda').manual_seed(seed + 11)
@@ -4212,8 +4307,9 @@ def phase_flash_timings(torch, seed, coo, pc):
         with torch.inference_mode():
             log(f'[kernel] flash {label} ({form} H={h} C={c}, {e} edges) '
                 'against the plain version:')
+            keep = {}
             err = flash_close(torch, ops, s.long(), d.long(), rel, nd,
-                              route=True)
+                              route=True, keep=keep)
             worst = (max(worst[0], err[0]), max(worst[1], err[1]))
             order = torch.argsort(d.long(), stable=True)
             sd, dd = s.long()[order], d.long()[order]
@@ -4222,15 +4318,18 @@ def phase_flash_timings(torch, seed, coo, pc):
             plan = fs.dst_plan(sd, dd, rd, nd, True)
             plan_t = fs.src_plan(sd, dd, rd, nd, ns)
             out, m, l = fs.flash_forward(ops, sd, dd, rd, nd, 0, plan)
-            gcot = torch.randn(out.shape, device='cuda', generator=g)
-            gdot = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
+            gcot = keep['gcot']
+            rec = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
             calls = {
                 'flash_fwd': lambda: fs.flash_forward(ops, sd, dd, rd, nd,
                                                       0, plan),
                 'flash_bwd_dst': lambda: fs.flash_backward_dst(
                     ops, m, l, out, gcot, plan),
                 'flash_bwd_src': lambda: fs.flash_backward_src(
-                    ops, m, l, out, gcot, gdot, plan_t)}
+                    ops, gcot, rec, plan_t)}
+            shapes = {'flash_bwd_dst': fs.backward_shape(ops, 'dst', gcot,
+                                                         out),
+                      'flash_bwd_src': fs.backward_shape(ops, 'src', gcot)}
             plain = {
                 'flash_fwd': lambda: fs.flash_forward_plain(
                     ops, sd, dd, rd, nd, 2_000_000),
@@ -4247,8 +4346,11 @@ def phase_flash_timings(torch, seed, coo, pc):
                 event_ms = timed_calls(torch, fn, 5, 1)[0]
                 row = {'shape': label, 'kernel': kernel, 'form': form, 'H': h,
                        'C': c, 'edges': e, 'n_src': ns, 'n_dst': nd,
-                       'split_edges': plan.split, 'team_lanes':
-                       fs.team_lanes(c), 'bytes': by,
+                       'split_edges': plan.split,
+                       'team': ({'lanes': fs.team_lanes(c)}
+                                if kernel == 'flash_fwd'
+                                else shapes[kernel]._asdict()),
+                       'bytes': by,
                        'gathered_bytes': gathered, 'ms': ms,
                        'event_ms': event_ms,
                        'plain_ms': plain_ms['flash_fwd' if kernel ==
@@ -4265,12 +4367,20 @@ def phase_flash_timings(torch, seed, coo, pc):
                 rows.append(row)
                 log(f"[timing] {kernel} {label} ({form} H={h} C={c}, {e} "
                     f"edges): device {ms:.4f} ms per launch [CUDA-event wall "
-                    f"{event_ms:.4f} ms], plain {row['plain_ms']:.4f} ms "
-                    f"({row['plain_covers']}), bound {row['bound_ms']:.4f} "
-                    f"ms (bytes), {100 * row['share']:.1f} % of it; gathered "
-                    f"rows {row['gathered_tb_per_s']:.3f} TB/s; library: none")
-        del ops, src_tab, dst_tab, val, plan, plan_t, out, m, l, gcot, gdot, \
-            rel, rd
+                    f"{event_ms:.4f} ms] (recorded before the redesign of "
+                    f"(b), (c), not measured here: "
+                    f"{FLASH_RECORDED_BEFORE_MS[(label, kernel)]:.4f}), plain "
+                    f"{row['plain_ms']:.4f} "
+                    f"ms ({row['plain_covers']}), bound "
+                    f"{row['bound_ms']:.4f} ms (bytes), "
+                    f"{100 * row['share']:.1f} % of it; gathered rows "
+                    f"{row['gathered_tb_per_s']:.3f} TB/s; library: none")
+            ab = flash_variants(torch, label, ops, m, l, out, plan, plan_t,
+                                keep)
+            for row in rows[-2:]:
+                row['ab'] = ab
+        del ops, src_tab, dst_tab, val, plan, plan_t, out, m, l, gcot, rec, \
+            rel, rd, keep
         torch.cuda.empty_cache()
     return rows, worst
 

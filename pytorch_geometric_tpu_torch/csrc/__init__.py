@@ -28,8 +28,11 @@ SOURCES = {'segment_spmm': 'segment_spmm.cu', 'bsr_spmm': 'bsr_spmm.cu',
            'gat_mix': 'gat_mix.cu', 'segment_max': 'segment_max.cu',
            'sddmm': 'sddmm.cu', 'flash_softmax': 'flash_softmax.cu'}
 
+# --split-compile=0: the device code is optimised on every core, so the
+# flash source's template instances do not hold up the build
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+              '--split-compile=0')
 
 # name -> nvcc's output of the build this process ran (the `-Xptxas -v`
 # register and spill report)

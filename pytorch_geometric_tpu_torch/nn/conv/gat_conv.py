@@ -150,10 +150,12 @@ class GATConv(MessagePassing):
     """GAT (Velickovic et al.): ``alpha = softmax(LeakyReLU(a_s . W x_j +
     a_d . W x_i [+ a_e . W_e e_ij]))``, ``x'_i = sum_j alpha_ij W x_j``.
 
-    ``in_channels`` as a pair ``(src, dst)`` makes the conv bipartite, with
-    its own ``lin_dst``; ``edge_dim`` adds ``lin_edge`` and ``att_edge`` for
-    ``edge_attr``. Parameter names follow the JAX package's, so
-    ``convert.flax_to_state_dict`` carries its weights."""
+    ``in_channels`` as a pair ``(src, dst)`` gives the conv its own
+    ``lin_dst`` for a distinct ``x_dst``; a single tensor, or a pair of one
+    object, shares ``lin_src`` whatever ``in_channels`` was, and a distinct
+    ``x_dst`` without ``lin_dst`` raises. ``edge_dim`` adds ``lin_edge`` and
+    ``att_edge`` for ``edge_attr``. Parameter names follow the JAX
+    package's, so ``convert.flax_to_state_dict`` carries its weights."""
 
     def __init__(self, in_channels: Union[int, Tuple[int, int]],
                  out_channels: int, heads: int = 1, concat: bool = True,
@@ -198,11 +200,16 @@ class GATConv(MessagePassing):
         x_src, x_dst = x if isinstance(x, tuple) else (x, x)
         num_src, num_dst = x_src.shape[0], x_dst.shape[0]
         xs = self.lin_src(x_src).view(num_src, h, c)
-        if self.lin_dst is not None:
-            xd = self.lin_dst(x_dst).view(num_dst, h, c)
+        # the JAX package decides by identity (gat_conv.py:70-81): one
+        # tensor, or a pair of one object, shares lin_src
+        if x_dst is x_src:
+            xd = xs
+        elif self.lin_dst is None:
+            raise ValueError('GATConv got a distinct x_dst but has no '
+                             'lin_dst: build it with in_channels=(src, dst) '
+                             'for a bipartite graph')
         else:
-            xd = xs if x_dst is x_src else self.lin_src(x_dst).view(
-                num_dst, h, c)
+            xd = self.lin_dst(x_dst).view(num_dst, h, c)
         alpha_src = (xs * self.att_src).sum(-1)          # [N_src, H]
         alpha_dst = (xd * self.att_dst).sum(-1)          # [N_dst, H]
 

@@ -32,11 +32,16 @@ On the card :func:`flash_forward` launches kernel (a), destination-major over
 the CSR of the destination-sorted edges, and :func:`flash_backward` kernel
 (b), the destination pass, then kernel (c), the source pass over the
 source-sorted permutation of the same edges (the role of the JAX package's
-``_attention_flash_dual``). Each walks a row's edges with one team of lanes
-per (row, head) and keeps its sums in registers: no ``[E, .]`` intermediate,
-no atomic sums. A row longer than ``FLASH_SPLIT_EDGES`` edges is cut into
-pieces, each with its own partial sums, merged in piece order by the team
-that finishes last (:class:`FlashPlan`). So two launches give the same bits.
+``_attention_flash_dual``). Kernel (a) walks a row's edges with one team of
+lanes per (row, head); kernels (b) and (c) with one warp per row and group
+of heads (:class:`TeamShape`: 16-byte loads where the rows allow, the next
+batch's edges fetched while this one is used), kernel (b) handing kernel (c)
+one record ``(m, l, gdot, a_dst)`` per row and head. Each keeps its sums in
+registers: no ``[E, .]`` intermediate, no atomic sums. A row longer than
+``FLASH_SPLIT_EDGES`` edges is cut into pieces, each with its own partial
+sums, merged in piece order by the team that finishes last
+(:class:`FlashPlan`, whose ``piece_row`` maps a piece to its row). So two
+launches give the same bits.
 
 The plan (:func:`csr_plan`, :func:`dst_plan`, :func:`src_plan`) is built on
 the device with sorts, ``searchsorted`` and ``cumsum``: nothing waits for
@@ -244,14 +249,16 @@ class FlashPlan(NamedTuple):
     (int32, or None) its relation, grouped by row; row ``i``'s edges are
     ``rowptr[i]:rowptr[i + 1]``. Row ``i`` is walked as ``max(1,
     ceil(deg / split))`` pieces, pieces ``piece_ptr[i]:piece_ptr[i + 1]``
-    (an empty row is one piece, which writes zeros); a row of more than one
-    piece keeps its partials in scratch slots ``split_base[i] + k``.
-    ``max_pieces`` and ``n_slots`` bound the pieces and slots from the
-    shapes alone (``n_rows + ceil(E / split)`` and ``2 E / split + 1``), so
-    nothing waits for the card."""
+    (an empty row is one piece, which writes zeros), and ``piece_row [p]``
+    (int32, ``max_pieces`` long, clamped past the last piece) is the row of
+    piece ``p``; a row of more than one piece keeps its partials in scratch
+    slots ``split_base[i] + k``. ``max_pieces`` and ``n_slots`` bound the
+    pieces and slots from the shapes alone (``n_rows + ceil(E / split)``
+    and ``2 E / split + 1``), so nothing waits for the card."""
     n_rows: int
     rowptr: torch.Tensor
     piece_ptr: torch.Tensor
+    piece_row: torch.Tensor
     split_base: torch.Tensor
     nbr: torch.Tensor
     rel: Optional[torch.Tensor]
@@ -279,11 +286,14 @@ def csr_plan(keys: torch.Tensor, nbr: torch.Tensor,
     torch.cumsum(npc, 0, out=piece_ptr[1:])
     multi = torch.where(npc > 1, npc, 0)
     split_base = torch.cumsum(multi, 0) - multi
-    return FlashPlan(n_rows, rowptr, piece_ptr, split_base,
+    max_pieces = n_rows + -(-e // split)
+    piece_row = (torch.searchsorted(
+        piece_ptr, torch.arange(max_pieces, device=dev, dtype=torch.int64),
+        right=True) - 1).clamp_(0, max(n_rows - 1, 0)).to(torch.int32)
+    return FlashPlan(n_rows, rowptr, piece_ptr, piece_row, split_base,
                      nbr.to(torch.int32).contiguous(),
                      None if rel is None else rel.to(torch.int32)
-                     .contiguous(), split, n_rows + -(-e // split),
-                     2 * e // split + 1)
+                     .contiguous(), split, max_pieces, 2 * e // split + 1)
 
 
 def dst_plan(s: torch.Tensor, d: torch.Tensor, rel: Optional[torch.Tensor],
@@ -313,33 +323,84 @@ def src_plan(s: torch.Tensor, d: torch.Tensor, rel: Optional[torch.Tensor],
     return csr_plan(key, d, rel, n_src, split)
 
 
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 def team_lanes(c: int) -> int:
-    """Lanes of the team that owns one (row, head): the head's ``c`` columns
-    rounded up to a power of two, at most 32 (a lane holds columns ``j, j +
-    G, ...``, up to 16 of them)."""
-    g = 1
-    while g < 32 and g < c:
-        g *= 2
-    return g
+    """Lanes of kernel (a)'s team, which owns one (row, head): the head's
+    ``c`` columns rounded up to a power of two, at most 32 (a lane holds
+    columns ``j, j + G, ...``, up to 16 of them)."""
+    return min(_pow2(c), 32)
 
 
-def launch_blocks(plan: FlashPlan, heads: int, c: int) -> int:
-    """Blocks of one launch over ``plan``: one team per (piece, head)."""
-    teams = _THREADS // team_lanes(c)
-    return -(-plan.max_pieces * heads // teams)
+class TeamShape(NamedTuple):
+    """How kernels (b) and (c) lay a row over a warp. Each head is padded to
+    ``slots`` (a power of two) slots of ``vec`` columns (4: one 16-byte load
+    a slot; 1: a float); the warp owns one piece and ``heads`` heads and
+    splits into ``32 // lanes`` sub-teams of ``lanes`` lanes, lane ``j``
+    holding the slots ``j, j + lanes, ...`` (``nv`` of them) of the warp's
+    heads; the sub-teams take alternate batches of ``unroll`` edges, their
+    sums merged at the end; ``depth`` batches are in flight."""
+    vec: int
+    lanes: int
+    heads: int
+    slots: int
+    nv: int
+    unroll: int
+    depth: int
+
+
+def team_shape(h: int, c: int, vec: int, heads: Optional[int] = None,
+               batch_floats: int = 16, depth: int = 1) -> TeamShape:
+    """The shape for heads of ``c`` columns: a head wider than 32 slots
+    takes a warp of its own; narrower ones share a warp, all ``h`` where a
+    lane then holds at most 16 floats of a row, else the most that fit
+    (``heads`` overrides). ``unroll`` edges a batch so that a lane gathers
+    about ``batch_floats`` floats (8 or 16) of rows a batch, between 1 and
+    16 edges."""
+    slots = _pow2(-(-c // vec))
+    if vec not in (1, 4) or (vec == 4 and c % 4) or batch_floats not in (
+            8, 16) or depth not in (1, 2) or (
+                slots > 32 and heads not in (None, 1)):
+        raise ValueError(f'flash team shape: vec {vec} (c = {c}), heads '
+                         f'{heads}, batch_floats {batch_floats}, depth '
+                         f'{depth}')
+
+    def lay(ht):
+        lanes = min(_pow2(ht * slots), 32)
+        return lanes, _pow2(-(-ht * slots // lanes))
+
+    if heads is None:
+        heads = 1 if slots > 32 else next(
+            ht for ht in range(h, 0, -1) if lay(ht)[1] * vec <= 16)
+    lanes, nv = lay(heads)
+    unroll = min(16, max(1, batch_floats // (nv * vec)))
+    return TeamShape(vec, lanes, heads, slots, nv, unroll, depth)
+
+
+def bwd_blocks(plan: FlashPlan, h: int, shape: TeamShape) -> int:
+    """Blocks of a kernel (b) or (c) launch over ``plan``: one warp per
+    (piece, head group)."""
+    groups = -(-h // shape.heads)
+    return -(-plan.max_pieces * groups // (_THREADS // 32))
 
 
 # -- the kernels ---------------------------------------------------------------
 class _Args(ctypes.Structure):
     """``FlashArgs`` of ``csrc/flash_softmax.cu``, field for field."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        'rowptr', 'piece_ptr', 'split_base', 'tickets', 'nbr', 'rel',
-        'src_tab', 'dst_tab', 'val', 'extra', 'm', 'l', 'out', 'g', 'gdot',
-        'd_row', 'd_val', 'd_glob', 'part_s', 'part_s2', 'part_v',
+        'rowptr', 'piece_ptr', 'piece_row', 'split_base', 'tickets', 'nbr',
+        'rel', 'src_tab', 'dst_tab', 'val', 'extra', 'm', 'l', 'out', 'g',
+        'rec', 'd_row', 'd_val', 'd_glob', 'part_s', 'part_s2', 'part_v',
         'part_v2')] + [(name, ctypes.c_longlong) for name in (
             'n_rows', 'max_pieces', 'n_slots', 'ld_src', 'ld_dst',
             'ld_val')] + [(name, ctypes.c_int) for name in (
-                'form', 'h', 'c', 'g_lanes', 'split', 'n_rel')] + [
+                'form', 'h', 'c', 'g_lanes', 'split', 'n_rel', 'vec',
+                'team_heads', 'qv', 'nv', 'unroll', 'depth')] + [
         ('slope', ctypes.c_float)]
 
 
@@ -382,12 +443,15 @@ def _check_card(ops: FlashOperands, *tensors):
                          f'{MAX_HEAD_COLUMNS} columns, got {ops.columns}')
 
 
-def _args(ops: FlashOperands, plan: FlashPlan, **ptrs) -> _Args:
+def _args(ops: FlashOperands, plan: FlashPlan,
+          shape: Optional[TeamShape] = None, **ptrs) -> _Args:
+    """The launch arguments; ``shape`` for kernels (b) and (c), None for
+    kernel (a) (its team of ``team_lanes(c)`` lanes)."""
     h, c = ops.heads, ops.columns
     a = _Args()
-    a.rowptr, a.piece_ptr, a.split_base = (plan.rowptr.data_ptr(),
-                                           plan.piece_ptr.data_ptr(),
-                                           plan.split_base.data_ptr())
+    a.rowptr, a.piece_ptr, a.piece_row, a.split_base = (
+        plan.rowptr.data_ptr(), plan.piece_ptr.data_ptr(),
+        plan.piece_row.data_ptr(), plan.split_base.data_ptr())
     a.nbr, a.rel = plan.nbr.data_ptr(), _ptr(plan.rel)
     a.src_tab, a.dst_tab, a.val = (ops.src_tab.data_ptr(),
                                    ops.dst_tab.data_ptr(),
@@ -403,9 +467,53 @@ def _args(ops: FlashOperands, plan: FlashPlan, **ptrs) -> _Args:
     a.ld_val = _row_stride('val', ops.val, h * c)
     a.form, a.h, a.c = FORMS.index(ops.form), h, c
     a.g_lanes, a.split = team_lanes(c), plan.split
+    if shape is not None:
+        a.g_lanes, a.vec, a.team_heads, a.qv = (shape.lanes, shape.vec,
+                                                shape.heads, shape.slots)
+        a.nv, a.unroll, a.depth = shape.nv, shape.unroll, shape.depth
     a.n_rel = ops.extra.shape[0] if ops.form == 'dot' else 0
     a.slope = float(ops.slope)
     return a
+
+
+def _vec_ok(ops: FlashOperands, *rows: torch.Tensor) -> bool:
+    """16-byte loads: ``c`` a multiple of 4, and every table that kernels
+    (b) and (c) read by rows 16-byte aligned with a stride of whole
+    vectors (``rows``: the output-gradient and output rows)."""
+    tabs = [ops.val, *rows]
+    if ops.form != 'gat':
+        tabs.append(ops.dst_tab)
+    if ops.form == 'dot':
+        tabs.append(ops.src_tab)
+    if ops.form == 'gatv2':
+        tabs.append(ops.extra)
+    return ops.columns % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and (t.dim() < 2 or t.shape[0] <= 1
+                                    or t.stride(0) % 4 == 0) for t in tabs)
+
+
+def _batch(kernel: str, floats: int):
+    """Kernels (b) and (c)'s batch (gathered row floats a lane, 8 or 16) and
+    batches in flight, by the floats of a row a lane holds: 8 floats, and
+    two batches in flight for kernel (b) where a lane holds 8 or more. From
+    the A/B of ``chip_smoke.py``'s flash timing phase (PERF.md): within 8 %
+    of the best variant at paths K, L and M, where 16 floats or depth 2
+    everywhere lose up to 2x to spills."""
+    return 8, 2 if kernel == 'dst' and floats >= 8 else 1
+
+
+def backward_shape(ops: FlashOperands, kernel: str, *rows: torch.Tensor,
+                   **kw) -> TeamShape:
+    """The team shape of kernel ``kernel`` ('dst': (b), 'src': (c)): 16-byte
+    loads where :func:`_vec_ok` allows them, heads laid out by
+    :func:`team_shape` and the batch of :func:`_batch`; ``kw`` overrides
+    ``team_shape``'s arguments (``vec`` too)."""
+    h, c = ops.heads, ops.columns
+    vec = kw.pop('vec', None) or (4 if _vec_ok(ops, *rows) else 1)
+    floats = team_shape(h, c, vec, kw.get('heads')).nv * vec
+    batch, depth = _batch(kernel, floats)
+    return team_shape(h, c, vec, **{'batch_floats': batch, 'depth': depth,
+                                    **kw})
 
 
 def _launch(symbol: str, args: _Args, dev: torch.device, what: str):
@@ -463,56 +571,62 @@ def flash_forward(ops: FlashOperands, s: torch.Tensor, d: torch.Tensor,
 
 
 def flash_backward_dst(ops: FlashOperands, m: torch.Tensor, l: torch.Tensor,
-                       out: torch.Tensor, g: torch.Tensor, plan: FlashPlan):
+                       out: torch.Tensor, g: torch.Tensor, plan: FlashPlan,
+                       shape: Optional[TeamShape] = None):
     """Kernel (b), the backward's destination pass over ``plan`` (the
-    :func:`dst_plan` of the forward): ``(gdot [num_dst, H], d_dst_tab,
-    d_extra)``, ``gdot = <g, out>`` per row and head and ``d_extra`` the
-    blocks' partials of GATv2's ``att`` or the dot form's prior summed in
-    block order (None for GAT). CUDA tensors only; counts in
+    :func:`dst_plan` of the forward): ``(rec [num_dst, H, 4], d_dst_tab,
+    d_extra)``, ``rec`` each row and head's ``(m, l, gdot = <g, out>,
+    a_dst)`` (``a_dst`` 0 but for GAT), which kernel (c) reads, and
+    ``d_extra`` the blocks' partials of GATv2's ``att`` or the dot form's
+    prior summed in block order (None for GAT). ``shape`` overrides
+    :func:`backward_shape`. CUDA tensors only; counts in
     ``flash_backward.launches_dst``."""
     num_dst = out.shape[0]
     g = g.reshape(num_dst, -1).contiguous()
     _check_card(ops, m, l, out, g)
     h, c = ops.heads, ops.columns
+    if shape is None:
+        shape = backward_shape(ops, 'dst', g, out)
     kw = dict(dtype=torch.float32, device=ops.val.device)
-    gdot = torch.empty((num_dst, h), **kw)
+    rec = torch.empty((num_dst, h, 4), **kw)
     d_dst = torch.empty((num_dst, ops.dst_tab.shape[1]), **kw)
     if ops.form == 'gat':
         glob = None
     else:
         width = h * c if ops.form == 'gatv2' else ops.extra.numel()
-        glob = torch.empty((launch_blocks(plan, h, c), width), **kw)
+        glob = torch.empty((bwd_blocks(plan, h, shape), width), **kw)
     (ps, ps2, pv), tickets = _scratch(plan, h, h * c, out, 1)
-    args = _args(ops, plan, m=m, l=l, out=out, g=g, gdot=gdot, d_row=d_dst,
-                 d_glob=glob, tickets=tickets, part_s=ps, part_s2=ps2,
-                 part_v=pv)
+    args = _args(ops, plan, shape, m=m, l=l, out=out, g=g, rec=rec,
+                 d_row=d_dst, d_glob=glob, tickets=tickets, part_s=ps,
+                 part_s2=ps2, part_v=pv)
     _launch('pgt_flash_bwd_dst', args, ops.val.device, 'backward (dst)')
     flash_backward.launches_dst += 1
     d_extra = None if glob is None else glob.sum(0).view_as(ops.extra)
-    return gdot, d_dst, d_extra
+    return rec, d_dst, d_extra
 
 
-def flash_backward_src(ops: FlashOperands, m: torch.Tensor, l: torch.Tensor,
-                       out: torch.Tensor, g: torch.Tensor, gdot: torch.Tensor,
-                       plan_t: FlashPlan):
+def flash_backward_src(ops: FlashOperands, g: torch.Tensor, rec: torch.Tensor,
+                       plan_t: FlashPlan, shape: Optional[TeamShape] = None):
     """Kernel (c), the backward's source pass over ``plan_t`` (a
-    :func:`src_plan`), reading the ``gdot`` of kernel (b): ``(d_src_tab,
-    d_val)`` (``d_val`` None for GATv2, whose value gradient is in
-    ``d_src_tab``). CUDA tensors only; counts in
-    ``flash_backward.launches_src``."""
-    num_dst = out.shape[0]
+    :func:`src_plan`), reading the records ``rec`` of kernel (b):
+    ``(d_src_tab, d_val)`` (``d_val`` None for GATv2, whose value gradient
+    is in ``d_src_tab``). ``shape`` overrides :func:`backward_shape`. CUDA
+    tensors only; counts in ``flash_backward.launches_src``."""
+    num_dst = rec.shape[0]
     g = g.reshape(num_dst, -1).contiguous()
-    _check_card(ops, m, l, out, g, gdot)
+    _check_card(ops, g, rec)
     h, c = ops.heads, ops.columns
+    if shape is None:
+        shape = backward_shape(ops, 'src', g)
     kw = dict(dtype=torch.float32, device=ops.val.device)
     n_src = ops.src_tab.shape[0]
     d_src = torch.empty((n_src, ops.src_tab.shape[1]), **kw)
     d_val = (torch.empty((n_src, h * c), **kw) if ops.form != 'gatv2'
              else None)
-    (ps, ps2, pv, pv2), tickets = _scratch(plan_t, h, h * c, out, 2)
-    args = _args(ops, plan_t, m=m, l=l, out=out, g=g, gdot=gdot,
-                 d_row=d_src, d_val=d_val, tickets=tickets, part_s=ps,
-                 part_s2=ps2, part_v=pv, part_v2=pv2)
+    (ps, ps2, pv, pv2), tickets = _scratch(plan_t, h, h * c, g, 2)
+    args = _args(ops, plan_t, shape, g=g, rec=rec, d_row=d_src, d_val=d_val,
+                 tickets=tickets, part_s=ps, part_s2=ps2, part_v=pv,
+                 part_v2=pv2)
     _launch('pgt_flash_bwd_src', args, ops.val.device, 'backward (src)')
     flash_backward.launches_src += 1
     return d_src, d_val
@@ -542,8 +656,8 @@ def flash_backward(ops: FlashOperands, s: torch.Tensor, d: torch.Tensor,
         return (torch.zeros_like(ops.src_tab), torch.zeros_like(ops.dst_tab),
                 None if ops.form == 'gatv2' else torch.zeros_like(ops.val),
                 None if ops.extra is None else torch.zeros_like(ops.extra))
-    gdot, d_dst, d_extra = flash_backward_dst(ops, m, l, out, g, plan)
-    d_src, d_val = flash_backward_src(ops, m, l, out, g, gdot, plan_t)
+    rec, d_dst, d_extra = flash_backward_dst(ops, m, l, out, g, plan)
+    d_src, d_val = flash_backward_src(ops, g, rec, plan_t)
     return d_src, d_dst, d_val, d_extra
 
 

@@ -1707,6 +1707,127 @@ def test_flash_kernels_match_plain(dev, form, h, c):
             assert torch.equal(a, c2)
 
 
+def _flash_f64(fs, ops, s, d, rel, nd, gcot):
+    """The float64 plain backward and its terms' magnitudes, from the
+    float64 plain forward of the same float32 inputs."""
+    src64 = ops.src_tab.double()
+    ops64 = ops._replace(
+        src_tab=src64, dst_tab=ops.dst_tab.double(),
+        val=src64 if ops.form == 'gatv2' else ops.val.double(),
+        extra=None if ops.extra is None else ops.extra.double())
+    ref = fs.flash_forward_plain(ops64, s, d, rel, nd, 10_000)
+    args = (ops64, s, d, rel, nd, 10_000, ref[1], ref[2], ref[0],
+            gcot.double())
+    return ref, fs.flash_backward_plain(*args), fs.flash_backward_plain(
+        *args, abs_terms=True)
+
+
+FLASH_ARMS = [(form, h, c, variant) for form in ('gat', 'gatv2', 'dot')
+              for h, c in ((4, 16), (1, 47), (4, 64), (1, 512))
+              for variant in ('chosen', 'float loads', 'one head a warp',
+                              '8 floats, depth 2', '16 floats, depth 1')
+              if not (variant == 'float loads' and c % 4)
+              and not (variant == 'one head a warp' and h == 1)]
+
+
+@pytest.mark.parametrize('form,h,c,variant', FLASH_ARMS)
+def test_flash_backward_arms_match_float64(dev, form, h, c, variant):
+    """The redesigned kernels (b) and (c) on each arm: 16-byte loads at C =
+    16 and H = 4 (a sub-team of 16 lanes, two a warp), floats at the
+    unaligned C = 47, H C = 256 and C = 512; each design variant of the
+    A/B; a hub row of 2,000 edges (over 3 x FLASH_SPLIT_EDGES, 4 pieces),
+    empty rows, invalid edges, 3 relations for the dot form. Held against
+    the float64 plain versions within PERF.md's limits (each gradient entry
+    1e-4 of the gradient's largest plus 1e-5 of its terms' magnitudes),
+    the record (m, l, gdot, a_dst) against m, l, <g, out> (1e-5 plus 1e-5
+    of the sum of |g out|) and a_dst, and two launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    ops, s, d, rel, nd = _flash_case(dev, form, h, c, n_rel=3, seed=c + h)
+    hub = int(torch.bincount(d.clamp(max=nd)).max())
+    assert hub > 3 * fs.FLASH_SPLIT_EDGES
+    plan = fs.dst_plan(s, d, rel, nd, False)
+    plan_t = fs.src_plan(s, d, rel, nd, ops.src_tab.shape[0])
+    out, m, l = fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
+    gcot = torch.randn_like(out)
+    kw = {'chosen': {}, 'float loads': dict(vec=1),
+          'one head a warp': dict(heads=1),
+          '8 floats, depth 2': dict(batch_floats=8, depth=2),
+          '16 floats, depth 1': dict(batch_floats=16, depth=1)}[variant]
+    assert fs.backward_shape(ops, 'dst', gcot, out).vec == (
+        4 if c % 4 == 0 else 1)
+    shapes = {k: fs.backward_shape(ops, k, gcot, out, **kw)
+              for k in ('dst', 'src')}
+    runs = []
+    for _ in range(2):
+        rec, d_dst, d_extra = fs.flash_backward_dst(ops, m, l, out, gcot,
+                                                    plan, shapes['dst'])
+        d_src, d_val = fs.flash_backward_src(ops, gcot, rec, plan_t,
+                                             shapes['src'])
+        runs.append((rec, d_src, d_dst, d_val, d_extra))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    rec, *got = runs[0]
+    ref, want, terms = _flash_f64(fs, ops, s, d, rel, nd, gcot)
+    assert float((out.double() - ref[0]).abs().max()) <= 1e-5 * max(
+        1.0, float(ref[0].abs().max()))
+    assert torch.equal(rec[..., 0], m) and torch.equal(rec[..., 1], l)
+    prod = (gcot.double() * out.double()).view(nd, h, c)
+    assert bool(((rec[..., 2].double() - prod.sum(-1)).abs()
+                 <= 1e-5 * (1 + prod.abs().sum(-1))).all())
+    assert torch.equal(rec[..., 3], ops.dst_tab if form == 'gat'
+                       else torch.zeros_like(rec[..., 3]))
+    for name, a, b, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'), got,
+                             want, terms):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
+            assert float(((a.double() - b).abs() / lim).max()) <= 1.0, name
+
+
+@pytest.mark.parametrize('form', ['gat', 'gatv2', 'dot'])
+def test_flash_backward_picks_float_loads_for_unaligned_rows(dev, form):
+    """Tables whose rows are 37 floats apart (C = 16 columns read in place)
+    take the float arm, and match the 16-byte arm on a contiguous copy
+    within the float64 limits; a 16-byte shape forced on them is refused
+    by the kernel, never run."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    ops, s, d, rel, nd = _flash_case(dev, form, 2, 16, n_rel=3, seed=7)
+
+    def strided(t):
+        if t.dim() != 2 or t.shape[1] < 4:
+            return t
+        wide = torch.zeros(t.shape[0], 37, device=dev)
+        wide[:, :t.shape[1]] = t
+        return wide[:, :t.shape[1]]
+
+    src = strided(ops.src_tab)
+    ops_s = ops._replace(src_tab=src, dst_tab=strided(ops.dst_tab),
+                         val=src if form == 'gatv2' else strided(ops.val))
+    plan = fs.dst_plan(s, d, rel, nd, False)
+    plan_t = fs.src_plan(s, d, rel, nd, ops.src_tab.shape[0])
+    out, m, l = fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
+    gcot = torch.randn_like(out)
+    assert fs.backward_shape(ops_s, 'dst', gcot, out).vec == 1
+    assert fs.backward_shape(ops, 'dst', gcot, out).vec == 4
+    _, want, terms = _flash_f64(fs, ops, s, d, rel, nd, gcot)
+    got = fs.flash_backward(ops_s, s, d, rel, nd, 1000, m, l, out, gcot,
+                            plan, plan_t)
+    for name, a, b, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'), got,
+                             want, terms):
+        if b is not None:
+            lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
+            assert float(((a.double() - b).abs() / lim).max()) <= 1.0, name
+    forced = fs.team_shape(2, 16, 4)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        fs.flash_backward_dst(ops_s, m, l, out, gcot, plan, forced)
+    rec = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
+    with pytest.raises(RuntimeError, match='launch failed'):
+        fs.flash_backward_src(ops_s, gcot, rec, plan_t, forced)
+
+
 def test_flash_kernels_refuse_bf16(dev):
     from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
     ops, s, d, rel, nd = _flash_case(dev, 'gat', 2, 8)

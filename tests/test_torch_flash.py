@@ -13,10 +13,13 @@ float tensor, and ``chip_smoke.py``'s path K (the products bench's 2-layer
 GAT) on a tiny products graph for 5 Adam steps against optax.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
-Here their launch plan is checked, and a numpy emulation of their order of
-work (one team per (row, head) walking its piece of a row with the online
-update, pieces merged in piece order, the backward's destination and source
-passes) is held against the plain versions.
+Here their launch plan is checked (``piece_row`` included), and numpy
+emulations of their order of work are held against the plain versions:
+kernel (a)'s (one team per (row, head) walking its piece of a row with the
+online update, pieces merged in piece order), the backward passes per
+(row, head), and the backward passes as kernels (b) and (c) run them (one
+warp per row and head group, sub-teams on alternate batches, the packed
+record).
 
 Tolerances: forward within 1e-5 * max(1, max|ref|); gradients within 1e-4
 of the reference's largest magnitude (float32 sums in another order); the
@@ -231,12 +234,17 @@ def test_csr_plan_pieces_and_slots():
     assert plan.split_base.tolist() == [0, 3, 3, 3]
     assert plan.max_pieces == 4 + 5 and plan.n_slots == 2 * 13 // 3 + 1
     assert plan.nbr.dtype == torch.int32 and plan.rel is None
+    # each piece's row: the split row 0 three times, the empty row 1 once;
+    # past the last piece, clamped to the last row
+    assert plan.piece_row.dtype == torch.int32
+    assert plan.piece_row.tolist() == [0, 0, 0, 1, 2, 3, 3, 3, 3]
     # the source-major plan drops invalid edges and groups by source
     s = torch.tensor([2, 0, 2, 1, 0])
     d = torch.tensor([1, 0, 3, 1, 0])
     t = fs.src_plan(s, d, None, 3, 3, split=1)
     assert t.rowptr.tolist() == [0, 2, 3, 4]
     assert t.nbr.tolist() == [0, 0, 1, 1, 3]   # the invalid edge last
+    assert t.piece_row.tolist() == [0, 0, 1, 2, 2, 2, 2, 2]
     assert fs.team_lanes(1) == 1 and fs.team_lanes(10) == 16
     assert fs.team_lanes(47) == 32 and fs.team_lanes(500) == 32
 
@@ -425,6 +433,274 @@ def test_kernel_emulation_matches_the_plain_versions(form):
 
 
 FORMS_SEED = {'gat': 1, 'gatv2': 2, 'dot': 3}
+
+
+def _slots(shape, h, c, hg):
+    """Kernels (b) and (c)'s lane layout (``lane_slots``): for each lane of
+    a sub-team and each of its ``nv`` slots, ``(head, first column)`` or
+    None, and whether it is its head's first slot."""
+    out = {}
+    for sub in range(shape.lanes):
+        for k in range(shape.nv):
+            v = k * shape.lanes + sub
+            hl, w = divmod(v, shape.slots)
+            head = hg * shape.heads + hl
+            ok = hl < shape.heads and head < h and w * shape.vec < c
+            out[sub, k] = ((head, head * c + w * shape.vec, w == 0)
+                           if ok else None)
+    return out
+
+
+def _emulate_backward(ops, s, d, rel, num_dst, split, shape, m, l, out, g):
+    """Kernels (b) and (c) in their order of work, in numpy float32: one
+    warp per (piece, head group) through ``piece_row``; each lane's slots
+    (``_slots``); the sub-teams taking alternate batches of ``unroll``
+    edges, their sums merged at the end; a head's sums over its slots; a
+    split row's pieces merged in piece order; kernel (b)'s record (m, l,
+    gdot, a_dst) per row and head, the only destination operands kernel (c)
+    reads besides the rows; the global reductions per warp and sub-team,
+    per block of 8 warps, then over blocks. Every column of every output
+    must be written exactly once."""
+    form, h, c, slope = ops.form, ops.heads, ops.columns, np.float32(
+        ops.slope)
+    src_tab, dst_tab, val, extra = _np_tables(ops)
+    m, l, out = (t.numpy().astype(np.float32) for t in (m, l, out))
+    g = g.reshape(num_dst, h * c).astype(np.float32)
+    n_src = src_tab.shape[0]
+    groups = -(-h // shape.heads)
+    teams = 32 // shape.lanes
+    vec = shape.vec
+
+    def leaky(x):
+        return np.where(x >= 0, x, slope * x)
+
+    def warps(plan):
+        pp, pr = plan.piece_ptr.numpy(), plan.piece_row.numpy()
+        rp = plan.rowptr.numpy()
+        for item in range(plan.max_pieces * groups):
+            p, hg = divmod(item, groups)
+            if p >= pp[-1]:
+                continue
+            row = int(pr[p])
+            k, n_p = p - pp[row], pp[row + 1] - pp[row]
+            e0 = rp[row] + k * split
+            yield item, row, k, n_p, hg, e0, min(e0 + split, rp[row + 1])
+
+    def team_edges(st, e0, e1):
+        for b in range(e0 + st * shape.unroll, e1,
+                       teams * shape.unroll):
+            yield from range(b, min(b + shape.unroll, e1))
+
+    def run(plan, step, keys, glob_width=0):
+        """Walks ``plan``; ``step(row, edge, slots, acc, glob)`` adds one
+        edge's terms to a sub-team's per-slot sums; ``keys`` holds, per
+        output, its width and the key ``(column, n)`` a slot writes (or
+        None); returns the outputs assembled from the slots (zeros where no
+        edge added) and the per-block global partials."""
+        widths = [w for w, _ in keys]
+        outs = [np.full((plan.n_rows, w), np.nan, np.float32)
+                for w in widths]
+        parts, blocks = {}, {}
+        for item, row, k, n_p, hg, e0, e1 in warps(plan):
+            slots = _slots(shape, h, c, hg)
+            sums, gl = [], []
+            for st in range(teams):
+                acc = [{} for _ in widths]
+                glob = {}
+                for e in team_edges(st, e0, e1):
+                    step(row, e, slots, acc, glob)
+                sums.append(acc)
+                gl.append(glob)
+            merged = [{} for _ in widths]
+            for acc in sums:            # the sub-teams' fixed butterfly
+                for i, a in enumerate(acc):
+                    for key, v in a.items():
+                        merged[i][key] = merged[i].get(key, 0) + v
+            blocks.setdefault(item // 8, []).append(gl)
+            parts[row, hg, k] = merged
+            if k < n_p - 1 and n_p > 1:
+                continue
+            if n_p > 1:                 # piece order
+                merged = [{} for _ in widths]
+                for q in range(n_p):
+                    for i, a in enumerate(parts[row, hg, q]):
+                        for key, v in a.items():
+                            merged[i][key] = merged[i].get(key, 0) + v
+            for sl in slots.values():
+                for i, (_, key) in enumerate(keys):
+                    if sl is not None and key(sl) is not None:
+                        merged[i].setdefault(key(sl), np.float32(0))
+            for i, a in enumerate(merged):
+                for (col, n), v in a.items():
+                    assert np.isnan(outs[i][row, col:col + n]).all()
+                    outs[i][row, col:col + n] = v
+        glob_total = np.zeros(glob_width, np.float32)
+        for b in sorted(blocks):
+            part = np.zeros(glob_width, np.float32)
+            for gl in blocks[b]:
+                for glob in gl:
+                    for (col, n), v in glob.items():
+                        part[col:col + n] += v
+            glob_total += part
+        for o in outs:
+            # rows no edge reaches were written too, with zeros
+            assert not np.isnan(o).any()
+        return outs, glob_total
+
+    def add(acc, key, v):
+        acc[key] = acc.get(key, 0) + np.asarray(v, np.float32)
+
+    def terms(sv, dv, r, head, rec):
+        """alpha, dlogit, base and the joint's base of one edge and head,
+        from the record of its destination."""
+        cols = slice(head * c, (head + 1) * c)
+        mm, ll, gd, ad = rec
+        if form == 'gat':
+            base = np.float32(src_tab[sv, head] + ad)
+            logit, b = leaky(base), None
+        elif form == 'gatv2':
+            b = src_tab[sv, cols] + dst_tab[dv, cols]
+            base, logit = None, np.float32((extra[cols] * leaky(b)).sum())
+        else:
+            base = np.float32((dst_tab[dv, cols] * src_tab[sv, cols]).sum())
+            logit, b = base * extra[r, head], None
+        ms = mm if np.isfinite(mm) else np.float32(0)
+        alpha = np.float32(np.exp(logit - ms) / max(ll, np.float32(1e-16)))
+        dl = alpha * (np.float32((g[dv, cols] * val[sv, cols]).sum()) - gd)
+        return alpha, np.float32(dl), base, b
+
+    # kernel (b): the records, then the destination gradients
+    plan = fs.dst_plan(s, d, rel, num_dst, False, split)
+    nbr = plan.nbr.numpy()
+    rl = None if plan.rel is None else plan.rel.numpy()
+    gdot = (g * out).reshape(num_dst, h, c).sum(-1)
+    rec = np.stack([m, l, gdot, dst_tab if form == 'gat'
+                    else np.zeros_like(m)], -1)
+    d_extra = None
+    if form == 'dot':
+        d_extra = np.zeros_like(extra)
+
+    def step_dst(row, e, slots, acc, glob):
+        sv, r = nbr[e], None if rl is None else rl[e]
+        for (sub, k), sl in slots.items():
+            if sl is None:
+                continue
+            head, col, first = sl
+            alpha, dl, base, b = terms(sv, row, r, head, rec[row, head])
+            cc = slice(col - head * c, col - head * c + vec)
+            if form == 'gat':
+                if first:
+                    add(acc[0], (head, 1), dl if base >= 0 else slope * dl)
+            elif form == 'gatv2':
+                dj = dl * extra[col:col + vec]
+                add(acc[0], (col, vec), np.where(b[cc] >= 0, dj, slope * dj))
+                add(glob, (col, vec), leaky(b[cc]) * dl)
+            else:
+                if first:
+                    d_extra[r, head] += dl * base
+                add(acc[0], (col, vec), dl * extra[r, head]
+                    * src_tab[sv, col:col + vec])
+
+    def head_key(sl):
+        return (sl[0], 1) if sl[2] else None
+
+    def col_key(sl):
+        return sl[1], vec
+
+    (d_dst,), glob = run(plan, step_dst, [
+        (dst_tab.shape[1], head_key if form == 'gat' else col_key)],
+        h * c if form == 'gatv2' else 0)
+    if form == 'gatv2':
+        d_extra = glob
+
+    # kernel (c): the source pass, reading the records
+    t = fs.src_plan(s, d, rel, num_dst, n_src, split=split)
+    tnbr = t.nbr.numpy()
+    trl = None if t.rel is None else t.rel.numpy()
+
+    def step_src(row, e, slots, acc, glob):
+        dv, r = tnbr[e], None if trl is None else trl[e]
+        for (sub, k), sl in slots.items():
+            if sl is None:
+                continue
+            head, col, first = sl
+            alpha, dl, base, b = terms(row, dv, r, head, rec[dv, head])
+            cc = slice(col - head * c, col - head * c + vec)
+            gv = g[dv, col:col + vec]
+            if form == 'gat':
+                if first:
+                    add(acc[0], (head, 1), dl if base >= 0 else slope * dl)
+                add(acc[1], (col, vec), alpha * gv)
+            elif form == 'gatv2':
+                dj = dl * extra[col:col + vec]
+                add(acc[0], (col, vec), np.where(b[cc] >= 0, dj, slope * dj)
+                    + alpha * gv)
+            else:
+                add(acc[0], (col, vec), dl * extra[r, head]
+                    * dst_tab[dv, col:col + vec])
+                add(acc[1], (col, vec), alpha * gv)
+
+    keys = [(src_tab.shape[1], head_key if form == 'gat' else col_key)]
+    if form != 'gatv2':
+        keys.append((h * c, col_key))
+    outs, _ = run(t, step_src, keys)
+    return (outs[0], d_dst, None if form == 'gatv2' else outs[1], d_extra,
+            rec)
+
+
+BWD_SHAPES = [(2, 8, dict(vec=4)), (2, 8, dict(vec=4, heads=1)),
+              (1, 5, dict(vec=1)), (3, 4, dict(vec=4, batch_floats=16)),
+              (1, 40, dict(vec=4, depth=1)), (2, 8, dict(vec=1)),
+              (1, 160, dict(vec=1))]
+
+
+@pytest.mark.parametrize('form', fs.FORMS)
+@pytest.mark.parametrize('h,c,kw', BWD_SHAPES,
+                         ids=[f'H{h}-C{c}-' + '-'.join(
+                             f'{k}{v}' for k, v in kw.items())
+                             for h, c, kw in BWD_SHAPES])
+def test_backward_emulation_in_the_redesigned_order(form, h, c, kw):
+    """Kernels (b) and (c) as redesigned: all heads of a row in one warp
+    (or one head a warp), 16-byte or float slots, sub-teams on alternate
+    batches, rows split into pieces of 3 edges found through ``piece_row``,
+    and the packed record; every output column written once, and the
+    gradients equal to the plain backward's (1e-4 of each one's largest),
+    the record to (m, l, <g, out>, a_dst)."""
+    rng = np.random.default_rng(FORMS_SEED[form] + 10 * h + c)
+    ns, nd = 11, 9
+    src, dst = _edges(rng, ns, nd, 40, 4)
+    sw = h if form == 'gat' else h * c
+    src_tab = torch.from_numpy(rng.standard_normal((ns, sw)).astype(
+        np.float32))
+    dst_tab = torch.from_numpy(rng.standard_normal((nd, sw)).astype(
+        np.float32))
+    val = (src_tab if form == 'gatv2' else torch.from_numpy(
+        rng.standard_normal((ns, h * c)).astype(np.float32)))
+    extra = rel = None
+    if form == 'gatv2':
+        extra = torch.from_numpy(rng.standard_normal(h * c).astype(
+            np.float32))
+    if form == 'dot':
+        extra = torch.from_numpy(rng.uniform(0.3, 1.0, (3, h)).astype(
+            np.float32))
+        rel = torch.from_numpy(rng.integers(0, 3, len(src)))
+    ops = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    shape = fs.team_shape(h, c, **kw)
+    assert shape.lanes * shape.nv >= shape.heads * shape.slots
+    out, m, l = fs.flash_forward_plain(ops, s, d, rel, nd, 7)
+    g = rng.standard_normal((nd, h * c)).astype(np.float32)
+    *got, rec = _emulate_backward(ops, s, d, rel, nd, 3, shape, m, l, out,
+                                  g)
+    np.testing.assert_array_equal(rec[..., 0], m.numpy())
+    np.testing.assert_array_equal(rec[..., 1], l.numpy())
+    _fwd_close(rec[..., 2], (g * out.numpy()).reshape(nd, h, c).sum(-1))
+    ref = fs.flash_backward_plain(ops, s, d, rel, nd, 7, m, l, out,
+                                  torch.from_numpy(g))
+    for name, a, want in zip(('src', 'dst', 'val', 'extra'), got, ref):
+        assert (a is None) == (want is None), name
+        if a is not None:
+            _grad_close(a, want.numpy(), f'{form} d_{name}')
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():

@@ -353,6 +353,101 @@ def test_flash_branch_raises_and_aliases(monkeypatch):
     assert ei.blocked is not None and ei.blocked_t is not None
 
 
+# -- the destination projection, chosen by identity as the JAX package does ---
+def _identity_case(seed):
+    coo, rng = _graph(50, 50, 300, seed=seed)
+    x = rng.normal(size=(50, 10)).astype(np.float32)
+    xd = rng.normal(size=(50, 10)).astype(np.float32)
+    return coo, x, xd
+
+
+@pytest.mark.parametrize('call', ['one tensor', 'pair of one object'])
+def test_pair_built_gatconv_shares_lin_src_like_jax(call):
+    """A conv built with ``in_channels=(10, 10)`` and called with one tensor
+    (or a pair whose members are the same object) shares ``lin_src``, as the
+    JAX package's ``x_dst is x_src`` does: the JAX params hold no
+    ``lin_dst``, they load with only ``lin_dst.weight`` left unset, and the
+    output and gradients match; ``lin_dst`` stays out of the graph."""
+    coo, x, _ = _identity_case(21)
+    jx = jnp.asarray(x)
+    jconv = JGATConv(out_channels=4, heads=2)
+    params = jax.jit(jconv.init)(jax.random.PRNGKey(2), jx, jnp.asarray(coo))
+    assert 'lin_dst' not in params['params']
+    cot = np.random.default_rng(3).normal(size=(50, 8)).astype(np.float32)
+    jgrad = jax.grad(lambda p: (jconv.apply(p, jx, jnp.asarray(coo))
+                                * jnp.asarray(cot)).sum())(params)
+    jout = jconv.apply(params, jx, jnp.asarray(coo))
+
+    conv = GATConv((10, 10), 4, heads=2, device='cpu')
+    missing, unexpected = conv.load_state_dict(flax_to_state_dict(params),
+                                               strict=False)
+    assert missing == ['lin_dst.weight'] and unexpected == []
+    xt = torch.from_numpy(x)
+    out = conv((xt, xt) if call == 'pair of one object' else xt,
+               torch.from_numpy(coo))
+    (out * torch.from_numpy(cot)).sum().backward()
+    _close(out.detach(), jout, what=call)
+    grads = flax_to_state_dict(jgrad)
+    for k, prm in conv.named_parameters():
+        if k == 'lin_dst.weight':
+            assert prm.grad is None
+        else:
+            _close(prm.grad, grads[k], what=f'grad of {k}')
+
+
+def test_int_built_gatconv_refuses_a_distinct_pair():
+    """A distinct ``x_dst`` takes ``lin_dst`` in the JAX package; a conv
+    built with an int ``in_channels`` has none and raises, naming
+    ``in_channels=(src, dst)``, instead of returning another function's
+    output. Built with the pair, the port loads the JAX params (``lin_dst``
+    included) and matches them."""
+    coo, x, xd = _identity_case(22)
+    jconv = JGATConv(out_channels=4, heads=2)
+    jx = (jnp.asarray(x), jnp.asarray(xd))
+    params = jax.jit(jconv.init)(jax.random.PRNGKey(4), jx, jnp.asarray(coo))
+    assert 'lin_dst' in params['params']
+    jout = jax.jit(jconv.apply)(params, jx, jnp.asarray(coo))
+    tx = (torch.from_numpy(x), torch.from_numpy(xd))
+    with pytest.raises(ValueError, match=r'in_channels=\(src, dst\)'):
+        GATConv(10, 4, heads=2, device='cpu')(tx, torch.from_numpy(coo))
+    conv = GATConv((10, 10), 4, heads=2, device='cpu')
+    conv.load_state_dict(flax_to_state_dict(params))
+    with torch.no_grad():
+        out = conv(tx, torch.from_numpy(coo))
+    _close(out, jout, what='distinct pair')
+
+
+def test_pair_built_gatconv_flash_branch_matches_jax(monkeypatch):
+    """The same identity rule on the flash branch (``PGT_ATTN_WIDE_BYTES``
+    lowered so that both packages take their flash scans; the port's runs
+    its plain versions on the CPU): a pair-built conv called with one
+    tensor, output and gradients against the JAX package's."""
+    monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', '1')
+    coo, x, _ = _identity_case(23)
+    jx = jnp.asarray(x)
+    jconv = JGATConv(out_channels=4, heads=2)
+    params = jax.jit(jconv.init)(jax.random.PRNGKey(5), jx, jnp.asarray(coo))
+    cot = np.random.default_rng(6).normal(size=(50, 8)).astype(np.float32)
+    jgrad = jax.grad(lambda p: (jconv.apply(p, jx, jnp.asarray(coo))
+                                * jnp.asarray(cot)).sum())(params)
+    jout = jconv.apply(params, jx, jnp.asarray(coo))
+    conv = GATConv((10, 10), 4, heads=2, device='cpu')
+    conv.load_state_dict(flax_to_state_dict(params), strict=False)
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    calls = []
+    plain = fs.flash_forward_plain
+    monkeypatch.setattr(fs, 'flash_forward_plain',
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    out = conv(torch.from_numpy(x), torch.from_numpy(coo))
+    assert calls, 'the conv did not take its flash branch'
+    (out * torch.from_numpy(cot)).sum().backward()
+    _close(out.detach(), jout, what='flash branch')
+    grads = flax_to_state_dict(jgrad)
+    for k, prm in conv.named_parameters():
+        if k != 'lin_dst.weight':
+            _close(prm.grad, grads[k], what=f'flash branch grad of {k}')
+
+
 # -- the model ----------------------------------------------------------------
 def test_gat_model_trains_like_jax():
     """GAT(16 -> 16 -> 16 -> 4, 2 heads) on the fused branch: the forward,

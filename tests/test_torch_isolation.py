@@ -133,7 +133,7 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
     with pytest.raises(ValueError, match='run on cuda'):
         fs.flash_backward_dst(ops, ml, ml, x, x, plan)
     with pytest.raises(ValueError, match='run on cuda'):
-        fs.flash_backward_src(ops, ml, ml, x, x, ml, plan)
+        fs.flash_backward_src(ops, x, ml, plan)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
