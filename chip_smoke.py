@@ -123,17 +123,20 @@ checks them:
  22. path I, TransformerConv serving on path C's graph and slot orders at
      ``attention_bench.py --qkv``'s shape: 3 layers (64 -> 4 x 64, 256 -> 4
      x 64, 256 -> 4 x 10 averaged), beta gate and root weight in each, ReLU
-     between; ms per forward, launches (3 dot and 6 mix per forward), a
+     between; ms per forward, launches (3 dot, 6 mix and, where the dot's
+     plan cuts a head into column slices, its combine pass per forward), a
      profile, the output against the CPU plain path at 1e-4 of its largest;
  23. path J, the same stack trained with Adam on path D's labels: ms per
-     step, launches (6 dot and 15 mix per step), a profile, 3 steps against
-     the CPU plain path;
+     step, launches (6 dot, 15 mix and the forward's combine passes per
+     step), a profile, 3 steps against the CPU plain path;
  24. the dot kernel's timings at path I's shapes (edge order) and path D's
-     (slot order), H*F = 256 (both arms) and 40, with its plain version,
+     (slot order, on the runs arm as path D's grad_p_u asks), H*F = 256
+     (float32 and bf16) and 40, with its plain version,
      ``torch.sparse.sampled_addmm`` one call per head as the yardstick, and
-     the bound from the bytes each call must move; its slice-width sweep
-     (whole heads: 4, 2, 1) at H*F = 256 in both orders, each width's
-     output bitwise equal to one slice's.
+     the bound from the bytes each call must move; its sweep of every slice
+     shape of the arm (whole heads: 4, 2, 1; then one head in 2, 4, ...
+     column slices) at every shape, each output bitwise equal to one
+     slice's, and the other arm at its own rule.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -216,8 +219,8 @@ DOT_PER_FORWARD, DOT_PER_STEP = PC_LAYERS, 2 * PC_LAYERS
 PI_MIX_PER_FORWARD, PI_MIX_PER_STEP = 2 * PC_LAYERS, 5 * PC_LAYERS
 # path D: the dot kernel computes grad_p_u, once per layer and step
 DOT_PER_GAT_STEP = PC_LAYERS
-# the dot kernel's name in a profile
-EDGE_DOT_KERNEL = 'edge_dot_kernel'
+# the dot kernel's name in a profile, and its column slices' combine pass
+EDGE_DOT_KERNEL, EDGE_DOT_COMBINE = 'edge_dot_kernel', 'edge_dot_combine'
 # kernel 2's two launches per call, its pre-pass and the kernel proper
 BSR_PREP, BSR_MAIN = 'bsr_prep_kernel', 'bsr_spmm_kernel'
 # kernel 1's name in a profile, and PyTorch's add kernel
@@ -254,28 +257,26 @@ PK_STEPS, PK_SMALL, PL_SMALL = 5, 0.01, 0.05
 # it rests on are in PERF.md
 FLASH_OWN_TOL = 1e-2
 # the flash kernels' device ms per launch as PERF.md's kernel table recorded
-# them before kernels (b) and (c) were redesigned (one team per (row, head),
-# float loads, no pipelining; one H100 80GB HBM3 at 700 W). Not measured by
+# them before kernel (a) was redesigned and the flash route padded heads to
+# 16-byte rows (kernel (a) one team per (row, head); K layer 2 unpadded, C
+# = 47, on the float arm; one H100 80GB HBM3 at 700 W). Not measured by
 # this script: the timing phase's log quotes them, labelled as recorded,
 # beside its own readings, and no printed record holds them
 FLASH_RECORDED_BEFORE_MS = {
-    ('K layer 1', 'flash_fwd'): 26.4670, ('K layer 2', 'flash_fwd'): 18.1392,
-    ('L layer 1', 'flash_fwd'): 1.8081, ('M layer 1', 'flash_fwd'): 2.2224,
-    ('K layer 1', 'flash_bwd_dst'): 48.3509,
-    ('K layer 2', 'flash_bwd_dst'): 32.6856,
-    ('L layer 1', 'flash_bwd_dst'): 3.6835,
-    ('M layer 1', 'flash_bwd_dst'): 4.1929,
-    ('K layer 1', 'flash_bwd_src'): 52.3106,
-    ('K layer 2', 'flash_bwd_src'): 37.0180,
-    ('L layer 1', 'flash_bwd_src'): 3.4347,
-    ('M layer 1', 'flash_bwd_src'): 3.7467}
-# the A/B of kernels (b) and (c) in the timing phase: the wrappers' chosen
-# team shape, then each design choice varied alone (gathered floats a lane
-# per batch and batches in flight; one head a warp; float loads)
-FLASH_VARIANTS = (('chosen', {}),) + tuple(
-    (f'{f} floats, depth {p}', dict(batch_floats=f, depth=p))
-    for f in (8, 16) for p in (1, 2)) + (
-    ('one head a warp', dict(heads=1)), ('float loads', dict(vec=1)))
+    ('K layer 1', 'flash_fwd'): 25.5571, ('K layer 2', 'flash_fwd'): 16.5081,
+    ('L layer 1', 'flash_fwd'): 1.6165, ('M layer 1', 'flash_fwd'): 2.0572,
+    ('K layer 1', 'flash_bwd_dst'): 14.6890,
+    ('K layer 2', 'flash_bwd_dst'): 24.3339,
+    ('L layer 1', 'flash_bwd_dst'): 1.2188,
+    ('M layer 1', 'flash_bwd_dst'): 1.6127,
+    ('K layer 1', 'flash_bwd_src'): 16.4607,
+    ('K layer 2', 'flash_bwd_src'): 23.5000,
+    ('L layer 1', 'flash_bwd_src'): 1.6394,
+    ('M layer 1', 'flash_bwd_src'): 1.8432}
+# the flash wrappers' kernel names, as ops/flash_softmax.py::kernel_shape
+# takes them, by launch counter
+FLASH_SHAPE_KERNEL = {'flash_fwd': 'fwd', 'flash_bwd_dst': 'dst',
+                      'flash_bwd_src': 'src'}
 
 
 def log(*a):
@@ -1262,7 +1263,8 @@ def profile_steps(torch, step, tag, expect=None):
             'mix_ms_per_step': sum(t for name, t, _ in rows
                                    if MIX_KERNEL in name),
             'edge_dot_ms_per_step': sum(t for name, t, _ in rows
-                                        if EDGE_DOT_KERNEL in name),
+                                        if EDGE_DOT_KERNEL in name
+                                        or EDGE_DOT_COMBINE in name),
             'add_launches_per_step': launches_of(rows, ADD),
             # out + res, and autograd's sum of two gradients, are adds of
             # two same-shape tensors: PyTorch's vectorised kernel
@@ -2275,17 +2277,34 @@ def phase_edge_dot_vs_plain(torch, seed, pc):
     return worst
 
 
+def dot_combines(torch, e):
+    """The score calls of a path I forward (one a layer, ``PI_LAYERS``, in
+    edge order over two tables of ``PC_NODES`` rows, float32) that the dot
+    kernel's plan cuts into column slices: each runs the pass that sums the
+    slices' partials once. A path J step adds none (its grad_p_u takes the
+    runs arm)."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import dot_plan, runs_arm
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    n = 0
+    for h, f, _ in PI_LAYERS:
+        vec = 4 if f % 4 == 0 else 2 if f % 2 == 0 else 1
+        plan = dot_plan(PC_NODES, PC_NODES, e, h, f, vec, 4, l2)
+        n += not runs_arm(f, None) and plan is not None and plan[1] > 1
+    return n
+
+
 def phase_path_i(torch, seed, iters, warmup, pc):
     """TransformerConv serving on path C's graph and slot orders: ms per
-    forward, launches (``DOT_PER_FORWARD`` dot and ``PI_MIX_PER_FORWARD``
-    mix launches per forward), a profile, the output against the CPU plain
-    path with the same weights at 1e-4 of its largest magnitude; then the
-    same forward captured."""
+    forward, launches (``DOT_PER_FORWARD`` dot, ``dot_combines`` combine
+    and ``PI_MIX_PER_FORWARD`` mix launches per forward), a profile, the
+    output against the CPU plain path with the same weights at 1e-4 of its
+    largest magnitude; then the same forward captured."""
     from pytorch_geometric_tpu_torch import EdgeIndex
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
     model = transformer_model(torch, None, seed).eval()
-    per_fwd = {'edge_dot': DOT_PER_FORWARD, 'gat_mix': PI_MIX_PER_FORWARD}
+    per_fwd = {'edge_dot': DOT_PER_FORWARD, 'gat_mix': PI_MIX_PER_FORWARD,
+               'edge_dot_combine': dot_combines(torch, ei.num_edges)}
     torch.cuda.synchronize()
     reset_counts()
     with torch.inference_mode():
@@ -2318,7 +2337,8 @@ def phase_path_i(torch, seed, iters, warmup, pc):
     cap['max_abs_diff_vs_cpu'], cap['argmax_agreement'] = compare(
         torch, 'path I captured', cap_out, ref, shape)
     busy = sum(t for _, t, _ in rows)
-    dot_ms = sum(t for name, t, _ in rows if EDGE_DOT_KERNEL in name)
+    dot_ms = sum(t for name, t, _ in rows if EDGE_DOT_KERNEL in name
+                 or EDGE_DOT_COMBINE in name)
     mix_ms = sum(t for name, t, _ in rows if MIX_KERNEL in name)
     check(busy <= 1.05 * prof_ms, f'path I: device busy {busy} ms exceeds '
                                   f'the wall {prof_ms} ms')
@@ -2353,9 +2373,10 @@ def phase_path_i(torch, seed, iters, warmup, pc):
 
 def phase_path_j(torch, seed, pc):
     """Path I's stack trained with Adam (labels as path D's): ms per step,
-    launches (``DOT_PER_STEP`` dot and ``PI_MIX_PER_STEP`` mix launches per
-    step), a profile, 3 steps against the CPU plain path (losses and
-    first-step gradients at 1e-4); then the step captured."""
+    launches (``DOT_PER_STEP`` dot, ``dot_combines`` combine and
+    ``PI_MIX_PER_STEP`` mix launches per step), a profile, 3 steps against
+    the CPU plain path (losses and first-step gradients at 1e-4); then the
+    step captured."""
     from pytorch_geometric_tpu_torch import EdgeIndex
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
@@ -2364,7 +2385,8 @@ def phase_path_j(torch, seed, pc):
     state = {k: v.detach().cpu().clone()
              for k, v in model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=TR_LR)
-    per_step = {'edge_dot': DOT_PER_STEP, 'gat_mix': PI_MIX_PER_STEP}
+    per_step = {'edge_dot': DOT_PER_STEP, 'gat_mix': PI_MIX_PER_STEP,
+                'edge_dot_combine': dot_combines(torch, ei.num_edges)}
 
     def step():
         return train_step(torch, model, opt, x, ei, y)
@@ -2446,12 +2468,18 @@ def sampled_addmm_call(torch, lay, a, b, n_dst, n_src, e):
 def phase_edge_dot_timings(torch, seed, pc, path_i, path_d):
     """The dot kernel at path I's shapes (the scores in edge order, H*F =
     256 and 40) and path D's (grad_p_u in slot order, 256 and 40), both
-    arms at 256: device time per call, the plain version's, the library
-    yardstick's (``sampled_addmm_call``; none takes bf16), and the bound
-    from the bytes the call must move."""
-    from pytorch_geometric_tpu_torch.ops.edge_dot import (dot_slice_heads,
+    arms at 256: device time per call (the column slices' combine pass
+    included), the plain version's, the library yardstick's
+    (``sampled_addmm_call``; none takes bf16), the bound from the bytes the
+    call must move, and the arm and slices the wrapper chose (path D says
+    that its destinations come in runs, as its grad_p_u does, and takes the
+    runs arm); at every shape the sweep of every slice shape of that arm
+    and the other arm at its own rule (``dot_slice_sweep``)."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (dot_plan, dot_vec,
                                                           edge_dot,
-                                                          edge_dot_plain)
+                                                          edge_dot_plain,
+                                                          runs_arm,
+                                                          runs_slice_heads)
     ei = pc['ei']
     blk = ei.blocked
     n, e = PC_NODES, ei.num_edges
@@ -2467,7 +2495,11 @@ def phase_edge_dot_timings(torch, seed, pc, path_i, path_d):
                            else (torch.float32,)):
                     a = torch.randn(n, h, f, device='cuda', generator=g).to(dt)
                     b = torch.randn(n, h, f, device='cuda', generator=g).to(dt)
-                    fns = {'ms': lambda: edge_dot(a, b, ia, ib),
+                    # path D's grad_p_u reads b through the slot order's
+                    # sorted destinations, and says so
+                    named = True if path == 'D' else None
+                    runs = runs_arm(f, named)
+                    fns = {'ms': lambda: edge_dot(a, b, ia, ib, runs=named),
                            'plain_ms': lambda: edge_dot_plain(a, b, ia, ib)}
                     if dt == torch.float32:
                         fns['library_ms'] = sampled_addmm_call(
@@ -2479,10 +2511,17 @@ def phase_edge_dot_timings(torch, seed, pc, path_i, path_d):
                     t_bytes = by / HBM_BYTES_PER_S
                     t_ops = flops / (F32_FLOP_PER_S if dt == torch.float32
                                      else BF16_FLOP_PER_S)
-                    rule = dot_slice_heads(n, h, f, itemsize, l2)
+                    vec = dot_vec(a, b, f, h * f, h * f)
+                    rules = {True: (runs_slice_heads(n, h, f, itemsize, l2),
+                                    1),
+                             False: dot_plan(n, n, e, h, f, vec, itemsize,
+                                             l2)}
+                    rule = rules[runs]
                     row = {'path': path, 'order': order,
                            'dtype': str(dt).split('.')[-1], 'H': h, 'F': f,
-                           'HF': h * f, 'edges': e, 'slice_heads': rule,
+                           'HF': h * f, 'edges': e, 'vec': vec,
+                           'arm': 'runs' if runs else 'tree',
+                           'slice_heads': rule[0], 'col_slices': rule[1],
                            'bytes': by, 'flops': flops,
                            'bound_ms': max(t_bytes, t_ops) * 1e3,
                            'bound_by': ('bytes' if t_bytes >= t_ops
@@ -2500,10 +2539,11 @@ def phase_edge_dot_timings(torch, seed, pc, path_i, path_d):
                         f"({row['bound_by']}), kernel at "
                         f"{100 * row['bound_ms'] / row['ms']:.1f}% of the "
                         f"bound; CUDA-event wall per call: kernel "
-                        f"{row['event_ms']:.4f} ms; {rule} heads a slice")
-                    if dt == torch.float32 and f > PC_CLASSES:
-                        sweep += dot_slice_sweep(torch, path, order, a, b,
-                                                 ia, ib, rule)
+                        f"{row['event_ms']:.4f} ms; the {row['arm']} arm, "
+                        f"{rule[0]} heads a slice in {rule[1]} column "
+                        "slices")
+                    sweep += dot_slice_sweep(torch, path, order, a, b, ia,
+                                             ib, rules, vec, runs)
     log(f"[timing] edge_dot launches per path I forward "
         f"{path_i['launches_per_forward']['edge_dot']:g}, per path J step "
         f"(see path J), per path D step "
@@ -2511,26 +2551,55 @@ def phase_edge_dot_timings(torch, seed, pc, path_i, path_d):
     return rows, sweep
 
 
-def dot_slice_sweep(torch, path, order, a, b, ia, ib, rule):
-    """The dot kernel's device time per call at every slice width (whole
-    heads, a divisor of H), each output bitwise equal to one slice's."""
-    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
-    h = a.shape[1]
-    ref = edge_dot(a, b, ia, ib, slice_heads=h)
+def dot_slice_sweep(torch, path, order, a, b, ia, ib, rules, vec, runs):
+    """The dot kernel's device time per call at every slice shape of the
+    arm the call takes (the tree arm, ``dot_slice_widths``: whole heads, a
+    divisor of H, then one head in 2, 4, ... column slices; the runs arm,
+    for a call saying one side comes in ``runs``: whole heads), each
+    output bitwise equal to the arm's one slice of every head; then the
+    other arm at its own rule (``rules`` by arm; its own order of sums,
+    within 1e-5 of the largest output, and a bf16 ulp for bf16), the A/B
+    of the wrapper's choice."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (dot_slice_widths,
+                                                          edge_dot)
+    h, f = a.shape[1], a.shape[2]
+    widths = ([(d, 1) for d in range(h, 0, -1) if h % d == 0] if runs
+              else dot_slice_widths(h, f, vec))
+
+    def call(hs, cs, arm=runs):
+        return edge_dot(a, b, ia, ib, slice_heads=hs,
+                        col_slices=None if arm else cs, runs=arm)
+
+    def row(arm, hs, cs, ms, is_rule):
+        mb = a.shape[0] * hs * f * a.element_size() / cs / 1e6
+        out.append({'path': path, 'order': order,
+                    'dtype': str(a.dtype).split('.')[-1],
+                    'arm': 'runs' if arm else 'tree', 'slice_heads': hs,
+                    'col_slices': cs, 'slices': h // hs * cs,
+                    'slice_mb_of_a': mb, 'ms': ms, 'rule': is_rule})
+        log(f"[sweep] edge_dot {out[-1]['dtype']} path {path} ({order} "
+            f"order, the {out[-1]['arm']} arm) {hs} of {h} heads a slice in "
+            f"{cs} column slices ({h // hs * cs} x {mb:.1f} MB of a"
+            f"{', the rule' if is_rule else ''}): {ms:.4f} ms device time "
+            f"per call")
+
+    ref = call(h, 1)
     out = []
-    for hs in [d for d in range(h, 0, -1) if h % d == 0]:
-        check(torch.equal(edge_dot(a, b, ia, ib, slice_heads=hs), ref),
-              f'edge_dot path {path}: {hs} heads a slice changes the output')
-        ms = device_ms(torch, lambda: edge_dot(a, b, ia, ib, slice_heads=hs),
-                       calls=10)
-        out.append({'path': path, 'order': order, 'slice_heads': hs,
-                    'slices': h // hs,
-                    'slice_mb': a.shape[0] * hs * a.shape[2]
-                    * a.element_size() / 1e6, 'ms': ms, 'rule': hs == rule})
-        log(f"[sweep] edge_dot path {path} ({order} order) {hs} of {h} "
-            f"heads a slice ({h // hs} x {out[-1]['slice_mb']:.1f} MB of a"
-            f"{', the rule' if hs == rule else ''}): {ms:.4f} ms device time "
-            f"per call, output bitwise equal to one slice's")
+    for hs, cs in widths:
+        check(torch.equal(call(hs, cs), ref),
+              f'edge_dot path {path}: {hs} heads a slice in {cs} column '
+              'slices change the output')
+        row(runs, hs, cs, device_ms(torch, lambda: call(hs, cs), calls=10),
+            (hs, cs) == tuple(rules[runs]))
+    hs, cs = rules[not runs]
+    top = float(ref.float().abs().max())
+    lim = 1e-5 * max(1.0, top) + (top * 2.0 ** -7
+                                  if a.dtype == torch.bfloat16 else 0.0)
+    err = float((call(hs, cs, not runs).float() - ref.float()).abs().max())
+    check(err <= lim, f'edge_dot path {path}: the two arms differ by {err}, '
+                      f'past {lim}')
+    row(not runs, hs, cs, device_ms(torch, lambda: call(hs, cs, not runs),
+                                    calls=10), False)
     return out
 
 
@@ -3094,6 +3163,7 @@ def replay_expect(per_call):
                        (BSR_MAIN, ('bsr_spmm', 'bsr_spmm_bf16')),
                        (MIX_KERNEL, ('gat_mix', 'gat_mix_bf16')),
                        (EDGE_DOT_KERNEL, ('edge_dot', 'edge_dot_bf16')),
+                       (EDGE_DOT_COMBINE, ('edge_dot_combine',)),
                        *((k, (c,)) for c, k in FLASH_KERNELS.items())):
         n = sum(per_call.get(a, 0) for a in arms)
         if n:
@@ -4060,6 +4130,32 @@ def flash_parity(torch, tag, build, state, x, ei, y, lr, against,
     return res
 
 
+def flash_arms():
+    """A context that records, for every flash launch through the wrappers,
+    the arm its team shape took, keyed by ``(kernel, heads, columns)``:
+    ``ops/flash_softmax.py::kernel_shape``'s ``vec`` (4: the 16-byte arm,
+    1: floats). Yields the record."""
+    import contextlib
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+
+    @contextlib.contextmanager
+    def ctx():
+        seen, orig = {}, fs.kernel_shape
+
+        def spy(ops, kernel, *rows):
+            shape = orig(ops, kernel, *rows)
+            seen[(kernel, ops.heads, ops.columns)] = shape.vec
+            return shape
+
+        fs.kernel_shape = spy
+        try:
+            yield seen
+        finally:
+            fs.kernel_shape = orig
+
+    return ctx()
+
+
 def phase_path_k(torch, seed, coo, iters):
     """Path K, ``products_bench.py --gat`` at full size: the products graph
     (``products_graph``, 2,449,029 nodes, 123,718,280 edges; each layer
@@ -4075,9 +4171,21 @@ def phase_path_k(torch, seed, coo, iters):
     x = torch.randn((N_PRODUCTS, PR_F), generator=gen, device='cuda')
     y = torch.randint(0, PR_CLASSES, (N_PRODUCTS,), generator=gen,
                       device='cuda')
-    res, state, _ = flash_serve_train(
-        torch, tag, products_gat, seed, x, ei, y, FLASH_PER_FORWARD,
-        FLASH_PER_STEP, iters, PK_STEPS, PR_LR)
+    with flash_arms() as arms:
+        res, state, _ = flash_serve_train(
+            torch, tag, products_gat, seed, x, ei, y, FLASH_PER_FORWARD,
+            FLASH_PER_STEP, iters, PK_STEPS, PR_LR)
+    # layer 2's 47 columns a head reach the kernels padded to 48, on the
+    # 16-byte arm, as layer 1's 16 do
+    res['flash_arms'] = {f'{k} H={h} C={c}': ('16-byte' if v == 4 else
+                                               'float')
+                         for (k, h, c), v in sorted(arms.items())}
+    log(f"[{tag}] the flash launches' arms: {res['flash_arms']}")
+    check(set(arms) == {(k, h, c) for k in ('fwd', 'dst', 'src')
+                        for h, c in ((4, 16), (1, 48))}
+          and all(v == 4 for v in arms.values()),
+          f'{tag}: a flash launch took the float arm or another shape: '
+          f'{res["flash_arms"]}')
     res['parity_vs_plain_on_card'] = flash_parity(
         torch, tag, products_gat, state, x, ei, y, PR_LR, 'plain')
     res.update(nodes=N_PRODUCTS, edges=E_PRODUCTS + N_PRODUCTS,
@@ -4201,69 +4309,23 @@ def flash_gathered(ops, n_edges, kernel):
     return n_edges * 4 * (h * c + (0 if ops.form == 'gatv2' else operand))
 
 
-def flash_variants(torch, label, ops, m, l, out, plan, plan_t, keep):
-    """The A/B of kernels (b) and (c) at one shape (``FLASH_VARIANTS``):
-    each variant's team shape for both kernels, its gradients held against
-    the float64 plain version within ``flash_close``'s limits, and its
-    device ms per launch of each kernel (``whole_window``); the chosen shape
-    is timed again last, for the drift. Returns the readings."""
-    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
-    h, c = ops.heads, ops.columns
-    gcot, want, terms = keep['gcot'], keep['want'], keep['terms']
-    readings, seen = [], set()
-    for name, kw in FLASH_VARIANTS + (('chosen again', {}),):
-        shapes = {k: fs.backward_shape(ops, k, gcot, out, **kw)
-                  for k in ('dst', 'src')}
-        key = tuple(shapes.values())
-        if name != 'chosen again' and key in seen:
-            continue
-        seen.add(key)
-        rec, d_dst, d_extra = fs.flash_backward_dst(ops, m, l, out, gcot,
-                                                    plan, shapes['dst'])
-        d_src, d_val = fs.flash_backward_src(ops, gcot, rec, plan_t,
-                                             shapes['src'])
-        torch.cuda.synchronize()
-        for what, a, b, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'),
-                                 (d_src, d_dst, d_val, d_extra), want,
-                                 terms):
-            if b is None:
-                continue
-            lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
-            over = float(((a.double() - b).abs() / lim).max())
-            check(over <= 1.0, f'flash {label} variant {name}: {what} '
-                               f'{over:.3f} of its limit')
-        ms = {}
-        for kernel, fn in (
-                ('flash_bwd_dst', lambda: fs.flash_backward_dst(
-                    ops, m, l, out, gcot, plan, shapes['dst'])),
-                ('flash_bwd_src', lambda: fs.flash_backward_src(
-                    ops, gcot, rec, plan_t, shapes['src']))):
-            krows, _, _ = whole_window(torch, fn, 5)
-            ms[kernel] = sum(t for nm, t, _ in krows
-                             if FLASH_KERNELS[kernel] in nm)
-        readings.append({'variant': name, 'shape_dst': shapes['dst']._asdict(),
-                         'shape_src': shapes['src']._asdict(), **ms})
-        log(f"[timing] flash A/B {label}, {name}: (b) "
-            f"{ms['flash_bwd_dst']:.4f} ms, (c) {ms['flash_bwd_src']:.4f} "
-            f"ms; (b) {tuple(shapes['dst'])}, (c) {tuple(shapes['src'])} "
-            "(vec, lanes, heads, slots, nv, unroll, depth); gradients within "
-            "the limits")
-        del rec, d_dst, d_extra, d_src, d_val
-    return readings
-
-
 def phase_flash_timings(torch, seed, coo, pc):
     """Kernels (a), (b) and (c) at path K's two layers (products graph with
-    self loops: GAT H=4 C=16, then H=1 C=47) and path L's layer 1 (GATv2
-    H=4 C=64 on path C's graph with self loops), random tables from
-    ``seed``: each held against its plain version, then device time per
-    launch (``device_ms``), CUDA-event wall, the plain version's time (its
-    backward covers both passes), the bound (bytes once at 3.35 TB/s) and
-    the rate of gathered rows; the log quotes beside them the times recorded
-    before kernels (b) and (c) were redesigned (``FLASH_RECORDED_BEFORE_MS``,
-    in no printed record); then the A/B of (b) and (c)
-    (``flash_variants``). No library yardstick: no one PyTorch call
-    computes a segment softmax-aggregation."""
+    self loops: GAT H=4 C=16, then H=1 C=47, its values padded to C=48 as
+    the flash route pads them), path L's layer 1 (GATv2 H=4 C=64 on path
+    C's graph with self loops) and path M's (the dot form), random tables
+    from ``seed``: each held against its plain version (``flash_close``: the
+    kernels on the tables as given, and the public route, which pads), then
+    device time per launch (``device_ms``), CUDA-event wall, the plain
+    version's time (its backward covers both passes), the bound (the
+    unpadded tables' bytes once at 3.35 TB/s), the rate of gathered rows and
+    each launch's team shape (``kernel_shape``: the 16-byte arm is ``vec``
+    4); the log quotes beside them the times recorded before kernel (a)'s
+    redesign (``FLASH_RECORDED_BEFORE_MS``, in no printed record). No
+    library yardstick: no one PyTorch call computes a segment
+    softmax-aggregation. The A/B of kernel (a)'s batch runs from
+    ``kernel_ab.py``."""
+    from pytorch_geometric_tpu_torch.ops import edge_attention as ea
     from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
     g = torch.Generator(device='cuda').manual_seed(seed + 11)
     rows = []
@@ -4302,15 +4364,20 @@ def phase_flash_timings(torch, seed, coo, pc):
         if form == 'dot':
             extra = torch.full((1, h), 1 / math.sqrt(c), device='cuda')
             rel = torch.zeros(s.shape[0], dtype=torch.int64, device='cuda')
-        ops = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
+        base = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
         e = int(s.shape[0])
         with torch.inference_mode():
             log(f'[kernel] flash {label} ({form} H={h} C={c}, {e} edges) '
                 'against the plain version:')
             keep = {}
-            err = flash_close(torch, ops, s.long(), d.long(), rel, nd,
+            err = flash_close(torch, base, s.long(), d.long(), rel, nd,
                               route=True, keep=keep)
             worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+            # the tables as the flash route hands them to the kernels
+            cp = -(-c // ea.ALIGN_COLUMNS) * ea.ALIGN_COLUMNS
+            ops = base
+            if cp != c:
+                ops = base._replace(val=ea._pad_heads(val, h, c, cp))
             order = torch.argsort(d.long(), stable=True)
             sd, dd = s.long()[order], d.long()[order]
             rd = None if rel is None else rel[order]
@@ -4318,7 +4385,7 @@ def phase_flash_timings(torch, seed, coo, pc):
             plan = fs.dst_plan(sd, dd, rd, nd, True)
             plan_t = fs.src_plan(sd, dd, rd, nd, ns)
             out, m, l = fs.flash_forward(ops, sd, dd, rd, nd, 0, plan)
-            gcot = keep['gcot']
+            gcot = ea._pad_heads(keep['gcot'], h, c, cp)
             rec = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
             calls = {
                 'flash_fwd': lambda: fs.flash_forward(ops, sd, dd, rd, nd,
@@ -4327,9 +4394,9 @@ def phase_flash_timings(torch, seed, coo, pc):
                     ops, m, l, out, gcot, plan),
                 'flash_bwd_src': lambda: fs.flash_backward_src(
                     ops, gcot, rec, plan_t)}
-            shapes = {'flash_bwd_dst': fs.backward_shape(ops, 'dst', gcot,
-                                                         out),
-                      'flash_bwd_src': fs.backward_shape(ops, 'src', gcot)}
+            teams = {'flash_fwd': fs.kernel_shape(ops, 'fwd', out),
+                     'flash_bwd_dst': fs.kernel_shape(ops, 'dst', gcot, out),
+                     'flash_bwd_src': fs.kernel_shape(ops, 'src', gcot)}
             plain = {
                 'flash_fwd': lambda: fs.flash_forward_plain(
                     ops, sd, dd, rd, nd, 2_000_000),
@@ -4338,18 +4405,18 @@ def phase_flash_timings(torch, seed, coo, pc):
             plain_ms = {k: device_ms(torch, f, calls=1)
                         for k, f in plain.items()}
             for kernel, fn in calls.items():
-                by = flash_bytes(ops, plan, plan_t, nd, e, kernel)
-                gathered = flash_gathered(ops, e, kernel)
+                by = flash_bytes(base, plan, plan_t, nd, e, kernel)
+                gathered = flash_gathered(base, e, kernel)
                 krows, _, _ = whole_window(torch, fn, 5)
                 ms = sum(t for name, t, _ in krows
                          if FLASH_KERNELS[kernel] in name)
                 event_ms = timed_calls(torch, fn, 5, 1)[0]
                 row = {'shape': label, 'kernel': kernel, 'form': form, 'H': h,
-                       'C': c, 'edges': e, 'n_src': ns, 'n_dst': nd,
-                       'split_edges': plan.split,
-                       'team': ({'lanes': fs.team_lanes(c)}
-                                if kernel == 'flash_fwd'
-                                else shapes[kernel]._asdict()),
+                       'C': c, 'C_padded': cp, 'edges': e, 'n_src': ns,
+                       'n_dst': nd, 'split_edges': plan.split,
+                       'team': teams[kernel]._asdict(),
+                       'arm': ('16-byte' if teams[kernel].vec == 4
+                               else 'float'),
                        'bytes': by,
                        'gathered_bytes': gathered, 'ms': ms,
                        'event_ms': event_ms,
@@ -4365,22 +4432,21 @@ def phase_flash_timings(torch, seed, coo, pc):
                        'gathered_tb_per_s': gathered / (ms / 1e3) / 1e12}
                 row['share'] = row['bound_ms'] / ms
                 rows.append(row)
-                log(f"[timing] {kernel} {label} ({form} H={h} C={c}, {e} "
-                    f"edges): device {ms:.4f} ms per launch [CUDA-event wall "
-                    f"{event_ms:.4f} ms] (recorded before the redesign of "
-                    f"(b), (c), not measured here: "
+                log(f"[timing] {kernel} {label} ({form} H={h} C={c}"
+                    f"{f' padded to {cp}' if cp != c else ''}, {e} edges): "
+                    f"device {ms:.4f} ms per launch [CUDA-event wall "
+                    f"{event_ms:.4f} ms] (recorded before kernel (a)'s "
+                    f"redesign, not measured here: "
                     f"{FLASH_RECORDED_BEFORE_MS[(label, kernel)]:.4f}), plain "
                     f"{row['plain_ms']:.4f} "
                     f"ms ({row['plain_covers']}), bound "
                     f"{row['bound_ms']:.4f} ms (bytes), "
                     f"{100 * row['share']:.1f} % of it; gathered rows "
-                    f"{row['gathered_tb_per_s']:.3f} TB/s; library: none")
-            ab = flash_variants(torch, label, ops, m, l, out, plan, plan_t,
-                                keep)
-            for row in rows[-2:]:
-                row['ab'] = ab
-        del ops, src_tab, dst_tab, val, plan, plan_t, out, m, l, gcot, rec, \
-            rel, rd, keep
+                    f"{row['gathered_tb_per_s']:.3f} TB/s; {row['arm']} arm, "
+                    f"team {tuple(teams[kernel])} (vec, lanes, heads, slots, "
+                    f"nv, unroll, depth); library: none")
+        del ops, base, src_tab, dst_tab, val, plan, plan_t, out, m, l, gcot, \
+            rec, rel, rd, keep
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -4585,9 +4651,9 @@ def main():
         'library_note': 'no one PyTorch call computes a segment '
                         'softmax-aggregation',
         'times_are': 'per path K training step: one launch at layer 1 '
-                     '(GAT H=4, C=16) and one at layer 2 (H=1, C=47); the '
-                     'plain backward covers both passes; path L layer 1 in '
-                     'per_shape',
+                     '(GAT H=4, C=16) and one at layer 2 (H=1, C=47, padded '
+                     'to 48 by the flash route); the plain backward covers '
+                     'both passes; paths L and M layer 1 in per_shape',
         'per_shape': [r for r in flash_rows if r['kernel'] == k]}
         for k in FLASH_KERNELS]
     log(json.dumps({'kernels': [{
@@ -4741,8 +4807,11 @@ def main():
                          'ops/gat_fused.py:103-105',
         'launches': sum(by_path('edge_dot').values()),
         'launches_by_path': by_path('edge_dot'),
+        'combine_launches_by_path': by_path('edge_dot_combine'),
         'launches_per_forward': {'path_i': path_i['launches_per_forward'][
             'edge_dot']},
+        'combine_launches_per_forward': {
+            'path_i': path_i['launches_per_forward']['edge_dot_combine']},
         'launches_per_step': {
             'path_j': path_j['launches_per_step']['edge_dot'],
             'path_d': path_d['launch_counts']['edge_dot']
@@ -4756,7 +4825,8 @@ def main():
         'times_are': 'per path I forward: the scores at H*F=256 twice and 40 '
                      'once (edge order); path D\'s grad_p_u (slot order) per '
                      'call in per_shape',
-        'slice_heads': by_dot[('I', 'float32', PC_HIDDEN)]['slice_heads'],
+        'slices': {k: by_dot[('I', 'float32', PC_HIDDEN)][k]
+                   for k in ('slice_heads', 'col_slices')},
         'per_shape': dot_rows, 'slice_sweep': dot_sweep}, {
         'name': 'edge_dot_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/sddmm.cu',

@@ -28,39 +28,42 @@
 //   * a row of more than `split` edges is cut into pieces of `split` edges
 //     (the hub rows of a power-law graph would otherwise hold up a whole
 //     launch); the plan maps each piece to its row (`piece_row`). A piece
-//     writes its partials to a scratch slot and takes a ticket; the team
+//     writes its partials to a scratch slot and takes a ticket; the warp
 //     that takes the last ticket merges the row's partials in piece order
-//     and writes the row. So the result does not depend on which team
+//     and writes the row. So the result does not depend on which warp
 //     finishes last, and two launches give the same bits (the ticket
 //     counters are the only atomics, and they add nothing to a sum);
 //   * sums stay in registers: nothing per edge is written to device memory
 //     and no sum takes an atomic. The global reductions (GATv2's d att [H*F],
-//     the dot form's d p [R, H]) are summed per team in registers or in a
+//     the dot form's d p [R, H]) are summed per warp in registers or in a
 //     shared-memory row, then per block in a fixed order into per-block
 //     partials, which the wrapper sums in block order;
-//   * kernel (a): one team of G lanes (a power of two up to 32, at least the
-//     head's columns up to 32) owns one (piece, head); lane j holds the
-//     columns j, j + G, ... of the head; U edges' indices and rows are
-//     loaded before any of them is used;
-//   * kernels (b) and (c) (redesigned for the gather): one warp owns one
-//     piece and a group of `team_heads` heads, all H where the row allows.
-//     An edge's index is loaded once for all heads, and its row is read as
-//     16-byte vectors (`vec` = 4, where the columns and every row stride and
-//     pointer allow; floats otherwise). Each head is padded to `qv` slots of
-//     `vec` columns; the warp splits into 32 / `g_lanes` sub-teams of
-//     `g_lanes` lanes, lane j holding the slots j, j + g_lanes, ... (a head
-//     wider than the lanes takes a warp of its own, each lane PER slots of
-//     it, so a lane's per-edge scalars are one per head it holds), and the
-//     sub-teams take alternate batches of `unroll` edges, their sums merged
-//     by a fixed butterfly at the end. A head's sum over its lanes is a
-//     butterfly over min(qv, g_lanes) lanes, all the batch's edges and both
-//     sums of the GATv2 and dot forms in the same rounds. The edge loop is
-//     software-pipelined: the next batch's indices are fetched before this
-//     batch's rows are used, and with `depth` 2 the next batch's rows too.
+//   * all three kernels, designed for the gather: one warp owns one piece
+//     and a group of `team_heads` heads, all H where the row allows. An
+//     edge's index (and the dot form's relation) is loaded once for all
+//     heads, and its row is read as 16-byte vectors (`vec` = 4, where the
+//     columns and every row stride and pointer allow; floats otherwise; the
+//     flash route pads each head to a multiple of 4 columns,
+//     ops/edge_attention.py). Each head is padded to
+//     `qv` slots of `vec` columns; the warp splits into 32 / `g_lanes`
+//     sub-teams of `g_lanes` lanes, lane j holding the slots j, j +
+//     g_lanes, ... (a head wider than the lanes takes a warp of its own,
+//     each lane PER slots of it, so a lane's per-edge scalars are one per
+//     head it holds), and the sub-teams take alternate batches of `unroll`
+//     edges, their states merged by a fixed butterfly at the end. A head's
+//     sum over its lanes is a butterfly over min(qv, g_lanes) lanes, all
+//     the batch's edges (and both sums of the backward's GATv2 and dot
+//     forms) in the same rounds. The edge loop is software-pipelined: the
+//     next batch's indices are fetched before this batch's rows are used,
+//     and with `depth` 2 the next batch's rows too;
+//   * kernel (a) keeps one online softmax per head a lane holds: per batch
+//     the logits' max, one rescale of (l, acc) where it grew, then one expf
+//     per edge; the sub-teams' (m, l, acc) merge by log-sum-exp rescales.
 //     Kernel (b) writes one 16-byte record (m, l, gdot, a_dst) per row and
 //     head, which kernel (c) reads per edge in one load. The batch and
-//     depth come from an A/B on the card (PERF.md): small batches win,
-//     since the register cap of two blocks an SM (128) spills larger ones.
+//     depth of each pass come from an A/B on the card (PERF.md): small
+//     batches win in (b) and (c), since the register cap of two blocks an
+//     SM (128) spills larger ones.
 //
 // Plain C interface, bound from Python with ctypes (`FlashArgs` is
 // ops/flash_softmax.py::_Args field for field); every launch returns
@@ -100,8 +103,8 @@ struct FlashArgs {
   long long n_rows, max_pieces, n_slots;
   long long ld_src, ld_dst, ld_val;
   int form, h, c, g_lanes, split, n_rel;
-  // kernels b, c: columns a slot, heads a warp, slots a head, slots a lane,
-  // edges a batch, batches in flight
+  // columns a slot, heads a warp, slots a head, slots a lane, edges a
+  // batch, batches in flight
   int vec, team_heads, qv, nv, unroll, depth;
   float slope;
 };
@@ -123,203 +126,7 @@ __device__ __forceinline__ unsigned team_mask(int g) {
   return ((1u << g) - 1u) << (lane & ~(g - 1));
 }
 
-// The team's sum, the same bits in every lane (a fixed butterfly).
-__device__ __forceinline__ float team_sum(float v, int g, unsigned mask) {
-  for (int off = g >> 1; off > 0; off >>= 1)
-    v += __shfl_xor_sync(mask, v, off);
-  return v;
-}
-
-// One team's item: (piece, head), its row and edge range.
-struct Item {
-  bool active;
-  long long row, k, np, e0, e1;
-  int head;
-};
-
-__device__ __forceinline__ Item team_item(const FlashArgs& a) {
-  Item it;
-  const long long item =
-      ((long long)blockIdx.x * kThreads + threadIdx.x) / a.g_lanes;
-  const long long total = __ldg(a.piece_ptr + a.n_rows);
-  it.active = item < total * a.h;
-  it.row = it.k = it.np = it.e0 = it.e1 = 0;
-  it.head = 0;
-  if (it.active) {
-    const long long p = item / a.h;
-    it.head = (int)(item - p * a.h);
-    it.row = __ldg(a.piece_row + p);
-    const long long p0 = __ldg(a.piece_ptr + it.row);
-    it.k = p - p0;
-    it.np = __ldg(a.piece_ptr + it.row + 1) - p0;
-    const long long r0 = __ldg(a.rowptr + it.row);
-    const long long r1 = __ldg(a.rowptr + it.row + 1);
-    it.e0 = r0 + it.k * a.split;
-    it.e1 = min(it.e0 + (long long)a.split, r1);
-  }
-  return it;
-}
-
-// A piece of a split row: publish the partials (written by the caller),
-// take a ticket; true in every lane of the team that took the last one.
-__device__ __forceinline__ bool last_piece(const FlashArgs& a, const Item& it,
-                                           int sub, unsigned mask) {
-  __threadfence();
-  __syncwarp(mask);
-  int last = 0;
-  if (sub == 0) {
-    const long long t = __ldg(a.split_base + it.row) * a.h + it.head;
-    last = atomicAdd(a.tickets + t, 1) == (int)(it.np - 1);
-  }
-  last = __shfl_sync(mask, last, 0, a.g_lanes);
-  if (last) __threadfence();
-  return last != 0;
-}
-
-__device__ __forceinline__ long long slot_of(const FlashArgs& a,
-                                             const Item& it, long long q) {
-  return __ldg(a.split_base + it.row) + q;
-}
-
-// Edges in flight per lane: fewer for wide heads, whose rows fill registers.
-template <int NV>
-struct Unroll {
-  static constexpr int value = NV <= 2 ? 4 : (NV <= 4 ? 2 : 1);
-};
-
-// -- kernel (a): the forward, destination-major --------------------------------
-template <int FORM, int NV>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
-  constexpr int U = Unroll<NV>::value;
-  const int G = a.g_lanes, C = a.c, H = a.h;
-  const int sub = threadIdx.x & (G - 1);
-  const unsigned mask = team_mask(G);
-  const Item it = team_item(a);
-  if (!it.active) return;
-  const long long hc = (long long)H * C;
-  const int hoff = it.head * C;
-
-  // the row's operands
-  float ad = 0.f, rowv[NV], at[NV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int col = sub + j * G;
-    rowv[j] = at[j] = 0.f;
-    if (FORM != kGat && col < C) {
-      rowv[j] = __ldg(a.dst_tab + it.row * a.ld_dst + hoff + col);
-      if (FORM == kGatV2) at[j] = __ldg(a.extra + hoff + col);
-    }
-  }
-  if (FORM == kGat) ad = __ldg(a.dst_tab + it.row * a.ld_dst + it.head);
-
-  float m = -INFINITY, l = 0.f, acc[NV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) acc[j] = 0.f;
-
-  for (long long e = it.e0; e < it.e1; e += U) {
-    long long s[U];
-    float as[U], pr[U], kv[U][NV], vv[U][NV];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      s[u] = e + u < it.e1 ? (long long)__ldg(a.nbr + e + u) : -1;
-      as[u] = pr[u] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NV; ++j) kv[u][j] = vv[u][j] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s[u] < 0) continue;
-      if (FORM == kGat) as[u] = __ldg(a.src_tab + s[u] * a.ld_src + it.head);
-      if (FORM == kDot)
-        pr[u] = __ldg(a.extra + (long long)__ldg(a.rel + e + u) * H +
-                      it.head);
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const int col = sub + j * G;
-        if (col < C) {
-          vv[u][j] = __ldg(a.val + s[u] * a.ld_val + hoff + col);
-          if (FORM == kDot)
-            kv[u][j] = __ldg(a.src_tab + s[u] * a.ld_src + hoff + col);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s[u] < 0) continue;  // the same in every lane of the team
-      float logit;
-      if (FORM == kGat) {
-        logit = leaky(as[u] + ad, a.slope);
-      } else if (FORM == kGatV2) {
-        float t = 0.f;
-#pragma unroll
-        for (int j = 0; j < NV; ++j)
-          t += at[j] * leaky(vv[u][j] + rowv[j], a.slope);
-        logit = team_sum(t, G, mask);
-      } else {
-        float t = 0.f;
-#pragma unroll
-        for (int j = 0; j < NV; ++j) t += rowv[j] * kv[u][j];
-        logit = team_sum(t, G, mask) * pr[u];
-      }
-      if (logit > m) {
-        const float sc = expf(m - logit);  // 0 while m = -inf
-        l = l * sc + 1.f;
-#pragma unroll
-        for (int j = 0; j < NV; ++j) acc[j] = acc[j] * sc + vv[u][j];
-        m = logit;
-      } else {
-        const float z = logit == -INFINITY ? 0.f : expf(logit - m);
-        l += z;
-#pragma unroll
-        for (int j = 0; j < NV; ++j) acc[j] += z * vv[u][j];
-      }
-    }
-  }
-
-  if (it.np > 1) {
-    const long long slot = slot_of(a, it, it.k);
-    if (sub == 0) {
-      a.part_s[slot * H + it.head] = m;
-      a.part_s2[slot * H + it.head] = l;
-    }
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int col = sub + j * G;
-      if (col < C) a.part_v[slot * hc + hoff + col] = acc[j];
-    }
-    if (!last_piece(a, it, sub, mask)) return;
-    // merge the row's partials in piece order
-    m = -INFINITY;
-    for (long long q = 0; q < it.np; ++q)
-      m = fmaxf(m, __ldcg(a.part_s + slot_of(a, it, q) * H + it.head));
-    l = 0.f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) acc[j] = 0.f;
-    for (long long q = 0; q < it.np; ++q) {
-      const long long sq = slot_of(a, it, q);
-      const float mq = __ldcg(a.part_s + sq * H + it.head);
-      const float w = mq == -INFINITY ? 0.f : expf(mq - m);
-      l += __ldcg(a.part_s2 + sq * H + it.head) * w;
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const int col = sub + j * G;
-        if (col < C) acc[j] += __ldcg(a.part_v + sq * hc + hoff + col) * w;
-      }
-    }
-  }
-  if (sub == 0) {
-    a.m[it.row * H + it.head] = m;
-    a.l[it.row * H + it.head] = l;
-  }
-  const float inv = 1.f / fmaxf(l, 1e-16f);
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int col = sub + j * G;
-    if (col < C) a.out[it.row * hc + hoff + col] = acc[j] * inv;
-  }
-}
-
-// -- kernels (b) and (c): one warp per (piece, head group) --------------------
+// -- the kernels: one warp per (piece, head group) ---------------------------
 // W consecutive floats: one 16-byte load or store where W = 4.
 template <int W>
 __device__ __forceinline__ void ldg_vec(float (&d)[W], const float* p) {
@@ -519,17 +326,255 @@ __device__ __forceinline__ void walk(const FlashArgs& a, long long e,
   }
 }
 
-// -- kernel (b): the backward's destination pass -------------------------------
-// Per destination row: the record (m, l, gdot = <g, out>, a_dst) and d a_dst
-// (gat), d x_r (gatv2) or d q (dot); GATv2's d att and the dot form's d p
-// as per-block partials.
+// A batch of gathered source rows (kernels a and b): per edge, the logit
+// operand of each head the lane holds (GAT's a_src[s, head], the dot
+// form's p[rel, head]), the value slots and the dot form's key slots; 0
+// past the piece and on slots that hold no columns.
 template <int W, int NH, int PER, int U>
-struct DstBatch {
+struct SrcRows {
   float op[U][NH];            // gat: a_src[s, head]; dot: p[rel, head]
   float v[U][NH * PER][W];    // the value rows
   float k[U][NH * PER][W];    // dot: the key rows
 };
 
+template <int FORM, int W, int NH, int PER, int U>
+__device__ __forceinline__ void fetch_src_rows(const FlashArgs& a,
+                                               const Slots<NH, PER>& y,
+                                               SrcRows<W, NH, PER, U>& b,
+                                               const Edges<U>& ix) {
+  constexpr int NV = NH * PER;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long s = ix.s[u];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      b.op[u][j] = 0.f;
+      if (s < 0 || y.head[j] < 0) continue;
+      if (FORM == kGat)
+        b.op[u][j] = __ldg(a.src_tab + s * a.ld_src + y.head[j]);
+      if (FORM == kDot)
+        b.op[u][j] = __ldg(a.extra + (long long)ix.r[u] * a.h + y.head[j]);
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) b.v[u][k][i] = b.k[u][k][i] = 0.f;
+      if (s < 0 || !y.ok[k]) continue;
+      ldg_vec<W>(b.v[u][k], a.val + s * a.ld_val + y.col[k]);
+      if (FORM == kDot)
+        ldg_vec<W>(b.k[u][k], a.src_tab + s * a.ld_src + y.col[k]);
+    }
+  }
+}
+
+// -- kernel (a): the forward, destination-major ---------------------------------
+// Per destination row and head: m, l and out. A lane keeps one (m, l) per
+// head it holds and its slots of acc; per batch it takes the logits (their
+// sums over the head's lanes in one butterfly), their max, one rescale of
+// (l, acc) where the max grew, then one expf per edge. The sub-teams'
+// states are merged by a fixed butterfly of log-sum-exp rescales, then a
+// split row's pieces in piece order.
+template <int FORM, int W, int NH, int PER, int U, int P>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(FlashArgs a) {
+  constexpr int NV = NH * PER;
+  const int G = a.g_lanes, H = a.h;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1), st = lane / G, S = 32 / G;
+  const unsigned mask = team_mask(G);
+  const Piece it = warp_piece(a);
+  if (!it.active) return;
+  const long long hc = (long long)H * a.c;
+  const Slots<NH, PER> y = lane_slots<W, NH, PER>(a, it.hg, sub);
+
+  // the row's operands
+  float ad[NH], rowv[NV][W], at[NV][W];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+    ad[j] = FORM == kGat && y.head[j] >= 0
+                ? __ldg(a.dst_tab + it.row * a.ld_dst + y.head[j])
+                : 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) rowv[k][i] = at[k][i] = 0.f;
+    if (!y.ok[k]) continue;
+    if (FORM != kGat)
+      ldg_vec<W>(rowv[k], a.dst_tab + it.row * a.ld_dst + y.col[k]);
+    if (FORM == kGatV2) ldg_vec<W>(at[k], a.extra + y.col[k]);
+  }
+
+  float m[NH], l[NH], acc[NV][W];
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    m[j] = -INFINITY;
+    l[j] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int i = 0; i < W; ++i) acc[k][i] = 0.f;
+
+  using B = SrcRows<W, NH, PER, U>;
+  auto fetch = [&](B& b, const Edges<U>& ix) {
+    fetch_src_rows<FORM, W, NH, PER, U>(a, y, b, ix);
+  };
+  auto use = [&](const B& b, const Edges<U>& ix) {
+    float lg[U][NH];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        lg[u][j] = FORM == kGat ? leaky(b.op[u][j] + ad[j], a.slope) : 0.f;
+    if (FORM != kGat) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            lg[u][k / PER] += FORM == kGatV2
+                                  ? at[k][i] * leaky(b.v[u][k][i] + rowv[k][i],
+                                                     a.slope)
+                                  : rowv[k][i] * b.k[u][k][i];
+      head_sums<U, NH>(lg, a, mask);
+      if (FORM == kDot) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int j = 0; j < NH; ++j) lg[u][j] *= b.op[u][j];
+      }
+    }
+    // the batch's max, and one rescale where it grew (expf(-inf) = 0 while
+    // m = -inf); ix.s[u] is the same in every lane of the sub-team
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      float bm = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ix.s[u] >= 0) bm = fmaxf(bm, lg[u][j]);
+      if (bm > m[j]) {
+        const float sc = expf(m[j] - bm);
+        l[j] *= sc;
+#pragma unroll
+        for (int q = 0; q < PER; ++q)
+#pragma unroll
+          for (int i = 0; i < W; ++i) acc[j * PER + q][i] *= sc;
+        m[j] = bm;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (ix.s[u] < 0) continue;
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const float z = lg[u][j] == -INFINITY ? 0.f : expf(lg[u][j] - m[j]);
+        l[j] += z;
+#pragma unroll
+        for (int q = 0; q < PER; ++q)
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            acc[j * PER + q][i] += z * b.v[u][j * PER + q][i];
+      }
+    }
+  };
+  walk<U, P, FORM, B>(a, it.e0 + (long long)st * U, it.e1, (long long)S * U,
+                      fetch, use);
+
+  // the sub-teams' states, merged by a fixed butterfly of log-sum-exp
+  // rescales (a state without edges has m = -inf and weighs 0)
+  for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[j], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[j], off);
+      const float mm = fmaxf(m[j], mo);
+      const float w = m[j] == -INFINITY ? 0.f : expf(m[j] - mm);
+      const float wo = mo == -INFINITY ? 0.f : expf(mo - mm);
+      l[j] = l[j] * w + lo * wo;
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          float& x = acc[j * PER + q][i];
+          x = x * w + __shfl_xor_sync(0xffffffffu, x, off) * wo;
+        }
+      m[j] = mm;
+    }
+  }
+
+  // a split row's pieces, merged in piece order by the warp that finishes
+  // last
+  bool write = true;
+  if (it.np > 1) {
+    const long long base = __ldg(a.split_base + it.row);
+    if (st == 0) {
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        if (y.first[j]) {
+          a.part_s[(base + it.k) * H + y.head[j]] = m[j];
+          a.part_s2[(base + it.k) * H + y.head[j]] = l[j];
+        }
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (y.ok[k])
+          st_vec<W>(a.part_v + (base + it.k) * hc + y.col[k], acc[k]);
+    }
+    write = last_piece_warp(a, it);
+    if (write) {
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        m[j] = -INFINITY;
+        l[j] = 0.f;
+        if (y.head[j] < 0) continue;
+        for (long long q = 0; q < it.np; ++q)
+          m[j] = fmaxf(m[j], __ldcg(a.part_s + (base + q) * H + y.head[j]));
+      }
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+#pragma unroll
+        for (int i = 0; i < W; ++i) acc[k][i] = 0.f;
+      for (long long q = 0; q < it.np; ++q) {
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          if (y.head[j] < 0) continue;
+          const float mq = __ldcg(a.part_s + (base + q) * H + y.head[j]);
+          const float w = mq == -INFINITY ? 0.f : expf(mq - m[j]);
+          l[j] += __ldcg(a.part_s2 + (base + q) * H + y.head[j]) * w;
+#pragma unroll
+          for (int qq = 0; qq < PER; ++qq) {
+            const int k = j * PER + qq;
+            if (!y.ok[k]) continue;
+            float x[W];
+            ldcg_vec<W>(x, a.part_v + (base + q) * hc + y.col[k]);
+#pragma unroll
+            for (int i = 0; i < W; ++i) acc[k][i] += x[i] * w;
+          }
+        }
+      }
+    }
+  }
+  if (!write || st != 0) return;
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+    if (y.first[j]) {
+      a.m[it.row * H + y.head[j]] = m[j];
+      a.l[it.row * H + y.head[j]] = l[j];
+    }
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    if (!y.ok[k]) continue;
+    const float inv = 1.f / fmaxf(l[k / PER], 1e-16f);
+    float o[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) o[i] = acc[k][i] * inv;
+    st_vec<W>(a.out + it.row * hc + y.col[k], o);
+  }
+}
+
+// -- kernel (b): the backward's destination pass -------------------------------
+// Per destination row: the record (m, l, gdot = <g, out>, a_dst) and d a_dst
+// (gat), d x_r (gatv2) or d q (dot); GATv2's d att and the dot form's d p
+// as per-block partials.
 template <int FORM, int W, int NH, int PER, int U, int P>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dst_kernel(FlashArgs a) {
@@ -609,30 +654,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int i = 0; i < W; ++i) acc[k][i] = 0.f;
 
-    using B = DstBatch<W, NH, PER, U>;
+    using B = SrcRows<W, NH, PER, U>;
     auto fetch = [&](B& b, const Edges<U>& ix) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const long long s = ix.s[u];
-#pragma unroll
-        for (int j = 0; j < NH; ++j) {
-          b.op[u][j] = 0.f;
-          if (s < 0 || y.head[j] < 0) continue;
-          if (FORM == kGat)
-            b.op[u][j] = __ldg(a.src_tab + s * a.ld_src + y.head[j]);
-          if (FORM == kDot)
-            b.op[u][j] = __ldg(a.extra + (long long)ix.r[u] * H + y.head[j]);
-        }
-#pragma unroll
-        for (int k = 0; k < NV; ++k) {
-#pragma unroll
-          for (int i = 0; i < W; ++i) b.v[u][k][i] = b.k[u][k][i] = 0.f;
-          if (s < 0 || !y.ok[k]) continue;
-          ldg_vec<W>(b.v[u][k], a.val + s * a.ld_val + y.col[k]);
-          if (FORM == kDot)
-            ldg_vec<W>(b.k[u][k], a.src_tab + s * a.ld_src + y.col[k]);
-        }
-      }
+      fetch_src_rows<FORM, W, NH, PER, U>(a, y, b, ix);
     };
     auto use = [&](const B& b, const Edges<U>& ix) {
       // rows 0..U-1: <g, v> per edge; GATv2 and dot, rows U..2U-1: the
@@ -1003,55 +1027,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 enum Pass { kFwd = 0, kBwdDst = 1, kBwdSrc = 2 };
 
-template <int FORM, int NV>
-cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t st) {
-  const long long teams = kThreads / a.g_lanes;
-  const long long blocks = (a.max_pieces * a.h + teams - 1) / teams;
-  if (blocks <= 0) return cudaSuccess;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_kernel<FORM, NV><<<(unsigned)blocks, kThreads, 0, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <int FORM>
-cudaError_t launch_fwd_form(const FlashArgs& a, cudaStream_t st) {
-  const int g = a.g_lanes;
-  if (g <= 0 || g > 32 || (g & (g - 1)) != 0) return cudaErrorInvalidValue;
-  // columns a lane holds: ceil(c / g), rounded up to a power of two
-  const int per = (a.c + g - 1) / g;
-  if (per <= 1) return launch_fwd<FORM, 1>(a, st);
-  if (per <= 2) return launch_fwd<FORM, 2>(a, st);
-  if (per <= 4) return launch_fwd<FORM, 4>(a, st);
-  if (per <= 8) return launch_fwd<FORM, 8>(a, st);
-  if (per <= 16) return launch_fwd<FORM, 16>(a, st);
-  return cudaErrorInvalidValue;
-}
-
-template <int FORM, int W, int NH, int PER, int U, int P>
-cudaError_t launch_bwd(int pass, const FlashArgs& a, cudaStream_t st) {
+template <int PASS, int FORM, int W, int NH, int PER, int U, int P>
+cudaError_t launch_pass(const FlashArgs& a, cudaStream_t st) {
   constexpr int NV = NH * PER;
   const int ng = (a.h + a.team_heads - 1) / a.team_heads;
   const long long blocks = (a.max_pieces * ng + kWarps - 1) / kWarps;
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (pass == kBwdSrc) {
+  if constexpr (PASS == kFwd) {
+    flash_fwd_kernel<FORM, W, NH, PER, U, P>
+        <<<(unsigned)blocks, kThreads, 0, st>>>(a);
+  } else if constexpr (PASS == kBwdSrc) {
     flash_bwd_src_kernel<FORM, W, NH, PER, U, P>
         <<<(unsigned)blocks, kThreads, 0, st>>>(a);
-    return cudaGetLastError();
+  } else {
+    size_t smem = 0;
+    if (FORM == kGatV2) smem = sizeof(float) * kWarps * NV * a.g_lanes * W;
+    if (FORM == kDot)
+      smem = sizeof(float) * kThreads / a.g_lanes * a.n_rel * a.team_heads;
+    if (smem > 227 * 1024) return cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dst_kernel<FORM, W, NH, PER, U, P>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    flash_bwd_dst_kernel<FORM, W, NH, PER, U, P>
+        <<<(unsigned)blocks, kThreads, smem, st>>>(a);
   }
-  size_t smem = 0;
-  if (FORM == kGatV2) smem = sizeof(float) * kWarps * NV * a.g_lanes * W;
-  if (FORM == kDot)
-    smem = sizeof(float) * kThreads / a.g_lanes * a.n_rel * a.team_heads;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dst_kernel<FORM, W, NH, PER, U, P>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  flash_bwd_dst_kernel<FORM, W, NH, PER, U, P>
-      <<<(unsigned)blocks, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1060,21 +1063,26 @@ constexpr int edges_a_batch(int floats, int per_edge) {
          : floats / per_edge > 16 ? 16 : floats / per_edge;
 }
 
-template <int FORM, int W, int NH, int PER, int U>
-cudaError_t launch_depth(int pass, const FlashArgs& a, cudaStream_t st) {
-  if (a.depth == 1) return launch_bwd<FORM, W, NH, PER, U, 1>(pass, a, st);
-  if (a.depth == 2) return launch_bwd<FORM, W, NH, PER, U, 2>(pass, a, st);
-  return cudaErrorInvalidValue;
-}
+// Each pass's batch (gathered row floats a lane, `unroll` edges of nv *
+// vec) and batches in flight (`depth`), as ops/flash_softmax.py::_batch
+// chooses them from PERF.md's A/Bs: kernel (a) kFwdFloats floats, kernels
+// (b) and (c) kBwdFloats; kernels (a) and (b) two batches in flight where a
+// lane holds 8 or more floats of a row. The library holds these instances
+// only.
+constexpr int kFwdFloats = 16, kBwdFloats = 8;
 
-// The batch: 8 or 16 floats of gathered row a lane (`unroll` edges of nv *
-// vec), one or two batches in flight (`depth`).
 template <int FORM, int W, int NH, int PER>
 cudaError_t launch_batch(int pass, const FlashArgs& a, cudaStream_t st) {
-  constexpr int U8 = edges_a_batch(8, NH * PER * W);
-  constexpr int U16 = edges_a_batch(16, NH * PER * W);
-  if (a.unroll == U8) return launch_depth<FORM, W, NH, PER, U8>(pass, a, st);
-  if (a.unroll == U16) return launch_depth<FORM, W, NH, PER, U16>(pass, a, st);
+  constexpr int F = NH * PER * W;
+  constexpr int UA = edges_a_batch(kFwdFloats, F);
+  constexpr int UB = edges_a_batch(kBwdFloats, F);
+  constexpr int P = F >= 8 ? 2 : 1;
+  if (pass == kFwd && a.unroll == UA && a.depth == P)
+    return launch_pass<kFwd, FORM, W, NH, PER, UA, P>(a, st);
+  if (pass == kBwdDst && a.unroll == UB && a.depth == P)
+    return launch_pass<kBwdDst, FORM, W, NH, PER, UB, P>(a, st);
+  if (pass == kBwdSrc && a.unroll == UB && a.depth == 1)
+    return launch_pass<kBwdSrc, FORM, W, NH, PER, UB, 1>(a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1082,9 +1090,9 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// The backward's team shape must tile the row (every head's qv slots held
-// by the warp's lanes) and, for 16-byte vectors, every vector-read table
-// must be 16-byte aligned with row strides of whole vectors.
+// The team shape must tile the row (every head's qv slots held by the
+// warp's lanes) and, for 16-byte vectors, every table read or written by
+// vectors must be 16-byte aligned with row strides of whole vectors.
 bool shape_ok(int pass, const FlashArgs& a) {
   const int g = a.g_lanes, qv = a.qv;
   if (g <= 0 || g > 32 || (g & (g - 1)) != 0 || qv <= 0 ||
@@ -1105,14 +1113,14 @@ bool shape_ok(int pass, const FlashArgs& a) {
                        aligned16(a.d_row)));
   if (a.form == kDot) ok = ok && aligned16(a.src_tab) && a.ld_src % 4 == 0;
   if (a.form == kGatV2) ok = ok && aligned16(a.extra);
-  if (pass == kBwdDst) ok = ok && aligned16(a.out);
+  if (pass != kBwdSrc) ok = ok && aligned16(a.out);
   return ok;
 }
 
 // The lane layout: NH heads of one slot (PER = 1), or one head of PER
 // slots (a head wider than the warp's lanes).
 template <int FORM>
-cudaError_t launch_bwd_form(int pass, const FlashArgs& a, cudaStream_t st) {
+cudaError_t launch_form(int pass, const FlashArgs& a, cudaStream_t st) {
   if (!shape_ok(pass, a)) return cudaErrorInvalidValue;
   const int per = a.qv > a.g_lanes ? a.qv / a.g_lanes : 1;
   const int nh = a.nv / per;
@@ -1144,12 +1152,6 @@ cudaError_t launch_bwd_form(int pass, const FlashArgs& a, cudaStream_t st) {
     }
   }
   return cudaErrorInvalidValue;
-}
-
-template <int FORM>
-cudaError_t launch_form(int pass, const FlashArgs& a, cudaStream_t st) {
-  return pass == kFwd ? launch_fwd_form<FORM>(a, st)
-                      : launch_bwd_form<FORM>(pass, a, st);
 }
 
 int run(int pass, const FlashArgs* args, void* stream) {

@@ -180,6 +180,34 @@ def hetero_edge_attention(kv_table: torch.Tensor, q_table: torch.Tensor,
 
 
 # -- the flash scans ------------------------------------------------------------
+# the device types on which the flash route pads each head to a multiple of
+# ALIGN_COLUMNS columns, so that the kernels read every row as 16-byte
+# vectors (a zero column adds exact zeros to every sum); the CPU's plain
+# scan runs unpadded
+ALIGN_HEADS_ON = ('cuda',)
+ALIGN_COLUMNS = 4
+
+
+def _pad_heads(t: Optional[torch.Tensor], h: int, c: int, cp: int
+               ) -> Optional[torch.Tensor]:
+    """``[N, H c]`` (or ``[H c]``) to ``[N, H cp]``: each head followed by
+    ``cp - c`` zero columns."""
+    if t is None or cp == c:
+        return t
+    rows = t.reshape(-1, h, c)
+    out = torch.nn.functional.pad(rows, (0, cp - c))
+    return out.reshape(t.shape[:-1] + (h * cp,))
+
+
+def _unpad_heads(t: Optional[torch.Tensor], h: int, c: int, cp: int
+                 ) -> Optional[torch.Tensor]:
+    """The inverse of :func:`_pad_heads`: each head's first ``c``
+    columns."""
+    if t is None or cp == c:
+        return t
+    return t.reshape(-1, h, cp)[..., :c].reshape(t.shape[:-1] + (h * c,))
+
+
 class _FlashAttention(torch.autograd.Function):
     """The online-softmax scan of one logit form (``ops/flash_softmax.py``):
     forward kernel (a) on the card or the chunked plain scan on the CPU,
@@ -191,26 +219,47 @@ class _FlashAttention(torch.autograd.Function):
     chunk (the kernels walk no chunks). On the card the plans sort the edges
     (``dst_plan``, ``src_plan``). ``bwd`` is None, or a layout's
     source-sorted copy ``(s_t, d_t, rel_t)`` that the backward walks
-    instead (the JAX package's ``_attention_flash_dual``)."""
+    instead (the JAX package's ``_attention_flash_dual``).
+
+    On a device of :data:`ALIGN_HEADS_ON`, heads of ``C`` columns not a
+    multiple of :data:`ALIGN_COLUMNS` are padded with zero columns once per
+    call: the values, GATv2's ``x_r`` and ``att``, the dot form's ``q`` and
+    ``k`` (the GAT logit parts ``[N, H]`` and the prior ``p [R, H]`` stay),
+    and the output gradient. The padded tables and output are the
+    residuals; outputs and gradients are sliced back to ``C``."""
 
     @staticmethod
     def forward(ctx, form, heads, slope, num_dst, presorted, chunk, bwd,
                 src_tab, dst_tab, val, extra, s, d, rel):
+        c = val.shape[1] // heads
+        cp = c
+        if val.device.type in ALIGN_HEADS_ON:
+            cp = -(-c // ALIGN_COLUMNS) * ALIGN_COLUMNS
+        if cp != c:
+            same = src_tab is val
+            val = _pad_heads(val, heads, c, cp)
+            if form != 'gat':
+                src_tab = val if same else _pad_heads(src_tab, heads, c, cp)
+                dst_tab = _pad_heads(dst_tab, heads, c, cp)
+            if form == 'gatv2':
+                extra = _pad_heads(extra, heads, c, cp)
         ops = _fs.FlashOperands(form, heads, src_tab, dst_tab, val, extra,
                                 slope)
         plan = None
         if val.is_cuda:
             plan = _fs.dst_plan(s, d, rel, num_dst, presorted)
         out, m, l = _fs.flash_forward(ops, s, d, rel, num_dst, chunk, plan)
-        ctx.meta = (form, heads, slope, num_dst, chunk, plan)
+        ctx.meta = (form, heads, slope, num_dst, chunk, plan, c, cp)
         ctx.bwd = bwd
         ctx.save_for_backward(src_tab, dst_tab, val, extra, s, d, rel, m, l,
                               out)
+        if cp != c:
+            return out.view(num_dst, heads, cp)[..., :c].contiguous()
         return out.view(num_dst, heads, -1)
 
     @staticmethod
     def backward(ctx, g):
-        form, heads, slope, num_dst, chunk, plan = ctx.meta
+        form, heads, slope, num_dst, chunk, plan, c, cp = ctx.meta
         src_tab, dst_tab, val, extra, s, d, rel, m, l, out = ctx.saved_tensors
         ops = _fs.FlashOperands(form, heads, src_tab, dst_tab, val, extra,
                                 slope)
@@ -221,9 +270,15 @@ class _FlashAttention(torch.autograd.Function):
         if val.is_cuda:
             plan_t = _fs.src_plan(s, d, rel, num_dst, src_tab.shape[0],
                                   src_sorted)
+        g = _pad_heads(g.reshape(num_dst, heads * c), heads, c, cp)
         d_src, d_dst, d_val, d_extra = _fs.flash_backward(
             ops, s, d, rel, num_dst, chunk, m, l, out, g, plan, plan_t)
+        if form != 'gat':
+            d_src = _unpad_heads(d_src, heads, c, cp)
+            d_dst = _unpad_heads(d_dst, heads, c, cp)
+        d_val = _unpad_heads(d_val, heads, c, cp)
         if form == 'gatv2':
+            d_extra = _unpad_heads(d_extra, heads, c, cp)
             d_val = None       # x_l's value gradient is in d_src
         return (None,) * 7 + (d_src, d_dst, d_val, d_extra, None, None, None)
 

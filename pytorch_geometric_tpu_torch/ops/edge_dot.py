@@ -8,15 +8,19 @@ and the mix's VJP), and PyTorch's plain version writes the two gathered
 ``[E, H, F]`` operands to device memory. On the card :func:`edge_dot`
 launches the hand-written kernel, which reads each row into registers and
 writes only ``[E, H]`` (bound: bytes; see the source), and gathers from one
-L2-sized slice of whole heads at a time (:func:`dot_slice_heads`), as the
-mix kernel does with its columns.
+L2-sized slice of the tables at a time (:func:`dot_plan`: whole heads, or
+column slices of one head where a head of both tables does not fit), as
+the mix kernel does with its columns; a call whose one side comes in runs
+(a slot order's) takes the kernel's runs arm (:func:`runs_slice_heads`).
+Each call counts one launch in ``edge_dot.launches`` (or
+``launches_bf16``), and a call cut into column slices one more in
+``edge_dot.launches_combine`` for the pass that sums its partials.
 
 :func:`edge_dot` runs :func:`edge_dot_plain` for CPU tensors and launches
 the kernel for CUDA tensors; it never falls back from one to the other. It
 takes ``a`` and ``b`` both float32 or both bfloat16 (bf16 products, a
-float32 sum, one rounding of the result); each arm counts its launches
-(``edge_dot.launches``, ``edge_dot.launches_bf16``). It is not
-differentiable: ``ops/sddmm.py`` wraps it.
+float32 sum, one rounding of the result). It is not differentiable:
+``ops/sddmm.py`` wraps it.
 """
 
 import ctypes
@@ -102,14 +106,103 @@ def _check(a, b, ia, ib, edge_mask):
                          f'b of {tuple(b3.shape[1:])}')
 
 
-def dot_slice_heads(n_rows: int, h: int, f: int, itemsize: int,
-                    l2_bytes: int) -> int:
-    """Heads per slice of the dot kernel: the most whole heads ``hs`` (a
-    divisor of ``h``) whose slice of a table of ``n_rows`` rows, ``n_rows *
-    hs * f * itemsize`` bytes, fits in ``MIX_L2_SHARE`` of ``l2_bytes`` (the
-    mix kernel's share, ``ops/gat_fused.py``); one head when none fits. The
-    kernel gathers from one slice at a time, so the slice's rows stay in L2
-    while the edges that read them go by."""
+# elements of a head one lane of the kernel holds (csrc/sddmm.cu's
+# kLaneElems), and the most lanes a head takes
+LANE_ELEMS, HEAD_LANES = 16, 32
+# the share of the L2 a slice of both tables may take (the A/B of PERF.md:
+# path I's two 100,000-row tables ran fastest in one slice of all four
+# heads at H*F = 40, 32 MB, and in two column slices of a head at 256)
+DOT_L2_SHARE = 0.75
+# the narrowest column slice in bytes of a row: one 32-byte sector
+MIN_SLICE_BYTES = 32
+# the most column slices a head (the combine pass's registers) and slices
+# a launch (the grid's second dimension) the kernel takes
+MAX_COL_SLICES, MAX_SLICES = 64, 65535
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def dot_vec(a: torch.Tensor, b: torch.Tensor, f: int, lda: int,
+            ldb: int) -> int:
+    """The elements a leaf of the kernel reads at once: the widest power
+    of two up to 16 bytes that divides ``f`` and both row strides, with
+    both tables aligned to it."""
+    vec = 16 // a.element_size()
+    while vec > 1 and not (
+            f % vec == 0 and lda % vec == 0 and ldb % vec == 0
+            and a.data_ptr() % (vec * a.element_size()) == 0
+            and b.data_ptr() % (vec * b.element_size()) == 0):
+        vec //= 2
+    return vec
+
+
+def dot_slice_widths(h: int, f: int, vec: int):
+    """Every slice shape the tree arm takes for ``h`` heads of ``f``
+    columns read ``vec`` at a time, as ``(heads a slice, column slices a
+    head)``: whole heads (a divisor of ``h``) where a head fits in the
+    lanes, then one head cut into 2, 4, ... column slices (each a power of
+    two of leaves, at most the lanes' width and at least one leaf), at most
+    ``MAX_COL_SLICES`` of them and ``MAX_SLICES`` slices in all. Empty for
+    a head too wide for any (over 64 slices of 32 lanes)."""
+    nq = f // vec
+    p = _pow2(nq)
+    widest = HEAD_LANES * max(1, LANE_ELEMS // vec)
+    out = []
+    if p <= widest:
+        out += [(d, 1) for d in range(h, 0, -1)
+                if h % d == 0 and h // d <= MAX_SLICES]
+    cs = 2
+    while cs <= p:
+        ncs = -(-nq // (p // cs))
+        if (p // cs <= widest and ncs <= MAX_COL_SLICES
+                and h * ncs <= MAX_SLICES):
+            out.append((1, cs))
+        cs *= 2
+    return out
+
+
+def dot_plan(na: int, nb: int, e: int, h: int, f: int, vec: int,
+             itemsize: int, l2_bytes: int):
+    """The tree arm's slices, ``(heads a slice, column slices a head)``: the
+    most whole heads whose slice of the tables that the edges read again
+    fits in ``DOT_L2_SHARE`` of ``l2_bytes``; where one head does not fit,
+    the fewest column slices of one head that do, no narrower than a
+    32-byte sector of a row. A table of at least a row per edge (a slot
+    order's streamed side) is read about once a row and needs no room in
+    L2. The kernel gathers from one slice at a time, so the slice's rows
+    stay in L2 while the edges that read them go by. Where none fits, the
+    narrowest shape the kernel takes. None where it takes none (a head too
+    wide: :func:`edge_dot` gives it to the runs arm)."""
+    budget = DOT_L2_SHARE * l2_bytes
+    rows = sum(n for n in (na, nb) if n < e)
+    widths = dot_slice_widths(h, f, vec)
+    for hs, cs in widths:
+        cols = f if cs == 1 else _pow2(f // vec) // cs * vec
+        if rows * hs * cols * itemsize <= budget or (
+                cs > 1 and cols * itemsize <= MIN_SLICE_BYTES):
+            return hs, cs
+    return widths[-1] if widths else None
+
+
+def runs_arm(f: int, runs: Optional[bool]) -> bool:
+    """Whether a call of heads of ``f`` elements takes the kernel's runs
+    arm: as the caller names it (``runs``), or by default where a head fits
+    one lane (``LANE_ELEMS``), where the A/B of PERF.md found the runs arm
+    4 % ahead of the tree arm (H*F = 40 in edge order)."""
+    return runs if runs is not None else f <= LANE_ELEMS
+
+
+def runs_slice_heads(n_rows: int, h: int, f: int, itemsize: int,
+                     l2_bytes: int) -> int:
+    """The runs arm's heads a slice: the most whole heads ``hs`` (a divisor
+    of ``h``) whose slice of a table of ``n_rows`` rows, ``n_rows * hs * f
+    * itemsize`` bytes, fits in ``MIX_L2_SHARE`` of ``l2_bytes`` (the mix
+    kernel's share, ``ops/gat_fused.py``); one head when none fits."""
     budget = MIX_L2_SHARE * l2_bytes
     fit = [d for d in range(1, h + 1)
            if h % d == 0 and n_rows * d * f * itemsize <= budget]
@@ -117,17 +210,23 @@ def dot_slice_heads(n_rows: int, h: int, f: int, itemsize: int,
 
 
 def _kernel(arm: str):
-    """The library's entry point of ``arm``, 'f32' or 'bf16'."""
+    """The library's entry point of ``arm``: 'f32', 'bf16' (the tree arm)
+    or 'runs_f32', 'runs_bf16' (the runs arm, which takes no vector width
+    and no column slices)."""
     from .. import csrc
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if arm.startswith('runs'):
+        return csrc.function('sddmm', f'pgt_edge_dot_{arm}',
+                             [vp] * 6 + [ll] * 5 + [i] * 5 + [vp])
     return csrc.function('sddmm', f'pgt_edge_dot_{arm}',
-                         [vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ll, i, i,
-                          i, i, i, vp])
+                         [vp] * 7 + [ll] * 5 + [i] * 7 + [vp])
 
 
 def edge_dot(a: torch.Tensor, b: torch.Tensor, ia: torch.Tensor,
              ib: torch.Tensor, edge_mask: Optional[torch.Tensor] = None,
-             slice_heads: Optional[int] = None) -> torch.Tensor:
+             slice_heads: Optional[int] = None,
+             col_slices: Optional[int] = None,
+             runs: Optional[bool] = None) -> torch.Tensor:
     """``out[e, h] = sum_f a[ia[e], h, f] * b[ib[e], h, f]``, 0 where
     ``ia[e]`` is outside ``[0, a.shape[0])``, ``ib[e]`` outside ``[0,
     b.shape[0])`` or ``edge_mask[e]`` is false.
@@ -137,17 +236,28 @@ def edge_dot(a: torch.Tensor, b: torch.Tensor, ia: torch.Tensor,
     row stride of their own is allowed, as in a column slice of a wider
     table); ``ia``, ``ib [E]`` int32 or int64; ``edge_mask [E]`` bool. A
     CPU tensor runs :func:`edge_dot_plain`; a CUDA tensor launches the
-    kernel of its dtype (built at first use) or raises. ``slice_heads`` (a
-    divisor of H) sets the kernel's slice width in heads; None takes
-    :func:`dot_slice_heads` for the card. The output is the same bits for
-    every width. Each launch counts in ``edge_dot.launches`` or
-    ``edge_dot.launches_bf16``; an empty edge list launches nothing. Not
-    differentiable: :func:`sddmm` and :func:`gathered_dot` wrap it."""
+    kernel of its dtype (built at first use) or raises. The kernel has two
+    arms: the tree arm, whose ``slice_heads`` (a divisor of H) and
+    ``col_slices`` (column slices a head, with one head a slice) are one of
+    :func:`dot_slice_widths` (None: :func:`dot_plan` for the card); and the
+    runs arm, slices of whole heads only (None: :func:`runs_slice_heads`),
+    for a caller whose one side's indices come in ``runs`` (True: a slot
+    order's destinations), and by default (None) for heads of at most 16
+    elements (:func:`runs_arm`) or a head the tree arm takes in no shape;
+    False asks for the tree arm. The two arms sum in their own orders; each
+    gives the same bits for every slice shape it takes. Each call counts
+    one launch in ``edge_dot.launches`` or ``edge_dot.launches_bf16``, and
+    one in ``edge_dot.launches_combine`` where it is cut into column
+    slices; an empty edge list launches nothing. Not differentiable:
+    :func:`sddmm` and :func:`gathered_dot` wrap it."""
     _check(a, b, ia, ib, edge_mask)
     h, f = _as_heads(a).shape[1:]
     if slice_heads is not None and (slice_heads <= 0 or h % slice_heads):
         raise ValueError(f'edge_dot: slice_heads {slice_heads} does not '
                          f'tile {h} heads')
+    if runs_arm(f, runs) and col_slices not in (None, 1):
+        raise ValueError(f'edge_dot: the runs arm takes slices of whole '
+                         f'heads, got {col_slices} column slices')
     if a.device.type == 'cpu':
         return edge_dot_plain(a, b, ia, ib, edge_mask)
     if a.device.type != 'cuda':
@@ -158,21 +268,45 @@ def edge_dot(a: torch.Tensor, b: torch.Tensor, ia: torch.Tensor,
     out = torch.empty((e, h), dtype=a.dtype, device=a.device)
     if e > 0 and h > 0:
         bf16 = a.dtype == torch.bfloat16
-        fn = _kernel('bf16' if bf16 else 'f32')
-        if slice_heads is None:
-            l2 = torch.cuda.get_device_properties(a.device).L2_cache_size
-            slice_heads = dot_slice_heads(max(a.shape[0], b.shape[0]), h, f,
-                                          a.element_size(), l2)
+        l2 = torch.cuda.get_device_properties(a.device).L2_cache_size
         mask = None if edge_mask is None else edge_mask.contiguous()
         ia_c, ib_c = ia.contiguous(), ib.contiguous()
+        ptrs = (a.data_ptr(), b.data_ptr(), ia_c.data_ptr(), ib_c.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr())
+        wide = (int(ia.dtype == torch.int64), int(ib.dtype == torch.int64))
+        vec = dot_vec(a, b, f, lda, ldb)
+        widths = dot_slice_widths(h, f, vec)
+        if runs_arm(f, runs) or not widths:
+            if col_slices not in (None, 1):
+                raise ValueError(f'edge_dot: the tree arm takes no shape of '
+                                 f'{f} columns a head, and the runs arm no '
+                                 f'column slices')
+            if slice_heads is None:
+                slice_heads = runs_slice_heads(max(a.shape[0], b.shape[0]),
+                                               h, f, a.element_size(), l2)
+            fn, part = _kernel('runs_bf16' if bf16 else 'runs_f32'), None
+            args = (*ptrs, e, a.shape[0], b.shape[0], lda, ldb, h, f,
+                    slice_heads, *wide)
+        else:
+            if slice_heads is None and col_slices is None:
+                slice_heads, col_slices = dot_plan(
+                    a.shape[0], b.shape[0], e, h, f, vec, a.element_size(),
+                    l2)
+            slice_heads, col_slices = slice_heads or 1, col_slices or 1
+            if (slice_heads, col_slices) not in widths:
+                raise ValueError(f'edge_dot: {slice_heads} heads a slice in '
+                                 f'{col_slices} column slices is not one of '
+                                 f'{widths}')
+            leaves = _pow2(f // vec) // col_slices
+            ncs = -(-(f // vec) // leaves)
+            part = (torch.empty((ncs, e, h), dtype=torch.float32,
+                                device=a.device) if ncs > 1 else None)
+            fn = _kernel('bf16' if bf16 else 'f32')
+            args = (*ptrs, None if part is None else part.data_ptr(), e,
+                    a.shape[0], b.shape[0], lda, ldb, h, f, vec, slice_heads,
+                    leaves, *wide)
         with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = fn(a.data_ptr(), b.data_ptr(), ia_c.data_ptr(),
-                     ib_c.data_ptr(), None if mask is None else
-                     mask.data_ptr(), out.data_ptr(), e, a.shape[0],
-                     b.shape[0], lda, ldb, h, f, slice_heads,
-                     int(ia.dtype == torch.int64),
-                     int(ib.dtype == torch.int64), stream)
+            err = fn(*args, torch.cuda.current_stream(a.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'edge_dot kernel launch failed: CUDA error '
                                f'{err}')
@@ -180,8 +314,11 @@ def edge_dot(a: torch.Tensor, b: torch.Tensor, ia: torch.Tensor,
             edge_dot.launches_bf16 += 1
         else:
             edge_dot.launches += 1
+        if part is not None:
+            edge_dot.launches_combine += 1
     return out[:, 0] if squeeze else out
 
 
 register_launch_counter('edge_dot', edge_dot)
 register_launch_counter('edge_dot_bf16', edge_dot, 'launches_bf16')
+register_launch_counter('edge_dot_combine', edge_dot, 'launches_combine')

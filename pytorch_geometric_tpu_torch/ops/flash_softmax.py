@@ -32,14 +32,14 @@ On the card :func:`flash_forward` launches kernel (a), destination-major over
 the CSR of the destination-sorted edges, and :func:`flash_backward` kernel
 (b), the destination pass, then kernel (c), the source pass over the
 source-sorted permutation of the same edges (the role of the JAX package's
-``_attention_flash_dual``). Kernel (a) walks a row's edges with one team of
-lanes per (row, head); kernels (b) and (c) with one warp per row and group
-of heads (:class:`TeamShape`: 16-byte loads where the rows allow, the next
-batch's edges fetched while this one is used), kernel (b) handing kernel (c)
-one record ``(m, l, gdot, a_dst)`` per row and head. Each keeps its sums in
-registers: no ``[E, .]`` intermediate, no atomic sums. A row longer than
-``FLASH_SPLIT_EDGES`` edges is cut into pieces, each with its own partial
-sums, merged in piece order by the team that finishes last
+``_attention_flash_dual``). All three walk a row's edges with one warp per
+row and group of heads (:class:`TeamShape`: 16-byte loads where the rows
+allow, the next batch's edges fetched while one is used; kernel (a) keeps
+an online softmax per head, rescaled once a batch), kernel (b) handing
+kernel (c) one record ``(m, l, gdot, a_dst)`` per row and head. Each keeps
+its sums in registers: no ``[E, .]`` intermediate, no atomic sums. A row
+longer than ``FLASH_SPLIT_EDGES`` edges is cut into pieces, each with its
+own partial sums, merged in piece order by the warp that finishes last
 (:class:`FlashPlan`, whose ``piece_row`` maps a piece to its row). So two
 launches give the same bits.
 
@@ -330,21 +330,18 @@ def _pow2(n: int) -> int:
     return p
 
 
-def team_lanes(c: int) -> int:
-    """Lanes of kernel (a)'s team, which owns one (row, head): the head's
-    ``c`` columns rounded up to a power of two, at most 32 (a lane holds
-    columns ``j, j + G, ...``, up to 16 of them)."""
-    return min(_pow2(c), 32)
+# the kernels: 'fwd' (a), 'dst' (b), 'src' (c)
+KERNELS = ('fwd', 'dst', 'src')
 
 
 class TeamShape(NamedTuple):
-    """How kernels (b) and (c) lay a row over a warp. Each head is padded to
-    ``slots`` (a power of two) slots of ``vec`` columns (4: one 16-byte load
-    a slot; 1: a float); the warp owns one piece and ``heads`` heads and
-    splits into ``32 // lanes`` sub-teams of ``lanes`` lanes, lane ``j``
-    holding the slots ``j, j + lanes, ...`` (``nv`` of them) of the warp's
-    heads; the sub-teams take alternate batches of ``unroll`` edges, their
-    sums merged at the end; ``depth`` batches are in flight."""
+    """How a kernel lays a row over a warp. Each head is padded to ``slots``
+    (a power of two) slots of ``vec`` columns (4: one 16-byte load a slot;
+    1: a float); the warp owns one piece and ``heads`` heads and splits
+    into ``32 // lanes`` sub-teams of ``lanes`` lanes, lane ``j`` holding
+    the slots ``j, j + lanes, ...`` (``nv`` of them) of the warp's heads;
+    the sub-teams take alternate batches of ``unroll`` edges, their states
+    merged at the end; ``depth`` batches are in flight."""
     vec: int
     lanes: int
     heads: int
@@ -354,37 +351,47 @@ class TeamShape(NamedTuple):
     depth: int
 
 
-def team_shape(h: int, c: int, vec: int, heads: Optional[int] = None,
-               batch_floats: int = 16, depth: int = 1) -> TeamShape:
-    """The shape for heads of ``c`` columns: a head wider than 32 slots
-    takes a warp of its own; narrower ones share a warp, all ``h`` where a
-    lane then holds at most 16 floats of a row, else the most that fit
-    (``heads`` overrides). ``unroll`` edges a batch so that a lane gathers
-    about ``batch_floats`` floats (8 or 16) of rows a batch, between 1 and
-    16 edges."""
+def _batch(kernel: str, floats: int):
+    """A kernel's batch (gathered row floats a lane) and batches in flight,
+    by the floats of a row a lane holds, from the A/Bs on the card
+    (PERF.md): kernel (a) 16 floats, kernels (b) and (c) 8; two batches in
+    flight for kernels (a) and (b) where a lane holds 8 or more floats, one
+    otherwise, and one for kernel (c). Within 3 % of the best of six (a)
+    variants at paths K, L and M, and 8 % of the best (b) and (c) variant;
+    larger batches spill. csrc/flash_softmax.cu's kFwdFloats, kBwdFloats
+    and launch_batch hold the same rule, and the library only these
+    instances."""
+    depth = 2 if kernel != 'src' and floats >= 8 else 1
+    return (16 if kernel == 'fwd' else 8), depth
+
+
+def team_shape(h: int, c: int, vec: int, kernel: str) -> TeamShape:
+    """Kernel ``kernel``'s shape for heads of ``c`` columns read ``vec`` at a
+    time: a head wider than 32 slots takes a warp of its own; narrower ones
+    share a warp, all ``h`` where a lane then holds at most 16 floats of a
+    row, else the most that fit. ``unroll`` edges a batch so that a lane
+    gathers :func:`_batch`'s floats of rows a batch, between 1 and 16
+    edges."""
+    if vec not in (1, 4) or (vec == 4 and c % 4) or kernel not in KERNELS:
+        raise ValueError(f'flash team shape: vec {vec} (c = {c}), kernel '
+                         f'{kernel!r}')
     slots = _pow2(-(-c // vec))
-    if vec not in (1, 4) or (vec == 4 and c % 4) or batch_floats not in (
-            8, 16) or depth not in (1, 2) or (
-                slots > 32 and heads not in (None, 1)):
-        raise ValueError(f'flash team shape: vec {vec} (c = {c}), heads '
-                         f'{heads}, batch_floats {batch_floats}, depth '
-                         f'{depth}')
 
     def lay(ht):
         lanes = min(_pow2(ht * slots), 32)
         return lanes, _pow2(-(-ht * slots // lanes))
 
-    if heads is None:
-        heads = 1 if slots > 32 else next(
-            ht for ht in range(h, 0, -1) if lay(ht)[1] * vec <= 16)
+    heads = 1 if slots > 32 else next(
+        ht for ht in range(h, 0, -1) if lay(ht)[1] * vec <= 16)
     lanes, nv = lay(heads)
-    unroll = min(16, max(1, batch_floats // (nv * vec)))
+    batch, depth = _batch(kernel, nv * vec)
+    unroll = min(16, max(1, batch // (nv * vec)))
     return TeamShape(vec, lanes, heads, slots, nv, unroll, depth)
 
 
 def bwd_blocks(plan: FlashPlan, h: int, shape: TeamShape) -> int:
-    """Blocks of a kernel (b) or (c) launch over ``plan``: one warp per
-    (piece, head group)."""
+    """Blocks of a launch over ``plan``: one warp per (piece, head
+    group)."""
     groups = -(-h // shape.heads)
     return -(-plan.max_pieces * groups // (_THREADS // 32))
 
@@ -443,10 +450,9 @@ def _check_card(ops: FlashOperands, *tensors):
                          f'{MAX_HEAD_COLUMNS} columns, got {ops.columns}')
 
 
-def _args(ops: FlashOperands, plan: FlashPlan,
-          shape: Optional[TeamShape] = None, **ptrs) -> _Args:
-    """The launch arguments; ``shape`` for kernels (b) and (c), None for
-    kernel (a) (its team of ``team_lanes(c)`` lanes)."""
+def _args(ops: FlashOperands, plan: FlashPlan, shape: TeamShape,
+          **ptrs) -> _Args:
+    """The launch arguments of a kernel laid out as ``shape``."""
     h, c = ops.heads, ops.columns
     a = _Args()
     a.rowptr, a.piece_ptr, a.piece_row, a.split_base = (
@@ -465,21 +471,19 @@ def _args(ops: FlashOperands, plan: FlashPlan,
     a.ld_src = _row_stride('src_tab', ops.src_tab, sw)
     a.ld_dst = _row_stride('dst_tab', ops.dst_tab, sw)
     a.ld_val = _row_stride('val', ops.val, h * c)
-    a.form, a.h, a.c = FORMS.index(ops.form), h, c
-    a.g_lanes, a.split = team_lanes(c), plan.split
-    if shape is not None:
-        a.g_lanes, a.vec, a.team_heads, a.qv = (shape.lanes, shape.vec,
-                                                shape.heads, shape.slots)
-        a.nv, a.unroll, a.depth = shape.nv, shape.unroll, shape.depth
+    a.form, a.h, a.c, a.split = FORMS.index(ops.form), h, c, plan.split
+    a.g_lanes, a.vec, a.team_heads, a.qv = (shape.lanes, shape.vec,
+                                            shape.heads, shape.slots)
+    a.nv, a.unroll, a.depth = shape.nv, shape.unroll, shape.depth
     a.n_rel = ops.extra.shape[0] if ops.form == 'dot' else 0
     a.slope = float(ops.slope)
     return a
 
 
 def _vec_ok(ops: FlashOperands, *rows: torch.Tensor) -> bool:
-    """16-byte loads: ``c`` a multiple of 4, and every table that kernels
-    (b) and (c) read by rows 16-byte aligned with a stride of whole
-    vectors (``rows``: the output-gradient and output rows)."""
+    """16-byte loads: ``c`` a multiple of 4, and every table a kernel reads
+    or writes by rows 16-byte aligned with a stride of whole vectors
+    (``rows``: the output, output-gradient rows)."""
     tabs = [ops.val, *rows]
     if ops.form != 'gat':
         tabs.append(ops.dst_tab)
@@ -492,28 +496,14 @@ def _vec_ok(ops: FlashOperands, *rows: torch.Tensor) -> bool:
                                     or t.stride(0) % 4 == 0) for t in tabs)
 
 
-def _batch(kernel: str, floats: int):
-    """Kernels (b) and (c)'s batch (gathered row floats a lane, 8 or 16) and
-    batches in flight, by the floats of a row a lane holds: 8 floats, and
-    two batches in flight for kernel (b) where a lane holds 8 or more. From
-    the A/B of ``chip_smoke.py``'s flash timing phase (PERF.md): within 8 %
-    of the best variant at paths K, L and M, where 16 floats or depth 2
-    everywhere lose up to 2x to spills."""
-    return 8, 2 if kernel == 'dst' and floats >= 8 else 1
-
-
-def backward_shape(ops: FlashOperands, kernel: str, *rows: torch.Tensor,
-                   **kw) -> TeamShape:
-    """The team shape of kernel ``kernel`` ('dst': (b), 'src': (c)): 16-byte
-    loads where :func:`_vec_ok` allows them, heads laid out by
-    :func:`team_shape` and the batch of :func:`_batch`; ``kw`` overrides
-    ``team_shape``'s arguments (``vec`` too)."""
-    h, c = ops.heads, ops.columns
-    vec = kw.pop('vec', None) or (4 if _vec_ok(ops, *rows) else 1)
-    floats = team_shape(h, c, vec, kw.get('heads')).nv * vec
-    batch, depth = _batch(kernel, floats)
-    return team_shape(h, c, vec, **{'batch_floats': batch, 'depth': depth,
-                                    **kw})
+def kernel_shape(ops: FlashOperands, kernel: str,
+                 *rows: torch.Tensor) -> TeamShape:
+    """The team shape of kernel ``kernel`` ('fwd': (a), 'dst': (b), 'src':
+    (c)): 16-byte loads where :func:`_vec_ok` allows them (``rows`` the
+    row tables it reads or writes besides ``ops``'), heads laid out by
+    :func:`team_shape`."""
+    vec = 4 if _vec_ok(ops, *rows) else 1
+    return team_shape(ops.heads, ops.columns, vec, kernel)
 
 
 def _launch(symbol: str, args: _Args, dev: torch.device, what: str):
@@ -563,30 +553,27 @@ def flash_forward(ops: FlashOperands, s: torch.Tensor, d: torch.Tensor,
     if num_dst == 0:
         return out, m, l
     (ps, ps2, pv), tickets = _scratch(plan, h, h * c, out, 1)
-    args = _args(ops, plan, m=m, l=l, out=out, tickets=tickets, part_s=ps,
-                 part_s2=ps2, part_v=pv)
+    args = _args(ops, plan, kernel_shape(ops, 'fwd', out), m=m, l=l,
+                 out=out, tickets=tickets, part_s=ps, part_s2=ps2, part_v=pv)
     _launch('pgt_flash_fwd', args, ops.val.device, 'forward')
     flash_forward.launches += 1
     return out, m, l
 
 
 def flash_backward_dst(ops: FlashOperands, m: torch.Tensor, l: torch.Tensor,
-                       out: torch.Tensor, g: torch.Tensor, plan: FlashPlan,
-                       shape: Optional[TeamShape] = None):
+                       out: torch.Tensor, g: torch.Tensor, plan: FlashPlan):
     """Kernel (b), the backward's destination pass over ``plan`` (the
     :func:`dst_plan` of the forward): ``(rec [num_dst, H, 4], d_dst_tab,
     d_extra)``, ``rec`` each row and head's ``(m, l, gdot = <g, out>,
     a_dst)`` (``a_dst`` 0 but for GAT), which kernel (c) reads, and
     ``d_extra`` the blocks' partials of GATv2's ``att`` or the dot form's
-    prior summed in block order (None for GAT). ``shape`` overrides
-    :func:`backward_shape`. CUDA tensors only; counts in
-    ``flash_backward.launches_dst``."""
+    prior summed in block order (None for GAT). CUDA tensors only; counts
+    in ``flash_backward.launches_dst``."""
     num_dst = out.shape[0]
     g = g.reshape(num_dst, -1).contiguous()
     _check_card(ops, m, l, out, g)
     h, c = ops.heads, ops.columns
-    if shape is None:
-        shape = backward_shape(ops, 'dst', g, out)
+    shape = kernel_shape(ops, 'dst', g, out)
     kw = dict(dtype=torch.float32, device=ops.val.device)
     rec = torch.empty((num_dst, h, 4), **kw)
     d_dst = torch.empty((num_dst, ops.dst_tab.shape[1]), **kw)
@@ -606,18 +593,17 @@ def flash_backward_dst(ops: FlashOperands, m: torch.Tensor, l: torch.Tensor,
 
 
 def flash_backward_src(ops: FlashOperands, g: torch.Tensor, rec: torch.Tensor,
-                       plan_t: FlashPlan, shape: Optional[TeamShape] = None):
+                       plan_t: FlashPlan):
     """Kernel (c), the backward's source pass over ``plan_t`` (a
     :func:`src_plan`), reading the records ``rec`` of kernel (b):
     ``(d_src_tab, d_val)`` (``d_val`` None for GATv2, whose value gradient
-    is in ``d_src_tab``). ``shape`` overrides :func:`backward_shape`. CUDA
-    tensors only; counts in ``flash_backward.launches_src``."""
+    is in ``d_src_tab``). CUDA tensors only; counts in
+    ``flash_backward.launches_src``."""
     num_dst = rec.shape[0]
     g = g.reshape(num_dst, -1).contiguous()
     _check_card(ops, g, rec)
     h, c = ops.heads, ops.columns
-    if shape is None:
-        shape = backward_shape(ops, 'src', g)
+    shape = kernel_shape(ops, 'src', g)
     kw = dict(dtype=torch.float32, device=ops.val.device)
     n_src = ops.src_tab.shape[0]
     d_src = torch.empty((n_src, ops.src_tab.shape[1]), **kw)

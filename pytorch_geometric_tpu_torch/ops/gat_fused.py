@@ -284,7 +284,7 @@ class _GatMix(torch.autograd.Function):
             # the per-edge dot kernel: 0 where the slot's source or
             # destination is out of range, as ``valid`` says
             grad_p_u = edge_dot(v, gu.reshape(num_dst, h, f).contiguous(),
-                                blk.src, blk.dst)
+                                blk.src, blk.dst, runs=True)
         if ctx.needs_input_grad[2]:
             p_t = take_rows(p_u, blk_t.t_pos)
             _, gv = gat_mix(blk_t.indptr, blk_t.src, None, p_t,

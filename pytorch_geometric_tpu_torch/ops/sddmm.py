@@ -167,7 +167,8 @@ class _EdgeMix(torch.autograd.Function):
             grad_p_s = torch.where(valid, take_rows(gs, dsafe), 0.0)
         gu = gu.contiguous()
         if ctx.needs_input_grad[1]:
-            grad_p_u = edge_dot(gu, v_slot, blk.dst, _arange(e, v_slot))
+            grad_p_u = edge_dot(gu, v_slot, blk.dst, _arange(e, v_slot),
+                                runs=True)
         if ctx.needs_input_grad[2]:
             grad_v = torch.where(valid[:, :, None],
                                  gu[dsafe] * p_u[:, :, None], 0.0)

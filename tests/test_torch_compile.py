@@ -185,7 +185,8 @@ def test_launch_counts_name_every_kernel_arm():
     assert sorted(compat.launch_counts()) == sorted([
         'segment_spmm', 'segment_spmm_bf16', 'bsr_spmm', 'bsr_spmm_bf16',
         'gat_mix', 'gat_mix_bf16', 'segment_max', 'edge_dot',
-        'edge_dot_bf16', 'flash_fwd', 'flash_bwd_dst', 'flash_bwd_src'])
+        'edge_dot_bf16', 'edge_dot_combine', 'flash_fwd', 'flash_bwd_dst',
+        'flash_bwd_src'])
 
 
 @pytest.fixture

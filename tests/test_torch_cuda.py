@@ -1438,22 +1438,78 @@ def test_edge_dot_strided_unaligned_and_refusals(dev, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('h,f', [(4, 64), (4, 10), (6, 16)])
-def test_edge_dot_bitwise_across_slice_widths(dev, dtype, h, f):
-    """Every slice width (a divisor of H, in heads) gives the same bits as
-    one slice; a width that does not tile the heads raises."""
-    from pytorch_geometric_tpu_torch.ops.edge_dot import edge_dot
+@pytest.mark.parametrize('h,f', [(4, 64), (4, 10), (6, 16), (1, 256),
+                                 (2, 33)])
+@pytest.mark.parametrize('order', ['edge', 'slot'])
+def test_edge_dot_bitwise_across_slice_widths(dev, dtype, h, f, order):
+    """Every slice shape the tree arm takes (``dot_slice_widths``: whole
+    heads, a divisor of H, then one head in 2, 4, ... column slices, whose
+    partials a second pass sums) gives the same bits as one slice of every
+    head, in edge order (both sides random) and slot order (``ib`` sorted);
+    each call counts one launch, and one combine pass where it is cut into
+    column slices; the runs arm (``runs=True``) at every width of whole
+    heads, bitwise equal among them and within the limits; the wrapper's
+    own choice (the runs arm for heads of at most 16 elements) one of the
+    two; a width that does not tile the heads, or a shape the kernel does
+    not take, raises."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (dot_slice_widths,
+                                                          dot_vec, edge_dot)
     a, b, ia, ib, mask = _dot_case(dev, 900, 700, 20_000, h, f, seed=h + f,
                                    dtype=dtype)
-    ref = edge_dot(a, b, ia, ib, mask, slice_heads=h)
+    if order == 'slot':
+        ib = torch.sort(ib).values
+    ref = edge_dot(a, b, ia, ib, mask, slice_heads=h, runs=False)
     _dot_close(ref, a, b, ia, ib, mask, dtype == torch.bfloat16)
-    for hs in range(1, h):
+    widths = dot_slice_widths(h, f, dot_vec(a, b, f, h * f, h * f))
+    assert any(cs > 1 for _, cs in widths)
+    arm = 'launches_bf16' if dtype == torch.bfloat16 else 'launches'
+    for hs, cs in widths:
+        n, nc = getattr(edge_dot, arm), edge_dot.launches_combine
+        assert torch.equal(edge_dot(a, b, ia, ib, mask, slice_heads=hs,
+                                    col_slices=cs, runs=False), ref), (hs, cs)
+        assert getattr(edge_dot, arm) == n + 1
+        assert edge_dot.launches_combine == nc + (cs > 1), (hs, cs)
+    runs = edge_dot(a, b, ia, ib, mask, slice_heads=h, runs=True)
+    _dot_close(runs, a, b, ia, ib, mask, dtype == torch.bfloat16)
+    for hs in range(1, h + 1):
         if h % hs == 0:
-            assert torch.equal(edge_dot(a, b, ia, ib, mask, slice_heads=hs),
-                               ref), hs
-    assert torch.equal(edge_dot(a, b, ia, ib, mask), ref)
+            assert torch.equal(edge_dot(a, b, ia, ib, mask, slice_heads=hs,
+                                        runs=True), runs), hs
+    assert torch.equal(edge_dot(a, b, ia, ib, mask, runs=True), runs)
+    assert torch.equal(edge_dot(a, b, ia, ib, mask),
+                       runs if f <= 16 else ref)
     with pytest.raises(ValueError, match='does not tile'):
         edge_dot(a, b, ia, ib, slice_heads=h + 1)
+    with pytest.raises(ValueError, match='is not one of|whole'):
+        edge_dot(a, b, ia, ib, slice_heads=1, col_slices=3)
+
+
+@pytest.mark.parametrize('f,na,e', [(1024, 300_000, 700_000),
+                                    (40_000, 60, 3000)])
+def test_edge_dot_wide_heads_launch(dev, f, na, e):
+    """A head too wide for the L2 at any slice the tree arm takes (one head
+    of 1,024 floats over two 300,000-row tables read by 700,000 edges) runs
+    at the narrowest shape the kernel takes, 64 column slices; a head too
+    wide for the tree arm at all (40,000 floats) takes the runs arm, which
+    reads it in chunks; both within the limits of the plain version."""
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (
+        MAX_COL_SLICES, dot_plan, dot_slice_widths, dot_vec, edge_dot)
+    a, b, ia, ib, mask = _dot_case(dev, na, na, e, 1, f, seed=f % 97)
+    vec = dot_vec(a, b, f, f, f)
+    l2 = torch.cuda.get_device_properties(a.device).L2_cache_size
+    plan = dot_plan(na, na, e, 1, f, vec, 4, l2)
+    widths = dot_slice_widths(1, f, vec)
+    if f == 1024:
+        assert plan == widths[-1] == (1, MAX_COL_SLICES)
+    else:
+        assert plan is None and widths == []
+    n, nc = edge_dot.launches, edge_dot.launches_combine
+    out = edge_dot(a, b, ia, ib, mask)
+    assert edge_dot.launches == n + 1
+    assert edge_dot.launches_combine == nc + (f == 1024)
+    _dot_close(out, a, b, ia, ib, mask)
+    del a, b
+    torch.cuda.empty_cache()
 
 
 def test_gat_mix_grad_p_u_on_the_dot_kernel(dev):
@@ -1722,25 +1778,27 @@ def _flash_f64(fs, ops, s, d, rel, nd, gcot):
         *args, abs_terms=True)
 
 
-FLASH_ARMS = [(form, h, c, variant) for form in ('gat', 'gatv2', 'dot')
-              for h, c in ((4, 16), (1, 47), (4, 64), (1, 512))
-              for variant in ('chosen', 'float loads', 'one head a warp',
-                              '8 floats, depth 2', '16 floats, depth 1')
-              if not (variant == 'float loads' and c % 4)
-              and not (variant == 'one head a warp' and h == 1)]
+# (H, C): the 16-byte arm where C % 4 = 0 (16, 48, 64, 512, 12, 40, 8,
+# 32), floats elsewhere (47, 5, 6, 10, 33, 100 is 16-byte), all heads a
+# warp and one head a warp (C > 128 on 16 bytes, > 32 on floats)
+FLASH_ARMS = [(form, h, c) for form in ('gat', 'gatv2', 'dot')
+              for h, c in ((4, 16), (1, 47), (1, 48), (4, 64), (1, 512),
+                           (3, 12), (2, 40), (8, 8), (2, 32), (4, 5), (2, 6),
+                           (4, 10), (1, 33), (2, 100), (1, 160), (8, 16),
+                           (1, 1))]
 
 
-@pytest.mark.parametrize('form,h,c,variant', FLASH_ARMS)
-def test_flash_backward_arms_match_float64(dev, form, h, c, variant):
-    """The redesigned kernels (b) and (c) on each arm: 16-byte loads at C =
-    16 and H = 4 (a sub-team of 16 lanes, two a warp), floats at the
-    unaligned C = 47, H C = 256 and C = 512; each design variant of the
-    A/B; a hub row of 2,000 edges (over 3 x FLASH_SPLIT_EDGES, 4 pieces),
-    empty rows, invalid edges, 3 relations for the dot form. Held against
-    the float64 plain versions within PERF.md's limits (each gradient entry
-    1e-4 of the gradient's largest plus 1e-5 of its terms' magnitudes),
-    the record (m, l, gdot, a_dst) against m, l, <g, out> (1e-5 plus 1e-5
-    of the sum of |g out|) and a_dst, and two launches bitwise equal."""
+@pytest.mark.parametrize('form,h,c', FLASH_ARMS)
+def test_flash_backward_arms_match_float64(dev, form, h, c):
+    """Kernels (a), (b) and (c) at their chosen team shapes: 16-byte loads
+    where C % 4 = 0, floats elsewhere; a hub row of 2,000 edges (over 3 x
+    FLASH_SPLIT_EDGES, 4 pieces), empty rows, invalid edges, 3 relations
+    for the dot form. Held against the float64 plain versions within
+    PERF.md's limits (the output 1e-5 of max(1, its largest); each gradient
+    entry 1e-4 of the gradient's largest plus 1e-5 of its terms'
+    magnitudes), the record (m, l, gdot, a_dst) against m, l, <g, out>
+    (1e-5 plus 1e-5 of the sum of |g out|) and a_dst, and two launches of
+    each bitwise equal."""
     from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
     ops, s, d, rel, nd = _flash_case(dev, form, h, c, n_rel=3, seed=c + h)
     hub = int(torch.bincount(d.clamp(max=nd)).max())
@@ -1749,30 +1807,27 @@ def test_flash_backward_arms_match_float64(dev, form, h, c, variant):
     plan_t = fs.src_plan(s, d, rel, nd, ops.src_tab.shape[0])
     out, m, l = fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
     gcot = torch.randn_like(out)
-    kw = {'chosen': {}, 'float loads': dict(vec=1),
-          'one head a warp': dict(heads=1),
-          '8 floats, depth 2': dict(batch_floats=8, depth=2),
-          '16 floats, depth 1': dict(batch_floats=16, depth=1)}[variant]
-    assert fs.backward_shape(ops, 'dst', gcot, out).vec == (
-        4 if c % 4 == 0 else 1)
-    shapes = {k: fs.backward_shape(ops, k, gcot, out, **kw)
-              for k in ('dst', 'src')}
+    vec = 4 if c % 4 == 0 else 1
+    for k, rows in (('fwd', (out,)), ('dst', (gcot, out)), ('src', (gcot,))):
+        assert fs.kernel_shape(ops, k, *rows) == fs.team_shape(h, c, vec, k)
     runs = []
     for _ in range(2):
+        fwd = fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
         rec, d_dst, d_extra = fs.flash_backward_dst(ops, m, l, out, gcot,
-                                                    plan, shapes['dst'])
-        d_src, d_val = fs.flash_backward_src(ops, gcot, rec, plan_t,
-                                             shapes['src'])
-        runs.append((rec, d_src, d_dst, d_val, d_extra))
+                                                    plan)
+        d_src, d_val = fs.flash_backward_src(ops, gcot, rec, plan_t)
+        runs.append((*fwd, rec, d_src, d_dst, d_val, d_extra))
     torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], out)
     for a, b in zip(*runs):
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a, b)
-    rec, *got = runs[0]
+    rec, *got = runs[0][3:]
     ref, want, terms = _flash_f64(fs, ops, s, d, rel, nd, gcot)
     assert float((out.double() - ref[0]).abs().max()) <= 1e-5 * max(
         1.0, float(ref[0].abs().max()))
+    assert torch.equal(torch.isinf(m), torch.isinf(ref[1]))
     assert torch.equal(rec[..., 0], m) and torch.equal(rec[..., 1], l)
     prod = (gcot.double() * out.double()).view(nd, h, c)
     assert bool(((rec[..., 2].double() - prod.sum(-1)).abs()
@@ -1785,6 +1840,84 @@ def test_flash_backward_arms_match_float64(dev, form, h, c, variant):
         if a is not None:
             lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
             assert float(((a.double() - b).abs() / lim).max()) <= 1.0, name
+
+
+@pytest.mark.parametrize('form', ['gat', 'gatv2', 'dot'])
+@pytest.mark.parametrize('c', [16, 5, 47])
+def test_flash_route_pads_heads_to_16_bytes(dev, form, c):
+    """The public flash route on the card: heads of C % 4 != 0 columns reach
+    kernels (a), (b) and (c) padded to a multiple of 4, on the 16-byte arm
+    (as C % 4 = 0 does unpadded), and the output and every input's
+    gradient, sliced back to C, match the float64 plain versions on the
+    unpadded tables within the kernels' limits; two calls bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops import edge_attention as ea
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    ops, s, d, rel, nd = _flash_case(dev, form, 2, c, n_rel=1, seed=c)
+    rel = None if rel is None else torch.zeros_like(rel)
+    gcot = torch.randn(nd, 2 * c, device=dev,
+                       generator=torch.Generator(dev).manual_seed(2))
+    seen, orig = [], fs.kernel_shape
+
+    def spy(o, kernel, *rows):
+        shape = orig(o, kernel, *rows)
+        seen.append((kernel, o.columns, shape.vec))
+        return shape
+
+    fs.kernel_shape = spy
+    try:
+        runs = [_route(ea, ops, s, d, nd, gcot) for _ in range(2)]
+    finally:
+        fs.kernel_shape = orig
+    cp = -(-c // 4) * 4
+    assert sorted(set(seen)) == [(k, cp, 4) for k in ('dst', 'fwd', 'src')]
+    (out, grads), (out2, grads2) = runs
+    assert torch.equal(out, out2)
+    ref, want, terms = _flash_f64(fs, ops, s, d, None if rel is None else
+                                  rel, nd, gcot)
+    assert float((out.double() - ref[0]).abs().max()) <= 1e-5 * max(
+        1.0, float(ref[0].abs().max()))
+    for name, a, a2, b, t in zip(('d_src', 'd_dst', 'd_val', 'd_extra'),
+                                 grads, grads2, want, terms):
+        if b is None:
+            continue
+        assert torch.equal(a, a2), name
+        a = a.double().reshape(b.shape)
+        lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
+        assert float(((a - b).abs() / lim).max()) <= 1.0, name
+
+
+def _route(ea, ops, s, d, nd, gcot):
+    """The public flash route of ``ops``' form under autograd on leaf
+    copies of its tables: the output ``[nd, H C]`` and the gradients in
+    ``flash_backward``'s order (None where the form has no such table)."""
+    h, c = ops.heads, ops.columns
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    src, dst = leaf(ops.src_tab), leaf(ops.dst_tab)
+    if ops.form == 'gat':
+        val = leaf(ops.val)
+        out = ea.gat_flash_attention(src, dst, val.view(-1, h, c), s, d, nd,
+                                     ops.slope)
+        leaves = (src, dst, val, None)
+    elif ops.form == 'gatv2':
+        att = leaf(ops.extra)
+        out = ea.gatv2_flash_attention(src.view(-1, h, c), dst.view(-1, h, c),
+                                       att.view(h, c), s, d, nd, ops.slope)
+        leaves = (src, dst, None, att)
+    else:
+        val, p = leaf(ops.val), leaf(ops.extra[0])
+        out = ea.hetero_edge_attention_multi(
+            [src.view(-1, h, c)], [val.view(-1, h, c)], dst.view(-1, h, c),
+            [p], [s], [d], nd, layout=ea.build_union_flash_layout(
+                [s.cpu().numpy()], [d.cpu().numpy()], [src.shape[0]], nd,
+                device=s.device))
+        leaves = (src, dst, val, p)
+    out.backward(gcot.view(out.shape))
+    return (out.detach().reshape(nd, -1),
+            [None if t is None else t.grad.reshape(
+                t.shape[0], -1) if t.dim() > 1 else t.grad for t in leaves])
 
 
 @pytest.mark.parametrize('form', ['gat', 'gatv2', 'dot'])
@@ -1810,8 +1943,9 @@ def test_flash_backward_picks_float_loads_for_unaligned_rows(dev, form):
     plan_t = fs.src_plan(s, d, rel, nd, ops.src_tab.shape[0])
     out, m, l = fs.flash_forward(ops, s, d, rel, nd, 1000, plan)
     gcot = torch.randn_like(out)
-    assert fs.backward_shape(ops_s, 'dst', gcot, out).vec == 1
-    assert fs.backward_shape(ops, 'dst', gcot, out).vec == 4
+    assert fs.kernel_shape(ops_s, 'dst', gcot, out).vec == 1
+    assert fs.kernel_shape(ops_s, 'fwd', out).vec == 1
+    assert fs.kernel_shape(ops, 'dst', gcot, out).vec == 4
     _, want, terms = _flash_f64(fs, ops, s, d, rel, nd, gcot)
     got = fs.flash_backward(ops_s, s, d, rel, nd, 1000, m, l, out, gcot,
                             plan, plan_t)
@@ -1820,12 +1954,29 @@ def test_flash_backward_picks_float_loads_for_unaligned_rows(dev, form):
         if b is not None:
             lim = 1e-4 * max(float(b.abs().max()), 1e-30) + 1e-5 * t
             assert float(((a.double() - b).abs() / lim).max()) <= 1.0, name
-    forced = fs.team_shape(2, 16, 4)
-    with pytest.raises(RuntimeError, match='launch failed'):
-        fs.flash_backward_dst(ops_s, m, l, out, gcot, plan, forced)
-    rec = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
-    with pytest.raises(RuntimeError, match='launch failed'):
-        fs.flash_backward_src(ops_s, gcot, rec, plan_t, forced)
+    out_s = fs.flash_forward(ops_s, s, d, rel, nd, 1000, plan)[0]
+    assert float((out_s - out).abs().max()) <= 1e-5 * max(
+        1.0, float(out.abs().max()))
+    # a 16-byte shape forced on them is refused by each kernel, never run
+    for kernel, symbol, rows in (
+            ('fwd', 'pgt_flash_fwd', dict(m=m, l=l, out=torch.empty_like(
+                out))),
+            ('dst', 'pgt_flash_bwd_dst', dict(
+                m=m, l=l, out=out, g=gcot, rec=torch.empty(nd, 2, 4,
+                                                           device=dev),
+                d_row=torch.empty_like(ops_s.dst_tab.contiguous()),
+                d_glob=torch.empty(1000, 64, device=dev))),
+            ('src', 'pgt_flash_bwd_src', dict(
+                g=gcot, rec=torch.empty(nd, 2, 4, device=dev),
+                d_row=torch.empty(ops.src_tab.shape, device=dev),
+                d_val=torch.empty(ops.val.shape, device=dev)))):
+        p = plan_t if kernel == 'src' else plan
+        (ps, ps2, pv, pv2), tickets = fs._scratch(p, 2, 32, out, 2)
+        args = fs._args(ops_s, p, fs.team_shape(2, 16, 4, kernel),
+                        tickets=tickets, part_s=ps, part_s2=ps2, part_v=pv,
+                        part_v2=pv2, **rows)
+        with pytest.raises(RuntimeError, match='launch failed'):
+            fs._launch(symbol, args, dev, kernel)
 
 
 def test_flash_kernels_refuse_bf16(dev):

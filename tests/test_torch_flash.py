@@ -211,6 +211,70 @@ def test_union_flash_matches_jax(monkeypatch, n_rel, layout, h, sort):
         _grad_close(t, j, f'union grad of input {i}')
 
 
+PAD_CASES = [(form, c) for form in fs.FORMS for c in (5, 7)]
+
+
+@pytest.mark.parametrize('form,c', PAD_CASES)
+def test_aligned_heads_route_matches_jax(monkeypatch, form, c):
+    """The flash route's aligned heads, forced on the CPU
+    (``ALIGN_HEADS_ON``): heads of C = 5 and 7 columns reach the scans
+    padded to 8 with zero columns (the values, GATv2's x_r and att, the dot
+    form's q and k, and the output gradient), and the output and every
+    input's gradient, sliced back to C, match the JAX package's flash scans
+    (``_gat_flash``, ``_gatv2_flash``, ``_attention_flash``) on the
+    unpadded inputs: forward within 1e-5 of max(1, max|ref|), gradients
+    1e-4 of each one's largest."""
+    monkeypatch.setattr(tattn, 'ALIGN_HEADS_ON', ('cuda', 'cpu'))
+    monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', '0')
+    _env(monkeypatch, 'unsorted', 53)
+    seen = []
+    fwd, bwd = fs.flash_forward, fs.flash_backward
+
+    def spy_fwd(ops, *a, **k):
+        seen.append(('fwd', ops.columns, ops.val.shape[1]))
+        return fwd(ops, *a, **k)
+
+    def spy_bwd(ops, s, d, rel, nd, chunk, m, l, out, g, *a, **k):
+        seen.append(('bwd', ops.columns, g.shape[1]))
+        return bwd(ops, s, d, rel, nd, chunk, m, l, out, g, *a, **k)
+
+    monkeypatch.setattr(fs, 'flash_forward', spy_fwd)
+    monkeypatch.setattr(fs, 'flash_backward', spy_bwd)
+    rng = np.random.default_rng(40 + c + FORMS_SEED[form])
+    h, ns, nd = 2, 29, 21
+    src, dst = _edges(rng, ns, nd, 300, 7)
+    cot = rng.standard_normal((nd, h, c)).astype(np.float32)
+    js, jd = jnp.asarray(src), jnp.asarray(dst)
+    ts, td = torch.from_numpy(src), torch.from_numpy(dst)
+    if form == 'gat':
+        args = [rng.standard_normal(sh).astype(np.float32)
+                for sh in ((ns, h), (nd, h), (ns, h, c))]
+        jout, jg = _jgrad(lambda a, b, v: jattn.gat_flash_attention(
+            a, b, v, js, jd, nd), args, cot)
+        tout, tg = _tgrad(lambda a, b, v: tattn.gat_flash_attention(
+            a, b, v, ts, td, nd), args, cot)
+    elif form == 'gatv2':
+        args = [rng.standard_normal(sh).astype(np.float32)
+                for sh in ((ns, h, c), (nd, h, c), (h, c))]
+        jout, jg = _jgrad(lambda xl, xr, att: jattn.gatv2_flash_attention(
+            xl, xr, att, js, jd, nd), args, cot)
+        tout, tg = _tgrad(lambda xl, xr, att: tattn.gatv2_flash_attention(
+            xl, xr, att, ts, td, nd), args, cot)
+    else:
+        args = [rng.standard_normal(sh).astype(np.float32)
+                for sh in ((ns, h, c), (ns, h, c), (nd, h, c))] + [
+            rng.uniform(0.2, 1.0, h).astype(np.float32)]
+        jout, jg = _jgrad(lambda k, v, q, p: jattn.hetero_edge_attention_multi(
+            [k], [v], q, [p], [js], [jd], nd), args, cot)
+        tout, tg = _tgrad(lambda k, v, q, p: tattn.hetero_edge_attention_multi(
+            [k], [v], q, [p], [ts], [td], nd), args, cot)
+    assert seen == [('fwd', 8, h * 8), ('bwd', 8, h * 8)]
+    assert tuple(tout.shape) == (nd, h, c)
+    _fwd_close(tout, jout, f'{form} out')
+    for i, (t, j) in enumerate(zip(tg, jg)):
+        _grad_close(t, j, f'{form} grad of input {i}')
+
+
 def test_stale_layout_raises():
     rng = np.random.default_rng(3)
     s, d = _edges(rng, 10, 8, 30, 0)
@@ -245,8 +309,17 @@ def test_csr_plan_pieces_and_slots():
     assert t.rowptr.tolist() == [0, 2, 3, 4]
     assert t.nbr.tolist() == [0, 0, 1, 1, 3]   # the invalid edge last
     assert t.piece_row.tolist() == [0, 0, 1, 2, 2, 2, 2, 2]
-    assert fs.team_lanes(1) == 1 and fs.team_lanes(10) == 16
-    assert fs.team_lanes(47) == 32 and fs.team_lanes(500) == 32
+    # every kernel's team shape: path K's layer 1 (16 columns) and its
+    # layer 2 padded to 48 on the 16-byte arm, its unpadded 47 on floats
+    TS = fs.TeamShape
+    assert fs.team_shape(4, 16, 4, 'fwd') == TS(4, 16, 4, 4, 1, 4, 1)
+    assert fs.team_shape(1, 48, 4, 'fwd') == TS(4, 16, 1, 16, 1, 4, 1)
+    assert fs.team_shape(1, 47, 1, 'fwd') == TS(1, 32, 1, 64, 2, 8, 1)
+    assert fs.team_shape(4, 64, 4, 'fwd') == TS(4, 32, 4, 16, 2, 2, 2)
+    assert fs.team_shape(4, 64, 4, 'dst') == TS(4, 32, 4, 16, 2, 1, 2)
+    assert fs.team_shape(4, 64, 4, 'src') == TS(4, 32, 4, 16, 2, 1, 1)
+    with pytest.raises(ValueError):
+        fs.team_shape(1, 47, 4, 'fwd')
 
 
 def _np_tables(ops):
@@ -269,58 +342,129 @@ def _np_logit(form, src_tab, dst_tab, extra, s, d, r, hh, c, slope):
     return base * extra[r, hh], base, None
 
 
-def _emulate(ops, s, d, rel, num_dst, split):
-    """The three kernels' order of work in numpy, float32: kernel (a) per
-    (piece, head) with the online update and the merge of a split row's
-    pieces in piece order; kernel (b) per destination piece (gdot, the
-    destination gradients, the global reductions); kernel (c) per source
-    piece. Returns the forward's (out, m, l) and a function of g giving the
-    gradients."""
+def _warps(plan, groups, split):
+    """The kernels' warps over ``plan``: one per (piece, head group), the
+    piece's row found through ``piece_row``; ``(item, row, k, pieces of
+    the row, head group, e0, e1)``."""
+    pp, pr = plan.piece_ptr.numpy(), plan.piece_row.numpy()
+    rp = plan.rowptr.numpy()
+    for item in range(plan.max_pieces * groups):
+        p, hg = divmod(item, groups)
+        if p >= pp[-1]:
+            continue
+        row = int(pr[p])
+        k, n_p = p - pp[row], pp[row + 1] - pp[row]
+        e0 = rp[row] + k * split
+        yield item, row, k, n_p, hg, e0, min(e0 + split, rp[row + 1])
+
+
+def _lse_merge(x, y):
+    """Two online-softmax states ``(m, l, acc)`` of one head merged with
+    log-sum-exp weights (a state without edges has m = -inf, weight 0)."""
+    mm = max(x[0], y[0])
+    wx = np.float32(0) if x[0] == -np.inf else np.float32(np.exp(x[0] - mm))
+    wy = np.float32(0) if y[0] == -np.inf else np.float32(np.exp(y[0] - mm))
+    return mm, x[1] * wx + y[1] * wy, x[2] * wx + y[2] * wy
+
+
+def _emulate_forward(ops, s, d, rel, num_dst, split, shape):
+    """Kernel (a) as redesigned, in numpy float32: one warp per (piece, head
+    group) through ``piece_row``, laid out as ``shape`` (``_slots``, whose
+    slots of each head must tile its columns); each sub-team takes
+    alternate batches of ``unroll`` edges, per batch the logits (the plain
+    version's ``_logit_plain``), their max per head, one rescale of (l,
+    acc) where it grew, then one exp per edge; the sub-teams' states merged
+    by a fixed butterfly of log-sum-exp rescales; a split row's pieces
+    merged in piece order. Every output column, m and l written exactly
+    once. Returns ``(out, m, l)``."""
+    h, c = ops.heads, ops.columns
+    val = _np_tables(ops)[2]
+    plan = fs.dst_plan(s, d, rel, num_dst, False, split)
+    nbr = plan.nbr.numpy()
+    # each edge's logits as the plain version sums them, so that m, a max
+    # of the same values, matches it bit for bit
+    n_e = int(plan.rowptr[-1])
+    rows = torch.repeat_interleave(torch.arange(num_dst),
+                                   plan.rowptr.diff())
+    logits = fs._logit_plain(ops, plan.nbr[:n_e].long(), rows,
+                             None if plan.rel is None
+                             else plan.rel[:n_e].long(),
+                             num_dst)[0].numpy()
+    groups = -(-h // shape.heads)
+    teams, u = 32 // shape.lanes, shape.unroll
+    out = np.full((num_dst, h * c), np.nan, np.float32)
+    m = np.full((num_dst, h), np.nan, np.float32)
+    l = np.full((num_dst, h), np.nan, np.float32)
+    parts = {}
+    for item, row, k, n_p, hg, e0, e1 in _warps(plan, groups, split):
+        slots = [sl for sl in _slots(shape, h, c, hg).values() if sl]
+        heads = sorted({sl[0] for sl in slots})
+        for hd in heads:
+            firsts = sorted(sl[1] - hd * c for sl in slots if sl[0] == hd)
+            assert firsts == list(range(0, c, shape.vec)), (hd, firsts)
+        states = []
+        for st in range(teams):
+            state = {hd: (np.float32(-np.inf), np.float32(0),
+                          np.zeros(c, np.float32)) for hd in heads}
+            for b in range(e0 + st * u, e1, teams * u):
+                edges = range(b, min(b + u, e1))
+                lg = {(e, hd): logits[e, hd] for e in edges for hd in heads}
+                for hd in heads:
+                    mm, ll, acc = state[hd]
+                    bm = max(lg[e, hd] for e in edges)
+                    if bm > mm:
+                        sc = np.float32(np.exp(mm - bm))
+                        mm, ll, acc = bm, ll * sc, acc * sc
+                    for e in edges:
+                        z = np.float32(np.exp(lg[e, hd] - mm))
+                        ll = ll + z
+                        acc = acc + z * val[nbr[e], hd * c:(hd + 1) * c]
+                    state[hd] = (mm, ll, acc)
+            states.append(state)
+        span = 1
+        while span < teams:             # the sub-teams' fixed butterfly
+            states = [{hd: _lse_merge(states[t][hd], states[t ^ span][hd])
+                       for hd in heads} for t in range(teams)]
+            span *= 2
+        parts[row, hg, k] = states[0]
+        if k < n_p - 1:
+            continue
+        for hd in heads:                # piece order
+            pieces = [parts[row, hg, q][hd] for q in range(n_p)]
+            mm = max(pc[0] for pc in pieces)
+            ll, acc = np.float32(0), np.zeros(c, np.float32)
+            for pm, pl, pa in pieces:
+                w = (np.float32(0) if pm == -np.inf
+                     else np.float32(np.exp(pm - mm)))
+                ll, acc = ll + pl * w, acc + pa * w
+            cols = slice(hd * c, (hd + 1) * c)
+            assert np.isnan(out[row, cols]).all() and np.isnan(m[row, hd])
+            m[row, hd], l[row, hd] = mm, ll
+            out[row, cols] = acc / max(ll, np.float32(1e-16))
+    assert not (np.isnan(out).any() or np.isnan(m).any()
+                or np.isnan(l).any())
+    return out, m, l
+
+
+def _emulate(ops, s, d, rel, num_dst, split, vec=1):
+    """The kernels' order of work in numpy, float32: kernel (a) as
+    ``_emulate_forward`` lays it out (its shape for ``vec``); kernel (b) per
+    destination piece (gdot, the destination gradients, the global
+    reductions); kernel (c) per source piece. Returns the forward's (out,
+    m, l) and a function of g giving the gradients."""
     form, h, c, slope = ops.form, ops.heads, ops.columns, ops.slope
     src_tab, dst_tab, val, extra = _np_tables(ops)
     plan = fs.dst_plan(s, d, rel, num_dst, False, split)
     rp, pp = plan.rowptr.numpy(), plan.piece_ptr.numpy()
     nbr = plan.nbr.numpy()
     rl = None if plan.rel is None else plan.rel.numpy()
-    out = np.zeros((num_dst, h * c), np.float32)
-    m = np.full((num_dst, h), -np.inf, np.float32)
-    l = np.zeros((num_dst, h), np.float32)
+    out, m, l = _emulate_forward(ops, s, d, rel, num_dst, split,
+                                 fs.team_shape(h, c, vec, 'fwd'))
 
     def pieces(row, rowptr, piece_ptr):
         for k in range(piece_ptr[row + 1] - piece_ptr[row]):
             e0 = rowptr[row] + k * split
             yield range(e0, min(e0 + split, rowptr[row + 1]))
-
-    for row in range(num_dst):
-        for hh in range(h):
-            cols = slice(hh * c, (hh + 1) * c)
-            parts = []
-            for edges in pieces(row, rp, pp):
-                mm, ll = np.float32(-np.inf), np.float32(0)
-                acc = np.zeros(c, np.float32)
-                for e in edges:
-                    sv = nbr[e]
-                    logit = _np_logit(form, src_tab, dst_tab, extra, sv, row,
-                                      None if rl is None else rl[e], hh, c,
-                                      slope)[0]
-                    vv = val[sv, cols]
-                    if logit > mm:
-                        sc = np.float32(np.exp(mm - logit))
-                        ll, acc, mm = ll * sc + 1, acc * sc + vv, logit
-                    else:
-                        z = np.float32(np.exp(logit - mm))
-                        ll, acc = ll + z, acc + z * vv
-                parts.append((mm, ll, acc))
-            if len(parts) > 1:
-                mm = max(p[0] for p in parts)
-                ll, acc = np.float32(0), np.zeros(c, np.float32)
-                for pm, pl, pa in parts:
-                    w = np.float32(np.exp(pm - mm))
-                    ll, acc = ll + pl * w, acc + pa * w
-            else:
-                mm, ll, acc = parts[0]
-            m[row, hh], l[row, hh] = mm, ll
-            out[row, cols] = acc / max(ll, np.float32(1e-16))
 
     def backward(g):
         g = g.reshape(num_dst, h * c).astype(np.float32)
@@ -395,7 +539,8 @@ def _emulate(ops, s, d, rel, num_dst, split):
 def test_kernel_emulation_matches_the_plain_versions(form):
     """The kernels' order of work (rows split into pieces of 3 edges, one of
     them 13 edges long; empty rows; invalid edges; 2 relations for the dot
-    form) gives the plain versions' outputs, residuals and gradients."""
+    form; kernel (a) as redesigned, on float slots) gives the plain
+    versions' outputs, residuals and gradients."""
     rng = np.random.default_rng(FORMS_SEED[form])
     ns, nd, h, c = 11, 9, 2, 3
     src, dst = _edges(rng, ns, nd, 40, 4)
@@ -474,18 +619,6 @@ def _emulate_backward(ops, s, d, rel, num_dst, split, shape, m, l, out, g):
     def leaky(x):
         return np.where(x >= 0, x, slope * x)
 
-    def warps(plan):
-        pp, pr = plan.piece_ptr.numpy(), plan.piece_row.numpy()
-        rp = plan.rowptr.numpy()
-        for item in range(plan.max_pieces * groups):
-            p, hg = divmod(item, groups)
-            if p >= pp[-1]:
-                continue
-            row = int(pr[p])
-            k, n_p = p - pp[row], pp[row + 1] - pp[row]
-            e0 = rp[row] + k * split
-            yield item, row, k, n_p, hg, e0, min(e0 + split, rp[row + 1])
-
     def team_edges(st, e0, e1):
         for b in range(e0 + st * shape.unroll, e1,
                        teams * shape.unroll):
@@ -501,7 +634,7 @@ def _emulate_backward(ops, s, d, rel, num_dst, split, shape, m, l, out, g):
         outs = [np.full((plan.n_rows, w), np.nan, np.float32)
                 for w in widths]
         parts, blocks = {}, {}
-        for item, row, k, n_p, hg, e0, e1 in warps(plan):
+        for item, row, k, n_p, hg, e0, e1 in _warps(plan, groups, split):
             slots = _slots(shape, h, c, hg)
             sums, gl = [], []
             for st in range(teams):
@@ -648,24 +781,19 @@ def _emulate_backward(ops, s, d, rel, num_dst, split, shape, m, l, out, g):
             rec)
 
 
-BWD_SHAPES = [(2, 8, dict(vec=4)), (2, 8, dict(vec=4, heads=1)),
-              (1, 5, dict(vec=1)), (3, 4, dict(vec=4, batch_floats=16)),
-              (1, 40, dict(vec=4, depth=1)), (2, 8, dict(vec=1)),
-              (1, 160, dict(vec=1))]
+# (H, C, vec): the 16-byte arm (vec 4) at C % 4 = 0, floats where C % 4 != 0
+# or the rows do not align; all heads a warp, one head a warp (C = 160 on
+# floats: 5 slots a lane), path K's layer 2 padded (48) and not (47)
+TEAM_SHAPES = [(2, 8, 4), (4, 16, 4), (3, 4, 4), (1, 40, 4), (1, 48, 4),
+               (4, 64, 4), (1, 5, 1), (2, 6, 1), (1, 47, 1), (2, 8, 1),
+               (1, 160, 1)]
+TEAM_IDS = [f'H{h}-C{c}-vec{v}' for h, c, v in TEAM_SHAPES]
 
 
-@pytest.mark.parametrize('form', fs.FORMS)
-@pytest.mark.parametrize('h,c,kw', BWD_SHAPES,
-                         ids=[f'H{h}-C{c}-' + '-'.join(
-                             f'{k}{v}' for k, v in kw.items())
-                             for h, c, kw in BWD_SHAPES])
-def test_backward_emulation_in_the_redesigned_order(form, h, c, kw):
-    """Kernels (b) and (c) as redesigned: all heads of a row in one warp
-    (or one head a warp), 16-byte or float slots, sub-teams on alternate
-    batches, rows split into pieces of 3 edges found through ``piece_row``,
-    and the packed record; every output column written once, and the
-    gradients equal to the plain backward's (1e-4 of each one's largest),
-    the record to (m, l, <g, out>, a_dst)."""
+def _team_case(form, h, c):
+    """A small case for the team-shape emulations: 11 sources, 9
+    destinations (some empty), 40 edges of which a fifth reach one row, 4
+    padded edges; 3 relations for the dot form."""
     rng = np.random.default_rng(FORMS_SEED[form] + 10 * h + c)
     ns, nd = 11, 9
     src, dst = _edges(rng, ns, nd, 40, 4)
@@ -685,8 +813,42 @@ def test_backward_emulation_in_the_redesigned_order(form, h, c, kw):
             np.float32))
         rel = torch.from_numpy(rng.integers(0, 3, len(src)))
     ops = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
-    s, d = torch.from_numpy(src), torch.from_numpy(dst)
-    shape = fs.team_shape(h, c, **kw)
+    return ops, torch.from_numpy(src), torch.from_numpy(dst), rel, nd, rng
+
+
+@pytest.mark.parametrize('form', fs.FORMS)
+@pytest.mark.parametrize('h,c,vec', TEAM_SHAPES, ids=TEAM_IDS)
+def test_forward_emulation_in_the_redesigned_order(form, h, c, vec):
+    """Kernel (a) as redesigned, at its chosen team shape: a warp per row
+    and head group, the batch max and one rescale a batch, the sub-teams'
+    log-sum-exp butterfly, rows split into pieces of 3 edges found through
+    ``piece_row``; every output written once, equal to the plain forward
+    (out and l within 1e-5 of max(1, the largest), m bit for bit, -inf on
+    the empty rows)."""
+    ops, s, d, rel, nd, _ = _team_case(form, h, c)
+    shape = fs.team_shape(h, c, vec, 'fwd')
+    assert shape.lanes * shape.nv >= shape.heads * shape.slots
+    out, m, l = fs.flash_forward_plain(ops, s, d, rel, nd, 7)
+    eo, em, el = _emulate_forward(ops, s, d, rel, nd, 3, shape)
+    _fwd_close(eo, out.numpy(), 'out')
+    _fwd_close(el, l.numpy(), 'l')
+    np.testing.assert_array_equal(em, m.numpy())   # a max does not round
+
+
+@pytest.mark.parametrize('form', fs.FORMS)
+@pytest.mark.parametrize('h,c,vec', TEAM_SHAPES, ids=TEAM_IDS)
+def test_backward_emulation_in_the_redesigned_order(form, h, c, vec):
+    """Kernels (b) and (c) as redesigned, at their chosen team shape: all
+    heads of a row in one warp (or one head a warp), 16-byte or float
+    slots, sub-teams on alternate batches, rows split into pieces of 3 edges
+    found through ``piece_row``, and the packed record; every output column
+    written once, and the gradients equal to the plain backward's (1e-4 of
+    each one's largest), the record to (m, l, <g, out>, a_dst)."""
+    ops, s, d, rel, nd, rng = _team_case(form, h, c)
+    shape = fs.team_shape(h, c, vec, 'dst')
+    # kernels (b) and (c) differ in batches in flight only, which changes
+    # no sum
+    assert shape._replace(depth=1) == fs.team_shape(h, c, vec, 'src')
     assert shape.lanes * shape.nv >= shape.heads * shape.slots
     out, m, l = fs.flash_forward_plain(ops, s, d, rel, nd, 7)
     g = rng.standard_normal((nd, h * c)).astype(np.float32)

@@ -171,21 +171,121 @@ def test_edge_dot_plain_rules(h, f):
 
 
 def test_dot_slice_heads_rule():
-    """The dot kernel's slice width: the most whole heads whose slice of
-    the larger table fits half the L2 (the mix's share); one head when none
-    does. On an H100 (50 MiB of L2) path D's 100,000 x 4 x 64 float32
-    tables take one head a slice, bf16 two, and H*F = 40 all four."""
+    """The dot kernel's slices. The tree arm (``dot_plan``): the most whole
+    heads whose slice of both tables fits ``DOT_L2_SHARE`` (three quarters)
+    of the L2, a table with at least a row per edge (a slot order's
+    streamed side) left out; where one head does not fit, the fewest column
+    slices of one head that do, no narrower than a 32-byte sector. On an
+    H100 (50 MiB of L2) path I's two 100,000 x 4 x 64 float32 tables take
+    one head in two column slices, bf16 one whole head, H*F = 40 all four
+    heads. Only shapes the kernel launches: at most 64 column slices a head
+    and 65,535 slices in all, so a head of 1,024 floats over two
+    300,000-row tables takes 64 column slices, and a head of 40,000 floats
+    none (the wrapper gives it to the runs arm). The runs arm
+    (``runs_slice_heads``, for a call whose one side comes in runs): the
+    most whole heads whose slice of the larger table fits half the L2 (the
+    mix's share): path D's tables one head, bf16 two, H*F = 40 four; by
+    default it takes heads of at most 16 elements (``runs_arm``).
+    """
     l2 = 50 * 2 ** 20
-    assert tdot.dot_slice_heads(100_000, 4, 64, 4, l2) == 1
-    assert tdot.dot_slice_heads(100_000, 4, 64, 2, l2) == 2
-    assert tdot.dot_slice_heads(100_000, 4, 10, 4, l2) == 4
-    assert tdot.dot_slice_heads(10_000_000, 4, 64, 4, l2) == 1
-    assert tdot.dot_slice_heads(1000, 3, 8, 4, l2) == 3
-    assert tdot.dot_slice_heads(200_000, 6, 16, 4, l2) == 2
+    e = 2_100_000
+    assert tdot.dot_plan(100_000, 100_000, e, 4, 64, 4, 4, l2) == (1, 2)
+    assert tdot.dot_plan(100_000, e, e, 4, 64, 4, 4, l2) == (1, 1)
+    assert tdot.dot_plan(100_000, 100_000, e, 4, 64, 8, 2, l2) == (1, 1)
+    assert tdot.dot_plan(100_000, 100_000, e, 4, 10, 2, 4, l2) == (4, 1)
+    assert tdot.dot_plan(1000, 1000, 5000, 3, 8, 4, 4, l2) == (3, 1)
+    assert tdot.dot_plan(e, e, e, 6, 16, 4, 4, l2) == (6, 1)
+    # nothing fits: the narrowest slice, one sector of a row
+    assert tdot.dot_plan(10 ** 7, 10 ** 7, 10 ** 8, 4, 64, 4, 4, l2) == (1, 8)
+    # the shapes the tree arm takes: whole heads, then column slices; a head
+    # wider than 32 lanes of 16 elements only in column slices
+    assert tdot.dot_slice_widths(4, 64, 4) == [
+        (4, 1), (2, 1), (1, 1), (1, 2), (1, 4), (1, 8), (1, 16)]
+    assert tdot.dot_slice_widths(1, 1024, 4)[0] == (1, 2)
+    assert tdot.dot_slice_widths(2, 10, 2) == [
+        (2, 1), (1, 1), (1, 2), (1, 4), (1, 8)]
+    # wide heads: no more column slices than the combine pass holds, no
+    # more slices than the grid's second dimension
+    wide = tdot.dot_slice_widths(1, 1024, 4)
+    assert wide == [(1, 2), (1, 4), (1, 8), (1, 16), (1, 32), (1, 64)]
+    assert tdot.dot_plan(300_000, 300_000, 700_000, 1, 1024, 4, 4,
+                         l2) == (1, 64)
+    assert tdot.dot_plan(10 ** 6, 10 ** 6, 10 ** 7, 1, 1024, 4, 4,
+                         l2) == (1, 64)
+    assert tdot.dot_slice_widths(2048, 1024, 4)[-1] == (1, 16)
+    assert tdot.dot_slice_widths(1, 40_000, 4) == []
+    assert tdot.dot_plan(60, 60, 3000, 1, 40_000, 4, 4, l2) is None
+    assert tdot.runs_slice_heads(100_000, 4, 64, 4, l2) == 1
+    assert tdot.runs_slice_heads(100_000, 4, 64, 2, l2) == 2
+    assert tdot.runs_slice_heads(100_000, 4, 10, 4, l2) == 4
+    assert tdot.runs_slice_heads(10_000_000, 4, 64, 4, l2) == 1
+    assert tdot.runs_slice_heads(1000, 3, 8, 4, l2) == 3
+    assert tdot.runs_slice_heads(200_000, 6, 16, 4, l2) == 2
     a = torch.zeros(5, 4, 8)
     i = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(ValueError, match='does not tile'):
         tdot.edge_dot(a, a, i, i, slice_heads=3)
+    # the runs arm: as the caller names it, by default for a head of at
+    # most 16 elements; it takes whole heads only
+    assert tdot.runs_arm(10, None) and tdot.runs_arm(64, True)
+    assert not tdot.runs_arm(64, None) and not tdot.runs_arm(10, False)
+    with pytest.raises(ValueError, match='whole'):
+        tdot.edge_dot(a, a, i, i, runs=True, col_slices=2)
+    with pytest.raises(ValueError, match='whole'):
+        tdot.edge_dot(a, a, i, i, col_slices=2)
+    assert torch.equal(tdot.edge_dot(a, a, i, i, col_slices=2, runs=False),
+                       tdot.edge_dot_plain(a, a, i, i))
+
+
+def _pairs(v):
+    """The kernel's tree over the last axis (a power of two): neighbours
+    summed in pairs, level by level, in float32."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+@pytest.mark.parametrize('h,f,vec', [(4, 64, 4), (4, 10, 2), (1, 33, 1),
+                                     (2, 40, 4), (1, 256, 4), (2, 24, 8)])
+def test_dot_column_slices_sum_in_one_tree(h, f, vec):
+    """The dot kernel's order of work in numpy: each leaf of ``vec``
+    elements summed in order (a fused multiply-add each, emulated in
+    float64 and rounded, which is exact for float32 products), a head's
+    leaves (padded to a power of two with zero leaves) summed as a tree of
+    neighbouring pairs; a column slice of one head sums its subtree into a
+    partial, and the partials are summed by the tree's upper levels. Every
+    slice shape of ``dot_slice_widths`` gives the same bits, and the result
+    is within 1e-5 of the terms' magnitudes of ``edge_dot_plain``."""
+    rng = np.random.default_rng(h * f + vec)
+    na, nb, e = 23, 17, 120
+    a = rng.standard_normal((na, h, f)).astype(np.float32)
+    b = rng.standard_normal((nb, h, f)).astype(np.float32)
+    ia, ib = rng.integers(0, na, e), rng.integers(0, nb, e)
+    nq = f // vec
+    p = 1 << (nq - 1).bit_length()
+    x = a[ia].reshape(e, h, nq, vec).astype(np.float64)
+    y = b[ib].reshape(e, h, nq, vec).astype(np.float64)
+    leaves = np.zeros((e, h, p), np.float32)
+    for i in range(vec):
+        leaves[..., :nq] = (leaves[..., :nq] + x[..., i] * y[..., i]).astype(
+            np.float32)
+    outs = {}
+    for hs, cs in tdot.dot_slice_widths(h, f, vec):
+        sl = p // cs
+        ncs = -(-nq // sl)
+        parts = np.zeros((e, h, 1 << (ncs - 1).bit_length()), np.float32)
+        for k in range(ncs):
+            parts[..., k] = _pairs(leaves[..., k * sl:(k + 1) * sl])
+        outs[hs, cs] = _pairs(parts)
+    first = next(iter(outs.values()))
+    for key, out in outs.items():
+        np.testing.assert_array_equal(out, first, err_msg=str(key))
+    ref = tdot.edge_dot_plain(torch.from_numpy(a), torch.from_numpy(b),
+                              torch.from_numpy(ia), torch.from_numpy(ib))
+    scale = tdot.edge_dot_plain(torch.from_numpy(np.abs(a)),
+                                torch.from_numpy(np.abs(b)),
+                                torch.from_numpy(ia), torch.from_numpy(ib))
+    assert (np.abs(first - ref.numpy()) <= 1e-5 * (1 + scale.numpy())).all()
 
 
 def test_edge_dot_bf16_matches_jax():
