@@ -106,15 +106,21 @@ checks them:
      features, one bf16 segment-sum launch per forward;
  19. timings of the bf16 kernels at their paths' shapes, and the
      segment-sum bf16 arm's sweep at path H's layer 1;
- 20. ``loader/scan_train.py`` at ``benchmarks/products_bench.py``'s sampled
-     training (2,449,029 x 100 features on the card; the batches are the
-     first 8 of its loader's epoch over its products-like graph, sampled on
-     the host by a copy of the JAX package's numpy sampler: batch 512,
-     fan-outs [15, 10]; GraphSAGE 100 -> 64 -> 47, K = 8): the batches'
-     fill, one ``scan_fn`` replay and 8 ``step_fn`` replays against 8 eager
-     steps from one state, ms per step of each, and the message gather's
-     forward and backward by ``index_select`` and by indexing at the
-     batches' shape;
+ 20. ``benchmarks/products_bench.py --train``'s sampled training through
+     the port's loaders (2,449,029 x 100 features and 47 labels on the card;
+     ``NeighborLoader`` on the native sampler, which must have built: batch
+     512, fan-outs [15, 10], 4 sampling threads; ``PrefetchLoader``,
+     ``stack_batches``; GraphSAGE 100 -> 64 -> 47, K = 8) on the kernel
+     route: each batch's ``EdgeIndex`` built on the card, kernel 1 three
+     times a step; one ``scan_fn`` replay and 8 ``step_fn`` replays bitwise
+     equal to 8 eager steps from one state; ms per step of each, and of the
+     gather route on the same batches; 56 steps end to end, host sampling
+     included, without and with the prefetch overlap (pinned buffers and a
+     copy stream), with the card's idle share; then layer-wise serving
+     (``basic_gnn_inference``, 64 neighbours, batch 4096) of all nodes with
+     the trained model, kernel 1 twice a batch, its first batches held
+     against the CPU, and at 0.01 scale with whole neighbourhoods against
+     the full-graph forward; kernel 1 timed at the five sampled shapes;
  21. the per-edge dot kernel (``csrc/sddmm.cu``), both arms, against its
      plain version: a bipartite graph in edge order and in slot order at
      H*F = 256 and 40, one head as 2-D tables, out-of-range indices with a
@@ -241,6 +247,19 @@ BENCH_NAMES = {'GCN': 'gcn', 'GraphSAGE': 'sage', 'GIN': 'gin'}
 N_PRODUCTS, E_PRODUCTS, PR_F, PR_CLASSES = 2_449_029, 123_718_280, 100, 47
 PR_BATCH, PR_FANOUTS, PR_HIDDEN, PR_LR, PR_K = 512, (15, 10), 64, 1e-3, 8
 PR_REPS = 10
+# its end-to-end run (products_bench.py:752-754: 50 steps, K steps a
+# dispatch, rounded up to whole groups) with 4 sampling threads
+PR_STEPS, PR_WORKERS = 50, 4
+# end-to-end loops per mode (and per thread count), their median kept
+PR_E2E_ROUNDS = 5
+# layer-wise serving (basic_gnn_inference): its default 64 neighbours a
+# layer, batch 4096; the first 2 batches of each layer held against the CPU
+LW_BATCH, LW_NEIGHBORS, LW_CPU_BATCHES = 4096, 64, 2
+# the full-neighbourhood check on the products graph at 0.01 scale (24,490
+# nodes; its largest in-degree is 16,969 at seed 0): batch 240 keeps twice a
+# batch's node budget (240 * 16,970) under 2**23, the size of the sampler's
+# hash table, which a batch of 256 would double
+LW_CHECK_SCALE, LW_CHECK_BATCH = 0.01, 240
 # paths K, L, M: the flash kernels' names in a profile, by counter; a
 # forward of each launches kernel (a) once per flash layer (2), a step adds
 # kernels (b) and (c) per flash layer
@@ -393,18 +412,18 @@ def serving_graph(seed):
     return x, coo, (dis[coo[0]] * dis[coo[1]]).astype(np.float32)
 
 
-def spmm_bytes(n_src, n_dst, e, f, weighted, itemsize=4, base=False):
-    """Bytes the function must move: x, base (when given) and out once,
-    indptr, src and w."""
-    return ((n_src + n_dst * (2 if base else 1)) * f * itemsize
+def spmm_bytes(x_rows, n_dst, e, f, weighted, itemsize=4, base=False):
+    """Bytes the function must move: the ``x_rows`` rows of x that its edges
+    read, base (when given) and out once, indptr, src and w."""
+    return ((x_rows + n_dst * (2 if base else 1)) * f * itemsize
             + (n_dst + 1) * 4 + e * 4 + (e * itemsize if weighted else 0))
 
 
-def bound_ms(n_src, n_dst, e, f, weighted, itemsize=4, base=False):
+def bound_ms(x_rows, n_dst, e, f, weighted, itemsize=4, base=False):
     """The least time of one segment-sum pass: its bytes over the HBM rate
     or its ``2 * E * F`` FLOPs (float32 FMAs, both arms) over the float32
     rate, the larger, with which of the two it is."""
-    t_bytes = spmm_bytes(n_src, n_dst, e, f, weighted, itemsize,
+    t_bytes = spmm_bytes(x_rows, n_dst, e, f, weighted, itemsize,
                          base) / HBM_BYTES_PER_S
     t_ops = 2.0 * e * f / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
@@ -455,11 +474,13 @@ def segment_timed(torch, label, indptr, src, w, x, base=None):
     with a base; a yardstick the port never calls), the bound from the
     bytes the function must move, the share of it the kernel reaches, and
     the rate of the x rows it gathers (``E * F * itemsize`` over its
-    time)."""
+    time). The bound counts the rows of x that the edges read, each once
+    (a sampled batch's padded rows and unreached sources are never read)."""
     from pytorch_geometric_tpu_torch.ops.segment_spmm import (
         segment_plan, segment_spmm, segment_spmm_plain)
     n_dst, (n_src, f) = indptr.shape[0] - 1, x.shape
     e, item = int(indptr[-1]), x.element_size()
+    x_rows = int(torch.unique(src[:e]).numel())
     plan = segment_plan(f, item, n_dst, src.shape[0], x.data_ptr(), 0,
                         0 if base is None else base.data_ptr())
     fns = {'ms': lambda: segment_spmm(indptr, src, w, x, base=base),
@@ -467,14 +488,14 @@ def segment_timed(torch, label, indptr, src, w, x, base=None):
     call = ('torch.sparse.mm (CSR)' if base is None else
             'torch.addmm (base + CSR @ x)')
     row = {'shape': label, 'F': f, 'dtype': str(x.dtype).split('.')[-1],
-           'n_src': n_src, 'n_dst': n_dst, 'edges': e,
+           'n_src': n_src, 'x_rows_read': x_rows, 'n_dst': n_dst, 'edges': e,
            'weighted': w is not None, 'base': base is not None,
            'plan': list(plan), 'library_call': call,
-           'bytes': spmm_bytes(n_src, n_dst, e, f, w is not None, item,
+           'bytes': spmm_bytes(x_rows, n_dst, e, f, w is not None, item,
                                base is not None),
            'gathered_bytes': e * f * item, 'flops': 2.0 * e * f}
     row['bound_ms'], row['bound_by'] = bound_ms(
-        n_src, n_dst, e, f, w is not None, item, base is not None)
+        x_rows, n_dst, e, f, w is not None, item, base is not None)
     try:
         a = torch.sparse_csr_tensor(
             indptr, src, w if w is not None else torch.ones(
@@ -504,8 +525,9 @@ def segment_timed(torch, label, indptr, src, w, x, base=None):
     log(f"[timing] segment_spmm {label}: plan {tuple(plan)} (vec, lanes, "
         f"groups, rows per warp); device time per call: kernel "
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, {call} "
-        f"{lib_txt}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-        f"share {100 * row['share']:.1f}%; gathered x rows "
+        f"{lib_txt}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+        f"x rows read {x_rows} of {n_src}), share "
+        f"{100 * row['share']:.1f}%; gathered x rows "
         f"{row['gathered_bytes'] / 1e6:.1f} MB at "
         f"{row['gathered_tb_per_s']:.3f} TB/s; CUDA-event wall per "
         f"back-to-back call: kernel {row['event_ms']:.4f} ms")
@@ -836,7 +858,7 @@ def launches_of(rows, part):
     return sum(n for name, _, n in rows if part in name)
 
 
-def whole_window(torch, fn, calls, expect=None):
+def whole_window(torch, fn, calls, expect=None, warm=True):
     """Device time per call by kernel name over one whole profiled window
     of ``calls`` calls of ``fn``: ``(rows, wall_ms, calls_run)``, rows as
     ``device_kernels`` gives them, ``calls_run`` every call of ``fn`` made
@@ -844,7 +866,9 @@ def whole_window(torch, fn, calls, expect=None):
 
     The profiler now and then loses device events: a whole window, or some
     launches of a kernel (up to half the calls of a window), which would
-    understate the time. Each window follows a warm-up window. A window
+    understate the time. Each window follows a warm-up window, unless
+    ``warm`` is false (for a call of tens of seconds, whose start-up is
+    lost in it; ``expect`` then guards the window). A window
     whose launches of every kernel are a whole multiple of ``calls`` (and,
     for each name part in ``expect``, the launches per call it gives) is
     taken as it is; otherwise it is profiled again, up to
@@ -855,8 +879,8 @@ def whole_window(torch, fn, calls, expect=None):
     is profiled again too."""
     est, run = None, 0
     for _ in range(PROFILE_ATTEMPTS):
-        got = device_kernels(torch, fn, calls, warm=True)
-        run += 2 * calls
+        got = device_kernels(torch, fn, calls, warm=warm)
+        run += (2 if warm else 1) * calls
         if got is None:
             continue
         rows, wall = got
@@ -3407,96 +3431,20 @@ def products_gat(torch, device, seed):
     return ProductsGAT()
 
 
-def sample_batch(colptr, row, seeds, fanouts, rng):
-    """One structure-only batch of the JAX package's ``NeighborSampler``
-    without replacement, its numpy path (``sampler/neighbor_sampler.py:
-    41-73, 403-446``) vectorised, and ``NeighborLoader``'s
-    ``filter_features=False`` fields (``loader/neighbor_loader.py:42-50``):
-    per hop, up to ``fanout`` in-neighbours of each frontier node at strided
-    positions with jitter; a node seen before keeps its local id (first
-    occurrence, seeds first) and only new ones join the next frontier; each
-    hop's edges fill its slots from the front, the rest padded (both ends
-    ``n_cap``); padded nodes have ``n_id`` 0."""
-    from types import SimpleNamespace
-    caps = [len(seeds)]
-    for f in fanouts:
-        caps.append(caps[-1] * f)
-    n_cap = sum(caps)
-    e_caps = [caps[h] * f for h, f in enumerate(fanouts)]
-    nodes = np.asarray(seeds, np.int64)   # distinct: one epoch's batch
-    frontier = np.arange(len(nodes))      # local ids
-    rows = np.full(sum(e_caps), n_cap, np.int64)
-    cols = np.full(sum(e_caps), n_cap, np.int64)
-    base = 0
-    for hop, fanout in enumerate(fanouts):
-        if not len(frontier):
-            break
-        g_front = nodes[frontier]
-        deg = colptr[g_front + 1] - colptr[g_front]
-        k = np.arange(fanout)[None, :]
-        valid = k < np.minimum(deg, fanout)[:, None]
-        big = deg[:, None] > fanout
-        pick = (k * deg[:, None]) // fanout
-        jitter = rng.integers(0, np.maximum(deg[:, None] // fanout, 1),
-                              (len(g_front), fanout))
-        last = np.maximum(deg[:, None] - 1, 0)
-        offs = np.minimum(np.where(big, pick + jitter, np.minimum(k, last)),
-                          last)
-        pos = np.minimum(colptr[g_front][:, None] + offs, len(row) - 1)
-        g = row[pos][valid].astype(np.int64)
-        dst = np.repeat(frontier, fanout)[valid.reshape(-1)]
-        fresh = ~np.isin(g, nodes)
-        uniq, first = np.unique(g[fresh], return_index=True)
-        new = uniq[np.argsort(first)]
-        frontier = np.arange(len(nodes), len(nodes) + len(new))
-        nodes = np.concatenate([nodes, new])
-        order = np.argsort(nodes)
-        rows[base:base + len(g)] = order[np.searchsorted(nodes, g,
-                                                         sorter=order)]
-        cols[base:base + len(g)] = dst
-        base += e_caps[hop]
-    node_mask = np.arange(n_cap) < len(nodes)
-    n_id = np.zeros(n_cap, np.int32)
-    n_id[:len(nodes)] = nodes
-    return SimpleNamespace(num_nodes=n_cap, batch_size=len(seeds),
-                           n_id=n_id, node_mask=node_mask,
-                           edge_index=np.stack([rows, cols]).astype(np.int32),
-                           edge_mask=rows < n_cap)
-
-
-def products_batches(coo, n, batch, fanouts, k, seed):
-    """The first ``k`` batches of ``products_bench.py``'s loader
-    (``:171-174``: ``NeighborLoader(batch_size=batch, shuffle=True,
-    filter_features=False)``) over ``coo``: the loader's epoch order and
-    per-batch seeds (``loader/neighbor_loader.py:127-150``, its ``seed``),
-    the in-neighbour lists by destination (``sampler/neighbor_sampler.py:
-    26-38``), and :func:`sample_batch`."""
-    order = np.argsort(coo[1], kind='stable')
-    row = coo[0][order]
-    colptr = np.searchsorted(coo[1][order], np.arange(n + 1))
-    del order
-    rng = np.random.default_rng(seed)
-    perm = rng.permutation(n)
-    draws = [int(rng.integers(0, 2 ** 62)) for _ in range(k)]
-    return [sample_batch(colptr, row, perm[i * batch:(i + 1) * batch],
-                         fanouts, np.random.default_rng(draws[i]))
-            for i in range(k)]
-
-
 def batch_fill(batches, fanouts):
     """The share of node and edge slots the batches fill, the real edges per
     hop, and the padded edges (all gathered from one clamped row)."""
-    bs = batches[0].batch_size
+    bs = int(batches[0].batch_size)
     caps = [bs]
     for f in fanouts:
         caps.append(caps[-1] * f)
     e_caps = [caps[h] * f for h, f in enumerate(fanouts)]
     n_cap, e_cap = sum(caps), sum(e_caps)
-    nodes = np.array([b.node_mask.sum() for b in batches])
-    edges = np.array([b.edge_mask.sum() for b in batches])
+    nodes = np.array([int(b.node_mask.sum()) for b in batches])
+    edges = np.array([int(b.edge_mask.sum()) for b in batches])
     hop_edges, lo = [], 0
     for c in e_caps:
-        hop_edges.append(float(np.mean([b.edge_mask[lo:lo + c].sum()
+        hop_edges.append(float(np.mean([int(b.edge_mask[lo:lo + c].sum())
                                         for b in batches])))
         lo += c
     return {'n_cap': n_cap, 'edge_slots': e_cap,
@@ -3508,87 +3456,240 @@ def batch_fill(batches, fanouts):
             'padded_edges_per_batch': float(e_cap - edges.mean())}
 
 
-def gather_ab(torch, x, idx, reps):
-    """The message gather's forward and backward at one shape, as
-    ``index_select`` (the port's, backward a scatter-add with atomics) and
-    as indexing (backward sorts the indices, then adds each index's repeats
-    in order): device ms of each (``device_ms``; the CUDA-event wall, which
-    can be the host's issue time, beside it) and the largest gap between
-    their gradients over the largest gradient."""
-    g = torch.randn((idx.numel(), x.shape[1]), device='cuda',
-                    generator=torch.Generator(device='cuda').manual_seed(1))
-    x = x.detach().requires_grad_(True)
-    out = {}
-    for name, gather in (('index_select', lambda: x.index_select(0, idx)),
-                         ('indexing', lambda: x[idx])):
-        def call():
-            x.grad = None
-            gather().backward(g)
-        out[name + '_event_ms'] = timed_calls(torch, call, reps, 2)[0]
-        out[name + '_ms'] = device_ms(torch, call, calls=reps)
-        out[name + '_grad'] = x.grad.clone()
-    a, b = out.pop('index_select_grad'), out.pop('indexing_grad')
-    out['grad_max_rel_diff'] = float((a - b).abs().max() / b.abs().max())
-    return out
-
-
-def phase_scan_train(torch, seed, reps, coo):
-    """``loader/scan_train.py`` at ``products_bench.py``'s sampled training
-    (``:171-196``): X [N_PRODUCTS, 100] float32 and Y (47 classes) made on
-    the card from ``seed``; the first K = 8 batches of its loader's epoch
-    (512 seeds, fan-outs [15, 10]) over its products-like graph
-    (:func:`products_graph`, seed ``seed``; ``:770`` uses 0), sampled on
-    the host (:func:`products_batches`); ``GraphSAGE(100 -> 64 -> 47)``, 2
-    layers, ``Adam(1e-3, capturable=True)``.
-
-    From one state S (parameters and Adam moments, restored in place so
-    the graphs' addresses hold): 8 eager steps (the step's body), 8
-    ``step_fn`` replays and one ``scan_fn`` replay, the last two held
-    against the first (loss and parameters within 1e-5). Then ms per step
-    of each: eager steps, ``step_fn`` replays, ``scan_fn`` replays over K.
-    The step aggregates a raw COO with an edge mask, which takes the gather
-    path in both packages (``nn/message_passing.py:88-106``): no kernel of
-    the port runs, and none may be counted. Last, the gather of the first
-    layer's messages at the first batch's shape, by ``index_select`` and by
-    indexing (:func:`gather_ab`)."""
-    from pytorch_geometric_tpu_torch.loader import (make_device_train_step,
-                                                    stack_batches)
-    from pytorch_geometric_tpu_torch.nn.models import GraphSAGE
-    tag = 'scan_train'
-    t1 = time.perf_counter()
-    batches = products_batches(coo, N_PRODUCTS, PR_BATCH, PR_FANOUTS, PR_K,
-                               seed)
-    fill = batch_fill(batches, PR_FANOUTS)
-    log(f'[{tag}] products_bench graph ({N_PRODUCTS} nodes, {E_PRODUCTS} '
-        f'edges, seed {seed}): {PR_K} batches '
-        f'sampled in {time.perf_counter() - t1:.1f} s on the host; per '
-        f"batch {fill['nodes_per_batch']:.1f} of {fill['n_cap']} node slots "
-        f"(fill {fill['node_fill']:.4f}), {fill['edges_per_batch']:.1f} of "
-        f"{fill['edge_slots']} edge slots (fill {fill['edge_fill']:.4f}; "
-        f"by hop {fill['edges_per_hop']} of {fill['edge_slots_per_hop']}), "
-        f"{fill['padded_edges_per_batch']:.1f} padded edges")
+def products_data(torch, coo, seed):
+    """``products_bench.py``'s training data (``:165-168``) over ``coo``: X
+    [N, 100] float32 and 47 labels, made on the card from ``seed``, in a
+    ``Data`` that keeps them there."""
+    from pytorch_geometric_tpu_torch.data import Data
     gen = torch.Generator(device='cuda').manual_seed(seed)
     X = torch.randn((N_PRODUCTS, PR_F), generator=gen, device='cuda')
     Y = torch.randint(0, PR_CLASSES, (N_PRODUCTS,), generator=gen,
                       device='cuda')
+    return Data(x=X, edge_index=coo, y=Y, num_nodes=N_PRODUCTS)
+
+
+def kernels_and_copies(rows):
+    """Device ms per call of a profile's rows (``whole_window``): kernels,
+    and host-to-card copies and fills (a copy on another stream may overlap
+    a kernel)."""
+    copies = sum(t for n, t, _ in rows if n.startswith(('Memcpy', 'Memset')))
+    return sum(t for _, t, _ in rows) - copies, copies
+
+
+def stacked_groups(it, groups):
+    """``groups`` host-stacked groups of K batches drawn from ``it``."""
+    from pytorch_geometric_tpu_torch.loader import stack_batches
+    for _ in range(groups):
+        yield stack_batches([next(it) for _ in range(PR_K)], device='cpu')
+
+
+def end_to_end(torch, scan_fn, X, Y, loader, overlap):
+    """``products_bench.py``'s end-to-end loop (``:198-280``): ``PR_STEPS``
+    steps rounded up to whole groups of K, host sampling included, the
+    loader's batches sampled ahead on a producer thread
+    (``PrefetchLoader(put=False)``, its own ``num_workers`` threads inside).
+    Without ``overlap`` the main thread stacks each group and uploads it
+    (a pageable copy, which waits for the card) before its replay; with it a
+    second ``PrefetchLoader`` stacks and uploads group k+1 through pinned
+    buffers on a copy stream while group k's replay runs. Returns (steps,
+    the last loss)."""
+    from pytorch_geometric_tpu_torch.loader import (PrefetchLoader,
+                                                    stack_batches)
+    groups = -(-PR_STEPS // PR_K)
+    it = iter(PrefetchLoader(loader, num_threads=1, put=False))
+    loss = None
+    try:
+        if overlap:
+            for dev in PrefetchLoader(stacked_groups(it, groups),
+                                      device='cuda', num_threads=1):
+                loss = scan_fn(X, Y, dev)
+        else:
+            for _ in range(groups):
+                group = [next(it) for _ in range(PR_K)]
+                loss = scan_fn(X, Y, stack_batches(group, device='cuda'))
+    finally:
+        it.close()
+    return groups * PR_K, loss
+
+
+def route_timings(torch, tag, step_fn, scan_fn, X, Y, rows, stacked,
+                  expect):
+    """ms per step of one route on the same K batches: eager steps (the
+    body), ``step_fn`` replays, ``scan_fn`` replays over K (CUDA events,
+    ``PR_REPS`` rounds), and a whole-window profile of the scan replay,
+    which must show ``expect`` launches per replay."""
+    def eager_steps():
+        for r in rows:
+            step_fn.__wrapped__(X, Y, r)
+
+    def step_replays():
+        for r in rows:
+            step_fn(X, Y, r)
+
+    res = {}
+    for name, fn in (('eager', eager_steps), ('step_fn', step_replays),
+                     ('scan_fn', lambda: scan_fn(X, Y, stacked))):
+        ms, enq, _, _ = timed_calls(torch, fn, PR_REPS, 1)
+        res[f'ms_per_step_{name}'] = ms / PR_K
+        res[f'host_enqueue_ms_per_step_{name}'] = enq / PR_K
+    # the idle share against the unprofiled replay (the profiler slows the
+    # host's side of it)
+    prof_rows, prof_ms, _ = whole_window(
+        torch, lambda: scan_fn(X, Y, stacked), PROFILED_STEPS, expect)
+    busy = sum(t for _, t, _ in prof_rows)
+    res.update({'scan_device_busy_ms_per_step': busy / PR_K,
+                'scan_profiled_ms_per_step': prof_ms / PR_K,
+                'scan_device_idle_share':
+                    1 - busy / PR_K / res['ms_per_step_scan_fn'],
+                'kernel1_ms_per_step': sum(
+                    t for n, t, _ in prof_rows if SEG_MAIN in n) / PR_K,
+                'kernels_per_scan': [[n[:80], t, c]
+                                     for n, t, c in prof_rows[:8]]})
+    log(f"[{tag}] ms per step on K = {PR_K} batches: eager "
+        f"{res['ms_per_step_eager']:.4f}, step_fn replays "
+        f"{res['ms_per_step_step_fn']:.4f}, scan_fn "
+        f"{res['ms_per_step_scan_fn']:.4f} (CUDA events, {PR_REPS} rounds); "
+        f"the scan replay busies the card {busy / PR_K:.4f} ms per step "
+        f"(torch.profiler; {prof_ms / PR_K:.4f} ms a step profiled), idle "
+        f"share {res['scan_device_idle_share']:.4f} of the unprofiled "
+        "replay")
+    for name, t, n in prof_rows[:8]:
+        log(f'[{tag}]   {t / PR_K:.4f} ms a step  x{n / PR_K:g}  '
+            f'{name[:90]}')
+    return res
+
+
+def sampled_kernel_rows(torch, seed, r, X, served):
+    """Kernel 1 at the sampled path's shapes, each on the CSC (or CSR) of a
+    real batch: training layers 1 and 2 forward (F = 100, 64) and layer 2's
+    transposed backward (F = 64) on the first training batch ``r``, serving
+    layers 1 and 2 (F = 100, 64) on the first served batch (``served``:
+    its recorded layer-1 input, COO, size and layer-2 input); each against
+    its plain version (``segment_close``), timed with its bound and
+    ``torch.sparse.mm`` (``segment_timed``). Returns (rows, worst error)."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.loader.scan_train import \
+        batch_edge_index
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    gen = torch.Generator(device='cuda').manual_seed(seed + 13)
+    rows, worst = [], 0.0
+    mask = r['node_mask']
+    x_train = torch.where(mask[:, None],
+                          X[torch.where(mask, r['n_id'], 0).long()], 0.0)
+    train = batch_edge_index(r['edge_index'], r['edge_mask'],
+                             mask.shape[0])
+    x1, coo, size, x2 = served
+    serve = EdgeIndex(coo.cuda(), size).fill_cache(blocked=False)
+    for label, ei, x, layout, f in (
+            ('train layer 1 forward', train, x_train, 'csc', PR_F),
+            ('train layer 2 forward', train, None, 'csc', PR_HIDDEN),
+            ('train layer 2 backward (A^T g)', train, None, 'csr',
+             PR_HIDDEN),
+            ('serve layer 1', serve, x1.cuda(), 'csc', PR_F),
+            ('serve layer 2', serve, x2.cuda(), 'csc', PR_HIDDEN)):
+        o = ei.csc if layout == 'csc' else ei.csr
+        if x is None:
+            x = torch.randn((ei.num_src_nodes, f), generator=gen,
+                            device='cuda')
+        with torch.inference_mode():
+            out = segment_spmm(o.indptr, o.indices, None, x)
+            err, ok = segment_close(torch, o.indptr, o.indices, None, x, out)
+            torch.cuda.synchronize()
+            check(ok, f'segment_spmm sampled {label}: {err} from the plain '
+                      'version')
+            worst = max(worst, err)
+            row = segment_timed(torch, f'sampled {label}', o.indptr,
+                                o.indices, None, x)
+        row['max_abs_err'] = err
+        row['slots'] = int(o.indices.shape[0])
+        rows.append(row)
+    return rows, worst
+
+
+def phase_scan_train(torch, seed, coo):
+    """``products_bench.py --train`` (``:154-335``) through the port's own
+    entry points: ``Data`` (X [N, 100] and 47 labels on the card, from
+    ``seed``) -> ``NeighborLoader([15, 10], batch 512, shuffle,
+    filter_features=False, num_workers=4)`` on the native sampler (the
+    phase fails without it: the numpy sampler draws other neighbours) ->
+    ``PrefetchLoader`` -> ``stack_batches`` -> ``GraphSAGE(100 -> 64 ->
+    47)``, ``Adam(1e-3, capturable=True)``, ``make_device_train_step`` on
+    the kernel route (each batch's ``EdgeIndex`` built on the card: kernel
+    1 forward at F = 100 and 64, its transposed backward at 64, 3 launches
+    a step).
+
+    From one state S (parameters and Adam moments, restored in place so the
+    graphs' addresses hold), on the epoch's first K = 8 batches: 8 eager
+    steps, 8 ``step_fn`` replays and one ``scan_fn`` replay, bitwise equal
+    in loss and parameters. Then the end-to-end loop (``PR_STEPS`` steps,
+    host sampling included) without and with the prefetch overlap, each
+    timed (the median of ``PR_E2E_ROUNDS`` loops in turns), then profiled
+    (``whole_window``; the idle share is taken against the unprofiled
+    wall); the gather route (``gather_cross_entropy``, which
+    launches no kernel of the port) timed beside the kernel route on the
+    same batches. Returns the phase's record, the trained model, the
+    ``Data`` (X on the card) and the first batch's row, for
+    ``phase_layerwise``, which also times kernel 1 at the sampled shapes."""
+    from pytorch_geometric_tpu_torch import csrc
+    from pytorch_geometric_tpu_torch.loader import (NeighborLoader,
+                                                    make_device_train_step,
+                                                    stack_batches)
+    from pytorch_geometric_tpu_torch.loader.scan_train import \
+        gather_cross_entropy
+    from pytorch_geometric_tpu_torch.nn.models import GraphSAGE
+    tag = 'scan_train'
+    check(csrc.WITH_NATIVE_SAMPLER, f'{tag}: the native sampler did not '
+          'build (g++); the numpy sampler would draw other neighbours')
+    data = products_data(torch, coo, seed)
+    X, Y = data.x, data.y
+    t0 = time.perf_counter()
+    loader = NeighborLoader(data, num_neighbors=list(PR_FANOUTS),
+                            batch_size=PR_BATCH, shuffle=True,
+                            filter_features=False, num_workers=PR_WORKERS,
+                            seed=seed)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it = iter(loader)
+    batches = [next(it) for _ in range(PR_K)]
+    sample_s = time.perf_counter() - t0
+    fill = batch_fill(batches, PR_FANOUTS)
+    log(f'[{tag}] NeighborLoader over the products graph ({N_PRODUCTS} '
+        f'nodes, {E_PRODUCTS} edges): CSC built in {build_s:.2f} s on the '
+        f'host, the first {PR_K} batches sampled in {sample_s:.3f} s (native '
+        f'sampler, {PR_WORKERS} threads); per batch '
+        f"{fill['nodes_per_batch']:.1f} of {fill['n_cap']} node slots (fill "
+        f"{fill['node_fill']:.4f}), {fill['edges_per_batch']:.1f} of "
+        f"{fill['edge_slots']} edge slots (fill {fill['edge_fill']:.4f}; by "
+        f"hop {fill['edges_per_hop']} of {fill['edge_slots_per_hop']})")
     stacked = stack_batches(batches, device='cuda')
     rows = [{k: v[i] for k, v in stacked.items()} for i in range(PR_K)]
     n_cap = batches[0].num_nodes
-    n_slots = batches[0].edge_index.shape[1]
-    model = GraphSAGE(PR_F, PR_HIDDEN, 2, PR_CLASSES,
-                      generator=torch.Generator().manual_seed(seed))
-    opt = torch.optim.Adam(model.parameters(), lr=PR_LR, capturable=True)
-    step_fn, scan_fn = make_device_train_step(model, opt)
+
+    def new_pair(loss_fn=None):
+        model = GraphSAGE(PR_F, PR_HIDDEN, 2, PR_CLASSES,
+                          generator=torch.Generator().manual_seed(seed))
+        opt = torch.optim.Adam(model.parameters(), lr=PR_LR,
+                               capturable=True)
+        return (model, opt) + make_device_train_step(model, opt, loss_fn)
+
+    model, opt, step_fn, scan_fn = new_pair()
+    per_step = {'segment_spmm': 3}
+    per_scan = {'segment_spmm': 3 * PR_K}
     torch.cuda.synchronize()
+    # the two compiled callables' warm-ups and captures (the first call of
+    # step_fn fills Adam's moments)
     reset_counts()
-    # the two compiled callables' warm-ups and captures (the first call
-    # of step_fn fills Adam's moments)
     for i in range(CAPTURE_WARMUP + 1):
         step_fn(X, Y, rows[i])
+    torch.cuda.synchronize()
+    check_replays(f'{tag} step_fn', step_fn, launch_counts(), per_step,
+                  '1 replay')
+    reset_counts()
     for _ in range(CAPTURE_WARMUP + 1):
         scan_fn(X, Y, stacked)
-    check(step_fn.captures == 1 and scan_fn.captures == 1,
-          f'{tag}: captures {step_fn.captures}, {scan_fn.captures}')
+    torch.cuda.synchronize()
+    check_replays(f'{tag} scan_fn', scan_fn, launch_counts(), per_scan,
+                  '1 replay')
     tensors = [p for p in model.parameters()] + [
         v for st in opt.state.values() for v in st.values()
         if isinstance(v, torch.Tensor)]
@@ -3602,10 +3703,15 @@ def phase_scan_train(torch, seed, reps, coo):
     def params():
         return [p.detach().clone() for p in model.parameters()]
 
+    reset_counts()
     restore()
     for r in rows:
         l_eager = step_fn.__wrapped__(X, Y, r)
     p_eager = params()
+    torch.cuda.synchronize()
+    check_counts(tag, launch_counts(), {k: v * PR_K
+                                        for k, v in per_step.items()},
+                 f'{PR_K} eager steps')
     restore()
     for r in rows:
         l_step = step_fn(X, Y, r)
@@ -3614,93 +3720,263 @@ def phase_scan_train(torch, seed, reps, coo):
     l_scan = scan_fn(X, Y, stacked)
     p_scan = params()
     torch.cuda.synchronize()
-    worst = {}
+    parity = {}
     for name, ls, ps in (('step_fn', l_step, p_step),
                          ('scan_fn', l_scan, p_scan)):
+        bitwise = bool(torch.equal(ls, l_eager)) and all(
+            torch.equal(a, b) for a, b in zip(ps, p_eager))
         d = max(float((a - b).abs().max()) for a, b in zip(ps, p_eager))
-        rel = abs(float(ls) - float(l_eager)) / abs(float(l_eager))
-        worst[name] = {'loss': float(ls), 'loss_rel_diff': rel,
-                       'max_param_abs_diff': d}
-        check(rel <= 1e-5 and d <= 1e-5,
-              f'{tag}: {name} from S: loss {float(ls)} vs {float(l_eager)} '
-              f'eager ({rel:.3e} relative), parameters {d:.3e} apart')
-    d = max(float((a - b).abs().max()) for a, b in zip(p_scan, p_step))
+        parity[name] = {'loss': float(ls), 'bitwise_equal_to_eager': bitwise,
+                        'max_param_abs_diff': d}
+        check(bitwise, f'{tag}: {name} from S is not bitwise the eager '
+                       f'steps: loss {float(ls)} vs {float(l_eager)}, '
+                       f'parameters {d:.3e} apart')
     log(f'[{tag}] from one state, {PR_K} steps: eager loss '
-        f'{float(l_eager):.6f}, step_fn x {PR_K} replays {float(l_step):.6f}, '
-        f'one scan_fn replay {float(l_scan):.6f}; parameters: step_fn vs '
-        f"eager {worst['step_fn']['max_param_abs_diff']:.3e}, scan_fn vs "
-        f"eager {worst['scan_fn']['max_param_abs_diff']:.3e}, scan_fn vs "
-        f'step_fn {d:.3e} (limit 1e-5; scatter-mean sums with atomics)')
+        f'{float(l_eager):.6f}, {PR_K} step_fn replays {float(l_step):.6f}, '
+        f'one scan_fn replay {float(l_scan):.6f}: losses and parameters '
+        'bitwise equal (kernel 1 adds without atomics)')
     restore()
+    kernel = route_timings(torch, f'{tag} kernel route', step_fn, scan_fn, X,
+                           Y, rows, stacked, replay_expect(per_scan))
 
-    def eager_steps():
-        for r in rows:
-            step_fn.__wrapped__(X, Y, r)
+    # the main path: the end-to-end loop, counts from 0. The host-bound
+    # loop's wall moves by up to 25 % from one loop to the next, so each
+    # mode runs PR_E2E_ROUNDS times, the modes in turns, and keeps the
+    # median
+    def kernel1_so_far():
+        return (launch_counts()['segment_spmm']
+                + scan_fn.replay_launches().get('segment_spmm', 0))
 
-    def step_replays():
-        for r in rows:
-            step_fn(X, Y, r)
+    modes = {'no_overlap': False, 'overlap': True}
+    walls = {name: [] for name in modes}
+    launched = dict.fromkeys(modes, 0)
+    reset_counts()
+    for _ in range(PR_E2E_ROUNDS):
+        for name, overlap in modes.items():
+            k0 = kernel1_so_far()
+            t0 = time.perf_counter()
+            steps, loss = end_to_end(torch, scan_fn, X, Y, loader, overlap)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            launched[name] += kernel1_so_far() - k0
+            check(bool(torch.isfinite(loss)),
+                  f'{tag} end to end ({name}): loss {float(loss)}')
+    e2e = {}
+    for name, overlap in modes.items():
+        check(launched[name] == 3 * steps * PR_E2E_ROUNDS,
+              f'{tag} end to end ({name}): kernel 1 launched '
+              f'{launched[name]} times in {PR_E2E_ROUNDS} loops of {steps} '
+              'steps')
+        wall = float(np.median(walls[name]))
+        # the card's time in the loop from a profiled loop; the idle share
+        # is taken against the unprofiled wall (the profiler slows the host)
+        prof_rows, wall_p, _ = whole_window(
+            torch, lambda: end_to_end(torch, scan_fn, X, Y, loader, overlap),
+            1, {SEG_MAIN: 3 * steps})
+        kern_ms, copy_ms = kernels_and_copies(prof_rows)
+        e2e[name] = {'steps': steps, 'loops': PR_E2E_ROUNDS,
+                     'ms_per_step': wall * 1e3 / steps,
+                     'ms_per_step_each_loop': [w * 1e3 / steps
+                                               for w in walls[name]],
+                     'final_loss': float(loss),
+                     'kernel1_launches': launched[name],
+                     'profiled_ms_per_step': wall_p / steps,
+                     'device_kernel_ms_per_step': kern_ms / steps,
+                     'device_copy_ms_per_step': copy_ms / steps,
+                     'device_idle_share': 1 - kern_ms / (wall * 1e3)}
+        log(f'[{tag}] end to end, {name.replace("_", " ")}: {steps} steps '
+            '(host sampling, stacking and upload included), median of '
+            f'{PR_E2E_ROUNDS} loops {wall * 1e3 / steps:.4f} ms per step ('
+            + ', '.join(f'{w * 1e3 / steps:.4f}' for w in walls[name])
+            + f'); kernel 1 launched {launched[name]} times; under the '
+            f'profiler {wall_p / steps:.4f} ms per step, the card runs '
+            f'kernels {kern_ms / steps:.4f} ms and copies '
+            f'{copy_ms / steps:.4f} ms a step, idle share '
+            f"{e2e[name]['device_idle_share']:.4f} of the unprofiled wall")
 
-    eager_ms, eager_enq, _, _ = timed_calls(torch, eager_steps, reps, 1)
-    step_ms, step_enq, _, _ = timed_calls(torch, step_replays, reps, 1)
-    scan_ms, scan_enq, _, _ = timed_calls(
-        torch, lambda: scan_fn(X, Y, stacked), reps, 1)
-    prof_rows, prof_ms, _ = whole_window(
-        torch, lambda: scan_fn(X, Y, stacked), PROFILED_STEPS)
-    busy = sum(t for _, t, _ in prof_rows)
+    # where the loop's host time goes: the same loop, no overlap, with 1, 2
+    # and 8 sampling threads, PR_E2E_ROUNDS loops each in turns, the median
+    threads = {w: [] for w in (1, 2, 8)}
+    for _ in range(PR_E2E_ROUNDS):
+        for workers, got in threads.items():
+            loader.num_workers = workers
+            t0 = time.perf_counter()
+            steps, _ = end_to_end(torch, scan_fn, X, Y, loader, False)
+            torch.cuda.synchronize()
+            got.append((time.perf_counter() - t0) * 1e3 / steps)
+    loader.num_workers = PR_WORKERS
+    sweep = {w: float(np.median(got)) for w, got in threads.items()}
+    sweep[PR_WORKERS] = e2e['no_overlap']['ms_per_step']
+    log(f'[{tag}] end to end, no overlap, ms per step by sampling threads: '
+        + ', '.join(f'{w}: {sweep[w]:.4f}' for w in sorted(sweep)))
+
+    # the gather route on the same batches, from the same weights
+    _, _, g_step, g_scan = new_pair(gather_cross_entropy)
+    reset_counts()
+    for i in range(CAPTURE_WARMUP + 1):
+        g_step(X, Y, rows[i])
+        g_scan(X, Y, stacked)
+    gather = route_timings(torch, f'{tag} gather route', g_step, g_scan, X,
+                           Y, rows, stacked, None)
+    torch.cuda.synchronize()
     counts = launch_counts()
-    check(not any(counts.values()) and not step_fn.launches_per_replay
-          and not scan_fn.launches_per_replay,
-          f'{tag}: port kernels launched: {counts}, per replay '
-          f'{step_fn.launches_per_replay}, {scan_fn.launches_per_replay}')
-    res = {'nodes': N_PRODUCTS, 'features': PR_F, 'classes': PR_CLASSES,
-           'x_gb': X.numel() * 4 / 1e9, 'batch': PR_BATCH,
-           'fanouts': list(PR_FANOUTS), 'n_cap': n_cap,
-           'edge_slots': n_slots, 'k': PR_K,
+    check(not any(counts.values()) and not g_step.launches_per_replay
+          and not g_scan.launches_per_replay,
+          f'{tag} gather route: port kernels launched: {counts}')
+    main_counts = {k: 0 for k in launch_counts()}
+    main_counts['segment_spmm'] = sum(v['kernel1_launches']
+                                      for v in e2e.values())
+    res = {'nodes': N_PRODUCTS, 'edges': E_PRODUCTS, 'features': PR_F,
+           'classes': PR_CLASSES, 'x_gb': X.numel() * 4 / 1e9,
+           'batch': PR_BATCH, 'fanouts': list(PR_FANOUTS),
+           'num_workers': PR_WORKERS, 'n_cap': n_cap,
+           'edge_slots': int(batches[0].edge_index.shape[1]), 'k': PR_K,
            'edge_index_dtype': str(stacked['edge_index'].dtype),
-           'fill': fill,
-           'ms_per_step_eager': eager_ms / PR_K,
-           'ms_per_step_step_fn': step_ms / PR_K,
-           'ms_per_step_scan_fn': scan_ms / PR_K,
-           'host_enqueue_ms_per_step': {'eager': eager_enq / PR_K,
-                                        'step_fn': step_enq / PR_K,
-                                        'scan_fn': scan_enq / PR_K},
-           'scan_device_busy_ms_per_step': busy / PR_K,
-           'scan_device_idle_share': 1 - busy / prof_ms,
-           'parity': worst,
-           'scan_vs_step_fn_max_param_abs_diff': d,
-           'launch_counts': counts, 'step_fn_replays': step_fn.replays,
-           'scan_fn_replays': scan_fn.replays,
-           'kernels_per_scan': [[n[:80], t, c] for n, t, c in prof_rows[:8]]}
-    # the first layer's gather: x_j = x[src], padded edges clamped to the
-    # last row (nn/message_passing.py's _collect)
-    r = rows[0]
-    x1 = torch.where(r['node_mask'][:, None],
-                     X[torch.where(r['node_mask'], r['n_id'], 0).long()], 0.0)
-    j = r['edge_index'][0].long().clamp(0, n_cap - 1)
-    res['gather'] = gather_ab(torch, x1, j, reps)
-    log(f"[{tag}] layer-1 gather [{j.numel()}] of x [{n_cap}, {PR_F}], "
-        f"forward and backward, device time: index_select "
-        f"{res['gather']['index_select_ms']:.4f} ms, indexing "
-        f"{res['gather']['indexing_ms']:.4f} ms (torch.profiler; CUDA-event "
-        f"wall {res['gather']['index_select_event_ms']:.4f} / "
-        f"{res['gather']['indexing_event_ms']:.4f} ms); gradients "
-        f"{res['gather']['grad_max_rel_diff']:.3e} apart (relative to the "
-        'largest)')
-    log(f'[{tag}] products sampled shape ({N_PRODUCTS} x {PR_F} X, '
-        f"{res['x_gb']:.3f} GB; batch {PR_BATCH}, fan-outs {list(PR_FANOUTS)}"
-        f': n_cap {n_cap}, {n_slots} edge slots, edge ids '
-        f"{res['edge_index_dtype']}; K = {PR_K}): ms per step eager "
-        f"{res['ms_per_step_eager']:.4f}, step_fn replays "
-        f"{res['ms_per_step_step_fn']:.4f}, scan_fn "
-        f"{res['ms_per_step_scan_fn']:.4f} (CUDA events, {reps} rounds of "
-        f'{PR_K} steps); the scan replay busies the card '
-        f'{busy / PR_K:.4f} ms per step (torch.profiler), idle share '
-        f"{res['scan_device_idle_share']:.4f}; no port kernel runs here: a "
-        'raw COO with an edge mask takes the gather path in both packages')
-    del step_fn, scan_fn, X, Y
-    torch.cuda.empty_cache()
-    return res
+           'loader_build_s': build_s, 'first_k_sample_s': sample_s,
+           'fill': fill, 'parity': parity, 'kernel_route': kernel,
+           'gather_route': gather, 'end_to_end': e2e,
+           'end_to_end_ms_per_step_by_workers': sweep,
+           'launches_per_step': per_step, 'launch_counts': main_counts,
+           'launches_per_scan_replay': scan_fn.launches_per_replay}
+    del g_step, g_scan, step_fn, scan_fn, loader
+    return res, model, data, rows[0]
+
+
+def record_conv_calls(model, calls):
+    """Hooks on ``model``'s convs keeping, per conv, the inputs and output of
+    its first ``calls`` calls (moved to the host); returns the records and
+    the hooks' handles."""
+    records = {i: [] for i in range(len(model.convs))}
+
+    def hook(i):
+        def keep(mod, args, out):
+            if len(records[i]) < calls:
+                x, ei = args[:2]
+                records[i].append((x.cpu(), ei.coo.cpu(), ei.sparse_size,
+                                   out.cpu()))
+        return keep
+
+    handles = [c.register_forward_hook(hook(i))
+               for i, c in enumerate(model.convs)]
+    return records, handles
+
+
+def phase_layerwise(torch, seed, model, data, row):
+    """Serving the trained model layer by layer
+    (``basic_gnn_inference``) over all 2,449,029 nodes: 64 neighbours a
+    layer (the JAX package's default), batch 4096, ``x_all`` kept on the
+    card; each batch's ``EdgeIndex`` built there, kernel 1 once a batch and
+    layer. Seconds a pass (timed without the profiler) and the card's
+    kernel time in it, from a profiled pass (``whole_window``; the rest of
+    the wall is the host's: sampling, the batches' upload, launches). The
+    first ``LW_CPU_BATCHES`` batches of each layer (their recorded inputs
+    and output) held against the port on the CPU, within 1e-4 * max(1,
+    max|ref|). Then the products graph at 0.01
+    scale with ``num_neighbors_per_layer`` its largest in-degree: the
+    layer-wise output held against the full-graph forward over a cached
+    ``EdgeIndex`` on the card (the JAX package's ``test_wave5.py:40-59``),
+    within the same limit. Last, kernel 1 at the sampled shapes
+    (``sampled_kernel_rows``)."""
+    import copy
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.nn.models import basic_gnn_inference
+    tag = 'layerwise'
+    model.eval()
+    n_batches = -(-N_PRODUCTS // LW_BATCH)
+    records, handles = record_conv_calls(model, LW_CPU_BATCHES)
+
+    def serve():
+        return basic_gnn_inference(model, data, batch_size=LW_BATCH,
+                                   num_neighbors_per_layer=LW_NEIGHBORS)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for h in handles:
+        h.remove()
+    check_counts(tag, counts, {'segment_spmm': 2 * n_batches},
+                 f'a pass of {n_batches} batches over 2 layers')
+    check(tuple(out.shape) == (N_PRODUCTS, PR_CLASSES)
+          and bool(torch.isfinite(out).all()),
+          f'{tag}: output {tuple(out.shape)}, finite '
+          f'{bool(torch.isfinite(out).all())}')
+    # the card's time in a pass from a profiled pass; the idle share is
+    # taken against the unprofiled wall (the profiler slows the host)
+    prof_rows, wall_p, _ = whole_window(torch, serve, 1,
+                                        {SEG_MAIN: 2 * n_batches}, warm=False)
+    kern_ms, copy_ms = kernels_and_copies(prof_rows)
+    kern_s, copy_s, wall_p = kern_ms / 1e3, copy_ms / 1e3, wall_p / 1e3
+    cpu = copy.deepcopy(model).cpu()
+    worst_cpu = 0.0
+    with torch.inference_mode():
+        for i, recs in records.items():
+            for b, (x, coo, size, got) in enumerate(recs):
+                ei = EdgeIndex(coo, size, device='cpu').fill_cache(
+                    blocked=False)
+                ref = cpu.convs[i](x, ei)
+                d = float((got - ref).abs().max())
+                lim = 1e-4 * max(1.0, float(ref.abs().max()))
+                worst_cpu = max(worst_cpu, d / lim)
+                check(d <= lim, f'{tag}: layer {i + 1} batch {b}: {d} from '
+                                f'the CPU (limit {lim})')
+    log(f'[{tag}] basic_gnn_inference over {N_PRODUCTS} nodes, batch '
+        f'{LW_BATCH}, {LW_NEIGHBORS} neighbours a layer ({n_batches} batches '
+        f'a layer): {wall:.3f} s a pass ({wall_p:.3f} s under the '
+        f'profiler), the card runs kernels {kern_s:.3f} s and copies '
+        f'{copy_s:.3f} s of it, idle share {1 - kern_s / wall:.4f} of the '
+        f'unprofiled wall; kernel 1 launched '
+        f"{counts['segment_spmm']} times (2 a batch); the first "
+        f'{LW_CPU_BATCHES} batches of each layer within '
+        f'{worst_cpu:.3e} of their limit from the CPU')
+    # the full-neighbourhood check at 0.01 scale
+    n_s = int(N_PRODUCTS * LW_CHECK_SCALE)
+    e_s = int(E_PRODUCTS * LW_CHECK_SCALE)
+    coo_s = products_graph(n_s, e_s, seed)
+    max_deg = int(np.bincount(coo_s[1], minlength=n_s).max())
+    gen = torch.Generator(device='cuda').manual_seed(seed + 7)
+    x_s = torch.randn((n_s, PR_F), generator=gen, device='cuda')
+    t0 = time.perf_counter()
+    lw = basic_gnn_inference(model, Data(x=x_s, edge_index=coo_s,
+                                         num_nodes=n_s),
+                             batch_size=LW_CHECK_BATCH,
+                             num_neighbors_per_layer=max_deg)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        full = model(x_s, EdgeIndex(coo_s, (n_s, n_s),
+                                    device='cuda').fill_cache(blocked=False))
+    d_full = float((lw - full).abs().max())
+    lim = 1e-4 * max(1.0, float(full.abs().max()))
+    check(d_full <= lim, f'{tag}: layer-wise output {d_full} from the full '
+                         f'forward at {LW_CHECK_SCALE} scale (limit {lim})')
+    log(f'[{tag}] products graph at {LW_CHECK_SCALE} scale ({n_s} nodes, '
+        f'{e_s} edges), {max_deg} neighbours a layer (its largest '
+        f'in-degree), batch {LW_CHECK_BATCH}: layer-wise output '
+        f'{d_full:.3e} from the full-graph forward (limit {lim:.3e}), in '
+        f'{check_s:.2f} s')
+    x1, coo, size, _ = records[0][0]
+    served = (x1, coo, size, records[1][0][0])
+    kernel_rows, worst = sampled_kernel_rows(torch, seed, row, data.x,
+                                             served)
+    return {'nodes': N_PRODUCTS, 'batch': LW_BATCH,
+            'neighbors': LW_NEIGHBORS, 'batches_per_layer': n_batches,
+            'n_cap': int(size[0]), 'edge_slots': int(coo.shape[1]),
+            'seconds_per_pass': wall, 'profiled_seconds_per_pass': wall_p,
+            'device_kernel_s': kern_s,
+            'device_copy_s': copy_s, 'device_idle_share': 1 - kern_s / wall,
+            'launch_counts': counts,
+            'cpu_check': {'batches_per_layer': LW_CPU_BATCHES,
+                          'worst_over_limit': worst_cpu},
+            'full_check': {'scale': LW_CHECK_SCALE, 'nodes': n_s,
+                           'edges': e_s, 'neighbors': max_deg,
+                           'batch': LW_CHECK_BATCH,
+                           'max_abs_diff': d_full, 'limit': lim,
+                           'seconds': check_s}}, kernel_rows, worst
 
 
 # -- the flash kernels and paths K, L, M --------------------------------------
@@ -4514,7 +4790,11 @@ def main():
     log(f'[products] products_bench graph ({N_PRODUCTS} nodes, {E_PRODUCTS} '
         f'edges, seed {args.seed}) built on the host in '
         f'{time.perf_counter() - t0:.1f} s')
-    scan = phase_scan_train(torch, args.seed, PR_REPS, coo)
+    scan, sage, pr_data, pr_row = phase_scan_train(torch, args.seed, coo)
+    layerwise, sampled_rows, worst_sampled = phase_layerwise(
+        torch, args.seed, sage, pr_data, pr_row)
+    del sage, pr_data, pr_row
+    torch.cuda.empty_cache()
     path_k = phase_path_k(torch, args.seed, coo, args.iters)
     torch.cuda.empty_cache()
     flash_rows, worst_flash_t = phase_flash_timings(torch, args.seed, coo,
@@ -4557,6 +4837,7 @@ def main():
     path_counts.update({f'{name}_captured': v['captured']['launch_counts']
                         for name, v in twins.items()})
     path_counts['scan_train'] = scan['launch_counts']
+    path_counts['layerwise'] = layerwise['launch_counts']
     for name, res in flash_paths.items():
         path_counts.update({
             name: res['launch_counts'],
@@ -4608,7 +4889,7 @@ def main():
                               'path_f': path_f, 'path_g': path_g,
                               'path_h': path_h, 'path_i': path_i,
                               'path_j': path_j, 'scan_train': scan,
-                              **flash_paths}}))
+                              'layerwise': layerwise, **flash_paths}}))
     # a path K training step launches each flash kernel once per layer: the
     # rows of layer 1 (H=4, C=16) and layer 2 (H=1, C=47)
     flash_step = {}
@@ -4666,8 +4947,10 @@ def main():
         // serving['GCN']['forwards'],
         'launches_per_step': {'path_a': path_a['launches_per_step'][
             'segment_spmm'], **{f'path_b_{k.lower()}': v['launches_per_step']
-                                for k, v in path_b.items()}},
-        'max_abs_err': max(worst, worst_bwd),
+                                for k, v in path_b.items()},
+            'scan_train': scan['launches_per_step']['segment_spmm']},
+        'launches_per_layerwise_batch': 2,
+        'max_abs_err': max(worst, worst_bwd, worst_sampled),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -4676,13 +4959,16 @@ def main():
                      'F=16; path B\'s forward and backward passes per call '
                      'in path_b_per_shape, path A\'s residual (with the '
                      'block product as base) per call in residual_per_shape '
-                     'and per step in residual_per_step',
+                     'and per step in residual_per_step, the sampled '
+                     'training and layer-wise serving shapes per call in '
+                     'sampled_per_shape',
         'per_shape': shapes,
         'backward_per_shape': [r for r in seg_rows['path_b']
                                if r['pass'] != 'forward'],
         'path_b_per_shape': seg_rows['path_b'],
         'residual_per_shape': seg_rows['residual'],
         'residual_per_step': residual_step,
+        'sampled_per_shape': sampled_rows,
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',

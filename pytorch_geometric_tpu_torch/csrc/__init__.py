@@ -1,24 +1,34 @@
 """Hand-written CUDA kernels, built with ``nvcc`` at first use and bound with
-ctypes.
+ctypes, and the native host sampler, built with ``g++`` at first use.
 
-Each source in this directory is compiled on its own into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds). The
-library goes to ``pytorch_geometric_tpu_torch/_build/`` under a name keyed by
-a hash of the source, the shared headers (``*.cuh``) and the flags, so an
-edited source or header is rebuilt and an unchanged one is reused.
+Each CUDA source in this directory is compiled on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). The library goes to ``pytorch_geometric_tpu_torch/_build/`` under a
+name keyed by a hash of the source, the shared headers (``*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.
+
+``sampler.cpp`` (the neighbour sampler of ``sampler/neighbor_sampler.py``)
+is host code: :func:`sampler_library` builds it with ``g++`` into the same
+directory, keyed the same way and by the host (it is built for the host's
+CPU), and ``WITH_NATIVE_SAMPLER`` says whether it is there. Where ``g++`` is
+missing or the build fails, the samplers take their numpy paths, as the JAX
+package's do (its ``csrc/__init__.py``).
 
 Nothing here runs at import: the package imports on a machine without
-``nvcc`` or a card, where only the plain versions of the kernels run.
+``nvcc`` or a card, where only the plain versions of the kernels run;
+``WITH_NATIVE_SAMPLER`` builds the sampler when it is first read.
 """
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parent / '_build'
@@ -124,3 +134,104 @@ def function(name: str, symbol: str, argtypes: Sequence):
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+# -- the native host sampler ---------------------------------------------------
+SAMPLER_SOURCE = 'sampler.cpp'
+# the JAX package's flags (its csrc/__init__.py), so that both builds draw
+# the same neighbours; -march=native ties the library to the host's CPU
+HOST_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-std=c++17')
+
+_host_lock = threading.Lock()
+_sampler: Optional[ctypes.CDLL] = None
+_sampler_tried = False
+
+
+def sampler_path() -> Path:
+    """Where the sampler library of this source, these flags and this host
+    goes."""
+    h = hashlib.sha256((SOURCE_DIR / SAMPLER_SOURCE).read_bytes())
+    h.update(' '.join(HOST_FLAGS).encode())
+    h.update(f'{platform.machine()} {platform.node()}'.encode())
+    return BUILD_DIR / f'libsampler-{h.hexdigest()[:16]}.so'
+
+
+def build_sampler() -> Path:
+    """Compile the sampler library unless it is built already. Raises
+    ``RuntimeError`` with the compiler's output if ``g++`` fails,
+    ``FileNotFoundError`` where there is no ``g++`` and
+    ``subprocess.TimeoutExpired`` past 300 s."""
+    target = sampler_path()
+    if target.is_file():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # write under a name of this process and thread, then rename: the test
+    # workers, or a loader's threads, may all build it at once
+    tmp = target.with_name(
+        f'{target.stem}.{os.getpid()}.{threading.get_ident()}.tmp')
+    try:
+        res = subprocess.run(['g++', *HOST_FLAGS,
+                              str(SOURCE_DIR / SAMPLER_SOURCE), '-o',
+                              str(tmp)], capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f'g++ build of {SAMPLER_SOURCE} failed (exit '
+                               f'{res.returncode}):\n{res.stdout}'
+                               f'{res.stderr}')
+        os.replace(tmp, target)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return target
+
+
+def sampler_library() -> Optional[ctypes.CDLL]:
+    """The sampler library with ``neighbor_sample`` and
+    ``neighbor_sample_tw`` bound, built first if needed; ``None`` where it
+    cannot be built (the samplers then take their numpy paths). Bound with
+    ``ctypes.CDLL``, which releases the GIL for the length of a call."""
+    global _sampler, _sampler_tried
+    with _host_lock:
+        if _sampler is not None or _sampler_tried:
+            return _sampler
+        _sampler_tried = True
+        try:
+            lib = ctypes.CDLL(str(build_sampler()))
+        except (OSError, RuntimeError, subprocess.SubprocessError):
+            return None
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.neighbor_sample.restype = ctypes.c_int64
+        lib.neighbor_sample.argtypes = [
+            i64p, i64p, i64p, ctypes.c_int64,          # csc, n
+            i64p, ctypes.c_int64,                      # seeds
+            i64p, ctypes.c_int64,                      # fanouts
+            i64p, ctypes.c_int64, ctypes.c_int64,      # caps
+            ctypes.c_int, ctypes.c_uint64,             # replace, seed
+            i64p, u8p, i64p, i64p, i64p, u8p,          # outputs
+            i64p, i64p,
+        ]
+        lib.neighbor_sample_tw.restype = ctypes.c_int64
+        lib.neighbor_sample_tw.argtypes = [
+            i64p, i64p, i64p, ctypes.c_int64,          # csc, n
+            i64p, ctypes.c_int64, f64p,                # seeds, seed_time
+            i64p, ctypes.c_int64,                      # fanouts
+            i64p, ctypes.c_int64, ctypes.c_int64,      # caps
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # replace/disj/strat
+            f64p, f64p, f64p,                          # node/edge time, w
+            ctypes.c_uint64,                           # seed
+            i64p, i64p, u8p,                           # node, batch, mask
+            i64p, i64p, i64p, u8p,                     # row/col/eid/mask
+            i64p, i64p,
+        ]
+        _sampler = lib
+        return _sampler
+
+
+def __getattr__(name):
+    # WITH_NATIVE_SAMPLER is read at call time (the samplers look it up on
+    # this module), so that a test can set it, and so that importing the
+    # package builds nothing
+    if name == 'WITH_NATIVE_SAMPLER':
+        return sampler_library() is not None
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -11,6 +11,17 @@ Padding-bucket contract: the K stacked batches share one padded shape
 (``NeighborLoader``'s fixed per-hop caps give it); a batch of another shape
 is another graph, as it is another trace of ``scan_fn`` in JAX.
 
+The kernel route: the default loss turns each batch's COO into an
+``EdgeIndex`` on the card (padded edges at the ``n_cap`` sentinel, the
+sparse size given, so nothing reads a size back from the card under a
+capture), caches both sorted orientations (two sorts and two
+``searchsorted``s, no host sync) and calls the model on it without an edge
+mask, so a SAGE mean runs ``spmm`` and with it the segment-sum kernel,
+forward and transposed backward, which adds without atomics: the steps are
+repeatable bit for bit. The gather route (:func:`gather_cross_entropy`)
+passes the raw COO with the mask, as the JAX package's step does; the two
+agree within float32 rounding.
+
 The JAX package is functional, the port stateful: JAX's ``step_fn(params,
 opt, X, Y, b) -> (params, opt, loss)`` is the port's ``step_fn(X, Y, b) ->
 loss``, which updates ``model``'s parameters and ``optimizer``'s state in
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 
 from .. import compat
 from ..backend import resolve_device
+from ..edge_index import EdgeIndex
 
 __all__ = ['stack_batches', 'make_device_train_step']
 
@@ -73,13 +85,40 @@ def stack_batches(batches: List, device=None) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(out[k], device=device) for k in KEYS}
 
 
-def seed_cross_entropy(model, x, coo, edge_mask, y, seed_mask):
-    """The default loss: softmax cross-entropy over the seed nodes only,
-    averaged over them (at least one)."""
-    logits = model(x, coo, edge_mask=edge_mask)
+def batch_edge_index(coo: torch.Tensor, edge_mask: torch.Tensor,
+                     n_cap: int) -> EdgeIndex:
+    """One padded batch's ``[2, E]`` batch-local COO as an ``EdgeIndex`` on
+    its device, both orientations cached: the masked-out edges at the
+    ``n_cap`` sentinel (past every sorted row, so the sums drop them), the
+    sparse size ``(n_cap, n_cap)``. Reads nothing back from the card, so it
+    may run inside a capture."""
+    coo = torch.where(edge_mask, coo.int(), n_cap)
+    return EdgeIndex(coo, (n_cap, n_cap)).fill_cache(blocked=False)
+
+
+def seed_mean(logits, y, seed_mask):
+    """Softmax cross-entropy over the seed nodes only, averaged over them
+    (at least one)."""
     loss = F.cross_entropy(logits, y.long(), reduction='none')
     return (torch.where(seed_mask, loss, 0.0).sum()
             / seed_mask.sum().clamp(min=1))
+
+
+def seed_cross_entropy(model, x, coo, edge_mask, y, seed_mask):
+    """The default loss, on the kernel route: the model runs on the batch's
+    ``EdgeIndex`` (:func:`batch_edge_index`, the padded edges at the
+    sentinel) with no mask and aggregates over the cached CSC; then
+    :func:`seed_mean`."""
+    ei = batch_edge_index(coo, edge_mask, x.shape[0])
+    return seed_mean(model(x, ei), y, seed_mask)
+
+
+def gather_cross_entropy(model, x, coo, edge_mask, y, seed_mask):
+    """The gather route's loss: the model aggregates the raw COO with the
+    edge mask (``nn/message_passing.py``'s gather path, the JAX package's
+    step; no kernel of the port, atomic adds in the backward); then
+    :func:`seed_mean`."""
+    return seed_mean(model(x, coo, edge_mask=edge_mask), y, seed_mask)
 
 
 def make_device_train_step(model, optimizer,
@@ -99,7 +138,9 @@ def make_device_train_step(model, optimizer,
     place (the graphs take them as static arguments: another table is
     another capture); each step gathers its rows by ``n_id`` on the device,
     zeroing the padded ones. ``loss_fn(model, x, coo, edge_mask, y,
-    seed_mask)`` defaults to :func:`seed_cross_entropy`.
+    seed_mask)`` gets the batch's ``[2, E]`` int64 COO; it defaults to
+    :func:`seed_cross_entropy` (the kernel route, which builds the batch's
+    ``EdgeIndex``); :func:`gather_cross_entropy` is the gather route.
 
     The port updates in place where JAX returns new values: ``model``'s
     parameters are JAX's ``params``, ``optimizer``'s state its ``opt``."""

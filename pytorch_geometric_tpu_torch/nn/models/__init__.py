@@ -1,4 +1,6 @@
 from .mlp import MLP
-from .basic_gnn import BasicGNN, GAT, GCN, GraphSAGE, GIN
+from .basic_gnn import (BasicGNN, GAT, GCN, GraphSAGE, GIN,
+                        basic_gnn_inference)
 
-__all__ = ['MLP', 'BasicGNN', 'GAT', 'GCN', 'GraphSAGE', 'GIN']
+__all__ = ['MLP', 'BasicGNN', 'GAT', 'GCN', 'GraphSAGE', 'GIN',
+           'basic_gnn_inference']

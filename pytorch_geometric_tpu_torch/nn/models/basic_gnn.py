@@ -2,9 +2,10 @@
 
 Counterpart of ``pytorch_geometric_tpu/nn/models/basic_gnn.py``. Stacks
 ``num_layers`` convolutions with activation, optional layer norm, dropout,
-jumping-knowledge aggregation and a final projection. ``norm='batch_norm'``,
-``PNA``, ``EdgeCNN`` and ``basic_gnn_inference`` are not ported yet
-(ROADMAP Queue 1).
+jumping-knowledge aggregation and a final projection;
+:func:`basic_gnn_inference` runs a model layer by layer over sampled
+neighbourhoods. ``norm='batch_norm'``, ``PNA`` and ``EdgeCNN`` are not
+ported yet (ROADMAP Queue 1).
 """
 
 from typing import Any, Callable, Dict, Optional
@@ -151,3 +152,75 @@ class GAT(BasicGNN):
         return cls(in_channels, ch, heads=self.heads, concat=concat,
                    dropout=self.dropout, **self.conv_kwargs, device=device,
                    generator=generator)
+
+
+def basic_gnn_inference(model: BasicGNN, data, batch_size: int = 256,
+                        num_neighbors_per_layer: int = 64,
+                        edge_weight=None) -> torch.Tensor:
+    """Layer-wise full-graph inference (reference ``basic_gnn.py:302-383``):
+    each layer's representation of ALL nodes is computed before the next
+    layer, sampling only 1-hop neighbourhoods per batch, which avoids the
+    exponential fan-out of full L-hop sampling. Requires ``jk=None`` and
+    ``norm in (None, 'layer_norm')``; returns ``[N, C]`` on the model's
+    device.
+
+    The JAX package's ``basic_gnn_inference(model, params, data, ...)``
+    with the same sampling and the same results; the port's model holds its
+    parameters. Where the JAX package joins each batch's features on the
+    host, the port keeps ``x_all`` on the model's device: the loader yields
+    structure only (``filter_features=False``), each batch gathers its rows
+    by ``n_id`` there and builds its ``EdgeIndex`` there
+    (``loader/scan_train.py::batch_edge_index``; a SAGE or GCN layer then
+    runs the segment-sum kernel on the card), and each batch's seed rows go
+    into the layer's output there. ``edge_weight`` ([E], full-graph
+    weights such as cached GCN norms) is gathered per batch by ``e_id``.
+    One loader serves every layer, its generator re-seeded before each, so
+    every layer samples what the JAX package's fresh loader of seed 0
+    samples."""
+    import numpy as np
+    from ...data import Data
+    from ...data.data import as_tensor
+    from ...loader import NeighborLoader
+    from ...loader.scan_train import batch_edge_index
+
+    if model.jk is not None:
+        raise ValueError('basic_gnn_inference needs jk=None (got '
+                         f'{model.jk!r})')
+    device = next(model.parameters()).device
+    n = data.num_nodes
+    x_all = data.x.to(device, torch.float32)
+    w_all = None if edge_weight is None else as_tensor(edge_weight).to(
+        device)
+    loader = NeighborLoader(Data(edge_index=data.edge_index, num_nodes=n),
+                            num_neighbors=[num_neighbors_per_layer],
+                            batch_size=batch_size, shuffle=False,
+                            filter_features=False)
+    with torch.inference_mode():
+        for layer, conv in enumerate(model.convs):
+            is_last = layer == model.num_layers - 1
+            loader.rng = np.random.default_rng(0)
+            out = None
+            for i, b in enumerate(loader):
+                node_mask = b.node_mask.to(device)
+                n_id = torch.where(node_mask, b.n_id.to(device), 0).long()
+                edge_mask = b.edge_mask.to(device)
+                x = torch.where(node_mask[:, None], x_all[n_id], 0.0)
+                ei = batch_edge_index(b.edge_index.to(device), edge_mask,
+                                      node_mask.shape[0])
+                kwargs = {}
+                if w_all is not None:
+                    e_id = torch.where(edge_mask, b.e_id.to(device), 0)
+                    kwargs['edge_weight'] = torch.where(
+                        edge_mask, w_all[e_id.long()], 0)
+                h = conv(x, ei, **kwargs)
+                if not (is_last and model._final_in_loop):
+                    if model.norms is not None:
+                        h = model.norms[layer](h)
+                    h = model.act(h)
+                if out is None:
+                    out = h.new_empty((n, h.shape[1]))
+                start = i * batch_size
+                bs = int(b.batch_size)
+                out[start:start + bs] = h[:bs]
+            x_all = out
+    return x_all

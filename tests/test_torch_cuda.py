@@ -1316,34 +1316,41 @@ def test_host_sync_inside_a_compiled_function_raises(dev):
 def test_gather_path_gradient_matches_plain_on_a_padded_batch(dev):
     """The gather path (a raw COO with an edge mask) on the card against
     the CPU plain path, on one padded batch of ``products_bench.py``'s
-    loader (``chip_smoke.py``'s copy of its graph at 0.2 % of its size and
-    of its sampler; batch 64, fan-outs [15, 10]). The card gathers messages
-    with ``index_select``, whose backward adds with atomics, so the sums may
-    come in another order on every run: loss within 1e-5 relative, each
-    gradient within 1e-5 of its largest magnitude, on two runs."""
+    loader (``chip_smoke.py``'s copy of its graph at 0.2 % of its size,
+    sampled by the port's ``NeighborLoader``; batch 64, fan-outs [15, 10]).
+    The card gathers messages with ``index_select``, whose backward adds
+    with atomics, so the sums may come in another order on every run: loss
+    within 1e-5 relative, each gradient within 1e-5 of its largest
+    magnitude, on two runs."""
     import importlib.util
     from pathlib import Path
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import NeighborLoader
     spec = importlib.util.spec_from_file_location(
         'chip_smoke', Path(__file__).resolve().parent.parent / 'chip_smoke.py')
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     n, e = 4898, 247_436
-    b = smoke.products_batches(smoke.products_graph(n, e, 0), n, 64,
-                               (15, 10), 1, 0)[0]
-    assert 0 < b.node_mask.mean() < 1 and 0 < b.edge_mask.mean() < 1
+    loader = NeighborLoader(Data(edge_index=smoke.products_graph(n, e, 0),
+                                 num_nodes=n), [15, 10], batch_size=64,
+                            shuffle=True, filter_features=False)
+    b = next(iter(loader))
+    node_mask, edge_mask = b.node_mask.numpy(), b.edge_mask.numpy()
+    batch_size = int(b.batch_size)
+    assert 0 < node_mask.mean() < 1 and 0 < edge_mask.mean() < 1
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((b.num_nodes, 32)).astype(np.float32)
-         * b.node_mask[:, None])
-    y = rng.integers(0, 7, b.batch_size)
+         * node_mask[:, None])
+    y = rng.integers(0, 7, batch_size)
     runs = []
     for d in ('cpu', dev, dev):
         model = GraphSAGE(32, 16, 2, 7, device=d,
                           generator=torch.Generator().manual_seed(0))
         out = model(torch.as_tensor(x, device=d),
-                    torch.as_tensor(b.edge_index.astype(np.int64), device=d),
-                    edge_mask=torch.as_tensor(b.edge_mask, device=d))
+                    b.edge_index.to(d, torch.int64),
+                    edge_mask=torch.as_tensor(edge_mask, device=d))
         loss = torch.nn.functional.cross_entropy(
-            out[:b.batch_size], torch.as_tensor(y, device=d))
+            out[:batch_size], torch.as_tensor(y, device=d))
         loss.backward()
         runs.append((loss.item(), [p.grad.cpu() for p in model.parameters()]))
     (ref_loss, ref), cards = runs[0], runs[1:]
@@ -2018,3 +2025,158 @@ def test_flash_convs_on_card_match_cpu(dev, conv, monkeypatch):
     for k, g in g_cpu.items():
         scale = largest if k == 'lin_key.bias' else float(g.abs().max())
         assert float((g_card[k] - g).abs().max()) <= 1e-4 * scale, k
+
+
+# -- the sampled path: loaders, the kernel route, layer-wise inference -------
+def _sampled_case(seed, n=3000, e=30000, f=100, classes=7):
+    """A random graph, features and labels, and a NeighborLoader's first
+    batches (batch 64, fan-outs [5, 3], structure only)."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import NeighborLoader
+    rng = np.random.default_rng(seed)
+    coo = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    y = rng.integers(0, classes, n)
+    loader = NeighborLoader(Data(edge_index=coo, num_nodes=n), [5, 3],
+                            batch_size=64, shuffle=True, seed=seed,
+                            filter_features=False)
+    it = iter(loader)
+    return x, y, [next(it) for _ in range(4)]
+
+
+def _sage(dev, f=100, classes=7):
+    return GraphSAGE(f, 32, 2, classes, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+
+
+def test_batch_edge_index_builds_inside_a_capture(dev):
+    """The kernel route's step body (the batch's EdgeIndex: a where, two
+    sorts, two searchsorteds) captures into a CUDA graph, its replays
+    launch kernel 1 three times, and they follow the eager steps bit for
+    bit (kernel 1 adds without atomics)."""
+    from pytorch_geometric_tpu_torch.loader import (make_device_train_step,
+                                                    stack_batches)
+    x, y, batches = _sampled_case(1)
+    X, Y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    stacked = stack_batches(batches, device=dev)
+    rows = [{k: v[i] for k, v in stacked.items()} for i in range(4)]
+    losses, states = [], []
+    for compiled in (False, True):
+        model = _sage(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2, capturable=True)
+        step_fn, _ = make_device_train_step(model, opt)
+        step = step_fn if compiled else step_fn.__wrapped__
+        losses.append(torch.stack([step(X, Y, rows[i % 4])
+                                   for i in range(6)]))
+        states.append([p.detach().clone() for p in model.parameters()])
+    assert step_fn.captures == 1 and step_fn.replays == 4
+    assert step_fn.launches_per_replay == {'segment_spmm': 3}
+    assert torch.equal(losses[0], losses[1])
+    assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+def test_segment_kernel_at_sampled_width_100(dev):
+    """Kernel 1 at F = 100 (25 vectors of 4 over 32 lanes) on a sampled
+    batch's CSC, padded slots included, against its plain version."""
+    from pytorch_geometric_tpu_torch.loader.scan_train import \
+        batch_edge_index
+    x, _, batches = _sampled_case(2)
+    b = batches[0]
+    ei = batch_edge_index(b.edge_index.to(dev), b.edge_mask.to(dev),
+                          b.num_nodes)
+    rows = torch.as_tensor(x, device=dev)[b.n_id.to(dev).long()]
+    csc = ei.csc
+    out = segment_spmm(csc.indptr, csc.indices, None, rows)
+    ref = segment_spmm_plain(csc.indptr.cpu(), csc.indices.cpu(), None,
+                             rows.cpu())
+    scale = segment_spmm_plain(csc.indptr.cpu(), csc.indices.cpu(), None,
+                               rows.cpu().abs())
+    assert bool(((out.cpu() - ref).abs() <= 1e-5 + 1e-5 * scale).all())
+
+
+def test_kernel_route_matches_gather_route_on_card(dev):
+    """From the same weights, one step per batch on each route, on the
+    card: losses within 1e-5 relative, gradients within 1e-4 of each
+    tensor's largest (the gather route adds with atomics)."""
+    from pytorch_geometric_tpu_torch.loader import (make_device_train_step,
+                                                    stack_batches)
+    from pytorch_geometric_tpu_torch.loader.scan_train import \
+        gather_cross_entropy
+
+    x, y, batches = _sampled_case(3)
+    X, Y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    stacked = stack_batches(batches, device=dev)
+    for i in range(4):
+        b = {k: v[i] for k, v in stacked.items()}
+        runs = []
+        for loss_fn in (None, gather_cross_entropy):
+            model = _sage(dev)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+            step_fn, _ = make_device_train_step(model, opt, loss_fn)
+            loss = step_fn.__wrapped__(X, Y, b)
+            runs.append((float(loss), {k: p.grad.clone()
+                                       for k, p in model.named_parameters()}))
+        (lk, gk), (lg, gg) = runs
+        assert abs(lk - lg) <= 1e-5 * abs(lg)
+        for k in gg:
+            assert float((gk[k] - gg[k]).abs().max()) <= 1e-4 * float(
+                gg[k].abs().max()), k
+
+
+def test_prefetch_upload_intact_under_a_running_replay(dev):
+    """PrefetchLoader uploads through pinned buffers on its copy stream
+    while captured work runs on the consumer's stream: every batch arrives
+    equal to its host copy, in order, plain and threaded, and a replay fed
+    by it reads the uploaded values."""
+    from pytorch_geometric_tpu_torch import compat
+    from pytorch_geometric_tpu_torch.loader import PrefetchLoader
+    rng = np.random.default_rng(4)
+    host = [{'a': torch.from_numpy(rng.standard_normal((512, 256)).astype(
+        np.float32)), 'b': torch.from_numpy(rng.integers(0, 9, 70000)),
+        'm': torch.from_numpy(rng.random(333) < 0.5)} for _ in range(12)]
+    w = torch.randn(256, 256, device=dev)
+
+    @compat.compile
+    def busy(a):
+        for _ in range(40):
+            a = torch.tanh(a @ w)
+        return a.sum()
+
+    for threads in (0, 1):
+        seen = 0
+        for got, ref in zip(PrefetchLoader(host, device=dev,
+                                           num_threads=threads), host):
+            assert got['a'].is_cuda and got['a'].dtype == torch.float32
+            out = busy(got['a'])
+            expect = busy.__wrapped__(ref['a'].to(dev))
+            assert torch.equal(out, expect)
+            for k in ref:
+                assert torch.equal(got[k].cpu(), ref[k]), k
+            seen += 1
+        assert seen == len(host)
+    assert busy.replays > 0
+
+
+def test_layerwise_inference_on_card_matches_cpu(dev):
+    """``basic_gnn_inference`` on the card (kernel 1 twice a batch) against
+    the same model on the CPU, on a cut graph: within 1e-4 of the largest
+    magnitude."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.nn.models import basic_gnn_inference
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm \
+        as seg
+    rng = np.random.default_rng(5)
+    n = 2000
+    coo = np.stack([rng.integers(0, n, 20000), rng.integers(0, n, 20000)])
+    x = rng.standard_normal((n, 100)).astype(np.float32)
+    outs = []
+    seg.launches = 0
+    for d in ('cpu', dev):
+        model = _sage(d)
+        outs.append(basic_gnn_inference(
+            model, Data(x=x, edge_index=coo, num_nodes=n), batch_size=256,
+            num_neighbors_per_layer=8).cpu())
+    assert seg.launches == 2 * -(-n // 256)
+    ref = outs[0]
+    assert float((outs[1] - ref).abs().max()) <= 1e-4 * float(
+        ref.abs().max())

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: importing it loads nothing of JAX, flax or
 the JAX package; no file of it (nor ``chip_smoke.py``) imports them; its
 entry points run on the CUDA card unless asked for the CPU, and raise
-without a card instead of running on the CPU."""
+without a card instead of running on the CPU; its host-side loaders run
+without a card, on the port's own build of the native sampler."""
 
 import ast
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -47,12 +49,16 @@ def test_import_loads_no_jax():
         'print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n'
         'assert not bad, bad\n'
         'assert {"pytorch_geometric_tpu_torch.compat", '
-        '"pytorch_geometric_tpu_torch.loader.scan_train"} <= set('
+        '"pytorch_geometric_tpu_torch.loader.scan_train", '
+        '"pytorch_geometric_tpu_torch.data.batch", '
+        '"pytorch_geometric_tpu_torch.sampler.neighbor_sampler", '
+        '"pytorch_geometric_tpu_torch.loader.neighbor_loader", '
+        '"pytorch_geometric_tpu_torch.loader.prefetch"} <= set('
         'sys.modules)\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 33   # every module was imported
+    assert int(res.stdout.split()[-1]) >= 43   # every module was imported
 
 
 @pytest.mark.parametrize('path', sorted(
@@ -145,3 +151,36 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_loaders_run_on_the_host_without_a_card(no_card):
+    """Sampling and collation are host work: the loaders run with no card
+    visible; an upload to the default device (the card) raises."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import (CachedLoader,
+                                                    NeighborLoader,
+                                                    PrefetchLoader)
+    coo = np.array([[0, 1, 2, 3], [1, 2, 3, 0]])
+    loader = NeighborLoader(Data(x=np.ones((4, 2), np.float32),
+                                 edge_index=coo, num_nodes=4), [2],
+                            batch_size=2)
+    assert [int(b.batch_size) for b in loader] == [2, 2]
+    assert len(list(PrefetchLoader(loader, put=False, num_threads=1))) == 2
+    for cls in (PrefetchLoader, CachedLoader):
+        with pytest.raises(RuntimeError, match='no CUDA card'):
+            cls(loader)
+
+
+def test_native_sampler_is_the_ports_own_build():
+    """The sampler library is built from the port's copy of the source into
+    the port's build directory (never the JAX package's
+    ``csrc.load()``, which writes next to its sources), and bound with
+    ``ctypes.CDLL``, which releases the GIL around each call."""
+    from pytorch_geometric_tpu_torch import csrc
+    lib = csrc.sampler_library()
+    assert lib is not None and csrc.WITH_NATIVE_SAMPLER
+    assert type(lib) is ctypes.CDLL
+    path = csrc.sampler_path()
+    assert path.parent == PKG / '_build' and path.is_file()
+    assert csrc.SOURCE_DIR == PKG / 'csrc'
+    assert (PKG / 'csrc' / csrc.SAMPLER_SOURCE).is_file()

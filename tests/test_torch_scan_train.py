@@ -3,7 +3,13 @@ package's, on the CPU: ``stack_batches`` (its keys, its arrays, the int16
 rule on both sides of ``2**15 - 1``) and ``make_device_train_step``'s
 ``step_fn`` x K and ``scan_fn`` from the same ``GraphSAGE(hidden 16, 2
 layers)`` weights (carried across by ``convert.flax_to_state_dict``),
-``optax.adam`` against ``torch.optim.Adam``.
+``optax.adam`` against ``torch.optim.Adam``. The port's step runs the kernel
+route (each batch's ``EdgeIndex``, a SAGE mean over its CSC); the JAX
+package's aggregates the COO with the mask (the gather route), which the
+port's step also takes with a loss that passes them: the two routes agree
+within 1e-6, and a row with no valid in-edge is 0 on both. Also: the
+port's ``NeighborLoader`` over ``chip_smoke.py``'s products graph at 0.01
+scale gives the JAX package's batches, on the native and the numpy sampler.
 
 The batches are made from a numpy seed at the padded shape a
 ``NeighborLoader`` gives (``n_cap`` local nodes, the ``n_cap`` sentinel on
@@ -190,12 +196,11 @@ def _load(name, path):
     return mod
 
 
-def _jax_loader_batches(coo, n, k):
-    from pytorch_geometric_tpu.data import Data
-    from pytorch_geometric_tpu.loader import NeighborLoader
-    loader = NeighborLoader(Data(edge_index=coo, num_nodes=n), [15, 10],
-                            batch_size=512, shuffle=True,
-                            filter_features=False)
+def _loader_batches(cls, data_cls, coo, n, k):
+    """The first ``k`` batches of ``products_bench.py``'s sampled-training
+    loader (``:171-174``) over ``coo``, from one package's classes."""
+    loader = cls(data_cls(edge_index=coo, num_nodes=n), [15, 10],
+                 batch_size=512, shuffle=True, filter_features=False)
     it = iter(loader)
     return [next(it) for _ in range(k)]
 
@@ -204,40 +209,109 @@ def _jax_loader_batches(coo, n, k):
 PRODUCTS_SCALE = 0.01
 
 
-def test_chip_smoke_products_batches_match_the_jax_loader(monkeypatch):
-    """``chip_smoke.py``'s scan traffic is ``products_bench.py``'s: its copy
-    of ``build_products_like`` gives the same graph, and its sampler the
-    same first batches of the loader's epoch (batch 512, fan-outs [15,
-    10], ``filter_features=False``), field for field, as the JAX package's
-    ``NeighborLoader`` on its numpy sampler."""
+def _products_loaders_match(monkeypatch, native, k):
+    """``chip_smoke.py``'s copy of ``build_products_like`` gives the bench's
+    graph, and the port's ``NeighborLoader`` over it the JAX package's first
+    ``k`` batches (batch 512, fan-outs [15, 10], ``filter_features=False``),
+    field for field, both on their native or both on their numpy sampler.
+    Returns the port's batches."""
     import pytorch_geometric_tpu.csrc as jcsrc
+    from pytorch_geometric_tpu.data import Data as JData
+    from pytorch_geometric_tpu.loader import NeighborLoader as JNeighborLoader
+    from pytorch_geometric_tpu_torch import csrc
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import NeighborLoader
     smoke = _load('chip_smoke', 'chip_smoke.py')
     bench = _load('products_bench', 'benchmarks/products_bench.py')
     coo, n, e = bench.build_products_like(scale=PRODUCTS_SCALE)
     np.testing.assert_array_equal(smoke.products_graph(n, e, 0), coo)
-    got = smoke.products_batches(coo, n, 512, (15, 10), 3, 0)
-    monkeypatch.setattr(jcsrc, 'WITH_NATIVE_SAMPLER', False)
-    ref = _jax_loader_batches(coo, n, 3)
+    if native:
+        assert jcsrc.WITH_NATIVE_SAMPLER and csrc.WITH_NATIVE_SAMPLER
+    monkeypatch.setattr(jcsrc, 'WITH_NATIVE_SAMPLER', native)
+    monkeypatch.setattr(csrc, 'WITH_NATIVE_SAMPLER', native)
+    got = _loader_batches(NeighborLoader, Data, coo, n, k)
+    ref = _loader_batches(JNeighborLoader, JData, coo, n, k)
     for g, r in zip(got, ref):
         assert g.num_nodes == int(r.num_nodes) == 84992
-        assert g.batch_size == int(r.batch_size) == 512
-        for key in ('n_id', 'node_mask', 'edge_index', 'edge_mask'):
-            a, b = np.asarray(getattr(g, key)), np.asarray(getattr(r, key))
+        assert int(g.batch_size) == int(r.batch_size) == 512
+        assert sorted(g.keys()) == sorted(r.keys())
+        for key in r.keys():
+            a, b = g[key].numpy(), np.asarray(r[key])
             assert a.dtype == b.dtype, key
             np.testing.assert_array_equal(a, b, err_msg=key)
+    return smoke, got
 
 
-def test_chip_smoke_products_fill_matches_the_native_sampler():
-    """The JAX package's C++ sampler (``products_bench.py``'s, where it is
-    built) draws other neighbours than its numpy sampler, but fills the
-    same share of the padded batch: node and edge fill within 0.01 over 4
-    batches (0.0002 and 0.0008 apart here)."""
-    smoke = _load('chip_smoke', 'chip_smoke.py')
-    bench = _load('products_bench', 'benchmarks/products_bench.py')
-    coo, n, _ = bench.build_products_like(scale=PRODUCTS_SCALE)
-    got = smoke.batch_fill(smoke.products_batches(coo, n, 512, (15, 10), 4,
-                                                  0), (15, 10))
-    ref = smoke.batch_fill(_jax_loader_batches(coo, n, 4), (15, 10))
-    assert 0.2 < got['node_fill'] < 0.9
-    for key in ('node_fill', 'edge_fill'):
-        assert abs(float(got[key]) - float(ref[key])) <= 0.01, key
+def test_chip_smoke_products_batches_match_the_jax_loader(monkeypatch):
+    """The scan traffic of ``chip_smoke.py`` is ``products_bench.py``'s: the
+    same graph, and the port's loader gives the JAX package's batches on the
+    numpy sampler."""
+    _products_loaders_match(monkeypatch, native=False, k=3)
+
+
+def test_chip_smoke_products_fill_matches_the_native_sampler(monkeypatch):
+    """On the native sampler (``products_bench.py``'s, and the one
+    ``chip_smoke.py`` requires), the port's loader gives the JAX package's
+    batches too, and ``chip_smoke.batch_fill`` reads their fill: it draws
+    other neighbours than the numpy sampler but fills a like share of the
+    padded batch."""
+    smoke, got = _products_loaders_match(monkeypatch, native=True, k=4)
+    fill = smoke.batch_fill(got, (15, 10))
+    assert fill['n_cap'] == 84992 and fill['edge_slots'] == 84480
+    assert 0.2 < fill['node_fill'] < 0.9
+    assert 0.5 < fill['edge_fill'] <= 1.0
+
+
+def test_kernel_route_step_matches_the_gather_route():
+    """From the same weights, one step of the kernel route (the batch's
+    ``EdgeIndex``, a SAGE mean over its CSC) and one of the gather route (the
+    COO and the mask) on each batch: losses within 1e-6 relative, every
+    gradient within 1e-6 of its largest magnitude (float32 sums in another
+    order)."""
+    from pytorch_geometric_tpu_torch.loader.scan_train import \
+        gather_cross_entropy
+    _, params, X, Y, batches = _pipeline(seed=2)
+    stacked = stack_batches(batches, device='cpu')
+    Xt, Yt = torch.from_numpy(X), torch.from_numpy(Y)
+    for i in range(K):
+        b = {k: v[i] for k, v in stacked.items()}
+        runs = []
+        for loss_fn in (None, gather_cross_entropy):
+            model, opt = _port(params)
+            step_fn, _ = make_device_train_step(model, opt, loss_fn)
+            loss = float(step_fn(Xt, Yt, b))
+            runs.append((loss, {k: p.grad.clone()
+                                for k, p in model.named_parameters()}))
+        (l_k, g_k), (l_g, g_g) = runs
+        assert abs(l_k - l_g) <= 1e-6 * abs(l_g)
+        for k in g_g:
+            scale = float(g_g[k].abs().max())
+            assert float((g_k[k] - g_g[k]).abs().max()) <= 1e-6 * max(
+                scale, 1e-30), (i, k)
+
+
+def test_mean_with_no_valid_in_edge_is_zero():
+    """A row whose in-edges are all padded (or that has none): the CSC mean
+    of the kernel route divides its empty sum by max(degree, 1), the
+    gather route's masked scatter-mean by max(count, 1); both give 0, and a
+    SAGE layer on either route agrees everywhere."""
+    from pytorch_geometric_tpu_torch.loader.scan_train import (
+        batch_edge_index)
+    from pytorch_geometric_tpu_torch.nn.conv import SAGEConv
+    from pytorch_geometric_tpu_torch.ops import scatter, spmm
+    rng = np.random.default_rng(3)
+    n_cap = 12
+    coo = torch.tensor([[3, 4, 5, 6, 7, 8], [0, 0, 1, 2, 2, 9]])
+    mask = torch.tensor([True, True, True, False, False, True])
+    x = torch.from_numpy(rng.standard_normal((n_cap, 5)).astype(np.float32))
+    ei = batch_edge_index(coo, mask, n_cap)
+    kernel = spmm(ei, x, reduce='mean')
+    gather = scatter(x[coo[0]], coo[1], n_cap, reduce='mean', mask=mask)
+    # row 2 (both in-edges padded) and rows without in-edges: exactly 0
+    empty = [2, 3, 4, 5, 6, 7, 8, 10, 11]
+    assert torch.equal(kernel[empty], torch.zeros(len(empty), 5))
+    assert torch.equal(gather[empty], torch.zeros(len(empty), 5))
+    torch.testing.assert_close(kernel, gather, rtol=0, atol=1e-6)
+    conv = SAGEConv(5, 4, device='cpu')
+    torch.testing.assert_close(conv(x, ei), conv(x, coo, edge_mask=mask),
+                               rtol=0, atol=1e-6)
