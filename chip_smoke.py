@@ -116,9 +116,11 @@ checks them:
      equal to 8 eager steps from one state; ms per step of each, and of the
      gather route on the same batches; 56 steps end to end, host sampling
      included, without and with the prefetch overlap (pinned buffers and a
-     copy stream), with the card's idle share; then layer-wise serving
-     (``basic_gnn_inference``, 64 neighbours, batch 4096) of all nodes with
-     the trained model, kernel 1 twice a batch, its first batches held
+     copy stream), three loops each in turns, with the card's idle share;
+     then one pass of layer-wise serving (``basic_gnn_inference``, 64
+     neighbours, batch 4096) of all nodes with the trained model, profiled
+     over 40 batches of each layer, kernel 1 twice a batch, its first
+     batches held
      against the CPU, and at 0.01 scale with whole neighbourhoods against
      the full-graph forward; kernel 1 timed at the five sampled shapes;
  21. the per-edge dot kernel (``csrc/sddmm.cu``), both arms, against its
@@ -142,7 +144,35 @@ checks them:
      the bound from the bytes each call must move; its sweep of every slice
      shape of the arm (whole heads: 4, 2, 1; then one head in 2, 4, ...
      column slices) at every shape, each output bitwise equal to one
-     slice's, and the other arm at its own rule.
+     slice's, and the other arm at its own rule;
+ 25. path N, ``benchmarks/hetero_bench.py --arms hgt`` at full scale (its
+     OGB-MAG-shaped graph, ``build_mag_like(1.0)``: 1,939,743 nodes in 4
+     types, 36,804,743 edges in 7 edge types; ``run_hgt``'s model, HGTConv
+     64 x 4 heads twice and a Linear to 8 classes, Adam 1e-3) on raw COOs:
+     'paper', 'author' and 'field' on the flash kernels, 'institution' on
+     the wide op and the dot kernel; served and trained eager and captured,
+     against the plain versions on the card and at 0.002 scale against the
+     CPU; the bench's ``--layouts`` arm (``build_hgt_flash_layouts``) trained
+     eager and captured, the sort launches a step of both arms; the flash
+     kernels over the three flash unions and the dot kernel over
+     institution's, against their plain versions and timed;
+ 26. path O, the same model on the blocked route at the bench's 0.25 scale
+     (slot orders of every relation, rectangular ones included): the mix
+     kernel through ``multi_relation_softmax_aggregate``, served and trained
+     eager and captured, at 0.002 scale against the CPU, the mix timed at
+     the ``writes`` relation;
+ 27. path P, ``--arms rgcn,proj`` at full scale: the graph homogenised by
+     ``HeteroData.to_homogeneous`` (offsets held against ``run_rgcn``'s),
+     FastRGCN trained (no port kernel: the JAX package's ``scatter``), at
+     0.002 scale against the CPU; the typed-projection A/B (per-type GEMM,
+     ``typed_matmul``'s ragged arm and dense einsum) over 1.94M rows;
+ 28. path Q, sampled heterogeneous GraphSAGE at full scale:
+     ``HeteroNeighborLoader`` ([10, 10], 1,024 'paper' seeds) on the native
+     hetero sampler, each batch's relations as ``EdgeIndex`` es on the card,
+     ``to_hetero`` of SAGE 64 -> ReLU -> SAGE 64 and a Linear, 6 eager steps
+     (host sampling a batch beside the card's time a step), the first batch
+     against the CPU, one ``HGTLoader`` batch; kernel 1 timed at the batch's
+     ``writes`` relation, forward and ``A^T g``.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -166,6 +196,7 @@ It also exits non-zero when no card is visible or the package is missing.
 """
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -251,7 +282,7 @@ PR_REPS = 10
 # dispatch, rounded up to whole groups) with 4 sampling threads
 PR_STEPS, PR_WORKERS = 50, 4
 # end-to-end loops per mode (and per thread count), their median kept
-PR_E2E_ROUNDS = 5
+PR_E2E_ROUNDS = 3
 # layer-wise serving (basic_gnn_inference): its default 64 neighbours a
 # layer, batch 4096; the first 2 batches of each layer held against the CPU
 LW_BATCH, LW_NEIGHBORS, LW_CPU_BATCHES = 4096, 64, 2
@@ -260,6 +291,9 @@ LW_BATCH, LW_NEIGHBORS, LW_CPU_BATCHES = 4096, 64, 2
 # batch's node budget (240 * 16,970) under 2**23, the size of the sampler's
 # hash table, which a batch of 256 would double
 LW_CHECK_SCALE, LW_CHECK_BATCH = 0.01, 240
+# the layer-wise pass's batches profiled at the start of each layer (after
+# its first); the card's time in the pass is scaled up from them
+LW_PROF_BATCHES = 40
 # paths K, L, M: the flash kernels' names in a profile, by counter; a
 # forward of each launches kernel (a) once per flash layer (2), a step adds
 # kernels (b) and (c) per flash layer
@@ -788,7 +822,6 @@ def device_kernels(torch, fn, calls, warm=False):
     first; ``None`` when the trace holds no device time. With ``warm``, a
     first window of ``calls`` calls runs under the profiler's warm-up
     stage and only the second window is kept."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -805,7 +838,15 @@ def device_kernels(torch, fn, calls, warm=False):
             torch.cuda.synchronize()
             if warm:
                 prof.step()
-    wall_ms = start.elapsed_time(end) / calls
+    rows = trace_rows(prof, calls)
+    return None if rows is None else (rows, start.elapsed_time(end) / calls)
+
+
+def trace_rows(prof, calls):
+    """A finished profile's device time per call by kernel name:
+    ``[(name, ms, launches), ...]`` over ``calls`` calls, longest first;
+    ``None`` when the trace holds no device time."""
+    from torch.autograd import DeviceType
     total, count = {}, {}
     for ev in prof.events():
         # a user annotation on the device timeline (the optimizer's
@@ -821,7 +862,7 @@ def device_kernels(torch, fn, calls, warm=False):
         log('[profile] the trace holds no device time')
         return None
     return sorted(((k, v / 1e3 / calls, count[k] / calls)
-                   for k, v in total.items()), key=lambda r: -r[1]), wall_ms
+                   for k, v in total.items()), key=lambda r: -r[1])
 
 
 def profile_forwards(torch, fwd, expect=None):
@@ -1198,6 +1239,15 @@ def train_step(torch, model, opt, x, ei, y, **kw):
     return loss
 
 
+def grads_of(torch, model):
+    """A copy of every parameter's gradient; zeros for a parameter the
+    loss does not reach (HGT's layer 2 serves every node type, the loss
+    reads one)."""
+    return {k: (torch.zeros_like(p) if p.grad is None
+                else p.grad.detach().clone())
+            for k, p in model.named_parameters()}
+
+
 def parity_run(torch, kind, state, x, ei, y, device, **kw):
     """``PARITY_STEPS`` steps from ``state``: the losses and the first
     step's gradients."""
@@ -1208,8 +1258,7 @@ def parity_run(torch, kind, state, x, ei, y, device, **kw):
     for i in range(PARITY_STEPS):
         losses.append(train_step(torch, model, opt, x, ei, y, **kw).item())
         if i == 0:
-            grads = {k: p.grad.detach().cpu().clone()
-                     for k, p in model.named_parameters()}
+            grads = {k: g.cpu() for k, g in grads_of(torch, model).items()}
     return losses, grads
 
 
@@ -1914,8 +1963,7 @@ def gat_parity_run(torch, state, x, ei, y, device, build=None, lr=TR_LR):
     for i in range(PARITY_STEPS):
         losses.append(train_step(torch, model, opt, x, ei, y).item())
         if i == 0:
-            grads = {k: p.grad.detach().cpu().clone()
-                     for k, p in model.named_parameters()}
+            grads = {k: g.cpu() for k, g in grads_of(torch, model).items()}
     return losses, grads
 
 
@@ -3331,8 +3379,7 @@ def captured_training(torch, tag, make_model, x, ei, y, w, per_step, steps,
                         'capture')
             losses.append(step(x, ei, y, w))
             if i == CAPTURE_WARMUP:
-                grads = {k: p.grad.detach().clone()
-                         for k, p in model.named_parameters()}
+                grads = grads_of(torch, model)
         runs.append((torch.stack(losses).cpu(), grads, step))
     (l_eager, g_eager, _), (l_cap, g_cap, comp) = runs
     check(comp.captures == 1 and comp.replays == PARITY_STEPS,
@@ -3866,9 +3913,10 @@ def phase_layerwise(torch, seed, model, data, row):
     (``basic_gnn_inference``) over all 2,449,029 nodes: 64 neighbours a
     layer (the JAX package's default), batch 4096, ``x_all`` kept on the
     card; each batch's ``EdgeIndex`` built there, kernel 1 once a batch and
-    layer. Seconds a pass (timed without the profiler) and the card's
-    kernel time in it, from a profiled pass (``whole_window``; the rest of
-    the wall is the host's: sampling, the batches' upload, launches). The
+    layer. Seconds a pass and the card's kernel time in it, from the
+    profiler over ``LW_PROF_BATCHES`` batches of each layer of the same
+    pass, scaled to the pass (the rest of the wall is the host's:
+    sampling, the batches' upload, launches). The
     first ``LW_CPU_BATCHES`` batches of each layer (their recorded inputs
     and output) held against the port on the CPU, within 1e-4 * max(1,
     max|ref|). Then the products graph at 0.01
@@ -3890,6 +3938,23 @@ def phase_layerwise(torch, seed, model, data, row):
         return basic_gnn_inference(model, data, batch_size=LW_BATCH,
                                    num_neighbors_per_layer=LW_NEIGHBORS)
 
+    # one pass, timed; the profiler runs over batches 2 to
+    # LW_PROF_BATCHES + 1 of each layer (started and stopped at conv calls)
+    from torch.profiler import ProfilerActivity, profile
+    windows, conv_calls = [], [0]
+
+    def window(_mod, _inp, _out):
+        j = conv_calls[0] % n_batches
+        conv_calls[0] += 1
+        if j == 0:
+            windows.append(profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]))
+            windows[-1].start()
+        elif j == LW_PROF_BATCHES:
+            torch.cuda.synchronize()
+            windows[-1].stop()
+
+    handles += [conv.register_forward_hook(window) for conv in model.convs]
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3905,12 +3970,24 @@ def phase_layerwise(torch, seed, model, data, row):
           and bool(torch.isfinite(out).all()),
           f'{tag}: output {tuple(out.shape)}, finite '
           f'{bool(torch.isfinite(out).all())}')
-    # the card's time in a pass from a profiled pass; the idle share is
-    # taken against the unprofiled wall (the profiler slows the host)
-    prof_rows, wall_p, _ = whole_window(torch, serve, 1,
-                                        {SEG_MAIN: 2 * n_batches}, warm=False)
-    kern_ms, copy_ms = kernels_and_copies(prof_rows)
-    kern_s, copy_s, wall_p = kern_ms / 1e3, copy_ms / 1e3, wall_p / 1e3
+    # the card's kernel and copy time a pass, scaled up from the windows;
+    # the idle share is taken against the timed wall
+    kern_s = copy_s = 0.0
+    for i, prof in enumerate(windows):
+        rows = trace_rows(prof, LW_PROF_BATCHES)
+        check(rows is not None, f'{tag}: layer {i + 1}\'s window holds no '
+                                'device time')
+        # launches the profiler lost count at their recorded mean time
+        # (whole_window's rule)
+        rows = [(name, t / n * math.ceil(n - 1e-9), math.ceil(n - 1e-9))
+                for name, t, n in rows]
+        check(launches_of(rows, SEG_MAIN) == 1,
+              f'{tag}: layer {i + 1}\'s profiled batches show '
+              f'{launches_of(rows, SEG_MAIN)} kernel 1 launches a batch, '
+              'expected 1')
+        k, c = kernels_and_copies(rows)
+        kern_s += k * n_batches / 1e3
+        copy_s += c * n_batches / 1e3
     cpu = copy.deepcopy(model).cpu()
     worst_cpu = 0.0
     with torch.inference_mode():
@@ -3926,10 +4003,10 @@ def phase_layerwise(torch, seed, model, data, row):
                                 f'the CPU (limit {lim})')
     log(f'[{tag}] basic_gnn_inference over {N_PRODUCTS} nodes, batch '
         f'{LW_BATCH}, {LW_NEIGHBORS} neighbours a layer ({n_batches} batches '
-        f'a layer): {wall:.3f} s a pass ({wall_p:.3f} s under the '
-        f'profiler), the card runs kernels {kern_s:.3f} s and copies '
-        f'{copy_s:.3f} s of it, idle share {1 - kern_s / wall:.4f} of the '
-        f'unprofiled wall; kernel 1 launched '
+        f'a layer): {wall:.3f} s a pass, the card runs kernels {kern_s:.3f} '
+        f's and copies {copy_s:.3f} s of it (torch.profiler over '
+        f'{LW_PROF_BATCHES} batches of each layer, scaled to the pass), '
+        f'idle share {1 - kern_s / wall:.4f}; kernel 1 launched '
         f"{counts['segment_spmm']} times (2 a batch); the first "
         f'{LW_CPU_BATCHES} batches of each layer within '
         f'{worst_cpu:.3e} of their limit from the CPU')
@@ -3966,7 +4043,8 @@ def phase_layerwise(torch, seed, model, data, row):
     return {'nodes': N_PRODUCTS, 'batch': LW_BATCH,
             'neighbors': LW_NEIGHBORS, 'batches_per_layer': n_batches,
             'n_cap': int(size[0]), 'edge_slots': int(coo.shape[1]),
-            'seconds_per_pass': wall, 'profiled_seconds_per_pass': wall_p,
+            'seconds_per_pass': wall,
+            'profiled_batches_per_layer': LW_PROF_BATCHES,
             'device_kernel_s': kern_s,
             'device_copy_s': copy_s, 'device_idle_share': 1 - kern_s / wall,
             'launch_counts': counts,
@@ -4585,6 +4663,103 @@ def flash_gathered(ops, n_edges, kernel):
     return n_edges * 4 * (h * c + (0 if ops.form == 'gatv2' else operand))
 
 
+def flash_kernel_rows(torch, label, base, s, d, rel, nd, route=True):
+    """Kernels (a), (b) and (c) at one shape: held against the plain
+    versions (``flash_close``: the kernels on the tables as given, and with
+    ``route`` the public route, which pads), then device time per launch
+    (``whole_window``), CUDA-event wall, the plain version's time (its
+    backward covers both passes), the bound (the unpadded tables' bytes
+    once at 3.35 TB/s), the rate of gathered rows and each launch's team
+    shape (``kernel_shape``: the 16-byte arm is ``vec`` 4). ``base``'s
+    values are padded to whole 16-byte heads as the flash route pads them.
+    Returns (rows, (max abs err, max err over its limit))."""
+    from pytorch_geometric_tpu_torch.ops import edge_attention as ea
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    form, h, c = base.form, base.heads, base.columns
+    ns = base.src_tab.shape[0]
+    e = int(s.shape[0])
+    rows = []
+    with torch.inference_mode():
+        log(f'[kernel] flash {label} ({form} H={h} C={c}, {e} edges) '
+            'against the plain version:')
+        keep = {}
+        worst = flash_close(torch, base, s.long(), d.long(), rel, nd,
+                            route=route, keep=keep)
+        # the tables as the flash route hands them to the kernels
+        cp = -(-c // ea.ALIGN_COLUMNS) * ea.ALIGN_COLUMNS
+        ops = base
+        if cp != c:
+            ops = base._replace(val=ea._pad_heads(base.val, h, c, cp))
+        order = torch.argsort(d.long(), stable=True)
+        sd, dd = s.long()[order], d.long()[order]
+        rd = None if rel is None else rel[order]
+        del order
+        plan = fs.dst_plan(sd, dd, rd, nd, True)
+        plan_t = fs.src_plan(sd, dd, rd, nd, ns)
+        out, m, l = fs.flash_forward(ops, sd, dd, rd, nd, 0, plan)
+        gcot = ea._pad_heads(keep['gcot'], h, c, cp)
+        rec = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
+        calls = {
+            'flash_fwd': lambda: fs.flash_forward(ops, sd, dd, rd, nd, 0,
+                                                  plan),
+            'flash_bwd_dst': lambda: fs.flash_backward_dst(
+                ops, m, l, out, gcot, plan),
+            'flash_bwd_src': lambda: fs.flash_backward_src(
+                ops, gcot, rec, plan_t)}
+        teams = {'flash_fwd': fs.kernel_shape(ops, 'fwd', out),
+                 'flash_bwd_dst': fs.kernel_shape(ops, 'dst', gcot, out),
+                 'flash_bwd_src': fs.kernel_shape(ops, 'src', gcot)}
+        plain = {
+            'flash_fwd': lambda: fs.flash_forward_plain(
+                ops, sd, dd, rd, nd, 2_000_000),
+            'flash_bwd': lambda: fs.flash_backward_plain(
+                ops, sd, dd, rd, nd, 2_000_000, m, l, out, gcot)}
+        plain_ms = {k: device_ms(torch, f, calls=1)
+                    for k, f in plain.items()}
+        for kernel, fn in calls.items():
+            by = flash_bytes(base, plan, plan_t, nd, e, kernel)
+            gathered = flash_gathered(base, e, kernel)
+            krows, _, _ = whole_window(torch, fn, 5)
+            ms = sum(t for name, t, _ in krows
+                     if FLASH_KERNELS[kernel] in name)
+            event_ms = timed_calls(torch, fn, 5, 1)[0]
+            row = {'shape': label, 'kernel': kernel, 'form': form, 'H': h,
+                   'C': c, 'C_padded': cp, 'edges': e, 'n_src': ns,
+                   'n_dst': nd, 'split_edges': plan.split,
+                   'team': teams[kernel]._asdict(),
+                   'arm': ('16-byte' if teams[kernel].vec == 4
+                           else 'float'),
+                   'bytes': by,
+                   'gathered_bytes': gathered, 'ms': ms,
+                   'event_ms': event_ms,
+                   'plain_ms': plain_ms['flash_fwd' if kernel ==
+                                        'flash_fwd' else 'flash_bwd'],
+                   'plain_covers': ('the forward' if kernel == 'flash_fwd'
+                                    else 'the whole backward (both '
+                                         'passes)'),
+                   'bound_ms': by / HBM_BYTES_PER_S * 1e3,
+                   'bound_by': 'bytes', 'library_ms': None,
+                   'library_note': 'no one PyTorch call computes a '
+                                   'segment softmax-aggregation',
+                   'gathered_tb_per_s': gathered / (ms / 1e3) / 1e12}
+            row['share'] = row['bound_ms'] / ms
+            rows.append(row)
+            before = FLASH_RECORDED_BEFORE_MS.get((label, kernel))
+            log(f"[timing] {kernel} {label} ({form} H={h} C={c}"
+                f"{f' padded to {cp}' if cp != c else ''}, {e} edges): "
+                f"device {ms:.4f} ms per launch [CUDA-event wall "
+                f"{event_ms:.4f} ms]"
+                + (f" (recorded before kernel (a)'s redesign, not measured "
+                   f"here: {before:.4f})" if before is not None else '')
+                + f", plain {row['plain_ms']:.4f} ms ({row['plain_covers']}),"
+                f" bound {row['bound_ms']:.4f} ms (bytes), "
+                f"{100 * row['share']:.1f} % of it; gathered rows "
+                f"{row['gathered_tb_per_s']:.3f} TB/s; {row['arm']} arm, "
+                f"team {tuple(teams[kernel])} (vec, lanes, heads, slots, "
+                f"nv, unroll, depth); library: none")
+    return rows, worst
+
+
 def phase_flash_timings(torch, seed, coo, pc):
     """Kernels (a), (b) and (c) at path K's two layers (products graph with
     self loops: GAT H=4 C=16, then H=1 C=47, its values padded to C=48 as
@@ -4601,7 +4776,6 @@ def phase_flash_timings(torch, seed, coo, pc):
     library yardstick: no one PyTorch call computes a segment
     softmax-aggregation. The A/B of kernel (a)'s batch runs from
     ``kernel_ab.py``."""
-    from pytorch_geometric_tpu_torch.ops import edge_attention as ea
     from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
     g = torch.Generator(device='cuda').manual_seed(seed + 11)
     rows = []
@@ -4641,90 +4815,837 @@ def phase_flash_timings(torch, seed, coo, pc):
             extra = torch.full((1, h), 1 / math.sqrt(c), device='cuda')
             rel = torch.zeros(s.shape[0], dtype=torch.int64, device='cuda')
         base = fs.FlashOperands(form, h, src_tab, dst_tab, val, extra, 0.2)
-        e = int(s.shape[0])
-        with torch.inference_mode():
-            log(f'[kernel] flash {label} ({form} H={h} C={c}, {e} edges) '
-                'against the plain version:')
-            keep = {}
-            err = flash_close(torch, base, s.long(), d.long(), rel, nd,
-                              route=True, keep=keep)
-            worst = (max(worst[0], err[0]), max(worst[1], err[1]))
-            # the tables as the flash route hands them to the kernels
-            cp = -(-c // ea.ALIGN_COLUMNS) * ea.ALIGN_COLUMNS
-            ops = base
-            if cp != c:
-                ops = base._replace(val=ea._pad_heads(val, h, c, cp))
-            order = torch.argsort(d.long(), stable=True)
-            sd, dd = s.long()[order], d.long()[order]
-            rd = None if rel is None else rel[order]
-            del order
-            plan = fs.dst_plan(sd, dd, rd, nd, True)
-            plan_t = fs.src_plan(sd, dd, rd, nd, ns)
-            out, m, l = fs.flash_forward(ops, sd, dd, rd, nd, 0, plan)
-            gcot = ea._pad_heads(keep['gcot'], h, c, cp)
-            rec = fs.flash_backward_dst(ops, m, l, out, gcot, plan)[0]
-            calls = {
-                'flash_fwd': lambda: fs.flash_forward(ops, sd, dd, rd, nd,
-                                                      0, plan),
-                'flash_bwd_dst': lambda: fs.flash_backward_dst(
-                    ops, m, l, out, gcot, plan),
-                'flash_bwd_src': lambda: fs.flash_backward_src(
-                    ops, gcot, rec, plan_t)}
-            teams = {'flash_fwd': fs.kernel_shape(ops, 'fwd', out),
-                     'flash_bwd_dst': fs.kernel_shape(ops, 'dst', gcot, out),
-                     'flash_bwd_src': fs.kernel_shape(ops, 'src', gcot)}
-            plain = {
-                'flash_fwd': lambda: fs.flash_forward_plain(
-                    ops, sd, dd, rd, nd, 2_000_000),
-                'flash_bwd': lambda: fs.flash_backward_plain(
-                    ops, sd, dd, rd, nd, 2_000_000, m, l, out, gcot)}
-            plain_ms = {k: device_ms(torch, f, calls=1)
-                        for k, f in plain.items()}
-            for kernel, fn in calls.items():
-                by = flash_bytes(base, plan, plan_t, nd, e, kernel)
-                gathered = flash_gathered(base, e, kernel)
-                krows, _, _ = whole_window(torch, fn, 5)
-                ms = sum(t for name, t, _ in krows
-                         if FLASH_KERNELS[kernel] in name)
-                event_ms = timed_calls(torch, fn, 5, 1)[0]
-                row = {'shape': label, 'kernel': kernel, 'form': form, 'H': h,
-                       'C': c, 'C_padded': cp, 'edges': e, 'n_src': ns,
-                       'n_dst': nd, 'split_edges': plan.split,
-                       'team': teams[kernel]._asdict(),
-                       'arm': ('16-byte' if teams[kernel].vec == 4
-                               else 'float'),
-                       'bytes': by,
-                       'gathered_bytes': gathered, 'ms': ms,
-                       'event_ms': event_ms,
-                       'plain_ms': plain_ms['flash_fwd' if kernel ==
-                                            'flash_fwd' else 'flash_bwd'],
-                       'plain_covers': ('the forward' if kernel == 'flash_fwd'
-                                        else 'the whole backward (both '
-                                             'passes)'),
-                       'bound_ms': by / HBM_BYTES_PER_S * 1e3,
-                       'bound_by': 'bytes', 'library_ms': None,
-                       'library_note': 'no one PyTorch call computes a '
-                                       'segment softmax-aggregation',
-                       'gathered_tb_per_s': gathered / (ms / 1e3) / 1e12}
-                row['share'] = row['bound_ms'] / ms
-                rows.append(row)
-                log(f"[timing] {kernel} {label} ({form} H={h} C={c}"
-                    f"{f' padded to {cp}' if cp != c else ''}, {e} edges): "
-                    f"device {ms:.4f} ms per launch [CUDA-event wall "
-                    f"{event_ms:.4f} ms] (recorded before kernel (a)'s "
-                    f"redesign, not measured here: "
-                    f"{FLASH_RECORDED_BEFORE_MS[(label, kernel)]:.4f}), plain "
-                    f"{row['plain_ms']:.4f} "
-                    f"ms ({row['plain_covers']}), bound "
-                    f"{row['bound_ms']:.4f} ms (bytes), "
-                    f"{100 * row['share']:.1f} % of it; gathered rows "
-                    f"{row['gathered_tb_per_s']:.3f} TB/s; {row['arm']} arm, "
-                    f"team {tuple(teams[kernel])} (vec, lanes, heads, slots, "
-                    f"nv, unroll, depth); library: none")
-        del ops, base, src_tab, dst_tab, val, plan, plan_t, out, m, l, gcot, \
-            rec, rel, rd, keep
+        got, err = flash_kernel_rows(torch, label, base, s, d, rel, nd)
+        rows += got
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        del base, src_tab, dst_tab, val, rel
         torch.cuda.empty_cache()
     return rows, worst
+
+
+# -- heterogeneous graphs: paths N, O, P, Q -----------------------------------
+# benchmarks/hetero_bench.py's OGB-MAG shape (:35-43): 4 node types, 4
+# relations and the reverses of the 3 between two types, F = 64, 8 classes
+MAG_NODES = {'paper': 736_389, 'author': 1_134_649,
+             'institution': 8_740, 'field': 59_965}
+MAG_EDGES = {
+    ('author', 'affiliated_with', 'institution'): 1_043_998,
+    ('author', 'writes', 'paper'): 7_145_660,
+    ('paper', 'cites', 'paper'): 5_416_271,
+    ('paper', 'has_topic', 'field'): 7_505_078,
+}
+MAG_F, MAG_C = 64, 8
+# run_hgt's model (:84-151): HGTConv(64, heads=4) twice, then a Linear to 8
+# classes on 'paper', Adam 1e-3 (paths N and O; path Q's optimiser too)
+HG_HIDDEN, HG_HEADS, HG_LR = 64, 4, 1e-3
+# the timed steps of each training arm, after one warm-up
+HG_STEPS = 5
+# path O at the bench's default scale (:331); path N carries full scale
+PO_SCALE = 0.25
+# the scale of paths N, O and P's checks against the CPU
+HG_SMALL = 0.002
+# path Q: HeteroNeighborLoader fan-outs [10, 10], 1,024 'paper' seeds a
+# batch, PQ_STEPS eager steps
+PQ_FANOUTS, PQ_BATCH, PQ_STEPS = (10, 10), 1024, 6
+
+
+def build_mag_like(scale=1.0, seed=0, reverse=True):
+    """``benchmarks/hetero_bench.py::build_mag_like`` (``:46-60``): the
+    OGB-MAG counts times ``scale`` (at least 8 nodes and 16 edges a type),
+    uniform random endpoints, the reverse ``rev_{rel}`` of each relation
+    between two types, x [n, 64] per type and 8 labels on 'paper', all from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    nodes = {t: max(int(n * scale), 8) for t, n in MAG_NODES.items()}
+    edges = {}
+    for (s, r, d), e in MAG_EDGES.items():
+        e = max(int(e * scale), 16)
+        coo = np.stack([rng.integers(0, nodes[s], e),
+                        rng.integers(0, nodes[d], e)]).astype(np.int32)
+        edges[(s, r, d)] = coo
+        if reverse and s != d:
+            edges[(d, f'rev_{r}', s)] = coo[::-1].copy()
+    x = {t: rng.standard_normal((n, MAG_F)).astype(np.float32)
+         for t, n in nodes.items()}
+    y = rng.integers(0, MAG_C, nodes['paper']).astype(np.int32)
+    return nodes, edges, x, y
+
+
+class Held(dict):
+    """A dict that ``compat.compile`` takes as a static argument: keyed by
+    its identity and read in place (a plain dict is unhashable)."""
+    __hash__ = object.__hash__
+
+
+def mag_inputs(torch, x, edges, y, device='cuda'):
+    """The bench graph's features, raw COOs and 'paper' labels on
+    ``device``."""
+    return (Held({t: torch.as_tensor(v, device=device)
+                  for t, v in x.items()}),
+            Held({et: torch.as_tensor(c, device=device)
+                  for et, c in edges.items()}),
+            torch.as_tensor(y, device=device).long())
+
+
+def hgt_net(torch, device, seed, metadata=None, attn_path=None,
+            layouts=None):
+    """Paths N's and O's model, ``run_hgt``'s (``hetero_bench.py:92-101``):
+    HGTConv(64 -> 64, 4 heads) twice, then a Linear to 8 classes on
+    'paper', weights from ``seed``; ``layouts``
+    (``build_hgt_flash_layouts``) go to both layers."""
+    from pytorch_geometric_tpu_torch.nn import HGTConv
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList([HGTConv(
+                MAG_F if i == 0 else HG_HIDDEN, HG_HIDDEN, metadata,
+                heads=HG_HEADS, attn_path=attn_path, device=device,
+                generator=g) for i in range(2)])
+            self.lin = linear(HG_HIDDEN, MAG_C, device=device, generator=g)
+
+        def forward(self, x, ei):
+            for conv in self.convs:
+                x = conv(x, ei, layouts)
+            return self.lin(x['paper'])
+
+    return Net()
+
+
+def hgt_routes(edges):
+    """Each destination type's union of incoming edges and the fused route
+    ``hetero_edge_attention_multi`` takes for it: 'flash' past
+    ``PGT_ATTN_WIDE_BYTES`` of ``[E, H, 2 D]`` float32, else 'wide'."""
+    from pytorch_geometric_tpu_torch.ops.edge_attention import wide_bytes_cap
+    union = {}
+    for (_, _, d), coo in edges.items():
+        union[d] = union.get(d, 0) + int(coo.shape[1])
+    d_hid = HG_HIDDEN // HG_HEADS
+    return {t: (e, 'flash' if e * HG_HEADS * 2 * d_hid * 4 > wide_bytes_cap()
+                else 'wide') for t, e in union.items()}
+
+
+def hgt_backward_layers(edges):
+    """Per node type, the layers of path N's model whose union for that
+    type enters a step's backward: those whose outputs reach the loss,
+    which reads layer 2's 'paper' (in layer 2 'paper' alone, in layer 1
+    'paper' and the types of the relations into it)."""
+    reach = [{s for (s, _, d) in edges if d == 'paper'} | {'paper'},
+             {'paper'}]
+    return {d: sum(d in r for r in reach) for (_, _, d) in edges}
+
+
+def hgt_launches(routes, edges):
+    """Path N's kernel launches per forward and per step, on raw COOs
+    (``routes``: ``hgt_routes``) and with a flash layout for every type. A
+    forward runs each union once per layer: kernel (a) for a flash union,
+    one dot launch (the logits) for a wide one. In a step's backward
+    (``hgt_backward_layers``) a flash union adds kernels (b) and (c), a
+    wide one two dot launches (``dalpha`` and the prior's ``base``)."""
+    bwd = hgt_backward_layers(edges)
+    per_fwd, per_step, per_step_l = {}, {}, {}
+
+    def add(want, k, n):
+        if n:
+            want[k] = want.get(k, 0) + n
+
+    for t, (_, route) in routes.items():
+        for k in ('flash_fwd', 'flash_bwd_dst', 'flash_bwd_src'):
+            add(per_step_l, k, 2 if k == 'flash_fwd' else bwd[t])
+            if route == 'flash':
+                add(per_step, k, 2 if k == 'flash_fwd' else bwd[t])
+        if route == 'flash':
+            add(per_fwd, 'flash_fwd', 2)
+        else:
+            add(per_fwd, 'edge_dot', 2)
+            add(per_step, 'edge_dot', 2 + 2 * bwd[t])
+    return per_fwd, per_step, per_step_l
+
+
+def sort_launches(torch, fn):
+    """Launches and device ms per call of the sort kernels (names holding
+    'sort') in a whole profiled window of one call of ``fn``."""
+    rows, _, _ = whole_window(torch, fn, 1)
+    picks = [(t, n) for name, t, n in rows if 'sort' in name.lower()]
+    return sum(n for _, n in picks), sum(t for t, _ in picks)
+
+
+def idle_unprofiled(res, busy_key, ms_key):
+    """The idle share of the card against the unprofiled wall."""
+    return 1 - res[busy_key] / res[ms_key]
+
+
+def union_operands(torch, edges, nodes, dst, g):
+    """HGT's fused-route operands for ``dst``'s union at path N's width:
+    random node tables (keys and values of every source relation stacked,
+    the destination's queries, one prior per relation), and the union's
+    sources (offset into the stacked tables), destinations and relation
+    ids, on the card. Returns ``(ops, s, d, rel)``."""
+    from pytorch_geometric_tpu_torch.ops import flash_softmax as fs
+    h, c = HG_HEADS, HG_HIDDEN // HG_HEADS
+    rels = [(et, coo) for et, coo in edges.items() if et[2] == dst]
+    off, s, d, rel = 0, [], [], []
+    for i, (et, coo) in enumerate(rels):
+        s.append(coo[0].astype(np.int64) + off)
+        d.append(coo[1].astype(np.int64))
+        rel.append(np.full(coo.shape[1], i, np.int64))
+        off += nodes[et[0]]
+    k = torch.randn(off, h * c, device='cuda', generator=g)
+    v = torch.randn(off, h * c, device='cuda', generator=g)
+    q = torch.randn(nodes[dst], h * c, device='cuda', generator=g)
+    p = torch.rand(len(rels), h, device='cuda', generator=g) / math.sqrt(c)
+    ops = fs.FlashOperands('dot', h, k, q, v, p, 0.0)
+    return (ops,) + tuple(torch.as_tensor(np.concatenate(a), device='cuda')
+                          for a in (s, d, rel))
+
+
+def institution_dot_row(torch, edges, nodes, g):
+    """The dot kernel at the wide route's shape, ``institution``'s union
+    (``<q[dst], k[src]>`` per head, H = 4, D = 16, in edge order as
+    ``_Attention`` calls it): against its plain version (``dot_close``),
+    timed with the plain version, ``torch.sparse.sampled_addmm`` (one call
+    per head, on the dst-sorted CSR) and the bound. Returns (row, err)."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (edge_dot,
+                                                          edge_dot_plain)
+    h, f = HG_HEADS, HG_HIDDEN // HG_HEADS
+    (et, coo), = [(et, c) for et, c in edges.items()
+                  if et[2] == 'institution']
+    ns, nd, e = nodes[et[0]], nodes['institution'], coo.shape[1]
+    q = torch.randn(nd, h, f, device='cuda', generator=g)
+    k = torch.randn(ns, h, f, device='cuda', generator=g)
+    src = torch.as_tensor(coo[0], device='cuda').long()
+    dst = torch.as_tensor(coo[1], device='cuda').long()
+    with torch.inference_mode():
+        err, ok = dot_close(torch, q, k, dst, src)
+        check(ok, f'edge_dot at institution\'s union: {err} from the plain '
+                  'version')
+        blk = EdgeIndex(torch.as_tensor(coo, device='cuda'),
+                        (ns, nd)).fill_cache(blocked=True).blocked
+        fns = {'ms': lambda: edge_dot(q, k, dst, src),
+               'plain_ms': lambda: edge_dot_plain(q, k, dst, src),
+               'library_ms': sampled_addmm_call(torch, blk, k, q, nd, ns, e)}
+        row = timed_row(torch, fns, {
+            'path': 'N', 'shape': 'institution union (wide route)',
+            'order': 'edge', 'dtype': 'float32', 'H': h, 'F': f,
+            'HF': h * f, 'edges': e, 'n_src': ns, 'n_dst': nd,
+            'library_call': 'torch.sparse.sampled_addmm, one call a head'},
+            dot_bytes(nd, ns, e, h, f, 4, 16), 2.0 * e * h * f)
+    row['max_abs_err'] = err
+    log(f"[timing] edge_dot path N institution union ({e} edges, H*F="
+        f"{h * f}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+        f"ms, sampled_addmm {row['library_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs err "
+        f'{err:.3e}')
+    return row, err
+
+
+def phase_path_n(torch, seed, mag, iters):
+    """Path N: ``hetero_bench.py --arms hgt`` at full scale (``build_mag_like
+    (1.0)``: 1,939,743 nodes, 36,804,743 edges), the fused route on raw
+    COOs: per layer, 'paper', 'author' and 'field' past the cap on the
+    flash kernels (a), (b), (c), 'institution' on the wide op and the dot
+    kernel. Served and trained (5 steps after 1) eager and captured
+    (``flash_serve_train``); held against the plain versions on the card
+    (forward, 3 losses, first step's gradients) and at ``HG_SMALL`` scale
+    against the CPU, the cap scaled with it. Then the bench's
+    ``--layouts`` arm: ``build_hgt_flash_layouts`` (every type on flash
+    over host-presorted unions), trained eager and captured; the sort
+    launches a step of each arm. Then each kernel of the path at its
+    shapes: the flash kernels over the three flash unions and the dot
+    kernel over institution's union, against their plain versions and
+    timed."""
+    from pytorch_geometric_tpu_torch.ops import build_hgt_flash_layouts
+    tag = 'path N'
+    nodes, edges, x, y = mag
+    meta = (tuple(nodes), tuple(edges))
+    routes = hgt_routes(edges)
+    log(f'[{tag}] union edges and routes by destination type: {routes}')
+    check({t for t, (_, r) in routes.items() if r == 'flash'}
+          == {'paper', 'author', 'field'}
+          and routes['institution'][1] == 'wide',
+          f'{tag}: routes {routes}, expected flash for paper, author and '
+          'field and the wide op for institution')
+    per_fwd, per_step, per_step_l = hgt_launches(routes, edges)
+    X, EI, Y = mag_inputs(torch, x, edges, y)
+    build = functools.partial(hgt_net, metadata=meta)
+    # the wide op adds with atomics: the eager step is not bitwise
+    # repeatable
+    res, state, _ = flash_serve_train(
+        torch, tag, build, seed, X, EI, Y, per_fwd, per_step, iters,
+        HG_STEPS, HG_LR, sync_state=True)
+    res['routes'] = {t: {'union_edges': e, 'route': r}
+                     for t, (e, r) in routes.items()}
+    res['nodes'] = sum(nodes.values())
+    res['edges'] = sum(c.shape[1] for c in edges.values())
+    res['device_idle_share_unprofiled'] = idle_unprofiled(
+        res, 'device_busy_ms_per_forward', 'ms_per_forward')
+    tr = res['training']
+    tr['device_idle_share_unprofiled'] = idle_unprofiled(
+        tr, 'device_busy_ms_per_step', 'ms_per_step')
+    res['parity_vs_plain_on_card'] = flash_parity(
+        torch, tag, build, state, X, EI, Y, HG_LR, 'plain')
+    small = build_mag_like(HG_SMALL, seed)
+    sstate = {k: v.detach().cpu().clone() for k, v in build(
+        torch, None, seed).state_dict().items()}
+    with scaled_cap(HG_SMALL):
+        check({t: r for t, (_, r) in hgt_routes(small[1]).items()}
+              == {t: r for t, (_, r) in routes.items()},
+              f'{tag}: the routes at {HG_SMALL} scale differ')
+        res['parity_small_vs_cpu'] = flash_parity(
+            torch, f'{tag} at {HG_SMALL} scale', build, sstate,
+            *mag_inputs(torch, small[2], small[1], small[3]), HG_LR,
+            mag_inputs(torch, small[2], small[1], small[3], 'cpu'))
+    # the bench's --layouts arm: every union presorted on the host once
+    t0 = time.perf_counter()
+    lay = build_hgt_flash_layouts(meta, edges, nodes)
+    lay_s = time.perf_counter() - t0
+    build_l = functools.partial(hgt_net, metadata=meta, layouts=lay)
+    arms = {}
+    for name, make, want in (('raw COO', build, per_step),
+                             ('layouts', build_l, per_step_l)):
+        model = from_state(torch, lambda: make(torch, None, seed), state)
+        opt = torch.optim.Adam(model.parameters(), lr=HG_LR)
+
+        def step():
+            return train_step(torch, model, opt, X, EI, Y)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, _, enq, loss = timed_steps(torch, step, 1, HG_STEPS)
+        counts = launch_counts()
+        check_counts(f'{tag} {name}', counts,
+                     {k: n * (1 + HG_STEPS) for k, n in want.items()},
+                     f'{1 + HG_STEPS} steps')
+        sorts, sort_ms = sort_launches(torch, step)
+        arms[name] = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enq,
+                      'loss_after': loss, 'launch_counts': counts,
+                      'sort_launches_per_step': sorts,
+                      'sort_ms_per_step': sort_ms}
+        log(f'[{tag}] {name} arm, eager: {ms:.4f} ms per step (CUDA events, '
+            f'{HG_STEPS} after 1), the host issues one in {enq:.4f} ms; '
+            f'{sorts:g} sort launches a step ({sort_ms:.4f} ms)')
+        del model, opt
+        torch.cuda.empty_cache()
+    arms['layouts']['build_s'] = lay_s
+    arms['layouts']['captured'] = captured_training(
+        torch, f'{tag} layouts captured', lambda: from_state(
+            torch, lambda: build_l(torch, None, seed), state), X, EI, Y,
+        None, per_step_l, HG_STEPS, 1e-4, lr=HG_LR, sync_state=True)
+    arms['layouts']['launches_per_step'] = per_step_l
+    res['layouts_arm'] = arms
+    log(f"[{tag}] build_hgt_flash_layouts on the host in {lay_s:.2f} s; "
+        f"captured step with layouts "
+        f"{arms['layouts']['captured']['ms_per_step']:.4f} ms against "
+        f"{tr['captured']['ms_per_step']:.4f} ms on raw COOs")
+    del lay, build_l
+    torch.cuda.empty_cache()
+    # each kernel of the path at its shapes
+    g = torch.Generator(device='cuda').manual_seed(seed + 21)
+    rows, worst = [], (0.0, 0.0)
+    for dst in ('paper', 'author', 'field'):
+        ops, s, d, rel = union_operands(torch, edges, nodes, dst, g)
+        got, err = flash_kernel_rows(torch, f'N {dst} union', ops, s, d, rel,
+                                     nodes[dst], route=False)
+        for r in got:
+            r['launches_per_step'] = 2 if r['kernel'] == 'flash_fwd' else \
+                hgt_backward_layers(edges)[dst]
+        rows += got
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        del ops, s, d, rel
+        torch.cuda.empty_cache()
+    dot_row, dot_err = institution_dot_row(torch, edges, nodes, g)
+    dot_row['launches_per_step'] = per_step['edge_dot']
+    del X, EI, Y
+    torch.cuda.empty_cache()
+    return res, rows, worst, dot_row, dot_err
+
+
+def mix_library_call(torch, lay, pp, v, f, n_dst, n_src):
+    """H ``torch.sparse.mm`` CSR calls, one per head (a yardstick; the port
+    never calls it) over a rectangular slot order, checked against the
+    plain version."""
+    from pytorch_geometric_tpu_torch.ops.gat_fused import gat_mix_plain
+    h = pp.shape[1]
+    mats = [torch.sparse_csr_tensor(lay.indptr, lay.src,
+                                    pp[:, k].contiguous(),
+                                    size=(n_dst, n_src)) for k in range(h)]
+    vs = [v.view(n_src, h, f)[:, k].contiguous() for k in range(h)]
+
+    def call():
+        return [torch.sparse.mm(a, b) for a, b in zip(mats, vs)]
+
+    _, ref = gat_mix_plain(lay.indptr, lay.src, None, pp, v, f)
+    lib = torch.stack(call(), 1).reshape(n_dst, h * f)
+    check(bool(torch.allclose(lib, ref, rtol=1e-4, atol=1e-4)),
+          f'torch.sparse.mm disagrees at F={f}')
+    return call
+
+
+def blocked_inputs(torch, nodes, edges, device='cuda'):
+    """Every relation as an ``EdgeIndex`` of its rectangular size with the
+    slot orders (``fill_cache(blocked=True)``), built on ``device``."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    return Held({et: EdgeIndex(torch.as_tensor(c, device=device),
+                               (nodes[et[0]], nodes[et[2]])).fill_cache(
+        blocked=True) for et, c in edges.items()})
+
+
+def phase_path_o(torch, seed, iters):
+    """Path O: path N's model on the blocked route (``attn_path='blocked'``,
+    every relation ``fill_cache(blocked=True)``, rectangular ones
+    included), ``hetero_bench.py``'s default 0.25 scale: the union softmax
+    through ``multi_relation_softmax_aggregate`` on the mix kernel (and the
+    dot kernel in its backward). Served and trained eager and captured,
+    each kernel arm's launches per call measured on a first forward and
+    step and held thereafter; held against the CPU at ``HG_SMALL`` scale;
+    the mix against its plain version and timed at the ``writes``
+    relation (H*F = 64)."""
+    from pytorch_geometric_tpu_torch.ops.gat_fused import (card_slice_cols,
+                                                           gat_mix,
+                                                           gat_mix_plain)
+    tag = 'path O'
+    nodes, edges, x, y = build_mag_like(PO_SCALE, seed)
+    meta = (tuple(nodes), tuple(edges))
+    X, _, Y = mag_inputs(torch, x, edges, y)
+    t0 = time.perf_counter()
+    EI = blocked_inputs(torch, nodes, edges)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = functools.partial(hgt_net, metadata=meta, attn_path='blocked')
+    model = build(torch, None, seed)
+    opt = torch.optim.Adam(model.parameters(), lr=HG_LR)
+    reset_counts()
+    with torch.inference_mode():
+        model(X, EI)
+    per_fwd = {k: v for k, v in launch_counts().items() if v}
+    reset_counts()
+    train_step(torch, model, opt, X, EI, Y)
+    per_step = {k: v for k, v in launch_counts().items() if v}
+    del model, opt
+    log(f'[{tag}] slot orders of the {len(edges)} relations built on the '
+        f'card in {build_s:.2f} s; launches per forward {per_fwd}, per step '
+        f'{per_step}')
+    check(per_fwd.get('gat_mix', 0) > 0 and per_step.get('gat_mix', 0) > 0
+          and set(per_fwd) | set(per_step) <= {'gat_mix', 'edge_dot'},
+          f'{tag}: launches per forward {per_fwd}, per step {per_step}')
+    res, state, _ = flash_serve_train(
+        torch, tag, build, seed, X, EI, Y, per_fwd, per_step, iters,
+        HG_STEPS, HG_LR, sync_state=True)
+    res.update(scale=PO_SCALE, nodes=sum(nodes.values()),
+               edges=sum(c.shape[1] for c in edges.values()),
+               slot_orders_build_s=build_s)
+    res['device_idle_share_unprofiled'] = idle_unprofiled(
+        res, 'device_busy_ms_per_forward', 'ms_per_forward')
+    res['training']['device_idle_share_unprofiled'] = idle_unprofiled(
+        res['training'], 'device_busy_ms_per_step', 'ms_per_step')
+    small = build_mag_like(HG_SMALL, seed)
+    sstate = {k: v.detach().cpu().clone() for k, v in build(
+        torch, None, seed).state_dict().items()}
+    xs, _, ys = mag_inputs(torch, small[2], small[1], small[3])
+    xc, _, yc = mag_inputs(torch, small[2], small[1], small[3], 'cpu')
+    res['parity_small_vs_cpu'] = flash_parity(
+        torch, f'{tag} at {HG_SMALL} scale', build, sstate, xs,
+        blocked_inputs(torch, small[0], small[1]), ys, HG_LR,
+        (xc, blocked_inputs(torch, small[0], small[1], 'cpu'), yc))
+    # the mix at the writes relation (author -> paper), H*F = 64
+    et = ('author', 'writes', 'paper')
+    blk = EI[et].blocked
+    h, f = HG_HEADS, HG_HIDDEN // HG_HEADS
+    ns, nd, e = nodes['author'], nodes['paper'], int(blk.src.shape[0])
+    g = torch.Generator(device='cuda').manual_seed(seed + 22)
+    p = torch.rand(e, h, device='cuda', generator=g)
+    v = torch.randn(ns, h * f, device='cuda', generator=g)
+    with torch.inference_mode():
+        err, ok = mix_close(torch, blk, p, p, v, f)
+        check(ok, f'{tag}: the mix at the writes relation {err} from its '
+                  'plain version')
+        fns = {'ms': lambda: gat_mix(blk.indptr, blk.src, p, p, v, f),
+               'plain_ms': lambda: gat_mix_plain(blk.indptr, blk.src, p, p,
+                                                 v, f),
+               'library_ms': mix_library_call(torch, blk, p, v, f, nd, ns)}
+        row = timed_row(torch, fns, {
+            'path': 'O', 'pass': 'mix (s, u)', 'shape': 'writes relation '
+            f'at {PO_SCALE} scale', 'H': h, 'F': f, 'HF': h * f,
+            'slots': e, 'n_src': ns, 'n_dst': nd,
+            'slice_cols': card_slice_cols(v, h, f),
+            'launches_per_step': per_step['gat_mix']},
+            mix_bytes(ns, nd, e, h, f, 1, True), 2.0 * e * h * f + e * h)
+    row['max_abs_err'] = err
+    log(f"[timing] gat_mix path O writes relation ({e} slots, H*F={h * f}):"
+        f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"{h} sparse.mm {row['library_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs err "
+        f'{err:.3e}')
+    del X, EI, Y
+    torch.cuda.empty_cache()
+    return res, row, err
+
+
+def rgcn_net(torch, device, seed, num_relations=0, p_off=0, p_n=0):
+    """Path P's model, ``run_rgcn``'s (``hetero_bench.py:179-185``):
+    FastRGCNConv(64 -> 64) -> ReLU -> FastRGCNConv(64 -> 64) -> Linear to 8
+    classes, over ``(coo, edge_type)``; returns the 'paper' rows' logits
+    (the homogenised ids ``[p_off, p_off + p_n)``)."""
+    from pytorch_geometric_tpu_torch.nn import FastRGCNConv
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList([FastRGCNConv(
+                MAG_F if i == 0 else HG_HIDDEN, HG_HIDDEN,
+                num_relations=num_relations, device=device, generator=g)
+                for i in range(2)])
+            self.lin = linear(HG_HIDDEN, MAG_C, device=device, generator=g)
+
+        def forward(self, x, ei):
+            coo, et = ei
+            h = torch.relu(self.convs[0](x, coo, et))
+            h = self.convs[1](h, coo, et)
+            return self.lin(h[p_off:p_off + p_n])
+
+    return Net()
+
+
+def homogenised(torch, nodes, edges, x, device='cuda'):
+    """The bench graph through the port's ``HeteroData.to_homogeneous`` (x
+    kept on ``device``), its type offsets and edge layout held bit for bit
+    against ``run_rgcn``'s own (``hetero_bench.py:162-177``). Returns
+    ``(x, (coo, edge_type), paper offset, seconds)``."""
+    from pytorch_geometric_tpu_torch.data import HeteroData
+    data = HeteroData()
+    for t in nodes:
+        data[t].x = torch.as_tensor(x[t], device=device)
+    for et, coo in edges.items():
+        data[et].edge_index = coo
+    t0 = time.perf_counter()
+    homo = data.to_homogeneous()
+    secs = time.perf_counter() - t0
+    offs, off = {}, 0
+    for t in nodes:
+        offs[t] = off
+        off += nodes[t]
+    want = np.concatenate([coo + np.array([[offs[s]], [offs[d]]], np.int32)
+                           for (s, _, d), coo in edges.items()], 1)
+    ety = np.concatenate([np.full(c.shape[1], i, np.int32)
+                          for i, c in enumerate(edges.values())])
+    check(homo.num_nodes == off
+          and np.array_equal(homo.edge_index.numpy(), want)
+          and np.array_equal(homo.edge_type.numpy(), ety)
+          and homo.edge_index.dtype == torch.int32,
+          'to_homogeneous: offsets or edge layout differ from run_rgcn\'s')
+    return (homo.x, (homo.edge_index.to(device), homo.edge_type.to(device)),
+            offs['paper'], secs)
+
+
+def phase_path_p(torch, seed, mag):
+    """Path P: ``hetero_bench.py --arms rgcn,proj`` at full scale. The graph
+    homogenised by the port's ``HeteroData.to_homogeneous`` (offsets held
+    against ``run_rgcn``'s), ``rgcn_net`` trained (Adam 1e-3, 5 steps after
+    1; the JAX package aggregates with ``scatter``, no Pallas kernel, so no
+    kernel of the port launches, which is checked), profiled, held against
+    the CPU at ``HG_SMALL`` scale. Then ``run_projection_ab`` (``:216-276``):
+    the three typed-projection strategies over the 1,939,743 rows of 4
+    types, F = 64 -> 64: per-type GEMM, ``typed_matmul``'s ragged arm and
+    its dense einsum (``nf,rfc->nrc``, the module's; the bench's arm 3
+    gathers ``W`` per row, a ``[N, 64, 64]`` float32 transient of 31.8 GB),
+    each against the per-type GEMM, device time and CUDA-event wall."""
+    from pytorch_geometric_tpu_torch.ops import (build_ragged_layout,
+                                                 typed_matmul)
+    tag = 'path P'
+    nodes, edges, x, y = mag
+    X, EI, p_off, homo_s = homogenised(torch, nodes, edges, x)
+    Y = torch.as_tensor(y, device='cuda').long()
+    build = functools.partial(rgcn_net, num_relations=len(edges),
+                              p_off=p_off, p_n=nodes['paper'])
+    model = build(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=HG_LR)
+
+    def step():
+        return train_step(torch, model, opt, X, EI, Y)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, _, enq, loss = timed_steps(torch, step, 1, HG_STEPS)
+    prof, n_prof = profile_steps(torch, step, tag)
+    n_steps = 1 + HG_STEPS + n_prof
+    counts = launch_counts()
+    check_counts(tag, counts, {}, f'{n_steps} steps')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {'nodes': sum(nodes.values()), 'edges': int(EI[0].shape[1]),
+           'relations': len(edges), 'to_homogeneous_s': homo_s,
+           'ms_per_step': ms, 'host_enqueue_ms_per_step': enq,
+           'steps': n_steps, 'loss_after': loss, 'launch_counts': counts,
+           'peak_memory_gb': peak}
+    res.update(prof)
+    res['device_idle_share_unprofiled'] = idle_unprofiled(
+        res, 'device_busy_ms_per_step', 'ms_per_step')
+    log(f'[{tag}] FastRGCN on the homogenised graph ({res["nodes"]} nodes, '
+        f'{res["edges"]} edges, 7 relations; to_homogeneous {homo_s:.2f} s): '
+        f'{ms:.4f} ms per step (CUDA events, {HG_STEPS} after 1), the host '
+        f'issues one in {enq:.4f} ms; loss {loss:.6f}; no port kernel '
+        f'launched; peak memory {peak:.3f} GB')
+    del model, opt
+    torch.cuda.empty_cache()
+    small = build_mag_like(HG_SMALL, seed)
+    xs, eis, ps, _ = homogenised(torch, small[0], small[1], small[2])
+    xc, eic, _, _ = homogenised(torch, small[0], small[1], small[2], 'cpu')
+    build_s = functools.partial(rgcn_net, num_relations=len(edges),
+                                p_off=ps, p_n=small[0]['paper'])
+    sstate = {k: v.detach().cpu().clone() for k, v in build_s(
+        torch, None, seed).state_dict().items()}
+    res['parity_small_vs_cpu'] = flash_parity(
+        torch, f'{tag} at {HG_SMALL} scale', build_s, sstate, xs, eis,
+        torch.as_tensor(small[3], device='cuda').long(), HG_LR,
+        (xc, eic, torch.from_numpy(small[3]).long()))
+    # run_projection_ab: the three typed-projection arms
+    types = np.concatenate([np.full(n, i, np.int64)
+                            for i, n in enumerate(nodes.values())])
+    g = torch.Generator(device='cuda').manual_seed(seed + 23)
+    w = torch.randn(len(nodes), MAG_F, HG_HIDDEN, device='cuda',
+                    generator=g) / math.sqrt(MAG_F)
+    tv = torch.as_tensor(types, device='cuda')
+    ragged = build_ragged_layout(types, len(nodes))
+    bounds = np.cumsum([0] + list(nodes.values()))
+    fns = {'per_type_gemm': lambda: torch.cat([
+               X[bounds[i]:bounds[i + 1]] @ w[i] for i in range(len(nodes))]),
+           'ragged': lambda: typed_matmul(X, tv, w, ragged),
+           'dense_einsum': lambda: typed_matmul(X, tv, w)}
+    ab = {'rows': int(X.shape[0]), 'types': len(nodes), 'F': MAG_F,
+          'C': HG_HIDDEN}
+    with torch.inference_mode():
+        ref = fns['per_type_gemm']()
+        for name, fn in fns.items():
+            torch.cuda.reset_peak_memory_stats()
+            d = float((fn() - ref).abs().max())
+            check(d <= 1e-5 * float(ref.abs().max()),
+                  f'{tag}: typed projection {name} {d} from the per-type '
+                  'GEMM')
+            ab[name] = {'ms': device_ms(torch, fn, calls=10),
+                        'event_ms': timed_calls(torch, fn, 10, 2)[0],
+                        'max_abs_diff': d,
+                        'peak_memory_gb':
+                            torch.cuda.max_memory_allocated() / 1e9}
+    res['projection_ab'] = ab
+    log(f'[{tag}] typed projection A/B over {ab["rows"]} rows of 4 types, '
+        f'64 -> 64: ' + ', '.join(
+            f"{k} {ab[k]['ms']:.4f} ms [CUDA-event wall "
+            f"{ab[k]['event_ms']:.4f}]" for k in fns)
+        + ' (device time a call; the per-type GEMM is what HGTConv does)')
+    del X, EI, Y
+    torch.cuda.empty_cache()
+    return res
+
+
+def sage_hetero_net(torch, device, seed, metadata=None):
+    """Path Q's model: ``to_hetero`` of SAGEConv(64 -> 64) -> ReLU ->
+    SAGEConv(64 -> 64) over the metadata, then a Linear to 8 classes on
+    'paper'."""
+    from pytorch_geometric_tpu_torch.nn import SAGEConv, to_hetero
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.gnn = to_hetero([
+                SAGEConv(MAG_F, HG_HIDDEN, device=device, generator=g),
+                torch.relu,
+                SAGEConv(HG_HIDDEN, HG_HIDDEN, device=device, generator=g)],
+                metadata)
+            self.lin = linear(HG_HIDDEN, MAG_C, device=device, generator=g)
+
+        def forward(self, x, ei):
+            return self.lin(self.gnn(x, ei)['paper'])
+
+    return Net()
+
+
+def phase_path_q(torch, seed, mag):
+    """Path Q: sampled heterogeneous GraphSAGE at full scale. The bench
+    graph in a ``HeteroData`` (x and labels on the card) ->
+    ``HeteroNeighborLoader([10, 10], 1,024 'paper' seeds, shuffle)`` on the
+    native hetero sampler (the phase fails without it) -> each batch's
+    relations as ``EdgeIndex`` es on the card (``batch_edge_index_dict``:
+    the sampler's padding past both ends) -> ``sage_hetero_net``, so every
+    SAGE mean runs kernel 1 forward and, for the relations the loss
+    reaches, its ``A^T g``; cross-entropy over the seeds, Adam 1e-3,
+    ``PQ_STEPS`` eager steps: the host's sampling time a batch beside the
+    card's time a step, kernel 1's launches a step (measured on the first,
+    held for the rest), a whole-window profile of a step, the first batch's
+    forward against the CPU. One ``HGTLoader`` batch through the same
+    model. Kernel 1 against its plain version and timed at the first
+    batch's ``writes`` relation (forward and ``A^T g``, F = 64)."""
+    from pytorch_geometric_tpu_torch import csrc
+    from pytorch_geometric_tpu_torch.data import HeteroData
+    from pytorch_geometric_tpu_torch.loader import (HGTLoader,
+                                                    HeteroNeighborLoader,
+                                                    batch_edge_index_dict)
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    tag = 'path Q'
+    check(csrc.WITH_NATIVE_SAMPLER, f'{tag}: the native sampler did not '
+          'build (g++)')
+    nodes, edges, x, y = mag
+    meta = (tuple(nodes), tuple(edges))
+    data = HeteroData()
+    for t in nodes:
+        data[t].x = torch.as_tensor(x[t], device='cuda')
+    data['paper'].y = torch.as_tensor(y, device='cuda')
+    for et, coo in edges.items():
+        data[et].edge_index = coo
+    t0 = time.perf_counter()
+    loader = HeteroNeighborLoader(data, list(PQ_FANOUTS), ('paper', None),
+                                  batch_size=PQ_BATCH, shuffle=True,
+                                  seed=seed)
+    csc_s = time.perf_counter() - t0
+    model = sage_hetero_net(torch, None, seed, meta)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=HG_LR)
+
+    def step(batch):
+        eis = batch_edge_index_dict(batch)
+        bs = int(batch['paper'].batch_size)
+        opt.zero_grad(set_to_none=True)
+        logits = model(batch.x_dict, eis)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:bs], batch['paper'].y[:bs].long())
+        loss.backward()
+        opt.step()
+        return loss
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    it = iter(loader)
+    sample_ms, card_ms, losses, first = [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    per_step = None
+    for i in range(PQ_STEPS):
+        t0 = time.perf_counter()
+        batch = next(it)
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        start.record()
+        losses.append(step(batch))
+        end.record()
+        torch.cuda.synchronize()
+        card_ms.append(start.elapsed_time(end))
+        if i == 0:
+            first = batch
+            per_step = {k: v for k, v in launch_counts().items() if v}
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(set(per_step) == {'segment_spmm'},
+          f'{tag}: launches in the first step {per_step}')
+    check_counts(tag, counts, {k: n * PQ_STEPS for k, n in per_step.items()},
+                 f'{PQ_STEPS} steps')
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f'{tag}: losses {losses}')
+    fill = {t: int(first[t].node_mask.sum()) for t in nodes}
+    caps = {t: int(first[t].n_id.shape[0]) for t in nodes}
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(first), 3)
+    busy = sum(t for _, t, _ in prof_rows)
+    res = {'batch': PQ_BATCH, 'fanouts': list(PQ_FANOUTS),
+           'csc_build_s': csc_s, 'steps': PQ_STEPS, 'losses': losses,
+           'host_sampling_ms_per_batch': sample_ms,
+           'card_ms_per_step': card_ms, 'launch_counts': counts,
+           'launches_per_step': per_step, 'peak_memory_gb': peak,
+           'nodes_per_batch': fill, 'node_budget_per_batch': caps,
+           'edges_per_batch': {
+               '__'.join(et): int(first[et].edge_mask.sum())
+               for et in edges},
+           'device_busy_ms_per_step': busy,
+           'profiled_ms_per_step': prof_ms,
+           'kernel1_ms_per_step': sum(t for n, t, _ in prof_rows
+                                      if SEG_MAIN in n),
+           'kernels_per_step': [[n[:80], t, c] for n, t, c in prof_rows[:8]]}
+    res['device_idle_share_unprofiled'] = 1 - busy / float(
+        np.median(card_ms[1:]))
+    log(f'[{tag}] HeteroNeighborLoader over the bench graph (CSCs of 7 '
+        f'relations in {csc_s:.2f} s): per batch the host samples in '
+        f'{np.median(sample_ms):.2f} ms (median of {PQ_STEPS}; '
+        f'{sample_ms}), the card runs a step in '
+        f'{np.median(card_ms[1:]):.4f} ms (CUDA events; {card_ms}), busy '
+        f'{busy:.4f} ms (torch.profiler), kernel 1 '
+        f"{res['kernel1_ms_per_step']:.4f} ms, {per_step['segment_spmm']} "
+        f'launches a step; losses {losses}; nodes per batch {fill} of '
+        f'{caps}; peak memory {peak:.3f} GB')
+    for name, t, n in prof_rows[:8]:
+        log(f'[{tag}]   {t:.4f} ms  x{n:g}  {name[:90]}')
+    # the first batch's forward against the CPU, same weights
+    cpu = sage_hetero_net(torch, 'cpu', seed, meta)
+    cpu.load_state_dict(state)
+    card = sage_hetero_net(torch, None, seed, meta)
+    card.load_state_dict({k: v.cuda() for k, v in state.items()})
+    with torch.inference_mode():
+        got = card(first.x_dict, batch_edge_index_dict(first))
+        ref = cpu({t: v.cpu() for t, v in first.x_dict.items()},
+                  batch_edge_index_dict(first, 'cpu'))
+    d = float((got.cpu() - ref).abs().max())
+    lim = 1e-4 * max(1.0, float(ref.abs().max()))
+    check(d <= lim, f'{tag}: the first batch\'s forward {d} from the CPU '
+                    f'(limit {lim})')
+    res['first_batch_vs_cpu'] = {'max_abs_diff': d, 'limit': lim}
+    # one HGTLoader batch
+    t0 = time.perf_counter()
+    hgt_loader = HGTLoader(data, list(PQ_FANOUTS), ('paper', None),
+                           batch_size=PQ_BATCH, seed=seed)
+    hgt_csc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hb = next(iter(hgt_loader))
+    hgt_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    with torch.inference_mode():
+        out = card(hb.x_dict, batch_edge_index_dict(hb))
+    torch.cuda.synchronize()
+    hgt_counts = launch_counts()
+    check(bool(torch.isfinite(out).all()) and hgt_counts['segment_spmm'] > 0,
+          f'{tag}: HGTLoader batch: finite {bool(torch.isfinite(out).all())}'
+          f', launches {hgt_counts}')
+    res['hgt_loader'] = {'csc_build_s': hgt_csc_s, 'sampling_ms': hgt_ms,
+                         'launch_counts': hgt_counts}
+    log(f'[{tag}] one HGTLoader batch sampled in {hgt_ms:.2f} ms (CSCs '
+        f"{hgt_csc_s:.2f} s), served on kernel 1 "
+        f"({hgt_counts['segment_spmm']} launches)")
+    # kernel 1 at the first batch's writes relation, F = 64
+    et = ('author', 'writes', 'paper')
+    ei = batch_edge_index_dict(first)[et]
+    gen = torch.Generator(device='cuda').manual_seed(seed + 24)
+    rows, worst = [], 0.0
+    for label, lay, x_in in (
+            ('Q writes forward', ei.csc, first['author'].x),
+            ('Q writes backward (A^T g)', ei.csr,
+             torch.randn((caps['paper'], HG_HIDDEN), generator=gen,
+                         device='cuda'))):
+        with torch.inference_mode():
+            out = segment_spmm(lay.indptr, lay.indices, None, x_in)
+            err, ok = segment_close(torch, lay.indptr, lay.indices, None,
+                                    x_in, out)
+            torch.cuda.synchronize()
+            check(ok, f'segment_spmm {label}: {err} from the plain version')
+            worst = max(worst, err)
+            row = segment_timed(torch, label, lay.indptr, lay.indices, None,
+                                x_in)
+        row['max_abs_err'] = err
+        row['slots'] = int(lay.indices.shape[0])
+        rows.append(row)
+    del data, loader, hgt_loader, model, opt, card, first, hb, it
+    torch.cuda.empty_cache()
+    return res, rows, worst
 
 
 def main():
@@ -4800,10 +5721,26 @@ def main():
     flash_rows, worst_flash_t = phase_flash_timings(torch, args.seed, coo,
                                                     pc_coo)
     del coo
-    worst_flash = (max(worst_flash[0], worst_flash_t[0]),
-                   max(worst_flash[1], worst_flash_t[1]))
+    torch.cuda.empty_cache()
+    # the heterogeneous paths on hetero_bench.py's graph: full scale for N,
+    # P and Q, its default 0.25 for O
+    t0 = time.perf_counter()
+    mag = build_mag_like(1.0, args.seed)
+    log(f'[hetero] hetero_bench graph (scale 1.0, seed {args.seed}: '
+        f'{sum(mag[0].values())} nodes in {len(mag[0])} types, '
+        f'{sum(c.shape[1] for c in mag[1].values())} edges in '
+        f'{len(mag[1])} edge types) built on the host in '
+        f'{time.perf_counter() - t0:.1f} s')
+    path_n, n_flash_rows, worst_n, n_dot_row, n_dot_err = phase_path_n(
+        torch, args.seed, mag, args.iters)
+    path_o, o_mix_row, o_mix_err = phase_path_o(torch, args.seed, args.iters)
+    path_p = phase_path_p(torch, args.seed, mag)
+    path_q, q_rows, q_err = phase_path_q(torch, args.seed, mag)
+    del mag
+    worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
+                   max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
-                   'path_m': paths_lm['path M']}
+                   'path_m': paths_lm['path M'], 'path_n': path_n}
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -4838,13 +5775,20 @@ def main():
                         for name, v in twins.items()})
     path_counts['scan_train'] = scan['launch_counts']
     path_counts['layerwise'] = layerwise['launch_counts']
-    for name, res in flash_paths.items():
+    for name, res in dict(flash_paths, path_o=path_o).items():
         path_counts.update({
             name: res['launch_counts'],
             f'{name}_captured': res['captured']['launch_counts'],
             f'{name}_training': res['training']['launch_counts'],
             f'{name}_training_captured': res['training']['captured'][
                 'launch_counts']})
+    arms = path_n['layouts_arm']
+    path_counts.update(
+        path_n_raw_coo_steps=arms['raw COO']['launch_counts'],
+        path_n_layouts_steps=arms['layouts']['launch_counts'],
+        path_n_layouts_captured=arms['layouts']['captured']['launch_counts'],
+        path_p=path_p['launch_counts'], path_q=path_q['launch_counts'],
+        path_q_hgt_loader=path_q['hgt_loader']['launch_counts'])
 
     def by_path(name):
         return {p: c[name] for p, c in path_counts.items()}
@@ -4889,7 +5833,9 @@ def main():
                               'path_f': path_f, 'path_g': path_g,
                               'path_h': path_h, 'path_i': path_i,
                               'path_j': path_j, 'scan_train': scan,
-                              'layerwise': layerwise, **flash_paths}}))
+                              'layerwise': layerwise, **flash_paths,
+                              'path_o': path_o, 'path_p': path_p,
+                              'path_q': path_q}}))
     # a path K training step launches each flash kernel once per layer: the
     # rows of layer 1 (H=4, C=16) and layer 2 (H=1, C=47)
     flash_step = {}
@@ -4935,7 +5881,8 @@ def main():
                      '(GAT H=4, C=16) and one at layer 2 (H=1, C=47, padded '
                      'to 48 by the flash route); the plain backward covers '
                      'both passes; paths L and M layer 1 in per_shape',
-        'per_shape': [r for r in flash_rows if r['kernel'] == k]}
+        'per_shape': [r for r in flash_rows if r['kernel'] == k],
+        'path_n_per_shape': [r for r in n_flash_rows if r['kernel'] == k]}
         for k in FLASH_KERNELS]
     log(json.dumps({'kernels': [{
         'name': 'segment_spmm', 'route': 'cuda',
@@ -4948,9 +5895,10 @@ def main():
         'launches_per_step': {'path_a': path_a['launches_per_step'][
             'segment_spmm'], **{f'path_b_{k.lower()}': v['launches_per_step']
                                 for k, v in path_b.items()},
-            'scan_train': scan['launches_per_step']['segment_spmm']},
+            'scan_train': scan['launches_per_step']['segment_spmm'],
+            'path_q': path_q['launches_per_step']['segment_spmm']},
         'launches_per_layerwise_batch': 2,
-        'max_abs_err': max(worst, worst_bwd, worst_sampled),
+        'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -4969,6 +5917,7 @@ def main():
         'residual_per_shape': seg_rows['residual'],
         'residual_per_step': residual_step,
         'sampled_per_shape': sampled_rows,
+        'path_q_per_shape': q_rows,
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
@@ -4998,7 +5947,9 @@ def main():
         'launches_by_path': by_path('gat_mix'),
         'launches_per_forward': path_c['launches_per_forward'],
         'launches_per_step': path_d['launches_per_step'],
-        'max_abs_err': worst_mix,
+        'path_o_launches_per_step': path_o['training']['launches_per_step'][
+            'gat_mix'],
+        'max_abs_err': max(worst_mix, o_mix_err),
         'ms': mix_sum['ms'], 'plain_ms': mix_sum['plain_ms'],
         'bound_ms': mix_sum['bound_ms'],
         'bound_by': ('bytes' if all(r['bound_by'] == 'bytes'
@@ -5008,7 +5959,8 @@ def main():
         'times_are': 'per path C forward: the mix at H*F=256 twice and 40 '
                      'once, the stabiliser pass three times; the backward '
                      'pass per call in per_shape',
-        'per_shape': mix_rows, 'slice_sweep': sweep}, {
+        'per_shape': mix_rows, 'path_o_per_shape': [o_mix_row],
+        'slice_sweep': sweep}, {
         'name': 'segment_max', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/segment_max.cu',
         'replaces': 'pytorch_geometric_tpu/ops/pallas_spmm.py:327',
@@ -5101,8 +6053,9 @@ def main():
         'launches_per_step': {
             'path_j': path_j['launches_per_step']['edge_dot'],
             'path_d': path_d['launch_counts']['edge_dot']
-            / path_d['steps']},
-        'max_abs_err': worst_dot['f32'],
+            / path_d['steps'],
+            'path_n': path_n['training']['launches_per_step']['edge_dot']},
+        'max_abs_err': max(worst_dot['f32'], n_dot_err),
         'ms': dot_sum['ms'], 'plain_ms': dot_sum['plain_ms'],
         'bound_ms': dot_sum['bound_ms'],
         'bound_by': ('bytes' if all(r['bound_by'] == 'bytes'
@@ -5113,7 +6066,8 @@ def main():
                      'call in per_shape',
         'slices': {k: by_dot[('I', 'float32', PC_HIDDEN)][k]
                    for k in ('slice_heads', 'col_slices')},
-        'per_shape': dot_rows, 'slice_sweep': dot_sweep}, {
+        'per_shape': dot_rows, 'path_n_per_shape': [n_dot_row],
+        'slice_sweep': dot_sweep}, {
         'name': 'edge_dot_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/sddmm.cu',
         'replaces': 'pytorch_geometric_tpu/ops/sddmm.py:38',

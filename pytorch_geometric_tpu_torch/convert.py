@@ -5,6 +5,8 @@ architecture.
 The JAX package's names map one to one onto the port's:
 
   * ``conv_i``  -> ``convs.i``       (BasicGNN layers)
+  * ``conv_{src}__{rel}__{dst}`` -> ``convs.{src}__{rel}__{dst}``
+                                     (HeteroConv's per-edge-type convs)
   * ``mlp_i``   -> ``convs.i.mlp``   (GIN's MLPs sit at the model level in
                                       flax, under the conv in the port)
   * ``norm_i``  -> ``norms.i``       (BasicGNN and MLP layer norms)
@@ -14,7 +16,12 @@ The JAX package's names map one to one onto the port's:
     submodules and parameters as the flax modules do (GATConv's
     ``lin_src``, ``att_src``; TransformerConv's ``lin_query``, ``lin_key``,
     ``lin_value``, ``lin_edge``, ``lin_skip``, ``lin_beta``; SuperGATConv's
-    ``lin``, ``att_l``, ``att_r``, ``bias``).
+    ``lin``, ``att_l``, ``att_r``, ``bias``; the hetero modules'
+    ``k_{t}``, ``a_rel_{edge type}``, ``skip_{t}``, ``proj_{t}``, ``q``,
+    ``weight``, ``comp``, ``basis_coef``, ``layer_{i}`` ...). Only a
+    ``kernel`` is transposed: the ``[R, F, C]`` banks, HGT's ``[H, D, D]``
+    transforms, RGCN's ``comp [R, B]`` and HAN's ``q [1, C]`` keep their
+    layout.
 """
 
 import re
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 _RULES = ((re.compile(r'^conv_(\d+)$'), r'convs.\1'),
+          (re.compile(r'^conv_(.+__.+__.+)$'), r'convs.\1'),
           (re.compile(r'^mlp_(\d+)$'), r'convs.\1.mlp'),
           (re.compile(r'^norm_(\d+)$'), r'norms.\1'),
           (re.compile(r'^lin_(\d+)$'), r'lins.\1'))

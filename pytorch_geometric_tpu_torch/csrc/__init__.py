@@ -8,8 +8,8 @@ name keyed by a hash of the source, the shared headers (``*.cuh``) and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 reused.
 
-``sampler.cpp`` (the neighbour sampler of ``sampler/neighbor_sampler.py``)
-is host code: :func:`sampler_library` builds it with ``g++`` into the same
+``sampler.cpp`` (the neighbour samplers of ``sampler/neighbor_sampler.py``
+and ``sampler/hetero.py``) is host code: :func:`sampler_library` builds it with ``g++`` into the same
 directory, keyed the same way and by the host (it is built for the host's
 CPU), and ``WITH_NATIVE_SAMPLER`` says whether it is there. Where ``g++`` is
 missing or the build fails, the samplers take their numpy paths, as the JAX
@@ -185,8 +185,9 @@ def build_sampler() -> Path:
 
 
 def sampler_library() -> Optional[ctypes.CDLL]:
-    """The sampler library with ``neighbor_sample`` and
-    ``neighbor_sample_tw`` bound, built first if needed; ``None`` where it
+    """The sampler library with ``neighbor_sample``,
+    ``hetero_neighbor_sample`` and ``neighbor_sample_tw`` bound, built
+    first if needed; ``None`` where it
     cannot be built (the samplers then take their numpy paths). Bound with
     ``ctypes.CDLL``, which releases the GIL for the length of a call."""
     global _sampler, _sampler_tried
@@ -210,6 +211,21 @@ def sampler_library() -> Optional[ctypes.CDLL]:
             ctypes.c_int, ctypes.c_uint64,             # replace, seed
             i64p, u8p, i64p, i64p, i64p, u8p,          # outputs
             i64p, i64p,
+        ]
+        i64pp = ctypes.POINTER(i64p)
+        u8pp = ctypes.POINTER(u8p)
+        lib.hetero_neighbor_sample.restype = ctypes.c_int64
+        lib.hetero_neighbor_sample.argtypes = [
+            ctypes.c_int64, ctypes.c_int64,            # T, R
+            i64pp, i64pp, i64pp,                       # colptrs, rows, eids
+            i64p, i64p,                                # src_type, dst_type
+            ctypes.c_int64, i64p, ctypes.c_int64,      # input_type, seeds
+            i64p, ctypes.c_int64,                      # fanouts, H
+            i64p, i64p,                                # n_caps, ecap_hop
+            ctypes.c_int, ctypes.c_uint64,             # replace, seed
+            i64pp, u8pp,                               # node_out, node_mask
+            i64pp, i64pp, i64pp, u8pp,                 # row/col/eid/mask
+            i64p, i64p,                                # nsn, nse
         ]
         lib.neighbor_sample_tw.restype = ctypes.c_int64
         lib.neighbor_sample_tw.argtypes = [

@@ -1,10 +1,11 @@
 // Native host neighbour sampling, for the loaders of the port.
 //
-// A copy of pytorch_geometric_tpu/csrc/sampler.cpp's homogeneous samplers
-// (neighbor_sample and neighbor_sample_tw, unchanged, so the two packages
-// draw the same neighbours from the same seed), the equivalent of pyg-lib's
-// torch.ops.pyg.neighbor_sample (reference
-// torch_geometric/sampler/neighbor_sampler.py:576). Exposed through a C ABI
+// A copy of pytorch_geometric_tpu/csrc/sampler.cpp's samplers
+// (neighbor_sample, hetero_neighbor_sample and neighbor_sample_tw,
+// unchanged, so the two packages draw the same neighbours from the same
+// seed), the equivalent of pyg-lib's torch.ops.pyg.neighbor_sample and
+// hetero_neighbor_sample (reference
+// torch_geometric/sampler/neighbor_sampler.py:471, :576). Exposed through a C ABI
 // and loaded with ctypes, which releases the GIL around each call, so the
 // loader's worker threads sample in parallel. Outputs are written into
 // caller-allocated fixed-capacity (padded) buffers, so every batch of a
@@ -178,6 +179,141 @@ int64_t neighbor_sample(
     }
   }
   return (int64_t)nodes.size();
+}
+
+// Heterogeneous multi-hop neighbor sampling (reference
+// torch.ops.pyg.hetero_neighbor_sample, neighbor_sampler.py:471).
+//
+// T node types, R edge types. Per edge type r: CSC arrays
+// colptrs[r] [n_dst+1], rows[r], eids[r], endpoints src_type[r] /
+// dst_type[r]. Every hop, each edge type samples `fanouts[hop]`
+// in-neighbors of its dst-type frontier. Outputs are per-type padded
+// buffers (same layout as the Python sampler): node_out[t] [n_caps[t]],
+// row/col are LOCAL ids (-1 padding), nsn [T*(H+1)], nse [R*H].
+int64_t hetero_neighbor_sample(
+    int64_t num_types, int64_t num_etypes,
+    const int64_t** colptrs, const int64_t** rows, const int64_t** eids,
+    const int64_t* src_type, const int64_t* dst_type,
+    int64_t input_type, const int64_t* seeds, int64_t num_seeds,
+    const int64_t* fanouts, int64_t num_hops,
+    const int64_t* n_caps,      // [T]
+    const int64_t* ecap_hop,    // [R * H] per-hop edge capacities
+    int replace, uint64_t seed,
+    int64_t** node_out, uint8_t** node_mask,
+    int64_t** row_out, int64_t** col_out, int64_t** eid_out,
+    uint8_t** edge_mask,
+    int64_t* nsn, int64_t* nse) {
+  std::mt19937_64 rng(seed);
+  std::vector<FlatMap> local;
+  local.reserve(num_types);
+  std::vector<std::vector<int64_t>> nodes(num_types);
+  for (int64_t t = 0; t < num_types; ++t) {
+    local.emplace_back((size_t)n_caps[t]);
+    nodes[t].reserve(n_caps[t]);
+  }
+
+  for (int64_t i = 0; i < num_seeds; ++i) {
+    bool ins;
+    local[input_type].get_or_insert(
+        seeds[i], (int64_t)nodes[input_type].size(), &ins);
+    if (ins) nodes[input_type].push_back(seeds[i]);
+  }
+  for (int64_t t = 0; t < num_types; ++t)
+    nsn[t * (num_hops + 1)] = (int64_t)nodes[t].size();
+
+  std::vector<int64_t> e_caps(num_etypes, 0);
+  for (int64_t r = 0; r < num_etypes; ++r) {
+    for (int64_t h = 0; h < num_hops; ++h)
+      e_caps[r] += ecap_hop[r * num_hops + h];
+    for (int64_t k = 0; k < e_caps[r]; ++k) {
+      row_out[r][k] = -1;
+      col_out[r][k] = -1;
+      eid_out[r][k] = 0;
+      edge_mask[r][k] = 0;
+    }
+  }
+
+  std::vector<std::vector<int64_t>> frontier(num_types);
+  frontier[input_type] = nodes[input_type];
+  std::vector<int64_t> cursor(num_etypes, 0);
+  std::vector<int64_t> scratch;
+  for (int64_t hop = 0; hop < num_hops; ++hop) {
+    const int64_t fanout = fanouts[hop];
+    std::vector<std::vector<int64_t>> next_frontier(num_types);
+    std::vector<int64_t> new_counts(num_types, 0);
+    for (int64_t r = 0; r < num_etypes; ++r) {
+      const int64_t st = src_type[r], dt = dst_type[r];
+      const int64_t* colptr = colptrs[r];
+      const int64_t* rowv = rows[r];
+      const int64_t* eidv = eids[r];
+      const int64_t base = cursor[r];
+      int64_t hop_edges = 0;
+      for (int64_t fi = 0; fi < (int64_t)frontier[dt].size(); ++fi) {
+        const int64_t v = frontier[dt][fi];
+        bool dummy;
+        const int64_t dst_local = local[dt].get_or_insert(v, -1, &dummy);
+        const int64_t lo = colptr[v], hi = colptr[v + 1];
+        const int64_t deg = hi - lo;
+        if (deg == 0) continue;
+        auto emit = [&](int64_t pos) {
+          const int64_t g = rowv[pos];
+          if ((int64_t)nodes[st].size() >= n_caps[st] &&
+              !local[st].contains(g)) {
+            return;
+          }
+          bool ins;
+          const int64_t gl = local[st].get_or_insert(
+              g, (int64_t)nodes[st].size(), &ins);
+          if (ins) {
+            nodes[st].push_back(g);
+            next_frontier[st].push_back(g);
+            ++new_counts[st];
+          }
+          const int64_t slot = base + hop_edges;
+          if (slot >= base + ecap_hop[r * num_hops + hop]) return;
+          row_out[r][slot] = gl;
+          col_out[r][slot] = dst_local;
+          eid_out[r][slot] = eidv[pos];
+          edge_mask[r][slot] = 1;
+          ++hop_edges;
+        };
+        if (deg <= fanout && !replace) {
+          for (int64_t p = lo; p < hi; ++p) emit(p);
+        } else if (replace) {
+          std::uniform_int_distribution<int64_t> d(0, deg - 1);
+          for (int64_t s = 0; s < fanout; ++s) emit(lo + d(rng));
+        } else {
+          scratch.resize(deg);
+          for (int64_t j = 0; j < deg; ++j) scratch[j] = j;
+          for (int64_t s = 0; s < fanout; ++s) {
+            std::uniform_int_distribution<int64_t> d(s, deg - 1);
+            std::swap(scratch[s], scratch[d(rng)]);
+            emit(lo + scratch[s]);
+          }
+        }
+      }
+      nse[r * num_hops + hop] = hop_edges;
+      cursor[r] += ecap_hop[r * num_hops + hop];
+    }
+    for (int64_t t = 0; t < num_types; ++t)
+      nsn[t * (num_hops + 1) + hop + 1] = new_counts[t];
+    frontier.swap(next_frontier);
+  }
+
+  int64_t total = 0;
+  for (int64_t t = 0; t < num_types; ++t) {
+    for (int64_t i = 0; i < n_caps[t]; ++i) {
+      if (i < (int64_t)nodes[t].size()) {
+        node_out[t][i] = nodes[t][i];
+        node_mask[t][i] = 1;
+      } else {
+        node_out[t][i] = 0;
+        node_mask[t][i] = 0;
+      }
+    }
+    total += (int64_t)nodes[t].size();
+  }
+  return total;
 }
 
 // Temporal / weighted / disjoint multi-hop neighbor sampling.

@@ -1,8 +1,9 @@
-"""Graph containers. Counterpart of ``pytorch_geometric_tpu/data``; ``Data``
-and ``Batch`` so far (the heterogeneous containers go with ROADMAP Queue 1,
-item 9)."""
+"""Graph containers. Counterpart of ``pytorch_geometric_tpu/data``:
+``Data``, ``Batch``, ``HeteroData`` and ``HeteroBatch``."""
 
 from .data import Data
 from .batch import Batch
+from .hetero_data import HeteroData
+from .hetero_batch import HeteroBatch
 
-__all__ = ['Data', 'Batch']
+__all__ = ['Data', 'Batch', 'HeteroData', 'HeteroBatch']

@@ -4,8 +4,9 @@ Counterpart of ``pytorch_geometric_tpu/loader/dataloader.py`` (reference
 ``torch_geometric/loader/dataloader.py:13``: Collater wraps
 ``Batch.from_data_list``). Batches are padded to power-of-two-ish buckets,
 so the number of distinct shapes (captured graphs) stays bounded (the
-reference's IPU precedent: ``transforms/pad.py``). The heterogeneous
-collation goes with ROADMAP Queue 1, item 9.
+reference's IPU precedent: ``transforms/pad.py``). A list of
+:class:`HeteroData` collates into a :class:`HeteroBatch`, each node type and
+edge type bucketed on its own.
 """
 
 import math
@@ -15,6 +16,8 @@ import numpy as np
 
 from ..data.batch import Batch
 from ..data.data import Data
+from ..data.hetero_batch import HeteroBatch
+from ..data.hetero_data import HeteroData
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -35,6 +38,8 @@ class Collater:
         self.edge_buckets = edge_buckets or [2 ** k for k in range(5, 26)]
 
     def __call__(self, data_list: List[Data]) -> Batch:
+        if isinstance(data_list[0], HeteroData):
+            return self._collate_hetero(data_list)
         if not self.pad:
             return Batch.from_data_list(data_list)
         n = sum(d.num_nodes for d in data_list) + 1  # +1 dump row
@@ -43,6 +48,18 @@ class Collater:
             data_list,
             pad_num_nodes=_bucket(n, self.node_buckets),
             pad_num_edges=_bucket(e, self.edge_buckets))
+
+    def _collate_hetero(self, data_list: List[HeteroData]) -> HeteroBatch:
+        if not self.pad:
+            return HeteroBatch.from_hetero_list(data_list)
+        pad_n, pad_e = {}, {}
+        for t in data_list[0].node_types:
+            n = sum(d[t].num_nodes or 0 for d in data_list) + 1
+            pad_n[t] = _bucket(n, self.node_buckets)
+        for et in data_list[0].edge_types:
+            e = sum(d[et].num_edges for d in data_list)
+            pad_e[et] = _bucket(e, self.edge_buckets)
+        return HeteroBatch.from_hetero_list(data_list, pad_n, pad_e)
 
 
 class DataLoader:

@@ -86,14 +86,18 @@ def stack_batches(batches: List, device=None) -> Dict[str, torch.Tensor]:
 
 
 def batch_edge_index(coo: torch.Tensor, edge_mask: torch.Tensor,
-                     n_cap: int) -> EdgeIndex:
+                     n_cap: int, n_dst: Optional[int] = None) -> EdgeIndex:
     """One padded batch's ``[2, E]`` batch-local COO as an ``EdgeIndex`` on
     its device, both orientations cached: the masked-out edges at the
-    ``n_cap`` sentinel (past every sorted row, so the sums drop them), the
-    sparse size ``(n_cap, n_cap)``. Reads nothing back from the card, so it
-    may run inside a capture."""
-    coo = torch.where(edge_mask, coo.int(), n_cap)
-    return EdgeIndex(coo, (n_cap, n_cap)).fill_cache(blocked=False)
+    ``(n_cap, n_dst)`` sentinels (past every sorted row, so the sums drop
+    them), the sparse size ``(n_cap, n_dst)``; ``n_dst`` (the destination
+    type's budget in a heterogeneous batch) defaults to ``n_cap``. Reads
+    nothing back from the card, so it may run inside a capture."""
+    n_dst = n_cap if n_dst is None else n_dst
+    coo = coo.int()
+    coo = torch.stack([torch.where(edge_mask, coo[0], n_cap),
+                       torch.where(edge_mask, coo[1], n_dst)])
+    return EdgeIndex(coo, (n_cap, n_dst)).fill_cache(blocked=False)
 
 
 def seed_mean(logits, y, seed_mask):

@@ -41,3 +41,27 @@ def linear(in_channels: int, out_channels: int, bias: bool = True,
         if bias:
             lin.bias.zero_()
     return lin.to(device)
+
+
+def glorot(shape, device=None,
+           generator: Optional[torch.Generator] = None) -> nn.Parameter:
+    """A parameter of ``shape`` drawn as flax's ``glorot_uniform`` draws
+    it: fan in and out from the last two axes, each times the product of
+    the leading axes (flax's receptive field); a 1-D shape takes its one
+    axis as both fans."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        field = math.prod(shape[:-2])
+        fan_in, fan_out = shape[-2] * field, shape[-1] * field
+    else:
+        fan_in = fan_out = shape[0] if shape else 1
+    limit = math.sqrt(6.0 / max(fan_in + fan_out, 1))
+    t = torch.empty(shape).uniform_(-limit, limit, generator=generator)
+    return nn.Parameter(t.to(device))
+
+
+def constant(shape, value: float, device=None) -> nn.Parameter:
+    """A parameter of ``shape`` filled with ``value`` (flax's ``zeros`` /
+    ``ones``)."""
+    return nn.Parameter(torch.full(tuple(shape), float(value),
+                                   device=device))

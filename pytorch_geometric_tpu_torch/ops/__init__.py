@@ -1,5 +1,9 @@
 from .edge_dot import edge_dot, edge_dot_plain
+from .edge_attention import (FlashLayout, build_hgt_flash_layouts,
+                             build_union_flash_layout)
 from .gat_fused import gat_aggregate, gat_mix, gat_mix_plain
+from .grouped import (RaggedLayout, TypedLayout, build_ragged_layout,
+                      build_typed_layout, grouped_matmul, typed_matmul)
 from .sddmm import (edge_softmax, edge_softmax_aggregate,
                     multi_relation_softmax_aggregate, sddmm)
 from .scatter import scatter
@@ -9,7 +13,10 @@ from .segment_spmm import segment_spmm, segment_spmm_plain
 from .softmax import softmax
 from .spmm import spmm, spmm_regime
 
-__all__ = ['gat_aggregate', 'gat_mix', 'gat_mix_plain', 'edge_dot',
+__all__ = ['FlashLayout', 'build_hgt_flash_layouts',
+           'build_union_flash_layout', 'RaggedLayout', 'TypedLayout',
+           'build_ragged_layout', 'build_typed_layout', 'grouped_matmul',
+           'typed_matmul', 'gat_aggregate', 'gat_mix', 'gat_mix_plain', 'edge_dot',
            'edge_dot_plain', 'edge_softmax', 'edge_softmax_aggregate',
            'multi_relation_softmax_aggregate', 'sddmm', 'scatter',
            'ptr2index', 'index2ptr', 'segment_max_blocked',

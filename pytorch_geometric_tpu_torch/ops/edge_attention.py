@@ -30,9 +30,9 @@ Two routes, chosen as the JAX package chooses them:
     messages pass the cap. Every flash route builds no ``[E, .]`` float
     array: the scans read node tables and edge ids only.
 
-Not ported (ROADMAP Queue 1): the resumable block API
-``gat_flash_{fwd,bwd}_{start,block,finish}`` and ``build_hgt_flash_layouts``
-(with HGT).
+:func:`build_hgt_flash_layouts` builds HGT's per-destination-type layouts
+on the host. Not ported (ROADMAP Queue 1): the resumable block API
+``gat_flash_{fwd,bwd}_{start,block,finish}``.
 """
 
 import os
@@ -47,7 +47,8 @@ from .softmax import softmax
 
 __all__ = ['hetero_edge_attention', 'hetero_edge_attention_multi',
            'gat_flash_attention', 'gatv2_flash_attention', 'FlashLayout',
-           'build_union_flash_layout', 'ATTN_WIDE_BYTES']
+           'build_union_flash_layout', 'build_hgt_flash_layouts',
+           'ATTN_WIDE_BYTES']
 
 # the JAX package's PGT_ATTN_WIDE_BYTES default (WIDE_BYTES_CAP): past this
 # many bytes of [E, H, 2 D] float32 gathers the JAX package takes the flash
@@ -354,6 +355,12 @@ class FlashLayout:
         self.s_t, self.d_t, self.rel_t = s_t, d_t, rel_t
 
 
+def _stable_order(keys: np.ndarray) -> np.ndarray:
+    """``np.argsort(keys, kind='stable')``: a stable sort's permutation is
+    unique, and torch's sorts on every core."""
+    return torch.sort(torch.from_numpy(keys), stable=True)[1].numpy()
+
+
 def build_union_flash_layout(s_list, d_list, table_sizes, num_dst: int,
                              chunk: Optional[int] = None,
                              device=None) -> FlashLayout:
@@ -390,16 +397,58 @@ def build_union_flash_layout(s_list, d_list, table_sizes, num_dst: int,
             .astype(np.int32))).to(dev)
             for a, fill in ((s, s_pad), (d, d_pad), (r, 0)))
 
-    order = np.argsort(d_glob, kind='stable')
+    order = _stable_order(d_glob)
     s_f, d_f, r_f = chunked(s_glob[order], d_glob[order], rel_glob[order],
                             0, num_dst)
     if os.environ.get('PGT_ATTN_BWD_SRC_SORTED', '1') == '0':
         return FlashLayout(s_f, d_f, r_f, e_tot)
     s2 = np.where(d_glob >= num_dst, m_total, s_glob)
-    order_t = np.argsort(s2, kind='stable')
+    order_t = _stable_order(s2)
     s_b, d_b, r_b = chunked(s2[order_t], d_glob[order_t], rel_glob[order_t],
                             m_total, num_dst)
     return FlashLayout(s_f, d_f, r_f, e_tot, s_b, d_b, r_b)
+
+
+def build_hgt_flash_layouts(metadata, edge_index_dict, num_nodes_dict,
+                            chunk: Optional[int] = None, feature_types=None,
+                            device=None):
+    """Per-destination-type :class:`FlashLayout` dict for
+    :class:`~pytorch_geometric_tpu_torch.nn.conv.HGTConv` (the JAX
+    package's ``build_hgt_flash_layouts``, ``:649-687``): the conv's
+    relation grouping and order and its endpoint clamps, on the host.
+
+    ``feature_types``: the node types present in ``x_dict`` at call time
+    (default: every type of ``num_nodes_dict``); the conv drops relations
+    whose endpoint type has no features, and the layout must drop the same
+    ones, or its relation ids and table offsets go stale (the conv checks
+    the edge totals and raises on a mismatch). The arrays go to ``device``
+    (None: the card)."""
+    from ..data.data import host
+    node_types, edge_types = metadata
+    if feature_types is None:
+        feature_types = set(num_nodes_dict)
+    feature_types = set(feature_types)
+    by_dst = {}
+    for et in edge_types:
+        src, rel, dst = et
+        if (et not in edge_index_dict or src not in feature_types
+                or dst not in feature_types):
+            continue
+        by_dst.setdefault(dst, []).append((src, et))
+    out = {}
+    for dst, rels in by_dst.items():
+        n = int(num_nodes_dict[dst])
+        s_list, d_list, sizes = [], [], []
+        for src, et in rels:
+            coo = host(edge_index_dict[et])
+            n_src = int(num_nodes_dict[src])
+            valid = (coo[0] < n_src) & (coo[1] < n)
+            s_list.append(np.minimum(coo[0], n_src - 1))
+            d_list.append(np.where(valid, np.minimum(coo[1], n - 1), n))
+            sizes.append(n_src)
+        out[dst] = build_union_flash_layout(s_list, d_list, sizes, n,
+                                            chunk=chunk, device=device)
+    return out
 
 
 def hetero_edge_attention_multi(k_tabs: Sequence[torch.Tensor],

@@ -1,13 +1,14 @@
-"""Samplers. Counterpart of ``pytorch_geometric_tpu/sampler``; the
-homogeneous samplers so far (``hetero.py`` goes with ROADMAP Queue 1, item
-9)."""
+"""Samplers. Counterpart of ``pytorch_geometric_tpu/sampler``: the
+homogeneous samplers and the heterogeneous ones (``hetero.py``)."""
 
 from .base import (BaseSampler, NodeSamplerInput, EdgeSamplerInput,
                    SamplerOutput, NumNeighbors, NegativeSampling)
+from .hetero import HeteroNeighborSampler, HeteroSamplerOutput, HGTSampler
 from .neighbor_sampler import BidirectionalNeighborSampler, NeighborSampler
 
 __all__ = [
     'BidirectionalNeighborSampler',
     'BaseSampler', 'NodeSamplerInput', 'EdgeSamplerInput', 'SamplerOutput',
     'NumNeighbors', 'NegativeSampling', 'NeighborSampler',
+    'HeteroNeighborSampler', 'HeteroSamplerOutput', 'HGTSampler',
 ]

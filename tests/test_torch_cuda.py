@@ -2180,3 +2180,208 @@ def test_layerwise_inference_on_card_matches_cpu(dev):
     ref = outs[0]
     assert float((outs[1] - ref).abs().max()) <= 1e-4 * float(
         ref.abs().max())
+
+
+# -- heterogeneous graphs --------------------------------------------------------
+HETERO_NODES = {'paper': 300, 'author': 420, 'institution': 20, 'field': 60}
+HETERO_RELS = {('author', 'writes', 'paper'): 2500,
+               ('paper', 'cites', 'paper'): 2000,
+               ('paper', 'has_topic', 'field'): 1800,
+               ('author', 'affiliated_with', 'institution'): 500}
+
+
+def _hetero_graph(seed, f=32):
+    """The MAG schema, small, with reverse relations."""
+    rng = np.random.default_rng(seed)
+    ei = {}
+    for (s, r, d), e in HETERO_RELS.items():
+        coo = np.stack([rng.integers(0, HETERO_NODES[s], e),
+                        rng.integers(0, HETERO_NODES[d], e)]).astype(np.int32)
+        ei[(s, r, d)] = coo
+        if s != d:
+            ei[(d, f'rev_{r}', s)] = coo[::-1].copy()
+    x = {t: rng.standard_normal((n, f)).astype(np.float32)
+         for t, n in HETERO_NODES.items()}
+    return x, ei, (tuple(HETERO_NODES), tuple(ei))
+
+
+def _within(out, ref, share=1e-4):
+    """Within ``share`` of the reference's largest magnitude."""
+    err = float((out.detach().cpu() - ref.detach().cpu()).abs().max())
+    assert err <= share * max(float(ref.abs().max()), 1e-30), err
+
+
+def _zero_counts():
+    from pytorch_geometric_tpu_torch import compat
+    for _, fn, attr in compat.launch_counters():
+        setattr(fn, attr, 0)
+
+
+def _hgt_pair(meta, dev, attn_path=None, f=32):
+    from pytorch_geometric_tpu_torch.nn import HGTConv
+    cpu = HGTConv(f, 32, meta, heads=4, attn_path=attn_path, device='cpu')
+    card = HGTConv(f, 32, meta, heads=4, attn_path=attn_path, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _hgt_run(model, x, ei, dev, layouts=None):
+    """Outputs and the gradients of every parameter and input under a fixed
+    cotangent."""
+    xs = {t: torch.as_tensor(v, device=dev).requires_grad_()
+          for t, v in x.items()}
+    out = model(xs, ei, layouts)
+    gen = torch.Generator().manual_seed(5)
+    loss = sum((v * torch.randn(v.shape, generator=gen).to(dev)).sum()
+               for _, v in sorted(out.items()))
+    loss.backward()
+    return out, {k: p.grad for k, p in model.named_parameters()}, \
+        {t: v.grad for t, v in xs.items()}
+
+
+@pytest.mark.parametrize('route', ['wide_and_flash', 'layouts'])
+def test_hgt_fused_route_on_card_matches_cpu(dev, route, monkeypatch):
+    """HGT's fused route on the card (the dot kernel on the wide op, the
+    three flash kernels past the cap; with layouts every type on flash
+    over presorted edges) against the same weights on the CPU: outputs and
+    every gradient within 1e-4 of their largest."""
+    from pytorch_geometric_tpu_torch import compat
+    from pytorch_geometric_tpu_torch.ops import build_hgt_flash_layouts
+    x, ei, meta = _hetero_graph(1)
+    # 'paper' (6,300 union edges) past the cap, the other types under it
+    monkeypatch.setenv('PGT_ATTN_WIDE_BYTES', str(4000 * 4 * 2 * 8 * 4))
+    cpu, card = _hgt_pair(meta, dev)
+    lay = {}
+    if route == 'layouts':
+        lay = {d: build_hgt_flash_layouts(meta, ei, HETERO_NODES,
+                                          device=d) for d in ('cpu', dev)}
+    _zero_counts()
+    outs = [_hgt_run(m, x, {k: torch.as_tensor(v, device=d)
+                            for k, v in ei.items()}, d, lay.get(d))
+            for m, d in ((cpu, 'cpu'), (card, dev))]
+    counts = compat.launch_counts()
+    if route == 'layouts':
+        assert counts['flash_fwd'] == len(HETERO_NODES)
+    else:
+        assert counts['flash_fwd'] == 1 and counts['edge_dot'] > 0
+    assert counts['flash_bwd_dst'] == counts['flash_bwd_src'] == \
+        counts['flash_fwd']
+    (ro, rg, rx), (co, cg, cx) = outs
+    for t in ro:
+        _within(co[t], ro[t])
+    for k in rg:
+        _within(cg[k], rg[k])
+    for t in rx:
+        _within(cx[t], rx[t])
+
+
+def test_rectangular_slot_orders_and_blocked_hgt_on_card(dev):
+    """Slot orders of rectangular relations (``author -> paper``, ...) built
+    on the card equal the CPU's, and HGT's blocked route (the mix kernel
+    through ``multi_relation_softmax_aggregate``) matches the CPU."""
+    from pytorch_geometric_tpu_torch import compat
+    x, ei, meta = _hetero_graph(2)
+    eis = {}
+    for d in ('cpu', dev):
+        eis[d] = {et: EdgeIndex(coo, (HETERO_NODES[et[0]],
+                                      HETERO_NODES[et[2]]),
+                                device=d).fill_cache(blocked=True)
+                  for et, coo in ei.items()}
+    for et in ei:
+        for side in ('blocked', 'blocked_t'):
+            a, b = getattr(eis['cpu'][et], side), getattr(eis[dev][et], side)
+            for k in a._fields:
+                assert torch.equal(getattr(a, k).cpu().long(),
+                                   getattr(b, k).cpu().long()), (et, side, k)
+    cpu, card = _hgt_pair(meta, dev, attn_path='blocked')
+    _zero_counts()
+    (ro, rg, rx), (co, cg, cx) = [_hgt_run(m, x, eis[d], d) for m, d in
+                                  ((cpu, 'cpu'), (card, dev))]
+    assert compat.launch_counts()['gat_mix'] > 0
+    for t in ro:
+        _within(co[t], ro[t])
+    for k in rg:
+        _within(cg[k], rg[k])
+    for t in rx:
+        _within(cx[t], rx[t])
+
+
+def test_hetero_batch_relations_build_inside_a_capture(dev):
+    """A hetero loader batch (its relations padded with the sampler's -1,
+    mapped by the loader to the source budget) becomes EdgeIndexes with
+    the padding past both ends inside a captured forward of a to_hetero
+    GraphSAGE: the replays launch kernel 1 once per relation and layer,
+    equal the eager forward bit for bit and the CPU within 1e-4."""
+    from pytorch_geometric_tpu_torch import compat
+    from pytorch_geometric_tpu_torch.data import HeteroData
+    from pytorch_geometric_tpu_torch.loader import HeteroNeighborLoader
+    from pytorch_geometric_tpu_torch.loader.scan_train import \
+        batch_edge_index
+    from pytorch_geometric_tpu_torch.nn import SAGEConv, to_hetero
+    x, ei, meta = _hetero_graph(3)
+    data = HeteroData()
+    for t, v in x.items():
+        data[t].x = v
+    for et, coo in ei.items():
+        data[et].edge_index = coo
+    batch = next(iter(HeteroNeighborLoader(data, [4, 3], ('paper', None),
+                                           batch_size=64)))
+    ets = list(ei)
+    assert any(not bool(batch[et].edge_mask.all()) for et in ets)
+    sizes = {t: int(batch[t].n_id.shape[0]) for t in x}
+    models = {}
+    for d in ('cpu', dev):
+        models[d] = to_hetero([SAGEConv(32, 32, device=d), torch.relu,
+                               SAGEConv(32, 32, device=d)], meta)
+    models[dev].load_state_dict(models['cpu'].state_dict())
+
+    def forward(model, xs, coos, masks):
+        eis = {et: batch_edge_index(c, m, sizes[et[0]], sizes[et[2]])
+               for et, c, m in zip(ets, coos, masks)}
+        out = model(dict(zip(x, xs)), eis)
+        return [out[t] for t in sorted(out)]
+
+    def inputs(d):
+        return ([batch[t].x.to(d) for t in x],
+                [batch[et].edge_index.to(d) for et in ets],
+                [batch[et].edge_mask.to(d) for et in ets])
+
+    ref = forward(models['cpu'], *inputs('cpu'))
+    compiled = compat.compile(lambda *a: forward(models[dev], *a))
+    eager = forward(models[dev], *inputs(dev))
+    for _ in range(4):
+        got = compiled(*inputs(dev))
+    assert compiled.replays >= 1
+    assert compiled.launches_per_replay == {'segment_spmm': 2 * len(ets)}
+    for g, e, r in zip(got, eager, ref):
+        assert torch.equal(g, e)
+        _within(g, r)
+
+
+@pytest.mark.parametrize('rows', [[5000, 0, 37, 12000], [1, 1, 1, 1]])
+def test_typed_matmul_arms_agree_on_card(dev, rows):
+    """``typed_matmul``'s dense einsum, sort-and-batch and per-type-run
+    arms agree on the card and with the CPU (float32 matmuls, TF32 off):
+    outputs and gradients within 1e-5 of their largest."""
+    from pytorch_geometric_tpu_torch.ops import (build_ragged_layout,
+                                                 build_typed_layout,
+                                                 typed_matmul)
+    rng = np.random.default_rng(6)
+    types = np.concatenate([np.full(n, i) for i, n in enumerate(rows)])
+    rng.shuffle(types)
+    x = rng.standard_normal((len(types), 64)).astype(np.float32)
+    w = rng.standard_normal((4, 64, 48)).astype(np.float32)
+    g = rng.standard_normal((len(types), 48)).astype(np.float32)
+    res = []
+    for d in ('cpu', dev):
+        for layout in (None, build_typed_layout(types, 4, device=d),
+                       build_ragged_layout(types, 4, device=d)):
+            tx = torch.as_tensor(x, device=d).requires_grad_()
+            tw = torch.as_tensor(w, device=d).requires_grad_()
+            out = typed_matmul(tx, torch.as_tensor(types, device=d), tw,
+                               layout)
+            (out * torch.as_tensor(g, device=d)).sum().backward()
+            res.append((out, tx.grad, tw.grad))
+    for other in res[1:]:
+        for a, b in zip(other, res[0]):
+            _within(a, b, 1e-5)

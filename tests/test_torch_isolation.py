@@ -2,7 +2,8 @@
 the JAX package; no file of it (nor ``chip_smoke.py``) imports them; its
 entry points run on the CUDA card unless asked for the CPU, and raise
 without a card instead of running on the CPU; its host-side loaders run
-without a card, on the port's own build of the native sampler."""
+without a card, on the port's own build of the native sampler (the
+heterogeneous loaders too)."""
 
 import ast
 import ctypes
@@ -53,12 +54,21 @@ def test_import_loads_no_jax():
         '"pytorch_geometric_tpu_torch.data.batch", '
         '"pytorch_geometric_tpu_torch.sampler.neighbor_sampler", '
         '"pytorch_geometric_tpu_torch.loader.neighbor_loader", '
-        '"pytorch_geometric_tpu_torch.loader.prefetch"} <= set('
+        '"pytorch_geometric_tpu_torch.loader.prefetch", '
+        '"pytorch_geometric_tpu_torch.data.hetero_data", '
+        '"pytorch_geometric_tpu_torch.data.hetero_batch", '
+        '"pytorch_geometric_tpu_torch.ops.grouped", '
+        '"pytorch_geometric_tpu_torch.nn.dense.linear", '
+        '"pytorch_geometric_tpu_torch.nn.conv.rgcn_conv", '
+        '"pytorch_geometric_tpu_torch.nn.conv.hetero_conv", '
+        '"pytorch_geometric_tpu_torch.nn.to_hetero", '
+        '"pytorch_geometric_tpu_torch.sampler.hetero", '
+        '"pytorch_geometric_tpu_torch.loader.hetero_loader"} <= set('
         'sys.modules)\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 43   # every module was imported
+    assert int(res.stdout.split()[-1]) >= 58   # every module was imported
 
 
 @pytest.mark.parametrize('path', sorted(
@@ -184,3 +194,44 @@ def test_native_sampler_is_the_ports_own_build():
     assert path.parent == PKG / '_build' and path.is_file()
     assert csrc.SOURCE_DIR == PKG / 'csrc'
     assert (PKG / 'csrc' / csrc.SAMPLER_SOURCE).is_file()
+
+
+def test_hetero_loaders_run_on_the_host_without_a_card(no_card):
+    """The heterogeneous samplers, loaders and collation are host work:
+    they run with no card visible, and the batch relations' upload to the
+    default device (the card) raises."""
+    from pytorch_geometric_tpu_torch.data import HeteroBatch, HeteroData
+    from pytorch_geometric_tpu_torch.loader import (DataLoader, HGTLoader,
+                                                    HeteroNeighborLoader,
+                                                    batch_edge_index_dict)
+    data = HeteroData()
+    data['p'].x = np.ones((6, 2), np.float32)
+    data['a'].x = np.ones((4, 2), np.float32)
+    data['a', 'w', 'p'].edge_index = np.array([[0, 1, 2, 3], [1, 2, 3, 0]])
+    data['p', 'c', 'p'].edge_index = np.array([[0, 1, 2], [1, 2, 3]])
+    for cls in (HeteroNeighborLoader, HGTLoader):
+        batches = list(cls(data, [2, 2], ('p', None), batch_size=4))
+        assert [int(b['p'].batch_size) for b in batches] == [4, 4]
+        assert batches[0]['p'].x.device.type == 'cpu'
+    assert isinstance(next(iter(DataLoader([data, data], batch_size=2))),
+                      HeteroBatch)
+    with pytest.raises(RuntimeError, match='no CUDA card'):
+        batch_edge_index_dict(batches[0])
+    assert batch_edge_index_dict(batches[0], 'cpu')[
+        ('a', 'w', 'p')].device.type == 'cpu'
+
+
+def test_hetero_sampler_is_the_ports_own_build():
+    """The heterogeneous sampler's native path calls
+    ``hetero_neighbor_sample`` in the port's own ``CDLL`` build of its copy
+    of ``sampler.cpp`` (never the JAX package's library), with its
+    argument types bound."""
+    from pytorch_geometric_tpu_torch import csrc
+    from pytorch_geometric_tpu_torch.sampler import hetero
+    lib = csrc.sampler_library()
+    assert type(lib) is ctypes.CDLL
+    assert csrc.sampler_path().parent == PKG / '_build'
+    assert lib.hetero_neighbor_sample.argtypes is not None
+    assert 'hetero_neighbor_sample' in (
+        PKG / 'csrc' / csrc.SAMPLER_SOURCE).read_text()
+    assert hetero.csrc is csrc
