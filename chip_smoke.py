@@ -172,7 +172,35 @@ checks them:
      ``to_hetero`` of SAGE 64 -> ReLU -> SAGE 64 and a Linear, 6 eager steps
      (host sampling a batch beside the card's time a step), the first batch
      against the CPU, one ``HGTLoader`` batch; kernel 1 timed at the batch's
-     ``writes`` relation, forward and ``A^T g``.
+     ``writes`` relation, forward and ``A^T g``;
+ 29. the SpMM regimes (``ops/chunked_spmm.py``, ``ops/dense_spmm.py``): the
+     windowed, chunked and uncached dense regimes, each forced by its knob
+     (``PGT_WIN_EDGES`` 2**18 over 60,000 nodes and 1.5M edges: 6 windows;
+     ``PGT_SPMM_CHUNK_TRIGGER`` 0 with 2**18-edge chunks: 6 chunks;
+     ``PGT_FORCE_DENSE_SPMM`` on 6,000 nodes), through the public ``spmm``
+     with 1,000 padded edges: forward, ``grad_x`` and ``grad_w``, sum and
+     mean, forward and transposed, against the float64 plain gather and its
+     autograd, the launches each arm must make counted; each arm raising
+     with ``backend.use_kernel_spmm = False``; the dot kernel timed as
+     ``grad_w`` at the windowed (slot order) and chunked (edge order)
+     shapes;
+ 30. path R, ``products_bench.py --infer`` at full scale: the products
+     graph through ``fill_cache(auto=True)`` (its time and memory, what the
+     windowed layouts share with the CSC and CSR, the regime it reports),
+     the bench's 2-layer net (F = 100 -> 64 -> 47) served eagerly and
+     captured, 20 forwards after 2, in float32 and with bf16 x: ms per
+     forward, edges/s, launches, idle share, peak memory; its forward equal
+     bit for bit to the kernel regime's over the CSC; at 0.01 scale against
+     the CPU; kernel 1 at each layer's shape against the float64 sum, its
+     plain version (over 16 row ranges) and ``torch.sparse.mm``; the regime
+     auto picks on path A's graph;
+ 31. path S, ``examples/giant_graph.py``'s model at full products scale:
+     SAGE over the windowed regime (kernel 1) and ``GATConv(8, heads=4)``
+     over the raw COO (the flash kernels), Adam 1e-2, served and trained
+     eager and captured (1 step, then 5 timed), the captured losses and
+     gradients against the eager ones; at the example's toy scale and knobs
+     against the CPU (forward, 3 losses, first-step gradients); kernel 1 at
+     the SAGE layer's shape.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -196,6 +224,7 @@ It also exits non-zero when no card is visible or the package is missing.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -326,6 +355,23 @@ FLASH_RECORDED_BEFORE_MS = {
     ('K layer 2', 'flash_bwd_src'): 23.5000,
     ('L layer 1', 'flash_bwd_src'): 1.6394,
     ('M layer 1', 'flash_bwd_src'): 1.8432}
+# the regime arm checks: a graph that really chunks (6 windows of the
+# windowed layout, 6 chunks of the chunked regime) plus padded edges, F =
+# 32; the uncached dense regime on a graph its [N, N] build holds
+RA_NODES, RA_EDGES, RA_F, RA_PAD, RA_CHUNK = 60_000, 1_500_000, 32, 1_000, \
+    1 << 18
+RA_DENSE_NODES, RA_DENSE_EDGES = 6_000, 200_000
+# path R: products_bench.py --infer on the products graph; the regime
+# fill_cache(auto=True) must report there (and path S's SAGE layer take)
+PR_REGIME = 'windowed'
+# path S: examples/giant_graph.py's model (:57-63): x [N, 32], SAGEConv(32),
+# GATConv(8, heads=4), Linear 7, Adam 1e-2; its toy scale and the env caps
+# it sets (:35-40) for the check against the CPU
+PS_F, PS_HIDDEN, PS_HEADS, PS_CLASSES, PS_LR = 32, 32, 4, 7, 1e-2
+PS_TOY_NODES, PS_TOY_EDGES = 2_000, 20_000
+PS_TOY_ENV = {'PGT_ATTN_WIDE_BYTES': '1', 'PGT_ATTN_CHUNK_EDGES': '4096',
+              'PGT_AUTO_WIN_MIN_EDGES': '1000',
+              'PGT_DENSE_SPMM_ENTRIES': '100'}
 # the flash wrappers' kernel names, as ops/flash_softmax.py::kernel_shape
 # takes them, by launch counter
 FLASH_SHAPE_KERNEL = {'flash_fwd': 'fwd', 'flash_bwd_dst': 'dst',
@@ -1372,7 +1418,8 @@ def ei_to_cpu(torch, ei):
         return v
 
     names = ('csr', 'csc', 'weight', 'bsr', 'bsr_t', 'bsr_res', 'bsr_perm',
-             'bsr_inv', 'blocked', 'blocked_t', 'dense_adj', 'dense_scale')
+             'bsr_inv', 'blocked', 'blocked_t', 'dense_adj', 'dense_scale',
+             'win', 'win_t')
     return EdgeIndex(ei.coo.cpu(), ei.sparse_size,
                      num_real_edges=ei.num_real_edges, device='cpu',
                      **{k: mv(getattr(ei, k)) for k in names})
@@ -5648,6 +5695,643 @@ def phase_path_q(torch, seed, mag):
     return res, rows, worst
 
 
+# -- the SpMM regimes: arm checks, paths R and S ---------------------------------
+@contextlib.contextmanager
+def knobs(env=None, attrs=()):
+    """Environment variables and module attributes set for the block, put
+    back after it."""
+    env = env or {}
+    old_env = {k: os.environ.get(k) for k in env}
+    old_attr = [(m, a, getattr(m, a)) for m, a, _ in attrs]
+    os.environ.update({k: str(v) for k, v in env.items()})
+    for m, a, v in attrs:
+        setattr(m, a, v)
+    try:
+        yield
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for m, a, v in old_attr:
+            setattr(m, a, v)
+
+
+def arm_graph(n, e, f, seed):
+    """A random square graph of ``n`` nodes and ``e`` edges plus
+    ``RA_PAD`` padded edges (both endpoints ``n``), its weights and x."""
+    rng = np.random.default_rng(seed)
+    coo = np.concatenate([rng.integers(0, n, (2, e)),
+                          np.full((2, RA_PAD), n)], 1).astype(np.int32)
+    return (coo, rng.random(coo.shape[1]).astype(np.float32),
+            rng.standard_normal((n, f)).astype(np.float32))
+
+
+def regime_reference(torch, coo, w, x, n_dst, reduce, g):
+    """The plain version of one SpMM and its VJP in float64 on the card:
+    gather, multiply, ``index_add_`` over the edges whose endpoints are in
+    range, the mean over their count; ``(out, grad_x, grad_w)`` for the
+    cotangent ``g``."""
+    x64 = x.detach().double().requires_grad_()
+    w64 = w.detach().double().requires_grad_()
+    s, d = coo[0].long(), coo[1].long()
+    ok = (s < x.shape[0]) & (d < n_dst)
+    out = x64.new_zeros((n_dst, x.shape[1])).index_add_(
+        0, d[ok], x64[s[ok]] * w64[ok][:, None])
+    if reduce == 'mean':
+        deg = torch.bincount(d[ok], minlength=n_dst).double()
+        out = out / deg.clamp(min=1)[:, None]
+    out.backward(g.double())
+    return out.detach(), x64.grad, w64.grad
+
+
+def phase_regime_arms(torch, seed):
+    """The windowed, chunked and uncached dense regimes on the card, each
+    forced by its knob at a size that really chunks (``RA_*``: several
+    windows, several chunks), through the public ``spmm``: forward,
+    ``grad_x`` and ``grad_w`` (weights that need a gradient), ``sum`` and
+    ``mean``, forward and transposed, with padded edges; each against the
+    float64 plain version (``regime_reference``) within PERF.md's limits
+    (output 1e-5 of max(1, max|ref|), gradients 1e-4 of their largest),
+    with the kernels each arm must launch counted (kernel 1 once a window
+    pass or chunk, the dot kernel for ``grad_w``); then every arm raises
+    with ``backend.use_kernel_spmm = False``. Returns the worst errors and
+    the dot kernel's ``grad_w`` rows (timed, with the plain version and
+    ``torch.sparse.sampled_addmm``)."""
+    import importlib
+    from types import SimpleNamespace
+    from pytorch_geometric_tpu_torch import EdgeIndex, backend
+    from pytorch_geometric_tpu_torch.ops import spmm, spmm_regime
+    from pytorch_geometric_tpu_torch.ops.edge_dot import (edge_dot,
+                                                          edge_dot_plain)
+    sm = importlib.import_module('pytorch_geometric_tpu_torch.ops.spmm')
+    f = RA_F
+    chunk_buf = RA_CHUNK * f * 4
+    cases = {
+        'windowed': (RA_NODES, RA_EDGES, {'PGT_WIN_EDGES': RA_CHUNK}),
+        'chunked': (RA_NODES, RA_EDGES, {'PGT_SPMM_CHUNK_TRIGGER': 0,
+                                         'PGT_SPMM_CHUNK_BUF': chunk_buf}),
+        'dense': (RA_DENSE_NODES, RA_DENSE_EDGES,
+                  {'PGT_FORCE_DENSE_SPMM': 1})}
+    worst = {'out': 0.0, 'grad_x': 0.0, 'grad_w': 0.0}
+    res = {}
+    for arm, (n, e, env) in cases.items():
+        coo_np, w_np, x_np = arm_graph(n, e, f, seed)
+        coo = torch.as_tensor(coo_np, device='cuda')
+        w0 = torch.as_tensor(w_np, device='cuda')
+        x0 = torch.as_tensor(x_np, device='cuda')
+        with knobs(env):
+            ei = EdgeIndex(coo, (n, n))
+            if arm == 'windowed':
+                ei = ei.fill_cache(blocked=False, windowed=True)
+                windows = ei.win.src.shape[0]
+            chunks = -(-coo.shape[1] // sm.chunk_edges(f))
+            for reduce in ('sum', 'mean'):
+                for transpose in (False, True):
+                    tag = f'{arm} {reduce}{" transposed" if transpose else ""}'
+                    regime = spmm_regime(ei.flip() if transpose else ei, f,
+                                         reduce, True)
+                    check(regime == arm, f'{tag}: the {regime!r} regime ran')
+                    x = x0.clone().requires_grad_()
+                    w = w0.clone().requires_grad_()
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    out = spmm(ei, x, w, reduce=reduce, transpose=transpose)
+                    g = torch.randn_like(out)
+                    out.backward(g)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                    want = {'windowed': {'segment_spmm': 2, 'edge_dot': 1},
+                            'chunked': {'segment_spmm': 2 * chunks,
+                                        'edge_dot': chunks},
+                            'dense': {'edge_dot': 1}}[arm]
+                    check_counts(tag, counts, want, 'one forward and backward')
+                    rc = coo.flip(0) if transpose else coo
+                    ref, rgx, rgw = regime_reference(torch, rc, w0, x0, n,
+                                                     reduce, g)
+                    errs = {
+                        'out': float((out.detach().double() - ref).abs().max())
+                        / max(1.0, float(ref.abs().max())),
+                        'grad_x': float((x.grad.double() - rgx).abs().max())
+                        / max(float(rgx.abs().max()), 1e-30),
+                        'grad_w': float((w.grad.double() - rgw).abs().max())
+                        / max(float(rgw.abs().max()), 1e-30)}
+                    log(f'[regimes] {tag}: {n} nodes, {coo.shape[1]} edges '
+                        f'({RA_PAD} padded), F={f}; relative errors '
+                        + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+                        + f' (limits 1e-5, 1e-4, 1e-4); launches {want}')
+                    check(errs['out'] <= 1e-5, f'{tag}: output off by '
+                                               f'{errs["out"]}')
+                    check(errs['grad_x'] <= 1e-4 and errs['grad_w'] <= 1e-4,
+                          f'{tag}: gradients off by {errs}')
+                    for k in worst:
+                        worst[k] = max(worst[k], errs[k])
+                    res[tag] = dict(errs, launches=want)
+            # no arm runs on the card without the kernels
+            be_old = backend.use_kernel_spmm
+            backend.use_kernel_spmm = False
+            try:
+                try:
+                    spmm(ei, x0, w0)
+                except RuntimeError as err:
+                    check('use_kernel_spmm' in str(err), f'{arm}: {err}')
+                else:
+                    check(False, f'{arm}: ran with use_kernel_spmm = False')
+            finally:
+                backend.use_kernel_spmm = be_old
+        if arm == 'windowed':
+            res['windows'], win = windows, ei.win
+        elif arm == 'chunked':
+            res['chunks'] = chunks
+        del ei
+    log(f'[regimes] each arm raised with backend.use_kernel_spmm = False')
+    # the dot kernel as grad_w: the windowed arm's per-slot call (slot
+    # order, the destinations in runs) and the chunked arm's per-chunk call
+    # (edge order), at the checks' shapes
+    n = RA_NODES
+    coo_np, _, x_np = arm_graph(n, RA_EDGES, f, seed)
+    x = torch.as_tensor(x_np, device='cuda')
+    g = torch.randn_like(x)
+    e_all = coo_np.shape[1]
+    lay = SimpleNamespace(indptr=win.indptr, src=win.src.reshape(-1),
+                          dst=win.dst.reshape(-1))
+    coo = torch.as_tensor(coo_np, device='cuda')
+    rows = []
+    for label, ia, ib, runs in (
+            ('windowed grad_w, slot order', lay.src, lay.dst, True),
+            ('chunked grad_w, one chunk, edge order',
+             coo[0, :RA_CHUNK], coo[1, :RA_CHUNK], None)):
+        e = ia.shape[0]
+        fns = {'ms': lambda: edge_dot(x, g, ia, ib, runs=runs),
+               'plain_ms': lambda: edge_dot_plain(x, g, ia, ib)}
+        out = fns['ms']()
+        ref = fns['plain_ms']()
+        err = float((out - ref).abs().max())
+        check(err <= 1e-5 * max(1.0, float(ref.abs().max())),
+              f'dot kernel {label}: {err} off the plain version')
+        if runs:
+            fns['library_ms'] = sampled_addmm_call(
+                torch, lay, x.view(n, 1, f), g.view(n, 1, f), n, n,
+                int(win.indptr[-1]))
+        row = timed_row(torch, fns, {'shape': label, 'edges': e,
+                                     'H': 1, 'F': f, 'max_abs_err': err,
+                                     'runs_arm': bool(runs)},
+                        dot_bytes(n, n, e, 1, f, 4, 8), 2.0 * e * f)
+        row.setdefault('library_ms', None)
+        if row['library_ms'] is None:
+            row['library_note'] = ('sampled_addmm takes a CSR, so it '
+                                   'timed at the slot order only')
+        log(f"[timing] edge_dot {label}: {e} slots, F={f}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        rows.append(row)
+    del win, lay
+    torch.cuda.empty_cache()
+    return {'cases': res, 'worst': worst, 'edges': e_all}, rows
+
+
+def products_infer_net(torch, device, seed):
+    """Path R's model, ``products_bench.py --infer``'s (``run_infer``,
+    ``:68-150``): per layer ``spmm(mean)`` plus two Linear layers (``l`` on
+    the aggregate, ``r`` on the input), F = 100 -> ReLU -> 64 -> 47; random
+    weights from ``seed``, named as the flax ``Net``'s (``Layer_0``,
+    ``Layer_1``). A bf16 ``x`` reaches layer 1's SpMM as bf16 and the
+    Linear layers promote it to float32, as flax's ``Dense`` does."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.ops import spmm
+    gen = torch.Generator().manual_seed(seed)
+
+    class Layer(torch.nn.Module):
+        def __init__(self, fin, fout):
+            super().__init__()
+            self.l = linear(fin, fout, generator=gen)
+            self.r = linear(fin, fout, generator=gen)
+
+        def forward(self, x, ei):
+            return self.l(spmm(ei, x, reduce='mean')) + self.r(x)
+
+    class InferNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Layer_0 = Layer(PR_F, PR_HIDDEN)
+            self.Layer_1 = Layer(PR_HIDDEN, PR_CLASSES)
+
+        def forward(self, x, ei):
+            return self.Layer_1(torch.relu(self.Layer_0(x, ei)), ei)
+
+    return InferNet().to(resolve_device(device))
+
+
+def giant_graph_net(torch, device, seed):
+    """Path S's model, ``examples/giant_graph.py``'s (``:57-63``):
+    ``SAGEConv(32)`` over an EdgeIndex -> ReLU -> ``GATConv(8, heads=4)``
+    over the raw COO (its default self loops; the flash kernels past the
+    cap) -> ReLU -> Linear 7; random weights from ``seed``, named as the
+    flax ``Net``'s (``SAGEConv_0``, ``GATConv_0``, ``Dense_0``). The graph
+    argument is a ``Held`` of the EdgeIndex (``'ei'``) and the COO
+    (``'coo'``)."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn.conv import GATConv, SAGEConv
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+
+    class GiantNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.SAGEConv_0 = SAGEConv(PS_F, PS_HIDDEN, device=dev,
+                                       generator=gen)
+            self.GATConv_0 = GATConv(PS_HIDDEN, PS_HIDDEN // PS_HEADS,
+                                     heads=PS_HEADS, device=dev,
+                                     generator=gen)
+            self.Dense_0 = linear(PS_HIDDEN, PS_CLASSES, generator=gen).to(
+                dev)
+
+        def forward(self, x, graph):
+            x = torch.relu(self.SAGEConv_0(x, graph['ei']))
+            x = torch.relu(self.GATConv_0(x, graph['coo']))
+            return self.Dense_0(x)
+
+    return GiantNet()
+
+
+def cache_report(torch, tag, ei, build_s, mem0):
+    """What ``fill_cache`` built and kept: its time, the card memory it
+    holds, and which bytes the windowed layouts share with the CSC and CSR
+    (their ``src`` and ``perm``) and which they add (``dst``, ``inv_pos``,
+    the pads)."""
+    kept = (torch.cuda.memory_allocated() - mem0) / 1e9
+    info = {'build_s': build_s, 'cache_gb_on_card': kept}
+    if ei.win is not None:
+        shared = sum(t.numel() * t.element_size() for o in (ei.csc, ei.csr)
+                     for t in (o.indices, o.perm))
+        added = sum(w.dst.numel() * w.dst.element_size()
+                    + w.inv_pos.numel() * w.inv_pos.element_size()
+                    + (w.src.numel() - ei.num_edges) * 12
+                    for w in (ei.win, ei.win_t))
+        check(ei.csc.indices.data_ptr() == ei.win.src.data_ptr()
+              and ei.csr.perm.data_ptr() == ei.win_t.perm.data_ptr(),
+              f'{tag}: the CSC and CSR are not views of the windowed layouts')
+        info.update(windows=int(ei.win.src.shape[0]),
+                    window_edges=int(ei.win.src.shape[1]),
+                    shared_with_csc_csr_gb=shared / 1e9,
+                    added_by_windowed_gb=added / 1e9)
+    log(f'[{tag}] fill_cache built in {build_s:.3f} s, {kept:.3f} GB kept '
+        f'on the card' + (
+            f"; the windowed layouts ({info['windows']} windows of "
+            f"{info['window_edges']} edges) share "
+            f"{info['shared_with_csc_csr_gb']:.3f} GB with the CSC and CSR "
+            f"(views) and add {info['added_by_windowed_gb']:.3f} GB"
+            if ei.win is not None else ''))
+    return info
+
+
+def long_rows_close(torch, indptr, src, x, out):
+    """Kernel 1's output over rows of any length against the float64 sum of
+    the same terms: ``(max abs err, ok)`` within ``1e-5 + (1e-5 + n *
+    2**-24) * sum|x|`` for a row of ``n`` edges (PERF.md section 2: the
+    first-order bound of a float32 sum of ``n`` terms, which the products
+    graph's hub rows, ~370,000 edges, need), one bf16 ulp more for a bf16
+    output."""
+    from pytorch_geometric_tpu_torch.ops.segment import ptr2index
+    e, n_dst = int(indptr[-1]), indptr.shape[0] - 1
+    dst = ptr2index(indptr.long(), e)
+    terms = x.double()[src[:e].long()]
+    ref = terms.new_zeros((n_dst, x.shape[1])).index_add_(0, dst, terms)
+    scale = terms.new_zeros((n_dst, x.shape[1])).index_add_(0, dst,
+                                                             terms.abs_())
+    del terms
+    n = torch.diff(indptr).double()[:, None]
+    lim = 1e-5 + (1e-5 + n * 2.0 ** -24) * scale
+    if out.dtype == torch.bfloat16:
+        _, ex = torch.frexp(ref)
+        lim = lim + torch.ldexp(torch.ones_like(ref), ex - 8)
+    err = (out.double() - ref).abs()
+    return (float(err.max()) if err.numel() else 0.0), bool(
+        (err <= lim).all())
+
+
+def kernel1_row(torch, label, indptr, src, x, pieces=16):
+    """Kernel 1 timed at a full-graph shape, where its plain version's
+    ``[E, F]`` gather does not fit beside the graph: the kernel's device
+    time and CUDA-event wall; its output held, over ``pieces`` ranges of
+    destination rows, to the float64 sum (``long_rows_close``); the plain
+    version run over the same ranges, its time the sum over them (CUDA
+    events, one pass); ``torch.sparse.mm`` on a CSR tensor; the bound from
+    the bytes (x rows read once) and the gathered rate."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import (
+        segment_plan, segment_spmm, segment_spmm_plain)
+    n_dst, (n_src, f) = indptr.shape[0] - 1, x.shape
+    e, item = int(indptr[-1]), x.element_size()
+    x_rows = int(torch.unique(src[:e]).numel())
+    row = {'shape': label, 'F': f, 'dtype': str(x.dtype).split('.')[-1],
+           'n_src': n_src, 'x_rows_read': x_rows, 'n_dst': n_dst,
+           'edges': e, 'weighted': False,
+           'plan': list(segment_plan(f, item, n_dst, src.shape[0],
+                                     x.data_ptr(), 0)),
+           'library_call': 'torch.sparse.mm (CSR)',
+           'bytes': spmm_bytes(x_rows, n_dst, e, f, False, item),
+           'gathered_bytes': e * f * item}
+    row['bound_ms'], row['bound_by'] = bound_ms(x_rows, n_dst, e, f, False,
+                                                item)
+    fns = {'ms': lambda: segment_spmm(indptr, src, None, x)}
+    fn_lib, lib_out = sparse_library_call(
+        torch, indptr, src[:e], torch.ones(e, dtype=x.dtype,
+                                           device=x.device), n_dst, n_src, x)
+    out = fns['ms']()
+    cuts = [n_dst * k // pieces for k in range(pieces + 1)]
+    ip = indptr.long()
+    parts = [(r0, r1, (ip[r0:r1 + 1] - ip[r0]).to(torch.int32),
+              src[int(ip[r0]):int(ip[r1])]) for r0, r1 in zip(cuts, cuts[1:])]
+    worst = 0.0
+    for r0, r1, pip, ps in parts:
+        err, ok = long_rows_close(torch, pip, ps, x, out[r0:r1])
+        check(ok, f'kernel 1 {label}: rows {r0}-{r1} off the float64 sum by '
+                  f'{err}')
+        worst = max(worst, err)
+    row['max_abs_err'] = worst
+    if fn_lib is None:
+        row['library_ms'], row['library_error'] = None, lib_out
+    else:
+        d = float((lib_out.float() - out.float()).abs().max())
+        lim = (1e-2 if item == 2 else 1e-4) * max(
+            1.0, float(out.float().abs().max()))
+        if d <= lim:
+            fns['library_ms'] = fn_lib
+        else:
+            # not the same function: a bf16 CSR product that rounds its sums
+            # of hundreds of thousands of terms in bf16
+            check(item == 2, f'torch.sparse.mm disagrees with kernel 1 by '
+                             f'{d} ({label})')
+            row['library_ms'] = None
+            row['library_error'] = (f'torch.sparse.mm on the bf16 CSR is {d} '
+                                    f'off the kernel (limit {lim:.3g})')
+    del out, lib_out
+    timed_fns(torch, row, fns, reps=5, warmup=1, calls=3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _, _, pip, ps in parts:
+        segment_spmm_plain(pip, ps, None, x)
+    end.record()
+    torch.cuda.synchronize()
+    row['plain_ms'] = start.elapsed_time(end)
+    row['plain_note'] = f'over {pieces} row ranges, CUDA events'
+    row['share'] = row['bound_ms'] / row['ms']
+    row['gathered_tb_per_s'] = row['gathered_bytes'] / (row['ms'] * 1e-3) \
+        / 1e12
+    log(f"[timing] segment_spmm {label}: plan {tuple(row['plan'])}; kernel "
+        f"{row['ms']:.4f} ms (event {row['event_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f} ms ({pieces} row ranges), torch.sparse.mm "
+        f"{row.get('library_ms')} ms; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), share {100 * row['share']:.1f}%; gathered "
+        f"{row['gathered_bytes'] / 1e9:.2f} GB at "
+        f"{row['gathered_tb_per_s']:.3f} TB/s; max abs err against the "
+        f"float64 sum {worst:.3e}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_path_r(torch, seed, coo, iters, warmup):
+    """Path R, ``products_bench.py --infer`` (``:68-150``) at full scale:
+    the products graph cached by ``fill_cache(auto=True)`` on the card (its
+    time, its memory, the regime ``spmm_regime`` reports at the hidden
+    width, which must be ``PR_REGIME``), ``products_infer_net`` over X
+    [2,449,029, 100] made on the card from ``seed``, in float32 and with
+    bf16 X (kernel 1's bf16 arm at layer 1), each served eagerly and
+    captured (``compat.compile``), ``iters`` forwards after ``warmup``: ms
+    per forward, edges/s as the bench counts them (2 E / t), launches per
+    forward (kernel 1 once a layer), a whole-window profile and its idle
+    share, the peak memory. The regime's forward equals the ``'kernel'``
+    regime's over the same CSC bit for bit (the same sums), and at 0.01
+    scale (the windowed threshold scaled with it) the card's forward is
+    held against the CPU's. Kernel 1 is timed at each layer's shape
+    (``kernel1_row``). Also the regime auto picks on path A's clustered
+    graph."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.edge_index import auto_win_min_edges
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    tag = 'path R'
+    n, e = N_PRODUCTS, coo.shape[1]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ei = EdgeIndex(coo, (n, n)).fill_cache(auto=True)
+    torch.cuda.synchronize()
+    res = {'cache': cache_report(torch, tag, ei, time.perf_counter() - t0,
+                                 mem0)}
+    regime = spmm_regime(ei, num_feats=PR_HIDDEN)
+    res['regime'] = regime
+    log(f'[{tag}] fill_cache(auto=True) of {n} nodes, {e} edges: '
+        f'spmm_regime {regime!r}')
+    check(regime == PR_REGIME, f'{tag}: auto picked {regime!r}, expected '
+                               f'{PR_REGIME!r}')
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((n, PR_F), generator=gen, device='cuda')
+    model = products_infer_net(torch, None, seed)
+    for dt, xx, per_fwd in (
+            ('float32', x, {'segment_spmm': 2}),
+            ('bf16 x', x.to(torch.bfloat16),
+             {'segment_spmm_bf16': 1, 'segment_spmm': 1})):
+        sub = f'{tag} {dt}'
+
+        def fwd():
+            return model(xx, ei)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with torch.inference_mode():
+            ms, enq, _, out = timed_calls(torch, fwd, iters, warmup)
+            rows, prof_ms, n_prof = profile_forwards(torch, fwd,
+                                                     replay_expect(per_fwd))
+        n_fwd = warmup + iters + n_prof
+        counts = launch_counts()
+        check_counts(sub, counts, {k: v * n_fwd for k, v in per_fwd.items()},
+                     f'{n_fwd} forwards')
+        check(tuple(out.shape) == (n, PR_CLASSES)
+              and bool(torch.isfinite(out).all()),
+              f'{sub}: output {tuple(out.shape)}, finite '
+              f'{bool(torch.isfinite(out).all())}')
+        busy = sum(t for _, t, _ in rows)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        r = {'ms_per_forward': ms, 'host_enqueue_ms_per_forward': enq,
+             'edges_per_s': 2 * e / (ms / 1e3), 'forwards': n_fwd,
+             'launch_counts': counts,
+             'launches_per_forward': {k: counts[k] / n_fwd for k in per_fwd},
+             'device_busy_ms_per_forward': busy,
+             'profiled_ms_per_forward': prof_ms,
+             'device_idle_share': 1 - busy / prof_ms,
+             'kernel1_ms_per_forward': sum(t for name, t, _ in rows
+                                           if SEG_MAIN in name),
+             'peak_memory_gb': peak,
+             'kernels_per_forward': [[k[:80], t, c] for k, t, c in rows[:8]]}
+        log(f'[{sub}] {ms:.4f} ms per forward (CUDA events, {iters} after '
+            f'{warmup}), {r["edges_per_s"]:.4e} edges/s (2 E / t), the host '
+            f'issues one in {enq:.4f} ms; device busy {busy:.4f} of a '
+            f'{prof_ms:.4f} ms wall, idle share {r["device_idle_share"]:.4f};'
+            f' kernel 1 {r["kernel1_ms_per_forward"]:.4f} ms a forward; peak '
+            f'{peak:.3f} GB')
+        for name, t, c in rows[:6]:
+            log(f'[{sub}]   {t:.4f} ms  x{c:g}  {name[:90]}')
+        cap, cap_out = captured_serving(torch, f'{sub} captured',
+                                        lambda v: model(v, ei), xx, out,
+                                        iters, warmup, per_fwd)
+        lim = 1e-5 * max(1.0, float(out.abs().max()))
+        check(cap['max_abs_diff_vs_eager'] <= lim,
+              f'{sub}: captured forward {cap["max_abs_diff_vs_eager"]} off '
+              'the eager one')
+        r['captured'] = cap
+        res[dt] = r
+        del cap_out
+    # the windowed regime's forward is the kernel regime's over the CSC
+    plain_ei = EdgeIndex(ei.coo, (n, n), csr=ei.csr, csc=ei.csc)
+    with torch.inference_mode(), knobs({'PGT_SPMM_CHUNK_TRIGGER': 'inf'}):
+        check(spmm_regime(plain_ei, PR_HIDDEN) == 'kernel',
+              f'{tag}: the CSC alone did not take the kernel regime')
+        a, b = model(x, ei), model(x, plain_ei)
+        res['equals_kernel_regime_bitwise'] = bool(torch.equal(a, b))
+    log(f'[{tag}] the {regime!r} forward equals the kernel regime\'s over '
+        f'the CSC bit for bit: {res["equals_kernel_regime_bitwise"]}')
+    check(res['equals_kernel_regime_bitwise'] or regime != 'windowed',
+          f'{tag}: the windowed forward differs from the kernel regime\'s')
+    # kernel 1 at each layer's shape, over the arrays the regime reads (the
+    # windowed pass reads the CSC's, of which the layout is a padded copy)
+    csc = ei.csc
+    with torch.inference_mode():
+        h = torch.relu(model.Layer_0(x, ei)).contiguous()
+        rows = [kernel1_row(torch, f'R layer 1, F={PR_F}', csc.indptr,
+                            csc.indices, x),
+                kernel1_row(torch, f'R layer 2, F={PR_HIDDEN}', csc.indptr,
+                            csc.indices, h),
+                kernel1_row(torch, f'R layer 1, bf16 x, F={PR_F}',
+                            csc.indptr, csc.indices, x.to(torch.bfloat16))]
+    del h, model, x, ei, plain_ei, a, b, csc
+    torch.cuda.empty_cache()
+    # at 0.01 scale against the CPU, the windowed threshold scaled with it
+    ns, es = int(n * PK_SMALL), int(e * PK_SMALL)
+    small = products_graph(ns, es, seed)
+    xs = np.random.default_rng(seed).standard_normal(
+        (ns, PR_F)).astype(np.float32)
+    with knobs({'PGT_AUTO_WIN_MIN_EDGES': int(
+            auto_win_min_edges() * PK_SMALL)}):
+        card_ei = EdgeIndex(small, (ns, ns)).fill_cache(auto=True)
+        cpu_ei = EdgeIndex(small, (ns, ns), device='cpu').fill_cache(
+            auto=True)
+    check(spmm_regime(card_ei, PR_HIDDEN) == regime
+          and spmm_regime(cpu_ei, PR_HIDDEN) in (regime, 'plain'),
+          f'{tag} at {PK_SMALL} scale: regimes {spmm_regime(card_ei)!r} / '
+          f'{spmm_regime(cpu_ei)!r}')
+    model = products_infer_net(torch, None, seed)
+    cpu = products_infer_net(torch, 'cpu', seed)
+    with torch.inference_mode():
+        got = model(torch.as_tensor(xs, device='cuda'), card_ei).cpu()
+        ref = cpu(torch.from_numpy(xs), cpu_ei)
+    diff = float((got - ref).abs().max())
+    lim = 1e-4 * max(1.0, float(ref.abs().max()))
+    log(f'[{tag}] at {PK_SMALL} scale ({ns} nodes, {es} edges, regime '
+        f'{spmm_regime(card_ei)!r} on both): card vs CPU max abs diff '
+        f'{diff:.3e} (limit {lim:.3e})')
+    check(diff <= lim, f'{tag}: {diff} off the CPU at {PK_SMALL} scale')
+    res['small_vs_cpu'] = {'scale': PK_SMALL, 'max_abs_diff': diff}
+    # the regime auto picks on path A's clustered graph
+    pa_coo, _, _ = path_a_graph(seed)
+    t0 = time.perf_counter()
+    pa = EdgeIndex(pa_coo, (PA_NODES, PA_NODES)).fill_cache(auto=True)
+    torch.cuda.synchronize()
+    res['path_a_auto'] = {'regime': spmm_regime(pa, TR_F),
+                          'build_s': time.perf_counter() - t0}
+    log(f"[{tag}] fill_cache(auto=True) on path A's clustered graph "
+        f"({PA_NODES} nodes, {PA_EDGES} edges): regime "
+        f"{res['path_a_auto']['regime']!r} in "
+        f"{res['path_a_auto']['build_s']:.2f} s")
+    del pa, card_ei, model
+    torch.cuda.empty_cache()
+    log(json.dumps({'metric': 'products_fullgraph_inference',
+                    'regime': regime, 'ms': res['float32']['ms_per_forward'],
+                    'ms_captured': res['float32']['captured'][
+                        'ms_per_forward'],
+                    'ms_bf16': res['bf16 x']['ms_per_forward'],
+                    'edges_per_s': res['float32']['edges_per_s'],
+                    'nodes': n, 'edges': e}))
+    return res, rows
+
+
+def phase_path_s(torch, seed, coo, iters):
+    """Path S, ``examples/giant_graph.py``'s model at full products scale:
+    the SAGE layer over ``fill_cache(auto=True, block_sparse=False)`` (the
+    windowed regime on kernel 1), GATConv over the raw COO (126.2M edges
+    with its self loops, the flash kernels), X [2,449,029, 32] and 7-class
+    labels made on the card from ``seed``, Adam 1e-2; served and trained
+    eager and captured (``flash_serve_train``: 1 step then ``PK_STEPS``
+    timed, the captured losses and gradients against the eager ones); then
+    the first step's gradients and 3 losses at the example's own toy
+    scale and knobs (``PS_TOY_*``) against the CPU (``flash_parity``)."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    tag = 'path S'
+    n = N_PRODUCTS
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ei = EdgeIndex(coo, (n, n)).fill_cache(auto=True, block_sparse=False)
+    torch.cuda.synchronize()
+    cache = cache_report(torch, tag, ei, time.perf_counter() - t0, mem0)
+    regime = spmm_regime(ei, PS_F, 'mean')
+    check(regime == PR_REGIME, f'{tag}: the SAGE layer takes {regime!r}')
+    graph = Held(ei=ei, coo=ei.coo)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((n, PS_F), generator=gen, device='cuda')
+    y = torch.randint(0, PS_CLASSES, (n,), generator=gen, device='cuda')
+    k1 = 'segment_spmm'
+    res, state, _ = flash_serve_train(
+        torch, tag, giant_graph_net, seed, x, graph, y,
+        {k1: 1, 'flash_fwd': 1},
+        {k1: 1, 'flash_fwd': 1, 'flash_bwd_dst': 1, 'flash_bwd_src': 1},
+        iters, PK_STEPS, PS_LR)
+    res.update(cache=cache, regime=regime, nodes=n,
+               edges=coo.shape[1] + n)
+    with torch.inference_mode():
+        row = kernel1_row(torch, f'S SAGE layer, F={PS_F}', ei.csc.indptr,
+                          ei.csc.indices, x)
+    del ei, graph, x, y
+    torch.cuda.empty_cache()
+    # the example's own scale and knobs, against the CPU
+    with knobs(PS_TOY_ENV):
+        rng = np.random.default_rng(0)
+        nt, et = PS_TOY_NODES, PS_TOY_EDGES
+        tcoo = np.stack([rng.integers(0, nt, et),
+                         rng.integers(0, nt, et)]).astype(np.int32)
+        xt = rng.standard_normal((nt, PS_F)).astype(np.float32)
+        yt = rng.integers(0, PS_CLASSES, nt)
+        graphs = {}
+        for dev in ('cuda', 'cpu'):
+            tei = EdgeIndex(tcoo, (nt, nt), device=dev).fill_cache(
+                auto=True, block_sparse=False)
+            check(spmm_regime(tei, PS_F, 'mean') == 'windowed',
+                  f'{tag} toy on {dev}: {spmm_regime(tei, PS_F, "mean")!r}')
+            graphs[dev] = Held(ei=tei, coo=tei.coo)
+        model = giant_graph_net(torch, None, seed)
+        tstate = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        del model
+        res['parity_toy_vs_cpu'] = flash_parity(
+            torch, f'{tag} toy ({nt} nodes, {et} edges, the example\'s '
+            'knobs)', giant_graph_net, tstate,
+            torch.as_tensor(xt, device='cuda'), graphs['cuda'],
+            torch.as_tensor(yt, device='cuda'), PS_LR,
+            (torch.from_numpy(xt), graphs['cpu'], torch.from_numpy(yt)))
+    log(json.dumps({'metric': 'giant_graph_fullgraph_train_step',
+                    'ms': res['training']['ms_per_step'],
+                    'ms_captured': res['training']['captured'][
+                        'ms_per_step'], 'nodes': n,
+                    'edges': coo.shape[1], 'regime': regime}))
+    return res, row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -5720,6 +6404,14 @@ def main():
     torch.cuda.empty_cache()
     flash_rows, worst_flash_t = phase_flash_timings(torch, args.seed, coo,
                                                     pc_coo)
+    torch.cuda.empty_cache()
+    # the SpMM regimes: the arms forced by their knobs, then products
+    # full-graph serving (R) and training (S) through fill_cache(auto=True)
+    regime_arms, gradw_rows = phase_regime_arms(torch, args.seed)
+    path_r, r_rows = phase_path_r(torch, args.seed, coo, args.iters,
+                                  args.warmup)
+    torch.cuda.empty_cache()
+    path_s, s_row = phase_path_s(torch, args.seed, coo, args.iters)
     del coo
     torch.cuda.empty_cache()
     # the heterogeneous paths on hetero_bench.py's graph: full scale for N,
@@ -5740,7 +6432,8 @@ def main():
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
-                   'path_m': paths_lm['path M'], 'path_n': path_n}
+                   'path_m': paths_lm['path M'], 'path_n': path_n,
+                   'path_s': path_s}
 
     # the GCN forward runs the kernel twice at F=128 and once at F=16
     per_fwd = {'F': [WIDTH, WIDTH, N_OUT]}
@@ -5790,6 +6483,11 @@ def main():
         path_p=path_p['launch_counts'], path_q=path_q['launch_counts'],
         path_q_hgt_loader=path_q['hgt_loader']['launch_counts'])
 
+    for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
+        path_counts[f'path_r_{key}'] = path_r[dt]['launch_counts']
+        path_counts[f'path_r_{key}_captured'] = path_r[dt]['captured'][
+            'launch_counts']
+
     def by_path(name):
         return {p: c[name] for p, c in path_counts.items()}
 
@@ -5835,7 +6533,8 @@ def main():
                               'path_j': path_j, 'scan_train': scan,
                               'layerwise': layerwise, **flash_paths,
                               'path_o': path_o, 'path_p': path_p,
-                              'path_q': path_q}}))
+                              'path_q': path_q, 'path_r': path_r,
+                              'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the
     # rows of layer 1 (H=4, C=16) and layer 2 (H=1, C=47)
     flash_step = {}
@@ -5896,9 +6595,15 @@ def main():
             'segment_spmm'], **{f'path_b_{k.lower()}': v['launches_per_step']
                                 for k, v in path_b.items()},
             'scan_train': scan['launches_per_step']['segment_spmm'],
-            'path_q': path_q['launches_per_step']['segment_spmm']},
+            'path_q': path_q['launches_per_step']['segment_spmm'],
+            'path_s': path_s['training']['launches_per_step'][
+                'segment_spmm']},
         'launches_per_layerwise_batch': 2,
-        'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err),
+        'launches_per_path_r_forward': path_r['float32'][
+            'launches_per_forward'],
+        'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err,
+                           *(r['max_abs_err'] for r in r_rows[:2]),
+                           s_row['max_abs_err']),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -5918,6 +6623,8 @@ def main():
         'residual_per_step': residual_step,
         'sampled_per_shape': sampled_rows,
         'path_q_per_shape': q_rows,
+        'path_r_per_shape': r_rows[:2], 'path_s_per_shape': [s_row],
+        'regime_arms_rel_err': regime_arms['worst'],
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
@@ -5985,15 +6692,18 @@ def main():
                          ':199-229)',
         'launches': sum(by_path('segment_spmm_bf16').values()),
         'launches_by_path': by_path('segment_spmm_bf16'),
-        'launches_per_forward': {k: v['launches']['segment_spmm_bf16']
-                                 / v['forwards'] for k, v in path_h.items()},
-        'max_abs_err': worst_seg_bf16,
+        'launches_per_forward': dict(
+            {k: v['launches']['segment_spmm_bf16'] / v['forwards']
+             for k, v in path_h.items()},
+            path_r_bf16_x=path_r['bf16 x']['launches_per_forward'][
+                'segment_spmm_bf16']),
+        'max_abs_err': max(worst_seg_bf16, r_rows[2]['max_abs_err']),
         'ms': seg_bf16['ms'], 'plain_ms': seg_bf16['plain_ms'],
         'bound_ms': seg_bf16['bound_ms'], 'bound_by': seg_bf16['bound_by'],
         'library_ms': seg_bf16['library_ms'],
         'times_are': f'one call at path H layer 1 (F={WIDTH}, unweighted), '
                      'one per forward',
-        'per_shape': [seg_bf16],
+        'per_shape': [seg_bf16], 'path_r_per_shape': [r_rows[2]],
         'plan_sweep': bf16_rows['segment_spmm_bf16_sweep']}, {
         'name': 'bsr_spmm_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/bsr_spmm.cu',
@@ -6067,6 +6777,11 @@ def main():
         'slices': {k: by_dot[('I', 'float32', PC_HIDDEN)][k]
                    for k in ('slice_heads', 'col_slices')},
         'per_shape': dot_rows, 'path_n_per_shape': [n_dot_row],
+        'grad_w_per_shape': gradw_rows,
+        'grad_w_note': 'grad_w of the windowed, chunked and uncached dense '
+                       'regimes, launched in the regime arm checks; no main '
+                       'path trains edge weights (path S\'s SAGE layer is '
+                       'unweighted)',
         'slice_sweep': dot_sweep}, {
         'name': 'edge_dot_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/sddmm.cu',

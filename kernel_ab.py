@@ -23,14 +23,36 @@ kernels against a parent's sources, on one CUDA card.
     D's (slot order). Parent and change in turns: parent, change, change,
     parent.
 
+  * ``--only policy``: the SpMM regime sweep that sets the port's policy
+    defaults (``ops/spmm.py``). Each arm runs through the public ``spmm``
+    (forward, ``reduce='sum'``, unit weights, inference) with its regime
+    forced: the dense cache (float32 and bf16, ``fill_cache(dense_weight=
+    ones, cache_dtype=...)``), the uncached dense regime, kernel 1 over the
+    cached CSC (``'kernel'``), kernel 1 over a raw COO whose CSC is sorted
+    in the call (``'kernel uncached'``), the windowed regime over
+    ``fill_cache(windowed=True)``'s layouts, the chunked regime over the raw
+    COO (JAX's 1 GB chunks), and the block cache on clustered graphs. The
+    grid: random graphs of {1k, 10k, 30k, 100k} nodes, average degree {10,
+    33, 100}, F in {16, 64, 128} (dense arms up to 30k nodes); path A's
+    clustered graph (``chip_smoke.path_a_graph``, F = 64) with the block
+    cache; and the products-like graph (``chip_smoke.products_graph``,
+    2,449,029 nodes, 123,718,280 edges, F = 100 and 64), where the windowed
+    regime also runs one launch a window with the accumulator as kernel 1's
+    ``base`` (the design the port did not take), and the layouts' build
+    times and bytes are read. A training row (forward and backward, the
+    weights requiring a gradient) times the weighted arms at 100k nodes,
+    degree 100, F = 64. Each reading: CUDA-event ms per call over 20
+    back-to-back calls after 3 (what an eager caller waits), and the
+    device time (``torch.profiler``).
+
 Device time per launch from ``torch.profiler`` over whole windows
 (``chip_smoke.whole_window``), summed over the kernel's own launches. Prints
 the card's name and power limit first, then every reading; ``--out FILE``
 also writes them as JSON.
 
-Usage: ``python3 kernel_ab.py [--seed 0] [--parent DIR] [--only flash|dot]
-[--out FILE]`` from the root of a checkout, on a machine with one CUDA card
-and ``nvcc``.
+Usage: ``python3 kernel_ab.py [--seed 0] [--parent DIR] [--only
+flash|dot|policy] [--out FILE]`` from the root of a checkout, on a machine
+with one CUDA card and ``nvcc``.
 """
 
 import argparse
@@ -365,11 +387,237 @@ def dot_ab(torch, libs, seed, parent):
     return rows
 
 
+# the policy sweep's grid
+POLICY_NODES = (1_000, 10_000, 30_000, 100_000)
+POLICY_DEGREES = (10, 33, 100)
+POLICY_FEATS = (16, 64, 128)
+# the dense arms run up to this many entries (30k nodes: 3.6 GB float32)
+POLICY_DENSE_ENTRIES = 1.5e9
+
+
+def arm_times(torch, fn, iters=20):
+    """``(event_ms, device_ms)`` per call of ``fn``: CUDA events over
+    ``iters`` back-to-back calls after 3, and ``torch.profiler``'s device
+    time (``chip_smoke.device_ms``)."""
+    import chip_smoke as cs
+    ev, _, _, _ = cs.timed_calls(torch, fn, iters, 3)
+    return ev, cs.device_ms(torch, fn, calls=max(iters // 2, 3))
+
+
+def per_window_fn(torch, win, x, n_dst):
+    """The windowed design not taken: kernel 1 once a window, over the
+    window's rows, onto the accumulator as ``base`` (a row cut by a
+    window's edge gets two partial sums). The windows' row ranges and
+    row pointers are made here, once, as ``fill_cache`` would."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import _launch
+    n_chunks, c = win.src.shape
+    ip = win.indptr.long().cpu()
+    e_real = int(ip[-1])
+    dst = win.dst.reshape(-1)[:e_real].cpu()
+    src = win.src.reshape(-1)
+    plan = []
+    for k in range(n_chunks):
+        lo, hi = k * c, min((k + 1) * c, e_real)
+        if lo >= hi:
+            break
+        r0, r1 = int(dst[lo]), int(dst[hi - 1])
+        sub = (ip[r0:r1 + 2].clamp(lo, hi) - lo).to(torch.int32).to(x.device)
+        plan.append((r0, r1, sub, src[lo:lo + c]))
+
+    def run():
+        acc = x.new_zeros((n_dst, x.shape[1]))
+        for r0, r1, sub, s in plan:
+            acc[r0:r1 + 1] = _launch(sub, s, None, x, base=acc[r0:r1 + 1])
+        return acc
+    return run
+
+
+def policy_graph(torch, n, deg, seed):
+    """A random graph of ``n`` nodes and ``n * deg`` edges: its COO on the
+    card and a cached EdgeIndex (CSC and CSR, no slot orders)."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    rng = np.random.default_rng(seed + n + deg)
+    coo = rng.integers(0, n, (2, n * deg)).astype(np.int32)
+    raw = EdgeIndex(coo, (n, n), device='cuda')
+    return raw, raw.fill_cache(blocked=False)
+
+
+def policy_arms(torch, n, raw, cached, f, dense=True, windowed=None,
+                bsr=None):
+    """The forward arms at one shape: ``{arm: (event_ms, device_ms)}``,
+    each arm's regime checked."""
+    import importlib
+    from chip_smoke import knobs
+    from pytorch_geometric_tpu_torch.ops import spmm, spmm_regime
+    # the module (the package's ``ops.spmm`` names the function)
+    sm = importlib.import_module('pytorch_geometric_tpu_torch.ops.spmm')
+    x = torch.randn(n, f, device='cuda')
+    res, ref = {}, []
+
+    def one(arm, ei, want, env=None, attrs=()):
+        with knobs(env, attrs):
+            got = spmm_regime(ei, f)
+            if got != want:
+                raise RuntimeError(f'policy sweep: {arm} ran {got!r}, not '
+                                   f'{want!r}')
+            with torch.inference_mode():
+                out = spmm(ei, x).float()
+                if not ref:
+                    ref.append(out)
+                # float32 sums in another order; the bf16 cache rounds x
+                tol = (2e-2 if 'bf16' in arm else 1e-4) * max(
+                    1.0, float(ref[0].abs().max()))
+                err = float((out - ref[0]).abs().max())
+                if err > tol:
+                    raise RuntimeError(f'policy sweep: {arm} is {err:.3g} '
+                                       f'off the kernel arm (limit {tol:.3g})')
+                del out
+                res[arm] = arm_times(torch, lambda: spmm(ei, x))
+
+    # the kernel arms with the chunk trigger lifted (past it the cached CSC
+    # and the raw COO would take the chunked regime)
+    lifted = {'PGT_SPMM_CHUNK_TRIGGER': 'inf'}
+    one('kernel', cached, 'kernel', env=lifted)
+    one('kernel uncached', raw, 'kernel', env=lifted)
+    one('chunked', raw, 'chunked', env={'PGT_SPMM_CHUNK_TRIGGER': 0})
+    if windowed is not None:
+        one('windowed', windowed, 'windowed')
+    if dense and n * n <= POLICY_DENSE_ENTRIES:
+        one('dense', raw, 'dense',
+            env={'PGT_FORCE_DENSE_SPMM': 1,
+                 'PGT_DENSE_SPMM_ENTRIES': POLICY_DENSE_ENTRIES},
+            attrs=[(sm, 'DENSE_ADVANTAGE', float('inf'))])
+        ones = torch.ones(raw.num_edges, device='cuda')
+        for tag, dt in (('f32', None), ('bf16', torch.bfloat16)):
+            with knobs({'PGT_DENSE_SPMM_ENTRIES': POLICY_DENSE_ENTRIES}):
+                ei = raw.fill_cache(dense_weight=ones, blocked=False,
+                                    cache_dtype=dt)
+            one(f'dense-cached {tag}', ei, 'dense-cached')
+            del ei
+    if bsr is not None:
+        one('bsr', bsr, 'bsr')
+    torch.cuda.empty_cache()
+    return res
+
+
+def policy_sweep(torch, seed):
+    """The regime sweep (module docstring): a list of rows, each a graph,
+    F and ``{arm: (event_ms, device_ms)}``."""
+    import chip_smoke as cs
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.ops import spmm
+    rows = []
+
+    def report(graph, f, arms, **info):
+        best = min(arms, key=lambda a: arms[a][0])
+        log(f'[policy] {graph} F={f}: ' + ', '.join(
+            f'{a} {ev:.4f} ({dev:.4f})' for a, (ev, dev) in arms.items())
+            + f' ms; fastest: {best}')
+        rows.append(dict(graph=graph, F=f, arms=arms, fastest=best, **info))
+
+    for n in POLICY_NODES:
+        for deg in POLICY_DEGREES:
+            raw, cached = policy_graph(torch, n, deg, seed)
+            win = raw.fill_cache(blocked=False, windowed=True)
+            for f in POLICY_FEATS:
+                report(f'random n={n} deg={deg}', f,
+                       policy_arms(torch, n, raw, cached, f, windowed=win),
+                       nodes=n, edges=n * deg)
+            del raw, cached, win
+            torch.cuda.empty_cache()
+    # training: forward and backward with weights requiring a gradient
+    n, deg, f = 100_000, 100, 64
+    raw, cached = policy_graph(torch, n, deg, seed)
+    win = raw.fill_cache(blocked=False, windowed=True)
+    x = torch.randn(n, f, device='cuda', requires_grad=True)
+    w = torch.rand(raw.num_edges, device='cuda', requires_grad=True)
+    arms = {}
+    for arm, ei, env in (('kernel', cached, {'PGT_SPMM_CHUNK_TRIGGER': 'inf'}),
+                         ('windowed', win, {}),
+                         ('chunked', raw, {'PGT_SPMM_CHUNK_TRIGGER': 0})):
+        with cs.knobs(env):
+            def step():
+                x.grad = w.grad = None
+                spmm(ei, x, w).square().sum().backward()
+            arms[arm] = arm_times(torch, step, iters=10)
+    report(f'training n={n} deg={deg} (x and w need gradients)', f, arms,
+           nodes=n, edges=n * deg)
+    del raw, cached, win, x, w
+    torch.cuda.empty_cache()
+    # path A's clustered graph, with the block cache
+    coo, _, _ = cs.path_a_graph(seed)
+    n = cs.PA_NODES
+    raw = EdgeIndex(coo, (n, n), device='cuda')
+    cached = raw.fill_cache(blocked=False)
+    win = raw.fill_cache(blocked=False, windowed=True)
+    ones = torch.ones(raw.num_edges, device='cuda')
+    bsr = raw.fill_cache(dense_weight=ones, blocked=False, block_sparse=True)
+    auto = raw.fill_cache(auto=True)
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    report('path A clustered', cs.TR_F,
+           policy_arms(torch, n, raw, cached, cs.TR_F, dense=False,
+                       windowed=win, bsr=bsr),
+           nodes=n, edges=raw.num_edges,
+           auto_regime=spmm_regime(auto, cs.TR_F))
+    del raw, cached, win, bsr, auto, ones
+    torch.cuda.empty_cache()
+    # the products-like graph
+    t0 = time.perf_counter()
+    coo = cs.products_graph(cs.N_PRODUCTS, cs.E_PRODUCTS, seed)
+    log(f'[policy] products graph on the host in '
+        f'{time.perf_counter() - t0:.1f} s')
+    n = cs.N_PRODUCTS
+    raw = EdgeIndex(coo, (n, n), device='cuda')
+    del coo
+    builds = {}
+
+    def built(tag, fn):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        builds[tag] = {'s': time.perf_counter() - t,
+                       'gb': (torch.cuda.memory_allocated() - m0) / 1e9,
+                       'peak_gb': (torch.cuda.max_memory_allocated()
+                                   - m0) / 1e9}
+        log(f'[policy] products {tag}: {builds[tag]["s"]:.3f} s, '
+            f'{builds[tag]["gb"]:.3f} GB kept, peak '
+            f'{builds[tag]["peak_gb"]:.3f} GB over the COO')
+        return out
+
+    cached = built('CSC and CSR', lambda: raw.fill_cache(blocked=False))
+    win = built('CSC and CSR with the windowed layouts',
+                lambda: raw.fill_cache(blocked=False, windowed=True))
+    slots = built('CSC and CSR with the slot orders',
+                  lambda: raw.fill_cache(blocked=True))
+    del slots
+    torch.cuda.empty_cache()
+    for f in (cs.PR_F, cs.PR_HIDDEN):
+        arms = policy_arms(torch, n, raw, cached, f, dense=False,
+                           windowed=win)
+        x = torch.randn(n, f, device='cuda')
+        with torch.inference_mode():
+            run = per_window_fn(torch, win.win, x, n)
+            err = float((run() - spmm(win, x)).abs().max())
+            if err > 1e-4 * max(1.0, float(x.abs().max()) * 50):
+                raise RuntimeError(f'policy sweep: the per-window pass is '
+                                   f'{err:.3g} off the one-launch pass')
+            arms['windowed per window'] = arm_times(torch, run, iters=5)
+        report('products', f, arms, nodes=n, edges=raw.num_edges,
+               builds=builds)
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--parent', type=Path, default=None)
-    ap.add_argument('--only', choices=('flash', 'dot'), default=None)
+    ap.add_argument('--only', choices=('flash', 'dot', 'policy'),
+                    default=None)
     ap.add_argument('--out', type=Path, default=None)
     ap.add_argument('--dot-variant', action='append', default=[],
                     metavar='NAME=PATH',
@@ -384,7 +632,16 @@ def main():
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from pytorch_geometric_tpu_torch import csrc
-    cs.phase_device(torch)
+    smi = cs.phase_device(torch)
+    if args.only == 'policy':
+        csrc.build_all(['segment_spmm', 'sddmm', 'bsr_spmm'])
+        res = {'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi,
+               'policy': policy_sweep(torch, args.seed)}
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(res, indent=1))
+        log(json.dumps({'kernel_ab': 'done', 'device': res['device']}))
+        return 0
     csrc.build_all(['flash_softmax', 'sddmm'])
     AB_DIR.mkdir(parents=True, exist_ok=True)
     src = (csrc.SOURCE_DIR / 'flash_softmax.cu').read_text()

@@ -15,6 +15,8 @@ __version__ = '0.1.0'
 
 from . import backend
 from .backend import default_device
-from .edge_index import CSR, EdgeIndex
+from .edge_index import (CSR, EdgeIndex, WindowedCSC, build_windowed_csc,
+                         from_numpy_coo)
 
-__all__ = ['backend', 'default_device', 'CSR', 'EdgeIndex']
+__all__ = ['backend', 'default_device', 'CSR', 'EdgeIndex', 'WindowedCSC',
+           'build_windowed_csc', 'from_numpy_coo']

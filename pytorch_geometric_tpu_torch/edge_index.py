@@ -21,6 +21,17 @@ the Hopper kernels read plain CSC, so a :class:`Slots` is the CSC (and
 ``blocked_t`` the CSR) in slot order, with the maps between slots and
 edges that the JAX layout carries (``perm``, ``inv_pos``, ``t_pos``).
 
+``fill_cache(windowed=True)`` (or ``auto=True`` on a graph past
+``PGT_AUTO_WIN_MIN_EDGES``) also builds ``win`` / ``win_t``, the
+:class:`WindowedCSC` pair of the windowed SpMM regime (``ops/chunked_spmm.py``):
+the destination-sorted edges cut into fixed chunks. Its flattened slots are
+the CSC's own order plus trailing pads, so the CSC built beside it is a view
+of the layout's ``src`` and ``perm`` (the CSR of ``win_t``'s), and the
+layout adds only its per-slot rows ``dst`` and ``inv_pos``.
+
+``fill_cache(auto=True)`` is the one-knob policy of the JAX package
+(``edge_index.py:285-316``), with the card's constants (``ops/spmm.py``).
+
 ``fill_cache(dense_weight=..., block_sparse=..., cache_dtype=...)`` bakes
 the weighted adjacency, in the JAX package's order: a dense ``dense_adj``
 ``[n_dst, n_src]`` (float32, bfloat16, or int8 with the two-sided scales
@@ -86,9 +97,90 @@ class Slots(NamedTuple):
     t_pos: torch.Tensor
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f'{what} is not ported to the PyTorch package yet (ROADMAP: {item})')
+class WindowedCSC(NamedTuple):
+    """The destination-sorted edge list cut into fixed ``C``-edge chunks,
+    the layout of the windowed SpMM regime (the JAX package's
+    ``WindowedCSC``, ``edge_index.py:65-85``).
+
+    src:     [n_chunks, C] int32, source node per slot (``n_src`` for pads)
+    dst:     [n_chunks, C] int32, destination per slot, non-decreasing over
+             the flattened layout (``n_dst`` for pads and out-of-range
+             edges)
+    perm:    [n_chunks, C] int64, original COO edge per slot (``E`` for
+             pads)
+    inv_pos: [E] int64, original edge -> flat slot ``chunk * C + slot``
+    indptr:  [n_dst + 1] int32, the port's own: each destination's run of
+             flat slots, for the segment-sum kernel, which sums the whole
+             layout in one launch (pads and out-of-range edges lie past
+             ``indptr[-1]``)
+    """
+    src: torch.Tensor
+    dst: torch.Tensor
+    perm: torch.Tensor
+    inv_pos: torch.Tensor
+    indptr: torch.Tensor
+
+
+def build_windowed_csc(coo: torch.Tensor, num_dst: int, num_src: int,
+                       chunk_edges: Optional[int] = None,
+                       order: Optional[torch.Tensor] = None) -> WindowedCSC:
+    """Sort by destination (stably, on ``coo``'s device), clamp
+    out-of-range destinations to the drop sentinel ``num_dst``, pad to a
+    chunk multiple and reshape: the JAX package's host build
+    (``edge_index.py:88-122``) value for value. ``chunk_edges`` defaults to
+    ``PGT_WIN_EDGES`` (2**21). ``order`` reuses a stable argsort of
+    ``coo[1]`` (``fill_cache`` shares the CSC's)."""
+    e = int(coo.shape[1])
+    if chunk_edges is None:
+        chunk_edges = int(float(os.environ.get('PGT_WIN_EDGES', 1 << 21)))
+    c = max(min(int(chunk_edges), max(e, 1)), 1)
+    if order is None:
+        order = torch.sort(coo[1], stable=True).indices
+    order = order.long()
+    dst_s = coo[1][order].long().clamp(max=num_dst)
+    n_chunks = max(-(-e // c), 1)
+    size = n_chunks * c
+    dev = coo.device
+    src_w = torch.full((size,), num_src, dtype=torch.int32, device=dev)
+    src_w[:e] = coo[0][order]
+    dst_w = torch.full((size,), num_dst, dtype=torch.int32, device=dev)
+    dst_w[:e] = dst_s
+    perm_w = torch.full((size,), e, dtype=torch.int64, device=dev)
+    perm_w[:e] = order
+    inv = torch.empty(e, dtype=torch.int64, device=dev)
+    inv[order] = torch.arange(e, device=dev)
+    indptr = torch.searchsorted(
+        dst_s, torch.arange(num_dst + 1, device=dev)).to(torch.int32)
+    return WindowedCSC(src=src_w.view(n_chunks, c),
+                       dst=dst_w.view(n_chunks, c),
+                       perm=perm_w.view(n_chunks, c), inv_pos=inv,
+                       indptr=indptr)
+
+
+def _on_layout(o: 'CSR', win: WindowedCSC, e: int) -> 'CSR':
+    """The orientation ``o`` with its indices and perm as views of the
+    windowed layout built from its own order (the same values): the two
+    share their memory."""
+    return CSR(indptr=o.indptr, indices=win.src.view(-1)[:e],
+               perm=win.perm.view(-1)[:e])
+
+
+def auto_win_min_edges() -> int:
+    """``fill_cache(auto=True)`` builds the windowed layouts from this many
+    edges (``PGT_AUTO_WIN_MIN_EDGES``; the port's default in
+    ``ops/spmm.py``)."""
+    from .ops.spmm import AUTO_WIN_MIN_EDGES
+    return int(float(os.environ.get('PGT_AUTO_WIN_MIN_EDGES',
+                                    AUTO_WIN_MIN_EDGES)))
+
+
+def auto_blocked_max_edges() -> int:
+    """``fill_cache(auto=True)`` skips the slot orders past this many edges
+    (``PGT_AUTO_BLOCKED_MAX_EDGES``; the port's default in
+    ``ops/spmm.py``)."""
+    from .ops.spmm import AUTO_BLOCKED_MAX_EDGES
+    return int(float(os.environ.get('PGT_AUTO_BLOCKED_MAX_EDGES',
+                                    AUTO_BLOCKED_MAX_EDGES)))
 
 
 class EdgeIndex:
@@ -113,7 +205,9 @@ class EdgeIndex:
                  blocked_t: Optional[Slots] = None,
                  dense_adj: Optional[torch.Tensor] = None,
                  dense_scale: Optional[Tuple[torch.Tensor,
-                                             torch.Tensor]] = None):
+                                             torch.Tensor]] = None,
+                 win: Optional[WindowedCSC] = None,
+                 win_t: Optional[WindowedCSC] = None):
         if device is None and isinstance(coo, torch.Tensor):
             device = coo.device
         self.device = resolve_device(device)
@@ -154,6 +248,8 @@ class EdgeIndex:
         # an int8 cache's transpose, materialised at the first flip: the
         # card's int8 matmul takes a row-major left operand
         self._dense_t: Optional[torch.Tensor] = None
+        # the windowed layouts (forward / transpose) of the windowed regime
+        self.win, self.win_t = win, win_t
 
     # -- basic accessors ----------------------------------------------------
     @property
@@ -186,7 +282,8 @@ class EdgeIndex:
                 f"csr={'cached' if self.csr is not None else None}, "
                 f"csc={'cached' if self.csc is not None else None}, "
                 f'dense={dense}, '
-                f"bsr={'cached' if self.bsr is not None else None})")
+                f"bsr={'cached' if self.bsr is not None else None}, "
+                f"win={'cached' if self.win is not None else None})")
 
     # -- cached orientations ------------------------------------------------
     def get_csr(self) -> CSR:
@@ -224,24 +321,67 @@ class EdgeIndex:
             baked cache drops them (the block cache's residual keeps its
             own weights), else ``dense_weight`` is carried in their place.
 
-        The windowed and auto caches are not ported yet and raise."""
-        if windowed:
-            _not_ported('fill_cache(windowed=True)',
-                        'Queue 1, item 3: the windowed regime')
-        if auto:
-            _not_ported('fill_cache(auto=True)',
-                        'Queue 1, item 3: the regime policy')
+        ``auto=True`` is the one-knob policy (JAX ``edge_index.py:285-316``):
+        on the card it bakes unit weights when none are given (the carried
+        ones when the EdgeIndex carries some), caps the dense cache at
+        ``ops.spmm.auto_dense_cap`` entries, stores it as
+        ``ops.spmm.AUTO_CACHE_DTYPE`` unless ``cache_dtype`` says otherwise,
+        bakes no block cache unless ``block_sparse=True`` asks for one (the
+        sweep's row 'path A clustered', on the graph the block cache was
+        built for: 'bsr' 1.2153 ms against 'kernel' 0.1776), and skips the
+        slot orders past ``PGT_AUTO_BLOCKED_MAX_EDGES`` edges;
+        on CPU tensors it bakes nothing and carries ``dense_weight``, as the
+        JAX package does on its CPU backend (``PGT_FORCE_DENSE_SPMM`` lifts
+        that, as there). Auto's unit weights are never carried.
+
+        ``windowed``: build the :class:`WindowedCSC` pair ``win`` /
+        ``win_t`` (True), or not (False); ``None`` builds it under ``auto``
+        when nothing was baked and the graph has at least
+        ``PGT_AUTO_WIN_MIN_EDGES`` edges. The CSC and CSR then become views
+        of the layouts (:func:`_on_layout`)."""
         if cache_dtype not in (None, torch.float32, torch.bfloat16,
                                torch.int8):
             raise ValueError(f'fill_cache: cache_dtype {cache_dtype} is not '
                              'one of float32, bfloat16, int8')
         weight = self.weight
+        auto_unit = False
+        cap = dense_cap()
+        if auto:
+            from .ops.spmm import AUTO_CACHE_DTYPE, auto_dense_cap
+            on_cpu = (self.device.type == 'cpu'
+                      and not os.environ.get('PGT_FORCE_DENSE_SPMM'))
+            if on_cpu:
+                # no baked cache pays on the CPU: carry the weights, so the
+                # sparse regimes compute the same function
+                if dense_weight is not None:
+                    weight = torch.as_tensor(dense_weight,
+                                             device=self.device)
+                dense_weight = None
+            elif dense_weight is None:
+                # the JAX package bakes unit weights and keeps carrying its
+                # own, which spmm then applies instead of the cache; the
+                # port drops carried weights when it bakes, so it bakes them
+                if weight is None:
+                    dense_weight = torch.ones(self.num_edges,
+                                              dtype=torch.float32,
+                                              device=self.device)
+                    auto_unit = True
+                else:
+                    dense_weight = weight
+            if self.device.type != 'cpu':
+                if cache_dtype is None:
+                    cache_dtype = AUTO_CACHE_DTYPE
+                if block_sparse is None:
+                    block_sparse = False
+            cap = auto_dense_cap((cache_dtype or torch.float32).itemsize,
+                                 self.device)
+            blocked = blocked and self.num_edges <= auto_blocked_max_edges()
         dense, scale = self.dense_adj, self.dense_scale
         bsr = dict(bsr=self.bsr, bsr_t=self.bsr_t, bsr_res=self.bsr_res,
                    bsr_perm=self.bsr_perm, bsr_inv=self.bsr_inv)
         if dense_weight is not None and dense is None and self.bsr is None:
             ns, nd = self.sparse_size
-            if ns * nd <= dense_cap() and not block_sparse:
+            if ns * nd <= cap and not block_sparse:
                 from .ops.dense_spmm import build_dense_cache
                 dense, scale = build_dense_cache(
                     self.coo, torch.as_tensor(dense_weight,
@@ -252,16 +392,30 @@ class EdgeIndex:
                                        cache_dtype == torch.bfloat16)
                 if baked is not None:
                     bsr = baked
-            weight = (None if dense is not None or bsr['bsr'] is not None
-                      else torch.as_tensor(dense_weight, device=self.device))
+            if dense is not None or bsr['bsr'] is not None:
+                weight = None
+            elif not auto_unit:
+                weight = torch.as_tensor(dense_weight, device=self.device)
         csr, csc = self.get_csr(), self.get_csc()
+        win, win_t = self.win, self.win_t
+        if windowed is None:
+            windowed = (auto and dense is None and bsr['bsr'] is None
+                        and self.num_edges >= auto_win_min_edges())
+        if windowed and win is None:
+            e = self.num_edges
+            ns, nd = self.sparse_size
+            win = build_windowed_csc(self.coo, nd, ns, order=csc.perm)
+            win_t = build_windowed_csc(self.coo.flip(0), ns, nd,
+                                       order=csr.perm)
+            csc, csr = _on_layout(csc, win, e), _on_layout(csr, win_t, e)
         blk, blk_t = self.blocked, self.blocked_t
         if blocked and blk is None:
             blk, blk_t = _link_slots(csc, csr, self.num_edges)
         return EdgeIndex(self.coo, self.sparse_size, csr=csr, csc=csc,
                          num_real_edges=self.num_real_edges, weight=weight,
                          device=self.device, blocked=blk, blocked_t=blk_t,
-                         dense_adj=dense, dense_scale=scale, **bsr)
+                         dense_adj=dense, dense_scale=scale, win=win,
+                         win_t=win_t, **bsr)
 
     def _bake_bsr(self, dense_weight, force: bool, bf16: bool):
         """The block-sparse cache of ``dense_weight`` (a dict of the
@@ -311,8 +465,8 @@ class EdgeIndex:
         return out
 
     def flip(self) -> 'EdgeIndex':
-        """Transpose: swap src/dst, swap cached orientations, slot orders
-        and block layouts, and flip the residual. A relabel is square, so
+        """Transpose: swap src/dst, swap cached orientations, slot orders,
+        windowed layouts and block layouts, and flip the residual. A relabel is square, so
         ``A^T`` keeps the same ``bsr_perm``. The dense cache becomes its
         transpose (a view, or for int8 the copy kept at the first flip),
         and ``A = diag(r) Q diag(c)`` gives ``A^T = diag(c) Q^T diag(r)``:
@@ -337,10 +491,37 @@ class EdgeIndex:
                         blocked=self.blocked_t, blocked_t=self.blocked,
                         dense_adj=dense,
                         dense_scale=(None if self.dense_scale is None
-                                     else self.dense_scale[::-1]))
+                                     else self.dense_scale[::-1]),
+                        win=self.win_t, win_t=self.win)
         if dense is not None and dense.dtype == torch.int8:
             out._dense_t = self.dense_adj
         return out
+
+    def sort_by(self, order: str = 'row') -> Tuple['EdgeIndex', torch.Tensor]:
+        """The edges sorted stably by ``'row'`` (source) or ``'col'``
+        (destination), as a new EdgeIndex with no caches, and the sort's
+        ``perm`` (JAX ``edge_index.py:497-504``)."""
+        key = self.row if order == 'row' else self.col
+        perm = torch.sort(key, stable=True).indices
+        return EdgeIndex(self.coo[:, perm], self.sparse_size,
+                         num_real_edges=self.num_real_edges,
+                         device=self.device), perm
+
+    def to_dense_adj(self, edge_weight: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """The dense ``[n_src, n_dst]`` adjacency, ``adj[s, d]`` the sum of
+        the weights (ones by default) over the edges ``s -> d``; edges with
+        an endpoint past its size are dropped (JAX ``edge_index.py:
+        532-541``)."""
+        n_src, n_dst = self.sparse_size
+        w = (torch.ones(self.num_edges, dtype=torch.float32,
+                        device=self.device)
+             if edge_weight is None else edge_weight)
+        r = self.row.long().clamp(max=n_src)
+        c = self.col.long().clamp(max=n_dst)
+        adj = w.new_zeros((n_src + 1, n_dst + 1))
+        adj.index_put_((r, c), w, accumulate=True)
+        return adj[:n_src, :n_dst]
 
     # -- SpMM ---------------------------------------------------------------
     def matmul(self, x: torch.Tensor,
@@ -358,6 +539,15 @@ def _build_sorted(key: torch.Tensor, other: torch.Tensor, n: int) -> CSR:
     return CSR(indptr=indptr.to(torch.int32),
                indices=other[perm].to(torch.int32).contiguous(),
                perm=perm)
+
+
+def from_numpy_coo(row: np.ndarray, col: np.ndarray, num_nodes: int,
+                   device: Union[None, str, torch.device] = None
+                   ) -> EdgeIndex:
+    """A square EdgeIndex of ``num_nodes`` from numpy endpoint arrays, int32
+    (JAX ``edge_index.py:651-654``), on ``device`` (the card by default)."""
+    return EdgeIndex(np.stack([row, col]).astype(np.int32),
+                     (num_nodes, num_nodes), device=device)
 
 
 def _link_slots(csc: CSR, csr: CSR, e: int) -> Tuple[Slots, Slots]:

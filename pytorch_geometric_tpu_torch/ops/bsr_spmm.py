@@ -46,6 +46,7 @@ blocks transposed on the device.
 """
 
 import ctypes
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -274,8 +275,11 @@ def bsr_profitable(coo: np.ndarray, num_src: int, num_dst: int,
                    in_blk: Optional[np.ndarray] = None) -> bool:
     """Gate for the block cache: at least ``MIN_CAPTURE`` of the edges land
     in dense-enough blocks, and the captured blocks hold at most
-    ``max_entries`` values. ``capture`` / ``in_blk`` (from
-    :func:`choose_block_order`) skip the re-analysis."""
+    ``max_entries`` values; never under ``PGT_DISABLE_BSR_SPMM``, as in the
+    JAX package. ``capture`` / ``in_blk`` (from :func:`choose_block_order`)
+    skip the re-analysis."""
+    if os.environ.get('PGT_DISABLE_BSR_SPMM'):
+        return False
     if capture is not None and capture < MIN_CAPTURE:
         return False
     if capture is not None and in_blk is not None:

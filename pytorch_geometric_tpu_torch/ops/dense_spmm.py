@@ -1,5 +1,6 @@
-"""The dense cached adjacency: its build, the int8 factorisation, and the
-three matrix products of the ``'dense-cached'`` SpMM arm.
+"""The dense adjacency: the cached one (its build, the int8 factorisation,
+and the three matrix products of the ``'dense-cached'`` SpMM arm) and the
+uncached ``'dense'`` regime, which builds it in every call.
 
 Counterpart of the dense cache of ``pytorch_geometric_tpu/edge_index.py:
 364-413`` and of the ``'dense-cached'`` arm of ``ops/spmm.py:371-417``. The
@@ -22,12 +23,23 @@ kernel; the port leaves them to PyTorch's:
 The build is one float32 scatter-add of the weights into ``[n_dst, n_src]``
 on the EdgeIndex's device (padded edges dropped), then the cast or the
 factorisation.
+
+The uncached regime (``_dense_spmm`` / ``_dense_build`` / ``_dense_spmm_bwd``,
+JAX ``ops/spmm.py:128-182``, :func:`dense_uncached`) builds ``A`` in every
+call and runs one ``torch.mm``: a plain large product, left to the library
+as the JAX package leaves it to XLA (full float32 while TF32 is off; the
+JAX package runs bf16x3 on the TPU). Its backward is ``grad_x = A^T g``
+(one more ``torch.mm`` over the saved ``A``) and ``grad_w[e] = <x[src_e],
+g[dst_e]>`` on the per-edge dot kernel (``ops/edge_dot.py``), 0 for an edge
+with an endpoint out of range.
 """
 
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .edge_dot import edge_dot
 
 
 def dense_build(coo: torch.Tensor, w: torch.Tensor, n_src: int,
@@ -147,3 +159,36 @@ def dense_spmm(dense: torch.Tensor,
     if dense.dtype == torch.bfloat16:
         return _DenseBf16.apply(x, dense)
     return torch.mm(dense, x.to(dense.dtype))
+
+
+class _DenseUncached(torch.autograd.Function):
+    """``A @ x`` with ``A`` built from ``(coo, w)`` in the call, in ``x``'s
+    dtype; ``A`` is kept for ``grad_x = A^T g``, and ``grad_w`` is the
+    per-edge dot of ``x`` and ``g``. The COO is a constant."""
+
+    @staticmethod
+    def forward(ctx, x, w, coo, n_src, n_dst):
+        a = dense_build(coo, w.detach(), n_src, n_dst).to(x.dtype)
+        ctx.save_for_backward(a, x if ctx.needs_input_grad[1] else None, coo)
+        ctx.w_dtype = w.dtype
+        return torch.mm(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x, coo = ctx.saved_tensors
+        g = g.contiguous()
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[0]:
+            grad_x = torch.mm(a.t(), g)
+        if ctx.needs_input_grad[1]:
+            grad_w = edge_dot(x.contiguous(), g, coo[0], coo[1]).to(
+                ctx.w_dtype)
+        return grad_x, grad_w, None, None, None
+
+
+def dense_uncached(coo: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                   n_src: int, n_dst: int) -> torch.Tensor:
+    """The ``'dense'`` regime: ``A @ x`` with ``A[d, s]`` the sum of ``w``
+    over the edges ``s -> d`` built in this call (edges with an endpoint
+    out of range dropped); differentiable in ``x`` and ``w``."""
+    return _DenseUncached.apply(x, w, coo, n_src, n_dst)

@@ -1,20 +1,25 @@
 """Index-based segment reductions (the GNN aggregation substrate).
 
-Counterpart of ``pytorch_geometric_tpu/ops/scatter.py`` for the reductions
-this port serves: ``sum`` (alias ``add``), ``mean``, ``min`` and ``max``
-along dim 0. As in the JAX package, an index outside ``[0, dim_size)`` is
+Counterpart of ``pytorch_geometric_tpu/ops/scatter.py``: ``sum`` (alias
+``add``), ``mean``, ``min``, ``max``, ``mul`` and ``any`` along dim 0, plus
+:func:`scatter_argmax` and :func:`group_argsort`. Plain PyTorch, as the JAX
+package leaves these to XLA. As in the JAX package, an index outside ``[0, dim_size)`` is
 dropped (padded edges point at ``dim_size``), ``mask`` drops elements, and
 an empty segment comes out as 0 for every reduction. As there, a min or max
 output equal to the reduction's identity (``+inf`` / ``-inf`` for floats,
 ``iinfo.max`` / ``iinfo.min`` for integers) also becomes 0, empty segment or
-not.
+not. An empty ``mul`` segment is 1 (the product's identity, as
+``segment_prod`` gives); an ``any`` segment is whether some element is
+the max of its elements as int32 (for bool, whether any is true), in
+``src``'s dtype, as the JAX package computes it; an empty one is 0 (the JAX
+package gives its int32 identity there, ``True`` for bool: ROADMAP Queue 3).
 """
 
 from typing import Optional
 
 import torch
 
-REDUCTIONS = ('sum', 'add', 'mean', 'min', 'max')
+REDUCTIONS = ('sum', 'add', 'mean', 'min', 'max', 'mul', 'any')
 
 
 def scatter(src: torch.Tensor, index: torch.Tensor, dim_size: int,
@@ -41,6 +46,14 @@ def scatter(src: torch.Tensor, index: torch.Tensor, dim_size: int,
             count = count.clamp(min=1).view((-1,) + (1,) * (src.dim() - 1))
             out = out / count
         return out[:dim_size]
+    if reduce == 'mul':
+        return src.new_ones(shape).scatter_reduce_(
+            0, idx, src, reduce='prod', include_self=True)[:dim_size]
+    if reduce == 'any':
+        # the JAX package's segment max of the int32 values, in src's dtype
+        hit = src.new_zeros(shape, dtype=torch.int32).scatter_reduce_(
+            0, idx, src.to(torch.int32), reduce='amax', include_self=False)
+        return hit[:dim_size].to(src.dtype)
     # min / max: empty segments keep the zero they start from
     out = src.new_zeros(shape).scatter_reduce_(
         0, idx, src, reduce='amin' if reduce == 'min' else 'amax',
@@ -55,3 +68,48 @@ def _identity(reduce: str, dtype: torch.dtype):
         return float('inf') if reduce == 'min' else float('-inf')
     info = torch.iinfo(dtype)
     return info.max if reduce == 'min' else info.min
+
+
+def scatter_argmax(src: torch.Tensor, index: torch.Tensor,
+                   dim_size: int) -> torch.Tensor:
+    """Per-segment argmax of a 1-D ``src`` (JAX ``ops/scatter.py:142-153``):
+    for every segment, the first position in ``src`` that attains the
+    segment's max. An empty segment gets ``2**31 - 1``, the identity of the
+    JAX package's int32 ``segment_min`` (its docstring says
+    ``src.shape[0]``, its code gives the identity). Indices outside ``[0,
+    dim_size)`` are dropped."""
+    n = src.shape[0]
+    index = index.long()
+    valid = (index >= 0) & (index < dim_size)
+    idx = torch.where(valid, index, dim_size)
+    lowest = (float('-inf') if src.dtype.is_floating_point
+              else torch.iinfo(src.dtype).min)
+    maxes = src.new_full((dim_size + 1,), lowest).scatter_reduce_(
+        0, idx, src, reduce='amax', include_self=True)
+    pos = torch.arange(n, device=src.device)
+    pos = torch.where(src == maxes[idx], pos, n)
+    out = torch.full((dim_size + 1,), 2 ** 31 - 1, dtype=torch.int64,
+                     device=src.device).scatter_reduce_(
+        0, idx, pos, reduce='amin', include_self=True)
+    return out[:dim_size]
+
+
+def group_argsort(src: torch.Tensor, index: torch.Tensor, dim_size: int,
+                  descending: bool = False) -> torch.Tensor:
+    """The rank of each element of a 1-D ``src`` within its segment
+    (JAX ``ops/scatter.py:156-168``): sorted by ``(index, src)``, ties in
+    their order, ascending unless ``descending``. ``index`` in ``[0,
+    dim_size)``."""
+    if descending:
+        src = -src
+    index = index.long()
+    order = torch.sort(src, stable=True).indices
+    order = order[torch.sort(index[order], stable=True).indices]
+    seg = index[order]
+    ranks = torch.arange(src.shape[0], device=src.device)
+    starts = torch.full((dim_size,), src.shape[0], dtype=torch.int64,
+                        device=src.device).scatter_reduce_(
+        0, seg, ranks, reduce='amin', include_self=True)
+    out = torch.empty_like(ranks)
+    out[order] = ranks - starts[seg]
+    return out

@@ -3,8 +3,7 @@
 Counterpart of ``pytorch_geometric_tpu/ops/spmm.py``:
 ``out[dst] = reduce over incoming edges of edge_weight * x[src]``.
 
-The ladder has four arms in the port so far, checked in the JAX package's
-order:
+The ladder, checked in the JAX package's order (``spmm_regime``):
 
   * ``'dense-cached'``: a dense adjacency baked by ``fill_cache`` (weights
     in it, no weight passed) with ``reduce`` in sum|mean -> one matrix
@@ -23,6 +22,14 @@ order:
     degree. Differentiable in ``x``: both kernels run their backward over
     the transposed layouts, the residual's again onto the block product.
     bf16 blocks take the block kernel's tensor-core arm.
+  * ``'dense'``: the uncached dense regime (``ops/dense_spmm.py``), where
+    :func:`_dense_profitable` says the densification pays.
+  * ``'windowed'``: the windowed layouts ``win`` / ``win_t`` that
+    ``fill_cache`` built (``ops/chunked_spmm.py``): kernel 1 over the
+    flattened layout, the dot kernel for ``grad_w``.
+  * ``'chunked'``: past :func:`chunk_trigger_bytes` of gathered messages
+    (``E * F * 4``), the raw COO in chunks of :func:`chunk_edges`
+    (``ops/chunked_spmm.py``).
   * ``'kernel'``: ``reduce`` in sum|mean on a CUDA tensor -> the hand-written
     segment-sum kernel (``ops/segment_spmm.py``) over the cached (or freshly
     built) CSC, with its backward over the CSR; ``mean`` divides by the CSC
@@ -35,40 +42,160 @@ order:
     version), and ``min``/``max``, which gather and scatter as the JAX
     package's XLA gather path does.
 
-A block-sparse cache runs the ``'bsr'`` arm on the CPU too, through the
-kernels' plain versions. A sum/mean on a CUDA tensor with
-``backend.use_kernel_spmm = False`` raises: the plain version never stands in
-for a kernel on the card.
+Weights carried on the EdgeIndex (``fill_cache`` that baked nothing) are
+applied when the caller passes none (the carried-weight rule, JAX
+``ops/spmm.py:357-363``). A block-sparse cache runs the ``'bsr'`` arm on the
+CPU too, and the dense, windowed and chunked regimes run there through the
+kernels' plain versions. A sum/mean past the dense cache on a CUDA tensor
+with ``backend.use_kernel_spmm = False`` raises: the plain versions never
+stand in for a kernel on the card.
 
-The uncached dense, windowed and chunked regimes are not ported yet (ROADMAP
-Queue 1, item 3).
+The policy's constants keep the JAX package's environment names. Their
+defaults on the card come from ``kernel_ab.py --only policy`` (one H100 80GB
+HBM3 at 700 W, PERF.md section 6); each constant names the sweep's rows
+that set it.
 """
 
+import os
 from typing import Optional, Union
 
 import torch
 
 from .. import backend
-from ..edge_index import CSR, EdgeIndex
+from ..edge_index import CSR, EdgeIndex, dense_cap
 from .bsr_spmm import bsr_matmul
-from .dense_spmm import dense_spmm
+from .chunked_spmm import chunked_spmm, windowed_spmm
+from .dense_spmm import dense_spmm, dense_uncached
 from .scatter import scatter
 from .segment_spmm import segment_spmm
+
+# The card's defaults, from ``kernel_ab.py --only policy`` (my chip run 1 of
+# the PR that ported the policy, one H100 80GB HBM3 at 700 W; PERF.md
+# section 6, the sweep's table). "Row" names a row of that table; times are
+# CUDA-event ms per eager call, device ms in brackets.
+#
+# the size rule of the uncached dense regime where it is forced to run:
+# n_src * n_dst <= DENSE_ADVANTAGE * E * F and the dense cap (the JAX
+# package's 36; unforced it never runs, see _dense_profitable)
+DENSE_ADVANTAGE = 36.0
+# fill_cache(auto=True)'s dense cache on the card holds at most this many
+# entries. Rows 'random n=1000 deg=10/33/100': the float32 cache beat
+# 'kernel' at every F (0.0258-0.0448 against 0.0556-0.0849); rows
+# 'random n=10000 ...' (1e8 entries): 'kernel' beat both caches at every
+# degree and F (0.0403-0.0751 against bf16's 0.0789-0.0857)
+AUTO_DENSE_MAX_ENTRIES = 1_000_000
+# the dtype of fill_cache(auto=True)'s dense cache on the card: float32,
+# exact. Rows 'random n=1000 ...' (within the cap above): float32
+# 0.0258-0.0448 against bf16 0.0593-0.1064 (the bf16 product adds casts a
+# call; bf16 wins from n=10000, where the cap no longer bakes)
+AUTO_CACHE_DTYPE = torch.float32
+# fill_cache(auto=True) builds the windowed layouts from this many edges
+# (PGT_AUTO_WIN_MIN_EDGES). The windowed forward is kernel 1 over the
+# CSC's own arrays (rows 'products F=100 / 64': 96.9033 against 'kernel'
+# 96.7806, 85.8598 against 85.9222), its weighted backward 12x the kernel
+# regime's (row 'training n=100000 deg=100': 1.8114 against 22.2334). Its
+# host steps cost 20-30 us a call on small graphs (rows 'random n=1000':
+# 0.08-0.10 against 0.06-0.07); from 3M edges it is within 2 % of 'kernel'
+# (rows 'random n=30000 deg=100': 0.0605 / 0.1117 / 0.2033 against 0.0672 /
+# 0.1137 / 0.2037; 'random n=100000 deg=33'). Its layouts add 24 bytes an
+# edge ('products' builds: 5.978 GB against 2.989 for the CSC and CSR)
+AUTO_WIN_MIN_EDGES = 3_000_000
+# fill_cache(auto=True) skips the slot orders past this many edges
+# (PGT_AUTO_BLOCKED_MAX_EDGES): they serve only the fused attention
+# routes, which the attention cap (PGT_ATTN_WIDE_BYTES, 1e9) sends to the
+# flash kernels, which read none, past 62.5M edges at 4 heads. The
+# 'products' builds: the slot orders cost 0.069 s and 5.94 GB at 123.7M
+# edges (48 bytes an edge)
+AUTO_BLOCKED_MAX_EDGES = 62_500_000
+# the chunked regime fires past this many gathered bytes, E * F * 4
+# (PGT_SPMM_CHUNK_TRIGGER): never unasked. The JAX package chunks because
+# its sparse paths materialise [E, F] messages; kernel 1 gathers into
+# registers and never does. Rows 'products F=100 / 64': 'chunked' 159.3595
+# / 124.0525 against 'kernel uncached' (the raw COO sorted in the call)
+# 111.7783 / 100.3679, and slower in device time at every grid point
+CHUNK_TRIGGER_BYTES = float('inf')
+# a chunk's gathered bytes (PGT_SPMM_CHUNK_BUF), as in the JAX package
+CHUNK_BUF_BYTES = 1e9
+
+
+def auto_dense_cap(dtype_bytes: int = 4,
+                   device: Union[None, str, torch.device] = None) -> int:
+    """Entry budget for ``fill_cache(auto=True)``'s dense cache.
+
+    ``PGT_DENSE_SPMM_ENTRIES`` wins when set. On the card: the JAX
+    package's memory rule, an eighth of the device's memory over the
+    entry size (the cache is streamed every pass; forward, backward and
+    activations need the rest), and at most :data:`AUTO_DENSE_MAX_ENTRIES`,
+    past which the sweep found the cache slower than the segment-sum
+    kernel. Elsewhere (the CPU, under ``PGT_FORCE_DENSE_SPMM``) the JAX
+    package's fallback, 2.5e8."""
+    env = os.environ.get('PGT_DENSE_SPMM_ENTRIES')
+    if env:
+        return int(float(env))
+    dev = torch.device('cpu' if device is None else device)
+    if dev.type == 'cuda':
+        total = torch.cuda.get_device_properties(dev).total_memory
+        return min(int(total / (8 * max(dtype_bytes, 1))),
+                   AUTO_DENSE_MAX_ENTRIES)
+    return int(2.5e8)
+
+
+def chunk_trigger_bytes() -> float:
+    """``PGT_SPMM_CHUNK_TRIGGER``, else :data:`CHUNK_TRIGGER_BYTES`."""
+    return float(os.environ.get('PGT_SPMM_CHUNK_TRIGGER',
+                                CHUNK_TRIGGER_BYTES))
+
+
+def chunk_edges(f: int) -> int:
+    """The chunked regime's edges a chunk: ``PGT_SPMM_CHUNK_BUF`` bytes of
+    gathered messages at ``f`` float32 columns, at least 2**16 (JAX
+    ``ops/spmm.py:510-511``)."""
+    buf = float(os.environ.get('PGT_SPMM_CHUNK_BUF', CHUNK_BUF_BYTES))
+    return max(1 << 16, int(buf / max(f * 4, 1)))
+
+
+def _dense_profitable(adj: EdgeIndex, num_feats: int) -> bool:
+    """Whether the uncached dense regime runs (JAX ``ops/spmm.py:110-125``):
+    only under ``PGT_FORCE_DENSE_SPMM``, and never under
+    ``PGT_DISABLE_DENSE_SPMM``, then by the size rule (``n_src * n_dst``
+    within the dense cap and within :data:`DENSE_ADVANTAGE` ``* E * F``).
+    The JAX package densifies unforced on the TPU; on the card it never
+    pays: rows 'random n=1000 ... n=30000', arm 'dense' of the sweep lost to
+    'kernel' at every point, by 5.6x at n=1000 deg=100 F=16 (0.4115 against
+    0.0571) up to 100x at n=30000 deg=10 F=128 (6.9423 against 0.0631).
+    On the CPU the JAX package's backend gate says the same."""
+    if (os.environ.get('PGT_DISABLE_DENSE_SPMM')
+            or not os.environ.get('PGT_FORCE_DENSE_SPMM')):
+        return False
+    entries = adj.num_src_nodes * adj.num_dst_nodes
+    return (entries <= dense_cap()
+            and entries <= DENSE_ADVANTAGE * adj.num_edges * max(num_feats,
+                                                                 1))
 
 
 def spmm_regime(adj: EdgeIndex, num_feats: int = 64, reduce: str = 'sum',
                 has_edge_weight: bool = False) -> str:
     """Which arm :func:`spmm` runs for this adjacency: ``'dense-cached'``,
-    ``'bsr'``, ``'kernel'`` (the JAX package's ``'pallas'``) or
-    ``'plain'``. ``num_feats`` is accepted for signature parity with the
-    JAX package and does not change the arm."""
-    del num_feats
+    ``'bsr'``, ``'dense'``, ``'windowed'``, ``'chunked'``, ``'kernel'``
+    (the JAX package's ``'pallas'``) or ``'plain'`` (JAX ``ops/spmm.py:
+    65-107``). ``has_edge_weight`` counts weights the EdgeIndex carries, as
+    :func:`spmm` applies them."""
     simple = reduce in ('sum', 'mean')
-    if adj.dense_adj is not None and simple and not has_edge_weight:
+    has_edge_weight = has_edge_weight or adj.weight is not None
+    if (adj.dense_adj is not None and simple and not has_edge_weight
+            and not os.environ.get('PGT_DISABLE_DENSE_SPMM')):
         return 'dense-cached'
     if (adj.bsr is not None and adj.bsr_t is not None and simple
-            and not has_edge_weight):
+            and not has_edge_weight
+            and not os.environ.get('PGT_DISABLE_BSR_SPMM')):
         return 'bsr'
+    if simple and _dense_profitable(adj, num_feats):
+        return 'dense'
+    if (adj.win is not None and adj.win_t is not None and simple
+            and not os.environ.get('PGT_DISABLE_WIN_SPMM')):
+        return 'windowed'
+    if simple and adj.num_edges * num_feats * 4 > chunk_trigger_bytes():
+        return 'chunked'
     if simple and adj.device.type == 'cuda':
         return 'kernel'
     return 'plain'
@@ -187,17 +314,25 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
         if x.device.type == 'cuda' and not backend.use_kernel_spmm:
             raise RuntimeError(
                 'backend.use_kernel_spmm is False, and the port has no other '
-                'CUDA arm for a sum or mean yet; move the tensors to the CPU '
-                'to run the plain versions')
-        # 'kernel', or 'plain' on the CPU: the CSC sum (the segment-sum
-        # wrapper runs its plain version on a CPU tensor)
-        csc = (adj.get_csc() if regime != 'bsr' or reduce == 'mean'
-               else None)
-        out = (_bsr_arm(adj, x) if regime == 'bsr'
-               else _kernel_spmm(adj, x, edge_weight, csc))
+                'CUDA arm for a sum or mean past the dense cache; move the '
+                'tensors to the CPU to run the plain versions')
+        if regime == 'dense':
+            w = (edge_weight if edge_weight is not None else
+                 torch.ones(adj.num_edges, dtype=x.dtype, device=x.device))
+            out = dense_uncached(adj.coo, w, x, adj.num_src_nodes, num_out)
+        elif regime == 'windowed':
+            out = windowed_spmm(adj.win, adj.win_t, edge_weight, x)
+        elif regime == 'chunked':
+            out = chunked_spmm(adj.row, adj.col, edge_weight, x, num_out,
+                               chunk_edges(x.shape[1]))
+        elif regime == 'bsr':
+            out = _bsr_arm(adj, x)
+        else:
+            # 'kernel', or 'plain' on the CPU: the CSC sum (the segment-sum
+            # wrapper runs its plain version on a CPU tensor)
+            out = _kernel_spmm(adj, x, edge_weight, adj.get_csc())
         if reduce == 'mean':
-            deg = torch.diff(csc.indptr).to(out.dtype)
-            out = out / deg.clamp(min=1)[:, None]
+            out = out / _in_degree(adj).to(out.dtype).clamp(min=1)[:, None]
         return out
 
     src, dst = adj.row.long(), adj.col.long()
@@ -206,3 +341,15 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
     if edge_weight is not None:
         x_j = x_j * edge_weight[:, None]
     return scatter(x_j, dst, num_out, reduce=reduce, mask=src < n_src)
+
+
+def _in_degree(adj: EdgeIndex) -> torch.Tensor:
+    """Each destination's edge count: the cached CSC's (or windowed
+    layout's) row pointer, else a count of the in-range destinations."""
+    if adj.csc is not None:
+        return torch.diff(adj.csc.indptr)
+    if adj.win is not None:
+        return torch.diff(adj.win.indptr)
+    n = adj.num_dst_nodes
+    d = adj.col.long()
+    return torch.bincount(d[(d >= 0) & (d < n)], minlength=n)

@@ -2385,3 +2385,116 @@ def test_typed_matmul_arms_agree_on_card(dev, rows):
     for other in res[1:]:
         for a, b in zip(other, res[0]):
             _within(a, b, 1e-5)
+
+
+# -- the SpMM regimes (ops/chunked_spmm.py, ops/dense_spmm.py, ops/spmm.py) ---
+_ARM_KNOBS = {'windowed': {'PGT_WIN_EDGES': '8192'},
+              'chunked': {'PGT_SPMM_CHUNK_TRIGGER': '0',
+                          'PGT_SPMM_CHUNK_BUF': str(8192 * 24 * 4)},
+              'dense': {'PGT_FORCE_DENSE_SPMM': '1'}}
+
+
+def _arm_adj(monkeypatch, arm, coo, n, dev):
+    for k, v in _ARM_KNOBS[arm].items():
+        monkeypatch.setenv(k, v)
+    ei = EdgeIndex(coo, (n, n), device=dev)
+    return ei.fill_cache(blocked=False, windowed=True) \
+        if arm == 'windowed' else ei
+
+
+@pytest.mark.parametrize('arm', ['windowed', 'chunked', 'dense'])
+@pytest.mark.parametrize('reduce', ['sum', 'mean'])
+@pytest.mark.parametrize('transpose', [False, True])
+def test_regime_arms_match_plain(dev, monkeypatch, arm, reduce, transpose):
+    """The windowed, chunked and uncached dense regimes on the card, each
+    forced by its knob over several windows or chunks with padded edges,
+    against the float64 plain gather / ``index_add_`` and its autograd:
+    the output within 1e-5 of max(1, its largest), ``grad_x`` and
+    ``grad_w`` within 1e-4 of their largest; the kernels each arm must
+    launch are counted."""
+    from pytorch_geometric_tpu_torch.compat import launch_counts
+    n, f = 3000, 24
+    coo, w, x = _case(n, n, 40_000, f, seed=31)
+    ei = _arm_adj(monkeypatch, arm, coo, n, dev)
+    assert spmm_regime(ei.flip() if transpose else ei, f, reduce,
+                       True) == arm
+    tx = torch.as_tensor(x, device=dev).requires_grad_()
+    tw = torch.as_tensor(w, device=dev).requires_grad_()
+    before = launch_counts()
+    out = spmm(ei, tx, tw, reduce=reduce, transpose=transpose)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after['edge_dot'] - before['edge_dot'] >= 1
+    assert (after['segment_spmm'] - before['segment_spmm'] >= 2) == (
+        arm != 'dense')
+    c = torch.as_tensor(coo, device=dev).long()
+    s, d = (c[1], c[0]) if transpose else (c[0], c[1])
+    x64 = tx.detach().double().requires_grad_()
+    w64 = tw.detach().double().requires_grad_()
+    ok = (s < n) & (d < n)
+    ref = x64.new_zeros((n, f)).index_add_(0, d[ok],
+                                           x64[s[ok]] * w64[ok][:, None])
+    if reduce == 'mean':
+        ref = ref / torch.bincount(d[ok], minlength=n).clamp(
+            min=1).double()[:, None]
+    ref.backward(g.double())
+    assert float((out.detach().double() - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
+    for got, want in ((tx.grad, x64.grad), (tw.grad, w64.grad)):
+        assert float((got.double() - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize('arm', ['windowed', 'chunked', 'dense'])
+def test_regime_arms_raise_without_kernels(dev, monkeypatch, arm):
+    """With ``backend.use_kernel_spmm = False`` every new arm raises on the
+    card: none runs its plain version there."""
+    n = 500
+    coo, w, x = _case(n, n, 4000, 8, seed=32)
+    ei = _arm_adj(monkeypatch, arm, coo, n, dev)
+    monkeypatch.setattr(backend, 'use_kernel_spmm', False)
+    with pytest.raises(RuntimeError, match='use_kernel_spmm'):
+        spmm(ei, torch.as_tensor(x, device=dev),
+             torch.as_tensor(w, device=dev))
+
+
+def test_auto_policy_on_card(dev, monkeypatch):
+    """``fill_cache(auto=True)`` on the card, with the card's defaults
+    (``ops/spmm.py``): a float32 dense cache up to ``AUTO_DENSE_MAX_ENTRIES``
+    entries, no block cache (even on a block-dense graph past the dense
+    cap, unless asked for), the windowed layouts from
+    ``AUTO_WIN_MIN_EDGES`` edges, the kernel regime between; no chunking
+    unasked."""
+    import importlib
+    sm = importlib.import_module('pytorch_geometric_tpu_torch.ops.spmm')
+    rng = np.random.default_rng(33)
+    small = rng.integers(0, 1000, (2, 8000)).astype(np.int32)
+    ei = EdgeIndex(small, (1000, 1000), device=dev).fill_cache(auto=True)
+    assert spmm_regime(ei) == 'dense-cached'
+    assert ei.dense_adj.dtype == sm.AUTO_CACHE_DTYPE == torch.float32
+    x = torch.as_tensor(rng.standard_normal((1000, 16)).astype(np.float32),
+                        device=dev)
+    ref = spmm(EdgeIndex(small, (1000, 1000), device=dev), x)
+    _within(spmm(ei, x), ref, 1e-5)
+    mid = rng.integers(0, 20_000, (2, 200_000)).astype(np.int32)
+    ei = EdgeIndex(mid, (20_000, 20_000), device=dev).fill_cache(auto=True)
+    assert ei.dense_adj is None and ei.bsr is None and ei.win is None
+    assert spmm_regime(ei, 128) == 'kernel'
+    big = rng.integers(0, 100_000, (2, sm.AUTO_WIN_MIN_EDGES)).astype(
+        np.int32)
+    ei = EdgeIndex(big, (100_000, 100_000), device=dev).fill_cache(
+        auto=True)
+    assert spmm_regime(ei, 128) == 'windowed'
+    assert ei.csc.indices.data_ptr() == ei.win.src.data_ptr()
+    base = np.repeat(np.arange(24) * 128, 260)
+    blocks = np.stack([base + rng.integers(0, 128, base.size),
+                       base + rng.integers(0, 128, base.size)]).astype(
+        np.int32)
+    monkeypatch.setenv('PGT_DENSE_SPMM_ENTRIES', '100000')
+    n = 24 * 128
+    assert EdgeIndex(blocks, (n, n), device=dev).fill_cache(
+        auto=True).bsr is None
+    assert EdgeIndex(blocks, (n, n), device=dev).fill_cache(
+        auto=True, block_sparse=True).bsr is not None

@@ -186,14 +186,25 @@ def test_slot_orders_match_jax_blocked(n_src, n_dst, n_pad):
                                     {'cache_dtype': torch.bfloat16},
                                     {'windowed': True}, {'auto': True}])
 def test_unported_caches_raise(kwargs):
-    """The windowed and auto caches are not ported and raise. The two
-    ``cache_dtype`` cases are ported: with weights they bake what the JAX
-    package bakes (bf16 blocks, a dense bf16 adjacency), bitwise."""
+    """Every cache of the JAX package is ported now, and none raises: the
+    windowed layouts are built as the JAX package builds them, bitwise, and
+    auto on CPU tensors bakes nothing and builds no windowed layout at this
+    size, as there. The two ``cache_dtype`` cases: with weights they bake
+    what the JAX package bakes (bf16 blocks, a dense bf16 adjacency),
+    bitwise."""
     coo = _coo(10, 10, 30, 0, seed=0)
     t = EdgeIndex(coo, (10, 10), device='cpu')
     if 'cache_dtype' not in kwargs:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            t.fill_cache(**kwargs)
+        got = t.fill_cache(**kwargs)
+        ref = JEdgeIndex(coo, (10, 10)).fill_cache(**kwargs)
+        assert (got.win is None) == (ref.win is None)
+        assert (got.dense_adj is None and got.bsr is None
+                and ref.dense_adj is None and ref.bsr is None)
+        if ref.win is not None:
+            for field in ('src', 'dst', 'perm', 'inv_pos'):
+                np.testing.assert_array_equal(
+                    getattr(got.win, field).numpy(),
+                    np.asarray(getattr(ref.win, field)))
         return
     w = np.random.default_rng(0).random(30).astype(np.float32)
     got = t.fill_cache(dense_weight=w, **kwargs)

@@ -63,12 +63,14 @@ def test_import_loads_no_jax():
         '"pytorch_geometric_tpu_torch.nn.conv.hetero_conv", '
         '"pytorch_geometric_tpu_torch.nn.to_hetero", '
         '"pytorch_geometric_tpu_torch.sampler.hetero", '
-        '"pytorch_geometric_tpu_torch.loader.hetero_loader"} <= set('
+        '"pytorch_geometric_tpu_torch.loader.hetero_loader", '
+        '"pytorch_geometric_tpu_torch.ops.chunked_spmm", '
+        '"pytorch_geometric_tpu_torch.ops.sampled"} <= set('
         'sys.modules)\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 58   # every module was imported
+    assert int(res.stdout.split()[-1]) >= 60   # every module was imported
 
 
 @pytest.mark.parametrize('path', sorted(
@@ -150,6 +152,32 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
         fs.flash_backward_dst(ops, ml, ml, x, x, plan)
     with pytest.raises(ValueError, match='run on cuda'):
         fs.flash_backward_src(ops, x, ml, plan)
+
+
+def test_regime_arms_never_run_plain_off_the_cpu():
+    """The windowed and chunked regimes reach kernel 1's wrapper, whose
+    only plain path is behind a CPU-device check: ``meta`` tensors are
+    refused, not computed; and auto on CPU tensors needs no card."""
+    from pytorch_geometric_tpu_torch import WindowedCSC
+    from pytorch_geometric_tpu_torch.ops.chunked_spmm import (chunked_spmm,
+                                                              windowed_spmm)
+    i32 = dict(dtype=torch.int32, device='meta')
+    win = WindowedCSC(src=torch.zeros(1, 4, **i32),
+                      dst=torch.zeros(1, 4, **i32),
+                      perm=torch.zeros(1, 4, dtype=torch.int64,
+                                       device='meta'),
+                      inv_pos=torch.zeros(4, dtype=torch.int64,
+                                          device='meta'),
+                      indptr=torch.zeros(3, **i32))
+    x = torch.zeros(2, 4, device='meta')
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        windowed_spmm(win, win, None, x)
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        chunked_spmm(torch.zeros(4, **i32), torch.zeros(4, **i32), None, x,
+                     2, 1 << 16)
+    coo = np.array([[0, 1, 2], [1, 2, 0]], np.int32)
+    ei = EdgeIndex(coo, (3, 3), device='cpu').fill_cache(auto=True)
+    assert ei.dense_adj is None and ei.device.type == 'cpu'
 
 
 def test_chip_smoke_alone_fails(tmp_path):
