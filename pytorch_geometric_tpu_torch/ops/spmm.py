@@ -69,9 +69,8 @@ from .dense_spmm import dense_spmm, dense_uncached
 from .scatter import scatter
 from .segment_spmm import segment_spmm
 
-# The card's defaults, from ``kernel_ab.py --only policy`` (my chip run 1 of
-# the PR that ported the policy, one H100 80GB HBM3 at 700 W; PERF.md
-# section 6, the sweep's table). "Row" names a row of that table; times are
+# The card's defaults, from ``kernel_ab.py --only policy`` (measured on one
+# H100 80GB HBM3 at 700 W; PERF.md section 6, the sweep's table). "Row" names a row of that table; times are
 # CUDA-event ms per eager call, device ms in brackets.
 #
 # the size rule of the uncached dense regime where it is forced to run:

@@ -4,8 +4,8 @@ constants (the ``tpu_decisions`` fixture emulates an accelerator's policy
 on the CPU as ``tests/test_spmm_policy.py``'s does, and every knob is set to
 one value for both packages); the port's own H100 defaults are pinned by
 cases that name the rows of the sweep that set them (``kernel_ab.py --only
-policy``, PERF.md section 6); ``cache_gcn_norm(auto=True)``; and the slice
-on the CPU as a whole in both packages: ``products_bench.py --infer``'s
+policy``, PERF.md section 6); ``cache_gcn_norm(auto=True)``; and the sparse
+runtime on the CPU as a whole in both packages: ``products_bench.py --infer``'s
 net on a tiny products graph in the windowed regime, and
 ``examples/giant_graph.py``'s model at its toy default, 3 Adam steps.
 
@@ -187,7 +187,7 @@ def _fake_card_adj(n, e, **fields):
 
 def test_card_defaults_pinned_by_the_sweep(monkeypatch):
     """The port's H100 defaults (``ops/spmm.py``), each set by rows of the
-    sweep (my chip run 1 of this slice, one H100 80GB HBM3 at 700 W):
+    sweep (measured on one H100 80GB HBM3 at 700 W):
 
     * the uncached dense regime never runs on the card unasked (rows
       'random n=1000 ... n=30000', arm 'dense': slower than 'kernel' at
