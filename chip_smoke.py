@@ -173,7 +173,8 @@ checks them:
      (host sampling a batch beside the card's time a step), the first batch
      against the CPU, one ``HGTLoader`` batch; kernel 1 timed at the batch's
      ``writes`` relation, forward and ``A^T g``;
- 29. the SpMM regimes (``ops/chunked_spmm.py``, ``ops/dense_spmm.py``): the
+ 29. the SpMM regimes (``ops/spmm.py``, ``ops/chunked_spmm.py``,
+     ``ops/dense_spmm.py``): the
      windowed, chunked and uncached dense regimes, each forced by its knob
      (``PGT_WIN_EDGES`` 2**18 over 60,000 nodes and 1.5M edges: 6 windows;
      ``PGT_SPMM_CHUNK_TRIGGER`` 0 with 2**18-edge chunks: 6 chunks;
@@ -185,17 +186,19 @@ checks them:
      ``grad_w`` at the windowed (slot order) and chunked (edge order)
      shapes;
  30. path R, ``products_bench.py --infer`` at full scale: the products
-     graph through ``fill_cache(auto=True)`` (its time and memory, what the
-     windowed layouts share with the CSC and CSR, the regime it reports),
+     graph through ``fill_cache(auto=True)`` (its time and memory, the
+     regime it reports; the windowed layouts built beside it, what they
+     share with the CSC and CSR and add),
      the bench's 2-layer net (F = 100 -> 64 -> 47) served eagerly and
      captured, 20 forwards after 2, in float32 and with bf16 x: ms per
-     forward, edges/s, launches, idle share, peak memory; its forward equal
-     bit for bit to the kernel regime's over the CSC; at 0.01 scale against
-     the CPU; kernel 1 at each layer's shape against the float64 sum, its
+     forward, edges/s, launches, idle share, peak memory; the windowed
+     forward equal bit for bit to the kernel regime's; at 0.01 scale against
+     the CPU; kernel 1 at each layer's shape against the float64 sum (a hub
+     row missing 1 % of its edges must fail the bound), its
      plain version (over 16 row ranges) and ``torch.sparse.mm``; the regime
      auto picks on path A's graph;
  31. path S, ``examples/giant_graph.py``'s model at full products scale:
-     SAGE over the windowed regime (kernel 1) and ``GATConv(8, heads=4)``
+     SAGE over the kernel regime (kernel 1) and ``GATConv(8, heads=4)``
      over the raw COO (the flash kernels), Adam 1e-2, served and trained
      eager and captured (1 step, then 5 timed), the captured losses and
      gradients against the eager ones; at the example's toy scale and knobs
@@ -362,8 +365,9 @@ RA_NODES, RA_EDGES, RA_F, RA_PAD, RA_CHUNK = 60_000, 1_500_000, 32, 1_000, \
     1 << 18
 RA_DENSE_NODES, RA_DENSE_EDGES = 6_000, 200_000
 # path R: products_bench.py --infer on the products graph; the regime
-# fill_cache(auto=True) must report there (and path S's SAGE layer take)
-PR_REGIME = 'windowed'
+# fill_cache(auto=True) must report there (and path S's SAGE layer take):
+# the card's policy builds no windowed layouts unasked (ops/spmm.py)
+PR_REGIME = 'kernel'
 # path S: examples/giant_graph.py's model (:57-63): x [N, 32], SAGEConv(32),
 # GATConv(8, heads=4), Linear 7, Adam 1e-2; its toy scale and the env caps
 # it sets (:35-40) for the check against the CPU
@@ -5991,11 +5995,12 @@ def cache_report(torch, tag, ei, build_s, mem0):
 
 def long_rows_close(torch, indptr, src, x, out):
     """Kernel 1's output over rows of any length against the float64 sum of
-    the same terms: ``(max abs err, ok)`` within ``1e-5 + (1e-5 + n *
-    2**-24) * sum|x|`` for a row of ``n`` edges (PERF.md section 2: the
-    first-order bound of a float32 sum of ``n`` terms, which the products
-    graph's hub rows, ~370,000 edges, need), one bf16 ulp more for a bf16
-    output."""
+    the same terms: ``(max abs err, ok)`` within ``1e-5 + 2 * sqrt(n) *
+    2**-24 * sum|x|`` for a row of ``n`` edges (PERF.md section 2: a
+    float32 sum's rounding errors add as a random walk, about ``sqrt(n)``
+    roundings of the running sum, which ``sum|x|`` bounds; the products
+    graph's hub rows hold ~370,000 edges, and a row missing 1 % of them
+    fails, ``kernel1_row``), one bf16 ulp more for a bf16 output."""
     from pytorch_geometric_tpu_torch.ops.segment import ptr2index
     e, n_dst = int(indptr[-1]), indptr.shape[0] - 1
     dst = ptr2index(indptr.long(), e)
@@ -6005,7 +6010,7 @@ def long_rows_close(torch, indptr, src, x, out):
                                                              terms.abs_())
     del terms
     n = torch.diff(indptr).double()[:, None]
-    lim = 1e-5 + (1e-5 + n * 2.0 ** -24) * scale
+    lim = 1e-5 + 2 * n.sqrt() * 2.0 ** -24 * scale
     if out.dtype == torch.bfloat16:
         _, ex = torch.frexp(ref)
         lim = lim + torch.ldexp(torch.ones_like(ref), ex - 8)
@@ -6014,11 +6019,39 @@ def long_rows_close(torch, indptr, src, x, out):
         (err <= lim).all())
 
 
+def hub_row_drop_fails(torch, label, indptr, src, x):
+    """The bound of :func:`long_rows_close` is tight enough to see a lost
+    edge: kernel 1 over the longest row with every hundredth of its edges
+    dropped (1 %) must fail it against the whole row. Returns the row's
+    length and the dropped sum's error."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    deg = torch.diff(indptr.long())
+    r = int(deg.argmax())
+    lo, m = int(indptr[r]), int(deg[r])
+    row = src[lo:lo + m]
+    keep = torch.ones(m, dtype=torch.bool, device=row.device)
+    keep[::100] = False
+    kept = row[keep].contiguous()
+    dropped = segment_spmm(torch.tensor([0, kept.shape[0]], dtype=torch.int32,
+                                        device=row.device), kept, None, x)
+    err, ok = long_rows_close(
+        torch, torch.tensor([0, m], dtype=torch.int32, device=row.device),
+        row, x, dropped)
+    verdict = 'passes: the bound is too loose' if ok else 'fails, as it must'
+    log(f'[timing] segment_spmm {label}: the longest row ({m} edges) with '
+        f'{m - kept.shape[0]} of its edges dropped is {err:.3e} off the '
+        f'float64 sum and {verdict}')
+    check(not ok, f'kernel 1 {label}: a row missing 1 % of its {m} edges '
+                  f'passes the row-length bound')
+    return m, err
+
+
 def kernel1_row(torch, label, indptr, src, x, pieces=16):
     """Kernel 1 timed at a full-graph shape, where its plain version's
     ``[E, F]`` gather does not fit beside the graph: the kernel's device
     time and CUDA-event wall; its output held, over ``pieces`` ranges of
-    destination rows, to the float64 sum (``long_rows_close``); the plain
+    destination rows, to the float64 sum (``long_rows_close``, whose bound
+    must fail the longest row with 1 % of its edges dropped); the plain
     version run over the same ranges, its time the sum over them (CUDA
     events, one pass); ``torch.sparse.mm`` on a CSR tensor; the bound from
     the bytes (x rows read once) and the gathered rate."""
@@ -6053,6 +6086,8 @@ def kernel1_row(torch, label, indptr, src, x, pieces=16):
                   f'{err}')
         worst = max(worst, err)
     row['max_abs_err'] = worst
+    row['longest_row'], row['longest_row_one_percent_dropped_err'] = \
+        hub_row_drop_fails(torch, label, indptr, src, x)
     if fn_lib is None:
         row['library_ms'], row['library_error'] = None, lib_out
     else:
@@ -6106,14 +6141,15 @@ def phase_path_r(torch, seed, coo, iters, warmup):
     captured (``compat.compile``), ``iters`` forwards after ``warmup``: ms
     per forward, edges/s as the bench counts them (2 E / t), launches per
     forward (kernel 1 once a layer), a whole-window profile and its idle
-    share, the peak memory. The regime's forward equals the ``'kernel'``
-    regime's over the same CSC bit for bit (the same sums), and at 0.01
-    scale (the windowed threshold scaled with it) the card's forward is
-    held against the CPU's. Kernel 1 is timed at each layer's shape
+    share, the peak memory. The windowed layouts built on the same graph
+    (``fill_cache(windowed=True)``: their time and the memory they share
+    with the CSC and CSR and add) give a ``'windowed'`` forward equal to
+    the ``'kernel'`` regime's bit for bit (the same sums over the same
+    arrays), and at 0.01 scale the card's forward is held against the
+    CPU's. Kernel 1 is timed at each layer's shape
     (``kernel1_row``). Also the regime auto picks on path A's clustered
     graph."""
     from pytorch_geometric_tpu_torch import EdgeIndex
-    from pytorch_geometric_tpu_torch.edge_index import auto_win_min_edges
     from pytorch_geometric_tpu_torch.ops import spmm_regime
     tag = 'path R'
     n, e = N_PRODUCTS, coo.shape[1]
@@ -6187,19 +6223,26 @@ def phase_path_r(torch, seed, coo, iters, warmup):
         r['captured'] = cap
         res[dt] = r
         del cap_out
-    # the windowed regime's forward is the kernel regime's over the CSC
-    plain_ei = EdgeIndex(ei.coo, (n, n), csr=ei.csr, csc=ei.csc)
-    with torch.inference_mode(), knobs({'PGT_SPMM_CHUNK_TRIGGER': 'inf'}):
-        check(spmm_regime(plain_ei, PR_HIDDEN) == 'kernel',
-              f'{tag}: the CSC alone did not take the kernel regime')
-        a, b = model(x, ei), model(x, plain_ei)
+    # the windowed regime, asked for, is the kernel regime over the CSC
+    # views of its layouts
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    win_ei = ei.fill_cache(blocked=False, windowed=True)
+    torch.cuda.synchronize()
+    res['windowed_cache'] = cache_report(
+        torch, f'{tag} windowed', win_ei, time.perf_counter() - t0, mem1)
+    with torch.inference_mode():
+        check(spmm_regime(win_ei, PR_HIDDEN) == 'windowed',
+              f'{tag}: the windowed layouts did not take the windowed regime')
+        a, b = model(x, win_ei), model(x, ei)
         res['equals_kernel_regime_bitwise'] = bool(torch.equal(a, b))
-    log(f'[{tag}] the {regime!r} forward equals the kernel regime\'s over '
-        f'the CSC bit for bit: {res["equals_kernel_regime_bitwise"]}')
-    check(res['equals_kernel_regime_bitwise'] or regime != 'windowed',
+    log(f'[{tag}] the windowed forward equals the {regime!r} regime\'s bit '
+        f'for bit: {res["equals_kernel_regime_bitwise"]}')
+    check(res['equals_kernel_regime_bitwise'],
           f'{tag}: the windowed forward differs from the kernel regime\'s')
-    # kernel 1 at each layer's shape, over the arrays the regime reads (the
-    # windowed pass reads the CSC's, of which the layout is a padded copy)
+    del win_ei
+    # kernel 1 at each layer's shape, over the arrays the regime reads
     csc = ei.csc
     with torch.inference_mode():
         h = torch.relu(model.Layer_0(x, ei)).contiguous()
@@ -6209,18 +6252,15 @@ def phase_path_r(torch, seed, coo, iters, warmup):
                             csc.indices, h),
                 kernel1_row(torch, f'R layer 1, bf16 x, F={PR_F}',
                             csc.indptr, csc.indices, x.to(torch.bfloat16))]
-    del h, model, x, ei, plain_ei, a, b, csc
+    del h, model, x, ei, a, b, csc
     torch.cuda.empty_cache()
-    # at 0.01 scale against the CPU, the windowed threshold scaled with it
+    # at 0.01 scale against the CPU
     ns, es = int(n * PK_SMALL), int(e * PK_SMALL)
     small = products_graph(ns, es, seed)
     xs = np.random.default_rng(seed).standard_normal(
         (ns, PR_F)).astype(np.float32)
-    with knobs({'PGT_AUTO_WIN_MIN_EDGES': int(
-            auto_win_min_edges() * PK_SMALL)}):
-        card_ei = EdgeIndex(small, (ns, ns)).fill_cache(auto=True)
-        cpu_ei = EdgeIndex(small, (ns, ns), device='cpu').fill_cache(
-            auto=True)
+    card_ei = EdgeIndex(small, (ns, ns)).fill_cache(auto=True)
+    cpu_ei = EdgeIndex(small, (ns, ns), device='cpu').fill_cache(auto=True)
     check(spmm_regime(card_ei, PR_HIDDEN) == regime
           and spmm_regime(cpu_ei, PR_HIDDEN) in (regime, 'plain'),
           f'{tag} at {PK_SMALL} scale: regimes {spmm_regime(card_ei)!r} / '
@@ -6263,7 +6303,7 @@ def phase_path_r(torch, seed, coo, iters, warmup):
 def phase_path_s(torch, seed, coo, iters):
     """Path S, ``examples/giant_graph.py``'s model at full products scale:
     the SAGE layer over ``fill_cache(auto=True, block_sparse=False)`` (the
-    windowed regime on kernel 1), GATConv over the raw COO (126.2M edges
+    kernel regime on kernel 1), GATConv over the raw COO (126.2M edges
     with its self loops, the flash kernels), X [2,449,029, 32] and 7-class
     labels made on the card from ``seed``, Adam 1e-2; served and trained
     eager and captured (``flash_serve_train``: 1 step then ``PK_STEPS``
@@ -6778,10 +6818,10 @@ def main():
                    for k in ('slice_heads', 'col_slices')},
         'per_shape': dot_rows, 'path_n_per_shape': [n_dot_row],
         'grad_w_per_shape': gradw_rows,
-        'grad_w_note': 'grad_w of the windowed, chunked and uncached dense '
-                       'regimes, launched in the regime arm checks; no main '
-                       'path trains edge weights (path S\'s SAGE layer is '
-                       'unweighted)',
+        'grad_w_note': 'grad_w of the kernel (and so windowed), chunked and '
+                       'uncached dense regimes, launched in the regime arm '
+                       'checks; no main path trains edge weights (path S\'s '
+                       'SAGE layer is unweighted)',
         'slice_sweep': dot_sweep}, {
         'name': 'edge_dot_bf16', 'route': 'cuda',
         'source': 'pytorch_geometric_tpu_torch/csrc/sddmm.cu',

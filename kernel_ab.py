@@ -42,8 +42,15 @@ kernels against a parent's sources, on one CUDA card.
     times and bytes are read. A training row (forward and backward, the
     weights requiring a gradient) times the weighted arms at 100k nodes,
     degree 100, F = 64. Each reading: CUDA-event ms per call over 20
-    back-to-back calls after 3 (what an eager caller waits), and the
-    device time (``torch.profiler``).
+    back-to-back calls after 3 (what an eager caller waits), the device
+    time (``torch.profiler``), and up to 10k nodes, for the arms a captured
+    forward can run (the cached CSC, the windowed layouts, the dense
+    caches), CUDA-event ms per replay of the call captured in a CUDA graph
+    (what a captured path waits, as the main paths are served). A row's
+    ``fastest`` is by the captured time where the row has one, else by the
+    device time; ``fastest_eager`` by the eager one.
+    ``--policy-part small`` runs the rows up to 10k nodes and the training
+    row only.
 
 Device time per launch from ``torch.profiler`` over whole windows
 (``chip_smoke.whole_window``), summed over the kernel's own launches. Prints
@@ -51,7 +58,7 @@ the card's name and power limit first, then every reading; ``--out FILE``
 also writes them as JSON.
 
 Usage: ``python3 kernel_ab.py [--seed 0] [--parent DIR] [--only
-flash|dot|policy] [--out FILE]`` from the root of a checkout, on a machine
+flash|dot|policy] [--policy-part all|small] [--out FILE]`` from the root of a checkout, on a machine
 with one CUDA card and ``nvcc``.
 """
 
@@ -393,6 +400,11 @@ POLICY_DEGREES = (10, 33, 100)
 POLICY_FEATS = (16, 64, 128)
 # the dense arms run up to this many entries (30k nodes: 3.6 GB float32)
 POLICY_DENSE_ENTRIES = 1.5e9
+# the graphs up to this many nodes also time each capturable arm captured
+POLICY_CAPTURED_NODES = 10_000
+# the arms a captured forward can run (no host sync in the call)
+POLICY_CAPTURED_ARMS = ('kernel', 'windowed', 'dense-cached f32',
+                        'dense-cached bf16')
 
 
 def arm_times(torch, fn, iters=20):
@@ -402,6 +414,34 @@ def arm_times(torch, fn, iters=20):
     import chip_smoke as cs
     ev, _, _, _ = cs.timed_calls(torch, fn, iters, 3)
     return ev, cs.device_ms(torch, fn, calls=max(iters // 2, 3))
+
+
+def captured_ms(torch, fn, iters=50):
+    """CUDA-event ms per replay of ``fn`` captured in one CUDA graph, after
+    3 eager calls on a side stream (the allocator's warm-up) and 3
+    replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(3):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 def per_window_fn(torch, win, x, n_dst):
@@ -445,7 +485,8 @@ def policy_graph(torch, n, deg, seed):
 def policy_arms(torch, n, raw, cached, f, dense=True, windowed=None,
                 bsr=None):
     """The forward arms at one shape: ``{arm: (event_ms, device_ms)}``,
-    each arm's regime checked."""
+    plus ``captured_ms`` for the capturable arms up to
+    :data:`POLICY_CAPTURED_NODES` nodes; each arm's regime checked."""
     import importlib
     from chip_smoke import knobs
     from pytorch_geometric_tpu_torch.ops import spmm, spmm_regime
@@ -473,6 +514,10 @@ def policy_arms(torch, n, raw, cached, f, dense=True, windowed=None,
                                        f'off the kernel arm (limit {tol:.3g})')
                 del out
                 res[arm] = arm_times(torch, lambda: spmm(ei, x))
+                if (n <= POLICY_CAPTURED_NODES
+                        and arm in POLICY_CAPTURED_ARMS):
+                    res[arm] = (*res[arm],
+                                captured_ms(torch, lambda: spmm(ei, x)))
 
     # the kernel arms with the chunk trigger lifted (past it the cached CSC
     # and the raw COO would take the chunked regime)
@@ -500,22 +545,32 @@ def policy_arms(torch, n, raw, cached, f, dense=True, windowed=None,
     return res
 
 
-def policy_sweep(torch, seed):
+def policy_sweep(torch, seed, part='all'):
     """The regime sweep (module docstring): a list of rows, each a graph,
-    F and ``{arm: (event_ms, device_ms)}``."""
+    F and ``{arm: (event_ms, device_ms[, captured_ms])}``; ``part='small'``
+    the rows up to :data:`POLICY_CAPTURED_NODES` nodes and the training
+    row."""
     import chip_smoke as cs
     from pytorch_geometric_tpu_torch import EdgeIndex
     from pytorch_geometric_tpu_torch.ops import spmm
     rows = []
 
     def report(graph, f, arms, **info):
-        best = min(arms, key=lambda a: arms[a][0])
+        cap = {a: t[2] for a, t in arms.items() if len(t) > 2}
+        best = (min(cap, key=cap.get) if cap
+                else min(arms, key=lambda a: arms[a][1]))
+        eager = min(arms, key=lambda a: arms[a][0])
         log(f'[policy] {graph} F={f}: ' + ', '.join(
-            f'{a} {ev:.4f} ({dev:.4f})' for a, (ev, dev) in arms.items())
-            + f' ms; fastest: {best}')
-        rows.append(dict(graph=graph, F=f, arms=arms, fastest=best, **info))
+            f'{a} {t[0]:.4f} ({t[1]:.4f}'
+            + (f', captured {t[2]:.4f})' if len(t) > 2 else ')')
+            for a, t in arms.items())
+            + f' ms; fastest: {best} (eager: {eager})')
+        rows.append(dict(graph=graph, F=f, arms=arms, fastest=best,
+                         fastest_eager=eager, **info))
 
-    for n in POLICY_NODES:
+    nodes = [n for n in POLICY_NODES
+             if part == 'all' or n <= POLICY_CAPTURED_NODES]
+    for n in nodes:
         for deg in POLICY_DEGREES:
             raw, cached = policy_graph(torch, n, deg, seed)
             win = raw.fill_cache(blocked=False, windowed=True)
@@ -544,6 +599,8 @@ def policy_sweep(torch, seed):
            nodes=n, edges=n * deg)
     del raw, cached, win, x, w
     torch.cuda.empty_cache()
+    if part == 'small':
+        return rows
     # path A's clustered graph, with the block cache
     coo, _, _ = cs.path_a_graph(seed)
     n = cs.PA_NODES
@@ -618,6 +675,7 @@ def main():
     ap.add_argument('--parent', type=Path, default=None)
     ap.add_argument('--only', choices=('flash', 'dot', 'policy'),
                     default=None)
+    ap.add_argument('--policy-part', choices=('all', 'small'), default='all')
     ap.add_argument('--out', type=Path, default=None)
     ap.add_argument('--dot-variant', action='append', default=[],
                     metavar='NAME=PATH',
@@ -636,7 +694,7 @@ def main():
     if args.only == 'policy':
         csrc.build_all(['segment_spmm', 'sddmm', 'bsr_spmm'])
         res = {'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi,
-               'policy': policy_sweep(torch, args.seed)}
+               'policy': policy_sweep(torch, args.seed, args.policy_part)}
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(res, indent=1))

@@ -23,7 +23,7 @@ edges that the JAX layout carries (``perm``, ``inv_pos``, ``t_pos``).
 
 ``fill_cache(windowed=True)`` (or ``auto=True`` on a graph past
 ``PGT_AUTO_WIN_MIN_EDGES``) also builds ``win`` / ``win_t``, the
-:class:`WindowedCSC` pair of the windowed SpMM regime (``ops/chunked_spmm.py``):
+:class:`WindowedCSC` pair of the windowed SpMM regime (``ops/spmm.py``):
 the destination-sorted edges cut into fixed chunks. Its flattened slots are
 the CSC's own order plus trailing pads, so the CSC built beside it is a view
 of the layout's ``src`` and ``perm`` (the CSR of ``win_t``'s), and the
@@ -165,13 +165,13 @@ def _on_layout(o: 'CSR', win: WindowedCSC, e: int) -> 'CSR':
                perm=win.perm.view(-1)[:e])
 
 
-def auto_win_min_edges() -> int:
+def auto_win_min_edges() -> float:
     """``fill_cache(auto=True)`` builds the windowed layouts from this many
     edges (``PGT_AUTO_WIN_MIN_EDGES``; the port's default in
-    ``ops/spmm.py``)."""
+    ``ops/spmm.py``, infinite: never unasked)."""
     from .ops.spmm import AUTO_WIN_MIN_EDGES
-    return int(float(os.environ.get('PGT_AUTO_WIN_MIN_EDGES',
-                                    AUTO_WIN_MIN_EDGES)))
+    return float(os.environ.get('PGT_AUTO_WIN_MIN_EDGES',
+                                AUTO_WIN_MIN_EDGES))
 
 
 def auto_blocked_max_edges() -> int:

@@ -68,9 +68,9 @@ def cache_gcn_norm(edge_index: EdgeIndex, improved: bool = False,
     the EdgeIndex's ``weight``. Use with ``GCNConv(..., normalize=False,
     add_self_loops=False)``. ``auto=True`` hands the choice of regime and
     dtype to ``fill_cache(auto=True)`` (JAX ``gcn_conv.py:57-110``): on the
-    card a dense cache within ``ops.spmm.auto_dense_cap``, else the block
-    cache where it pays, else the weights carried for the sparse regimes
-    (windowed past ``PGT_AUTO_WIN_MIN_EDGES``); on CPU tensors the weights
+    card a dense cache within ``ops.spmm.auto_dense_cap``, else the
+    weights carried for the sparse regimes (windowed past
+    ``PGT_AUTO_WIN_MIN_EDGES``, never unasked); on CPU tensors the weights
     are carried and nothing is baked."""
     coo = edge_index.coo.cpu().numpy()
     n = edge_index.num_src_nodes

@@ -1,31 +1,22 @@
-"""The giant-graph SpMM regimes: windowed and chunked.
+"""The chunked SpMM regime.
 
-Counterparts of ``_win_pass`` / ``_windowed_spmm`` (JAX ``ops/spmm.py:
-270-336``) and ``_chunk_pass`` / ``_chunked_spmm`` (``:184-266``). The JAX
-package scans the edges in chunks so that no ``[E, F]`` array of gathered
-messages is ever made; on the card the sums run on the segment-sum kernel
-(kernel 1, ``ops/segment_spmm.py``), which gathers each message into
-registers, and the weight gradients on the per-edge dot kernel
-(``ops/edge_dot.py``), which writes one value per slot. Neither regime makes
-an ``[E, F]`` array on the card.
+Counterpart of ``_chunk_pass`` / ``_chunked_spmm`` (JAX ``ops/spmm.py:
+184-266``). The JAX package scans the edges in chunks so that no ``[E, F]``
+array of gathered messages is ever made. On the card the sums run on the
+segment-sum kernel (kernel 1, ``ops/segment_spmm.py``), which gathers each
+message into registers, and the weight gradients on the per-edge dot
+kernel (``ops/edge_dot.py``), which writes one value per edge:
+:func:`chunked_spmm` takes the raw COO ``chunk`` edges at a time, sorts
+each chunk by destination on the device and sums it by kernel 1 onto the
+accumulator through its ``base`` operand; the backward does the same with
+the roles swapped for ``grad_x``, and runs the dot kernel chunk by chunk
+for ``grad_w``. Past the accumulators, the memory a pass holds is one
+chunk's sort.
 
-  * **windowed** (:func:`windowed_spmm`): over the :class:`WindowedCSC`
-    pair that ``fill_cache`` built. Its flattened slots are destination
-    sorted, so kernel 1 sums the whole layout in one launch over the
-    layout's ``indptr`` (edges whose destination is out of range lie past
-    ``indptr[-1]`` and drop out, the trailing pads are never read);
-    ``grad_x`` is the same launch over ``win_t``; ``grad_w`` is the dot
-    kernel once over the flattened slots (the destinations come in runs),
-    then one gather through ``inv_pos`` back to edge order. One launch over
-    the whole layout, rather than one a window with the accumulator as
-    ``base``, was chosen by measuring both (``kernel_ab.py --only policy``,
-    PERF.md).
-  * **chunked** (:func:`chunked_spmm`): over the raw COO, ``chunk`` edges at
-    a time: each chunk is sorted by destination on the device and summed by
-    kernel 1 onto the accumulator through its ``base`` operand; the
-    backward does the same with the roles swapped for ``grad_x``, and runs
-    the dot kernel chunk by chunk for ``grad_w``. Past the accumulators,
-    the memory a pass holds is one chunk's sort.
+The windowed regime (JAX ``_win_pass`` / ``_windowed_spmm``, ``:270-336``)
+needs no module of its own: its layout's first ``E`` slots are the CSC's
+own arrays (``edge_index._on_layout``), so ``ops/spmm.py`` runs it as the
+kernel regime over them.
 
 Weights are per edge in COO order, or ``None`` (all ones). The messages take
 ``x``'s and the weights' promoted dtype, as ``x[src] * w`` does in JAX; the
@@ -37,7 +28,6 @@ from typing import Optional
 
 import torch
 
-from ..edge_index import WindowedCSC
 from .edge_dot import edge_dot
 from .segment_spmm import segment_spmm
 
@@ -46,61 +36,6 @@ def _promoted(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.dtype:
     return x.dtype if w is None else torch.promote_types(x.dtype, w.dtype)
 
 
-# -- windowed ----------------------------------------------------------------
-def win_pass(win: WindowedCSC, w: Optional[torch.Tensor], x: torch.Tensor
-             ) -> torch.Tensor:
-    """``sum_e w_e * x[src_e]`` into ``out[dst_e]`` over a windowed layout:
-    one segment-sum pass over its first ``E`` flattened slots (``E`` the
-    length of ``inv_pos``, a static size: the trailing pads past them are
-    never read), the CSC's own arrays, so the sum is the ``'kernel'``
-    regime's bit for bit (``_win_pass``). Not differentiable:
-    :func:`windowed_spmm` wraps it."""
-    dt = _promoted(x, w)
-    e = win.inv_pos.shape[0]
-    ws = None if w is None else w.detach().to(dt)[win.perm.reshape(-1)[:e]]
-    return segment_spmm(win.indptr, win.src.reshape(-1)[:e], ws,
-                        x.to(dt).contiguous())
-
-
-class _WindowedSpmm(torch.autograd.Function):
-    """``A x`` over ``win``; ``grad_x = A^T g`` over ``win_t``, ``grad_w``
-    the per-slot dot gathered back through ``inv_pos``."""
-
-    @staticmethod
-    def forward(ctx, x, w, win, win_t):
-        ctx.win, ctx.win_t, ctx.dtypes = win, win_t, (x.dtype, None if w is
-                                                       None else w.dtype)
-        out = win_pass(win, w, x)
-        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
-                              None if w is None else w.detach())
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        win, win_t = ctx.win, ctx.win_t
-        g = g.contiguous()
-        grad_x = grad_w = None
-        if ctx.needs_input_grad[0]:
-            grad_x = win_pass(win_t, w, g).to(ctx.dtypes[0])
-        if ctx.needs_input_grad[1]:
-            e = win.inv_pos.shape[0]
-            dots = edge_dot(x.to(g.dtype).contiguous(), g,
-                            win.src.reshape(-1)[:e], win.dst.reshape(-1)[:e],
-                            runs=True)
-            grad_w = dots[win.inv_pos].to(ctx.dtypes[1])
-        return grad_x, grad_w, None, None
-
-
-def windowed_spmm(win: WindowedCSC, win_t: WindowedCSC,
-                  w: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """``out = A x`` over the windowed layouts (``_windowed_spmm``), ``w``
-    per-edge [E] weights in COO order or ``None``; differentiable in ``x``
-    and ``w``."""
-    return _WindowedSpmm.apply(x, w, win, win_t)
-
-
-# -- chunked -----------------------------------------------------------------
 def chunk_pass(src: torch.Tensor, dst: torch.Tensor,
                w: Optional[torch.Tensor], x: torch.Tensor, num_out: int,
                chunk: int) -> torch.Tensor:

@@ -40,9 +40,10 @@ for CUDA tensors; it never falls back from one to the other. Given the same
 matrix in source-major order (``transpose``), it is differentiable:
 ``grad_x = A^T g`` is the same kernel over that CSR, as the JAX package's
 ``_spmm_blocked_bwd`` (``ops/pallas_spmm.py:267-277``) runs its kernel over
-the transposed layout, ``grad_w[e] = <x[src_e], g[dst_e]>`` is plain
-PyTorch, as the JAX package leaves it to XLA (``:278-281``), and ``base``'s
-gradient is ``g`` itself.
+the transposed layout, ``grad_w[e] = <x[src_e], g[dst_e]>`` runs on the
+per-edge dot kernel (``ops/edge_dot.py``; XLA's gather and sum in the JAX
+package, ``:278-281``), which writes one value a slot where a plain gather
+writes ``[E, F]``, and ``base``'s gradient is ``g`` itself.
 """
 
 import ctypes
@@ -52,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..compat import register_launch_counter
+from .edge_dot import edge_dot
 from .segment import ptr2index
 
 # the load widths (values a lane moves at once) of each arm, widest first:
@@ -257,24 +259,12 @@ def _launch(indptr: torch.Tensor, src: torch.Tensor,
     return out
 
 
-def _edge_dot(indptr: torch.Tensor, src: torch.Tensor, x: torch.Tensor,
-              g: torch.Tensor) -> torch.Tensor:
-    """``grad_w[k] = <x[src[k]], g[dst[k]]>`` per CSC slot; 0 for padded
-    slots and sources outside ``[0, n_src)``."""
-    n_dst, n_src = g.shape[0], x.shape[0]
-    if n_dst == 0 or n_src == 0:
-        return x.new_zeros(src.shape[0])
-    dst = ptr2index(indptr.long(), src.shape[0])
-    s = src.long()
-    valid = (dst < n_dst) & (s >= 0) & (s < n_src)
-    dot = (x[s.clamp(0, n_src - 1)] * g[dst.clamp(max=n_dst - 1)]).sum(-1)
-    return torch.where(valid, dot, 0.0)
-
-
 class _SegmentSpmm(torch.autograd.Function):
     """The kernel pass with its backward: ``grad_x`` through the kernel over
-    the source-major CSR, ``grad_w`` as a per-edge dot, ``grad_base = g``,
-    each only when needed."""
+    the source-major CSR, ``grad_w`` per slot on the dot kernel
+    (``ops/edge_dot.py``, its runs arm: a slot's row comes from ``indptr``,
+    in runs; padded slots and sources outside ``[0, n_src)`` get 0),
+    ``grad_base = g``, each only when needed."""
 
     @staticmethod
     def forward(ctx, x, w, base, indptr, src, transpose, plan):
@@ -291,7 +281,8 @@ class _SegmentSpmm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             grad_x = _launch(*ctx.transpose, g)
         if ctx.needs_input_grad[1]:
-            grad_w = _edge_dot(indptr, src, x, g)
+            grad_w = edge_dot(x, g, src, ptr2index(indptr, src.shape[0]),
+                              runs=True)
         grad_base = g if ctx.needs_input_grad[2] else None
         return grad_x, grad_w, grad_base, None, None, None, None
 

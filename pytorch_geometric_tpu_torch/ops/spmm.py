@@ -25,8 +25,10 @@ The ladder, checked in the JAX package's order (``spmm_regime``):
   * ``'dense'``: the uncached dense regime (``ops/dense_spmm.py``), where
     :func:`_dense_profitable` says the densification pays.
   * ``'windowed'``: the windowed layouts ``win`` / ``win_t`` that
-    ``fill_cache`` built (``ops/chunked_spmm.py``): kernel 1 over the
-    flattened layout, the dot kernel for ``grad_w``.
+    ``fill_cache`` built. The CSC and CSR are views of their first ``E``
+    slots (the trailing pads are never read), so the arm is the
+    ``'kernel'`` arm over them: kernel 1 over the flattened layout in one
+    launch each way, the dot kernel for ``grad_w``.
   * ``'chunked'``: past :func:`chunk_trigger_bytes` of gathered messages
     (``E * F * 4``), the raw COO in chunks of :func:`chunk_edges`
     (``ops/chunked_spmm.py``).
@@ -64,7 +66,7 @@ import torch
 from .. import backend
 from ..edge_index import CSR, EdgeIndex, dense_cap
 from .bsr_spmm import bsr_matmul
-from .chunked_spmm import chunked_spmm, windowed_spmm
+from .chunked_spmm import chunked_spmm
 from .dense_spmm import dense_spmm, dense_uncached
 from .scatter import scatter
 from .segment_spmm import segment_spmm
@@ -89,16 +91,15 @@ AUTO_DENSE_MAX_ENTRIES = 1_000_000
 # call; bf16 wins from n=10000, where the cap no longer bakes)
 AUTO_CACHE_DTYPE = torch.float32
 # fill_cache(auto=True) builds the windowed layouts from this many edges
-# (PGT_AUTO_WIN_MIN_EDGES). The windowed forward is kernel 1 over the
-# CSC's own arrays (rows 'products F=100 / 64': 96.9033 against 'kernel'
-# 96.7806, 85.8598 against 85.9222), its weighted backward 12x the kernel
-# regime's (row 'training n=100000 deg=100': 1.8114 against 22.2334). Its
-# host steps cost 20-30 us a call on small graphs (rows 'random n=1000':
-# 0.08-0.10 against 0.06-0.07); from 3M edges it is within 2 % of 'kernel'
-# (rows 'random n=30000 deg=100': 0.0605 / 0.1117 / 0.2033 against 0.0672 /
-# 0.1137 / 0.2037; 'random n=100000 deg=33'). Its layouts add 24 bytes an
-# edge ('products' builds: 5.978 GB against 2.989 for the CSC and CSR)
-AUTO_WIN_MIN_EDGES = 3_000_000
+# (PGT_AUTO_WIN_MIN_EDGES): never unasked. The JAX package windows its
+# scan so that no [E, F] array is made; kernel 1 makes none, and the
+# 'windowed' arm is the 'kernel' arm over the CSC and CSR, which are views
+# of the layouts' first E slots: the same launches over the same values,
+# forward and backward. The layouts add 24 bytes an edge (rows 'products':
+# 5.978 GB built against 2.989 for the CSC and CSR alone) and buy nothing,
+# row 'training n=100000 deg=100' of the sweep's second run times both
+# arms' weighted backward
+AUTO_WIN_MIN_EDGES = float('inf')
 # fill_cache(auto=True) skips the slot orders past this many edges
 # (PGT_AUTO_BLOCKED_MAX_EDGES): they serve only the fused attention
 # routes, which the attention cap (PGT_ATTN_WIDE_BYTES, 1e9) sends to the
@@ -200,6 +201,23 @@ def spmm_regime(adj: EdgeIndex, num_feats: int = 64, reduce: str = 'sum',
     return 'plain'
 
 
+class _Permuted(torch.autograd.Function):
+    """``w[perm]`` for ``perm`` a permutation of ``w``'s positions (an
+    orientation's ``perm``); the backward writes ``g`` back through
+    ``perm``, one store an edge, where indexing's own backward accumulates
+    (a sort of the indices on the card)."""
+
+    @staticmethod
+    def forward(ctx, w, perm):
+        ctx.save_for_backward(perm)
+        return w[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, = ctx.saved_tensors
+        return torch.empty_like(g).scatter_(0, perm, g), None
+
+
 def _kernel_spmm(adj: EdgeIndex, x: torch.Tensor,
                  edge_weight: Optional[torch.Tensor],
                  csc: CSR) -> torch.Tensor:
@@ -210,8 +228,11 @@ def _kernel_spmm(adj: EdgeIndex, x: torch.Tensor,
     dt = x.dtype if edge_weight is None else torch.promote_types(
         x.dtype, edge_weight.dtype)
     x = x.to(dt)
-    w = None if edge_weight is None else \
-        edge_weight[csc.perm].to(dt).contiguous()
+    w = None
+    if edge_weight is not None:
+        w = (_Permuted.apply(edge_weight, csc.perm)
+             if torch.is_grad_enabled() and edge_weight.requires_grad
+             else edge_weight[csc.perm]).to(dt).contiguous()
     transpose = None
     if torch.is_grad_enabled() and x.requires_grad:
         csr = adj.get_csr()
@@ -310,6 +331,7 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
         return out.to(x.dtype)
 
     if reduce in ('sum', 'mean'):
+        csc = None
         if x.device.type == 'cuda' and not backend.use_kernel_spmm:
             raise RuntimeError(
                 'backend.use_kernel_spmm is False, and the port has no other '
@@ -319,19 +341,20 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
             w = (edge_weight if edge_weight is not None else
                  torch.ones(adj.num_edges, dtype=x.dtype, device=x.device))
             out = dense_uncached(adj.coo, w, x, adj.num_src_nodes, num_out)
-        elif regime == 'windowed':
-            out = windowed_spmm(adj.win, adj.win_t, edge_weight, x)
         elif regime == 'chunked':
             out = chunked_spmm(adj.row, adj.col, edge_weight, x, num_out,
                                chunk_edges(x.shape[1]))
         elif regime == 'bsr':
             out = _bsr_arm(adj, x)
         else:
-            # 'kernel', or 'plain' on the CPU: the CSC sum (the segment-sum
-            # wrapper runs its plain version on a CPU tensor)
-            out = _kernel_spmm(adj, x, edge_weight, adj.get_csc())
+            # 'windowed' (the CSC is a view of its layout), 'kernel', or
+            # 'plain' on the CPU: the CSC sum (the segment-sum wrapper runs
+            # its plain version on a CPU tensor)
+            csc = adj.get_csc()
+            out = _kernel_spmm(adj, x, edge_weight, csc)
         if reduce == 'mean':
-            out = out / _in_degree(adj).to(out.dtype).clamp(min=1)[:, None]
+            deg = _in_degree(adj, csc)
+            out = out / deg.to(out.dtype).clamp(min=1)[:, None]
         return out
 
     src, dst = adj.row.long(), adj.col.long()
@@ -342,13 +365,16 @@ def spmm(adj: Union[EdgeIndex, torch.Tensor], x: torch.Tensor,
     return scatter(x_j, dst, num_out, reduce=reduce, mask=src < n_src)
 
 
-def _in_degree(adj: EdgeIndex) -> torch.Tensor:
-    """Each destination's edge count: the cached CSC's (or windowed
-    layout's) row pointer, else a count of the in-range destinations."""
-    if adj.csc is not None:
-        return torch.diff(adj.csc.indptr)
-    if adj.win is not None:
-        return torch.diff(adj.win.indptr)
+def _in_degree(adj: EdgeIndex, csc: Optional[CSR] = None) -> torch.Tensor:
+    """Each destination's edge count: the row pointer of ``csc`` (the one
+    the arm summed over) or of the cached CSC, else a count of the
+    in-range destinations (out-of-range ones counted in a spare slot past
+    the end: no mask, so no host sync)."""
+    csc = csc if csc is not None else adj.csc
+    if csc is not None:
+        return torch.diff(csc.indptr)
     n = adj.num_dst_nodes
     d = adj.col.long()
-    return torch.bincount(d[(d >= 0) & (d < n)], minlength=n)
+    key = torch.where((d >= 0) & (d < n), d, n)
+    return torch.zeros(n + 1, dtype=torch.int64, device=d.device).scatter_add_(
+        0, key, torch.ones_like(key))[:n]

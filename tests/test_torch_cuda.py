@@ -2464,9 +2464,9 @@ def test_auto_policy_on_card(dev, monkeypatch):
     """``fill_cache(auto=True)`` on the card, with the card's defaults
     (``ops/spmm.py``): a float32 dense cache up to ``AUTO_DENSE_MAX_ENTRIES``
     entries, no block cache (even on a block-dense graph past the dense
-    cap, unless asked for), the windowed layouts from
-    ``AUTO_WIN_MIN_EDGES`` edges, the kernel regime between; no chunking
-    unasked."""
+    cap, unless asked for), no windowed layouts unless
+    ``PGT_AUTO_WIN_MIN_EDGES`` asks (the CSC then a view of them), the
+    kernel regime past the cache; no chunking unasked."""
     import importlib
     sm = importlib.import_module('pytorch_geometric_tpu_torch.ops.spmm')
     rng = np.random.default_rng(33)
@@ -2482,12 +2482,16 @@ def test_auto_policy_on_card(dev, monkeypatch):
     ei = EdgeIndex(mid, (20_000, 20_000), device=dev).fill_cache(auto=True)
     assert ei.dense_adj is None and ei.bsr is None and ei.win is None
     assert spmm_regime(ei, 128) == 'kernel'
-    big = rng.integers(0, 100_000, (2, sm.AUTO_WIN_MIN_EDGES)).astype(
-        np.int32)
+    big = rng.integers(0, 100_000, (2, 3_000_000)).astype(np.int32)
+    ei = EdgeIndex(big, (100_000, 100_000), device=dev).fill_cache(
+        auto=True)
+    assert ei.win is None and spmm_regime(ei, 128) == 'kernel'
+    monkeypatch.setenv('PGT_AUTO_WIN_MIN_EDGES', '3e6')
     ei = EdgeIndex(big, (100_000, 100_000), device=dev).fill_cache(
         auto=True)
     assert spmm_regime(ei, 128) == 'windowed'
     assert ei.csc.indices.data_ptr() == ei.win.src.data_ptr()
+    monkeypatch.delenv('PGT_AUTO_WIN_MIN_EDGES')
     base = np.repeat(np.arange(24) * 128, 260)
     blocks = np.stack([base + rng.integers(0, 128, base.size),
                        base + rng.integers(0, 128, base.size)]).astype(

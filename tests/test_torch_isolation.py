@@ -157,10 +157,12 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor():
 def test_regime_arms_never_run_plain_off_the_cpu():
     """The windowed and chunked regimes reach kernel 1's wrapper, whose
     only plain path is behind a CPU-device check: ``meta`` tensors are
-    refused, not computed; and auto on CPU tensors needs no card."""
+    refused, not computed (the windowed arm is kernel 1 over the CSC views
+    of the layout's first ``E`` slots); and auto on CPU tensors needs no
+    card."""
     from pytorch_geometric_tpu_torch import WindowedCSC
-    from pytorch_geometric_tpu_torch.ops.chunked_spmm import (chunked_spmm,
-                                                              windowed_spmm)
+    from pytorch_geometric_tpu_torch.ops.chunked_spmm import chunked_spmm
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
     i32 = dict(dtype=torch.int32, device='meta')
     win = WindowedCSC(src=torch.zeros(1, 4, **i32),
                       dst=torch.zeros(1, 4, **i32),
@@ -171,7 +173,7 @@ def test_regime_arms_never_run_plain_off_the_cpu():
                       indptr=torch.zeros(3, **i32))
     x = torch.zeros(2, 4, device='meta')
     with pytest.raises(ValueError, match='cpu or cuda'):
-        windowed_spmm(win, win, None, x)
+        segment_spmm(win.indptr, win.src.view(-1)[:4], None, x)
     with pytest.raises(ValueError, match='cpu or cuda'):
         chunked_spmm(torch.zeros(4, **i32), torch.zeros(4, **i32), None, x,
                      2, 1 << 16)

@@ -198,13 +198,14 @@ def test_card_defaults_pinned_by_the_sweep(monkeypatch):
       won, rows 'random n=10000' lost), float32 (rows 'random n=1000':
       float32 ahead of bf16), and no block cache (row 'path A clustered':
       'bsr' 6.8x behind 'kernel');
-    * the windowed layouts from 3M edges (rows 'random n=30000 deg=100',
-      'training n=100000 deg=100', 'products'); the slot orders up to
+    * no windowed layouts unasked (the 'windowed' arm is the 'kernel' arm
+      over the CSC views of its layouts: rows 'training n=100000
+      deg=100', 'products'); the slot orders up to
       62.5M edges (the 'products' builds); no chunking unasked (rows
       'products': 'chunked' behind 'kernel uncached')."""
     assert TSPMM.AUTO_DENSE_MAX_ENTRIES == 1_000_000
     assert TSPMM.AUTO_CACHE_DTYPE == torch.float32
-    assert TSPMM.AUTO_WIN_MIN_EDGES == 3_000_000
+    assert TSPMM.AUTO_WIN_MIN_EDGES == float('inf')
     assert TSPMM.AUTO_BLOCKED_MAX_EDGES == 62_500_000
     assert TSPMM.CHUNK_TRIGGER_BYTES == float('inf')
     for k in ('PGT_FORCE_DENSE_SPMM', 'PGT_DENSE_SPMM_ENTRIES',
@@ -220,7 +221,10 @@ def test_card_defaults_pinned_by_the_sweep(monkeypatch):
     assert spmm_regime(serving, 128) == 'dense'
     monkeypatch.delenv('PGT_FORCE_DENSE_SPMM')
     monkeypatch.delenv('PGT_DENSE_SPMM_ENTRIES')
-    # products at full size: no chunking, the windowed layouts where built
+    # products at full size: no chunking, no windowed layouts unasked, the
+    # windowed regime where they were built
+    from pytorch_geometric_tpu_torch.edge_index import auto_win_min_edges
+    assert auto_win_min_edges() == float('inf')
     products = _fake_card_adj(2_449_029, 123_718_280)
     assert spmm_regime(products, 100) == 'kernel'
     assert spmm_regime(_fake_card_adj(2_449_029, 123_718_280, win=1,
