@@ -5845,7 +5845,7 @@ def phase_regime_arms(torch, seed):
             finally:
                 backend.use_kernel_spmm = be_old
         if arm == 'windowed':
-            res['windows'], win = windows, ei.win
+            res['windows'], win, win_ip = windows, ei.win, ei.csc.indptr
         elif arm == 'chunked':
             res['chunks'] = chunks
         del ei
@@ -5858,7 +5858,7 @@ def phase_regime_arms(torch, seed):
     x = torch.as_tensor(x_np, device='cuda')
     g = torch.randn_like(x)
     e_all = coo_np.shape[1]
-    lay = SimpleNamespace(indptr=win.indptr, src=win.src.reshape(-1),
+    lay = SimpleNamespace(indptr=win_ip, src=win.src.reshape(-1),
                           dst=win.dst.reshape(-1))
     coo = torch.as_tensor(coo_np, device='cuda')
     rows = []
@@ -5877,7 +5877,7 @@ def phase_regime_arms(torch, seed):
         if runs:
             fns['library_ms'] = sampled_addmm_call(
                 torch, lay, x.view(n, 1, f), g.view(n, 1, f), n, n,
-                int(win.indptr[-1]))
+                int(win_ip[-1]))
         row = timed_row(torch, fns, {'shape': label, 'edges': e,
                                      'H': 1, 'F': f, 'max_abs_err': err,
                                      'runs_arm': bool(runs)},
@@ -5891,7 +5891,7 @@ def phase_regime_arms(torch, seed):
             f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
         rows.append(row)
-    del win, lay
+    del win, win_ip, lay
     torch.cuda.empty_cache()
     return {'cases': res, 'worst': worst, 'edges': e_all}, rows
 

@@ -444,14 +444,15 @@ def captured_ms(torch, fn, iters=50):
     return ms
 
 
-def per_window_fn(torch, win, x, n_dst):
+def per_window_fn(torch, win, indptr, x, n_dst):
     """The windowed design not taken: kernel 1 once a window, over the
     window's rows, onto the accumulator as ``base`` (a row cut by a
     window's edge gets two partial sums). The windows' row ranges and
-    row pointers are made here, once, as ``fill_cache`` would."""
+    row pointers (cut from ``indptr``, the CSC's, which delimits the
+    layout's flat slots) are made here, once, as ``fill_cache`` would."""
     from pytorch_geometric_tpu_torch.ops.segment_spmm import _launch
     n_chunks, c = win.src.shape
-    ip = win.indptr.long().cpu()
+    ip = indptr.long().cpu()
     e_real = int(ip[-1])
     dst = win.dst.reshape(-1)[:e_real].cpu()
     src = win.src.reshape(-1)
@@ -656,7 +657,7 @@ def policy_sweep(torch, seed, part='all'):
                            windowed=win)
         x = torch.randn(n, f, device='cuda')
         with torch.inference_mode():
-            run = per_window_fn(torch, win.win, x, n)
+            run = per_window_fn(torch, win.win, win.csc.indptr, x, n)
             err = float((run() - spmm(win, x)).abs().max())
             if err > 1e-4 * max(1.0, float(x.abs().max()) * 50):
                 raise RuntimeError(f'policy sweep: the per-window pass is '

@@ -109,16 +109,11 @@ class WindowedCSC(NamedTuple):
     perm:    [n_chunks, C] int64, original COO edge per slot (``E`` for
              pads)
     inv_pos: [E] int64, original edge -> flat slot ``chunk * C + slot``
-    indptr:  [n_dst + 1] int32, the port's own: each destination's run of
-             flat slots, for the segment-sum kernel, which sums the whole
-             layout in one launch (pads and out-of-range edges lie past
-             ``indptr[-1]``)
     """
     src: torch.Tensor
     dst: torch.Tensor
     perm: torch.Tensor
     inv_pos: torch.Tensor
-    indptr: torch.Tensor
 
 
 def build_windowed_csc(coo: torch.Tensor, num_dst: int, num_src: int,
@@ -149,12 +144,9 @@ def build_windowed_csc(coo: torch.Tensor, num_dst: int, num_src: int,
     perm_w[:e] = order
     inv = torch.empty(e, dtype=torch.int64, device=dev)
     inv[order] = torch.arange(e, device=dev)
-    indptr = torch.searchsorted(
-        dst_s, torch.arange(num_dst + 1, device=dev)).to(torch.int32)
     return WindowedCSC(src=src_w.view(n_chunks, c),
                        dst=dst_w.view(n_chunks, c),
-                       perm=perm_w.view(n_chunks, c), inv_pos=inv,
-                       indptr=indptr)
+                       perm=perm_w.view(n_chunks, c), inv_pos=inv)
 
 
 def _on_layout(o: 'CSR', win: WindowedCSC, e: int) -> 'CSR':

@@ -72,33 +72,41 @@ from .scatter import scatter
 from .segment_spmm import segment_spmm
 
 # The card's defaults, from ``kernel_ab.py --only policy`` (measured on one
-# H100 80GB HBM3 at 700 W; PERF.md section 6, the sweep's table). "Row" names a row of that table; times are
-# CUDA-event ms per eager call, device ms in brackets.
+# H100 80GB HBM3 at 700 W; PERF.md section 6, the sweep's tables). "Row"
+# names a row of those tables. The arms are ranked by what a captured call
+# costs (ms per CUDA-graph replay, up to 10k nodes), as the main paths are
+# served captured; eager calls of small graphs cost the host's ~0.03-0.08
+# ms whatever the arm.
 #
 # the size rule of the uncached dense regime where it is forced to run:
 # n_src * n_dst <= DENSE_ADVANTAGE * E * F and the dense cap (the JAX
 # package's 36; unforced it never runs, see _dense_profitable)
 DENSE_ADVANTAGE = 36.0
 # fill_cache(auto=True)'s dense cache on the card holds at most this many
-# entries. Rows 'random n=1000 deg=10/33/100': the float32 cache beat
-# 'kernel' at every F (0.0258-0.0448 against 0.0556-0.0849); rows
+# entries. Rows 'random n=1000 deg=10/33/100' (1e6 entries, captured):
+# the bf16 cache beat 'kernel' at 5 of the 9 points, by up to 2.5x at
+# degree 100 and F >= 64 (0.0068 / 0.0093 against 0.0168 / 0.0171), and
+# lost the other 4 by at most 0.0030 (0.0092-0.0111 against 0.0071-0.0091;
+# the same arm timed twice, 'kernel' and 'windowed', differs by up to
+# 0.0041 there); rows
 # 'random n=10000 ...' (1e8 entries): 'kernel' beat both caches at every
-# degree and F (0.0403-0.0751 against bf16's 0.0789-0.0857)
+# point (0.0073-0.0710 against bf16's 0.0746-0.0799)
 AUTO_DENSE_MAX_ENTRIES = 1_000_000
-# the dtype of fill_cache(auto=True)'s dense cache on the card: float32,
-# exact. Rows 'random n=1000 ...' (within the cap above): float32
-# 0.0258-0.0448 against bf16 0.0593-0.1064 (the bf16 product adds casts a
-# call; bf16 wins from n=10000, where the cap no longer bakes)
-AUTO_CACHE_DTYPE = torch.float32
+# the dtype of fill_cache(auto=True)'s dense cache on the card, as the JAX
+# package's auto default. Rows 'random n=1000 ...' (within the cap above,
+# captured): bf16 0.0068-0.0111 against float32 0.0113-0.0154, ahead at
+# every point (the float32 product reads twice the bytes; eagerly the
+# bf16 one's casts cost more host time than that saves)
+AUTO_CACHE_DTYPE = torch.bfloat16
 # fill_cache(auto=True) builds the windowed layouts from this many edges
 # (PGT_AUTO_WIN_MIN_EDGES): never unasked. The JAX package windows its
 # scan so that no [E, F] array is made; kernel 1 makes none, and the
 # 'windowed' arm is the 'kernel' arm over the CSC and CSR, which are views
 # of the layouts' first E slots: the same launches over the same values,
 # forward and backward. The layouts add 24 bytes an edge (rows 'products':
-# 5.978 GB built against 2.989 for the CSC and CSR alone) and buy nothing,
-# row 'training n=100000 deg=100' of the sweep's second run times both
-# arms' weighted backward
+# 5.978 GB built against 2.989 for the CSC and CSR alone) and buy
+# nothing: row 'training n=100000 deg=100' (weighted forward and backward)
+# 2.3743 ms 'windowed' against 2.3723 'kernel'
 AUTO_WIN_MIN_EDGES = float('inf')
 # fill_cache(auto=True) skips the slot orders past this many edges
 # (PGT_AUTO_BLOCKED_MAX_EDGES): they serve only the fused attention

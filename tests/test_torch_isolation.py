@@ -169,11 +169,10 @@ def test_regime_arms_never_run_plain_off_the_cpu():
                       perm=torch.zeros(1, 4, dtype=torch.int64,
                                        device='meta'),
                       inv_pos=torch.zeros(4, dtype=torch.int64,
-                                          device='meta'),
-                      indptr=torch.zeros(3, **i32))
+                                          device='meta'))
     x = torch.zeros(2, 4, device='meta')
     with pytest.raises(ValueError, match='cpu or cuda'):
-        segment_spmm(win.indptr, win.src.view(-1)[:4], None, x)
+        segment_spmm(torch.zeros(3, **i32), win.src.view(-1)[:4], None, x)
     with pytest.raises(ValueError, match='cpu or cuda'):
         chunked_spmm(torch.zeros(4, **i32), torch.zeros(4, **i32), None, x,
                      2, 1 << 16)

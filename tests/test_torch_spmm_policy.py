@@ -194,17 +194,18 @@ def test_card_defaults_pinned_by_the_sweep(monkeypatch):
       every point), even where the JAX package's size rule would pick it
       (30k nodes, 1M edges, F = 128: the serving graph);
     * ``PGT_FORCE_DENSE_SPMM`` still reaches it, under the size rule;
-    * auto's dense cache holds at most 1e6 entries (rows 'random n=1000'
-      won, rows 'random n=10000' lost), float32 (rows 'random n=1000':
-      float32 ahead of bf16), and no block cache (row 'path A clustered':
-      'bsr' 6.8x behind 'kernel');
+    * auto's dense cache holds at most 1e6 entries (rows 'random n=1000',
+      captured: the bf16 cache ahead of 'kernel' at 5 of 9 points; rows
+      'random n=10000': behind at every point), bf16 (rows 'random
+      n=1000', captured: bf16 ahead of float32 at every point), and no
+      block cache (row 'path A clustered': 'bsr' 6.8x behind 'kernel');
     * no windowed layouts unasked (the 'windowed' arm is the 'kernel' arm
       over the CSC views of its layouts: rows 'training n=100000
       deg=100', 'products'); the slot orders up to
       62.5M edges (the 'products' builds); no chunking unasked (rows
       'products': 'chunked' behind 'kernel uncached')."""
     assert TSPMM.AUTO_DENSE_MAX_ENTRIES == 1_000_000
-    assert TSPMM.AUTO_CACHE_DTYPE == torch.float32
+    assert TSPMM.AUTO_CACHE_DTYPE == torch.bfloat16
     assert TSPMM.AUTO_WIN_MIN_EDGES == float('inf')
     assert TSPMM.AUTO_BLOCKED_MAX_EDGES == 62_500_000
     assert TSPMM.CHUNK_TRIGGER_BYTES == float('inf')
