@@ -88,9 +88,8 @@ DENSE_ADVANTAGE = 36.0
 # degree 100 and F >= 64 (0.0068 / 0.0093 against 0.0168 / 0.0171), and
 # lost the other 4 by at most 0.0030 (0.0092-0.0111 against 0.0071-0.0091;
 # the same arm timed twice, 'kernel' and 'windowed', differs by up to
-# 0.0041 there); rows
-# 'random n=10000 ...' (1e8 entries): 'kernel' beat both caches at every
-# point (0.0073-0.0710 against bf16's 0.0746-0.0799)
+# 0.0041 there); rows 'random n=10000 ...' (1e8 entries): 'kernel' beat
+# both caches at every point (0.0073-0.0710 against bf16's 0.0746-0.0799)
 AUTO_DENSE_MAX_ENTRIES = 1_000_000
 # the dtype of fill_cache(auto=True)'s dense cache on the card, as the JAX
 # package's auto default. Rows 'random n=1000 ...' (within the cap above,
