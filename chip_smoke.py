@@ -203,7 +203,28 @@ checks them:
      eager and captured (1 step, then 5 timed), the captured losses and
      gradients against the eager ones; at the example's toy scale and knobs
      against the CPU (forward, 3 losses, first-step gradients); kernel 1 at
-     the SAGE layer's shape.
+     the SAGE layer's shape;
+ 32. path T, Cluster-GCN at Reddit's shape (PyG's
+     ``examples/cluster_gcn_reddit.py``; ``examples/cluster_gcn.py``): a
+     generated graph of 232,965 nodes and 114,615,892 directed edges (80 %
+     inside seeded communities), 602 features on the card;
+     ``ClusterData(num_parts=1500)`` on the native partitioner (its
+     symmetric CSR and partition timed, every node in one part, the parts
+     within the balance cap, the edge cut under 0.5),
+     ``ClusterLoader(batch_size=20, shuffle=True)``, GraphSAGE 602 -> 128
+     -> 41, Adam 0.005, 20 eager steps: host ms a batch, card ms a step,
+     kernel 1 three times a step, the idle share; the first batch's 3 steps
+     against the CPU; kernel 1 at F = 602 and 128 (forward) and 128 (``A^T
+     g``) against its plain version and timed;
+ 33. path U, GraphSAINT at Flickr's shape (PyG's
+     ``examples/graph_saint.py``): 89,250 nodes, 899,756 directed edges,
+     500 features; ``GraphSAINTRandomWalkSampler(6000, walk_length=2,
+     num_steps=5, sample_coverage=100)`` on the native random walk
+     (``_estimate_norms`` timed); three GraphConvs 500 -> 256 -> 256 -> 256
+     and a Linear 768 -> 7 over ``edge_norm / deg[col]`` weights, loss
+     ``(nll * node_norm).sum()``, Adam 0.001, 5 eager steps: kernel 1's
+     weighted arm five times a step; the first batch's 3 steps against the
+     CPU; kernel 1 at F = 500 and 256 (forward) and 256 (``A^T g``).
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -445,10 +466,23 @@ def sass_count(lib, opcode):
 
 
 def phase_build(csrc):
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    libs = csrc.build_all()
-    log(f"[build] {', '.join(sorted(csrc.SOURCES))} (one nvcc each, in "
-        f'parallel) in {time.perf_counter() - t0:.2f} s')
+    # the host libraries (the sampler, the partitioner) build with g++
+    # while nvcc runs
+    with ThreadPoolExecutor(2) as pool:
+        host = {name: pool.submit(fn) for name, fn in (
+            ('sampler', csrc.sampler_library),
+            ('partition', csrc.partition_library))}
+        libs = csrc.build_all()
+        log(f"[build] {', '.join(sorted(csrc.SOURCES))} (one nvcc each, in "
+            f'parallel) in {time.perf_counter() - t0:.2f} s')
+        for name, fut in host.items():
+            check(fut.result() is not None,
+                  f'the native {name} library did not build (g++)')
+    log(f'[build] the native sampler and partitioner (g++ '
+        f"{' '.join(csrc.HOST_FLAGS)}) beside them, all in "
+        f'{time.perf_counter() - t0:.2f} s')
     HGMMA['bsr_spmm'] = sass_count(libs['bsr_spmm'], 'HGMMA')
     log(f"[build] bsr_spmm: {HGMMA['bsr_spmm']} HGMMA instructions in its "
         'SASS (cuobjdump -sass)')
@@ -6372,6 +6406,480 @@ def phase_path_s(torch, seed, coo, iters):
     return res, row
 
 
+# -- paths T and U: Cluster-GCN at Reddit's shape, GraphSAINT at Flickr's -------
+# Reddit's published shape (PyG's examples/cluster_gcn_reddit.py): 232,965
+# nodes, 114,615,892 directed edges (57,307,946 pairs stored both ways), 602
+# features, 41 classes, 153,431 training nodes. The graph is generated: the
+# nodes fall into communities of about REDDIT_COMMUNITY nodes, and a share
+# REDDIT_INSIDE of the pairs stays inside one
+REDDIT_NODES, REDDIT_PAIRS = 232_965, 57_307_946
+REDDIT_F, REDDIT_C, REDDIT_TRAIN = 602, 41, 153_431
+REDDIT_COMMUNITY, REDDIT_INSIDE = 155, 0.8
+# the reference's loader and model: 1,500 parts, 20 a batch, SAGE 602 ->
+# 128 -> 41 with dropout 0.5, Adam 0.005; 20 eager batches timed
+PT_PARTS, PT_BATCH, PT_STEPS = 1500, 20, 20
+PT_HIDDEN, PT_DROPOUT, PT_LR = 128, 0.5, 0.005
+# the partitioner's balance cap (loader/cluster.py), and the edge cut the
+# path must stay under (a random split into 1,500 parts cuts 1 - 1/1500)
+PT_BALANCE, PT_MAX_CUT = 1.05, 0.5
+# Flickr's published shape (PyG's examples/graph_saint.py): 89,250 nodes,
+# 899,756 directed edges (449,878 pairs both ways, uniform), 500 features,
+# 7 classes; the reference's sampler and model
+FLICKR_NODES, FLICKR_PAIRS = 89_250, 449_878
+FLICKR_F, FLICKR_C = 500, 7
+PU_BATCH, PU_WALK, PU_STEPS, PU_COVERAGE = 6000, 2, 5, 100
+PU_HIDDEN, PU_LR = 256, 0.001
+
+
+def community_graph(n, pairs, community, inside, rng):
+    """A symmetric graph over ``n`` nodes: ``[2, 2 * pairs]`` int32, each
+    of ``pairs`` undirected edges stored in both directions, no self loop.
+    The nodes fall into ``n // community`` seeded communities; a share
+    ``inside`` of the pairs joins a node to another of its community, the
+    rest to a uniform other node. Returns the COO and each node's
+    community."""
+    k = max(n // community, 1)
+    comm = rng.integers(0, k, n)
+    order = np.argsort(comm, kind='stable')
+    size = np.bincount(comm, minlength=k)
+    start = np.concatenate([[0], np.cumsum(size)[:-1]])
+    pos = np.empty(n, np.int64)
+    pos[order] = np.arange(n) - start[comm[order]]
+    src = rng.integers(0, n, pairs)
+    c = comm[src]
+    inner = (rng.random(pairs) < inside) & (size[c] > 1)
+    # another member of the community: an offset of 1 .. size - 1 from the
+    # source's own place in it
+    hop = rng.integers(1, np.maximum(size[c], 2))
+    dst = np.where(inner, order[start[c] + (pos[src] + hop) % size[c]],
+                   (src + rng.integers(1, max(n, 2), pairs)) % n)
+    coo = np.stack([np.concatenate([src, dst]),
+                    np.concatenate([dst, src])]).astype(np.int32)
+    return coo, comm
+
+
+def reddit_like(scale=1.0, seed=0):
+    """Path T's graph at ``scale`` of Reddit's shape: ``(coo, y,
+    train_mask)``, labels one class per community."""
+    rng = np.random.default_rng(seed)
+    n = max(int(round(REDDIT_NODES * scale)), 2)
+    coo, comm = community_graph(n, int(round(REDDIT_PAIRS * scale)),
+                                REDDIT_COMMUNITY, REDDIT_INSIDE, rng)
+    y = rng.integers(0, REDDIT_C, int(comm.max()) + 1)[comm]
+    train = np.zeros(n, bool)
+    train[rng.permutation(n)[:int(round(REDDIT_TRAIN * scale))]] = True
+    return coo, y, train
+
+
+def flickr_like(scale=1.0, seed=0):
+    """Path U's graph at ``scale`` of Flickr's shape: ``(coo, y)``, uniform
+    pairs and labels."""
+    rng = np.random.default_rng(seed)
+    n = max(int(round(FLICKR_NODES * scale)), 2)
+    coo, _ = community_graph(n, int(round(FLICKR_PAIRS * scale)), n, 0.0,
+                             rng)
+    return coo, rng.integers(0, FLICKR_C, n)
+
+
+def cluster_gcn_net(torch, device, seed, dropout=PT_DROPOUT):
+    """Path T's model: GraphSAGE 602 -> 128 -> 41, ReLU and dropout
+    between the layers."""
+    from pytorch_geometric_tpu_torch.nn.models import GraphSAGE
+    return GraphSAGE(REDDIT_F, PT_HIDDEN, 2, REDDIT_C, dropout=dropout,
+                     device=device,
+                     generator=torch.Generator().manual_seed(seed))
+
+
+def saint_net(torch, device, seed):
+    """Path U's model (PyG's examples/graph_saint.py): three GraphConvs,
+    500 -> 256 -> 256 -> 256 with ``aggr='add'`` and ReLU, the three
+    outputs concatenated into a Linear 768 -> 7, log-softmax."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn import GraphConv
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList([
+                GraphConv(c, PU_HIDDEN, aggr='add', device=device,
+                          generator=g)
+                for c in (FLICKR_F, PU_HIDDEN, PU_HIDDEN)])
+            self.lin = linear(3 * PU_HIDDEN, FLICKR_C, device=device,
+                              generator=g)
+
+        def forward(self, x, ei, w):
+            xs = []
+            for conv in self.convs:
+                x = torch.relu(conv(x, ei, w))
+                xs.append(x)
+            return torch.log_softmax(self.lin(torch.cat(xs, -1)), -1)
+
+    return Net()
+
+
+def spied(calls, module, name):
+    """``(module, name, fn)`` for ``knobs``: ``module.name`` wrapped so that
+    each call appends ``(seconds, result)`` to ``calls[name]``."""
+    fn = getattr(module, name)
+
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        calls.setdefault(name, []).append((time.perf_counter() - t0, out))
+        return out
+    return module, name, run
+
+
+def sampled_parity(torch, tag, build, state, batch_cpu, batch_card, loss_of,
+                   lr):
+    """``PARITY_STEPS`` Adam steps from ``state`` on one batch, on the card
+    and on the CPU: the losses within 1e-4 relative, the first step's
+    gradients within 1e-4 of each tensor's largest (``check_parity``)."""
+    def run(device, batch):
+        model = build(device)
+        model.load_state_dict({k: v.to(device) for k, v in state.items()})
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        losses, grads = [], None
+        for i in range(PARITY_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_of(model, *batch)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+            if i == 0:
+                grads = {k: g.cpu() for k, g in grads_of(torch,
+                                                         model).items()}
+        return losses, grads
+    return check_parity(torch, tag, run('cuda', batch_card),
+                        run('cpu', batch_cpu), grads_too=True)
+
+
+def kernel1_rows(torch, tag, ei, cases, seed):
+    """Kernel 1 at a batch's shapes: for each ``(label, layout, w, x)``
+    (``x`` an int: that many random columns) its launch against the plain
+    version (``segment_close``) and its timing row (``segment_timed``);
+    ``(rows, worst error)``."""
+    from pytorch_geometric_tpu_torch.ops.segment_spmm import segment_spmm
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    rows, worst = [], 0.0
+    for label, lay, w, x in cases:
+        if isinstance(x, int):
+            # x for a forward over the CSC, g for A^T g over the CSR
+            rows_in = (ei.num_src_nodes if lay is ei.csc
+                       else ei.num_dst_nodes)
+            x = torch.randn((rows_in, x), generator=gen, device='cuda')
+        with torch.inference_mode():
+            out = segment_spmm(lay.indptr, lay.indices, w, x)
+            err, ok = segment_close(torch, lay.indptr, lay.indices, w, x,
+                                    out)
+            torch.cuda.synchronize()
+            check(ok, f'segment_spmm {tag} {label}: {err} from the plain '
+                      'version')
+            worst = max(worst, err)
+            row = segment_timed(torch, f'{tag} {label}', lay.indptr,
+                                lay.indices, w, x)
+        row['max_abs_err'] = err
+        rows.append(row)
+    return rows, worst
+
+
+def timed_batches(torch, it, prepare, step, steps):
+    """``steps`` eager steps over the batches of ``it``: host ms to take a
+    batch and put it on the card (``prepare``), card ms a step (CUDA
+    events), the losses, the first prepared batch, and the launches of
+    the first step."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_ms, card_ms, losses, first, per_step = [], [], [], None, None
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = prepare(next(it))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        start.record()
+        losses.append(step(*batch))
+        end.record()
+        torch.cuda.synchronize()
+        card_ms.append(start.elapsed_time(end))
+        if i == 0:
+            first = batch
+            per_step = {k: v for k, v in launch_counts().items() if v}
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f'losses {losses}')
+    return host_ms, card_ms, losses, first, per_step
+
+
+def phase_path_t(torch, seed):
+    """Path T: Cluster-GCN at Reddit's shape (PyG's
+    examples/cluster_gcn_reddit.py). ``reddit_like(1.0)`` on the host, x
+    (602 standard-normal features), labels and the training mask on the
+    card; ``ClusterData(num_parts=1500)`` on the native partitioner (the
+    phase fails without it), its symmetric CSR and partition timed; every
+    node in one part, parts within the balance cap, the edge cut under
+    ``PT_MAX_CUT``; ``ClusterLoader(batch_size=20, shuffle=True)``, each
+    batch's rows gathered on the card by ``n_id`` and its ``EdgeIndex``
+    built there; ``cluster_gcn_net`` trained with cross-entropy on the
+    batch's training nodes, Adam 0.005, ``PT_STEPS`` eager steps: host ms
+    a batch, card ms a step, kernel 1's launches (3 a step: forward at F =
+    602 and 128, ``A^T g`` at 128), a whole-window profile and the idle
+    share; the first batch's 3 steps (dropout 0) against the CPU; kernel 1
+    at the first batch's three shapes against its plain version and
+    timed."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import (ClusterData,
+                                                    ClusterLoader, cluster)
+    tag = 'path T'
+    t0 = time.perf_counter()
+    coo, y, train = reddit_like(1.0, seed)
+    n = len(y)
+    gen_s = time.perf_counter() - t0
+    gen = torch.Generator(device='cuda').manual_seed(seed + 40)
+    data = Data(x=torch.randn((n, REDDIT_F), generator=gen, device='cuda'),
+                edge_index=coo,
+                y=torch.as_tensor(y, device='cuda'),
+                train_mask=torch.as_tensor(train, device='cuda'),
+                num_nodes=n)
+    del coo
+    calls = {}
+    t0 = time.perf_counter()
+    with knobs(env={'PGT_DISABLE_NATIVE_PARTITION': ''}, attrs=[
+            spied(calls, cluster, '_sym_csr'),
+            spied(calls, cluster, '_native_multilevel')]):
+        cd = ClusterData(data, PT_PARTS, seed=seed)
+    build_s = time.perf_counter() - t0
+    (csr_s, _), = calls['_sym_csr']
+    (part_s, native), = calls['_native_multilevel']
+    check(native is not None, f'{tag}: the native partitioner did not run')
+    parts = cd.partition.parts
+    sizes = np.bincount(parts, minlength=PT_PARTS)
+    cap = PT_BALANCE * n / PT_PARTS
+    cut = cluster.edge_cut(data.edge_index, parts)
+    check(len(parts) == n and parts.min() >= 0 and parts.max() < PT_PARTS
+          and int(sizes.sum()) == n
+          and np.array_equal(np.sort(cd.partition.node_perm), np.arange(n)),
+          f'{tag}: not every node lies in exactly one part')
+    check(sizes.max() <= cap, f'{tag}: the largest part holds {sizes.max()} '
+                              f'nodes, over the cap {cap:.1f}')
+    check(cut < PT_MAX_CUT, f'{tag}: edge cut {cut} (limit {PT_MAX_CUT})')
+    log(f'[{tag}] reddit_like: {n} nodes, {data.num_edges} edges, built on '
+        f'the host in {gen_s:.1f} s; ClusterData({PT_PARTS} parts) in '
+        f'{build_s:.2f} s: symmetric CSR {csr_s:.2f} s, native multilevel '
+        f'partition {part_s:.2f} s; parts of {sizes.min()}-{sizes.max()} '
+        f'nodes (cap {cap:.1f}), edge cut {cut:.4f}')
+    loader = ClusterLoader(cd, batch_size=PT_BATCH, shuffle=True, seed=0)
+
+    def prepare(batch):
+        nb = batch.num_nodes
+        ei = EdgeIndex(batch.edge_index.to('cuda'), (nb, nb)).fill_cache(
+            blocked=False)
+        return ei, batch.x, batch.y.long(), batch.train_mask
+
+    def loss_of(model, ei, x, y, mask):
+        ce = torch.nn.functional.cross_entropy(model(x, ei), y,
+                                               reduction='none')
+        m = mask.to(ce.dtype)
+        return (ce * m).sum() / m.sum()
+
+    model = cluster_gcn_net(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PT_LR)
+
+    def step(*batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, iter(loader), prepare, step, PT_STEPS)
+    counts = launch_counts()
+    check(per_step == {'segment_spmm': 3},
+          f'{tag}: launches in the first step {per_step}')
+    check_counts(tag, counts, {'segment_spmm': 3 * PT_STEPS},
+                 f'{PT_STEPS} steps')
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 3)
+    busy = sum(t for _, t, _ in prof_rows)
+    ei = first[0]
+    res = {'nodes': n, 'edges': data.num_edges, 'graph_build_s': gen_s,
+           'cluster_data_s': build_s, 'sym_csr_s': csr_s,
+           'partition_s': part_s, 'part_sizes': [int(sizes.min()),
+                                                 int(sizes.max())],
+           'balance_cap': cap, 'edge_cut': cut, 'steps': PT_STEPS,
+           'losses': losses, 'host_ms_per_batch': host_ms,
+           'card_ms_per_step': card_ms, 'launch_counts': counts,
+           'launches_per_step': per_step,
+           'first_batch': {'nodes': ei.num_src_nodes,
+                           'edges': ei.num_edges},
+           'device_busy_ms_per_step': busy, 'profiled_ms_per_step': prof_ms,
+           'kernel1_ms_per_step': sum(t for name, t, _ in prof_rows
+                                      if SEG_MAIN in name),
+           'kernels_per_step': [[name[:80], t, c]
+                                for name, t, c in prof_rows[:8]]}
+    res['device_idle_share_unprofiled'] = 1 - busy / float(
+        np.median(card_ms[1:]))
+    log(f'[{tag}] ClusterLoader({PT_BATCH} parts a batch): per batch the '
+        f'host takes {np.median(host_ms):.2f} ms (median of {PT_STEPS}; '
+        f'{host_ms}), the card runs a step in {np.median(card_ms[1:]):.4f} '
+        f'ms (CUDA events; {card_ms}), busy {busy:.4f} ms (torch.profiler), '
+        f"idle {res['device_idle_share_unprofiled']:.3f}, kernel 1 "
+        f"{res['kernel1_ms_per_step']:.4f} ms, 3 launches a step; first "
+        f'batch {ei.num_src_nodes} nodes, {ei.num_edges} edges; losses '
+        f'{losses}')
+    for name, t, c in prof_rows[:8]:
+        log(f'[{tag}]   {t:.4f} ms  x{c:g}  {name[:90]}')
+    # the first batch: 3 steps without dropout against the CPU
+    cpu_ei = EdgeIndex(ei.coo.cpu(), ei.sparse_size,
+                       device='cpu').fill_cache(blocked=False)
+    res['first_batch_vs_cpu'] = sampled_parity(
+        torch, tag, lambda d: cluster_gcn_net(torch, d, seed, dropout=0.0),
+        state, (cpu_ei, *(t.cpu() for t in first[1:])), first, loss_of,
+        PT_LR)
+    # kernel 1 at the first batch's shapes
+    rows, worst = kernel1_rows(torch, 'T', ei, [
+        (f'forward F={REDDIT_F}', ei.csc, None, first[1]),
+        (f'forward F={PT_HIDDEN}', ei.csc, None, PT_HIDDEN),
+        (f'A^T g F={PT_HIDDEN}', ei.csr, None, PT_HIDDEN)], seed + 41)
+    del data, cd, loader, model, opt, first
+    torch.cuda.empty_cache()
+    return res, rows, worst
+
+
+def phase_path_u(torch, seed):
+    """Path U: GraphSAINT at Flickr's shape (PyG's examples/graph_saint.py).
+    ``flickr_like(1.0)``, x (500 standard-normal features) and labels on
+    the card; ``GraphSAINTRandomWalkSampler(batch_size=6000,
+    walk_length=2, num_steps=5, sample_coverage=100)`` on the native random
+    walk (the phase fails without it), ``_estimate_norms`` timed;
+    ``saint_net`` over each batch's ``EdgeIndex`` on the card with the
+    reference's edge weights ``edge_norm * 1 / deg[col]`` (in-degree over
+    the whole graph) and loss ``(nll * node_norm).sum()``, Adam 0.001, 5
+    eager steps: host ms a batch, card ms a step, kernel 1's weighted
+    launches (5 a step: forward at F = 500, 256, 256, ``A^T g`` at 256
+    twice), a whole-window profile and the idle share; the first batch's 3
+    steps against the CPU; kernel 1 at the first batch's three shapes
+    against its plain version and timed."""
+    from pytorch_geometric_tpu_torch import EdgeIndex, csrc
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import (
+        GraphSAINTRandomWalkSampler, GraphSAINTSampler)
+    from pytorch_geometric_tpu_torch.nn.models import node2vec
+    tag = 'path U'
+    check(csrc.WITH_NATIVE_SAMPLER, f'{tag}: the native sampler did not '
+          'build (g++)')
+    t0 = time.perf_counter()
+    coo, y = flickr_like(1.0, seed)
+    n = len(y)
+    gen_s = time.perf_counter() - t0
+    gen = torch.Generator(device='cuda').manual_seed(seed + 50)
+    data = Data(x=torch.randn((n, FLICKR_F), generator=gen, device='cuda'),
+                edge_index=coo, y=torch.as_tensor(y, device='cuda'),
+                num_nodes=n)
+    # the reference's edge weights: 1 / in-degree of each edge's target
+    deg = np.bincount(coo[1], minlength=n).astype(np.float32)
+    inv_deg = torch.as_tensor(1.0 / deg[coo[1]], device='cuda')
+    calls = {}
+    t0 = time.perf_counter()
+    with knobs(attrs=[spied(calls, GraphSAINTSampler, '_estimate_norms'),
+                      spied(calls, node2vec, '_random_walk_native')]):
+        sampler = GraphSAINTRandomWalkSampler(
+            data, batch_size=PU_BATCH, walk_length=PU_WALK,
+            num_steps=PU_STEPS, sample_coverage=PU_COVERAGE, seed=seed)
+        build_s = time.perf_counter() - t0
+        (norm_s, _), = calls['_estimate_norms']
+        walks = len(calls['_random_walk_native'])
+        check(walks > 0, f'{tag}: the native random walk did not run')
+
+        def prepare(batch):
+            nb = batch.num_nodes
+            ei = EdgeIndex(batch.edge_index.to('cuda'), (nb, nb)).fill_cache(
+                blocked=False)
+            w = batch.edge_norm.to('cuda') * inv_deg[
+                batch.e_id.to('cuda').long()]
+            return (ei, batch.x, w, batch.y.long(),
+                    batch.node_norm.to('cuda'))
+
+        def loss_of(model, ei, x, w, y, node_norm):
+            nll = torch.nn.functional.nll_loss(model(x, ei, w), y,
+                                               reduction='none')
+            return (nll * node_norm).sum()
+
+        model = saint_net(torch, None, seed)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        opt = torch.optim.Adam(model.parameters(), lr=PU_LR)
+
+        def step(*batch):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_of(model, *batch)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        host_ms, card_ms, losses, first, per_step = timed_batches(
+            torch, iter(sampler), prepare, step, PU_STEPS)
+        check(len(calls['_random_walk_native']) == walks + PU_STEPS,
+              f'{tag}: the batches were not walked natively')
+    counts = launch_counts()
+    check(per_step == {'segment_spmm': 5},
+          f'{tag}: launches in the first step {per_step}')
+    check_counts(tag, counts, {'segment_spmm': 5 * PU_STEPS},
+                 f'{PU_STEPS} steps')
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 3)
+    busy = sum(t for _, t, _ in prof_rows)
+    ei = first[0]
+    res = {'nodes': n, 'edges': data.num_edges, 'graph_build_s': gen_s,
+           'sampler_build_s': build_s, 'estimate_norms_s': norm_s,
+           'norm_walks': walks, 'steps': PU_STEPS, 'losses': losses,
+           'host_ms_per_batch': host_ms, 'card_ms_per_step': card_ms,
+           'launch_counts': counts, 'launches_per_step': per_step,
+           'first_batch': {'nodes': ei.num_src_nodes,
+                           'edges': ei.num_edges},
+           'device_busy_ms_per_step': busy, 'profiled_ms_per_step': prof_ms,
+           'kernel1_ms_per_step': sum(t for name, t, _ in prof_rows
+                                      if SEG_MAIN in name),
+           'kernels_per_step': [[name[:80], t, c]
+                                for name, t, c in prof_rows[:8]]}
+    res['device_idle_share_unprofiled'] = 1 - busy / float(
+        np.median(card_ms[1:]))
+    log(f'[{tag}] flickr_like: {n} nodes, {data.num_edges} edges, built in '
+        f'{gen_s:.2f} s; GraphSAINTRandomWalkSampler({PU_BATCH} roots, walk '
+        f'length {PU_WALK}, coverage {PU_COVERAGE}) in {build_s:.2f} s, '
+        f'_estimate_norms {norm_s:.2f} s over {walks} native walks; per '
+        f'batch the host takes {np.median(host_ms):.2f} ms ({host_ms}), the '
+        f'card runs a step in {np.median(card_ms[1:]):.4f} ms ({card_ms}), '
+        f'busy {busy:.4f} ms, idle '
+        f"{res['device_idle_share_unprofiled']:.3f}, kernel 1 "
+        f"{res['kernel1_ms_per_step']:.4f} ms, 5 launches a step; first "
+        f'batch {ei.num_src_nodes} nodes, {ei.num_edges} edges; losses '
+        f'{losses}')
+    for name, t, c in prof_rows[:8]:
+        log(f'[{tag}]   {t:.4f} ms  x{c:g}  {name[:90]}')
+    cpu_ei = EdgeIndex(ei.coo.cpu(), ei.sparse_size,
+                       device='cpu').fill_cache(blocked=False)
+    res['first_batch_vs_cpu'] = sampled_parity(
+        torch, tag, lambda d: saint_net(torch, d, seed), state,
+        (cpu_ei, *(t.cpu() for t in first[1:])), first, loss_of, PU_LR)
+    w = first[2]
+    rows, worst = kernel1_rows(torch, 'U', ei, [
+        (f'weighted forward F={FLICKR_F}', ei.csc,
+         w[ei.csc.perm].contiguous(), first[1]),
+        (f'weighted forward F={PU_HIDDEN}', ei.csc,
+         w[ei.csc.perm].contiguous(), PU_HIDDEN),
+        (f'weighted A^T g F={PU_HIDDEN}', ei.csr,
+         w[ei.csr.perm].contiguous(), PU_HIDDEN)], seed + 51)
+    del data, sampler, model, opt, first
+    torch.cuda.empty_cache()
+    return res, rows, worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -6469,6 +6977,10 @@ def main():
     path_p = phase_path_p(torch, args.seed, mag)
     path_q, q_rows, q_err = phase_path_q(torch, args.seed, mag)
     del mag
+    # the sampled subgraph loaders: Cluster-GCN at Reddit's shape (T) and
+    # GraphSAINT at Flickr's (U)
+    path_t, t_rows, t_err = phase_path_t(torch, args.seed)
+    path_u, u_rows, u_err = phase_path_u(torch, args.seed)
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -6521,7 +7033,8 @@ def main():
         path_n_layouts_steps=arms['layouts']['launch_counts'],
         path_n_layouts_captured=arms['layouts']['captured']['launch_counts'],
         path_p=path_p['launch_counts'], path_q=path_q['launch_counts'],
-        path_q_hgt_loader=path_q['hgt_loader']['launch_counts'])
+        path_q_hgt_loader=path_q['hgt_loader']['launch_counts'],
+        path_t=path_t['launch_counts'], path_u=path_u['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
         path_counts[f'path_r_{key}'] = path_r[dt]['launch_counts']
@@ -6574,6 +7087,7 @@ def main():
                               'layerwise': layerwise, **flash_paths,
                               'path_o': path_o, 'path_p': path_p,
                               'path_q': path_q, 'path_r': path_r,
+                              'path_t': path_t, 'path_u': path_u,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the
     # rows of layer 1 (H=4, C=16) and layer 2 (H=1, C=47)
@@ -6637,13 +7151,15 @@ def main():
             'scan_train': scan['launches_per_step']['segment_spmm'],
             'path_q': path_q['launches_per_step']['segment_spmm'],
             'path_s': path_s['training']['launches_per_step'][
-                'segment_spmm']},
+                'segment_spmm'],
+            'path_t': path_t['launches_per_step']['segment_spmm'],
+            'path_u': path_u['launches_per_step']['segment_spmm']},
         'launches_per_layerwise_batch': 2,
         'launches_per_path_r_forward': path_r['float32'][
             'launches_per_forward'],
         'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err,
                            *(r['max_abs_err'] for r in r_rows[:2]),
-                           s_row['max_abs_err']),
+                           s_row['max_abs_err'], t_err, u_err),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -6664,6 +7180,7 @@ def main():
         'sampled_per_shape': sampled_rows,
         'path_q_per_shape': q_rows,
         'path_r_per_shape': r_rows[:2], 'path_s_per_shape': [s_row],
+        'path_t_per_shape': t_rows, 'path_u_per_shape': u_rows,
         'regime_arms_rel_err': regime_arms['worst'],
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',

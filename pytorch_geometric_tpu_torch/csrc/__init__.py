@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels, built with ``nvcc`` at first use and bound with
-ctypes, and the native host sampler, built with ``g++`` at first use.
+ctypes, and the native host code (the sampler and the partitioner), built
+with ``g++`` at first use.
 
 Each CUDA source in this directory is compiled on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
@@ -9,11 +10,14 @@ flags, so an edited source or header is rebuilt and an unchanged one is
 reused.
 
 ``sampler.cpp`` (the neighbour samplers of ``sampler/neighbor_sampler.py``
-and ``sampler/hetero.py``) is host code: :func:`sampler_library` builds it with ``g++`` into the same
-directory, keyed the same way and by the host (it is built for the host's
-CPU), and ``WITH_NATIVE_SAMPLER`` says whether it is there. Where ``g++`` is
-missing or the build fails, the samplers take their numpy paths, as the JAX
-package's do (its ``csrc/__init__.py``).
+and ``sampler/hetero.py``, and the random walks of ``nn/models/node2vec.py``)
+and ``partition.cpp`` (the multilevel partitioner of ``loader/cluster.py``)
+are host code: :func:`sampler_library` and :func:`partition_library` build
+each with ``g++`` into the same directory, keyed the same way and by the
+host (it is built for the host's CPU), and ``WITH_NATIVE_SAMPLER`` says
+whether the sampler is there. Where ``g++`` is missing or a build fails,
+the callers take their numpy paths, as the JAX package's do (its
+``csrc/__init__.py``).
 
 Nothing here runs at import: the package imports on a machine without
 ``nvcc`` or a card, where only the plain versions of the kernels run;
@@ -136,32 +140,36 @@ def function(name: str, symbol: str, argtypes: Sequence):
     return fn
 
 
-# -- the native host sampler ---------------------------------------------------
+# -- the native host code -------------------------------------------------------
 SAMPLER_SOURCE = 'sampler.cpp'
+PARTITION_SOURCE = 'partition.cpp'
 # the JAX package's flags (its csrc/__init__.py), so that both builds draw
-# the same neighbours; -march=native ties the library to the host's CPU
+# the same neighbours and walks and cut the same partitions; -march=native
+# ties a library to the host's CPU
 HOST_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-std=c++17')
 
 _host_lock = threading.Lock()
 _sampler: Optional[ctypes.CDLL] = None
 _sampler_tried = False
+_partition: Optional[ctypes.CDLL] = None
+_partition_tried = False
 
 
-def sampler_path() -> Path:
-    """Where the sampler library of this source, these flags and this host
-    goes."""
-    h = hashlib.sha256((SOURCE_DIR / SAMPLER_SOURCE).read_bytes())
+def host_path(source: str = SAMPLER_SOURCE) -> Path:
+    """Where the library of the host ``source`` in this directory, built
+    with these flags on this host, goes."""
+    h = hashlib.sha256((SOURCE_DIR / source).read_bytes())
     h.update(' '.join(HOST_FLAGS).encode())
     h.update(f'{platform.machine()} {platform.node()}'.encode())
-    return BUILD_DIR / f'libsampler-{h.hexdigest()[:16]}.so'
+    return BUILD_DIR / f'lib{Path(source).stem}-{h.hexdigest()[:16]}.so'
 
 
-def build_sampler() -> Path:
-    """Compile the sampler library unless it is built already. Raises
-    ``RuntimeError`` with the compiler's output if ``g++`` fails,
-    ``FileNotFoundError`` where there is no ``g++`` and
+def build_host(source: str = SAMPLER_SOURCE) -> Path:
+    """Compile the library of the host ``source`` unless it is built
+    already. Raises ``RuntimeError`` with the compiler's output if ``g++``
+    fails, ``FileNotFoundError`` where there is no ``g++`` and
     ``subprocess.TimeoutExpired`` past 300 s."""
-    target = sampler_path()
+    target = host_path(source)
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -170,12 +178,11 @@ def build_sampler() -> Path:
     tmp = target.with_name(
         f'{target.stem}.{os.getpid()}.{threading.get_ident()}.tmp')
     try:
-        res = subprocess.run(['g++', *HOST_FLAGS,
-                              str(SOURCE_DIR / SAMPLER_SOURCE), '-o',
-                              str(tmp)], capture_output=True, text=True,
+        res = subprocess.run(['g++', *HOST_FLAGS, str(SOURCE_DIR / source),
+                              '-o', str(tmp)], capture_output=True, text=True,
                              timeout=300)
         if res.returncode != 0:
-            raise RuntimeError(f'g++ build of {SAMPLER_SOURCE} failed (exit '
+            raise RuntimeError(f'g++ build of {source} failed (exit '
                                f'{res.returncode}):\n{res.stdout}'
                                f'{res.stderr}')
         os.replace(tmp, target)
@@ -184,20 +191,38 @@ def build_sampler() -> Path:
     return target
 
 
+def sampler_path() -> Path:
+    """Where the sampler library of this source, these flags and this host
+    goes."""
+    return host_path(SAMPLER_SOURCE)
+
+
+def build_sampler() -> Path:
+    """Compile the sampler library unless it is built already
+    (:func:`build_host`)."""
+    return build_host(SAMPLER_SOURCE)
+
+
+def _load_host(source: str) -> Optional[ctypes.CDLL]:
+    try:
+        return ctypes.CDLL(str(build_host(source)))
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return None
+
+
 def sampler_library() -> Optional[ctypes.CDLL]:
     """The sampler library with ``neighbor_sample``,
-    ``hetero_neighbor_sample`` and ``neighbor_sample_tw`` bound, built
-    first if needed; ``None`` where it
-    cannot be built (the samplers then take their numpy paths). Bound with
-    ``ctypes.CDLL``, which releases the GIL for the length of a call."""
+    ``hetero_neighbor_sample``, ``neighbor_sample_tw`` and ``random_walk``
+    bound, built first if needed; ``None`` where it cannot be built (the
+    samplers then take their numpy paths). Bound with ``ctypes.CDLL``, which
+    releases the GIL for the length of a call."""
     global _sampler, _sampler_tried
     with _host_lock:
         if _sampler is not None or _sampler_tried:
             return _sampler
         _sampler_tried = True
-        try:
-            lib = ctypes.CDLL(str(build_sampler()))
-        except (OSError, RuntimeError, subprocess.SubprocessError):
+        lib = _load_host(SAMPLER_SOURCE)
+        if lib is None:
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -240,8 +265,40 @@ def sampler_library() -> Optional[ctypes.CDLL]:
             i64p, i64p, i64p, u8p,                     # row/col/eid/mask
             i64p, i64p,
         ]
+        lib.random_walk.restype = None
+        lib.random_walk.argtypes = [
+            i64p, i64p, ctypes.c_int64, i64p, ctypes.c_int64,  # csr, start
+            ctypes.c_int64, ctypes.c_double, ctypes.c_double,  # length, p, q
+            ctypes.c_uint64, i64p,                             # seed, out
+        ]
         _sampler = lib
         return _sampler
+
+
+def partition_library() -> Optional[ctypes.CDLL]:
+    """The partitioner library with ``multilevel_partition`` bound (the
+    argument types of the JAX package's binding), built first if needed;
+    ``None`` where it cannot be built (``loader/cluster.py`` then runs its
+    numpy pipeline)."""
+    global _partition, _partition_tried
+    with _host_lock:
+        if _partition is not None or _partition_tried:
+            return _partition
+        _partition_tried = True
+        lib = _load_host(PARTITION_SOURCE)
+        if lib is None:
+            return None
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.multilevel_partition.restype = None
+        lib.multilevel_partition.argtypes = [
+            i64p, i64p, f64p, ctypes.c_int64,       # csr, n
+            ctypes.c_int64, ctypes.c_uint64,        # parts, seed
+            ctypes.c_double, i32p,                  # imbalance, out
+        ]
+        _partition = lib
+        return _partition
 
 
 def __getattr__(name):

@@ -1,11 +1,12 @@
 // Native host neighbour sampling, for the loaders of the port.
 //
 // A copy of pytorch_geometric_tpu/csrc/sampler.cpp's samplers
-// (neighbor_sample, hetero_neighbor_sample and neighbor_sample_tw,
-// unchanged, so the two packages draw the same neighbours from the same
-// seed), the equivalent of pyg-lib's torch.ops.pyg.neighbor_sample and
-// hetero_neighbor_sample (reference
-// torch_geometric/sampler/neighbor_sampler.py:471, :576). Exposed through a C ABI
+// (neighbor_sample, hetero_neighbor_sample, neighbor_sample_tw and
+// random_walk, unchanged, so the two packages draw the same neighbours and
+// walks from the same seed), the equivalent of pyg-lib's
+// torch.ops.pyg.neighbor_sample, hetero_neighbor_sample and random_walk
+// (reference torch_geometric/sampler/neighbor_sampler.py:471, :576,
+// nn/models/node2vec.py). Exposed through a C ABI
 // and loaded with ctypes, which releases the GIL around each call, so the
 // loader's worker threads sample in parallel. Outputs are written into
 // caller-allocated fixed-capacity (padded) buffers, so every batch of a
@@ -514,6 +515,38 @@ int64_t neighbor_sample_tw(
     }
   }
   return (int64_t)nodes.size();
+}
+
+// node2vec-style random walks over CSR (out-edges).
+// rowptr [n+1], col [E]. start [s]. out [s * (walk_length+1)].
+void random_walk(const int64_t* rowptr, const int64_t* col,
+                 int64_t num_nodes, const int64_t* start, int64_t s,
+                 int64_t walk_length, double p, double q, uint64_t seed,
+                 int64_t* out) {
+  std::mt19937_64 rng(seed);
+  std::uniform_real_distribution<double> unif(0.0, 1.0);
+  for (int64_t i = 0; i < s; ++i) {
+    int64_t cur = start[i], prev = start[i];
+    out[i * (walk_length + 1)] = cur;
+    for (int64_t t = 1; t <= walk_length; ++t) {
+      const int64_t lo = rowptr[cur], deg = rowptr[cur + 1] - lo;
+      int64_t nxt = cur;
+      if (deg > 0) {
+        std::uniform_int_distribution<int64_t> d(0, deg - 1);
+        nxt = col[lo + d(rng)];
+        if (p != 1.0 || q != 1.0) {
+          for (int attempt = 0; attempt < 3; ++attempt) {
+            const double accept = (nxt == prev) ? 1.0 / p : 1.0 / q;
+            if (unif(rng) <= accept) break;
+            nxt = col[lo + d(rng)];
+          }
+        }
+      }
+      prev = cur;
+      cur = nxt;
+      out[i * (walk_length + 1) + t] = cur;
+    }
+  }
 }
 
 }  // extern "C"

@@ -4,15 +4,15 @@
 Counterpart of ``pytorch_geometric_tpu/utils/reorder.py``: ``degree_order``
 (hubs first, what the block-sparse cache tries), ``reverse_cuthill_mckee``,
 ``apply_node_permutation`` and ``block_fill_stats``, over the symmetrised
-CSR they rank by. ``cluster_order`` waits for the streaming partitioner
-(``loader/cluster.py``, ROADMAP Queue 1 item 8).
+CSR they rank by, and ``cluster_order`` on the partitioner of
+``loader/cluster.py``.
 """
 
 from typing import Tuple
 
 import numpy as np
 
-__all__ = ['reverse_cuthill_mckee', 'degree_order',
+__all__ = ['reverse_cuthill_mckee', 'degree_order', 'cluster_order',
            'apply_node_permutation', 'block_fill_stats']
 
 
@@ -69,6 +69,17 @@ def degree_order(coo: np.ndarray, num_nodes: int) -> np.ndarray:
     symmetrised degree (stable, so ties keep their order)."""
     _, _, deg = _sym_csr(coo, num_nodes)
     return np.argsort(-deg, kind='stable')
+
+
+def cluster_order(coo: np.ndarray, num_nodes: int,
+                  block: int = 128) -> np.ndarray:
+    """Partition into ~``num_nodes / block`` parts and lay the parts out
+    contiguously: ``perm[new_pos] = old_id`` (a cluster-contiguous relabel,
+    reference ``loader/cluster.py:128``)."""
+    from ..loader.cluster import partition_graph
+    p = max(int(round(num_nodes / block)), 1)
+    parts = partition_graph(coo, num_nodes, p)
+    return np.argsort(parts, kind='stable')
 
 
 def apply_node_permutation(data, perm: np.ndarray):

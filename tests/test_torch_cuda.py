@@ -2504,3 +2504,67 @@ def test_auto_policy_on_card(dev, monkeypatch):
         auto=True).bsr is None
     assert EdgeIndex(blocks, (n, n), device=dev).fill_cache(
         auto=True, block_sparse=True).bsr is not None
+
+
+# -- Cluster-GCN and GraphSAINT: kernel 1 at F = 602 and weighted F = 500 ------
+@pytest.mark.parametrize('f,weighted', [(602, False), (500, True),
+                                        (256, True), (128, False)])
+def test_segment_kernel_at_cluster_and_saint_widths(dev, f, weighted):
+    """Kernel 1 at paths T's and U's widths: F = 602 (not a multiple of 4:
+    the 8-byte arm, 301 vectors over 32 lanes in column passes), F = 500
+    weighted (the 16-byte arm, 125 vectors), forward over the CSC and ``A^T
+    g`` over the CSR, against its plain version."""
+    coo, w, x = _case(700, 700, 20_000, f, seed=f)
+    ei = EdgeIndex(coo, (700, 700), device=dev).fill_cache(blocked=False)
+    wt = torch.as_tensor(w, device=dev)
+    xt = torch.as_tensor(x, device=dev)
+    for lay in (ei.csc, ei.csr):
+        wl = wt[lay.perm].contiguous() if weighted else None
+        before = segment_spmm.launches
+        out = segment_spmm(lay.indptr, lay.indices, wl, xt)
+        torch.cuda.synchronize()
+        assert segment_spmm.launches == before + 1
+        ref = segment_spmm_plain(lay.indptr, lay.indices, wl, xt)
+        scale = segment_spmm_plain(lay.indptr, lay.indices,
+                                   None if wl is None else wl.abs(),
+                                   xt.abs())
+        _close(out, ref, scale)
+
+
+def test_cluster_batch_edge_index_on_the_card(dev):
+    """A ``ClusterLoader`` batch of features kept on the card: its rows
+    gathered there, its ``EdgeIndex`` built there from the batch's COO
+    (CSR and CSC equal to the CPU build's), and GraphSAGE over it (kernel 1
+    at F = 602 and 128) equal to the CPU's within 1e-4 of its largest."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import ClusterData, ClusterLoader
+    rng = np.random.default_rng(40)
+    n = 3000
+    coo = rng.integers(0, n, (2, 60_000))
+    coo = np.concatenate([coo, coo[::-1]], 1).astype(np.int32)
+    x = torch.as_tensor(rng.standard_normal((n, 602)).astype(np.float32),
+                        device=dev)
+    data = Data(x=x, edge_index=coo, y=torch.as_tensor(
+        rng.integers(0, 41, n), device=dev), num_nodes=n)
+    batch = next(iter(ClusterLoader(ClusterData(data, 30), batch_size=4,
+                                    shuffle=True)))
+    assert batch.x.device.type == 'cuda' and batch.y.device.type == 'cuda'
+    assert torch.equal(batch.x, x[batch.n_id.to(dev).long()])
+    nb = batch.num_nodes
+    ei = EdgeIndex(batch.edge_index.to(dev), (nb, nb)).fill_cache(
+        blocked=False)
+    cpu = EdgeIndex(batch.edge_index, (nb, nb), device='cpu').fill_cache(
+        blocked=False)
+    for a, b in ((ei.csc, cpu.csc), (ei.csr, cpu.csr)):
+        assert torch.equal(a.indptr.cpu(), b.indptr)
+        assert torch.equal(a.indices.cpu(), b.indices)
+    g = torch.Generator().manual_seed(0)
+    model = GraphSAGE(602, 128, 2, 41, device='cpu', generator=g)
+    ref = model(batch.x.cpu(), cpu)
+    model.to(dev)
+    before = segment_spmm.launches
+    out = model(batch.x, ei)
+    torch.cuda.synchronize()
+    assert segment_spmm.launches == before + 2
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4 * max(
+        1.0, float(ref.abs().max()))
