@@ -6534,16 +6534,21 @@ def spied(calls, module, name):
 
 
 def sampled_parity(torch, tag, build, state, batch_cpu, batch_card, loss_of,
-                   lr):
+                   lr, batch64=None, own_tol=None):
     """``PARITY_STEPS`` Adam steps from ``state`` on one batch, on the card
     and on the CPU: the losses within 1e-4 relative, the first step's
-    gradients within 1e-4 of each tensor's largest (``check_parity``)."""
-    def run(device, batch):
-        model = build(device)
+    gradients within 1e-4 of each tensor's largest (``check_parity``; with
+    ``own_tol``, within 1e-4 of the largest of all and ``own_tol`` of their
+    own). With ``batch64`` (the batch in float64 over its raw COO, the
+    gather path), the first step's gradients are also taken in float64 on
+    the CPU: each of the card's must lie within 1e-4 of its own largest
+    from them, and the CPU's gap to them is logged beside."""
+    def run(device, batch, dtype=torch.float32, steps=PARITY_STEPS):
+        model = build(device).to(dtype)
         model.load_state_dict({k: v.to(device) for k, v in state.items()})
         opt = torch.optim.Adam(model.parameters(), lr=lr)
         losses, grads = [], None
-        for i in range(PARITY_STEPS):
+        for i in range(steps):
             opt.zero_grad(set_to_none=True)
             loss = loss_of(model, *batch)
             loss.backward()
@@ -6553,8 +6558,25 @@ def sampled_parity(torch, tag, build, state, batch_cpu, batch_card, loss_of,
                 grads = {k: g.cpu() for k, g in grads_of(torch,
                                                          model).items()}
         return losses, grads
-    return check_parity(torch, tag, run('cuda', batch_card),
-                        run('cpu', batch_cpu), grads_too=True)
+    card, cpu = run('cuda', batch_card), run('cpu', batch_cpu)
+    gaps64 = None
+    if batch64 is not None:
+        _, g64 = run('cpu', batch64, torch.float64, steps=1)
+        gaps64 = {k: [float((g[k].double() - ref).abs().max())
+                      / max(float(ref.abs().max()), 1e-300)
+                      for g in (card[1], cpu[1])] for k, ref in g64.items()}
+        log(f'[{tag}] first-step gradients against float64 on the CPU (the '
+            'gather path), of each tensor\'s largest, card / CPU: '
+            + ', '.join(f'{k} {a:.3e} / {b:.3e}' for k, (a, b) in sorted(
+                gaps64.items(), key=lambda kv: -kv[1][1])))
+        for k, (gap, _) in gaps64.items():
+            check(gap <= 1e-4, f'{tag}: first-step gradient of {k} is '
+                               f'{gap} of its largest from float64')
+    out = check_parity(torch, tag, card, cpu, grads_too=True,
+                       own_tol=own_tol)
+    if gaps64 is not None:
+        out['grad_gaps_to_float64_card_cpu'] = gaps64
+    return out
 
 
 def kernel1_rows(torch, tag, ei, cases, seed):
@@ -6864,9 +6886,19 @@ def phase_path_u(torch, seed):
         log(f'[{tag}]   {t:.4f} ms  x{c:g}  {name[:90]}')
     cpu_ei = EdgeIndex(ei.coo.cpu(), ei.sparse_size,
                        device='cpu').fill_cache(blocked=False)
+    # a node-normalised sum over ~15,700 rows: layers 1-2's weight
+    # gradients cancel to 1e-3 of the largest, and the CPU's float32 GEMMs
+    # over that many rows land 1e-3 of their own from float64 where the
+    # card's land 4e-7 on an H100 (PERF.md, path U): the card is held to
+    # float64 at 1e-4 of each gradient's own largest, and to the CPU as
+    # paths K-P are (1e-4 of the largest of all, 1e-2 of its own)
+    batch64 = (ei.coo.cpu().long(), *(
+        t.cpu().double() if t.is_floating_point() else t.cpu()
+        for t in first[1:]))
     res['first_batch_vs_cpu'] = sampled_parity(
         torch, tag, lambda d: saint_net(torch, d, seed), state,
-        (cpu_ei, *(t.cpu() for t in first[1:])), first, loss_of, PU_LR)
+        (cpu_ei, *(t.cpu() for t in first[1:])), first, loss_of, PU_LR,
+        batch64=batch64, own_tol=FLASH_OWN_TOL)
     w = first[2]
     rows, worst = kernel1_rows(torch, 'U', ei, [
         (f'weighted forward F={FLICKR_F}', ei.csc,
@@ -6897,6 +6929,12 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     from pytorch_geometric_tpu_torch import csrc
+    t_run = time.perf_counter()
+
+    def lap(what):
+        """The run's seconds so far, after a group of phases: where the
+        time limit goes."""
+        log(f'[time] {time.perf_counter() - t_run:.1f} s: {what} done')
 
     phase_device(torch)
     phase_build(csrc)
@@ -6910,6 +6948,7 @@ def main():
     path_a = phase_path_a(torch, args.seed, pa)
     path_b = phase_path_b(torch, args.seed)
     bsr_rows, seg_rows = phase_training_timings(torch, args.seed, pa)
+    lap('build, kernel checks, serving, paths A and B')
     del pa
     torch.cuda.empty_cache()
     pe = build_path_a(torch, args.seed, bf16=True)
@@ -6932,6 +6971,7 @@ def main():
     dot_rows, dot_sweep = phase_edge_dot_timings(torch, args.seed, pc,
                                                  path_i, path_d)
     bf16_rows = phase_bf16_timings(torch, args.seed, pe, pc)
+    lap('paths C-J and their timings')
     del pe
     worst_flash = phase_flash_vs_plain(torch, args.seed)
     paths_lm = phase_path_lm(torch, args.seed, pc, args.iters)
@@ -6943,16 +6983,20 @@ def main():
     log(f'[products] products_bench graph ({N_PRODUCTS} nodes, {E_PRODUCTS} '
         f'edges, seed {args.seed}) built on the host in '
         f'{time.perf_counter() - t0:.1f} s')
+    lap('the flash checks, paths L and M, the products graph')
     scan, sage, pr_data, pr_row = phase_scan_train(torch, args.seed, coo)
+    lap('the scan phase')
     layerwise, sampled_rows, worst_sampled = phase_layerwise(
         torch, args.seed, sage, pr_data, pr_row)
     del sage, pr_data, pr_row
     torch.cuda.empty_cache()
+    lap('layer-wise serving')
     path_k = phase_path_k(torch, args.seed, coo, args.iters)
     torch.cuda.empty_cache()
     flash_rows, worst_flash_t = phase_flash_timings(torch, args.seed, coo,
                                                     pc_coo)
     torch.cuda.empty_cache()
+    lap('path K and the flash timings')
     # the SpMM regimes: the arms forced by their knobs, then products
     # full-graph serving (R) and training (S) through fill_cache(auto=True)
     regime_arms, gradw_rows = phase_regime_arms(torch, args.seed)
@@ -6962,6 +7006,7 @@ def main():
     path_s, s_row = phase_path_s(torch, args.seed, coo, args.iters)
     del coo
     torch.cuda.empty_cache()
+    lap('the regime arms, paths R and S')
     # the heterogeneous paths on hetero_bench.py's graph: full scale for N,
     # P and Q, its default 0.25 for O
     t0 = time.perf_counter()
@@ -6977,10 +7022,13 @@ def main():
     path_p = phase_path_p(torch, args.seed, mag)
     path_q, q_rows, q_err = phase_path_q(torch, args.seed, mag)
     del mag
+    lap('paths N-Q')
     # the sampled subgraph loaders: Cluster-GCN at Reddit's shape (T) and
     # GraphSAINT at Flickr's (U)
     path_t, t_rows, t_err = phase_path_t(torch, args.seed)
+    lap('path T')
     path_u, u_rows, u_err = phase_path_u(torch, args.seed)
+    lap('path U')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],

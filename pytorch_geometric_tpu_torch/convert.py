@@ -16,7 +16,9 @@ The JAX package's names map one to one onto the port's:
     submodules and parameters as the flax modules do (GATConv's
     ``lin_src``, ``att_src``; TransformerConv's ``lin_query``, ``lin_key``,
     ``lin_value``, ``lin_edge``, ``lin_skip``, ``lin_beta``; SuperGATConv's
-    ``lin``, ``att_l``, ``att_r``, ``bias``; the hetero modules'
+    ``lin``, ``att_l``, ``att_r``, ``bias``; GraphConv's ``lin_rel`` and
+    ``lin_root``, ClusterGCNConv's ``lin_out`` and ``lin_root``; the hetero
+    modules'
     ``k_{t}``, ``a_rel_{edge type}``, ``skip_{t}``, ``proj_{t}``, ``q``,
     ``weight``, ``comp``, ``basis_coef``, ``layer_{i}`` ...). Only a
     ``kernel`` is transposed: the ``[R, F, C]`` banks, HGT's ``[H, D, D]``
