@@ -74,7 +74,8 @@ checks them:
  12. path D, GAT training on the same cell (cross-entropy, Adam 1e-2): ms
      per step, launches per step, a profile (a whole window, 9 mix
      launches and 3 launches of the per-edge dot kernel, ``grad_p_u``, per
-     step checked), and 3 steps held against the CPU plain path;
+     step checked), and 3 steps held against the CPU plain path on path
+     C's generator at 0.1 scale (``PD_SMALL``, the cap scaled with it);
  13. attention-kernel timings at path C's shapes: the mix at H*F = 256 and
      40, the stabiliser pass, the backward pass at 256 (yardstick: H
      ``torch.sparse.mm`` CSR calls, or ``torch.segment_reduce`` for the
@@ -136,7 +137,7 @@ checks them:
      profile, the output against the CPU plain path at 1e-4 of its largest;
  23. path J, the same stack trained with Adam on path D's labels: ms per
      step, launches (6 dot, 15 mix and the forward's combine passes per
-     step), a profile, 3 steps against the CPU plain path;
+     step), a profile, 3 steps against the CPU plain path at 0.1 scale;
  24. the dot kernel's timings at path I's shapes (edge order) and path D's
      (slot order, on the runs arm as path D's grad_p_u asks), H*F = 256
      (float32 and bf16) and 40, with its plain version,
@@ -358,6 +359,12 @@ FLASH_PER_STEP = {'flash_fwd': 2, 'flash_bwd_dst': 2, 'flash_bwd_src': 2}
 # path K's timed steps, and the scale of its check against the CPU; paths L
 # and M's
 PK_STEPS, PK_SMALL, PL_SMALL = 5, 0.01, 0.05
+# paths D and J: their 3 steps against the CPU run on path C's generator at
+# this share of its nodes and edges (the cap scaled with it), as paths K-M
+# and N-P hold theirs: at full size the CPU took 48 and 93 s of the time
+# limit; at full size the card's steps are held to the captured twin and
+# their kernels to the plain versions
+PD_SMALL = 0.1
 # paths K, L, M: besides 1e-4 of the largest gradient of all, each gradient
 # is held to this share of its own largest (``flash_parity``); the readings
 # it rests on are in PERF.md
@@ -2054,8 +2061,8 @@ def gat_parity_run(torch, state, x, ei, y, device, build=None, lr=TR_LR):
 
 def phase_path_d(torch, seed, pc):
     """GAT training on path C's cell: ms per step, launches per step, a
-    profile, 3 steps against the CPU plain path."""
-    from pytorch_geometric_tpu_torch import EdgeIndex
+    profile, 3 steps against the CPU plain path at ``PD_SMALL`` scale
+    (``small_parity``)."""
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
     y = torch.as_tensor(pc['y'], device='cuda')
@@ -2089,19 +2096,11 @@ def phase_path_d(torch, seed, pc):
     log(f"[path D] the dot kernel (grad_p_u) "
         f"{prof['edge_dot_ms_per_step']:.4f} ms per step, the mix "
         f"{prof['mix_ms_per_step']:.4f} ms; the step {ms:.4f} ms")
-    card = gat_parity_run(torch, state, x, ei, y, 'cuda')
-    ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
-                       device='cpu').fill_cache(blocked=True)
-    t0 = time.perf_counter()
-    cpu = gat_parity_run(torch, state, torch.from_numpy(pc['x']), ei_cpu,
-                         torch.from_numpy(pc['y']), 'cpu')
-    log(f'[path D] CPU plain path, {PARITY_STEPS} steps in '
-        f'{time.perf_counter() - t0:.1f} s')
     res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
            'steps': n_steps, 'launches': launches, 'launch_counts': counts,
            'launches_per_step': launches / n_steps, 'peak_memory_gb': peak}
     res.update(prof)
-    res['parity'] = check_parity(torch, 'path D', card, cpu, True)
+    res['parity'] = small_parity(torch, 'path D', gat_model, state, seed)
     res['captured'] = captured_training(
         torch, 'path D captured', lambda: from_state(
             torch, lambda: gat_model(torch, None, seed), state),
@@ -2532,9 +2531,8 @@ def phase_path_j(torch, seed, pc):
     """Path I's stack trained with Adam (labels as path D's): ms per step,
     launches (``DOT_PER_STEP`` dot, ``dot_combines`` combine and
     ``PI_MIX_PER_STEP`` mix launches per step), a profile, 3 steps against
-    the CPU plain path (losses and first-step gradients at 1e-4); then the
-    step captured."""
-    from pytorch_geometric_tpu_torch import EdgeIndex
+    the CPU plain path at ``PD_SMALL`` scale (losses and first-step
+    gradients at 1e-4, ``small_parity``); then the step captured."""
     ei = pc['ei']
     x = torch.as_tensor(pc['x'], device='cuda')
     y = torch.as_tensor(pc['y'], device='cuda')
@@ -2565,14 +2563,6 @@ def phase_path_j(torch, seed, pc):
     check_counts('path J', counts, {k: n * n_steps
                                     for k, n in per_step.items()},
                  f'{n_steps} steps')
-    card = gat_parity_run(torch, state, x, ei, y, 'cuda', transformer_model)
-    ei_cpu = EdgeIndex(pc['coo'], (PC_NODES, PC_NODES),
-                       device='cpu').fill_cache(blocked=True)
-    t0 = time.perf_counter()
-    cpu = gat_parity_run(torch, state, torch.from_numpy(pc['x']), ei_cpu,
-                         torch.from_numpy(pc['y']), 'cpu', transformer_model)
-    log(f'[path J] CPU plain path, {PARITY_STEPS} steps in '
-        f'{time.perf_counter() - t0:.1f} s')
     res = {'ms_per_step': ms, 'host_enqueue_ms_per_step': enqueue_ms,
            'steps': n_steps, 'launches': counts['edge_dot'],
            'launch_counts': counts,
@@ -2581,8 +2571,8 @@ def phase_path_j(torch, seed, pc):
     res.update(prof)
     # the softmax cancels a shift of every score of a destination, so the
     # key biases' gradients are 0 but for rounding
-    res['parity'] = check_parity(torch, 'path J', card, cpu, True,
-                                 cancelled=('lin_key.bias',))
+    res['parity'] = small_parity(torch, 'path J', transformer_model, state,
+                                 seed, cancelled=('lin_key.bias',))
     res['captured'] = captured_training(
         torch, 'path J captured', lambda: from_state(
             torch, lambda: transformer_model(torch, None, seed), state),
@@ -4187,6 +4177,30 @@ def scaled_cap(scale):
                 os.environ['PGT_ATTN_WIDE_BYTES'] = old
 
     return ctx()
+
+
+def small_parity(torch, tag, build, state, seed, scale=PD_SMALL,
+                 cancelled=()):
+    """``PARITY_STEPS`` steps of ``build``'s model from ``state`` on path
+    C's generator at ``scale`` (``small_path_c``) with its slot orders, on
+    the card and on the CPU, the cap scaled with it: ``check_parity``'s
+    losses and first-step gradients at 1e-4 of their own largest."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    coo, x, y = small_path_c(seed, scale)
+    n = len(x)
+    runs = []
+    t0 = time.perf_counter()
+    with scaled_cap(scale):
+        for dev in ('cuda', 'cpu'):
+            ei = EdgeIndex(coo, (n, n), device=dev).fill_cache(blocked=True)
+            runs.append(gat_parity_run(
+                torch, state, torch.as_tensor(x, device=dev), ei,
+                torch.as_tensor(y, device=dev), dev, build))
+    log(f'[{tag}] {PARITY_STEPS} steps on the card and the CPU plain path at '
+        f'{scale} scale ({n} nodes, {coo.shape[1]} edges) in '
+        f'{time.perf_counter() - t0:.1f} s')
+    return check_parity(torch, f'{tag} at {scale} scale', *runs, True,
+                        cancelled=cancelled)
 
 
 def small_path_c(seed, scale):
