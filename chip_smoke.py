@@ -6926,6 +6926,725 @@ def phase_path_u(torch, seed):
     return res, rows, worst
 
 
+# -- paths V and W: graph-level models at ZINC's and COLLAB's shapes -----------
+# ZINC's subset as PyG's examples/pna.py trains on it (the PNA paper's and
+# the benchmarking-GNNs suite's setting): 10,000 training graphs of 9-37
+# atoms, 23.2 on average, 49.8 directed bond edges a graph on average
+# (both directions stored), atom types in [0, 21), bond types in [1, 4),
+# one float target a graph. The graphs are generated: a random spanning
+# tree plus Poisson ring closures.
+ZINC_TRAIN, ZINC_MIN, ZINC_MAX = 10_000, 9, 37
+ZINC_MEAN_NODES, ZINC_MEAN_EDGES = 23.2, 49.8
+ZINC_ATOMS, ZINC_BONDS = 21, 4
+# examples/pna.py's model and protocol: Embedding(21, 75), Embedding(4, 50),
+# 4 x PNAConv(75, towers=5, edge_dim=50) each with BatchNorm(75) and ReLU,
+# global_add_pool, MLP 75 -> 50 -> 25 -> 1; L1 loss, Adam 1e-3, batch 128
+PV_HIDDEN, PV_EDGE_DIM, PV_LAYERS, PV_TOWERS = 75, 50, 4, 5
+PV_AGGREGATORS = ('mean', 'min', 'max', 'std')
+PV_SCALERS = ('identity', 'amplification', 'attenuation')
+PV_MLP = (50, 25, 1)
+PV_BATCH, PV_STEPS, PV_EVAL_BATCHES, PV_LR = 128, 10, 4, 1e-3
+# COLLAB's shape (TUDataset, as PyG's benchmark/kernel runs GIN-0 on it):
+# 5,000 graphs of 32-492 nodes, 74.49 on average, 2,457.78 undirected
+# edges on average (stored both ways), one-hot degree features 492 wide
+# (the largest degree is 491), 3 classes. Generated: sizes 32 plus an
+# exponential tail, each graph a uniform draw of pairs at one density
+COLLAB_GRAPHS, COLLAB_MIN, COLLAB_MAX = 5000, 32, 492
+COLLAB_MEAN_NODES, COLLAB_MEAN_PAIRS = 74.49, 2457.78
+COLLAB_F, COLLAB_C = 492, 3
+# GIN-0 (Xu et al., ICLR 2019) at its widths: 5 layers, hidden 64, batch
+# norm, the 5 layers' outputs concatenated (320), global_add_pool, Linear
+# 320 -> 3, cross-entropy, Adam 0.01, batch 128
+PW_HIDDEN, PW_LAYERS, PW_BATCH, PW_STEPS, PW_EVAL_BATCHES, PW_LR = (
+    64, 5, 128, 10, 4, 0.01)
+
+
+def zinc_like(num_graphs=ZINC_TRAIN, seed=0):
+    """Path V's graphs: a list of ``(atoms [n] int64, coo [2, E] int32,
+    bonds [E] int64, y [1] float32)``, each bond stored both ways with its
+    type on both. Sizes are a normal of ZINC's mean and spread clipped to
+    its range; the bonds a chain-like spanning tree (atom i bonds to one of
+    the few atoms before it) plus Poisson ring closures between atoms of
+    fewer than 4 bonds, so the mean comes to ZINC's 49.8 directed edges."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.normal(ZINC_MEAN_NODES, 4.5, num_graphs)),
+                    ZINC_MIN, ZINC_MAX).astype(np.int64)
+    closures = ZINC_MEAN_EDGES / 2 - (sizes.mean() - 1)
+    atom_p = 1.0 / np.arange(1, ZINC_ATOMS + 1) ** 2
+    atom_p /= atom_p.sum()
+    graphs = []
+    for n in sizes:
+        i = np.arange(1, n)
+        src = list(np.maximum(i - rng.geometric(0.6, n - 1), 0))
+        dst = list(i)
+        deg = np.bincount(src + dst, minlength=n)
+        have = set(zip(src, dst)) | set(zip(dst, src))
+        want, tries = rng.poisson(closures), 0
+        while want and tries < 50:
+            tries += 1
+            a, b = (int(v) for v in rng.integers(0, n, 2))
+            if a != b and (a, b) not in have and max(deg[a], deg[b]) < 4:
+                have |= {(a, b), (b, a)}
+                deg[[a, b]] += 1
+                src.append(a)
+                dst.append(b)
+                want -= 1
+        src, dst = np.asarray(src), np.asarray(dst)
+        bonds = rng.choice(np.arange(1, ZINC_BONDS), len(src),
+                           p=[0.6, 0.3, 0.1])
+        graphs.append((
+            rng.choice(ZINC_ATOMS, n, p=atom_p).astype(np.int64),
+            np.stack([np.concatenate([src, dst]),
+                      np.concatenate([dst, src])]).astype(np.int32),
+            np.concatenate([bonds, bonds]).astype(np.int64),
+            rng.standard_normal(1).astype(np.float32)))
+    return graphs
+
+
+def pna_degree_stats(graphs):
+    """PNA's degree statistics of a training set, as PyG's
+    ``PNAConv.get_degree_histogram`` and ``DegreeScalerAggregation`` take
+    them: the histogram of in-degrees over every node, then ``avg_deg_lin``
+    = E[deg] and ``avg_deg_log`` = E[log(deg + 1)] under it. Returns
+    ``(histogram, avg_deg_log, avg_deg_lin)``."""
+    hist = np.zeros(1, np.int64)
+    for atoms, coo, _, _ in graphs:
+        d = np.bincount(coo[1], minlength=len(atoms))
+        h = np.bincount(d)
+        if len(h) > len(hist):
+            hist = np.pad(hist, (0, len(h) - len(hist)))
+        hist[:len(h)] += h
+    bins = np.arange(len(hist), dtype=np.float64)
+    total = float(hist.sum())
+    return (hist, float((np.log(bins + 1) * hist).sum() / total),
+            float((bins * hist).sum() / total))
+
+
+def collab_like(seed=0):
+    """Path W's dataset plan: each graph's size, undirected pair count and
+    label, for ``collab_graph`` to build on demand."""
+    rng = np.random.default_rng(seed)
+    tail = rng.exponential(1.0, COLLAB_GRAPHS)
+    tail *= (COLLAB_MEAN_NODES - COLLAB_MIN) / tail.mean()
+    sizes = np.clip(COLLAB_MIN + np.round(tail), COLLAB_MIN,
+                    COLLAB_MAX).astype(np.int64)
+    full = sizes * (sizes - 1) // 2
+    density = COLLAB_MEAN_PAIRS * COLLAB_GRAPHS / full.sum()
+    pairs = np.minimum(np.round(density * full), full).astype(np.int64)
+    return sizes, pairs, rng.integers(0, COLLAB_C, COLLAB_GRAPHS)
+
+
+def collab_graph(i, plan, seed=0):
+    """Graph ``i`` of ``collab_like``'s plan: ``(x [n, 492] one-hot degree,
+    coo [2, 2 * pairs] int32, y [1])``, its pairs a uniform draw without
+    repeats, each stored both ways."""
+    sizes, pairs, labels = plan
+    n, m = int(sizes[i]), int(pairs[i])
+    rng = np.random.default_rng([seed, i])
+    a, b = np.triu_indices(n, 1)
+    pick = rng.choice(len(a), m, replace=False)
+    coo = np.stack([np.concatenate([a[pick], b[pick]]),
+                    np.concatenate([b[pick], a[pick]])]).astype(np.int32)
+    x = np.zeros((n, COLLAB_F), np.float32)
+    x[np.arange(n), np.bincount(coo[1], minlength=n)] = 1.0
+    return x, coo, labels[i:i + 1]
+
+
+def pna_zinc_net(torch, device, seed, avg_deg_log, avg_deg_lin,
+                 hidden=PV_HIDDEN, edge_dim=PV_EDGE_DIM, layers=PV_LAYERS,
+                 towers=PV_TOWERS, mlp=PV_MLP):
+    """Path V's model (PyG's examples/pna.py): atom and bond embeddings,
+    ``layers`` x (PNAConv, BatchNorm, ReLU), ``global_add_pool``, the MLP;
+    called as ``model(atoms, coo, bonds, batch, num_graphs)``, one output a
+    graph."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn import MLP, BatchNorm, PNAConv
+    from pytorch_geometric_tpu_torch.nn.pool import global_add_pool
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+
+    def embedding(num, dim):
+        emb = torch.nn.Embedding(num, dim)
+        with torch.no_grad():
+            emb.weight.copy_(torch.randn((num, dim), generator=g)
+                             / math.sqrt(dim))
+        return emb.to(device)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.node_emb = embedding(ZINC_ATOMS, hidden)
+            self.edge_emb = embedding(ZINC_BONDS, edge_dim)
+            self.convs = torch.nn.ModuleList(
+                PNAConv(hidden, hidden, PV_AGGREGATORS, PV_SCALERS,
+                        avg_deg_log=avg_deg_log, avg_deg_lin=avg_deg_lin,
+                        towers=towers, edge_dim=edge_dim, device=device,
+                        generator=g) for _ in range(layers))
+            self.norms = torch.nn.ModuleList(
+                BatchNorm(hidden, device=device) for _ in range(layers))
+            self.mlp = MLP(hidden, list(mlp), device=device, generator=g)
+
+        def forward(self, atoms, coo, bonds, batch, num_graphs):
+            x = self.node_emb(atoms.long())
+            e = self.edge_emb(bonds.long())
+            for conv, norm in zip(self.convs, self.norms):
+                x = torch.relu(norm(conv(x, coo, e)))
+            return self.mlp(global_add_pool(x, batch, num_graphs))[:, 0]
+
+    return Net()
+
+
+def gin_collab_net(torch, device, seed, in_channels=COLLAB_F,
+                   hidden=PW_HIDDEN, layers=PW_LAYERS, classes=COLLAB_C):
+    """Path W's model (GIN-0 at the GIN paper's widths): the port's ``GIN``
+    with batch norm and the layers' outputs concatenated,
+    ``global_add_pool``, a Linear to the classes; called as ``model(x, ei,
+    batch, num_graphs)`` with an ``EdgeIndex`` ``ei`` (GIN then aggregates
+    on kernel 1)."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.nn.models import GIN
+    from pytorch_geometric_tpu_torch.nn.pool import global_add_pool
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.gnn = GIN(in_channels, hidden, layers, norm='batch_norm',
+                           jk='cat', device=device, generator=g)
+            self.lin = linear(hidden * layers, classes, device=device,
+                              generator=g)
+
+        def forward(self, x, ei, batch, num_graphs):
+            return self.lin(global_add_pool(self.gnn(x, ei), batch,
+                                            num_graphs))
+
+    return Net()
+
+
+def synced_parity(torch, tag, build, state, batch_card, batch_cpu, batch64,
+                  loss_of, lr):
+    """``PARITY_STEPS`` Adam steps from ``state`` on one batch on the card;
+    before each, a CPU model takes the card's parameters (its running
+    statistics stay its own, updated by its own forwards in training mode)
+    and its loss and gradients on the same batch are held to the card's:
+    losses within 1e-4 relative, first-step gradients within 1e-4 of the
+    largest of all and 1e-2 of their own (``check_parity``'s
+    ``own_tol``), or within 1e-4 of the largest of all where the gradient
+    vanishes (its largest under 1e-6 of all: the bias of a layer that a
+    batch norm follows, whose shift the norm removes; ``check_parity``'s
+    ``cancelled``). With ``batch64``, the first step's gradients are also
+    taken in float64 on the CPU, which then decides what vanishes: each of
+    the card's within 1e-4 of its own largest from them, or within 1e-6 of
+    the largest of all where that is more (a tensor whose terms cancel in
+    part, as the first Linear's bias in a GIN MLP that a batch norm
+    follows: float32 leaves rounding noise of about 1e-7 of the cancelling
+    terms, which on an H100 came to 1.4e-4 of such a tensor's own largest
+    at path W's first batch). After the steps, every running statistic
+    within 1e-4 * max(1, max|CPU|) of the CPU's.
+
+    The CPU model runs at the card's parameters at every step, rather than
+    stepping on its own: Adam's first steps move each parameter by about
+    ``lr`` whatever the size of its gradient, so the cancelled gradients
+    (rounding noise of random sign on each device) would move the two runs
+    apart by ``lr`` a step in parameters that a later batch does feel."""
+    card = build('cuda')
+    card.load_state_dict({k: v.cuda() for k, v in state.items()})
+    cpu = build('cpu')
+    cpu.load_state_dict(state)
+    card.train()
+    cpu.train()
+    opt = torch.optim.Adam(card.parameters(), lr=lr)
+    l_card, l_cpu = [], []
+    for i in range(PARITY_STEPS):
+        params = {k: v.detach().cpu() for k, v in card.named_parameters()}
+        cpu.load_state_dict(params, strict=False)
+        for model, batch, losses in ((card, batch_card, l_card),
+                                     (cpu, batch_cpu, l_cpu)):
+            model.zero_grad(set_to_none=True)
+            loss = loss_of(model, *batch)
+            loss.backward()
+            losses.append(loss.item())
+        if i == 0:
+            g_card = {k: g.cpu() for k, g in grads_of(torch, card).items()}
+            g_cpu = grads_of(torch, cpu)
+        if i == 0 and batch64 is not None:
+            m64 = build('cpu').double()
+            m64.load_state_dict(params, strict=False)
+            m64.train()
+            loss_of(m64, *batch64).backward()
+            g64 = grads_of(torch, m64)
+        opt.step()
+    ref_g = g_cpu if batch64 is None else g64
+    largest = max(float(g.abs().max()) for g in ref_g.values())
+    cancelled = sorted(k for k, g in ref_g.items()
+                       if float(g.abs().max()) <= 1e-6 * largest)
+    worst64 = None
+    if batch64 is not None:
+        worst64 = 0.0
+        for k, ref in g64.items():
+            d = float((g_card[k].double() - ref).abs().max())
+            lim = max(1e-4 * float(ref.abs().max()), 1e-6 * largest)
+            worst64 = max(worst64, d / lim * 1e-4)
+            check(d <= lim, f'{tag}: first-step gradient of {k} is {d} '
+                            f'from float64 (limit {lim})')
+        log(f'[{tag}] first-step gradients against float64 on the CPU: '
+            f'worst {worst64:.3e} of each tensor\'s largest (or 1e-2 of '
+            'the largest of all)')
+    log(f'[{tag}] {len(cancelled)} cancelled tensors (largest gradient '
+        f'under 1e-6 of all): {cancelled}')
+    out = check_parity(torch, tag, (l_card, g_card), (l_cpu, g_cpu),
+                       grads_too=True, cancelled=cancelled,
+                       own_tol=FLASH_OWN_TOL)
+    out['grad_worst_vs_float64'] = worst64
+    out['cancelled'] = cancelled
+    worst_stat = 0.0
+    cpu_bufs = dict(cpu.named_buffers())
+    for k, buf in card.named_buffers():
+        if 'running' not in k:
+            continue
+        ref = cpu_bufs[k]
+        d = float((buf.cpu() - ref).abs().max())
+        lim = 1e-4 * max(1.0, float(ref.abs().max()))
+        worst_stat = max(worst_stat, d / lim * 1e-4)
+        check(d <= lim, f'{tag}: {k} differs from the CPU by {d} (limit '
+                        f'{lim})')
+    log(f'[{tag}] running statistics after {PARITY_STEPS} steps: worst '
+        f'{worst_stat:.3e} of max(1, max|CPU|)')
+    out['running_stats_rel_diff'] = worst_stat
+    return out
+
+
+def eval_batches(torch, loader, prepare, metric, batches):
+    """``batches`` eval-mode forwards (running statistics) without
+    gradients; the metric of each, all finite."""
+    vals = []
+    with torch.no_grad():
+        for _, batch in zip(range(batches), loader):
+            vals.append(float(metric(*prepare(batch))))
+    check(all(math.isfinite(v) for v in vals), f'eval metrics {vals}')
+    return vals
+
+
+def graph_path_result(torch, tag, host_ms, card_ms, losses, per_step,
+                      prof_rows, prof_ms):
+    """The common part of paths V's and W's records, and its log line."""
+    busy = sum(t for _, t, _ in prof_rows)
+    res = {'steps': len(losses), 'losses': losses,
+           'host_ms_per_batch': host_ms, 'card_ms_per_step': card_ms,
+           'launches_per_step': per_step,
+           'device_busy_ms_per_step': busy, 'profiled_ms_per_step': prof_ms,
+           'kernel1_ms_per_step': sum(t for name, t, _ in prof_rows
+                                      if SEG_MAIN in name),
+           'kernels_per_step': [[name[:80], t, c]
+                                for name, t, c in prof_rows[:8]]}
+    res['device_idle_share_unprofiled'] = 1 - busy / float(
+        np.median(card_ms[1:]))
+    log(f'[{tag}] per batch the host takes {np.median(host_ms):.2f} ms '
+        f'(median; {host_ms}), the card runs a step in '
+        f'{np.median(card_ms[1:]):.4f} ms (CUDA events, median after the '
+        f'first; {card_ms}), busy {busy:.4f} ms (torch.profiler), idle '
+        f"{res['device_idle_share_unprofiled']:.3f}, kernel 1 "
+        f"{res['kernel1_ms_per_step']:.4f} ms, launches a step {per_step}; "
+        f'losses {losses}')
+    for name, t, c in prof_rows[:8]:
+        log(f'[{tag}]   {t:.4f} ms  x{c:g}  {name[:90]}')
+    return res
+
+
+def phase_path_v(torch, seed):
+    """Path V: PNA at PyG's examples/pna.py configuration on ZINC's shape.
+    ``zinc_like`` (10,000 training graphs) on the host, PNA's degree
+    statistics from its in-degree histogram; ``DataLoader(batch_size=128,
+    shuffle=True, pad=False)``; ``pna_zinc_net`` (4 x PNAConv(75, towers=5,
+    edge_dim=50) with BatchNorm and ReLU, sum pooling, MLP 75 -> 50 -> 25
+    -> 1), L1 loss, Adam 1e-3, ``PV_STEPS`` eager steps on the card: host
+    ms a batch, card ms a step, no port kernel launched (PNA's reductions
+    are ``index_add_`` / ``scatter_reduce_``, as the JAX package's are XLA
+    segment ops), a whole-window profile and the idle share; then
+    ``PV_EVAL_BATCHES`` eval-mode batches (running statistics); the first
+    batch's 3 steps against the CPU (``synced_parity``)."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import DataLoader
+    tag = 'path V'
+    t0 = time.perf_counter()
+    graphs = zinc_like(ZINC_TRAIN, seed)
+    hist, log_avg, lin_avg = pna_degree_stats(graphs)
+    data = [Data(x=a, edge_index=c, edge_attr=b, y=y, num_nodes=len(a))
+            for a, c, b, y in graphs]
+    gen_s = time.perf_counter() - t0
+    nodes = float(np.mean([len(g[0]) for g in graphs]))
+    edges = float(np.mean([g[1].shape[1] for g in graphs]))
+    log(f'[{tag}] zinc_like: {len(graphs)} graphs, {nodes:.2f} nodes and '
+        f'{edges:.2f} directed edges a graph, built in {gen_s:.2f} s; '
+        f'in-degree histogram {hist.tolist()}, avg_deg_log {log_avg:.6f}, '
+        f'avg_deg_lin {lin_avg:.6f}')
+    loader = DataLoader(data, batch_size=PV_BATCH, shuffle=True, pad=False,
+                        seed=seed)
+
+    def prepare(batch):
+        return (batch.x.to('cuda'), batch.edge_index.coo.to('cuda'),
+                batch.edge_attr.to('cuda'), batch.batch.to('cuda'),
+                batch.y.to('cuda'), batch.num_graphs)
+
+    def loss_of(model, atoms, coo, bonds, bvec, y, ng):
+        return (model(atoms, coo, bonds, bvec, ng) - y).abs().mean()
+
+    def build(device):
+        return pna_zinc_net(torch, device, seed, log_avg, lin_avg)
+
+    model = build(None)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PV_LR)
+
+    def step(*batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, iter(loader), prepare, step, PV_STEPS)
+    counts = launch_counts()
+    check_counts(tag, counts, {}, f'{PV_STEPS} steps')
+    steps_s = time.perf_counter() - t0
+    # one step a profiled window: a step's ~3,000 launches make the
+    # profiler's own bookkeeping the slowest part of the phase
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 1)
+    prof_s = time.perf_counter() - t0 - steps_s
+    res = graph_path_result(torch, tag, host_ms, card_ms, losses, per_step,
+                            prof_rows, prof_ms)
+    res.update(graphs=len(graphs), nodes_per_graph=nodes,
+               edges_per_graph=edges, build_s=gen_s,
+               degree_histogram=hist.tolist(), avg_deg_log=log_avg,
+               avg_deg_lin=lin_avg, launch_counts=counts,
+               first_batch={'graphs': first[5], 'nodes': len(first[0]),
+                            'edges': first[1].shape[1]})
+    model.eval()
+    res['eval_mae'] = eval_batches(
+        torch, DataLoader(data, batch_size=PV_BATCH, pad=False), prepare,
+        lambda a, c, b, bv, y, ng: (model(a, c, b, bv, ng) - y).abs().mean(),
+        PV_EVAL_BATCHES)
+    log(f"[{tag}] eval-mode MAE over {PV_EVAL_BATCHES} batches "
+        f"{res['eval_mae']}")
+    # no float64 reference here: the std aggregator's E[x^2] - E[x]^2 in
+    # float32 leaves rounding noise (up to ~1e-7 of E[x^2]) where a node's
+    # messages are equal, the 1e-5 clamp and the sqrt then magnify it, and
+    # float64 (with no such noise) sits 1e-3-1e-2 away in the loss on
+    # zinc_like's batches; the card and the CPU compute the same float32
+    # formula, and are held to each other
+    cpu_batch = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                      for t in first)
+    t0 = time.perf_counter()
+    res['first_batch_vs_cpu'] = synced_parity(
+        torch, tag, build, state, first, cpu_batch, None, loss_of, PV_LR)
+    res['phase_s'] = {'build': gen_s, 'steps': steps_s, 'profile': prof_s,
+                      'cpu_parity': time.perf_counter() - t0}
+    log(f"[{tag}] seconds: {res['phase_s']}")
+    del data, loader, model, opt, first
+    torch.cuda.empty_cache()
+    return res
+
+
+class CollabSet:
+    """Path W's dataset: graph ``i`` of ``collab_like``'s plan, built on the
+    host when the loader asks for it."""
+
+    def __init__(self, plan, seed, data_cls):
+        self.plan, self.seed, self.data_cls = plan, seed, data_cls
+
+    def __len__(self):
+        return len(self.plan[0])
+
+    def __getitem__(self, i):
+        x, coo, y = collab_graph(i, self.plan, self.seed)
+        return self.data_cls(x=x, edge_index=coo, y=y, num_nodes=len(x))
+
+
+def phase_path_w(torch, seed):
+    """Path W: GIN-0 at the GIN paper's widths on COLLAB's shape
+    (``benchmark/kernel``'s protocol). ``collab_like`` (5,000 graphs, each
+    built on the host when its batch asks for it: one-hot degree features
+    492 wide); ``DataLoader(batch_size=128, shuffle=True, pad=False)``, each
+    batch's ``EdgeIndex`` with its CSC and CSR built on the card;
+    ``gin_collab_net`` (GIN 492 -> 64 x 5 with batch norm and ``jk='cat'``,
+    sum pooling, Linear 320 -> 3), cross-entropy, Adam 0.01, ``PW_STEPS``
+    eager steps: host ms a batch, card ms a step, kernel 1 nine times a
+    step (5 forward, 4 ``A^T g``: x needs no gradient), a whole-window
+    profile and the idle share; ``PW_EVAL_BATCHES`` eval-mode batches; the
+    first batch's 3 steps against the CPU (``synced_parity``); kernel 1 at
+    the first batch's shapes (F = 492 and 64 forward, 64 ``A^T g``) against
+    its plain version and timed."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.loader import DataLoader
+    tag = 'path W'
+    plan = collab_like(seed)
+    dataset = CollabSet(plan, seed, Data)
+    log(f'[{tag}] collab_like: {len(dataset)} graphs, '
+        f'{plan[0].mean():.2f} nodes and {plan[1].mean():.2f} undirected '
+        f'edges a graph ({plan[0].min()}-{plan[0].max()} nodes), '
+        f'{COLLAB_F} one-hot degree features, {COLLAB_C} classes')
+    loader = DataLoader(dataset, batch_size=PW_BATCH, shuffle=True,
+                        pad=False, seed=seed)
+
+    def prepare(batch):
+        n = batch.num_nodes
+        ei = EdgeIndex(batch.edge_index.coo.to('cuda'), (n, n)).fill_cache(
+            blocked=False)
+        return (batch.x.to('cuda'), ei, batch.batch.to('cuda'),
+                batch.y.to('cuda').long(), batch.num_graphs)
+
+    def loss_of(model, x, ei, bvec, y, ng):
+        return torch.nn.functional.cross_entropy(model(x, ei, bvec, ng), y)
+
+    def build(device):
+        return gin_collab_net(torch, device, seed)
+
+    model = build(None)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PW_LR)
+
+    def step(*batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    per_step_want = {'segment_spmm': 2 * PW_LAYERS - 1}
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, iter(loader), prepare, step, PW_STEPS)
+    counts = launch_counts()
+    check(per_step == per_step_want,
+          f'{tag}: launches in the first step {per_step}')
+    check_counts(tag, counts, {k: v * PW_STEPS
+                               for k, v in per_step_want.items()},
+                 f'{PW_STEPS} steps')
+    prof_rows, prof_ms, _ = whole_window(
+        torch, lambda: step(*first), 3,
+        expect={SEG_MAIN: per_step_want['segment_spmm']})
+    res = graph_path_result(torch, tag, host_ms, card_ms, losses, per_step,
+                            prof_rows, prof_ms)
+    ei = first[1]
+    res.update(graphs=len(dataset), nodes_per_graph=float(plan[0].mean()),
+               edges_per_graph=2 * float(plan[1].mean()),
+               launch_counts=counts,
+               first_batch={'graphs': first[4], 'nodes': ei.num_src_nodes,
+                            'edges': ei.num_edges})
+    model.eval()
+    res['eval_accuracy'] = eval_batches(
+        torch, DataLoader(dataset, batch_size=PW_BATCH, pad=False), prepare,
+        lambda x, e, bv, y, ng: (model(x, e, bv, ng).argmax(-1) == y).float()
+        .mean(), PW_EVAL_BATCHES)
+    log(f"[{tag}] first batch {first[4]} graphs, {ei.num_src_nodes} nodes, "
+        f"{ei.num_edges} edges; eval-mode accuracy over {PW_EVAL_BATCHES} "
+        f"batches {res['eval_accuracy']}")
+    cpu_ei = EdgeIndex(ei.coo.cpu(), ei.sparse_size,
+                       device='cpu').fill_cache(blocked=False)
+    cpu_batch = (first[0].cpu(), cpu_ei, first[2].cpu(), first[3].cpu(),
+                 first[4])
+    batch64 = (first[0].cpu().double(), ei.coo.cpu().long(),
+               *cpu_batch[2:])
+    res['first_batch_vs_cpu'] = synced_parity(
+        torch, tag, build, state, first, cpu_batch, batch64, loss_of, PW_LR)
+    rows, worst = kernel1_rows(torch, 'W', ei, [
+        (f'forward F={COLLAB_F}', ei.csc, None, first[0]),
+        (f'forward F={PW_HIDDEN}', ei.csc, None, PW_HIDDEN),
+        (f'A^T g F={PW_HIDDEN}', ei.csr, None, PW_HIDDEN)], seed + 61)
+    del loader, model, opt, first
+    torch.cuda.empty_cache()
+    return res, rows, worst
+
+
+def module_cases(torch, seed):
+    """Each convolution, aggregation, norm and pooling function of the
+    graph-level slice with its inputs: ``(name, build(device), run(module,
+    x, inputs))``, ``inputs`` a dict of CPU tensors that ``run`` moves with
+    x. One small graph: 2,000 nodes, 20,000 edges plus 64 padded ones at
+    the sentinel (masked), F = 32, 8 graphs."""
+    from pytorch_geometric_tpu_torch.nn import aggr, conv, norm, pool
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.nn.models import MLP
+    n, e, f, pad, graphs = 2000, 20_000, 32, 64, 8
+    rng = np.random.default_rng(seed + 70)
+    coo = np.concatenate([rng.integers(0, n, (2, e)),
+                          np.full((2, pad), n)], 1)
+    inputs = {
+        'coo': torch.as_tensor(coo),
+        'mask': torch.as_tensor(np.concatenate([rng.random(e) < 0.9,
+                                                np.zeros(pad, bool)])),
+        'ea': torch.as_tensor(rng.standard_normal((e + pad, 8)),
+                              dtype=torch.float32),
+        'etype': torch.as_tensor(rng.integers(0, 3, e + pad)),
+        'batch': torch.as_tensor(np.sort(rng.integers(0, graphs, n))),
+        'types': torch.as_tensor(rng.integers(0, 3, n)),
+        'msg': torch.as_tensor(rng.standard_normal((n, f)),
+                               dtype=torch.float32)}
+
+    def g(device):
+        return dict(device=device,
+                    generator=torch.Generator().manual_seed(seed + 71))
+
+    def mp(m, x, d):
+        return m(x, d['coo'], edge_mask=d['mask'])
+
+    def aggr_run(m, x, d):
+        return m(x, d['batch'], graphs)
+
+    cases = [
+        ('GINEConv', lambda dev: conv.GINEConv(
+            MLP(f, [f, f], **g(dev)), train_eps=True, edge_dim=8,
+            generator=g(dev)['generator']),
+         lambda m, x, d: m(x, d['coo'], d['ea'], edge_mask=d['mask'])),
+        ('GENConv softmax', lambda dev: conv.GENConv(
+            f, 24, learn_t=True, msg_norm=True, learn_msg_scale=True,
+            edge_dim=8, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['ea'], d['mask'])),
+        ('GENConv powermean', lambda dev: conv.GENConv(
+            f, f, aggr_mode='powermean', learn_p=True, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], None, d['mask'])),
+        ('FiLMConv', lambda dev: conv.FiLMConv(f, 24, num_relations=3,
+                                               **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['etype'], d['mask'])),
+        ('PDNConv', lambda dev: conv.PDNConv(f, 24, edge_dim=8, **g(dev)),
+         lambda m, x, d: m(x, d['coo'][:, :e], d['ea'][:e])),
+        ('GeneralConv', lambda dev: conv.GeneralConv(
+            f, 24, in_edge_channels=8, attention=True, directed_msg=False,
+            **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['ea'], d['mask'])),
+        ('PNAConv', lambda dev: conv.PNAConv(
+            f, 24, towers=2, edge_dim=8, avg_deg_log=2.3, avg_deg_lin=10.0,
+            **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['ea'], d['mask'])),
+        ('EGConv', lambda dev: conv.EGConv(
+            f, 24, aggregators=('symnorm', 'max', 'std'), num_heads=4,
+            **g(dev)),
+         lambda m, x, d: m(x, d['coo'][:, :e])),
+        ('EdgeConv', lambda dev: conv.EdgeConv(MLP(2 * f, [24, 24],
+                                                   **g(dev))), mp),
+    ]
+    def edge_run(m, x, d):
+        # per-edge rows into each destination (about 10 a segment, so a
+        # product stays finite)
+        return m(x[d['coo'][0].clamp(max=n - 1)],
+                 d['coo'][1].clamp(max=n - 1), n, d['mask'])
+
+    for name in ('sum', 'mean', 'max', 'min', 'mul', 'var', 'std',
+                 'softmax', 'powermean', 'variance_preserving'):
+        cases.append((f'aggr {name}',
+                      lambda dev, name=name: aggr.aggregation_resolver(name),
+                      edge_run if name == 'mul' else aggr_run))
+    cases += [
+        ('aggr MultiAggregation proj', lambda dev: aggr.MultiAggregation(
+            ('mean', 'max', 'std'), mode='proj', in_channels=3 * f,
+            **g(dev)), aggr_run),
+        ('aggr DegreeScalerAggregation', lambda dev:
+         aggr.DegreeScalerAggregation(scaler=(
+             'identity', 'amplification', 'attenuation', 'linear',
+             'inverse_linear'), avg_deg_log=2.3, avg_deg_lin=10.0),
+         edge_run),
+        ('aggr AttentionalAggregation', lambda dev:
+         aggr.AttentionalAggregation(linear(f, 1, **g(dev)),
+                                     linear(f, 16, **g(dev))), aggr_run),
+        ('aggr Set2Set', lambda dev: aggr.Set2Set(f, 3, **g(dev)),
+         aggr_run),
+        ('aggr DeepSetsAggregation', lambda dev: aggr.DeepSetsAggregation(
+            linear(f, 16, **g(dev)), linear(16, 8, **g(dev))), aggr_run),
+        ('norm BatchNorm', lambda dev: norm.BatchNorm(f, device=dev),
+         lambda m, x, d: m(x)),
+        ('norm DiffGroupNorm', lambda dev: norm.DiffGroupNorm(f, **g(dev)),
+         lambda m, x, d: m(x)),
+        ('norm HeteroBatchNorm', lambda dev: norm.HeteroBatchNorm(
+            f, 3, device=dev), lambda m, x, d: m(x, d['types'])),
+        ('norm HeteroLayerNorm', lambda dev: norm.HeteroLayerNorm(
+            f, 3, device=dev), lambda m, x, d: m(x, d['types'])),
+        ('norm MsgNorm', lambda dev: norm.MsgNorm(True, device=dev),
+         lambda m, x, d: m(x, d['msg']))]
+    for name, kw in (('InstanceNorm', {'affine': True}), ('LayerNorm', {}),
+                     ('LayerNorm node', {'mode': 'node'}), ('GraphNorm', {}),
+                     ('GraphSizeNorm', None), ('PairNorm', None),
+                     ('MeanSubtractionNorm', None)):
+        cls = getattr(norm, name.split()[0])
+        cases.append((f'norm {name}',
+                      (lambda dev, cls=cls, kw=kw: cls(f, device=dev, **kw))
+                      if kw is not None else (lambda dev, cls=cls: cls()),
+                      lambda m, x, d: m(x, d['batch'], graphs)))
+    for name in ('global_add_pool', 'global_mean_pool', 'global_max_pool'):
+        fn = getattr(pool, name)
+        cases.append((name, lambda dev: torch.nn.Identity(),
+                      lambda m, x, d, fn=fn: fn(m(x), d['batch'], graphs)))
+    return cases, inputs, n, f
+
+
+def phase_graph_modules(torch, seed):
+    """Each convolution, aggregation, norm and pooling function of the
+    graph-level slice (``module_cases``) once on the card, forward and
+    backward in training mode, against the same module on the CPU from the
+    same weights: the output within 1e-4 * max(1, max|CPU|) and every
+    gradient (input and parameters) within 1e-4 of its largest on the CPU,
+    or of the largest of all for one that vanishes in exact arithmetic
+    (under 1e-6 of the largest on the CPU: a softmax gate's bias); the
+    output on the card, no port kernel launched. Catches an op that runs
+    only on the CPU or a tensor left on the wrong device."""
+    cases, inputs, n, f = module_cases(torch, seed)
+    x_cpu = torch.randn((n, f), generator=torch.Generator().manual_seed(
+        seed + 72))
+    worst, rows = 0.0, []
+    reset_counts()
+    for name, build, run in cases:
+        res = []
+        for dev in ('cpu', 'cuda'):
+            m = build(dev).train()
+            if res:
+                m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+            else:
+                state = m.state_dict()
+            x = x_cpu.to(dev, copy=True).requires_grad_()
+            d = {k: v.to(dev) for k, v in inputs.items()}
+            out = run(m, x, d)
+            check(out.device.type == dev, f'{name}: output on '
+                                          f'{out.device} for {dev}')
+            cot = torch.randn(out.shape, generator=torch.Generator()
+                              .manual_seed(seed + 73)).to(dev)
+            (out * cot).sum().backward()
+            grads = {'x': x.grad}
+            grads.update({k: p.grad for k, p in m.named_parameters()
+                          if p.grad is not None})
+            res.append((out.detach().cpu(), {k: v.cpu()
+                                             for k, v in grads.items()}))
+        (o_cpu, g_cpu), (o_card, g_card) = res
+        check(set(g_cpu) == set(g_card), f'{name}: gradients '
+                                         f'{sorted(g_cpu)} / {sorted(g_card)}')
+        err = float((o_card - o_cpu).abs().max()) / max(
+            1.0, float(o_cpu.abs().max()))
+        check(err <= 1e-4, f'{name}: output {err} from the CPU')
+        largest = max(float(g.abs().max()) for g in g_cpu.values())
+        gerr = 0.0
+        for k, ref in g_cpu.items():
+            own = float(ref.abs().max())
+            scale = largest if own <= 1e-6 * largest else own
+            d = float((g_card[k] - ref).abs().max()) / max(scale, 1e-30)
+            gerr = max(gerr, d)
+            check(d <= 1e-4, f'{name}: gradient of {k} {d} of its largest '
+                             'from the CPU')
+        worst = max(worst, err, gerr)
+        rows.append({'module': name, 'out_rel_err': err,
+                     'grad_rel_err': gerr, 'params': len(g_cpu) - 1})
+    counts = launch_counts()
+    check_counts('graph-level modules', counts, {}, 'the module phase')
+    log(f'[modules] {len(rows)} graph-level modules on the card against '
+        f'the CPU, forward and backward: worst {worst:.3e} (limit 1e-4); '
+        + ', '.join(f"{r['module']} {max(r['out_rel_err'], r['grad_rel_err']):.1e}"
+                    for r in rows))
+    return {'modules': rows, 'worst': worst}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -7043,6 +7762,15 @@ def main():
     lap('path T')
     path_u, u_rows, u_err = phase_path_u(torch, args.seed)
     lap('path U')
+    # the graph-level models: PNA at ZINC's shape (V), GIN at COLLAB's (W),
+    # and every module of their slice once on the card
+    t0 = time.perf_counter()
+    path_v = phase_path_v(torch, args.seed)
+    path_w, w_rows, w_err = phase_path_w(torch, args.seed)
+    modules = phase_graph_modules(torch, args.seed)
+    log(f'[time] paths V, W and the module phase took '
+        f'{time.perf_counter() - t0:.1f} s')
+    lap('paths V, W and the graph-level modules')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -7096,7 +7824,8 @@ def main():
         path_n_layouts_captured=arms['layouts']['captured']['launch_counts'],
         path_p=path_p['launch_counts'], path_q=path_q['launch_counts'],
         path_q_hgt_loader=path_q['hgt_loader']['launch_counts'],
-        path_t=path_t['launch_counts'], path_u=path_u['launch_counts'])
+        path_t=path_t['launch_counts'], path_u=path_u['launch_counts'],
+        path_v=path_v['launch_counts'], path_w=path_w['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
         path_counts[f'path_r_{key}'] = path_r[dt]['launch_counts']
@@ -7150,6 +7879,8 @@ def main():
                               'path_o': path_o, 'path_p': path_p,
                               'path_q': path_q, 'path_r': path_r,
                               'path_t': path_t, 'path_u': path_u,
+                              'path_v': path_v, 'path_w': path_w,
+                              'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the
     # rows of layer 1 (H=4, C=16) and layer 2 (H=1, C=47)
@@ -7215,13 +7946,14 @@ def main():
             'path_s': path_s['training']['launches_per_step'][
                 'segment_spmm'],
             'path_t': path_t['launches_per_step']['segment_spmm'],
-            'path_u': path_u['launches_per_step']['segment_spmm']},
+            'path_u': path_u['launches_per_step']['segment_spmm'],
+            'path_w': path_w['launches_per_step']['segment_spmm']},
         'launches_per_layerwise_batch': 2,
         'launches_per_path_r_forward': path_r['float32'][
             'launches_per_forward'],
         'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err,
                            *(r['max_abs_err'] for r in r_rows[:2]),
-                           s_row['max_abs_err'], t_err, u_err),
+                           s_row['max_abs_err'], t_err, u_err, w_err),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -7243,6 +7975,7 @@ def main():
         'path_q_per_shape': q_rows,
         'path_r_per_shape': r_rows[:2], 'path_s_per_shape': [s_row],
         'path_t_per_shape': t_rows, 'path_u_per_shape': u_rows,
+        'path_w_per_shape': w_rows,
         'regime_arms_rel_err': regime_arms['worst'],
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',

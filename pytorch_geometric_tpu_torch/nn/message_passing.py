@@ -8,8 +8,15 @@ Counterpart of ``pytorch_geometric_tpu/nn/message_passing.py`` as an
   * ``message`` default: identity on ``x_j``; ``update`` default: identity.
   * ``aggregate``: segment reduce by destination with a static
     ``dim_size``.
+  * ``aggregate`` also takes an ``Aggregation`` module (``nn/aggr``) or a
+    list of reductions, whose outputs are concatenated.
   * ``message_and_aggregate`` fusion: if the subclass implements it and is
-    handed an ``EdgeIndex``, the SpMM path is taken.
+    handed an ``EdgeIndex`` with no ``edge_mask``, and ``aggr`` is one of
+    sum / mean / min / max, the SpMM path is taken.
+  * ``edge_updater`` / ``edge_update`` for edge-level passes.
+  * under ``experimental.debug()``, ``propagate`` and ``edge_updater``
+    check that ``edge_index`` lies in ``[0, n]`` (``n`` is the padding
+    sentinel) and raise ``IndexError`` otherwise.
 
 Padding: edges whose endpoints are ``>= num_nodes`` are dropped by the
 segment ops; an explicit ``edge_mask`` also zeroes messages.
@@ -32,6 +39,35 @@ def _endpoints(edge_index, flow: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return coo[1], coo[0]
 
 
+def _debug_check_bounds(j_idx, i_idx, num_src: int, num_dst: int) -> None:
+    """Under ``experimental.debug()``, raise ``IndexError`` for an endpoint
+    below 0 or past the padding sentinel ``n`` (JAX
+    ``message_passing.py:45-78``). The gathers clamp indices for padding,
+    so a corrupt ``edge_index`` would otherwise be aggregated into the last
+    row silently. It reads the indices' extremes back to the host, so it
+    is off by default."""
+    from ..experimental import is_debug_enabled
+    if not is_debug_enabled():
+        return
+    for idx, n, which in ((j_idx, num_src, 'source'),
+                          (i_idx, num_dst, 'destination')):
+        if idx.numel() == 0:
+            continue
+        lo, hi = int(idx.min()), int(idx.max())
+        if lo < 0:
+            raise IndexError(
+                f"Found negative {which} indices in 'edge_index' (got "
+                f"{lo}). Please ensure that all indices point to valid "
+                f"node indices in the interval [0, {n}) (index == {n} "
+                f"is reserved for padding) and try again.")
+        if hi > n:
+            raise IndexError(
+                f"Found {which} indices in 'edge_index' that are larger "
+                f"than {n} (got {hi}). Please ensure that all indices "
+                f"point to valid node indices in the interval [0, {n}) "
+                f"(index == {n} is reserved for padding) and try again.")
+
+
 def _pair(x) -> Tuple[Any, Any]:
     if isinstance(x, tuple):
         return x
@@ -41,16 +77,24 @@ def _pair(x) -> Tuple[Any, Any]:
 class MessagePassing(nn.Module):
     """Base class for the graph convolutions.
 
-    Subclasses set ``self.aggr`` and ``self.flow`` as needed (defaults
-    'sum' / 'source_to_target') and override any of ``message`` /
-    ``aggregate`` / ``message_and_aggregate`` / ``update``.
+    Subclasses set ``self.aggr`` (a reduction's name, a list of them, or
+    an ``Aggregation`` module) and ``self.flow`` as needed (defaults 'sum'
+    / 'source_to_target') and override any of ``message`` / ``aggregate``
+    / ``message_and_aggregate`` / ``update`` / ``edge_update``.
     """
 
-    aggr: str = 'sum'
     flow: str = 'source_to_target'
 
-    def _aggr(self) -> str:
-        return {'add': 'sum'}.get(self.aggr, self.aggr)
+    def __init__(self):
+        super().__init__()
+        # an instance attribute, not a class one: a class attribute would
+        # shadow an Aggregation module registered under the same name
+        self.aggr = 'sum'
+
+    def _aggr(self):
+        if isinstance(self.aggr, str):
+            return {'add': 'sum'}.get(self.aggr, self.aggr)
+        return self.aggr
 
     # -- overridable stages -------------------------------------------------
     def message(self, x_j, **kwargs):
@@ -58,14 +102,19 @@ class MessagePassing(nn.Module):
 
     def aggregate(self, inputs: torch.Tensor, index: torch.Tensor,
                   dim_size: int, edge_mask=None) -> torch.Tensor:
-        return scatter(inputs, index, dim_size, reduce=self._aggr(),
-                       mask=edge_mask)
+        aggr = self._aggr()
+        if isinstance(aggr, (list, tuple)):
+            return torch.cat([scatter(inputs, index, dim_size, reduce=a,
+                                      mask=edge_mask) for a in aggr], -1)
+        if not isinstance(aggr, str):
+            return aggr(inputs, index, dim_size, mask=edge_mask)
+        return scatter(inputs, index, dim_size, reduce=aggr, mask=edge_mask)
 
     def update(self, inputs, **kwargs):
         return inputs
 
-    # message_and_aggregate is absent by default; its presence on a
-    # subclass enables the fused SpMM path.
+    # message_and_aggregate and edge_update are absent by default; their
+    # presence on a subclass enables the fused SpMM path and edge_updater.
 
     # -- propagation --------------------------------------------------------
     def propagate(self, edge_index, size: Optional[Tuple[int, int]] = None,
@@ -84,12 +133,14 @@ class MessagePassing(nn.Module):
         """
         num_src, num_dst = self._infer_size(edge_index, size, kwargs)
         j_idx, i_idx = _endpoints(edge_index, self.flow)
+        _debug_check_bounds(j_idx, i_idx, num_src, num_dst)
 
         # Fused SpMM path. edge_mask is not threaded through
         # message_and_aggregate (padding lives in the EdgeIndex's sentinel
         # endpoints there), so an explicit mask takes the gather path.
         if (hasattr(self, 'message_and_aggregate') and edge_mask is None
                 and isinstance(edge_index, EdgeIndex)
+                and isinstance(self._aggr(), str)
                 and self._aggr() in ('sum', 'mean', 'min', 'max')):
             out = self.message_and_aggregate(edge_index, **kwargs)
             if out is not NotImplemented:
@@ -104,6 +155,19 @@ class MessagePassing(nn.Module):
         out = self.aggregate(out, i_idx, dim_size=num_dst,
                              edge_mask=edge_mask)
         return self._run_update(out, kwargs)
+
+    def edge_updater(self, edge_index,
+                     size: Optional[Tuple[int, int]] = None,
+                     edge_mask: Optional[torch.Tensor] = None,
+                     **kwargs) -> torch.Tensor:
+        """Edge-level pass: ``edge_update`` called with the arguments it
+        asks for, gathered as ``message``'s are; per-edge outputs."""
+        num_src, num_dst = self._infer_size(edge_index, size, kwargs)
+        j_idx, i_idx = _endpoints(edge_index, self.flow)
+        _debug_check_bounds(j_idx, i_idx, num_src, num_dst)
+        fn = self.edge_update
+        return fn(**self._collect(fn, j_idx, i_idx, num_src, num_dst,
+                                  edge_mask, kwargs))
 
     # -- internals ----------------------------------------------------------
     def _infer_size(self, edge_index, size, kwargs) -> Tuple[int, int]:

@@ -1,11 +1,10 @@
-"""BasicGNN model family: GCN, GraphSAGE, GIN and GAT.
+"""BasicGNN model family: GCN, GraphSAGE, GIN, GAT, PNA and EdgeCNN.
 
 Counterpart of ``pytorch_geometric_tpu/nn/models/basic_gnn.py``. Stacks
-``num_layers`` convolutions with activation, optional layer norm, dropout,
-jumping-knowledge aggregation and a final projection;
+``num_layers`` convolutions with activation, optional batch or layer norm,
+dropout, jumping-knowledge aggregation and a final projection;
 :func:`basic_gnn_inference` runs a model layer by layer over sampled
-neighbourhoods. ``norm='batch_norm'``, ``PNA`` and ``EdgeCNN`` are not
-ported yet (ROADMAP Queue 1).
+neighbourhoods.
 """
 
 from typing import Any, Callable, Dict, Optional
@@ -14,13 +13,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..conv import GATConv, GATv2Conv, GCNConv, GINConv, SAGEConv
+from ..conv import (EdgeConv, GATConv, GATv2Conv, GCNConv, GINConv,
+                    PNAConv, SAGEConv)
 from ..inits import linear
+from ..norm.norms import RunningBatchNorm
 from .mlp import MLP
 from ...backend import resolve_device
 
 
 class BasicGNN(nn.Module):
+    """``norm='batch_norm'`` is flax's default ``BatchNorm``
+    (:class:`~..norm.RunningBatchNorm`, momentum 0.01 in torch's sense,
+    eps 1e-5) over every row it is given, padded rows included, as in the
+    JAX package; ``'layer_norm'`` is flax's default ``LayerNorm`` (eps
+    1e-6). ``module.train()`` uses and updates the batch statistics (the
+    JAX package's ``deterministic=False``), ``module.eval()`` the running
+    ones."""
     supports_edge_weight = False
     supports_edge_attr = False
 
@@ -31,10 +39,8 @@ class BasicGNN(nn.Module):
                  conv_kwargs: Optional[Dict[str, Any]] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if norm not in (None, 'layer_norm'):
-            raise NotImplementedError(
-                f'BasicGNN(norm={norm!r}) is not ported to the PyTorch '
-                'package yet (ROADMAP: Queue 1, item 4, batch_norm)')
+        if norm not in (None, 'batch_norm', 'layer_norm'):
+            raise ValueError(f'unknown norm {norm!r}')
         if jk not in (None, 'last', 'cat', 'max'):
             raise ValueError(f'unknown jk {jk!r}')
         device = resolve_device(device)
@@ -43,6 +49,7 @@ class BasicGNN(nn.Module):
         self.out_channels = out_channels
         self.dropout = dropout
         self.act = act
+        self.norm = norm
         self.jk = jk
         self.conv_kwargs = conv_kwargs or {}
         # whether the final conv already outputs out_channels (no jk, no
@@ -59,9 +66,16 @@ class BasicGNN(nn.Module):
         self.convs = nn.ModuleList(convs)
         # norm/act/dropout are skipped on the last layer when jk is None
         n_norms = num_layers - (1 if jk is None else 0)
-        self.norms = (nn.ModuleList(
-            nn.LayerNorm(hidden_channels, eps=1e-6, device=device)
-            for _ in range(n_norms)) if norm == 'layer_norm' else None)
+        if norm == 'batch_norm':
+            self.norms = nn.ModuleList(
+                RunningBatchNorm(hidden_channels, device=device)
+                for _ in range(n_norms))
+        elif norm == 'layer_norm':
+            self.norms = nn.ModuleList(
+                nn.LayerNorm(hidden_channels, eps=1e-6, device=device)
+                for _ in range(n_norms))
+        else:
+            self.norms = None
         self.lin_out = None
         if out_channels is not None and not self._final_in_loop:
             width = (hidden_channels * num_layers if jk == 'cat'
@@ -154,6 +168,26 @@ class GAT(BasicGNN):
                    generator=generator)
 
 
+class PNA(BasicGNN):
+    """Stack of PNAConv; ``conv_kwargs`` carries PNAConv's options
+    (aggregators, scalers, ``avg_deg_log``, ``towers``, ``edge_dim`` ...)."""
+    supports_edge_attr = True
+
+    def init_conv(self, in_channels, out_channels, idx, device, generator):
+        return PNAConv(in_channels, out_channels, **self.conv_kwargs,
+                       device=device, generator=generator)
+
+
+class EdgeCNN(BasicGNN):
+    """Stack of EdgeConv with 2-layer MLPs ``[2 * in, out, out]`` (plain
+    last layer)."""
+
+    def init_conv(self, in_channels, out_channels, idx, device, generator):
+        mlp = MLP(2 * in_channels, [out_channels, out_channels],
+                  act=self.act, device=device, generator=generator)
+        return EdgeConv(mlp, **self.conv_kwargs)
+
+
 def basic_gnn_inference(model: BasicGNN, data, batch_size: int = 256,
                         num_neighbors_per_layer: int = 64,
                         edge_weight=None) -> torch.Tensor:
@@ -186,6 +220,9 @@ def basic_gnn_inference(model: BasicGNN, data, batch_size: int = 256,
     if model.jk is not None:
         raise ValueError('basic_gnn_inference needs jk=None (got '
                          f'{model.jk!r})')
+    if model.norm not in (None, 'layer_norm'):
+        raise ValueError("basic_gnn_inference needs norm in (None, "
+                         f"'layer_norm') (got {model.norm!r})")
     device = next(model.parameters()).device
     n = data.num_nodes
     x_all = data.x.to(device, torch.float32)

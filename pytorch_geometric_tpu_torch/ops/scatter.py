@@ -54,10 +54,15 @@ def scatter(src: torch.Tensor, index: torch.Tensor, dim_size: int,
         hit = src.new_zeros(shape, dtype=torch.int32).scatter_reduce_(
             0, idx, src.to(torch.int32), reduce='amax', include_self=False)
         return hit[:dim_size].to(src.dtype)
-    # min / max: empty segments keep the zero they start from
-    out = src.new_zeros(shape).scatter_reduce_(
+    # min / max start from the reduction's identity, which an empty
+    # segment keeps and the where turns into 0. Starting from zeros with
+    # include_self=False would give the same outputs, but autograd would
+    # count the starting zero among the ties of a segment whose min or max
+    # is 0 (a ReLU's output) and split its gradient one way too many; from
+    # the identity, ties split evenly as the JAX package's do
+    out = src.new_full(shape, _identity(reduce, src.dtype)).scatter_reduce_(
         0, idx, src, reduce='amin' if reduce == 'min' else 'amax',
-        include_self=False)[:dim_size]
+        include_self=True)[:dim_size]
     return torch.where(out == _identity(reduce, src.dtype), 0, out)
 
 

@@ -75,7 +75,18 @@ def test_import_loads_no_jax():
         '"pytorch_geometric_tpu_torch.data.temporal", '
         '"pytorch_geometric_tpu_torch.nn.conv.graph_conv", '
         '"pytorch_geometric_tpu_torch.nn.models.node2vec", '
-        '"pytorch_geometric_tpu_torch.utils.extra"} <= set('
+        '"pytorch_geometric_tpu_torch.utils.extra", '
+        '"pytorch_geometric_tpu_torch.experimental", '
+        '"pytorch_geometric_tpu_torch.utils.core", '
+        '"pytorch_geometric_tpu_torch.utils.dense", '
+        '"pytorch_geometric_tpu_torch.nn.aggr.base", '
+        '"pytorch_geometric_tpu_torch.nn.aggr.basic", '
+        '"pytorch_geometric_tpu_torch.nn.aggr.multi", '
+        '"pytorch_geometric_tpu_torch.nn.aggr.attention", '
+        '"pytorch_geometric_tpu_torch.nn.norm.norms", '
+        '"pytorch_geometric_tpu_torch.nn.pool.glob", '
+        '"pytorch_geometric_tpu_torch.nn.conv.gen_conv", '
+        '"pytorch_geometric_tpu_torch.nn.conv.point_conv"} <= set('
         'sys.modules)\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -85,10 +85,16 @@ def test_gcn_serving_config_through_pallas(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        models.GCN(8, 16, 2, norm='batch_norm', device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        models.MLP(8, [16, 4], norm='batch_norm', device='cpu')
+    """``norm='batch_norm'`` is ported (tests/test_torch_graph_models.py);
+    a norm the port does not know raises rather than running without one,
+    and layer-wise inference keeps its rule of no batch norm."""
+    with pytest.raises(ValueError, match='unknown norm'):
+        models.GCN(8, 16, 2, norm='graph_norm', device='cpu')
+    with pytest.raises(ValueError, match='unknown norm'):
+        models.MLP(8, [16, 4], norm='instance_norm', device='cpu')
+    gnn = models.GCN(8, 16, 2, norm='batch_norm', device='cpu')
+    with pytest.raises(ValueError, match='basic_gnn_inference needs norm'):
+        models.basic_gnn_inference(gnn, None)
 
 
 def test_generator_makes_weights_reproducible():
