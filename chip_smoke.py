@@ -7227,8 +7227,8 @@ def eval_batches(torch, loader, prepare, metric, batches):
     return vals
 
 
-def graph_path_result(torch, tag, host_ms, card_ms, losses, per_step,
-                      prof_rows, prof_ms):
+def graph_path_result(tag, host_ms, card_ms, losses, per_step, prof_rows,
+                      prof_ms):
     """The common part of paths V's and W's records, and its log line."""
     busy = sum(t for _, t, _ in prof_rows)
     res = {'steps': len(losses), 'losses': losses,
@@ -7316,7 +7316,7 @@ def phase_path_v(torch, seed):
     # profiler's own bookkeeping the slowest part of the phase
     prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 1)
     prof_s = time.perf_counter() - t0 - steps_s
-    res = graph_path_result(torch, tag, host_ms, card_ms, losses, per_step,
+    res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
                             prof_rows, prof_ms)
     res.update(graphs=len(graphs), nodes_per_graph=nodes,
                edges_per_graph=edges, build_s=gen_s,
@@ -7429,7 +7429,7 @@ def phase_path_w(torch, seed):
     prof_rows, prof_ms, _ = whole_window(
         torch, lambda: step(*first), 3,
         expect={SEG_MAIN: per_step_want['segment_spmm']})
-    res = graph_path_result(torch, tag, host_ms, card_ms, losses, per_step,
+    res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
                             prof_rows, prof_ms)
     ei = first[1]
     res.update(graphs=len(dataset), nodes_per_graph=float(plan[0].mean()),

@@ -152,8 +152,8 @@ def _graph_norm_pair(name):
 
 
 def _perturb(tm, seed):
-    """Move the port's affine parameters off their initial values (and
-    return them as flax params) so the test sees them act."""
+    """Move the port's affine parameters off their initial values, so the
+    test sees them act (``_flax_params`` carries them back to flax)."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for p in tm.parameters():
