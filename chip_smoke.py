@@ -225,7 +225,24 @@ checks them:
      and a Linear 768 -> 7 over ``edge_norm / deg[col]`` weights, loss
      ``(nll * node_norm).sum()``, Adam 0.001, 5 eager steps: kernel 1's
      weighted arm five times a step; the first batch's 3 steps against the
-     CPU; kernel 1 at F = 500 and 256 (forward) and 256 (``A^T g``).
+     CPU; kernel 1 at F = 500 and 256 (forward) and 256 (``A^T g``);
+ 34. path V, PNA at PyG's ``examples/pna.py`` configuration on ZINC's
+     shape: 10,000 generated molecules (``zinc_like``), PNA's degree
+     statistics from their in-degree histogram, 4 x PNAConv(75, towers=5,
+     edge_dim=50) with BatchNorm and ReLU, sum pooling, MLP 75 -> 50 -> 25
+     -> 1, L1 loss, Adam 1e-3, batch 128 unpadded, 10 eager steps (no port
+     kernel: its reductions are index_add_ / scatter_reduce_) and 4
+     eval-mode batches; the first batch's 3 steps against the CPU at the
+     card's parameters (``synced_parity``), the running statistics too;
+ 35. path W, GIN-0 at COLLAB's shape (5,000 graphs built per batch,
+     ``collab_like``, one-hot degree 492 wide): GIN(492, 64, 5, batch norm,
+     jk='cat'), sum pooling, Linear 320 -> 3, Adam 0.01, batch 128, 10
+     eager steps with kernel 1 nine times a step, 4 eval batches; the
+     first batch against the CPU and its gradients against float64; kernel
+     1 at F = 492 and 64 (forward) and 64 (``A^T g``);
+ 36. every convolution, aggregation, norm and pooling function of the
+     graph-level slice once on the card, forward and backward, against
+     the CPU.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
