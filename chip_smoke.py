@@ -234,14 +234,19 @@ checks them:
      kernel: its reductions are index_add_ / scatter_reduce_) and 4
      eval-mode batches; the first batch's 3 steps against the CPU at the
      card's parameters (``synced_parity``), the running statistics too;
- 35. path W, GIN-0 at COLLAB's shape (5,000 graphs built per batch,
-     ``collab_like``, one-hot degree 492 wide): GIN(492, 64, 5, batch norm,
+     a host breakdown of one step (``host_breakdown``: host ms, waits for
+     the card, operators by self CPU time);
+ 35. path W, GIN-0 at COLLAB's shape (5,000 graphs of 32-492 nodes built
+     per batch, ``collab_like``, the largest with a hub of degree 491,
+     one-hot degree 492 wide): GIN(492, 64, 5, batch norm,
      jk='cat'), sum pooling, Linear 320 -> 3, Adam 0.01, batch 128, 10
      eager steps with kernel 1 nine times a step, 4 eval batches; the
      first batch against the CPU and its gradients against float64; kernel
-     1 at F = 492 and 64 (forward) and 64 (``A^T g``);
+     1 at F = 492 and 64 (forward) and 64 (``A^T g``); a host breakdown of
+     one step;
  36. every convolution, aggregation, norm and pooling function of the
-     graph-level slice once on the card, forward and backward, against
+     graph-level slice, and the dense round trip (``to_dense_adj``,
+     ``dense_to_sparse``), once on the card, forward and backward, against
      the CPU.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
@@ -7039,12 +7044,17 @@ def pna_degree_stats(graphs):
 
 def collab_like(seed=0):
     """Path W's dataset plan: each graph's size, undirected pair count and
-    label, for ``collab_graph`` to build on demand."""
+    label, for ``collab_graph`` to build on demand. Sizes are COLLAB's
+    least plus an exponential tail scaled to its mean, clipped to its
+    largest; the largest graph is set to COLLAB's largest (492 nodes), which
+    ``collab_graph`` gives a hub of degree 491, so that every column of the
+    one-hot degree feature can be set."""
     rng = np.random.default_rng(seed)
     tail = rng.exponential(1.0, COLLAB_GRAPHS)
     tail *= (COLLAB_MEAN_NODES - COLLAB_MIN) / tail.mean()
     sizes = np.clip(COLLAB_MIN + np.round(tail), COLLAB_MIN,
                     COLLAB_MAX).astype(np.int64)
+    sizes[np.argmax(sizes)] = COLLAB_MAX
     full = sizes * (sizes - 1) // 2
     density = COLLAB_MEAN_PAIRS * COLLAB_GRAPHS / full.sum()
     pairs = np.minimum(np.round(density * full), full).astype(np.int64)
@@ -7054,12 +7064,16 @@ def collab_like(seed=0):
 def collab_graph(i, plan, seed=0):
     """Graph ``i`` of ``collab_like``'s plan: ``(x [n, 492] one-hot degree,
     coo [2, 2 * pairs] int32, y [1])``, its pairs a uniform draw without
-    repeats, each stored both ways."""
+    repeats, each stored both ways; a graph of COLLAB's largest size holds
+    node 0's pairs with every other node (a hub of degree n - 1) and draws
+    the rest."""
     sizes, pairs, labels = plan
     n, m = int(sizes[i]), int(pairs[i])
     rng = np.random.default_rng([seed, i])
-    a, b = np.triu_indices(n, 1)
-    pick = rng.choice(len(a), m, replace=False)
+    a, b = np.triu_indices(n, 1)    # node 0's pairs come first
+    hub = n - 1 if n == COLLAB_MAX else 0
+    pick = np.concatenate([np.arange(hub), hub + rng.choice(
+        len(a) - hub, m - hub, replace=False)])
     coo = np.stack([np.concatenate([a[pick], b[pick]]),
                     np.concatenate([b[pick], a[pick]])]).astype(np.int32)
     x = np.zeros((n, COLLAB_F), np.float32)
@@ -7270,6 +7284,55 @@ def graph_path_result(tag, host_ms, card_ms, losses, per_step, prof_rows,
     return res
 
 
+def host_breakdown(torch, tag, fn, top=10):
+    """Where the host's time goes in a call of ``fn`` (one training step),
+    over three calls: the first timed alone (host ms until ``fn`` returns,
+    and until the card is done); the second under
+    ``torch.cuda.set_sync_debug_mode('warn')``, whose warnings count the
+    calls that wait for the card, by the line that made them; the third
+    under ``torch.profiler`` with CPU activity only: the operators by self
+    CPU time, and how many were called (the profiler's own cost inflates
+    these times, not the count)."""
+    import collections
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    returned = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    done = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = collections.Counter(
+        f'{os.path.basename(w.filename)}:{w.lineno}' for w in caught
+        if 'synchroniz' in str(w.message))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    res = {'host_ms_to_return': returned, 'host_ms_to_card_done': done,
+           'syncs': sum(syncs.values()), 'sync_sites': dict(syncs),
+           'ops_called': sum(e.count for e in ops),
+           'ops_self_cpu_ms': sum(e.self_cpu_time_total for e in ops) / 1e3,
+           'top_ops': [[e.key, e.self_cpu_time_total / 1e3, e.count]
+                       for e in ops[:top]]}
+    log(f"[{tag}] host breakdown of one step: fn returns after "
+        f"{returned:.2f} ms, the card is done at {done:.2f} ms; "
+        f"{res['syncs']} waits for the card ({dict(syncs)}); "
+        f"{res['ops_called']} operators called, "
+        f"{res['ops_self_cpu_ms']:.2f} ms of self CPU time under the "
+        f"profiler; most: " + ', '.join(
+            f'{k} {t:.2f} ms x{c}' for k, t, c in res['top_ops']))
+    return res
+
+
 def phase_path_v(torch, seed):
     """Path V: PNA at PyG's examples/pna.py configuration on ZINC's shape.
     ``zinc_like`` (10,000 training graphs) on the host, PNA's degree
@@ -7335,6 +7398,7 @@ def phase_path_v(torch, seed):
     prof_s = time.perf_counter() - t0 - steps_s
     res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
                             prof_rows, prof_ms)
+    res['host_breakdown'] = host_breakdown(torch, tag, lambda: step(*first))
     res.update(graphs=len(graphs), nodes_per_graph=nodes,
                edges_per_graph=edges, build_s=gen_s,
                degree_histogram=hist.tolist(), avg_deg_log=log_avg,
@@ -7448,6 +7512,7 @@ def phase_path_w(torch, seed):
         expect={SEG_MAIN: per_step_want['segment_spmm']})
     res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
                             prof_rows, prof_ms)
+    res['host_breakdown'] = host_breakdown(torch, tag, lambda: step(*first))
     ei = first[1]
     res.update(graphs=len(dataset), nodes_per_graph=float(plan[0].mean()),
                edges_per_graph=2 * float(plan[1].mean()),
@@ -7481,13 +7546,14 @@ def phase_path_w(torch, seed):
 
 def module_cases(torch, seed):
     """Each convolution, aggregation, norm and pooling function of the
-    graph-level slice with its inputs: ``(name, build(device), run(module,
+    graph-level slice, and the dense round trip, with its inputs: ``(name, build(device), run(module,
     x, inputs))``, ``inputs`` a dict of CPU tensors that ``run`` moves with
     x. One small graph: 2,000 nodes, 20,000 edges plus 64 padded ones at
     the sentinel (masked), F = 32, 8 graphs."""
     from pytorch_geometric_tpu_torch.nn import aggr, conv, norm, pool
     from pytorch_geometric_tpu_torch.nn.inits import linear
     from pytorch_geometric_tpu_torch.nn.models import MLP
+    from pytorch_geometric_tpu_torch.utils import dense
     n, e, f, pad, graphs = 2000, 20_000, 32, 64, 8
     rng = np.random.default_rng(seed + 70)
     coo = np.concatenate([rng.integers(0, n, (2, e)),
@@ -7596,6 +7662,23 @@ def module_cases(torch, seed):
         fn = getattr(pool, name)
         cases.append((name, lambda dev: torch.nn.Identity(),
                       lambda m, x, d, fn=fn: fn(m(x), d['batch'], graphs)))
+    cap = int(np.bincount(inputs['batch'].numpy()).max())
+
+    def dense_run(m, x, d):
+        # the edges inside a graph, weighted by x, to the padded dense
+        # adjacency and back; each node's weights summed by source and by
+        # destination, so a wrong index shows in the output
+        s, t = d['coo'][:, :e]
+        s, t = (v[d['batch'][s] == d['batch'][t]] for v in (s, t))
+        adj = dense.to_dense_adj(torch.stack([s, t]), d['batch'], graphs,
+                                 cap, (m(x)[s] * x[t]).sum(-1))
+        _, mask = dense.to_dense_batch(x, d['batch'], graphs, cap)
+        coo, w = dense.dense_to_sparse(adj, mask)
+        return torch.stack([x.new_zeros(n).index_add(0, coo[0], w),
+                            x.new_zeros(n).index_add(0, coo[1], w)], 1)
+
+    cases.append(('to_dense_adj / dense_to_sparse',
+                  lambda dev: torch.nn.Identity(), dense_run))
     return cases, inputs, n, f
 
 

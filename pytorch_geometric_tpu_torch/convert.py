@@ -118,14 +118,19 @@ def _walk(tree: Mapping[str, Any], prefix, out, stats: bool):
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax variables tree (the ``'params'`` collection alone, or
     the variables dict holding it and perhaps ``'batch_stats'``) to a port
-    ``state_dict``. Load it with ``module.load_state_dict(sd)``, which
-    checks that every name matches."""
+    ``state_dict``. Of a variables dict, the other collections (``cache``,
+    ``intermediates``, ``losses``, ...) are not state and are left out.
+    Load it with ``module.load_state_dict(sd)``, which checks that every
+    name matches."""
     collections = [(params, False)]
-    if params and set(params) <= {'params', 'batch_stats'}:
+    stats = params.get('batch_stats')
+    if isinstance(params.get('params'), Mapping) or (
+            isinstance(stats, Mapping) and set(params) <= {'params',
+                                                           'batch_stats'}):
         # a variables dict: a BatchNorm without affine has batch_stats only
         collections = [(params.get('params', {}), False)]
-        if isinstance(params.get('batch_stats'), Mapping):
-            collections.append((params['batch_stats'], True))
+        if isinstance(stats, Mapping):
+            collections.append((stats, True))
     flat = {}
     for tree, stats in collections:
         _walk(tree, (), flat, stats)

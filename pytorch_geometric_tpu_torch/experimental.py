@@ -1,59 +1,14 @@
-"""Experimental and debug flags.
+"""The debug flag.
 
-Counterpart of ``pytorch_geometric_tpu/experimental.py`` (reference
-``torch_geometric/experimental.py:11`` and ``debug.py``): the port's own
-copy, so that nothing of the JAX package is imported. ``debug()`` turns on
+Counterpart of the debug half of ``pytorch_geometric_tpu/experimental.py``
+(reference ``torch_geometric/debug.py``): the port's own copy, so that
+nothing of the JAX package is imported. ``debug()`` turns on
 ``MessagePassing``'s bounds check of ``edge_index``.
-``disable_dynamic_shapes`` checks that the listed static-size arguments are
-given, as the JAX package's does.
 """
 
 import contextlib
-import functools
-from typing import Callable, List, Optional
 
-_experimental: set = set()
 _debug: bool = False
-
-
-def is_experimental_mode_enabled(option: Optional[str] = None) -> bool:
-    if option is None:
-        return bool(_experimental)
-    return option in _experimental
-
-
-def set_experimental_mode_enabled(enabled: bool,
-                                  option: Optional[str] = None):
-    if option is None:
-        _experimental.clear()
-        return
-    (_experimental.add if enabled else _experimental.discard)(option)
-
-
-@contextlib.contextmanager
-def experimental_mode(option: str):
-    set_experimental_mode_enabled(True, option)
-    try:
-        yield
-    finally:
-        set_experimental_mode_enabled(False, option)
-
-
-def disable_dynamic_shapes(required_args: List[str]) -> Callable:
-    """Decorator asserting the listed static-size args are provided
-    (reference ``experimental.py:disable_dynamic_shapes``)."""
-
-    def deco(fn: Callable) -> Callable:
-        @functools.wraps(fn)
-        def wrapped(*args, **kwargs):
-            for name in required_args:
-                if kwargs.get(name) is None:
-                    raise ValueError(
-                        f"'{fn.__name__}' requires a static '{name}' "
-                        f"(dynamic shapes are not supported)")
-            return fn(*args, **kwargs)
-        return wrapped
-    return deco
 
 
 def is_debug_enabled() -> bool:
@@ -86,24 +41,4 @@ class set_debug:
 
     def __exit__(self, *args) -> bool:
         set_debug_enabled(self.prev)
-        return False
-
-
-class set_experimental_mode:
-    """Sets experimental mode for the given option(s); also usable as a
-    context manager (reference ``experimental.py:set_experimental_mode``)."""
-    def __init__(self, mode: bool, options=None):
-        if options is None or isinstance(options, str):
-            options = [options] if isinstance(options, str) else []
-        self.prev = [(o, is_experimental_mode_enabled(o)) for o in options]
-        self.mode = mode
-        for o in options:
-            set_experimental_mode_enabled(mode, o)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *args) -> bool:
-        for o, prev in self.prev:
-            set_experimental_mode_enabled(prev, o)
         return False

@@ -92,7 +92,8 @@ class DegreeScalerAggregation(Aggregation):
     ``avg_deg_lin`` its E[deg]. 'amplification' multiplies by log(deg + 1)
     / avg_deg_log, 'attenuation' by avg_deg_log / log(max(deg, 1) + 1),
     'linear' by deg / avg_deg_lin, 'inverse_linear' by avg_deg_lin /
-    max(deg, 1)."""
+    max(deg, 1). ``train_norm=True`` (the statistics as trained
+    parameters) is not supported and raises."""
 
     def __init__(self, aggr: Any = ('mean', 'min', 'max', 'std'),
                  scaler: Sequence[str] = ('identity', 'amplification',
@@ -100,6 +101,9 @@ class DegreeScalerAggregation(Aggregation):
                  avg_deg_log: float = 1.0, avg_deg_lin: float = 1.0,
                  train_norm: bool = False):
         super().__init__()
+        if train_norm:
+            raise NotImplementedError('train_norm=True (trained degree '
+                                      'statistics) is not supported')
         for s in scaler:
             if s not in ('identity', 'amplification', 'attenuation',
                          'linear', 'inverse_linear'):
@@ -110,7 +114,6 @@ class DegreeScalerAggregation(Aggregation):
         self.scaler = tuple(scaler)
         self.avg_deg_log = avg_deg_log
         self.avg_deg_lin = avg_deg_lin
-        self.train_norm = train_norm
 
     def aggregate(self, x, index, dim_size, mask, max_num_elements):
         out = self.aggr(x, index, dim_size, mask, max_num_elements)

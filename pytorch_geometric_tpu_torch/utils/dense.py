@@ -7,7 +7,6 @@ Counterpart of ``pytorch_geometric_tpu/utils/dense.py`` (reference
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 
@@ -77,16 +76,33 @@ def to_dense_adj(edge_index, batch: Optional[torch.Tensor],
                     + tuple(vals.shape[1:]))
 
 
-def dense_to_sparse(adj, mask=None):
-    """Dense ``[N, N]`` (or ``[B, N, N]``, graphs stacked block-diagonally)
-    to ``(coo [2, nnz] int32, values)`` on the host: the output length
-    depends on the data."""
-    a = adj.detach().cpu().numpy() if isinstance(adj, torch.Tensor) \
-        else np.asarray(adj)
-    if a.ndim == 2:
-        r, c = np.nonzero(a)
-        return np.stack([r, c]).astype(np.int32), a[r, c]
-    assert a.ndim == 3
-    n = a.shape[1]
-    b, r, c = np.nonzero(a)
-    return np.stack([b * n + r, b * n + c]).astype(np.int32), a[b, r, c]
+def dense_to_sparse(adj: torch.Tensor, mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``[N, N]`` (or ``[B, N, N]``, graphs stacked block-diagonally,
+    graph ``b``'s node ``i`` numbered ``b * N + i``) to ``(coo [2, nnz]
+    int64, values)`` on ``adj``'s device, in row-major order; the values
+    carry ``adj``'s gradient. With ``mask`` (``[B, N]``, as
+    ``to_dense_batch`` gives it) only the rows of real nodes count, and
+    nodes are numbered by their rank among the real ones (the inverse of
+    ``to_dense_batch`` / ``to_dense_adj``, real nodes first in each graph;
+    reference ``utils/sparse.py:dense_to_sparse``)."""
+    if adj.dim() == 2:
+        if mask is not None:
+            raise ValueError('a mask needs a batched [B, N, N] adjacency')
+        coo = adj.nonzero().t()
+        return coo, adj[coo[0], coo[1]]
+    if adj.dim() != 3:
+        raise ValueError(f'adj of {adj.dim()} dims, not 2 or 3')
+    b, n = adj.shape[0], adj.shape[1]
+    rows = adj.reshape(b * n, adj.shape[2])
+    if mask is None:
+        offset = torch.arange(b, device=adj.device).repeat_interleave(n) * n
+    else:
+        if mask.shape != (b, n):
+            raise ValueError(f'mask of shape {tuple(mask.shape)} for an '
+                             f'adjacency of {b} graphs of {n} nodes')
+        rows = rows[mask.reshape(-1)]
+        count = mask.sum(1)
+        offset = (torch.cumsum(count, 0) - count).repeat_interleave(count)
+    r, c = rows.nonzero().unbind(1)
+    return torch.stack([r, c + offset[r]]), rows[r, c]

@@ -204,6 +204,13 @@ def test_degree_scaler_refuses_unknown_scaler():
         aggr.DegreeScalerAggregation(scaler=('identity', 'cubic'))
 
 
+def test_degree_scaler_refuses_train_norm():
+    """Trained degree statistics are not supported: asking for them
+    raises rather than training nothing."""
+    with pytest.raises(NotImplementedError, match='train_norm'):
+        aggr.DegreeScalerAggregation(train_norm=True)
+
+
 @pytest.mark.parametrize('with_nn', [False, True])
 def test_attentional_aggregation_matches_jax(with_nn):
     x, index, mask = _inputs(13)
@@ -351,5 +358,43 @@ def test_dense_utils_match_jax(cap):
     for a in (adj[0], adj):
         gc, gv = dense.dense_to_sparse(torch.from_numpy(np.array(a)))
         rc, rv = jdense.dense_to_sparse(jnp.asarray(a))
-        np.testing.assert_array_equal(gc, rc)
-        np.testing.assert_array_equal(gv, rv)
+        assert gc.dtype == torch.int64
+        np.testing.assert_array_equal(gc.numpy(), rc)
+        np.testing.assert_array_equal(gv.numpy(), rv)
+
+
+def test_dense_to_sparse_mask_and_gradient():
+    """``dense_to_sparse`` with ``to_dense_batch``'s mask inverts
+    ``to_dense_adj`` (real nodes numbered by their rank, the edges in
+    row-major order, their weights summed where an edge repeats), stays
+    on the input's device and passes the gradient to the adjacency; a
+    mask with an unbatched adjacency, or of the wrong shape, is refused."""
+    rng = np.random.default_rng(22)
+    sizes, cap = [4, 6, 2, 5], 6
+    batch = torch.from_numpy(np.repeat(np.arange(4), sizes))
+    ptr = np.concatenate([[0], np.cumsum(sizes)])
+    pairs = {}
+    for g, n in enumerate(sizes):
+        for s, d in rng.integers(0, n, (7, 2)) + ptr[g]:
+            pairs[(s, d)] = pairs.get((s, d), 0.0) + 1.0
+    coo = torch.tensor(sorted(pairs)).t()
+    w = torch.from_numpy(rng.standard_normal(coo.shape[1])
+                         ).float().requires_grad_()
+    _, mask = dense.to_dense_batch(torch.zeros(len(batch), 1), batch, 4, cap)
+    adj = dense.to_dense_adj(coo, batch, 4, cap, w)
+    got, vals = dense.dense_to_sparse(adj, mask)
+    assert got.device == adj.device and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), coo.numpy())
+    np.testing.assert_array_equal(vals.detach().numpy(), w.detach().numpy())
+    cot = torch.from_numpy(rng.standard_normal(len(vals))).float()
+    (vals * cot).sum().backward()
+    np.testing.assert_array_equal(w.grad.numpy(), cot.numpy())
+    # without the mask, graph b's node i is b * cap + i
+    got, _ = dense.dense_to_sparse(adj.detach())
+    local = coo - torch.from_numpy(ptr[batch[coo[0]].numpy()])
+    np.testing.assert_array_equal(
+        got.numpy(), (local + batch[coo[0]] * cap).numpy())
+    with pytest.raises(ValueError, match='batched'):
+        dense.dense_to_sparse(adj[0], mask[0])
+    with pytest.raises(ValueError, match='mask of shape'):
+        dense.dense_to_sparse(adj, mask[:, :3])

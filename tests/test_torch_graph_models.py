@@ -826,3 +826,26 @@ def test_convert_rules_for_graph_level_modules():
     sd = flax_to_state_dict({'batch_stats': {'bn': {'mean': arr(2),
                                                     'var': arr(2)}}})
     assert set(sd) == {'bn.running_mean', 'bn.running_var'}
+
+
+def test_convert_ignores_other_collections():
+    """A flax variables dict holding collections besides ``params`` and
+    ``batch_stats`` (``intermediates``, ``cache``, ``losses``) is unwrapped
+    all the same, and only the state is carried."""
+    rng = np.random.default_rng(1)
+
+    def arr(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    dense = {'kernel': arr(3, 2), 'bias': arr(2)}
+    sd = flax_to_state_dict({'params': {'lin': dense},
+                             'batch_stats': {'bn': {'mean': arr(2),
+                                                    'var': arr(2)}},
+                             'intermediates': {'lin': {'out': arr(2)}},
+                             'cache': {'k': arr(2)}})
+    assert set(sd) == {'lin.weight', 'lin.bias', 'bn.running_mean',
+                       'bn.running_var'}
+    np.testing.assert_array_equal(sd['lin.weight'].numpy(), dense['kernel'].T)
+    assert set(flax_to_state_dict({'params': {'lin': dense},
+                                   'losses': {'l2': arr(1)}})) == {
+        'lin.weight', 'lin.bias'}
