@@ -244,10 +244,30 @@ checks them:
      first batch against the CPU and its gradients against float64; kernel
      1 at F = 492 and 64 (forward) and 64 (``A^T g``); a host breakdown of
      one step;
- 36. every convolution, aggregation, norm and pooling function of the
-     graph-level slice, and the dense round trip (``to_dense_adj``,
-     ``dense_to_sparse``), once on the card, forward and backward, against
-     the CPU.
+ 36. path X, GraphGPS as PyG's ``examples/graph_gps.py`` runs it on
+     ZINC's shape (``zinc_like``'s molecules, ``AddRandomWalkPE(20)`` on
+     the host as each batch is drawn): atom and PE encoders, 10 x
+     GPSConv(64, GINEConv, heads=4) with batch norm, sum pooling, MLP 64 ->
+     32 -> 16 -> 1, L1, Adam(1e-3, weight_decay=1e-5), batch 32, 10 eager
+     steps and 4 eval batches, in a multi-head and a Performer arm (no port
+     kernel: GINE's messages and the attention are plain PyTorch, as the
+     JAX package's are XLA); each arm's first batch against the CPU at the
+     card's parameters (``synced_parity``); host ms a batch with the PE
+     transform's share;
+ 37. path Y, SGFormer at its ogbn-arxiv setting on ogbn-arxiv's shape
+     (``arxiv_like``: 169,343 nodes, 2,332,486 directed edges, 128
+     features, 40 classes), full graph, the GCN layers on
+     ``cache_gcn_norm(auto=True)`` (kernel 1 three times a forward, six a
+     step): served and trained eager and captured, 3 steps against the
+     CPU on the graph cut to 0.1, kernel 1 at F = 256 forward and ``A^T
+     g`` against its plain version and timed;
+ 38. every convolution, aggregation, norm and pooling function of the
+     graph-level slice, the dense round trip (``to_dense_adj``,
+     ``dense_to_sparse``), and the graph-transformer modules (RGATConv in
+     every mechanism, mode and mod, HEATConv, GPSConv with each attention,
+     the attention modules, SGFormer and Polynormer on kernel 1,
+     GraphMixer, the encodings), once on the card, forward and backward,
+     against the CPU.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -4451,18 +4471,22 @@ def gatv2_model(torch, device, seed):
 
 
 def flash_serve_train(torch, tag, build, seed, x, ei, y, per_fwd, per_step,
-                      iters, steps, lr, sync_state=False, cancelled=()):
+                      iters, steps, lr, sync_state=False, cancelled=(),
+                      serve_eval=False):
     """A flash path served (``inference_mode``) and trained (softmax
     cross-entropy, Adam at ``lr``), each eager and through
     ``compat.compile``: ms per forward or step, the host's issue time,
     launches (``per_fwd`` / ``per_step`` per call, every other kernel arm
     none), whole-window profiles and idle shares, peak memory; the eager
     step run twice from the same weights (is it bitwise repeatable?), and
-    ``sync_state`` for ``captured_training`` where it is not. Returns
-    ``(res, state, eager forward output)``."""
+    ``sync_state`` for ``captured_training`` where it is not;
+    ``serve_eval`` serves the model in eval mode (a model with batch norms:
+    the running statistics). Returns ``(res, state, eager forward
+    output)``."""
     model = build(torch, None, seed)
     state = {k: v.detach().cpu().clone()
              for k, v in model.state_dict().items()}
+    model.train(not serve_eval)
     fwd = lambda: model(x, ei)      # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7349,7 +7373,7 @@ def phase_path_v(torch, seed):
     from pytorch_geometric_tpu_torch.loader import DataLoader
     tag = 'path V'
     t0 = time.perf_counter()
-    graphs = zinc_like(ZINC_TRAIN, seed)
+    graphs = zinc_graphs(seed)
     hist, log_avg, lin_avg = pna_degree_stats(graphs)
     data = [Data(x=a, edge_index=c, edge_attr=b, y=y, num_nodes=len(a))
             for a, c, b, y in graphs]
@@ -7544,12 +7568,342 @@ def phase_path_w(torch, seed):
     return res, rows, worst
 
 
+# -- paths X and Y: graph transformers at ZINC's and ogbn-arxiv's shapes ------
+# PyG's examples/graph_gps.py on ZINC's subset (the GraphGPS paper's ZINC
+# setting at the example's widths): atom Embedding(28, 64 - 8) beside the
+# 20-step random-walk PE (``AddRandomWalkPE(20)``) through BatchNorm(20)
+# and Linear(20, 8), bond Embedding(4, 64), 10 x GPSConv(64,
+# GINEConv(Linear 64 -> 64, ReLU, Linear 64 -> 64), heads=4) with batch
+# norm, multi-head ('multihead') or Performer ('performer') attention, sum
+# pooling, MLP 64 -> 32 -> 16 -> 1; L1 loss, Adam(1e-3, weight_decay=1e-5),
+# batch 32. Cut: the attention dropout (0.5 there) is 0, as the JAX package
+# applies none, and there is no ReduceLROnPlateau over 10 steps
+PX_ATOMS, PX_CHANNELS, PX_PE_DIM, PX_WALK = 28, 64, 8, 20
+PX_LAYERS, PX_HEADS, PX_MLP = 10, 4, (32, 16, 1)
+PX_BATCH, PX_STEPS, PX_EVAL_BATCHES = 32, 10, 4
+PX_LR, PX_WEIGHT_DECAY = 1e-3, 1e-5
+# ogbn-arxiv's shape: 169,343 papers, 1,166,243 citations, made undirected
+# (both directions stored), 128 features, 40 classes. Generated: each
+# citation from a uniform paper to one drawn with weight rank^-PY_SKEW over
+# a random ranking of the papers (a skewed in-degree), no self loop, each
+# unordered pair once; at 0.75 the largest degree is 14,270 (ogbn-arxiv's
+# 13,161), the mean 13.77 (13.67)
+ARXIV_NODES, ARXIV_PAIRS, ARXIV_F, ARXIV_C = 169_343, 1_166_243, 128, 40
+PY_SKEW = 0.75
+# SGFormer (Wu et al., NeurIPS 2023) at its ogbn-arxiv setting: hidden 256,
+# 1 attention layer of 1 head, 3 GCN layers with batch norm and residuals,
+# graph_weight 0.5, Adam 1e-3; full graph, 10 timed training steps. The GCN
+# layers run on the cached normalisation (``cache_gcn_norm(auto=True)``,
+# the reference's GCNConv(cached=True)): kernel 1 three times a forward,
+# and three ``A^T g`` a step
+PY_HIDDEN, PY_TRANS_LAYERS, PY_HEADS, PY_GNN_LAYERS = 256, 1, 1, 3
+PY_GRAPH_WEIGHT, PY_LR, PY_STEPS = 0.5, 1e-3, 10
+# the CPU reference steps run on arxiv_like at this scale (16,934 nodes):
+# the CPU's plain segment sum over the whole graph would take most of the
+# path's time
+PY_CHECK_SCALE = 0.1
+
+
+@functools.lru_cache(maxsize=1)
+def zinc_graphs(seed):
+    """``zinc_like``'s 10,000 graphs, built once for paths V and X."""
+    return tuple(zinc_like(ZINC_TRAIN, seed))
+
+
+def gps_zinc_net(torch, device, seed, attn_type='multihead',
+                 channels=PX_CHANNELS, pe_dim=PX_PE_DIM, walk=PX_WALK,
+                 layers=PX_LAYERS, heads=PX_HEADS, mlp=PX_MLP):
+    """Path X's model (PyG's examples/graph_gps.py): ``model(atoms, pe,
+    coo, bonds, batch, num_graphs, max_nodes)``, one output a graph;
+    ``max_nodes`` the batch's largest graph, as the reference's
+    ``to_dense_batch`` pads to it."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn import (MLP, BatchNorm, GINEConv,
+                                                GPSConv)
+    from pytorch_geometric_tpu_torch.nn.inits import embedding, linear
+    from pytorch_geometric_tpu_torch.nn.pool import global_add_pool
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    kw = dict(device=device, generator=g)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.node_emb = embedding(PX_ATOMS, channels - pe_dim, **kw)
+            self.pe_norm = BatchNorm(walk, device=device)
+            self.pe_lin = linear(walk, pe_dim, **kw)
+            self.edge_emb = embedding(ZINC_BONDS, channels, **kw)
+            self.convs = torch.nn.ModuleList(
+                GPSConv(channels, GINEConv(MLP(channels, [channels, channels],
+                                               **kw)),
+                        heads=heads, attn_type=attn_type, **kw)
+                for _ in range(layers))
+            self.mlp = MLP(channels, list(mlp), **kw)
+
+        def forward(self, atoms, pe, coo, bonds, batch, num_graphs,
+                    max_nodes):
+            x = torch.cat([self.node_emb(atoms.long()),
+                           self.pe_lin(self.pe_norm(pe))], -1)
+            e = self.edge_emb(bonds.long())
+            for conv in self.convs:
+                x = conv(x, coo, batch, num_graphs, max_nodes, edge_attr=e)
+            return self.mlp(global_add_pool(x, batch, num_graphs))[:, 0]
+
+    return Net()
+
+
+class ZincPESet:
+    """Path X's dataset: ``zinc_like``'s graphs, each given its
+    random-walk PE by ``transform`` when the loader asks for it (PyG runs
+    it once a graph, as a pre-transform); ``seconds`` sums the transform's
+    host time."""
+
+    def __init__(self, graphs, transform, data_cls):
+        self.graphs, self.transform, self.data_cls = graphs, transform, \
+            data_cls
+        self.seconds = 0.0
+
+    def __len__(self):
+        return len(self.graphs)
+
+    def __getitem__(self, i):
+        a, c, b, y = self.graphs[i]
+        d = self.data_cls(x=a, edge_index=c, edge_attr=b, y=y,
+                          num_nodes=len(a))
+        t0 = time.perf_counter()
+        d = self.transform(d)
+        self.seconds += time.perf_counter() - t0
+        return d
+
+
+def gps_arm(torch, seed, dataset, attn_type, breakdown):
+    """One arm of path X: ``PX_STEPS`` eager steps on the card (host ms a
+    batch and the PE transform's share of it, card ms a step, no port
+    kernel launched: GINE's messages and the attention are plain PyTorch,
+    as the JAX package's are XLA), a whole-window profile of one step and
+    its launches, ``PX_EVAL_BATCHES`` eval batches, the first batch's 3
+    steps against the CPU (``synced_parity``); with ``breakdown`` a host
+    breakdown of one step."""
+    from pytorch_geometric_tpu_torch.loader import DataLoader
+    tag = f'path X {attn_type}'
+    loader = DataLoader(dataset, batch_size=PX_BATCH, shuffle=True,
+                        pad=False, seed=seed)
+    pe_ms, seen = [], [dataset.seconds]
+
+    def prepare(batch):
+        pe_ms.append((dataset.seconds - seen[0]) * 1e3)
+        seen[0] = dataset.seconds
+        largest = int(np.diff(batch.ptr.numpy()).max())
+        return (batch.x.to('cuda'), batch.random_walk_pe.to('cuda'),
+                batch.edge_index.coo.to('cuda'), batch.edge_attr.to('cuda'),
+                batch.batch.to('cuda'), batch.y.to('cuda'), batch.num_graphs,
+                largest)
+
+    def loss_of(model, atoms, pe, coo, bonds, bvec, y, ng, largest):
+        return (model(atoms, pe, coo, bonds, bvec, ng, largest)
+                - y).abs().mean()
+
+    def build(device):
+        return gps_zinc_net(torch, device, seed, attn_type)
+
+    model = build(None)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PX_LR,
+                           weight_decay=PX_WEIGHT_DECAY)
+
+    def step(*batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, iter(loader), prepare, step, PX_STEPS)
+    counts = launch_counts()
+    check_counts(tag, counts, {}, f'{PX_STEPS} steps')
+    steps_s = time.perf_counter() - t0
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 1)
+    res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
+                            prof_rows, prof_ms)
+    res['pe_transform_ms_per_batch'] = pe_ms
+    res['pe_share_of_host_ms'] = float(np.sum(pe_ms) / np.sum(host_ms))
+    res['cuda_launches_per_step'] = sum(c for _, _, c in prof_rows)
+    log(f"[{tag}] the PE transform takes {np.median(pe_ms):.2f} ms of a "
+        f"batch's host time (median; {res['pe_share_of_host_ms']:.3f} of "
+        f"the total); {res['cuda_launches_per_step']:g} kernel launches a "
+        f"step in the profile")
+    if breakdown:
+        res['host_breakdown'] = host_breakdown(torch, tag,
+                                               lambda: step(*first))
+    res.update(launch_counts=counts,
+               first_batch={'graphs': first[6], 'nodes': len(first[0]),
+                            'edges': first[2].shape[1],
+                            'max_nodes': first[7]})
+    model.eval()
+    res['eval_mae'] = eval_batches(
+        torch, DataLoader(dataset, batch_size=PX_BATCH, pad=False), prepare,
+        lambda *b: loss_of(model, *b), PX_EVAL_BATCHES)
+    log(f"[{tag}] eval-mode MAE over {PX_EVAL_BATCHES} batches "
+        f"{res['eval_mae']}")
+    cpu_batch = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                      for t in first)
+    t1 = time.perf_counter()
+    res['first_batch_vs_cpu'] = synced_parity(
+        torch, tag, build, state, first, cpu_batch, None, loss_of, PX_LR)
+    res['phase_s'] = {'steps': steps_s,
+                      'cpu_parity': time.perf_counter() - t1}
+    del loader, model, opt, first
+    return res
+
+
+def phase_path_x(torch, seed):
+    """Path X: GraphGPS as PyG's examples/graph_gps.py runs it, on ZINC's
+    shape (``zinc_like``'s 10,000 graphs, each with ``AddRandomWalkPE(20)``
+    on the host when its batch is drawn): ``gps_zinc_net``, batch 32
+    unpadded, ``max_num_nodes`` the batch's largest graph; the multi-head
+    arm, then the Performer arm (``gps_arm``)."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.transforms import AddRandomWalkPE
+    t0 = time.perf_counter()
+    dataset = ZincPESet(zinc_graphs(seed), AddRandomWalkPE(PX_WALK), Data)
+    res = {'graphs': len(dataset), 'build_s': time.perf_counter() - t0}
+    for attn in ('multihead', 'performer'):
+        res[attn] = gps_arm(torch, seed, dataset, attn, attn == 'multihead')
+    torch.cuda.empty_cache()
+    return res
+
+
+def arxiv_like(scale=1.0, seed=0):
+    """Path Y's graph at ``scale`` of ogbn-arxiv's shape: ``[2, 2 *
+    pairs]`` int32, each citation stored both ways."""
+    rng = np.random.default_rng(seed)
+    n = max(int(round(ARXIV_NODES * scale)), 2)
+    want = max(int(round(ARXIV_PAIRS * scale)), 1)
+    weight = 1.0 / np.arange(1, n + 1) ** PY_SKEW
+    p = (weight / weight.sum())[rng.permutation(n)]
+    keys = np.zeros(0, np.int64)
+    while len(keys) < want:
+        m = int((want - len(keys)) * 1.3) + 16
+        src = rng.integers(0, n, m)
+        dst = rng.choice(n, m, p=p)
+        keep = src != dst
+        k = (np.minimum(src, dst) * n + np.maximum(src, dst))[keep]
+        keys = np.concatenate([keys, k])
+        _, first = np.unique(keys, return_index=True)
+        keys = keys[np.sort(first)]
+    keys = keys[:want]
+    a, b = keys // n, keys % n
+    return np.stack([np.concatenate([a, b]),
+                     np.concatenate([b, a])]).astype(np.int32)
+
+
+def sgformer_arxiv_net(torch, device, seed):
+    """Path Y's model: ``SGFormer`` at its ogbn-arxiv setting on the cached
+    GCN normalisation, called as ``model(x, ei)``."""
+    from pytorch_geometric_tpu_torch.nn.models import SGFormer
+    return SGFormer(ARXIV_F, PY_HIDDEN, ARXIV_C,
+                    trans_num_layers=PY_TRANS_LAYERS,
+                    trans_num_heads=PY_HEADS, gnn_num_layers=PY_GNN_LAYERS,
+                    graph_weight=PY_GRAPH_WEIGHT, cached=True, device=device,
+                    generator=torch.Generator().manual_seed(seed))
+
+
+def phase_path_y(torch, seed, iters):
+    """Path Y: SGFormer at ogbn-arxiv's shape, full graph. ``arxiv_like``
+    (169,343 nodes, 2,332,486 directed edges) through
+    ``cache_gcn_norm(auto=True)`` on the card, which must choose kernel 1
+    (``spmm_regime`` 'kernel': no dense or block cache); X [169,343, 128]
+    and 40-class labels made on the card from ``seed``; served and trained
+    (softmax cross-entropy, Adam 1e-3) eager and captured
+    (``flash_serve_train``, served in eval mode: kernel 1 three times a
+    forward and six times a step, the captured outputs, losses and
+    gradients against the eager ones); 3 steps against the CPU at the
+    card's parameters on the graph cut to ``PY_CHECK_SCALE``
+    (``synced_parity``, running statistics too); kernel 1 at
+    F = 256, forward and ``A^T g``, against its plain version and timed
+    beside ``torch.sparse.mm``. The global attention is O(N D^2): no
+    ``[N, N]`` array."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn.conv import cache_gcn_norm
+    from pytorch_geometric_tpu_torch.ops import spmm_regime
+    tag = 'path Y'
+    n = ARXIV_NODES
+    t0 = time.perf_counter()
+    coo = arxiv_like(1.0, seed)
+    gen_s = time.perf_counter() - t0
+    deg = np.bincount(coo[1], minlength=n)
+    log(f'[{tag}] arxiv_like: {n} nodes, {coo.shape[1]} directed edges '
+        f'built on the host in {gen_s:.2f} s; in-degree mean '
+        f'{deg.mean():.2f}, max {deg.max()}, 99th percentile '
+        f'{np.percentile(deg, 99):.0f}')
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ei = cache_gcn_norm(EdgeIndex(coo, (n, n)), auto=True)
+    torch.cuda.synchronize()
+    cache = cache_report(torch, tag, ei, time.perf_counter() - t0, mem0)
+    regime = spmm_regime(ei, PY_HIDDEN, 'sum')
+    check(regime == 'kernel' and ei.weight is not None,
+          f'{tag}: the GCN layers take {regime!r}')
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((n, ARXIV_F), generator=gen, device='cuda')
+    y = torch.randint(0, ARXIV_C, (n,), generator=gen, device='cuda')
+    k1 = {'segment_spmm': PY_GNN_LAYERS}
+    res, state, _ = flash_serve_train(
+        torch, tag, sgformer_arxiv_net, seed, x, ei, y, k1,
+        {'segment_spmm': 2 * PY_GNN_LAYERS}, iters, PY_STEPS, PY_LR,
+        sync_state=True, serve_eval=True)
+    res.update(cache=cache, regime=regime, nodes=n, edges=coo.shape[1],
+               build_s=gen_s)
+    # the CPU reference: 3 steps at the card's parameters on the graph cut
+    # to PY_CHECK_SCALE, on the card (kernel 1 again) and on the CPU
+    t0 = time.perf_counter()
+    cut = arxiv_like(PY_CHECK_SCALE, seed)
+    nc = int(cut.max()) + 1
+    cut_ei = {dev: cache_gcn_norm(EdgeIndex(cut, (nc, nc), device=dev),
+                                  auto=True) for dev in ('cuda', 'cpu')}
+    check(spmm_regime(cut_ei['cuda'], PY_HIDDEN, 'sum') == 'kernel',
+          f'{tag}: the cut graph\'s GCN layers leave kernel 1')
+    xc, yc = x[:nc].contiguous(), y[:nc].contiguous()
+
+    def build(device):
+        return sgformer_arxiv_net(torch, device, seed)
+
+    def loss_of(model, xs, e, ys):
+        return torch.nn.functional.cross_entropy(model(xs, e), ys)
+
+    res['first_steps_vs_cpu'] = synced_parity(
+        torch, f'{tag} at {PY_CHECK_SCALE} scale', build, state,
+        (xc, cut_ei['cuda'], yc), (xc.cpu(), cut_ei['cpu'], yc.cpu()),
+        None, loss_of, PY_LR)
+    res['cpu_parity_s'] = time.perf_counter() - t0
+    res['cpu_parity_graph'] = {'nodes': nc, 'edges': int(cut.shape[1])}
+    w = ei.weight
+    rows, worst = kernel1_rows(torch, 'Y', ei, [
+        (f'forward F={PY_HIDDEN}', ei.csc, w[ei.csc.perm].contiguous(),
+         PY_HIDDEN),
+        (f'A^T g F={PY_HIDDEN}', ei.csr, w[ei.csr.perm].contiguous(),
+         PY_HIDDEN)], seed + 81)
+    log(f"[{tag}] CPU parity took {res['cpu_parity_s']:.1f} s; kernel 1 at "
+        f'F={PY_HIDDEN}: ' + ', '.join(
+            f"{r['shape']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"torch.sparse.mm {r['library_ms']})" for r in rows))
+    del ei, cut_ei, x, y, xc, yc
+    torch.cuda.empty_cache()
+    return res, rows, worst
+
+
 def module_cases(torch, seed):
     """Each convolution, aggregation, norm and pooling function of the
-    graph-level slice, and the dense round trip, with its inputs: ``(name, build(device), run(module,
-    x, inputs))``, ``inputs`` a dict of CPU tensors that ``run`` moves with
-    x. One small graph: 2,000 nodes, 20,000 edges plus 64 padded ones at
-    the sentinel (masked), F = 32, 8 graphs."""
+    graph-level slice, the dense round trip, and the graph-transformer
+    modules (``transformer_cases``), with its inputs: ``(name,
+    build(device), run(module, x, inputs))``, ``inputs`` a dict of CPU
+    tensors that ``run`` moves with x. One small graph: 2,000 nodes, 20,000
+    edges plus 64 padded ones at the sentinel (masked), F = 32, 8
+    graphs."""
     from pytorch_geometric_tpu_torch.nn import aggr, conv, norm, pool
     from pytorch_geometric_tpu_torch.nn.inits import linear
     from pytorch_geometric_tpu_torch.nn.models import MLP
@@ -7679,7 +8033,115 @@ def module_cases(torch, seed):
 
     cases.append(('to_dense_adj / dense_to_sparse',
                   lambda dev: torch.nn.Identity(), dense_run))
+    cases += transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g)
     return cases, inputs, n, f
+
+
+# the kernel launches of a module case's card run (forward and backward):
+# kernel 1 in the GCN layers on the cached normalisation, once forward and
+# once A^T g each (x needs a gradient); no other case launches a kernel
+MODULE_KERNELS = {'SGFormer cached': {'segment_spmm': 4},
+                  'Polynormer local cached': {'segment_spmm': 4},
+                  'Polynormer global cached': {'segment_spmm': 4}}
+
+
+def transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g):
+    """``module_cases``' graph-transformer modules: ``RGATConv`` in every
+    mechanism, mode and mod (``num_bases`` and ``edge_dim`` in turn),
+    ``HEATConv`` both ways, ``GPSConv`` with each attention, the four
+    attention modules and flax's multi-head attention over the dense batch,
+    ``SGFormer`` and ``Polynormer`` (local and global) on the cached GCN
+    normalisation, ``GraphMixer`` and the encodings. Adds the link
+    tensors ``GraphMixer`` reads to ``inputs``."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn import attention, conv, encoding
+    from pytorch_geometric_tpu_torch.nn.conv import cache_gcn_norm
+    from pytorch_geometric_tpu_torch.nn.models import (MLP, GraphMixer,
+                                                       Polynormer, SGFormer)
+    from pytorch_geometric_tpu_torch.utils.dense import to_dense_batch
+    rng = np.random.default_rng(seed + 74)
+    tokens = 8
+    inputs['times'] = torch.as_tensor(rng.random((n // tokens, tokens)) * 50,
+                                      dtype=torch.float32)
+    inputs['links'] = torch.as_tensor(rng.random((n // tokens, tokens))
+                                      < 0.8)
+    cases = []
+    for i, (mech, mode, mod) in enumerate(
+            (a, b, c) for a in ('across-relation', 'within-relation')
+            for b in ('additive-self-attention',
+                      'multiplicative-self-attention')
+            for c in (None, 'f-additive', 'f-scaled')):
+        kw = dict(num_relations=3, num_bases=2 if i % 2 else None,
+                  heads=2, dim=1 if mode.startswith('add') else 2,
+                  concat=i % 3 != 2, attention_mechanism=mech,
+                  attention_mode=mode, mod=mod,
+                  edge_dim=8 if (i // 2) % 2 else None)
+        cases.append((f'RGATConv {mech} {mode.split("-")[0]} {mod}',
+                      lambda dev, kw=kw: conv.RGATConv(f, 12, **kw, **g(dev)),
+                      lambda m, x, d, kw=kw: m(
+                          x, d['coo'], d['etype'],
+                          d['ea'] if kw['edge_dim'] else None, d['mask'])))
+    for concat in (True, False):
+        cases.append((f'HEATConv concat={concat}', lambda dev, c=concat:
+                      conv.HEATConv(f, 16, num_node_types=3,
+                                    num_edge_types=3, edge_dim=8, heads=2,
+                                    concat=c, **g(dev)),
+                      lambda m, x, d: m(x, d['coo'], d['types'], d['etype'],
+                                        d['ea'], d['mask'])))
+    for attn in ('multihead', 'performer'):
+        cases.append((f'GPSConv {attn}', lambda dev, a=attn: conv.GPSConv(
+            f, conv.GINEConv(MLP(f, [f, f], **g(dev)), edge_dim=8,
+                             generator=g(dev)['generator']),
+            heads=4, attn_type=a, **g(dev)),
+            lambda m, x, d: m(x, d['coo'], d['batch'], graphs, cap,
+                              edge_mask=d['mask'], edge_attr=d['ea'])))
+
+    def dense(x, d):
+        return to_dense_batch(x, d['batch'], graphs, cap)
+
+    for name, make, as_float in (
+            ('PerformerAttention', lambda dev: attention.PerformerAttention(
+                f, 4, **g(dev)), True),
+            ('SGFormerAttention', lambda dev: attention.SGFormerAttention(
+                f, 2, head_channels=16, **g(dev)), True),
+            ('PolynormerAttention', lambda dev:
+             attention.PolynormerAttention(f, 2, qk_shared=False, **g(dev)),
+             True),
+            ('QFormer', lambda dev: attention.QFormer(f, 16, num_queries=8,
+                                                      **g(dev)), False)):
+        cases.append((name, make, lambda m, x, d, fl=as_float: m(
+            dense(x, d)[0], mask=(dense(x, d)[1].float() if fl
+                                  else dense(x, d)[1]))))
+    cases.append(('MultiHeadDotProductAttention', lambda dev:
+                  attention.MultiHeadDotProductAttention(f, 4, **g(dev)),
+                  lambda m, x, d: m(dense(x, d)[0], mask=dense(x, d)[1][
+                      :, None, None, :])))
+
+    def cached(x, d):
+        return cache_gcn_norm(EdgeIndex(d['coo'][:, :e], (n, n),
+                                        device=x.device), auto=True)
+
+    cases.append(('SGFormer cached', lambda dev: SGFormer(
+        f, 32, 5, trans_num_layers=1, gnn_num_layers=2, cached=True,
+        **g(dev)), lambda m, x, d: m(x, cached(x, d))))
+    for glob in (False, True):
+        cases.append((f'Polynormer {"global" if glob else "local"} cached',
+                      lambda dev, gl=glob: Polynormer(
+                          f, 16, 5, local_layers=2, global_layers=1,
+                          heads=2, use_global=gl, cached=True, **g(dev)),
+                      lambda m, x, d: m(x, cached(x, d))))
+    cases.append(('GraphMixer', lambda dev: GraphMixer(
+        f, 24, 6, num_tokens=tokens, time_channels=8, **g(dev)),
+        lambda m, x, d: m(x.view(n // tokens, tokens, f), d['times'],
+                          d['links'])))
+    cases += [
+        ('PositionalEncoding', lambda dev: encoding.PositionalEncoding(16),
+         lambda m, x, d: m(x[:, 0] * 10)),
+        ('TemporalEncoding', lambda dev: encoding.TemporalEncoding(16),
+         lambda m, x, d: m(x[:, 0] * 10)),
+        ('TimeEncoder', lambda dev: encoding.TimeEncoder(16, **g(dev)),
+         lambda m, x, d: m(x[:, 0] * 10))]
+    return cases
 
 
 def phase_graph_modules(torch, seed):
@@ -7690,16 +8152,19 @@ def phase_graph_modules(torch, seed):
     gradient (input and parameters) within 1e-4 of its largest on the CPU,
     or of the largest of all for one that vanishes in exact arithmetic
     (under 1e-6 of the largest on the CPU: a softmax gate's bias); the
-    output on the card, no port kernel launched. Catches an op that runs
-    only on the CPU or a tensor left on the wrong device."""
+    output on the card; each card run launches the port kernels
+    ``MODULE_KERNELS`` names for it (kernel 1 in the cached GCN layers),
+    and no case any other. Catches an op that runs only on the CPU or a
+    tensor left on the wrong device."""
     cases, inputs, n, f = module_cases(torch, seed)
     x_cpu = torch.randn((n, f), generator=torch.Generator().manual_seed(
         seed + 72))
-    worst, rows = 0.0, []
-    reset_counts()
+    worst, rows, total = 0.0, [], {}
     for name, build, run in cases:
         res = []
         for dev in ('cpu', 'cuda'):
+            if dev == 'cuda':
+                reset_counts()
             m = build(dev).train()
             if res:
                 m.load_state_dict({k: v.to(dev) for k, v in state.items()})
@@ -7718,6 +8183,11 @@ def phase_graph_modules(torch, seed):
                           if p.grad is not None})
             res.append((out.detach().cpu(), {k: v.cpu()
                                              for k, v in grads.items()}))
+        counts = launch_counts()
+        check_counts(name, counts, MODULE_KERNELS.get(name, {}),
+                     'its card run')
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
         (o_cpu, g_cpu), (o_card, g_card) = res
         check(set(g_cpu) == set(g_card), f'{name}: gradients '
                                          f'{sorted(g_cpu)} / {sorted(g_card)}')
@@ -7736,13 +8206,11 @@ def phase_graph_modules(torch, seed):
         worst = max(worst, err, gerr)
         rows.append({'module': name, 'out_rel_err': err,
                      'grad_rel_err': gerr, 'params': len(g_cpu) - 1})
-    counts = launch_counts()
-    check_counts('graph-level modules', counts, {}, 'the module phase')
     log(f'[modules] {len(rows)} graph-level modules on the card against '
         f'the CPU, forward and backward: worst {worst:.3e} (limit 1e-4); '
         + ', '.join(f"{r['module']} {max(r['out_rel_err'], r['grad_rel_err']):.1e}"
                     for r in rows))
-    return {'modules': rows, 'worst': worst}
+    return {'modules': rows, 'worst': worst, 'launch_counts': total}
 
 
 def main():
@@ -7867,10 +8335,17 @@ def main():
     t0 = time.perf_counter()
     path_v = phase_path_v(torch, args.seed)
     path_w, w_rows, w_err = phase_path_w(torch, args.seed)
+    log(f'[time] paths V and W took {time.perf_counter() - t0:.1f} s')
+    lap('paths V and W')
+    # the graph transformers: GraphGPS at ZINC's shape (X), SGFormer at
+    # ogbn-arxiv's (Y), and every module of both slices once on the card
+    t0 = time.perf_counter()
+    path_x = phase_path_x(torch, args.seed)
+    path_y, y_rows, y_err = phase_path_y(torch, args.seed, args.iters)
     modules = phase_graph_modules(torch, args.seed)
-    log(f'[time] paths V, W and the module phase took '
+    log(f'[time] paths X, Y and the module phase took '
         f'{time.perf_counter() - t0:.1f} s')
-    lap('paths V, W and the graph-level modules')
+    lap('paths X, Y and the module phase')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -7925,7 +8400,15 @@ def main():
         path_p=path_p['launch_counts'], path_q=path_q['launch_counts'],
         path_q_hgt_loader=path_q['hgt_loader']['launch_counts'],
         path_t=path_t['launch_counts'], path_u=path_u['launch_counts'],
-        path_v=path_v['launch_counts'], path_w=path_w['launch_counts'])
+        path_v=path_v['launch_counts'], path_w=path_w['launch_counts'],
+        path_x_multihead=path_x['multihead']['launch_counts'],
+        path_x_performer=path_x['performer']['launch_counts'],
+        path_y=path_y['launch_counts'],
+        path_y_captured=path_y['captured']['launch_counts'],
+        path_y_training=path_y['training']['launch_counts'],
+        path_y_training_captured=path_y['training']['captured'][
+            'launch_counts'],
+        graph_modules=modules['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
         path_counts[f'path_r_{key}'] = path_r[dt]['launch_counts']
@@ -7980,6 +8463,7 @@ def main():
                               'path_q': path_q, 'path_r': path_r,
                               'path_t': path_t, 'path_u': path_u,
                               'path_v': path_v, 'path_w': path_w,
+                              'path_x': path_x, 'path_y': path_y,
                               'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the
@@ -8047,13 +8531,18 @@ def main():
                 'segment_spmm'],
             'path_t': path_t['launches_per_step']['segment_spmm'],
             'path_u': path_u['launches_per_step']['segment_spmm'],
-            'path_w': path_w['launches_per_step']['segment_spmm']},
+            'path_w': path_w['launches_per_step']['segment_spmm'],
+            'path_y': path_y['training']['launches_per_step'][
+                'segment_spmm']},
         'launches_per_layerwise_batch': 2,
         'launches_per_path_r_forward': path_r['float32'][
             'launches_per_forward'],
+        'launches_per_path_y_forward': path_y['launches_per_forward'][
+            'segment_spmm'],
         'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err,
                            *(r['max_abs_err'] for r in r_rows[:2]),
-                           s_row['max_abs_err'], t_err, u_err, w_err),
+                           s_row['max_abs_err'], t_err, u_err, w_err,
+                           y_err),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -8075,7 +8564,7 @@ def main():
         'path_q_per_shape': q_rows,
         'path_r_per_shape': r_rows[:2], 'path_s_per_shape': [s_row],
         'path_t_per_shape': t_rows, 'path_u_per_shape': u_rows,
-        'path_w_per_shape': w_rows,
+        'path_w_per_shape': w_rows, 'path_y_per_shape': y_rows,
         'regime_arms_rel_err': regime_arms['worst'],
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',

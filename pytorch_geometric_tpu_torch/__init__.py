@@ -14,9 +14,10 @@ the JAX package.
 __version__ = '0.1.0'
 
 from . import backend
+from . import transforms
 from .backend import default_device
 from .edge_index import (CSR, EdgeIndex, WindowedCSC, build_windowed_csc,
                          from_numpy_coo)
 
-__all__ = ['backend', 'default_device', 'CSR', 'EdgeIndex', 'WindowedCSC',
+__all__ = ['backend', 'transforms', 'default_device', 'CSR', 'EdgeIndex', 'WindowedCSC',
            'build_windowed_csc', 'from_numpy_coo']

@@ -46,7 +46,14 @@ The JAX package's names map one to one onto the port's:
     ``skip_{t}``, ``proj_{t}``, ``q``, ``weight``, ``comp``,
     ``basis_coef``, ``layer_{i}`` ...). Only a ``kernel`` is transposed:
     the ``[R, F, C]`` banks, HGT's ``[H, D, D]`` transforms, RGCN's ``comp
-    [R, B]`` and HAN's ``q [1, C]`` keep their layout.
+    [R, B]`` and HAN's ``q [1, C]`` keep their layout, as do RGATConv's
+    ``weight``, ``att``, ``basis``, ``q``, ``k``, ``e`` and the Performer's
+    ``projection`` (a buffer of the port's module).
+  * a 3-D ``kernel`` is a flax ``DenseGeneral``'s, in flax's
+    ``MultiHeadDotProductAttention`` (``GPSConv``'s and ``QFormer``'s):
+    ``query`` / ``key`` / ``value`` ``[F, H, D]`` -> ``weight [H * D,
+    F]``, ``out`` ``[H, D, F]`` -> ``weight [F, H * D]``; the ``[H, D]``
+    bias beside a 3-D kernel is flattened.
 """
 
 import re
@@ -107,7 +114,14 @@ def _walk(tree: Mapping[str, Any], prefix, out, stats: bool):
         if stats:
             leaf = _STATS.get(k, k)
         elif k == 'kernel':
+            if arr.ndim == 3:
+                # a DenseGeneral's: the input axes first, then the output's
+                arr = (arr.reshape(-1, arr.shape[-1])
+                       if prefix[-1:] == ('out',)
+                       else arr.reshape(arr.shape[0], -1))
             leaf, arr = 'weight', np.ascontiguousarray(arr.T)
+        elif k == 'bias' and np.ndim(tree.get('kernel')) == 3:
+            leaf, arr = k, arr.reshape(-1)
         elif k == 'embedding' or (k == 'scale' and 'bias' in tree):
             leaf = 'weight'
         else:

@@ -1,5 +1,6 @@
 from .message_passing import MessagePassing
 from . import aggr
+from . import attention
 from . import conv
 from . import dense
 from . import models
@@ -9,7 +10,8 @@ from .conv import (GATConv, GATv2Conv, GCNConv, cache_gcn_norm, gcn_norm,
                    SAGEConv, GINConv, GINEConv, GraphConv, ClusterGCNConv,
                    RGCNConv, FastRGCNConv, HeteroConv, HGTConv, HANConv,
                    GENConv, FiLMConv, PDNConv, GeneralConv, PNAConv, EGConv,
-                   EdgeConv)
+                   EdgeConv, GPSConv, RGATConv, SuperGATConv, HEATConv)
+from .encoding import PositionalEncoding, TemporalEncoding
 from .dense import HeteroDictLinear, HeteroLinear, Linear
 from .models import MLP, BasicGNN, GAT, GCN, GraphSAGE, GIN, PNA, EdgeCNN
 from .norm import BatchNorm
@@ -17,8 +19,10 @@ from .pool import global_add_pool, global_max_pool, global_mean_pool
 from .to_hetero import (ToHetero, to_fixed_size, to_hetero,
                         to_hetero_with_bases)
 
-__all__ = ['MessagePassing', 'aggr', 'conv', 'dense', 'models', 'norm',
-           'pool', 'GCNConv', 'cache_gcn_norm', 'gcn_norm', 'SAGEConv',
+__all__ = ['MessagePassing', 'aggr', 'attention', 'conv', 'dense',
+           'models', 'norm', 'pool', 'GPSConv', 'RGATConv', 'SuperGATConv',
+           'HEATConv', 'PositionalEncoding', 'TemporalEncoding', 'GCNConv',
+           'cache_gcn_norm', 'gcn_norm', 'SAGEConv',
            'GINConv', 'GINEConv', 'GATConv', 'GATv2Conv', 'GraphConv',
            'ClusterGCNConv', 'RGCNConv', 'FastRGCNConv', 'HeteroConv',
            'HGTConv', 'HANConv', 'GENConv', 'FiLMConv', 'PDNConv',

@@ -11,10 +11,12 @@ from .hetero_conv import HANConv, HeteroConv, HGTConv
 from .gen_conv import (EGConv, FiLMConv, GENConv, GeneralConv, PDNConv,
                        PNAConv)
 from .point_conv import EdgeConv
+from .gps_conv import GPSConv, HEATConv, RGATConv
 
 __all__ = ['MessagePassing', 'GCNConv', 'cache_gcn_norm', 'gcn_norm',
            'SAGEConv', 'GINConv', 'GINEConv', 'GATConv', 'GATv2Conv', 'FusedGATConv',
            'CuGraphGATConv', 'GraphConv', 'ClusterGCNConv',
            'TransformerConv', 'SuperGATConv', 'RGCNConv', 'FastRGCNConv',
            'HeteroConv', 'HGTConv', 'HANConv', 'GENConv', 'FiLMConv',
-           'PDNConv', 'GeneralConv', 'PNAConv', 'EGConv', 'EdgeConv']
+           'PDNConv', 'GeneralConv', 'PNAConv', 'EGConv', 'EdgeConv',
+           'GPSConv', 'RGATConv', 'HEATConv']

@@ -2,8 +2,7 @@
 
 Counterpart of ``SuperGATConv`` in ``pytorch_geometric_tpu/nn/conv/
 gps_conv.py:194-251`` (the rest of that file, ``GPSConv``, ``RGATConv`` and
-``HEATConv``, is not ported yet: ROADMAP Queue 1, item 11). Two attention
-forms:
+``HEATConv``, is the port's ``gps_conv.py``). Two attention forms:
 
   * ``'MX'``: ``alpha = (a_l . h_j + a_r . h_i) * sigmoid(h_i . h_j)``;
   * ``'SD'``: ``alpha = h_i . h_j / sqrt(C)``;

@@ -65,3 +65,15 @@ def constant(shape, value: float, device=None) -> nn.Parameter:
     ``ones``)."""
     return nn.Parameter(torch.full(tuple(shape), float(value),
                                    device=device))
+
+
+def embedding(num_embeddings: int, features: int, device=None,
+              generator: Optional[torch.Generator] = None) -> nn.Embedding:
+    """``nn.Embedding`` initialised as flax's ``Embed``: a normal truncated
+    at two standard deviations, variance ``1 / features``."""
+    emb = nn.Embedding(num_embeddings, features)
+    with torch.no_grad():
+        std = math.sqrt(1.0 / max(features, 1)) / .87962566103423978
+        nn.init.trunc_normal_(emb.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+    return emb.to(device)

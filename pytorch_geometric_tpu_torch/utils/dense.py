@@ -10,6 +10,32 @@ from typing import Optional, Tuple
 import torch
 
 
+def node_positions(batch: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """Each node's rank among the nodes of its graph, in row order: the
+    JAX package's ``cumsum(one_hot(batch, batch_size))[i, batch[i]] - 1``,
+    computed by a stable sort instead of the ``[N, batch_size]`` running
+    count. As there, only rows with ``0 <= batch < batch_size`` are
+    counted; a row outside that range reads the count of the graph its
+    index is clamped to (``batch_size - 1`` past the end; a negative index
+    first wraps once, as a JAX gather's does), and gets -1 where that graph
+    has no counted row up to it."""
+    batch = batch.long()
+    n = batch.shape[0]
+    counted = (batch >= 0) & (batch < batch_size)
+    graph = torch.where(batch < 0, batch + batch_size, batch).clamp(
+        0, max(batch_size - 1, 0))
+    order = torch.argsort(graph, stable=True)
+    sorted_graph = graph[order]
+    running = torch.cumsum(counted[order].long(), 0)
+    per_graph = torch.zeros(max(batch_size, 1), dtype=torch.long,
+                            device=batch.device).index_add_(
+        0, graph, counted.long())
+    before = torch.cumsum(per_graph, 0) - per_graph
+    pos = torch.empty(n, dtype=torch.long, device=batch.device)
+    pos[order] = running - before[sorted_graph] - 1
+    return pos
+
+
 def to_dense_batch(x: torch.Tensor, batch: Optional[torch.Tensor],
                    batch_size: int, max_num_nodes: int,
                    fill_value: float = 0.0
@@ -23,12 +49,7 @@ def to_dense_batch(x: torch.Tensor, batch: Optional[torch.Tensor],
         batch = torch.zeros(n, dtype=torch.long, device=x.device)
     batch = batch.long()
     inside = (batch >= 0) & (batch < batch_size)
-    # rank of each node within its graph: a running count per graph
-    onehot = (batch[:, None] == torch.arange(batch_size,
-                                             device=x.device)).long()
-    counts = torch.cumsum(onehot, dim=0)
-    pos = counts.gather(1, batch.clamp(0, max(batch_size - 1, 0))[:, None]
-                        )[:, 0] - 1
+    pos = node_positions(batch, batch_size)
     valid = inside & (pos < max_num_nodes)
     dump = batch_size * max_num_nodes
     flat = torch.where(valid, batch * max_num_nodes + pos, dump)
