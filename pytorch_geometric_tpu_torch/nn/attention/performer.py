@@ -10,7 +10,6 @@ parameters by ``convert.flax_to_state_dict`` under its name,
 ``projection``.
 """
 
-import math
 from typing import Optional
 
 import torch
