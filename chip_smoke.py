@@ -265,11 +265,28 @@ checks them:
      version and timed;
  38. every convolution, aggregation, norm and pooling function of the
      graph-level slice, the dense round trip (``to_dense_adj``,
-     ``dense_to_sparse``), and the graph-transformer modules (RGATConv in
+     ``dense_to_sparse``), the graph-transformer modules (RGATConv in
      every mechanism, mode and mod, HEATConv, GPSConv with each attention,
      the attention modules, SGFormer and Polynormer on kernel 1,
-     GraphMixer, the encodings), once on the card, forward and backward,
-     against the CPU.
+     GraphMixer, the encodings), and every class of the propagation convs
+     and the model zoo (``spectral_conv.py``, ``graph_conv.py``,
+     ``misc_conv.py``, ``dna_conv.py``, ``misc_models.py``,
+     ``autoencoder.py``; AntiSymmetricConv's GCNConv on an ``EdgeIndex``,
+     JumpingKnowledge's lstm mode), once on the card, forward and
+     backward, against the CPU;
+ 39. path Z (run after path S, on the same products graph), PyG's
+     ``examples/correct_and_smooth.py`` at ogbn-products' shape: an MLP
+     base predictor (100 -> 200 -> 200 -> 47, batch norm, dropout 0.5 from
+     a CUDA generator) trained 10 full-batch Adam steps on 196,615 seeded
+     training rows, then ``CorrectAndSmooth`` (50 correction hops at alpha
+     1.0, scale 20; 50 smoothing hops at 0.8) over the raw COO: ms a base
+     step, a C&S pass with ``correct`` and ``smooth`` apart, a propagation
+     layer, peak memory, a profiled pass's busy and idle share and
+     launches a layer, host issue ms; no port kernel (the gather path, as
+     the JAX package's XLA scatter), eager, not captured; at 0.01 scale
+     the card's corrected and smoothed outputs against the CPU's float64
+     within 1e-4 * max(1, max|ref|), and the correction without its
+     re-pin of the training rows failing that limit.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -301,6 +318,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -7961,10 +7979,331 @@ def phase_path_y(torch, seed, iters):
     return res, rows, worst
 
 
+# -- path Z: Correct & Smooth at ogbn-products' shape --------------------------
+# PyG's examples/correct_and_smooth.py: an MLP base predictor (100 -> 200 ->
+# 200 -> 47, batch norm, dropout 0.5, Adam 0.01 on the training rows, full
+# batch) and CorrectAndSmooth(num_correction_layers=50, correction_alpha=1.0,
+# num_smoothing_layers=50, smoothing_alpha=0.8, autoscale=False, scale=20)
+# over the GCN normalisation without self loops, on the products graph
+# (products_graph, products_data). The training rows are the first 196,615
+# of a seeded permutation (ogbn-products' train split). Cut: 10 base steps
+# (300 epochs there); the graph, widths and the 50 + 50 layers are not cut
+PZ_TRAIN, PZ_HIDDEN, PZ_DROPOUT = 196_615, (200, 200), 0.5
+PZ_LR, PZ_STEPS = 0.01, 10
+PZ_CS = dict(num_correction_layers=50, correction_alpha=1.0,
+             num_smoothing_layers=50, smoothing_alpha=0.8, autoscale=False,
+             scale=20.0)
+# the CPU reference runs on products_graph cut to this scale (24,490 nodes)
+PZ_CHECK_SCALE = 0.01
+# corrected and smoothed outputs against the CPU's float64, relative to
+# max(1, max|ref|): correction at alpha 1.0 does not contract over its 50
+# hops and scale 20 multiplies its error, so the margin is measured and
+# logged (PERF.md section 2)
+PZ_TOL = 1e-4
+
+
+def cs_model(torch, device, seed, dropout=PZ_DROPOUT):
+    """Path Z's base predictor: the port's ``MLP(100, [200, 200, 47],
+    norm='batch_norm', dropout=0.5)``, random weights from ``seed``."""
+    from pytorch_geometric_tpu_torch.nn.models import MLP
+    return MLP(PR_F, [*PZ_HIDDEN, PR_CLASSES], norm='batch_norm',
+               dropout=dropout, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def cs_train(torch, model, x, y, rows, steps, generator, lr=PZ_LR,
+             on_step=None):
+    """``steps`` full-batch Adam steps of softmax cross-entropy on ``x[rows]``
+    (dropout drawn from ``generator``); ``on_step(i)`` after each. Returns
+    the losses."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    model.train()
+    xt, yt = x[rows], y[rows]
+    losses = []
+    for i in range(steps):
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(
+            model(xt, generator=generator), yt)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        if on_step is not None:
+            on_step(i)
+    return [float(v) for v in losses]
+
+
+def cs_soft(torch, model, x):
+    """The base predictor's class probabilities, eval mode."""
+    model.eval()
+    with torch.no_grad():
+        return torch.softmax(model(x), -1)
+
+
+def cs_post(torch, cs, y_soft, y, train_mask, coo, repin=True):
+    """``(corrected, smoothed)`` of ``CorrectAndSmooth`` ``cs`` from
+    ``y_soft`` and the labels ``y`` (one-hot in ``y_soft``'s dtype). With
+    ``repin`` false the correction leaves the training rows' error free
+    after each hop (the sensitivity variant: no post step at all)."""
+    from pytorch_geometric_tpu_torch.nn.models import LabelPropagation
+    y_true = torch.nn.functional.one_hot(y, y_soft.shape[1]).to(y_soft.dtype)
+    with torch.no_grad():
+        if repin:
+            corrected = cs.correct(y_soft, y_true, train_mask, coo)
+        else:
+            err = torch.where(train_mask[:, None], y_true - y_soft, 0)
+            lp = LabelPropagation(cs.num_correction_layers,
+                                  cs.correction_alpha)
+            corrected = y_soft + cs.scale * lp(err, coo,
+                                               post_step=lambda v: v)
+        return corrected, cs.smooth(corrected, y_true, train_mask, coo)
+
+
+def cs_err(torch, got, ref):
+    """``max|got - ref| / max(1, max|ref|)``, on the CPU in float64."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def cs_train_mask(torch, n, train, seed, device):
+    """The first ``train`` rows of a permutation of ``n`` from ``seed`` as a
+    bool mask."""
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[perm[:train]] = True
+    return mask.to(device)
+
+
+def cs_timed(torch, fn):
+    """``fn()``'s result, its ms on the card's clock (CUDA events) and the
+    host ms until it returned."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), host
+
+
+def phase_path_z(torch, seed, coo):
+    """Path Z: Correct & Smooth at ogbn-products' shape (``PZ_*``): the
+    products graph (2,449,029 nodes, 123,718,280 edges) on the card as a
+    raw COO, X [N, 100] and 47 labels from ``products_data``; the base MLP
+    trained 10 full-batch Adam steps on the 196,615 training rows (dropout
+    from a CUDA generator), served in eval mode and softmaxed, then
+    ``CorrectAndSmooth`` with ``correct`` and ``smooth`` timed apart (CUDA
+    events), one propagation layer timed alone, peak memory, and a second
+    pass profiled as a whole window (busy and idle share, launches a layer;
+    host issue ms and the caching allocator's retries from the first
+    pass); the smoothed output finite and in [0, 1], the two passes within
+    ``PZ_TOL``. Against the CPU: the card's trained weights on the graph
+    cut to ``PZ_CHECK_SCALE`` (1 % of the training rows), on the card in
+    float32 and on the CPU in float64 (on a host thread while the card runs
+    the full-scale passes), the corrected and the smoothed outputs within
+    ``PZ_TOL`` * max(1, max|ref|); the correction without its re-pin of
+    the training rows must fail that limit.
+
+    Runs eagerly, as paths V, W and X run; it is not captured: a CUDA
+    graph's pool would keep the ~47 GB of ``[E, 47]`` intermediates of a
+    layer reserved. It launches no port kernel: as in the JAX package,
+    ``LabelPropagation`` propagates over the raw COO through
+    ``MessagePassing``'s gather path (an ``index_select`` of ``[E, 47]``,
+    the weighted message, and ``index_add_``, what the JAX package's XLA
+    scatter becomes), not through ``spmm``."""
+    from pytorch_geometric_tpu_torch.nn.models import (CorrectAndSmooth,
+                                                       LabelPropagation)
+    from pytorch_geometric_tpu_torch.nn.conv import gcn_norm
+    tag = 'path Z'
+    n, layers = N_PRODUCTS, (PZ_CS['num_correction_layers']
+                             + PZ_CS['num_smoothing_layers'])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    data = products_data(torch, coo, seed)
+    x, y = data.x, data.y
+    ei = torch.as_tensor(coo, device='cuda')
+    train = cs_train_mask(torch, n, PZ_TRAIN, seed + 90, 'cuda')
+    rows = train.nonzero()[:, 0]
+    model = cs_model(torch, 'cuda', seed)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 91)
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(PZ_STEPS + 1)]
+    events[0].record()
+    losses = cs_train(torch, model, x, y, rows, PZ_STEPS, gen,
+                      on_step=lambda i: events[i + 1].record())
+    torch.cuda.synchronize()
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(PZ_STEPS)]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f'{tag}: base losses {losses}')
+    cs = CorrectAndSmooth(**PZ_CS)
+    # the CPU reference at PZ_CHECK_SCALE from the card's trained weights,
+    # on a host thread while the card runs the full-scale passes
+    nc = int(N_PRODUCTS * PZ_CHECK_SCALE)
+    cut = products_graph(nc, int(E_PRODUCTS * PZ_CHECK_SCALE), seed)
+    train_c = cs_train_mask(torch, nc, int(round(PZ_TRAIN * PZ_CHECK_SCALE)),
+                            seed + 92, 'cpu')
+    xc, yc = x[:nc].contiguous(), y[:nc].contiguous()
+    ref_model = cs_model(torch, 'cpu', seed)
+    ref_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    ref_model.double()
+    ref_in = (xc.cpu().double(), yc.cpu())
+    box = {}
+
+    def reference():
+        t = time.perf_counter()
+        try:
+            box['ref'] = cs_post(torch, cs, cs_soft(torch, ref_model,
+                                                    ref_in[0]),
+                                 ref_in[1], train_c, torch.as_tensor(cut))
+        except BaseException as exc:   # re-raised after the join
+            box['error'] = exc
+        box['seconds'] = time.perf_counter() - t
+
+    t_ref = threading.Thread(target=reference, daemon=True)
+    t_ref.start()
+    y_true = torch.nn.functional.one_hot(y, PR_CLASSES).float()
+    y_soft, soft_ms, _ = cs_timed(torch, lambda: cs_soft(torch, model, x))
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = torch.cuda.memory_stats()
+    with torch.no_grad():
+        corrected, correct_ms, correct_host = cs_timed(
+            torch, lambda: cs.correct(y_soft, y_true, train, ei))
+        smoothed, smooth_ms, smooth_host = cs_timed(
+            torch, lambda: cs.smooth(corrected, y_true, train, ei))
+    peak = torch.cuda.max_memory_allocated()
+    stats1 = torch.cuda.memory_stats()
+    # a retry frees cached blocks (cudaFree, which waits for the card) to
+    # fit a new allocation
+    allocator = {k: stats1.get(k, 0) - stats0.get(k, 0)
+                 for k in ('num_alloc_retries', 'num_device_alloc',
+                           'num_device_free')}
+    check(bool(torch.isfinite(smoothed).all()) and float(smoothed.min()) >= 0
+          and float(smoothed.max()) <= 1, f'{tag}: the smoothed output is not '
+                                          'finite within [0, 1]')
+    check(bool(torch.isfinite(corrected).all()),
+          f'{tag}: the corrected output is not finite')
+    # one propagation layer alone: gather, weight and index_add_ over the
+    # 123.7M edges at 47 columns, the normalised weights made once
+    lp = LabelPropagation(1, PZ_CS['smoothing_alpha'])
+    _, ew = gcn_norm(ei, None, n, add_self_loops=False)
+    layer_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            layer_ms.append(cs_timed(torch, lambda: lp.propagate(
+                ei, x=y_soft, edge_weight=ew, size=(n, n)))[1])
+    del ew
+    # the second pass, profiled as one whole window
+    second = []
+
+    def one_pass():
+        with torch.no_grad():
+            c = cs.correct(y_soft, y_true, train, ei)
+            second.append((c, cs.smooth(c, y_true, train, ei)))
+            del second[:-1]
+
+    t0 = time.perf_counter()
+    prof_rows, prof_wall, passes = whole_window(torch, one_pass, 1,
+                                                warm=False)
+    prof_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_counts(tag, counts, {}, 'its base steps and C&S passes')
+    busy = sum(ms for _, ms, _ in prof_rows)
+    launches = sum(k for _, _, k in prof_rows)
+    agree = max(cs_err(torch, second[-1][0], corrected),
+                cs_err(torch, second[-1][1], smoothed))
+    check(agree <= PZ_TOL, f'{tag}: two passes differ by {agree} of '
+                           f'max(1, max|out|)')
+    del second, corrected, smoothed
+    top = [{'kernel': k[:90], 'ms': ms, 'launches': c}
+           for k, ms, c in prof_rows[:8]]
+    res = {'nodes': n, 'edges': int(coo.shape[1]), 'train_rows': PZ_TRAIN,
+           'base_losses': losses, 'base_step_ms': step_ms,
+           'ms_per_base_step': float(np.median(step_ms[1:])),
+           'softmax_forward_ms': soft_ms,
+           'correct_ms': correct_ms, 'smooth_ms': smooth_ms,
+           'ms_per_pass': correct_ms + smooth_ms,
+           'host_issue_ms_per_pass': correct_host + smooth_host,
+           'ms_per_layer': float(np.median(layer_ms)), 'layer_ms': layer_ms,
+           'layers_per_pass': layers, 'peak_gb': peak / 1e9,
+           'allocator_first_pass': allocator,
+           'peak_over_start_gb': (peak - mem0) / 1e9,
+           'profiled_pass': {'wall_ms': prof_wall, 'busy_ms': busy,
+                             'busy_share': busy / prof_wall,
+                             'idle_share': 1 - busy / prof_wall,
+                             'launches': launches,
+                             'launches_per_layer': launches / layers,
+                             'passes_run': passes, 'seconds': prof_s,
+                             'top_kernels': top},
+           'passes_agree': agree, 'launch_counts': counts}
+    log(f"[{tag}] base MLP {res['ms_per_base_step']:.3f} ms a step (losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}); C&S pass "
+        f"{res['ms_per_pass']:.1f} ms (correct {correct_ms:.1f}, smooth "
+        f"{smooth_ms:.1f}; host issue {res['host_issue_ms_per_pass']:.1f}; "
+        f"allocator {allocator}), "
+        f"a layer {res['ms_per_layer']:.2f} ms, peak {peak / 1e9:.2f} GB; "
+        f"profiled pass {prof_wall:.1f} ms wall, busy "
+        f"{res['profiled_pass']['busy_share']:.3f}, "
+        f"{launches / layers:.1f} launches a layer; passes agree to "
+        f'{agree:.2e}; top kernels ' + ', '.join(
+            f"{r['kernel'][:40]} {r['ms']:.1f} ms x{r['launches']:g}"
+            for r in top[:4]))
+    del ei, y_soft, y_true
+    torch.cuda.empty_cache()
+    # the card's float32 at PZ_CHECK_SCALE, then the host thread's float64
+    t0 = time.perf_counter()
+    cut_card = torch.as_tensor(cut, device='cuda')
+    soft_c = cs_soft(torch, model, xc)
+    card = cs_post(torch, cs, soft_c, yc, train_c.cuda(), cut_card)
+    loose = cs_post(torch, cs, soft_c, yc, train_c.cuda(), cut_card,
+                    repin=False)
+    t_ref.join()
+    wait_s = time.perf_counter() - t0
+    if 'error' in box:
+        raise box['error']
+    ref = box['ref']
+    errs = {'corrected': cs_err(torch, card[0], ref[0]),
+            'smoothed': cs_err(torch, card[1], ref[1])}
+    loose_err = cs_err(torch, loose[0], ref[0])
+    for what, err in errs.items():
+        check(err <= PZ_TOL, f'{tag}: the {what} output at '
+                             f'{PZ_CHECK_SCALE} scale is {err} of max(1, '
+                             f'max|ref|) from the CPU\'s float64')
+    verdict = ('passes: the limit is too loose' if loose_err <= PZ_TOL
+               else 'fails, as it must')
+    log(f"[{tag}] at {PZ_CHECK_SCALE} scale ({nc} nodes, {cut.shape[1]} "
+        f"edges) against the CPU's float64: corrected "
+        f"{errs['corrected']:.3e}, smoothed {errs['smoothed']:.3e} of "
+        f"max(1, max|ref|) (limit {PZ_TOL}, margin "
+        f"{PZ_TOL / max(max(errs.values()), 1e-30):.1f}x); without the "
+        f're-pin {loose_err:.3e}, which {verdict}; the float64 reference '
+        f"took {box['seconds']:.1f} s on its host thread, "
+        f'{wait_s:.1f} s after the full-scale passes')
+    check(loose_err > PZ_TOL, f'{tag}: the correction without its re-pin is '
+                              f'{loose_err} from the reference and passes '
+                              f'the limit {PZ_TOL}')
+    res['vs_cpu'] = {'nodes': nc, 'edges': int(cut.shape[1]),
+                     'train_rows': int(train_c.sum()), **errs,
+                     'limit': PZ_TOL,
+                     'margin': PZ_TOL / max(max(errs.values()), 1e-30),
+                     'without_repin': loose_err,
+                     'reference_s': box['seconds'],
+                     'waited_s': wait_s}
+    del data, x, y, model, card, loose
+    torch.cuda.empty_cache()
+    return res
+
+
 def module_cases(torch, seed):
     """Each convolution, aggregation, norm and pooling function of the
-    graph-level slice, the dense round trip, and the graph-transformer
-    modules (``transformer_cases``), with its inputs: ``(name,
+    graph-level slice, the dense round trip, the graph-transformer modules
+    (``transformer_cases``) and the propagation convs and model zoo
+    (``zoo_cases``), with its inputs: ``(name,
     build(device), run(module, x, inputs))``, ``inputs`` a dict of CPU
     tensors that ``run`` moves with x. One small graph: 2,000 nodes, 20,000
     edges plus 64 padded ones at the sentinel (masked), F = 32, 8
@@ -8099,6 +8438,7 @@ def module_cases(torch, seed):
     cases.append(('to_dense_adj / dense_to_sparse',
                   lambda dev: torch.nn.Identity(), dense_run))
     cases += transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g)
+    cases += zoo_cases(torch, seed, inputs, n, e, f, graphs, g)
     return cases, inputs, n, f
 
 
@@ -8209,11 +8549,242 @@ def transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g):
     return cases
 
 
+def zoo_cases(torch, seed, inputs, n, e, f, graphs, g):
+    """``module_cases``' propagation convs and model zoo: every class of
+    ``nn/conv/spectral_conv.py``, the rest of ``graph_conv.py``,
+    ``misc_conv.py``, ``dna_conv.py``, ``nn/models/misc_models.py`` and
+    ``autoencoder.py`` (the propagations and ``LabelPropagation`` with edge
+    weights, ``CorrectAndSmooth`` in both arms), on the masked COO where a
+    class takes a mask; ``AntiSymmetricConv``'s ``GCNConv`` phi on an
+    ``EdgeIndex`` with its caches filled; ``JumpingKnowledge('lstm')``.
+    Each run returns one tensor (a tuple's parts and losses flattened into
+    it). Adds the tensors they read to ``inputs``: edge weights, a second
+    (negative) edge set, node pairs, noise, a permutation, labels and
+    training rows, hyperedges, mesh rings, positions, PANConv's 300-node
+    subgraph."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn import conv, models
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.nn.norm.norms import RunningBatchNorm
+    from pytorch_geometric_tpu_torch.ops import scatter
+    rng = np.random.default_rng(seed + 75)
+    pad = inputs['coo'].shape[1] - e
+    k, c, hyper, sub = 24, 5, 300, 300
+    f32 = torch.float32
+    coo = inputs['coo'].numpy()
+    inner = (coo[0] < sub) & (coo[1] < sub)
+    hyper_inc = np.stack([rng.integers(0, n, 3 * n), rng.integers(0, hyper,
+                                                                   3 * n)])
+    inputs.update({
+        'w': torch.as_tensor(rng.uniform(0.5, 1.5, e + pad), dtype=f32),
+        'neg_coo': torch.as_tensor(rng.integers(0, n, (2, e // 2))),
+        'neg_mask': torch.as_tensor(rng.random(e // 2) < 0.9),
+        'pairs': torch.as_tensor(rng.integers(0, n, (2, 500))),
+        'neg_pairs': torch.as_tensor(rng.integers(0, n, (2, 500))),
+        'noise': torch.as_tensor(rng.standard_normal((n, 16)), dtype=f32),
+        'perm': torch.as_tensor(rng.permutation(n)),
+        'labels': torch.as_tensor(rng.integers(0, c, n)),
+        'train': torch.as_tensor(rng.random(n) < 0.3),
+        'hyper': torch.as_tensor(hyper_inc),
+        'hyper_w': torch.as_tensor(rng.uniform(0.5, 2.0, hyper), dtype=f32),
+        'hyper_mask': torch.as_tensor(rng.random(3 * n) < 0.9),
+        'ring': torch.as_tensor(rng.integers(0, n, (n, 4))),
+        'pos': torch.as_tensor(rng.standard_normal((n, 3)), dtype=f32),
+        'sub': torch.as_tensor(coo[:, inner])})
+
+    def flat(*parts):
+        return torch.cat([p.reshape(-1) for p in parts])
+
+    def mp(m, x, d):
+        return m(x, d['coo'], edge_mask=d['mask'])
+
+    def mpw(m, x, d):
+        return m(x, d['coo'], edge_weight=d['w'], edge_mask=d['mask'])
+
+    def cached(x, d):
+        return EdgeIndex(d['coo'][:, :e], (n, n),
+                         device=x.device).fill_cache()
+
+    def soft(x):
+        return torch.softmax(x[:, :c], -1)
+
+    def one_hot(d, x):
+        return torch.nn.functional.one_hot(d['labels'], c).to(x.dtype)
+
+    def dgi_run(m, x, d):
+        m.corruption = lambda xs, ei, **kw: (xs[d['perm']], ei)
+        pos, neg, s = m(x, d['coo'], edge_mask=d['mask'])
+        return flat(pos, neg, s, m.loss(pos, neg, s))
+
+    def lightgcn_run(m, x, d):
+        pos = m(d['coo'], d['pairs'], edge_mask=d['mask'])
+        neg = m(d['coo'], d['neg_pairs'], edge_mask=d['mask'])
+        return flat(pos, m.recommendation_loss(pos, neg, 1e-4,
+                                               m.parameters()))
+
+    def cs_run(cs):
+        def run(m, x, d):
+            y_true = one_hot(d, x)
+            out = cs.correct(soft(x), y_true, d['train'], d['coo'], d['w'])
+            return flat(out, cs.smooth(out, y_true, d['train'], d['coo']))
+        return run
+
+    class MetaEdge(torch.nn.Module):
+        def __init__(self, dev):
+            super().__init__()
+            self.lin = linear(2 * f + 8, 16, **g(dev))
+
+        def forward(self, src, dst, ea, u, batch):
+            return self.lin(torch.cat([src, dst, ea], -1))
+
+    class MetaNode(torch.nn.Module):
+        def __init__(self, dev):
+            super().__init__()
+            self.lin = linear(f + 16, f, **g(dev))
+
+        def forward(self, x, edges, ea, u, batch):
+            agg = scatter(ea, edges[1], x.shape[0], 'mean')
+            return self.lin(torch.cat([x, agg], -1))
+
+    class VEncoder(torch.nn.Module):
+        def __init__(self, dev):
+            super().__init__()
+            self.conv_mu = conv.GCNConv(f, 16, **g(dev))
+            self.conv_logstd = conv.GCNConv(f, 16, **g(dev))
+
+        def forward(self, x, ei, edge_mask=None):
+            return (self.conv_mu(x, ei, edge_mask=edge_mask),
+                    self.conv_logstd(x, ei, edge_mask=edge_mask))
+
+    def discriminator(dev):
+        return torch.nn.Sequential(linear(16, 16, **g(dev)), torch.nn.ReLU(),
+                                   linear(16, 1, **g(dev)))
+
+    def autoencoder_run(m, x, d):
+        if isinstance(m, (models.VGAE, models.ARGVA)):
+            z, mu, logstd = m(x, d['coo'], noise=d['noise'],
+                              edge_mask=d['mask'])
+            parts = [z, mu, logstd, m.kl_loss(mu, logstd)]
+        else:
+            z = m(x, d['coo'], edge_mask=d['mask'])
+            parts = [z]
+        if isinstance(m, models.ARGA):
+            parts += [m.reg_loss(z), m.discriminator_loss(z,
+                                                          noise=d['noise'])]
+        return flat(*parts, m.recon_loss(z, d['pairs'], d['neg_pairs']))
+
+    cases = [
+        ('ChebConv', lambda dev: conv.ChebConv(f, k, K=3, **g(dev)), mpw),
+        ('ARMAConv shared', lambda dev: conv.ARMAConv(
+            f, k, num_stacks=2, num_layers=2, shared_weights=True, **g(dev)),
+         mpw),
+        ('SGConv', lambda dev: conv.SGConv(f, k, K=2, **g(dev)), mpw),
+        ('SSGConv', lambda dev: conv.SSGConv(f, k, alpha=0.2, K=3, **g(dev)),
+         mpw),
+        ('TAGConv', lambda dev: conv.TAGConv(f, k, K=3, **g(dev)), mpw),
+        ('APPNP', lambda dev: conv.APPNP(K=5, alpha=0.2), mpw),
+        ('MixHopConv', lambda dev: conv.MixHopConv(f, k, **g(dev)), mpw),
+        ('ResGatedGraphConv', lambda dev: conv.ResGatedGraphConv(f, k,
+                                                                 **g(dev)),
+         mp),
+        ('GatedGraphConv', lambda dev: conv.GatedGraphConv(40, num_layers=2,
+                                                           **g(dev)), mpw),
+        ('LEConv', lambda dev: conv.LEConv(f, k, **g(dev)), mpw),
+        ('MFConv', lambda dev: conv.MFConv(f, k, max_degree=12, **g(dev)),
+         mp),
+        ('FAConv', lambda dev: conv.FAConv(f, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], x_0=0.5 * x, edge_mask=d['mask'])),
+        ('AGNNConv', lambda dev: conv.AGNNConv(device=dev), mp),
+        ('WLConvContinuous', lambda dev: conv.WLConvContinuous(), mpw),
+        ('LGConv', lambda dev: conv.LGConv(), mpw),
+        ('SignedConv first', lambda dev: conv.SignedConv(f, k, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['neg_coo'], d['mask'],
+                           d['neg_mask'])),
+        ('SignedConv deep', lambda dev: conv.SignedConv(
+            f // 2, k, first_aggr=False, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['neg_coo'], d['mask'],
+                           d['neg_mask'])),
+        ('DirGNNConv', lambda dev: conv.DirGNNConv(
+            conv.ResGatedGraphConv(f, k, **g(dev)), alpha=0.3, **g(dev)), mp),
+        ('AntiSymmetricConv EdgeIndex', lambda dev: conv.AntiSymmetricConv(
+            f, num_iters=2, **g(dev)), lambda m, x, d: m(x, cached(x, d))),
+        ('HypergraphConv', lambda dev: conv.HypergraphConv(f, k, **g(dev)),
+         lambda m, x, d: m(x, d['hyper'], d['hyper_w'], hyper,
+                           d['hyper_mask'])),
+        ('WLConv', lambda dev: conv.WLConv(),
+         lambda m, x, d: m(d['types'], d['coo']).to(x.dtype)[:, None] * x),
+        ('MeshCNNConv', lambda dev: conv.MeshCNNConv(f, k, **g(dev)),
+         lambda m, x, d: m(x, d['ring'])),
+        ('SimpleConv', lambda dev: conv.SimpleConv('mean', 'self_loop'), mpw),
+        ('GCN2Conv', lambda dev: conv.GCN2Conv(
+            f, alpha=0.2, theta=0.5, layer=2, shared_weights=False, **g(dev)),
+         lambda m, x, d: m(x, 0.5 * x, d['coo'], d['w'], d['mask'])),
+        ('PointGNNConv', lambda dev: conv.PointGNNConv(f, **g(dev)),
+         lambda m, x, d: m(x, d['pos'], d['coo'], d['mask'])),
+        ('DNAConv', lambda dev: conv.DNAConv(f, heads=4, groups=2, **g(dev)),
+         lambda m, x, d: m(torch.stack([x, 0.5 * x, torch.tanh(x)], 1),
+                           d['coo'], d['w'], d['mask'])),
+        ('PANConv', lambda dev: conv.PANConv(f, k, filter_size=2, **g(dev)),
+         lambda m, x, d: flat(*m(x[:sub], d['sub'])))]
+    for mode in ('cat', 'max', 'lstm'):
+        cases.append((f'JumpingKnowledge {mode}',
+                      lambda dev, mode=mode: models.JumpingKnowledge(
+                          mode, f, 3, **g(dev)),
+                      lambda m, x, d: m([x, torch.tanh(x), 0.5 * x])))
+    cases += [
+        ('HeteroJumpingKnowledge lstm', lambda dev:
+         models.HeteroJumpingKnowledge(('a', 'b'), 'lstm', f, 2, **g(dev)),
+         lambda m, x, d: flat(*m({'a': [x, torch.tanh(x)],
+                                  'b': [x[:100], x[100:200]]}).values())),
+        ('DeepGraphInfomax', lambda dev: models.DeepGraphInfomax(
+            k, conv.GCNConv(f, k, **g(dev)), **g(dev)), dgi_run),
+        ('LightGCN', lambda dev: models.LightGCN(n, 16, 2, **g(dev)),
+         lightgcn_run),
+        ('LabelPropagation', lambda dev: models.LabelPropagation(5, 0.8),
+         lambda m, x, d: m(soft(x), d['coo'], label_mask=d['train'],
+                           edge_weight=d['w'])),
+        ('CorrectAndSmooth autoscale', lambda dev: torch.nn.Identity(),
+         cs_run(models.CorrectAndSmooth(5, 0.8, 5, 0.8))),
+        ('CorrectAndSmooth fixed scale', lambda dev: torch.nn.Identity(),
+         cs_run(models.CorrectAndSmooth(8, 1.0, 8, 0.8, scale=20.0,
+                                        autoscale=False))),
+        ('LINKX', lambda dev: models.LINKX(n, f, 16, c, 2, 2, 2, **g(dev)),
+         mpw),
+        ('PMLP', lambda dev: models.PMLP(f, 16, c, 3, **g(dev)),
+         lambda m, x, d: m(x, d['coo'][:, :e], use_conv=True)),
+        ('MaskLabel', lambda dev: models.MaskLabel(c, f, **g(dev)),
+         lambda m, x, d: m(x, d['labels'], d['train'])),
+        ('MetaLayer', lambda dev: models.MetaLayer(MetaEdge(dev),
+                                                   MetaNode(dev)),
+         lambda m, x, d: flat(*m(x, d['coo'][:, :e], d['ea'][:e])[:2])),
+        ('NeuralFingerprint', lambda dev: models.NeuralFingerprint(
+            f, 16, c, 2, **g(dev)),
+         lambda m, x, d: m(x, d['coo'][:, :e], d['batch'], graphs)),
+        ('DeepGCNLayer', lambda dev: models.DeepGCNLayer(
+            conv.GCNConv(f, f, **g(dev)), RunningBatchNorm(f, device=dev)),
+         lambda m, x, d: m(x, d['coo'][:, :e], edge_weight=d['w'][:e])),
+        ('ARLinkPredictor', lambda dev: models.ARLinkPredictor(
+            f, 16, num_layers=3, **g(dev)), lambda m, x, d: m(x, d['pairs'])),
+        ('InnerProductDecoder', lambda dev: models.InnerProductDecoder(),
+         lambda m, x, d: flat(m(x, d['pairs']), m.decode_all(x[:200])))]
+    for name, make in (
+            ('GAE', lambda dev: models.GAE(conv.GCNConv(f, 16, **g(dev)))),
+            ('VGAE', lambda dev: models.VGAE(VEncoder(dev))),
+            ('ARGA', lambda dev: models.ARGA(conv.GCNConv(f, 16, **g(dev)),
+                                             discriminator(dev))),
+            ('ARGVA', lambda dev: models.ARGVA(VEncoder(dev),
+                                               discriminator(dev)))):
+        cases.append((name, make, autoencoder_run))
+    return cases
+
+
 def phase_graph_modules(torch, seed):
     """Each convolution, aggregation, norm and pooling function of the
-    graph-level slice (``module_cases``) once on the card, forward and
-    backward in training mode, against the same module on the CPU from the
-    same weights: the output within 1e-4 * max(1, max|CPU|) and every
+    graph-level slice, each graph-transformer module and each class of the
+    propagation convs and model zoo (``module_cases``) once on the card,
+    forward and backward in training mode, against the same module on the
+    CPU from the same weights: the output within 1e-4 * max(1, max|CPU|)
+    and every
     gradient (input and parameters) within 1e-4 of its largest on the CPU,
     or of the largest of all for one that vanishes in exact arithmetic
     (under 1e-6 of the largest on the CPU: a softmax gate's bias); the
@@ -8243,7 +8814,8 @@ def phase_graph_modules(torch, seed):
             cot = torch.randn(out.shape, generator=torch.Generator()
                               .manual_seed(seed + 73)).to(dev)
             (out * cot).sum().backward()
-            grads = {'x': x.grad}
+            # a model of the graph alone (LightGCN) leaves x without one
+            grads = {} if x.grad is None else {'x': x.grad}
             grads.update({k: p.grad for k, p in m.named_parameters()
                           if p.grad is not None})
             res.append((out.detach().cpu(), {k: v.cpu()
@@ -8370,9 +8942,15 @@ def main():
                                   args.warmup)
     torch.cuda.empty_cache()
     path_s, s_row = phase_path_s(torch, args.seed, coo, args.iters)
-    del coo
     torch.cuda.empty_cache()
     lap('the regime arms, paths R and S')
+    # Correct & Smooth on the same graph (Z)
+    t0 = time.perf_counter()
+    path_z = phase_path_z(torch, args.seed, coo)
+    del coo
+    torch.cuda.empty_cache()
+    log(f'[time] path Z took {time.perf_counter() - t0:.1f} s')
+    lap('path Z')
     # the heterogeneous paths on hetero_bench.py's graph: full scale for N,
     # P and Q, its default 0.25 for O
     t0 = time.perf_counter()
@@ -8473,6 +9051,7 @@ def main():
         path_y_training=path_y['training']['launch_counts'],
         path_y_training_captured=path_y['training']['captured'][
             'launch_counts'],
+        path_z=path_z['launch_counts'],
         graph_modules=modules['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
@@ -8529,6 +9108,7 @@ def main():
                               'path_t': path_t, 'path_u': path_u,
                               'path_v': path_v, 'path_w': path_w,
                               'path_x': path_x, 'path_y': path_y,
+                              'path_z': path_z,
                               'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the

@@ -23,11 +23,24 @@ The JAX package's names map one to one onto the port's:
   * ``pre_i`` / ``post_i`` / ``edge_enc_i`` -> ``pre_nns.i`` /
     ``post_nns.i`` / ``edge_encoders.i`` (PNAConv's towers)
   * ``film_i``  -> ``films.i``       (FiLMConv's relations)
+  * ``lins_i`` / ``convs_i`` -> ``lins.i`` / ``convs.i`` (PMLP's and
+                                      NeuralFingerprint's layers)
+  * ``lin_l_d`` / ``lin_r_d`` -> ``lins_l.d`` / ``lins_r.d`` (MFConv's
+                                      degree banks)
+  * ``stack_k_w_t`` / ``stack_k_w_shared`` (and ``v``) -> ``stacks.k.w_t``
+    / ``stacks.k.w_shared`` (ARMAConv's stacks, the shared pair of
+    ``shared_weights`` included)
   * a flax ``LSTMCell`` (``Set2Set``'s ``lstm``: the eight Denses ``ii``,
     ``if``, ``ig``, ``io`` without bias and ``hi``, ``hf``, ``hg``, ``ho``
     with) -> ``weight_ih`` / ``weight_hh`` / ``bias_hh``, the four gates
     stacked in the order i, f, g, o (flax's cell has one bias, so there is
-    no ``bias_ih``)
+    no ``bias_ih``); JumpingKnowledge's ``lstm_f`` and ``lstm_b`` are two
+    such cells
+  * a flax ``GRUCell`` (GatedGraphConv's ``rnn``: the input Denses ``ir``,
+    ``iz``, ``in`` with bias, the hidden ones ``hr``, ``hz`` without and
+    ``hn`` with) -> ``torch.nn.GRUCell``'s ``weight_ih`` / ``weight_hh`` /
+    ``bias_ih`` / ``bias_hh``, the gates stacked in the order r, z, n and
+    ``b_hr = b_hz = 0``
   * ``kernel [in, out]`` -> ``weight [out, in]``; a flax ``Embed``'s
     ``embedding`` -> ``weight``; a ``scale`` beside a ``bias`` (a
     BatchNorm's or LayerNorm's) -> ``weight``, while MsgNorm's lone
@@ -70,9 +83,15 @@ _RULES = ((re.compile(r'^conv_(\d+)$'), r'convs.\1'),
           (re.compile(r'^pre_(\d+)$'), r'pre_nns.\1'),
           (re.compile(r'^post_(\d+)$'), r'post_nns.\1'),
           (re.compile(r'^edge_enc_(\d+)$'), r'edge_encoders.\1'),
-          (re.compile(r'^film_(\d+)$'), r'films.\1'))
+          (re.compile(r'^film_(\d+)$'), r'films.\1'),
+          (re.compile(r'^lins_(\d+)$'), r'lins.\1'),
+          (re.compile(r'^convs_(\d+)$'), r'convs.\1'),
+          (re.compile(r'^lin_([lr])_(\d+)$'), r'lins_\1.\2'),
+          (re.compile(r'^stack_(\d+)_([wv]_(?:\d+|shared))$'),
+           r'stacks.\1.\2'))
 
 _LSTM_GATES = ('i', 'f', 'g', 'o')
+_GRU_GATES = ('r', 'z', 'n')
 _STATS = {'mean': 'running_mean', 'var': 'running_var'}
 
 
@@ -97,7 +116,21 @@ def _is_lstm_cell(tree: Mapping) -> bool:
     return set(tree) == {h + g for h in 'ih' for g in _LSTM_GATES}
 
 
+def _is_gru_cell(tree: Mapping) -> bool:
+    return set(tree) == {h + g for h in 'ih' for g in _GRU_GATES}
+
+
 def _walk(tree: Mapping[str, Any], prefix, out, stats: bool):
+    if _is_gru_cell(tree):
+        for part in 'ih':
+            out[prefix + (f'weight_{part}h',)] = np.concatenate(
+                [_array(tree[part + g]['kernel']).T for g in _GRU_GATES])
+        out[prefix + ('bias_ih',)] = np.concatenate(
+            [_array(tree['i' + g]['bias']) for g in _GRU_GATES])
+        hn = _array(tree['hn']['bias'])
+        out[prefix + ('bias_hh',)] = np.concatenate(
+            [np.zeros_like(hn), np.zeros_like(hn), hn])
+        return
     if _is_lstm_cell(tree):
         out[prefix + ('weight_ih',)] = np.concatenate(
             [_array(tree['i' + g]['kernel']).T for g in _LSTM_GATES])

@@ -1,10 +1,22 @@
 from .mlp import MLP
 from .basic_gnn import (BasicGNN, EdgeCNN, GAT, GCN, GraphSAGE, GIN, PNA,
                         basic_gnn_inference)
+from .autoencoder import ARGA, ARGVA, GAE, VGAE, InnerProductDecoder
+from .misc_models import (JumpingKnowledge, DeepGraphInfomax, LightGCN,
+                          LabelPropagation, CorrectAndSmooth, LINKX, PMLP,
+                          MaskLabel, MetaLayer, NeuralFingerprint,
+                          DeepGCNLayer, HeteroJumpingKnowledge,
+                          ARLinkPredictor, to_captum_model, to_captum_input,
+                          captum_output_to_dicts)
 from .node2vec import random_walk
 from .transformers import GraphMixer, Polynormer, SGFormer
 
 __all__ = ['MLP', 'BasicGNN', 'GAT', 'GCN', 'GraphSAGE', 'GIN', 'PNA',
            'EdgeCNN',
            'basic_gnn_inference', 'random_walk', 'SGFormer', 'Polynormer',
-           'GraphMixer']
+           'GraphMixer', 'InnerProductDecoder', 'GAE', 'VGAE', 'ARGA',
+           'ARGVA', 'JumpingKnowledge', 'DeepGraphInfomax', 'LightGCN',
+           'LabelPropagation', 'CorrectAndSmooth', 'LINKX', 'PMLP',
+           'MaskLabel', 'MetaLayer', 'NeuralFingerprint', 'DeepGCNLayer',
+           'HeteroJumpingKnowledge', 'ARLinkPredictor', 'to_captum_model',
+           'to_captum_input', 'captum_output_to_dicts']

@@ -22,7 +22,9 @@ class MLP(nn.Module):
     ``MLP(16, [64, 64, 10])`` is three Linear layers ``16 -> 64 -> 64 ->
     10``. ``norm='batch_norm'`` is flax's default ``BatchNorm``
     (:class:`~..norm.RunningBatchNorm`, momentum 0.01 in torch's sense):
-    batch statistics in training mode, running ones in eval mode."""
+    batch statistics in training mode, running ones in eval mode.
+    Dropout draws its mask from ``generator`` when ``forward`` is given
+    one (on the generator's device), else from the default generator."""
 
     def __init__(self, in_channels: int, channel_list: Sequence[int],
                  act: Callable = F.relu, norm: Optional[str] = None,
@@ -54,7 +56,8 @@ class MLP(nn.Module):
         else:
             self.norms = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n = len(self.lins)
         for i, lin in enumerate(self.lins):
             x = lin(x)
@@ -66,5 +69,11 @@ class MLP(nn.Module):
                 x = self.norms[i](x)
             if not self.act_first:
                 x = self.act(x)
-            x = F.dropout(x, self.dropout, training=self.training)
+            if generator is None or not self.training or self.dropout == 0:
+                x = F.dropout(x, self.dropout, training=self.training)
+            else:
+                keep = 1.0 - self.dropout
+                draw = torch.rand(x.shape, generator=generator,
+                                  device=generator.device, dtype=x.dtype)
+                x = x * (draw.to(x.device) < keep) / keep
         return x
