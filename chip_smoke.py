@@ -8299,6 +8299,688 @@ def phase_path_z(torch, seed, coo):
     return res
 
 
+# -- paths AA and AB: the point family and the kernel convolutions -------------
+# path AA: DGCNN as PyG's examples/dgcnn_classification.py runs it: two
+# DynamicEdgeConv (k = 20, max) over MLP([6, 64, 64, 64]) with batch norm and
+# MLP([128, 128]), Linear(192, 1024), global max pooling, MLP([1024, 512,
+# 256, 10], dropout 0.5, no norm), NLL of the log-softmax, Adam 1e-3, batch
+# 32; on ModelNet10's shape (10 classes, SamplePoints(1024) after
+# NormalizeScale). Cut: the example's StepLR schedule
+PAA_CLASSES, PAA_POINTS, PAA_K, PAA_BATCH = 10, 1024, 20, 32
+PAA_EDGE_MLP, PAA_EDGE_MLP2 = (64, 64, 64), (128,)
+PAA_LIN, PAA_HEAD, PAA_DROPOUT = 1024, (512, 256), 0.5
+PAA_LR, PAA_STEPS, PAA_EVAL_BATCHES = 1e-3, 10, 4
+# the generated meshes: per class PAA_MESHES closed UV spheres of PAA_RINGS
+# rings x PAA_SEGS segments (2 * rings * segs = 3,040 faces), deformed by
+# the class's smooth radial bumps and axis scales
+PAA_MESHES, PAA_RINGS, PAA_SEGS = 12, 38, 40
+# the first batch's 3 steps against the CPU run at this many clouds: 8,192
+# points, 6.7e7 pairs, past _DENSE_LIMIT, so the tiled branch runs there
+# as at full size
+PAA_CHECK_CLOUDS = 8
+# a neighbour list of the card's knn and the CPU's may differ only where
+# two candidates' float64 distances lie within this share of each other
+# (or within the float32 expansion's rounding of the pair, ``knn_swaps``)
+PAA_SWAP_REL = 1e-6
+# path AB: SplineCNN as PyG's examples/faust.py runs it: SplineConv(1, 32),
+# five SplineConv(-> 64), each dim 3, kernel_size 5, degree 1, aggr 'add'
+# and ELU; Linear(64, 256), ELU, dropout 0.5, Linear(256, 6890), NLL over
+# the vertex ids, Adam 1e-3; on FAUST's mesh shape: 6,890 vertices, 13,776
+# triangles (a UV sphere of 84 rings x 82 vertices and 2 poles), 41,328
+# directed edges, pseudo-coordinates from Cartesian(), x = 1
+PAB_RINGS, PAB_SEGS, PAB_NODES, PAB_EDGES = 84, 82, 6890, 41_328
+PAB_CHANNELS, PAB_DIM, PAB_KERNEL = (32, 64, 64, 64, 64, 64), 3, 5
+PAB_HIDDEN, PAB_DROPOUT, PAB_LR, PAB_STEPS = 256, 0.5, 1e-3, 10
+
+
+def uv_sphere(rings, segs):
+    """A closed triangle mesh of the unit sphere: ``rings`` rings of
+    ``segs`` vertices between two poles. ``(pos [rings * segs + 2, 3]
+    float64, face [3, 2 * rings * segs] int64)``; the polar angle and
+    azimuth of each vertex beside."""
+    theta = np.pi * np.arange(1, rings + 1) / (rings + 1)
+    phi = 2 * np.pi * np.arange(segs) / segs
+    th, ph = np.meshgrid(theta, phi, indexing='ij')
+    th = np.concatenate([[0.0], th.reshape(-1), [np.pi]])
+    ph = np.concatenate([[0.0], ph.reshape(-1), [0.0]])
+    pos = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                    np.cos(th)], -1)
+    vid = 1 + np.arange(rings * segs).reshape(rings, segs)
+    nxt = np.roll(vid, -1, axis=1)
+    south = rings * segs + 1
+    face = np.concatenate([
+        np.stack([np.zeros(segs, np.int64), vid[0], nxt[0]]),
+        np.stack([vid[:-1], vid[1:], nxt[:-1]]).reshape(3, -1),
+        np.stack([nxt[:-1], vid[1:], nxt[1:]]).reshape(3, -1),
+        np.stack([np.full(segs, south), nxt[-1], vid[-1]])], 1)
+    return pos, face, th, ph
+
+
+def bumpy(pos, th, ph, rng, terms, amp, scale=(1.0, 1.0, 1.0)):
+    """``pos`` pushed along its radius by ``terms`` smooth bumps ``a sin(m
+    theta + p) cos(n phi + q)`` (``a`` up to ``amp``, ``m``, ``n`` in
+    1-4, seeded), then scaled per axis."""
+    r = np.ones(len(pos))
+    for _ in range(terms):
+        a, p, q = rng.uniform(0, amp), *rng.uniform(0, 2 * np.pi, 2)
+        m, n = rng.integers(1, 5, 2)
+        r += a * np.sin(m * th + p) * np.cos(n * ph + q)
+    return pos * r[:, None] * np.asarray(scale)
+
+
+def modelnet_like(seed=0, meshes=PAA_MESHES):
+    """Path AA's meshes: for each of the ``PAA_CLASSES`` classes a family
+    (its seeded axis scales and 3 bump terms), ``meshes`` instances (the
+    family's bumps with their own phases and axes jittered by 10 %), each
+    a UV sphere of ``PAA_RINGS`` x ``PAA_SEGS`` through ``NormalizeScale``
+    once. A list of ``(Data(pos, face), label)``."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.transforms import NormalizeScale
+    pos0, face, th, ph = uv_sphere(PAA_RINGS, PAA_SEGS)
+    norm = NormalizeScale()
+    out = []
+    for c in range(PAA_CLASSES):
+        fam = np.random.default_rng([seed, c])
+        scale = fam.uniform(0.5, 1.5, 3)
+        amp = fam.uniform(0.1, 0.4)
+        for i in range(meshes):
+            rng = np.random.default_rng([seed, c, i])
+            pos = bumpy(pos0, th, ph, rng, 3, amp,
+                        scale * rng.uniform(0.9, 1.1, 3))
+            out.append((norm(Data(pos=pos.astype(np.float32),
+                                  face=face.astype(np.int32),
+                                  num_nodes=len(pos))), c))
+    return out
+
+
+class CloudBatches:
+    """Path AA's batches: ``batch`` clouds a batch, each a mesh drawn at
+    random (seeded) through ``SamplePoints(PAA_POINTS)`` on the host when
+    drawn; ``(pos [B * points, 3], batch [B * points], y [B])`` as CPU
+    tensors."""
+
+    def __init__(self, torch, meshes, batch, seed):
+        from pytorch_geometric_tpu_torch.transforms import SamplePoints
+        self.torch, self.meshes, self.batch = torch, meshes, batch
+        self.rng = np.random.default_rng(seed)
+        self.sample = SamplePoints(PAA_POINTS, seed=seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        torch = self.torch
+        pick = self.rng.integers(0, len(self.meshes), self.batch)
+        pos = torch.cat([self.sample(self.meshes[i][0]).pos for i in pick])
+        vec = torch.arange(self.batch).repeat_interleave(PAA_POINTS)
+        y = torch.as_tensor([self.meshes[i][1] for i in pick])
+        return pos, vec, y
+
+
+def dgcnn_net(torch, device, seed, k=PAA_K, edge_mlp=PAA_EDGE_MLP,
+              edge_mlp2=PAA_EDGE_MLP2, lin=PAA_LIN, head=PAA_HEAD,
+              classes=PAA_CLASSES, dropout=PAA_DROPOUT):
+    """Path AA's model: ``model(pos, batch, num_graphs, generator)``, the
+    log-softmax a cloud; the head's dropout drawn from ``generator``."""
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn import MLP, DynamicEdgeConv
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.nn.pool import global_max_pool
+    device = resolve_device(device)
+    kw = dict(device=device, generator=torch.Generator().manual_seed(seed))
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = DynamicEdgeConv(
+                MLP(6, list(edge_mlp), norm='batch_norm', **kw), k)
+            self.conv2 = DynamicEdgeConv(
+                MLP(2 * edge_mlp[-1], list(edge_mlp2), norm='batch_norm',
+                    **kw), k)
+            self.lin1 = linear(edge_mlp[-1] + edge_mlp2[-1], lin, **kw)
+            self.mlp = MLP(lin, [*head, classes], dropout=dropout, **kw)
+
+        def forward(self, pos, batch, num_graphs, generator=None):
+            x1 = self.conv1(pos, batch)
+            x2 = self.conv2(x1, batch)
+            out = self.lin1(torch.cat([x1, x2], 1))
+            out = global_max_pool(out, batch, num_graphs)
+            return torch.log_softmax(self.mlp(out, generator), -1)
+
+    return Net()
+
+
+def faust_like(seed=0, rings=PAB_RINGS, segs=PAB_SEGS):
+    """Path AB's mesh: a UV sphere of ``rings`` x ``segs`` vertices and 2
+    poles (FAUST's 6,890 vertices and 13,776 triangles at the defaults),
+    pushed along its radius by 6 seeded smooth bumps; its edges as PyG's
+    ``FaceToEdge`` makes them (the faces' sides through the port's
+    ``to_undirected``) and its pseudo-coordinates from the port's
+    ``Cartesian()``. ``(pos, face, coo, pseudo)``, numpy and CPU tensors."""
+    from pytorch_geometric_tpu_torch.data import Data
+    from pytorch_geometric_tpu_torch.transforms import Cartesian
+    from pytorch_geometric_tpu_torch.utils import to_undirected
+    pos, face, th, ph = uv_sphere(rings, segs)
+    pos = bumpy(pos, th, ph, np.random.default_rng(seed), 6, 0.08)
+    pos = pos.astype(np.float32)
+    sides = np.concatenate([face[:2], face[1:], face[::2]], 1)
+    coo = to_undirected(sides, num_nodes=len(pos))
+    data = Cartesian()(Data(pos=pos, edge_index=coo.astype(np.int64),
+                            num_nodes=len(pos)))
+    return pos, face, coo, data.edge_attr
+
+
+def spline_faust_net(torch, device, seed, channels=PAB_CHANNELS,
+                     hidden=PAB_HIDDEN, classes=PAB_NODES,
+                     kernel_size=PAB_KERNEL, dim=PAB_DIM, degree=1):
+    """Path AB's model: ``model(x, coo, pseudo, keep)``, the log-softmax
+    over the vertex ids a vertex; in training mode the dropout after
+    ``lin1`` keeps the entries ``keep`` marks (drawn with ``torch.rand``
+    when it is None)."""
+    import torch.nn.functional as F
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn import SplineConv
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    device = resolve_device(device)
+    kw = dict(device=device, generator=torch.Generator().manual_seed(seed))
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            widths = [1, *channels]
+            self.convs = torch.nn.ModuleList(
+                SplineConv(i, o, dim=dim, kernel_size=kernel_size,
+                           degree=degree, aggr='add', **kw)
+                for i, o in zip(widths[:-1], widths[1:]))
+            self.lin1 = linear(channels[-1], hidden, **kw)
+            self.lin2 = linear(hidden, classes, **kw)
+
+        def forward(self, x, coo, pseudo, keep=None):
+            for conv in self.convs:
+                x = F.elu(conv(x, coo, pseudo))
+            x = F.elu(self.lin1(x))
+            if self.training:
+                if keep is None:
+                    keep = torch.rand(x.shape, device=x.device) >= \
+                        PAB_DROPOUT
+                x = x * keep / (1 - PAB_DROPOUT)
+            return torch.log_softmax(self.lin2(x), -1)
+
+    return Net()
+
+
+def knn_swaps(torch, pos, got, want, valid_got, valid_want, k):
+    """A card knn graph (``got``, ``[2, N * k]`` neighbour over centre)
+    against the CPU's (``want``) from the same float32 points: the
+    validity masks equal, and at each place where the neighbour lists
+    differ, the two candidates' float64 distances to the centre within
+    ``PAA_SWAP_REL`` of each other, or within the float32 expansion's own
+    rounding of the pair (4 * 2^-24 * (|c|^2 + |a|^2 + |b|^2): where that
+    is larger, the float32 distances of both devices cannot order them).
+    Returns (places that differ, rows that differ, the worst gap over
+    PAA_SWAP_REL, the worst over the rounding bound)."""
+    check(torch.equal(valid_got, valid_want), 'knn validity masks differ')
+    a = got[0].view(-1, k).cpu()
+    b = want[0].view(-1, k)
+    diff = a != b
+    places, rows = int(diff.sum()), int(diff.any(1).sum())
+    if not places:
+        return 0, 0, 0.0, 0.0
+    r, j = diff.nonzero(as_tuple=True)
+    p = pos.double()
+    c, ia, ib = p[r], p[a[r, j]], p[b[r, j]]
+    da, db = ((ia - c) ** 2).sum(-1), ((ib - c) ** 2).sum(-1)
+    gap = (da - db).abs()
+    rel = gap / torch.maximum(da, db).clamp(min=1e-300)
+    rounding = 4 * 2.0 ** -24 * ((c * c).sum(-1) + (ia * ia).sum(-1)
+                                 + (ib * ib).sum(-1))
+    worst_rel = float((rel / PAA_SWAP_REL).max())
+    worst_round = float((gap / rounding).max())
+    ok = (rel <= PAA_SWAP_REL) | (gap <= rounding)
+    check(bool(ok.all()), f'knn: {int((~ok).sum())} of {places} swapped '
+                          'places are further apart than float32 rounding')
+    return places, rows, worst_rel, worst_round
+
+
+def phase_path_aa(torch, seed):
+    """Path AA: DGCNN at PyG's examples/dgcnn_classification.py
+    configuration on ModelNet10's shape (``PAA_*``): ``modelnet_like``'s
+    meshes, each batch's 32 clouds drawn and sampled on the host
+    (``CloudBatches``), ``dgcnn_net`` trained ``PAA_STEPS`` eager steps
+    (Adam 1e-3, dropout from a CUDA generator): host ms a batch, card ms a
+    step, no port kernel launched (``knn_graph`` is a distance product and
+    top-k merges, the messages ``MessagePassing``'s gather path, as the
+    JAX package computes them in XLA), a whole-window profile, busy and
+    idle share, peak memory; the two ``knn_graph`` calls of a forward
+    timed apart (CUDA events) beside their reckoning (every one of the
+    32,768^2 pairs scored, since other clouds are masked, not skipped);
+    ``PAA_EVAL_BATCHES`` eval-mode batches. Checks: the card's
+    ``knn_graph`` of the first batch (the tiled branch) at layer 1's
+    positions and layer 2's features against the CPU's from the same
+    float32 inputs (``knn_swaps``; the count of swapped places printed);
+    the first batch cut to ``PAA_CHECK_CLOUDS`` clouds: its float32 loss
+    against the CPU's within 1e-4 relative, and its 3 steps in float64 on
+    both devices (``synced_parity``; the edge MLPs' batch norms run in
+    training mode), the head's dropout one mask on both (a CPU generator
+    reseeded for each call)."""
+    from pytorch_geometric_tpu_torch.nn.pool import knn_graph
+    tag = 'path AA'
+    t0 = time.perf_counter()
+    meshes = modelnet_like(seed)
+    build_s = time.perf_counter() - t0
+    faces = int(meshes[0][0].face.shape[1])
+    log(f'[{tag}] {len(meshes)} meshes of {faces} faces in '
+        f'{PAA_CLASSES} classes built in {build_s:.2f} s')
+    loader = CloudBatches(torch, meshes, PAA_BATCH, seed)
+    model = dgcnn_net(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PAA_LR)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 95)
+    nll = torch.nn.functional.nll_loss
+
+    def prepare(batch):
+        pos, vec, y = batch
+        return pos.to('cuda'), vec.to('cuda'), y.to('cuda')
+
+    def step(pos, vec, y):
+        opt.zero_grad(set_to_none=True)
+        loss = nll(model(pos, vec, PAA_BATCH, gen), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, loader, prepare, step, PAA_STEPS)
+    counts = launch_counts()
+    check_counts(tag, counts, {}, f'{PAA_STEPS} steps')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps_s = time.perf_counter() - t0
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 1)
+    res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
+                            prof_rows, prof_ms)
+    pos, vec, y = first
+    n = pos.shape[0]
+    # the two knn_graph calls of a forward, timed apart
+    with torch.no_grad():
+        x1 = model.conv1(pos, vec)
+    knn_ms = {}
+    for name, pts in (('layer 1 (positions, F = 3)', pos),
+                      (f'layer 2 (features, F = {x1.shape[1]})', x1)):
+        ms = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            knn_graph(pts, PAA_K, vec)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        pairs = n * n
+        knn_ms[name] = {'ms': ms, 'pairs': pairs,
+                        'gflop': 2 * pairs * pts.shape[1] / 1e9,
+                        'distance_tile_gb': 4 * pairs / 1e9}
+        log(f'[{tag}] knn_graph at {name}: {np.median(ms):.3f} ms (median '
+            f'of {ms}); {pairs:.3e} pairs scored, '
+            f"{knn_ms[name]['gflop']:.1f} GFLOP of distance products, "
+            f"{knn_ms[name]['distance_tile_gb']:.2f} GB of float32 "
+            'distance tiles written once and read once')
+    res.update(meshes=len(meshes), faces_per_mesh=faces, build_s=build_s,
+               points=n, knn_edges_per_layer=n * PAA_K,
+               launch_counts=counts, peak_memory_gb=peak, knn=knn_ms)
+    log(f'[{tag}] {n} points and {n * PAA_K} knn edges a layer; peak '
+        f'{peak:.3f} GB')
+    # the card's knn against the CPU's, the tiled branch at full batch
+    swaps = {}
+    for name, pts in (('positions', pos), ('features', x1)):
+        got, v_got = knn_graph(pts, PAA_K, vec)
+        want, v_want = knn_graph(pts.cpu(), PAA_K, vec.cpu())
+        places, rows, w_rel, w_round = knn_swaps(
+            torch, pts.cpu(), got, want, v_got.cpu(), v_want, PAA_K)
+        swaps[name] = {'places': places, 'rows': rows,
+                       'worst_gap_over_rel_limit': w_rel,
+                       'worst_gap_over_rounding': w_round}
+        log(f'[{tag}] knn_graph of the first batch at its {name}, card '
+            f'against CPU: {places} swapped places in {rows} of {n} rows '
+            f'(worst gap {w_rel:.3e} of {PAA_SWAP_REL:g} relative, '
+            f'{w_round:.3e} of the float32 rounding)')
+    res['knn_vs_cpu'] = swaps
+    model.eval()
+    res['eval_nll'] = eval_batches(
+        torch, loader, prepare,
+        lambda p, v, t: nll(model(p, v, PAA_BATCH), t), PAA_EVAL_BATCHES)
+    log(f"[{tag}] eval-mode NLL over {PAA_EVAL_BATCHES} batches "
+        f"{res['eval_nll']}")
+    # the first batch cut to PAA_CHECK_CLOUDS clouds against the CPU
+    cut = vec < PAA_CHECK_CLOUDS
+    small = (pos[cut], vec[cut], y[:PAA_CHECK_CLOUDS])
+    small_cpu = tuple(t.cpu() for t in small)
+
+    def loss_of(m, p, v, t):
+        g = torch.Generator().manual_seed(seed + 96)
+        return nll(m(p, v, PAA_CHECK_CLOUDS, g), t)
+
+    def build(device):
+        return dgcnn_net(torch, device, seed)
+
+    t1 = time.perf_counter()
+    losses = []
+    for dev, batch in (('cuda', small), ('cpu', small_cpu)):
+        m = build(dev)
+        m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        with torch.no_grad():
+            losses.append(float(loss_of(m.train(), *batch)))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    log(f'[{tag}] float32 loss of the first batch at {PAA_CHECK_CLOUDS} '
+        f'clouds, card {losses[0]} vs CPU {losses[1]}: relative diff '
+        f'{rel:.3e} (limit 1e-4)')
+    check(rel <= 1e-4, f'{tag}: float32 first-batch loss {rel} from the CPU')
+
+    def cast(batch):
+        return tuple(t.double() if t.is_floating_point() else t
+                     for t in batch)
+
+    res['first_batch_vs_cpu'] = synced_parity(
+        torch, f'{tag} float64', lambda dev: build(dev).double(), state,
+        cast(small), cast(small_cpu), None, loss_of, PAA_LR)
+    res['first_batch_vs_cpu']['float32_loss_rel_diff'] = rel
+    res['phase_s'] = {'build': build_s, 'steps': steps_s,
+                      'cpu_parity': time.perf_counter() - t1}
+    log(f"[{tag}] seconds: {res['phase_s']}")
+    del model, opt, first, x1
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_path_ab(torch, seed, iters):
+    """Path AB: SplineCNN at PyG's examples/faust.py configuration on
+    FAUST's shape (``PAB_*``, ``faust_like``): ``spline_faust_net`` trained
+    ``PAB_STEPS`` eager steps (NLL over the vertex ids, Adam 1e-3, dropout
+    from a CUDA generator): card ms a step (CUDA events), no port kernel
+    launched (SplineConv's ``x @ weight`` for every kernel, the gathers a
+    corner and ``index_add_``), a whole-window profile with busy and idle
+    share, peak memory; then served in eval mode (ms a forward, ``iters``
+    after 2, and a profile). Checks: 3 steps at full size against the CPU
+    from the same weights (losses within 1e-4 relative, first-step
+    gradients within 1e-4 of each tensor's largest), one dropout mask from
+    a seeded CPU generator on both devices."""
+    tag = 'path AB'
+    t0 = time.perf_counter()
+    pos, face, coo, pseudo = faust_like(seed)
+    build_s = time.perf_counter() - t0
+    n = len(pos)
+    check(n == PAB_NODES and face.shape[1] == 13_776
+          and coo.shape[1] == PAB_EDGES,
+          f'{tag}: mesh of {n} vertices, {face.shape[1]} faces, '
+          f'{coo.shape[1]} edges')
+    lo, hi = float(pseudo.min()), float(pseudo.max())
+    check(0.0 <= lo and hi <= 1.0, f'{tag}: pseudo-coordinates in '
+                                   f'[{lo}, {hi}]')
+    log(f'[{tag}] mesh of {n} vertices, {face.shape[1]} triangles, '
+        f'{coo.shape[1]} directed edges, built with its Cartesian '
+        f'pseudo-coordinates in {build_s:.2f} s')
+    x = torch.ones((n, 1), device='cuda')
+    ei = torch.as_tensor(coo, device='cuda')
+    ea = pseudo.to('cuda')
+    y = torch.arange(n, device='cuda')
+    model = spline_faust_net(torch, None, seed)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PAB_LR)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 97)
+    nll = torch.nn.functional.nll_loss
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        keep = torch.rand((n, PAB_HIDDEN), generator=gen,
+                          device='cuda') >= PAB_DROPOUT
+        loss = nll(model(x, ei, ea, keep), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    card_ms, losses = [], []
+    for _ in range(PAB_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step())
+        end.record()
+        torch.cuda.synchronize()
+        card_ms.append(start.elapsed_time(end))
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f'{tag}: losses {losses}')
+    counts = launch_counts()
+    check_counts(tag, counts, {}, f'{PAB_STEPS} steps')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof_rows, prof_ms, _ = whole_window(torch, step, 1)
+    busy = sum(t for _, t, _ in prof_rows)
+    step_ms = float(np.median(card_ms[1:]))
+    res = {'nodes': n, 'edges': int(coo.shape[1]), 'build_s': build_s,
+           'steps': PAB_STEPS, 'losses': losses, 'card_ms_per_step': card_ms,
+           'device_busy_ms_per_step': busy, 'profiled_ms_per_step': prof_ms,
+           'device_idle_share_unprofiled': 1 - busy / step_ms,
+           'peak_memory_gb_training': peak, 'launch_counts': counts,
+           'kernels_per_step': [[k[:80], t, c] for k, t, c in prof_rows[:8]]}
+    log(f'[{tag}] a step {step_ms:.4f} ms (median after the first; '
+        f'{card_ms}), busy {busy:.4f} ms, idle '
+        f"{res['device_idle_share_unprofiled']:.3f}, peak {peak:.3f} GB; "
+        f'losses {losses}')
+    for name, t, c in prof_rows[:8]:
+        log(f'[{tag}]   {t:.4f} ms  x{c:g}  {name[:90]}')
+    # served in eval mode
+    model.eval()
+    with torch.no_grad():
+        def fwd():
+            return model(x, ei, ea)
+        for _ in range(2):
+            out = fwd()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            out = fwd()
+        end.record()
+        torch.cuda.synchronize()
+        fwd_ms = start.elapsed_time(end) / iters
+        f_rows, f_wall, _ = whole_window(torch, fwd, 5)
+    check(bool(torch.isfinite(out).all()) and out.shape == (n, n),
+          f'{tag}: served output {tuple(out.shape)}')
+    f_busy = sum(t for _, t, _ in f_rows)
+    res.update(forward_ms=fwd_ms, forward_busy_ms=f_busy,
+               forward_idle_share=1 - f_busy / fwd_ms,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f'[{tag}] served: {fwd_ms:.4f} ms a forward ({iters} after 2), '
+        f"busy {f_busy:.4f} ms, idle {res['forward_idle_share']:.3f}")
+    # 3 steps at full size against the CPU, one dropout mask on both
+    t1 = time.perf_counter()
+    keep = torch.rand((n, PAB_HIDDEN), generator=torch.Generator()
+                      .manual_seed(seed + 98)) >= PAB_DROPOUT
+    args_cpu = (torch.ones((n, 1)), torch.as_tensor(coo), pseudo,
+                torch.arange(n), keep)
+    args_card = tuple(a.to('cuda') for a in args_cpu)
+    runs = []
+    for dev, args in (('cuda', args_card), ('cpu', args_cpu)):
+        m = spline_faust_net(torch, dev, seed)
+        m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        m.train()
+        o = torch.optim.Adam(m.parameters(), lr=PAB_LR)
+        ls, g = [], None
+        for i in range(PARITY_STEPS):
+            o.zero_grad(set_to_none=True)
+            loss = nll(m(*args[:3], args[4]), args[3])
+            loss.backward()
+            ls.append(loss.item())
+            if i == 0:
+                g = {k: v.cpu() for k, v in grads_of(torch, m).items()}
+            o.step()
+        runs.append((ls, g))
+    res['first_steps_vs_cpu'] = check_parity(torch, tag, runs[0], runs[1],
+                                             grads_too=True)
+    res['phase_s'] = {'build': build_s,
+                      'cpu_parity': time.perf_counter() - t1}
+    log(f"[{tag}] seconds: {res['phase_s']}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def point_cases(torch, seed, inputs, n, e, f, g):
+    """``module_cases``' point family and kernel convolutions: SplineConv at
+    degrees 1-3 in 1-3 dimensions, GMMConv, NNConv, CGConv, FeaStConv,
+    PointNetConv, PPFConv, PointTransformerConv, DynamicEdgeConv,
+    GravNetConv (a masked point among them), XConv with and without x;
+    ``knn`` / ``knn_graph`` / ``radius`` / ``radius_graph`` / ``nearest``
+    / ``fps`` / ``knn_interpolate`` / ``voxel_grid`` and the KNN indexes
+    (their indices shown through a gather of x, so a wrong index moves the
+    output); TopKPooling, SAGPooling, PANPooling; GraphUNet at Cora's size
+    (2,708 nodes, 10,556 edges; x's rows first). Adds the tensors they
+    read to ``inputs``: pseudo-coordinates in [0, 1], normals, a point
+    mask, a second point set, Cora-sized rows and edges."""
+    from pytorch_geometric_tpu_torch.nn import conv, models, pool
+    from pytorch_geometric_tpu_torch.nn import knn_interpolate
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.nn.models import MLP
+    rng = np.random.default_rng(seed + 76)
+    f32 = torch.float32
+    cora_n, cora_e = 2708, 10_556
+    inputs.update({
+        'pseudo': torch.as_tensor(rng.random((inputs['coo'].shape[1], 3)),
+                                  dtype=f32),
+        'normal': torch.as_tensor(rng.standard_normal((n, 3)), dtype=f32),
+        'pmask': torch.as_tensor(rng.random(n) < 0.95),
+        'pos_y': torch.as_tensor(rng.standard_normal((n // 2, 3)),
+                                 dtype=f32),
+        'batch_y': torch.as_tensor(np.sort(rng.integers(0, 8, n // 2))),
+        'cora_rows': torch.as_tensor(
+            rng.standard_normal((cora_n - n, f)), dtype=f32),
+        'cora_coo': torch.as_tensor(rng.integers(0, cora_n, (2, cora_e)))})
+
+    def mp_attr(m, x, d):
+        return m(x, d['coo'], d['pseudo'][:, :m.dim], edge_mask=d['mask'])
+
+    def gather(idx, valid, x):
+        # a float picture of an index list: x's rows, zero where invalid
+        rows = x[idx.clamp(max=x.shape[0] - 1)]
+        return torch.where(valid[:, None], rows, 0.0)
+
+    cases = []
+    for degree in (1, 2, 3):
+        for dim in (1, 2, 3):
+            cases.append((f'SplineConv degree {degree} dim {dim}',
+                          lambda dev, degree=degree, dim=dim:
+                          conv.SplineConv(f, 16, dim=dim, kernel_size=4,
+                                          degree=degree, **g(dev)),
+                          mp_attr))
+    cases += [
+        ('SplineConv add', lambda dev: conv.SplineConv(
+            f, 16, dim=3, kernel_size=5, aggr='add', **g(dev)), mp_attr),
+        ('GMMConv', lambda dev: conv.GMMConv(f, 16, dim=3, kernel_size=4,
+                                             **g(dev)), mp_attr),
+        ('NNConv', lambda dev: conv.NNConv(
+            f, 8, MLP(3, [16, f * 8], **g(dev)), aggr='mean', **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['pseudo'], edge_mask=d['mask'])),
+        ('CGConv', lambda dev: conv.CGConv(f, dim=3, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['pseudo'], edge_mask=d['mask'])),
+        ('FeaStConv', lambda dev: conv.FeaStConv(f, 16, heads=4, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], edge_mask=d['mask'])),
+        ('PointNetConv', lambda dev: conv.PointNetConv(
+            MLP(f + 3, [24, 24], **g(dev)), linear(24, 16, **g(dev))),
+         lambda m, x, d: m(x, d['pos'], d['coo'], edge_mask=d['mask'])),
+        ('PPFConv', lambda dev: conv.PPFConv(MLP(f + 4, [24, 16],
+                                                 **g(dev))),
+         lambda m, x, d: m(x, d['pos'], d['normal'], d['coo'],
+                           edge_mask=d['mask'])),
+        ('PointTransformerConv', lambda dev: conv.PointTransformerConv(
+            f, 16, attn_nn=linear(16, 16, **g(dev)), **g(dev)),
+         lambda m, x, d: m(x, d['pos'], d['coo'], edge_mask=d['mask'])),
+        ('DynamicEdgeConv', lambda dev: conv.DynamicEdgeConv(
+            MLP(2 * f, [24, 16], norm='batch_norm', **g(dev)), k=10),
+         lambda m, x, d: m(x, d['batch'], d['pmask'])),
+        ('GravNetConv', lambda dev: conv.GravNetConv(f, 16, k=8, **g(dev)),
+         lambda m, x, d: m(x, d['batch'], d['pmask'])),
+        ('XConv with x', lambda dev: conv.XConv(f, 16, kernel_size=8,
+                                                dilation=2, **g(dev)),
+         lambda m, x, d: m(x, d['pos'], d['batch'], d['pmask'])),
+        ('XConv without x', lambda dev: conv.XConv(0, 16, kernel_size=8,
+                                                   **g(dev)),
+         lambda m, x, d: m(None, d['pos'] + x[:, :3], d['batch'])),
+        ('knn', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: gather(*_edge_pick(
+             pool.knn(d['pos'], d['pos_y'], 6, d['batch'], d['batch_y']),
+             1), m(x))),
+        ('knn_graph', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: gather(*_edge_pick(
+             pool.knn_graph(d['pos'], 12, d['batch'], mask=d['pmask'])),
+             m(x))),
+        ('radius_graph', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: gather(*_edge_pick(
+             pool.radius_graph(d['pos'], 1.0, d['batch'],
+                               max_num_neighbors=16)), m(x))),
+        ('radius', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: gather(*_edge_pick(
+             pool.radius(d['pos'], d['pos_y'], 1.0, d['batch'],
+                         d['batch_y'], max_num_neighbors=16), 1), m(x))),
+        ('nearest', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: m(x)[pool.nearest(d['pos_y'], d['pos'],
+                                           d['batch_y'], d['batch'])]),
+        ('fps', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: m(x)[pool.fps(d['pos'], 0.25)]),
+        ('voxel_grid', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: m(x) * pool.voxel_grid(
+             d['pos'], 0.5, d['batch'])[:, None].to(x.dtype) / 1e3),
+        ('knn_interpolate', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: knn_interpolate(m(x), d['pos'], d['pos_y'], 3,
+                                         d['batch'], d['batch_y'])),
+        ('L2KNNIndex', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: _index_run(torch, pool.L2KNNIndex, m(x))),
+        ('MIPSKNNIndex', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: _index_run(torch, pool.MIPSKNNIndex, m(x))),
+        ('TopKPooling', lambda dev: pool.TopKPooling(f, 0.5, **g(dev)),
+         lambda m, x, d: _pool_run(torch, m, x, d)),
+        ('SAGPooling', lambda dev: pool.SAGPooling(f, 0.5, **g(dev)),
+         lambda m, x, d: _pool_run(torch, m, x, d)),
+        ('PANPooling', lambda dev: pool.PANPooling(f, 0.5, device=dev),
+         lambda m, x, d: _pool_run(torch, m, x, d)),
+        ('GraphUNet Cora', lambda dev: models.GraphUNet(f, 32, 7, depth=3,
+                                                        **g(dev)),
+         lambda m, x, d: m(torch.cat([x, d['cora_rows']]), d['cora_coo']))]
+    return cases
+
+
+def _edge_pick(graph, col=0):
+    """``(index, valid)`` of a knn or radius graph's ``col`` row."""
+    coo, valid = graph
+    return coo[col], valid
+
+
+def _index_run(torch, cls, x):
+    """A KNN index over x's first half searched by its second half (the
+    first 40 index rows excluded for query 0), as a gather of x."""
+    half = x.shape[0] // 2
+    index = cls(x[:half].detach(), device=x.device)
+    out = index.search(x[half:].detach(), 5,
+                       torch.stack([torch.zeros(40, dtype=torch.long),
+                                    torch.arange(40)]).to(x.device))
+    return x[out.index.reshape(-1)] * out.score.reshape(-1, 1)
+
+
+def _pool_run(torch, m, x, d):
+    """A pooling's gated rows and its relabelled edges, as one tensor."""
+    out = m(x, d['coo'], d['batch'], 8, int(np.bincount(
+        d['batch'].cpu().numpy()).max()))
+    e = out.edge_index.to(x.dtype)
+    return torch.cat([out.x.reshape(-1), e.reshape(-1) / 1e3,
+                      out.edge_mask.to(x.dtype)])
+
+
 def module_cases(torch, seed):
     """Each convolution, aggregation, norm and pooling function of the
     graph-level slice, the dense round trip, the graph-transformer modules
@@ -8439,6 +9121,7 @@ def module_cases(torch, seed):
                   lambda dev: torch.nn.Identity(), dense_run))
     cases += transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g)
     cases += zoo_cases(torch, seed, inputs, n, e, f, graphs, g)
+    cases += point_cases(torch, seed, inputs, n, e, f, g)
     return cases, inputs, n, f
 
 
@@ -8989,6 +9672,13 @@ def main():
     log(f'[time] paths X, Y and the module phase took '
         f'{time.perf_counter() - t0:.1f} s')
     lap('paths X, Y and the module phase')
+    # the point family and the kernel convolutions: DGCNN at ModelNet10's
+    # shape (AA) and SplineCNN at FAUST's (AB)
+    t0 = time.perf_counter()
+    path_aa = phase_path_aa(torch, args.seed)
+    path_ab = phase_path_ab(torch, args.seed, args.iters)
+    log(f'[time] paths AA and AB took {time.perf_counter() - t0:.1f} s')
+    lap('paths AA and AB')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -9052,6 +9742,7 @@ def main():
         path_y_training_captured=path_y['training']['captured'][
             'launch_counts'],
         path_z=path_z['launch_counts'],
+        path_aa=path_aa['launch_counts'], path_ab=path_ab['launch_counts'],
         graph_modules=modules['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
@@ -9108,7 +9799,8 @@ def main():
                               'path_t': path_t, 'path_u': path_u,
                               'path_v': path_v, 'path_w': path_w,
                               'path_x': path_x, 'path_y': path_y,
-                              'path_z': path_z,
+                              'path_z': path_z, 'path_aa': path_aa,
+                              'path_ab': path_ab,
                               'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the

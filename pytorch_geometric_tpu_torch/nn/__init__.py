@@ -10,12 +10,18 @@ from .conv import (GATConv, GATv2Conv, GCNConv, cache_gcn_norm, gcn_norm,
                    SAGEConv, GINConv, GINEConv, GraphConv, ClusterGCNConv,
                    RGCNConv, FastRGCNConv, HeteroConv, HGTConv, HANConv,
                    GENConv, FiLMConv, PDNConv, GeneralConv, PNAConv, EGConv,
-                   EdgeConv, GPSConv, RGATConv, SuperGATConv, HEATConv)
+                   EdgeConv, GPSConv, RGATConv, SuperGATConv, HEATConv,
+                   PointNetConv, DynamicEdgeConv, PPFConv,
+                   PointTransformerConv, GravNetConv, GMMConv, SplineConv,
+                   NNConv, CGConv, FeaStConv, DNAConv, PANConv, XConv)
+from .unpool import knn_interpolate
 from .encoding import PositionalEncoding, TemporalEncoding
 from .dense import HeteroDictLinear, HeteroLinear, Linear
 from .models import MLP, BasicGNN, GAT, GCN, GraphSAGE, GIN, PNA, EdgeCNN
 from .norm import BatchNorm
-from .pool import global_add_pool, global_max_pool, global_mean_pool
+from .pool import (global_add_pool, global_max_pool, global_mean_pool,
+                   TopKPooling, SAGPooling, knn, knn_graph, radius,
+                   radius_graph, fps, nearest, voxel_grid)
 from .to_hetero import (ToHetero, to_fixed_size, to_hetero,
                         to_hetero_with_bases)
 
@@ -30,4 +36,10 @@ __all__ = ['MessagePassing', 'aggr', 'attention', 'conv', 'dense',
            'HeteroLinear', 'HeteroDictLinear', 'MLP', 'BasicGNN', 'GAT',
            'GCN', 'GraphSAGE', 'GIN', 'PNA', 'EdgeCNN', 'BatchNorm',
            'global_add_pool', 'global_mean_pool', 'global_max_pool',
-           'ToHetero', 'to_hetero', 'to_hetero_with_bases', 'to_fixed_size']
+           'ToHetero', 'to_hetero', 'to_hetero_with_bases', 'to_fixed_size',
+           'PointNetConv', 'DynamicEdgeConv', 'PPFConv',
+           'PointTransformerConv', 'GravNetConv', 'GMMConv', 'SplineConv',
+           'NNConv', 'CGConv', 'FeaStConv', 'DNAConv', 'PANConv', 'XConv',
+           'knn_interpolate', 'TopKPooling', 'SAGPooling', 'knn',
+           'knn_graph', 'radius', 'radius_graph', 'fps', 'nearest',
+           'voxel_grid']

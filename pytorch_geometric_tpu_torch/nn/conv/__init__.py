@@ -14,12 +14,15 @@ from .rgcn_conv import FastRGCNConv, RGCNConv
 from .hetero_conv import HANConv, HeteroConv, HGTConv
 from .gen_conv import (EGConv, FiLMConv, GENConv, GeneralConv, PDNConv,
                        PNAConv)
-from .point_conv import EdgeConv
+from .point_conv import (PointNetConv, EdgeConv, DynamicEdgeConv, PPFConv,
+                         PointTransformerConv, GravNetConv)
 from .gps_conv import GPSConv, HEATConv, RGATConv
 from .misc_conv import (SignedConv, DirGNNConv, AntiSymmetricConv,
                         HypergraphConv, WLConv, MeshCNNConv, SimpleConv,
                         GCN2Conv, PointGNNConv)
+from .kernel_conv import GMMConv, SplineConv, NNConv, CGConv, FeaStConv
 from .dna_conv import DNAConv, PANConv
+from .x_conv import XConv
 
 __all__ = ['MessagePassing', 'GCNConv', 'cache_gcn_norm', 'gcn_norm',
            'SAGEConv', 'GINConv', 'GINEConv', 'GATConv', 'GATv2Conv', 'FusedGATConv',
@@ -33,4 +36,6 @@ __all__ = ['MessagePassing', 'GCNConv', 'cache_gcn_norm', 'gcn_norm',
            'SSGConv', 'TAGConv', 'APPNP', 'MixHopConv', 'SignedConv',
            'DirGNNConv', 'AntiSymmetricConv', 'HypergraphConv', 'WLConv',
            'MeshCNNConv', 'SimpleConv', 'GCN2Conv', 'PointGNNConv',
-           'DNAConv', 'PANConv']
+           'DNAConv', 'PANConv', 'PointNetConv', 'DynamicEdgeConv',
+           'PPFConv', 'PointTransformerConv', 'GravNetConv', 'GMMConv',
+           'SplineConv', 'NNConv', 'CGConv', 'FeaStConv', 'XConv']

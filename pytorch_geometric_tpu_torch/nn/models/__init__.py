@@ -5,7 +5,7 @@ from .autoencoder import ARGA, ARGVA, GAE, VGAE, InnerProductDecoder
 from .misc_models import (JumpingKnowledge, DeepGraphInfomax, LightGCN,
                           LabelPropagation, CorrectAndSmooth, LINKX, PMLP,
                           MaskLabel, MetaLayer, NeuralFingerprint,
-                          DeepGCNLayer, HeteroJumpingKnowledge,
+                          DeepGCNLayer, GraphUNet, HeteroJumpingKnowledge,
                           ARLinkPredictor, to_captum_model, to_captum_input,
                           captum_output_to_dicts)
 from .node2vec import random_walk
@@ -18,5 +18,6 @@ __all__ = ['MLP', 'BasicGNN', 'GAT', 'GCN', 'GraphSAGE', 'GIN', 'PNA',
            'ARGVA', 'JumpingKnowledge', 'DeepGraphInfomax', 'LightGCN',
            'LabelPropagation', 'CorrectAndSmooth', 'LINKX', 'PMLP',
            'MaskLabel', 'MetaLayer', 'NeuralFingerprint', 'DeepGCNLayer',
+           'GraphUNet',
            'HeteroJumpingKnowledge', 'ARLinkPredictor', 'to_captum_model',
            'to_captum_input', 'captum_output_to_dicts']

@@ -1,15 +1,14 @@
 """The model zoo: JumpingKnowledge, DeepGraphInfomax, LightGCN,
 LabelPropagation, CorrectAndSmooth, LINKX, PMLP, MaskLabel, MetaLayer,
-NeuralFingerprint, DeepGCNLayer, HeteroJumpingKnowledge, ARLinkPredictor
-and the captum stubs.
+NeuralFingerprint, DeepGCNLayer, GraphUNet, HeteroJumpingKnowledge,
+ARLinkPredictor and the captum stubs.
 
 Counterpart of ``pytorch_geometric_tpu/nn/models/misc_models.py``
 (reference ``torch_geometric/nn/models/jumping_knowledge.py``,
 ``deep_graph_infomax.py``, ``lightgcn.py``, ``label_prop.py``,
 ``correct_and_smooth.py``, ``linkx.py``, ``pmlp.py``, ``mask_label.py``,
 ``meta.py``, ``neural_fingerprint.py``, ``deep_gcn_layer.py``,
-``attract_repel.py``). Its ``GraphUNet`` needs the port of
-``nn/pool/topk_pool.py`` and ``select.py`` first (ROADMAP Queue 1).
+``graph_unet.py``, ``attract_repel.py``).
 
 Every propagation here is a gather and a scatter over the raw COO
 (``MessagePassing``'s plain path), as in the JAX package: no port kernel
@@ -17,7 +16,8 @@ runs. Where the JAX code draws from an RNG key (``ARLinkPredictor``'s
 dropout, ``MaskLabel.ratio_mask``), the port takes a ``torch.Generator``.
 Submodules and parameters are named as the flax modules name theirs
 (``lstm_f``, ``att``, ``weight``, ``edge_embed``, ``cat_lin1``, ``lins_i``
--> ``lins.i``, ``bias_i``, ``convs_i`` -> ``convs.i``, ``jk_{type}`` ...),
+-> ``lins.i``, ``bias_i``, ``convs_i`` -> ``convs.i``, ``jk_{type}``,
+``down_convs_i`` / ``down_convs_i_bias``, ``pools_i_weight`` ...),
 so ``convert.flax_to_state_dict`` carries them across.
 """
 
@@ -496,6 +496,113 @@ class DeepGCNLayer(nn.Module):
         if self.block == 'dense':
             return torch.cat([x, h], -1)
         return h
+
+
+class GraphUNet(nn.Module):
+    """Graph U-Net (reference ``graph_unet.py``): GCN layers and top-k
+    pooling down ``depth`` levels, the adjacency augmented to ``(A +
+    I)^2`` (self loops removed) before each pool, then unpooling by scatter
+    and a skip sum (or concatenation) up.
+
+    As in the JAX package, the levels run on dense adjacencies: the
+    augmented ``A^2`` has data-dependent sparsity, so each level is one
+    ``[n_l, n_l]`` matrix product and pooling is a row and column gather,
+    each level's size ``ceil(ratio^l N)`` static; U-Nets run on modest
+    graphs. The GCN layers are the reference's ``GCNConv(improved=True)``
+    (missing self loops filled with 2). The pooling score is ``x p /
+    |p|`` and its top-k breaks ties to the lowest node, as
+    ``jax.lax.top_k`` does; the kept rows are gated by ``tanh`` of their
+    score. One graph: ``batch`` is ignored, as there."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, depth: int = 3, pool_ratio: float = 0.5,
+                 sum_res: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = dict(device=device, generator=generator)
+        H = hidden_channels
+        self.hidden_channels, self.out_channels = H, out_channels
+        self.depth, self.pool_ratio, self.sum_res = depth, pool_ratio, sum_res
+
+        def conv(name, fan_in, out_ch):
+            setattr(self, name, linear(fan_in, out_ch, bias=False, **kw))
+            setattr(self, f'{name}_bias', constant((out_ch,), 0.0, device))
+
+        conv('down_convs_0', in_channels, H)
+        for i in range(1, depth + 1):
+            self.register_parameter(f'pools_{i - 1}_weight', nn.Parameter(
+                torch.rand((1, H), generator=generator).to(device)))
+            conv(f'down_convs_{i}', H, H)
+        for i in range(depth):
+            conv(f'up_convs_{i}', H if sum_res else 2 * H,
+                 H if i < depth - 1 else out_channels)
+
+    @staticmethod
+    def _gcn_agg(A, h):
+        """Dense GCN aggregation ``D^-1/2 A_hat D^-1/2 h``: ``A_hat`` keeps
+        existing self-loop weights and fills missing ones with 2 (the
+        reference's ``GCNConv(improved=True)``)."""
+        n = A.shape[0]
+        diag = torch.diagonal(A)
+        fill = torch.where(diag == 0, 2.0, 0.0)
+        Ah = A + torch.eye(n, dtype=A.dtype, device=A.device) * fill
+        deg = Ah.sum(1)
+        dinv = torch.where(deg > 0, deg.rsqrt(), 0.0)
+        return (dinv[:, None] * Ah * dinv[None, :]) @ h
+
+    def _conv(self, name, A, x):
+        return self._gcn_agg(A, getattr(self, name)(x)) + getattr(
+            self, f'{name}_bias')
+
+    def forward(self, x, edge_index,
+                edge_weight: Optional[torch.Tensor] = None,
+                batch: Optional[torch.Tensor] = None,
+                edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        del batch                         # one graph, dense
+        n = x.shape[0]
+        coo = _coo(edge_index)
+        w = x.new_ones(coo.shape[1]) if edge_weight is None else edge_weight
+        if edge_mask is not None:
+            w = torch.where(edge_mask, w, 0.0)
+        src = coo[0].long().clamp(max=n - 1)
+        dst = coo[1].long().clamp(max=n - 1)
+        # transposed adjacency: A[i, j] sums the weights of the edges j -> i,
+        # so the aggregation is one row-major product
+        A = x.new_zeros((n, n)).index_put((dst, src), w, accumulate=True)
+
+        x = F.relu(self._conv('down_convs_0', A, x))
+        xs, adjs, perms = [x], [A], []
+        cur_x, cur_A, cur_n = x, A, n
+        for i in range(1, self.depth + 1):
+            # augment: (A + I)^2 with the self loops removed
+            eye = torch.eye(cur_n, dtype=x.dtype, device=x.device)
+            A1 = cur_A * (1 - eye) + eye
+            A2 = (A1 @ A1) * (1 - eye)
+            pw = getattr(self, f'pools_{i - 1}_weight')
+            score = (cur_x * pw).sum(-1) / torch.linalg.vector_norm(
+                pw).clamp(min=1e-12)
+            k = max(int(-(-self.pool_ratio * cur_n // 1)), 1)
+            # ties to the lowest node, as jax.lax.top_k breaks them
+            perm = torch.sort(score, descending=True, stable=True).indices[:k]
+            cur_x = cur_x[perm] * torch.tanh(score[perm])[:, None]
+            cur_A = A2[perm][:, perm]
+            cur_n = k
+            cur_x = F.relu(self._conv(f'down_convs_{i}', cur_A, cur_x))
+            perms.append(perm)
+            if i < self.depth:
+                xs.append(cur_x)
+                adjs.append(cur_A)
+
+        for i in range(self.depth):
+            j = self.depth - 1 - i
+            res, A_j, perm = xs[j], adjs[j], perms[j]
+            up = torch.zeros_like(res).index_put((perm,), cur_x)
+            cur_x = res + up if self.sum_res else torch.cat([res, up], -1)
+            cur_x = self._conv(f'up_convs_{i}', A_j, cur_x)
+            if i < self.depth - 1:
+                cur_x = F.relu(cur_x)
+        return cur_x
 
 
 class HeteroJumpingKnowledge(nn.Module):

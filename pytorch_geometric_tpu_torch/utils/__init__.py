@@ -1,3 +1,5 @@
+from .coalesce import (coalesce, contains_isolated_nodes, is_undirected,
+                       remove_isolated_nodes, sort_edge_index, to_undirected)
 from .core import (cumsum, degree, index_sort, lexsort, one_hot,
                    scatter_normalize)
 from .dense import dense_to_sparse, to_dense_adj, to_dense_batch
@@ -9,7 +11,9 @@ from .extra import ppr
 # the reference's name
 get_ppr = ppr
 
-__all__ = ['add_remaining_self_loops', 'add_self_loops',
+__all__ = ['add_remaining_self_loops', 'add_self_loops', 'coalesce',
+           'contains_isolated_nodes', 'is_undirected',
+           'remove_isolated_nodes', 'sort_edge_index', 'to_undirected',
            'apply_node_permutation', 'block_fill_stats', 'cluster_order',
            'cumsum', 'degree', 'degree_order', 'dense_to_sparse', 'get_ppr',
            'index_sort', 'lexsort', 'maybe_num_nodes', 'one_hot', 'ppr',

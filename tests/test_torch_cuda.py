@@ -2570,3 +2570,83 @@ def test_cluster_batch_edge_index_on_the_card(dev):
     assert segment_spmm.launches == before + 2
     assert float((out.cpu() - ref).abs().max()) <= 1e-4 * max(
         1.0, float(ref.abs().max()))
+
+
+# -- the point family and SplineConv on the card ---------------------------------
+@pytest.mark.parametrize('tiled', [False, True])
+def test_knn_ties_go_to_the_lowest_index_on_card(dev, monkeypatch, tiled):
+    """An integer lattice with duplicated points (every distance exact, many
+    equal): the card's ``knn_graph`` equals the CPU's in the dense and the
+    tiled branch (forced at this size, several tiles), ties to the lowest
+    index, in float32 and float64."""
+    from pytorch_geometric_tpu_torch.nn.pool import point
+    if tiled:
+        monkeypatch.setattr(point, '_DENSE_LIMIT', 64)
+        monkeypatch.setattr(point, '_QT', 64)
+        monkeypatch.setattr(point, '_XT', 96)
+    g = torch.arange(6, dtype=torch.float32)
+    pos = torch.stack(torch.meshgrid(g, g, g, indexing='ij'), -1).view(-1, 3)
+    pos = torch.cat([pos, pos[:50]])
+    batch = (torch.arange(len(pos)) >= 100).long()
+    for dtype in (torch.float32, torch.float64):
+        for k in (1, 7, 26):
+            want = point.knn_graph(pos.to(dtype), k, batch)
+            got = point.knn_graph(pos.to(dev, dtype), k, batch.to(dev))
+            assert torch.equal(got[0].cpu(), want[0]), (dtype, k)
+            assert torch.equal(got[1].cpu(), want[1]), (dtype, k)
+    nbr, _ = point.knn_graph(pos.to(dev), 7, batch.to(dev))
+    d = ((pos[nbr[0].cpu()] - pos[nbr[1].cpu()]) ** 2).sum(-1).view(-1, 7)
+    idx = nbr[0].cpu().view(-1, 7)
+    tie = d[:, 1:] == d[:, :-1]
+    assert bool(tie.any()) and bool((idx[:, 1:] > idx[:, :-1])[tie].all())
+
+
+@pytest.mark.parametrize('degree,dim', [(1, 3), (2, 2), (3, 3)])
+def test_spline_conv_design_on_card(dev, degree, dim):
+    """SplineConv's ``x @ weight`` then a gather a corner, on the card,
+    against the JAX package's gather formula written in PyTorch (its
+    ``[E, F_in, F_out]`` weight tensor a corner) on the card: outputs
+    within 1e-5 of max(1, max|ref|), gradients within 1e-4 of each
+    largest."""
+    from pytorch_geometric_tpu_torch.nn.conv import SplineConv
+    from pytorch_geometric_tpu_torch.nn.conv.kernel_conv import (
+        _bspline_basis)
+    from pytorch_geometric_tpu_torch.ops import scatter
+    rng = np.random.default_rng(degree * 10 + dim)
+    n, e, f, c, K = 500, 4000, 16, 24, degree + 3
+    coo = torch.as_tensor(rng.integers(0, n, (2, e)), device=dev)
+    pseudo = torch.as_tensor(rng.random((e, dim)), dtype=torch.float32,
+                             device=dev)
+    x = torch.randn(n, f, device=dev, requires_grad=True)
+    conv = SplineConv(f, c, dim=dim, kernel_size=K, degree=degree,
+                      device=dev, generator=torch.Generator().manual_seed(0))
+    out = conv(x, coo, pseudo)
+
+    def gather_formula(x, weight):
+        wb, ib = _bspline_basis(pseudo, K, degree)
+        msg = x.new_zeros(e, c)
+        for corner in range((degree + 1) ** dim):
+            w_c = torch.ones(e, device=dev)
+            idx_c = torch.zeros(e, dtype=torch.long, device=dev)
+            rest = corner
+            for d in range(dim):
+                b = rest % (degree + 1)
+                rest //= degree + 1
+                w_c = w_c * wb[:, d, b]
+                idx_c = idx_c * K + ib[:, d, b]
+            msg = msg + w_c[:, None] * torch.einsum(
+                'ef,efo->eo', x[coo[0]], weight[idx_c])
+        return (scatter(msg, coo[1], n, 'mean') + conv.root(x)
+                + conv.bias)
+
+    w = conv.weight.detach().clone().requires_grad_()
+    x2 = x.detach().clone().requires_grad_()
+    ref = gather_formula(x2, w)
+    tol = 1e-5 * max(1.0, float(ref.detach().abs().max()))
+    assert float((out - ref).detach().abs().max()) <= tol
+    cot = torch.randn_like(out)
+    (out * cot).sum().backward()
+    (ref * cot).sum().backward()
+    for got, want in ((x.grad, x2.grad), (conv.weight.grad, w.grad)):
+        lim = 1e-4 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= lim
