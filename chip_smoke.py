@@ -272,8 +272,12 @@ checks them:
      and the model zoo (``spectral_conv.py``, ``graph_conv.py``,
      ``misc_conv.py``, ``dna_conv.py``, ``misc_models.py``,
      ``autoencoder.py``; AntiSymmetricConv's GCNConv on an ``EdgeIndex``,
-     JumpingKnowledge's lstm mode), once on the card, forward and
-     backward, against the CPU;
+     JumpingKnowledge's lstm mode), and the point family and kernel
+     convolutions (SplineConv at degrees 1-3 in 1-3 dimensions, GMMConv,
+     NNConv, CGConv, FeaStConv, the point convs, XConv with and without x,
+     knn / radius / fps / knn_interpolate and the KNN indexes, the top-k
+     poolings, GraphUNet at Cora's size), once on the card, forward and
+     backward, against the CPU, each launching no port kernel;
  39. path Z (run after path S, on the same products graph), PyG's
      ``examples/correct_and_smooth.py`` at ogbn-products' shape: an MLP
      base predictor (100 -> 200 -> 200 -> 47, batch norm, dropout 0.5 from
@@ -286,7 +290,29 @@ checks them:
      the JAX package's XLA scatter), eager, not captured; at 0.01 scale
      the card's corrected and smoothed outputs against the CPU's float64
      within 1e-4 * max(1, max|ref|), and the correction without its
-     re-pin of the training rows failing that limit.
+     re-pin of the training rows failing that limit;
+ 40. path AA, PyG's ``examples/dgcnn_classification.py`` on ModelNet10's
+     shape: 10 seeded families of closed meshes (3,040 faces) through
+     ``NormalizeScale`` once and ``SamplePoints(1024)`` as each cloud is
+     drawn, batch 32 (32,768 points, 655,360 knn edges a layer), two
+     ``DynamicEdgeConv`` (k = 20; ``knn_graph`` every forward, the tiled
+     branch), Linear 192 -> 1024, global max pooling, MLP 1024 -> 512 ->
+     256 -> 10 (dropout 0.5 from a CUDA generator), Adam 1e-3, 10 eager
+     steps and 4 eval batches: host ms a batch, card ms a step, the two
+     ``knn_graph`` calls timed apart beside their pair, FLOP and byte
+     reckoning, busy and idle share, peak memory, no port kernel; the
+     card's ``knn_graph`` of the first batch against the CPU's at the
+     positions and layer 2's features (swapped places counted, each within
+     float32 rounding), the first batch cut to 8 clouds: its float32 loss
+     against the CPU's and 3 steps in float64 on both (``synced_parity``);
+ 41. path AB, PyG's ``examples/faust.py`` on FAUST's shape (a UV sphere of
+     6,890 vertices and 13,776 triangles, smooth seeded bumps, 41,328
+     edges from the port's ``to_undirected``, ``Cartesian()``
+     pseudo-coordinates): 6 SplineConv (dim 3, kernel 5, 'add') with ELU,
+     Linear 64 -> 256 -> 6890, NLL over the vertex ids, Adam 1e-3, 10
+     eager steps and eval-mode serving: ms a step and a forward, busy and
+     idle share, peak memory, no port kernel; 3 steps at full size against
+     the CPU with one dropout mask.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -8319,8 +8345,9 @@ PAA_MESHES, PAA_RINGS, PAA_SEGS = 12, 38, 40
 # as at full size
 PAA_CHECK_CLOUDS = 8
 # a neighbour list of the card's knn and the CPU's may differ only where
-# two candidates' float64 distances lie within this share of each other
-# (or within the float32 expansion's rounding of the pair, ``knn_swaps``)
+# two candidates' float64 distances lie within this share of each other,
+# or within the float32 expansion's error bound of the pair (``knn_swaps``:
+# at the positions the card swapped candidates 6.5e-6 apart, relative)
 PAA_SWAP_REL = 1e-6
 # path AB: SplineCNN as PyG's examples/faust.py runs it: SplineConv(1, 32),
 # five SplineConv(-> 64), each dim 3, kernel_size 5, degree 1, aggr 'add'
@@ -8514,11 +8541,12 @@ def knn_swaps(torch, pos, got, want, valid_got, valid_want, k):
     against the CPU's (``want``) from the same float32 points: the
     validity masks equal, and at each place where the neighbour lists
     differ, the two candidates' float64 distances to the centre within
-    ``PAA_SWAP_REL`` of each other, or within the float32 expansion's own
-    rounding of the pair (4 * 2^-24 * (|c|^2 + |a|^2 + |b|^2): where that
-    is larger, the float32 distances of both devices cannot order them).
-    Returns (places that differ, rows that differ, the worst gap over
-    PAA_SWAP_REL, the worst over the rounding bound)."""
+    ``PAA_SWAP_REL`` of each other, or within the sum of the two float32
+    distances' error bounds, where float32 cannot order them: the
+    expansion ``|c|^2 + |x|^2 - 2 c.x`` over F features rounds to within
+    ``(F + 3) 2^-24 (|c| + |x|)^2`` of the exact distance, whatever the
+    order of its sums. Returns (places that differ, rows that differ, the
+    worst gap over PAA_SWAP_REL, the worst over the rounding bound)."""
     check(torch.equal(valid_got, valid_want), 'knn validity masks differ')
     a = got[0].view(-1, k).cpu()
     b = want[0].view(-1, k)
@@ -8532,8 +8560,9 @@ def knn_swaps(torch, pos, got, want, valid_got, valid_want, k):
     da, db = ((ia - c) ** 2).sum(-1), ((ib - c) ** 2).sum(-1)
     gap = (da - db).abs()
     rel = gap / torch.maximum(da, db).clamp(min=1e-300)
-    rounding = 4 * 2.0 ** -24 * ((c * c).sum(-1) + (ia * ia).sum(-1)
-                                 + (ib * ib).sum(-1))
+    nc, na, nb = (v.norm(dim=-1) for v in (c, ia, ib))
+    rounding = (p.shape[1] + 3) * 2.0 ** -24 * ((nc + na) ** 2
+                                               + (nc + nb) ** 2)
     worst_rel = float((rel / PAA_SWAP_REL).max())
     worst_round = float((gap / rounding).max())
     ok = (rel <= PAA_SWAP_REL) | (gap <= rounding)
@@ -8555,9 +8584,11 @@ def phase_path_aa(torch, seed):
     timed apart (CUDA events) beside their reckoning (every one of the
     32,768^2 pairs scored, since other clouds are masked, not skipped);
     ``PAA_EVAL_BATCHES`` eval-mode batches. Checks: the card's
-    ``knn_graph`` of the first batch (the tiled branch) at layer 1's
-    positions and layer 2's features against the CPU's from the same
-    float32 inputs (``knn_swaps``; the count of swapped places printed);
+    ``knn_graph`` of the whole first batch (the tiled branch) at layer 1's
+    positions and layer 2's features, its rows of the first
+    ``PAA_CHECK_CLOUDS`` clouds against the CPU's ``knn_graph`` of those
+    clouds from the same float32 inputs (``knn_swaps``; the count of
+    swapped places printed);
     the first batch cut to ``PAA_CHECK_CLOUDS`` clouds: its float32 loss
     against the CPU's within 1e-4 relative, and its 3 steps in float64 on
     both devices (``synced_parity``; the edge MLPs' batch norms run in
@@ -8633,20 +8664,31 @@ def phase_path_aa(torch, seed):
                launch_counts=counts, peak_memory_gb=peak, knn=knn_ms)
     log(f'[{tag}] {n} points and {n * PAA_K} knn edges a layer; peak '
         f'{peak:.3f} GB')
-    # the card's knn against the CPU's, the tiled branch at full batch
+    # the card's knn of the full batch (the tiled branch over all 32 clouds)
+    # against the CPU's: its rows of the first PAA_CHECK_CLOUDS clouds
+    # against the CPU's knn_graph of those clouds (no cloud sees another,
+    # so those rows are one function of the same float32 inputs; the CPU's
+    # full batch took ~15 s a call on an 8-core host)
     swaps = {}
+    cut = vec < PAA_CHECK_CLOUDS
+    rows = int(cut.sum())
+    t1 = time.perf_counter()
     for name, pts in (('positions', pos), ('features', x1)):
         got, v_got = knn_graph(pts, PAA_K, vec)
-        want, v_want = knn_graph(pts.cpu(), PAA_K, vec.cpu())
-        places, rows, w_rel, w_round = knn_swaps(
-            torch, pts.cpu(), got, want, v_got.cpu(), v_want, PAA_K)
-        swaps[name] = {'places': places, 'rows': rows,
+        want, v_want = knn_graph(pts[cut].cpu(), PAA_K, vec[cut].cpu())
+        places, diff_rows, w_rel, w_round = knn_swaps(
+            torch, pts[cut].cpu(), got[:, :rows * PAA_K],
+            want, v_got[:rows * PAA_K].cpu(), v_want, PAA_K)
+        swaps[name] = {'rows_compared': rows, 'places': places,
+                       'rows': diff_rows,
                        'worst_gap_over_rel_limit': w_rel,
                        'worst_gap_over_rounding': w_round}
         log(f'[{tag}] knn_graph of the first batch at its {name}, card '
-            f'against CPU: {places} swapped places in {rows} of {n} rows '
-            f'(worst gap {w_rel:.3e} of {PAA_SWAP_REL:g} relative, '
-            f'{w_round:.3e} of the float32 rounding)')
+            f'against CPU over the {rows} rows of {PAA_CHECK_CLOUDS} '
+            f'clouds: {places} swapped places in {diff_rows} rows (worst '
+            f'gap {w_rel:.3e} of {PAA_SWAP_REL:g} relative, {w_round:.3e} '
+            'of the float32 error bound)')
+    knn_check_s = time.perf_counter() - t1
     res['knn_vs_cpu'] = swaps
     model.eval()
     res['eval_nll'] = eval_batches(
@@ -8655,7 +8697,6 @@ def phase_path_aa(torch, seed):
     log(f"[{tag}] eval-mode NLL over {PAA_EVAL_BATCHES} batches "
         f"{res['eval_nll']}")
     # the first batch cut to PAA_CHECK_CLOUDS clouds against the CPU
-    cut = vec < PAA_CHECK_CLOUDS
     small = (pos[cut], vec[cut], y[:PAA_CHECK_CLOUDS])
     small_cpu = tuple(t.cpu() for t in small)
 
@@ -8688,6 +8729,7 @@ def phase_path_aa(torch, seed):
         cast(small), cast(small_cpu), None, loss_of, PAA_LR)
     res['first_batch_vs_cpu']['float32_loss_rel_diff'] = rel
     res['phase_s'] = {'build': build_s, 'steps': steps_s,
+                      'knn_check': knn_check_s,
                       'cpu_parity': time.perf_counter() - t1}
     log(f"[{tag}] seconds: {res['phase_s']}")
     del model, opt, first, x1
@@ -8700,8 +8742,8 @@ def phase_path_ab(torch, seed, iters):
     FAUST's shape (``PAB_*``, ``faust_like``): ``spline_faust_net`` trained
     ``PAB_STEPS`` eager steps (NLL over the vertex ids, Adam 1e-3, dropout
     from a CUDA generator): card ms a step (CUDA events), no port kernel
-    launched (SplineConv's ``x @ weight`` for every kernel, the gathers a
-    corner and ``index_add_``), a whole-window profile with busy and idle
+    launched (SplineConv's ``x @ weight`` for every kernel, one gather of
+    the corners and ``index_add_``), a whole-window profile with busy and idle
     share, peak memory; then served in eval mode (ms a forward, ``iters``
     after 2, and a profile). Checks: 3 steps at full size against the CPU
     from the same weights (losses within 1e-4 relative, first-step

@@ -16,8 +16,8 @@ of the ``(degree + 1)^dim`` corners (JAX ``kernel_conv.py:131-142``): at
 FAUST's mesh (41,328 edges, 64 x 64, degree 1 in 3 dims) 677 MB a corner and
 5.4 GB a layer, which autograd keeps. The port multiplies every node by
 every kernel first, ``h = x @ weight`` as ``[N, K^dim, F_out]`` (220 MB
-there), and each corner adds ``w_c * h[src, idx_c]``: the same products,
-rounded in another order.
+there), and the message sums ``w_c * h[src, idx_c]`` over the corners,
+gathered at once: the same products, rounded in another order.
 """
 
 from typing import Optional, Tuple, Union
@@ -26,10 +26,11 @@ import torch
 from torch import nn as tnn
 
 from ..inits import constant, glorot, linear
-from ..message_passing import MessagePassing
+from ..message_passing import MessagePassing, _pair
 from ...backend import resolve_device
 from ...ops import scatter
-from .point_conv import _coo, _pair, _with_self_loops
+from .graph_conv import _coo
+from .point_conv import _with_self_loops
 
 
 def _endpoints(edge_index, n_src: int, n_dst: int):
@@ -124,8 +125,8 @@ class SplineConv(MessagePassing):
     kernel_size``) and per-edge weights from the tensor-product basis over
     the ``(degree + 1)^dim`` corners of ``edge_attr[:, :dim]`` in
     ``[0, 1]``; mean by default, plus ``root(x_i)`` and a bias. Computed
-    as ``x @ weight`` for every node and kernel first, then a gather a
-    corner (the module's docstring)."""
+    as ``x @ weight`` for every node and kernel first, then one gather of
+    every corner's rows (the module's docstring)."""
 
     def __init__(self, in_channels: Union[int, Tuple[int, int]],
                  out_channels: int, dim: int = 2, kernel_size: int = 3,
@@ -156,8 +157,7 @@ class SplineConv(MessagePassing):
         h = torch.einsum('nf,kfo->nko', x_src, self.weight).reshape(
             -1, self.out_channels)
         base = self.degree + 1
-        row = src * total
-        msg = x_src.new_zeros((src.shape[0], self.out_channels))
+        weights, rows = [], []
         for corner in range(base ** dim):
             bits, c = [], corner
             for _ in range(dim):
@@ -168,7 +168,13 @@ class SplineConv(MessagePassing):
             for d, b in enumerate(bits):
                 w_c = w_c * wb[:, d, b]
                 idx_c = idx_c * K + ib[:, d, b]
-            msg = msg + w_c[:, None] * h.index_select(0, row + idx_c)
+            weights.append(w_c)
+            rows.append(src * total + idx_c)
+        # every corner's rows in one gather, so the backward adds into one
+        # [N * K^dim, F_out] gradient rather than one a corner
+        picked = h.index_select(0, torch.cat(rows)).view(
+            len(rows), -1, self.out_channels)
+        msg = (torch.stack(weights)[..., None] * picked).sum(0)
         out = scatter(msg, dst, n, self._aggr(), mask=edge_mask)
         if self.root is not None:
             out = out + self.root(x_dst)

@@ -23,14 +23,10 @@ import torch
 from torch import nn as tnn
 
 from ..inits import linear
-from ..message_passing import MessagePassing
+from ..message_passing import MessagePassing, _pair
 from ...backend import resolve_device
-from ...edge_index import EdgeIndex
 from ...ops import scatter, softmax
-
-
-def _coo(edge_index) -> torch.Tensor:
-    return edge_index.coo if isinstance(edge_index, EdgeIndex) else edge_index
+from .graph_conv import _coo
 
 
 def _with_self_loops(edge_index, edge_mask, n: int):
@@ -44,10 +40,6 @@ def _with_self_loops(edge_index, edge_mask, n: int):
     coo = torch.cat([coo, torch.stack([loops, loops])], 1)
     edge_mask = torch.cat([edge_mask, edge_mask.new_ones(n)])
     return coo, edge_mask
-
-
-def _pair(v):
-    return v if isinstance(v, tuple) else (v, v)
 
 
 class PointNetConv(MessagePassing):

@@ -33,6 +33,7 @@ from ..conv.graph_conv import LGConv, MFConv, _WeightedGather, _coo
 from ..inits import constant, embedding, glorot, linear
 from ..norm.norms import RunningBatchNorm
 from ..pool import global_add_pool
+from ..pool.select import top_k
 from ...backend import resolve_device
 from ...ops import scatter
 from .mlp import MLP
@@ -584,7 +585,7 @@ class GraphUNet(nn.Module):
                 pw).clamp(min=1e-12)
             k = max(int(-(-self.pool_ratio * cur_n // 1)), 1)
             # ties to the lowest node, as jax.lax.top_k breaks them
-            perm = torch.sort(score, descending=True, stable=True).indices[:k]
+            perm = top_k(score, k)[1]
             cur_x = cur_x[perm] * torch.tanh(score[perm])[:, None]
             cur_A = A2[perm][:, perm]
             cur_n = k

@@ -16,19 +16,12 @@ import torch
 
 from ...backend import resolve_device
 from ...data.data import as_tensor
+from .select import top_k
 
 
 class KNNOutput(NamedTuple):
     score: torch.Tensor
     index: torch.Tensor
-
-
-def _top_k(scores: torch.Tensor, k: int):
-    """The ``k`` largest of each row, in order, ties to the lowest index
-    (a stable sort keeps equal scores in index order)."""
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-    index = order[:, :k]
-    return scores.gather(1, index), index
 
 
 class KNNIndex:
@@ -67,7 +60,7 @@ class KNNIndex:
             links = as_tensor(exclude_links).to(self.device).long()
             scores = scores.index_put((links[0], links[1]),
                                       scores.new_tensor(-np.inf))
-        s, i = _top_k(scores, min(k, self.numel))
+        s, i = top_k(scores, min(k, self.numel))
         return KNNOutput(score=s, index=i)
 
     def get_emb(self) -> torch.Tensor:

@@ -12,12 +12,12 @@ Ties go to the lowest index, as ``jax.lax.top_k`` breaks them (and the JAX
 package's tiled merge keeps earlier tiles first): the dense branch takes a
 stable sort of each row, the tiled branch a top-k of a composite key, the
 distance's float32 bits above the column index (stable sorts for float64),
-so duplicated points give the JAX package's neighbours. An invalid slot (fewer than ``k`` candidates
-in its cloud) carries what the JAX package's does: the lowest index among
-the excluded candidates in the dense branch, 0 in the tiled one. The search
-takes no gradient. Keep TF32 off for the distance product
-(``torch.backends.cuda.matmul.allow_tf32``, off by default): a TF32
-product moves near neighbours past each other.
+so duplicated points give the JAX package's neighbours. An invalid slot
+(fewer than ``k`` candidates in its cloud) carries what the JAX package's
+does: the lowest index among the excluded candidates in the dense branch, 0
+in the tiled one. The search takes no gradient. Keep TF32 off for the
+distance product (``torch.backends.cuda.matmul.allow_tf32``, off by
+default): a TF32 product moves near neighbours past each other.
 """
 
 import math

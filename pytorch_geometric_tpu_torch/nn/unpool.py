@@ -1,4 +1,5 @@
-"""knn_interpolate (reference ``torch_geometric/nn/unpool/knn_interpolate.py``).
+"""knn_interpolate (reference
+``torch_geometric/nn/unpool/knn_interpolate.py``).
 
 Counterpart of ``pytorch_geometric_tpu/nn/unpool.py``."""
 

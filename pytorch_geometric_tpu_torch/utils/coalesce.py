@@ -16,23 +16,16 @@ import numpy as np
 from ..data.data import host
 
 
-def _to_np(edge_index) -> np.ndarray:
-    return host(edge_index)
-
-
-def _attr(a) -> np.ndarray:
-    return host(a)
-
-
 def sort_edge_index(edge_index, edge_attr=None, sort_by_row: bool = True):
-    """Sort edges lexicographically (reference ``utils/sort_edge_index.py``)."""
-    e = _to_np(edge_index)
+    """Sort edges lexicographically (reference
+    ``utils/sort_edge_index.py``)."""
+    e = host(edge_index)
     keys = (e[1], e[0]) if sort_by_row else (e[0], e[1])
     perm = np.lexsort(keys)
     out = e[:, perm]
     if edge_attr is None:
         return out
-    return out, _attr(edge_attr)[perm]
+    return out, host(edge_attr)[perm]
 
 
 def coalesce(edge_index, edge_attr=None, num_nodes: Optional[int] = None,
@@ -40,7 +33,7 @@ def coalesce(edge_index, edge_attr=None, num_nodes: Optional[int] = None,
     """Sort + deduplicate edges, reducing duplicate attributes
     (reference ``utils/_coalesce.py``); ``edge_attr`` may be one array or
     a list of them."""
-    e = _to_np(edge_index)
+    e = host(edge_index)
     if num_nodes is None:
         num_nodes = int(e.max()) + 1 if e.size else 0
     key = e[0].astype(np.int64) * num_nodes + e[1]
@@ -53,9 +46,9 @@ def coalesce(edge_index, edge_attr=None, num_nodes: Optional[int] = None,
         return out
     seg = np.cumsum(uniq_mask) - 1
     if isinstance(edge_attr, (list, tuple)):
-        return out, [_reduce_attr(_attr(a)[order], seg, uniq_mask, reduce)
+        return out, [_reduce_attr(host(a)[order], seg, uniq_mask, reduce)
                      for a in edge_attr]
-    return out, _reduce_attr(_attr(edge_attr)[order], seg, uniq_mask, reduce)
+    return out, _reduce_attr(host(edge_attr)[order], seg, uniq_mask, reduce)
 
 
 def _reduce_attr(attr, seg, uniq_mask, reduce):
@@ -88,25 +81,25 @@ def to_undirected(edge_index, edge_attr=None,
                   num_nodes: Optional[int] = None, reduce: str = 'sum'):
     """Symmetrise the graph (reference ``utils/undirected.py``).
     ``edge_attr`` may be a single array or a list of arrays."""
-    e = _to_np(edge_index)
+    e = host(edge_index)
     both = np.concatenate([e, e[::-1]], axis=1)
     if edge_attr is not None:
         if isinstance(edge_attr, (list, tuple)):
-            edge_attr = [np.concatenate([_attr(a)] * 2, axis=0)
+            edge_attr = [np.concatenate([host(a)] * 2, axis=0)
                          for a in edge_attr]
         else:
-            edge_attr = np.concatenate([_attr(edge_attr)] * 2, axis=0)
+            edge_attr = np.concatenate([host(edge_attr)] * 2, axis=0)
     return coalesce(both, edge_attr, num_nodes, reduce)
 
 
 def is_undirected(edge_index, num_nodes: Optional[int] = None) -> bool:
-    e = coalesce(_to_np(edge_index), None, num_nodes)
+    e = coalesce(host(edge_index), None, num_nodes)
     et = coalesce(e[::-1], None, num_nodes)
     return e.shape == et.shape and bool(np.all(e == et))
 
 
 def contains_isolated_nodes(edge_index, num_nodes: int) -> bool:
-    e = _to_np(edge_index)
+    e = host(edge_index)
     return bool(len(np.unique(e)) < num_nodes)
 
 
@@ -118,7 +111,7 @@ def remove_isolated_nodes(edge_index, num_nodes: int
     Reference semantics: isolation is decided from non-loop edges (a node
     with only self loops is isolated); surviving nodes keep at most their
     last self loop, re-appended after the non-loop edges."""
-    e = _to_np(edge_index)
+    e = host(edge_index)
     loop = e[0] == e[1]
     plain = e[:, ~loop]
     mask = np.zeros(num_nodes, bool)

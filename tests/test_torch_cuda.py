@@ -2572,7 +2572,7 @@ def test_cluster_batch_edge_index_on_the_card(dev):
         1.0, float(ref.abs().max()))
 
 
-# -- the point family and SplineConv on the card ---------------------------------
+# -- the point family and SplineConv on the card -------------------------------
 @pytest.mark.parametrize('tiled', [False, True])
 def test_knn_ties_go_to_the_lowest_index_on_card(dev, monkeypatch, tiled):
     """An integer lattice with duplicated points (every distance exact, many
@@ -2603,7 +2603,7 @@ def test_knn_ties_go_to_the_lowest_index_on_card(dev, monkeypatch, tiled):
 
 @pytest.mark.parametrize('degree,dim', [(1, 3), (2, 2), (3, 3)])
 def test_spline_conv_design_on_card(dev, degree, dim):
-    """SplineConv's ``x @ weight`` then a gather a corner, on the card,
+    """SplineConv's ``x @ weight`` then one gather of the corners, on the card,
     against the JAX package's gather formula written in PyTorch (its
     ``[E, F_in, F_out]`` weight tensor a corner) on the card: outputs
     within 1e-5 of max(1, max|ref|), gradients within 1e-4 of each

@@ -54,7 +54,7 @@ def _attr(seed, dtype, e=E, width=3):
     return rng.integers(-50, 50, (e, width)).astype(dtype)
 
 
-# -- utils/coalesce.py ---------------------------------------------------------
+# -- utils/coalesce.py --------------------------------------------------------
 @pytest.mark.parametrize('form', ['numpy', 'tensor', 'EdgeIndex'])
 @pytest.mark.parametrize('by_row', [True, False])
 def test_sort_edge_index_matches_jax(by_row, form):
@@ -112,7 +112,7 @@ def test_undirected_and_isolated_match_jax():
               jc.remove_isolated_nodes(e, N))
 
 
-# -- transforms/geometric.py -----------------------------------------------------
+# -- transforms/geometric.py --------------------------------------------------
 def _cloud(seed, n=N, dim=3):
     rng = np.random.default_rng(seed)
     pos = rng.standard_normal((n, dim)).astype(np.float32)

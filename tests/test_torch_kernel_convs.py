@@ -1,10 +1,10 @@
 """The port's ``nn/conv/kernel_conv.py`` against the JAX package's, on the
 CPU: GMMConv, SplineConv, NNConv, CGConv and FeaStConv on a raw COO, a
 padded COO with an edge mask and an ``EdgeIndex``; ``_bspline_basis`` at
-degrees 1-3; SplineConv's design (``x @ weight`` for every kernel, then a
-gather a corner) against the JAX package's gather formula (``weight[idx]``
-an ``[E, F_in, F_out]`` tensor a corner) at degrees 1-3 in 1-3
-dimensions; and ``chip_smoke.py``'s SplineCNN (path AB) on a small UV
+degrees 1-3; SplineConv's design (``x @ weight`` for every kernel, then one
+gather of every corner's rows) against the JAX package's gather formula
+(``weight[idx]`` an ``[E, F_in, F_out]`` tensor a corner) at degrees 1-3 in
+1-3 dimensions; and ``chip_smoke.py``'s SplineCNN (path AB) on a small UV
 sphere over three Adam steps against flax and optax.
 
 Tolerances: outputs within 1e-5 * max(1, max|ref|), gradients within 1e-4
@@ -96,8 +96,9 @@ def test_spline_conv_matches_jax(variant):
 @pytest.mark.parametrize('dim', [1, 2, 3])
 @pytest.mark.parametrize('degree', [1, 2, 3])
 def test_spline_conv_design_matches_the_gather_formula(degree, dim):
-    """The port's ``x @ weight`` then a gather a corner against the JAX
-    package's gather formula (its ``[E, F_in, F_out]`` tensor a corner),
+    """The port's ``x @ weight`` then one gather of the corners against
+    the JAX package's gather formula (its ``[E, F_in, F_out]`` tensor a
+    corner),
     at each degree in 1-3 dimensions, on the padded COO with its mask;
     sum aggregation without root where ``dim`` is 2."""
     kw = dict(aggr='add', root_weight=False) if dim == 2 else {}
@@ -132,7 +133,7 @@ def test_feast_conv_matches_jax(heads, variant):
          conv.FeaStConv(F, C, heads=heads, **CPU), variant, attr=False)
 
 
-# -- path AB's model: three Adam steps on a small sphere -----------------------
+# -- path AB's model: three Adam steps on a small sphere ----------------------
 class _JSplineNet(fnn.Module):
     """``chip_smoke.py::spline_faust_net`` in flax, dropout off."""
     channels: tuple
@@ -152,9 +153,9 @@ class _JSplineNet(fnn.Module):
 
 
 def test_path_ab_steps_match_jax():
-    """Path AB's model (channels 8 -> 8 -> 8, kernel 5, hidden 16) on
-    ``chip_smoke.py::faust_like``'s sphere at 8 rings x 7 vertices (58
-    vertices, 112 triangles): its edge count by Euler's formula, its
+    """Path AB's model cut to 2 convs (channels 8 -> 8, kernel 5, hidden
+    16) on ``chip_smoke.py::faust_like``'s sphere at 8 rings x 7 vertices
+    (58 vertices, 112 triangles): its edge count by Euler's formula, its
     pseudo-coordinates in [0, 1]; three Adam steps (1e-3) of the NLL over
     the vertex ids, each step's loss and gradients against flax's with the
     port trained on its own by ``torch.optim.Adam`` (in eval mode: no
@@ -166,7 +167,7 @@ def test_path_ab_steps_match_jax():
     assert n == 58 and face.shape[1] == 112
     assert coo.shape[1] == 2 * (n + face.shape[1] - 2)
     assert 0 <= float(pseudo.min()) and float(pseudo.max()) <= 1
-    dims = dict(channels=(8, 8, 8), hidden=16, classes=n, kernel_size=5)
+    dims = dict(channels=(8, 8), hidden=16, classes=n, kernel_size=5)
     x = np.ones((n, 1), np.float32)
     jargs = (jnp.asarray(x), jnp.asarray(coo), jnp.asarray(pseudo.numpy()))
     jm = _JSplineNet(**dims)

@@ -92,7 +92,7 @@ def _pair_same(got, ref, what=''):
     _same(got[1], ref[1], f'{what} mask')
 
 
-# -- nn/pool/point.py -------------------------------------------------------------
+# -- nn/pool/point.py ---------------------------------------------------------
 def test_knn_family_matches_jax(branch):
     """knn (batched and masked, and k past a cloud's size), knn_graph
     (loop, flow, mask), radius, radius_graph, nearest."""
@@ -194,7 +194,7 @@ def test_voxel_grid_and_decimation_match_jax():
         tpoint.decimation_indices(ptr, 0.5, **CPU)
 
 
-# -- nn/pool/knn_index.py ----------------------------------------------------------
+# -- nn/pool/knn_index.py -----------------------------------------------------
 @pytest.mark.parametrize('name', ['L2KNNIndex', 'MIPSKNNIndex'])
 def test_knn_index_matches_jax(name):
     rng = np.random.default_rng(6)
@@ -231,7 +231,7 @@ def test_approx_knn_index_matches_jax(name):
             _same(got.index, want.index)
 
 
-# -- knn_interpolate ---------------------------------------------------------------
+# -- knn_interpolate ----------------------------------------------------------
 def test_knn_interpolate_matches_jax(branch):
     pos, batch, _ = _cloud(8)
     pos_y, batch_y, _ = _cloud(9, n=35)
@@ -252,7 +252,7 @@ def test_knn_interpolate_matches_jax(branch):
     grad_close(tx.grad, grad)
 
 
-# -- nn/conv/point_conv.py and x_conv.py ---------------------------------------------
+# -- nn/conv/point_conv.py and x_conv.py --------------------------------------
 NP, EP, FP, PADP = 40, 150, 6, 5
 XP, COOP, MASKP, WP = graph(12, NP, EP, FP, PADP)
 POS = np.random.default_rng(13).standard_normal((NP, 3)).astype(np.float32)
@@ -390,7 +390,7 @@ def test_x_conv_matches_jax(branch, case):
         _same(tm.train()(*args, **tkw), tm.eval()(*args, **tkw))
 
 
-# -- path AA's model: three Adam steps --------------------------------------------
+# -- path AA's model: three Adam steps ----------------------------------------
 class _TrainMLP(fnn.Module):
     """The JAX package's MLP layers (``lin_i``, ``norm_i``) with its batch
     norms in training mode: what PyG's DGCNN runs, and the port's MLP in
@@ -515,3 +515,24 @@ def test_point_family_needs_a_card_by_default(monkeypatch):
     for build in builds:
         with pytest.raises(RuntimeError, match='no CUDA card'):
             build()
+
+
+def test_chip_smoke_knn_swap_check():
+    """``chip_smoke.py::knn_swaps``, path AA's card-against-CPU knn check:
+    a swap of two candidates at equal distance passes and is counted; a
+    swap past the float32 error bound, or validity masks that differ,
+    fail."""
+    cs = _chip_smoke()
+    pos = torch.tensor([[0., 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 3]])
+    want = torch.tensor([[1, 2, 0, 2, 0, 1, 0, 1],
+                         [0, 0, 1, 1, 2, 2, 3, 3]])
+    valid = torch.ones(8, dtype=torch.bool)
+    got = want.clone()
+    got[0, :2] = torch.tensor([2, 1])          # |0-1| = |0-2|: a tie
+    assert cs.knn_swaps(torch, pos, got, want, valid, valid, 2)[:2] == (2, 1)
+    far = want.clone()
+    far[0, 1] = 3                              # 9 against 1
+    with pytest.raises(AssertionError, match='further apart'):
+        cs.knn_swaps(torch, pos, far, want, valid, valid, 2)
+    with pytest.raises(AssertionError, match='validity'):
+        cs.knn_swaps(torch, pos, want, want, ~valid, valid, 2)
