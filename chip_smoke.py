@@ -7035,6 +7035,9 @@ PV_AGGREGATORS = ('mean', 'min', 'max', 'std')
 PV_SCALERS = ('identity', 'amplification', 'attenuation')
 PV_MLP = (50, 25, 1)
 PV_BATCH, PV_STEPS, PV_EVAL_BATCHES, PV_LR = 128, 10, 4, 1e-3
+# the card's own first-step spread (of a tensor's largest) from which path
+# V's parity steps run in float64 on both devices
+PV_SELF_SPREAD = 1e-3
 # COLLAB's shape (TUDataset, as PyG's benchmark/kernel runs GIN-0 on it):
 # 5,000 graphs of 32-492 nodes, 74.49 on average, 2,457.78 undirected
 # edges on average (stored both ways), one-hot degree features 492 wide
@@ -7433,6 +7436,27 @@ def host_breakdown(torch, tag, fn, top=10):
     return res
 
 
+def card_self_spread(torch, tag, build, state, batch, loss_of):
+    """The first step's gradients on the card twice, from ``state`` on
+    ``batch`` in training mode: each tensor's largest gap between the two
+    runs over its own largest (logged, the worst first)."""
+    model = build('cuda')
+    model.load_state_dict({k: v.cuda() for k, v in state.items()})
+    model.train()
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss_of(model, *batch).backward()
+        runs.append({k: g.clone() for k, g in grads_of(torch, model).items()})
+    spread = {k: float((runs[1][k] - g).abs().max())
+              / max(float(g.abs().max()), 1e-30) for k, g in runs[0].items()}
+    log(f'[{tag}] the card against itself, two first steps: worst gap of '
+        f'each tensor over its own largest ' + ', '.join(
+            f'{k} {v:.3e}' for k, v in sorted(spread.items(),
+                                              key=lambda kv: -kv[1])[:10]))
+    return spread
+
+
 def phase_path_v(torch, seed):
     """Path V: PNA at PyG's examples/pna.py configuration on ZINC's shape.
     ``zinc_like`` (10,000 training graphs) on the host, PNA's degree
@@ -7521,8 +7545,27 @@ def phase_path_v(torch, seed):
     cpu_batch = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
                       for t in first)
     t0 = time.perf_counter()
-    res['first_batch_vs_cpu'] = synced_parity(
-        torch, tag, build, state, first, cpu_batch, None, loss_of, PV_LR)
+    # the card against itself first: two first steps from the same weights
+    # and batch (index_add_'s atomics sum in no fixed order); where its own
+    # spread reaches PV_SELF_SPREAD of a tensor's largest, float32 cannot
+    # hold the card to the CPU at 1e-2 of each tensor's own largest, and
+    # both run the steps in float64
+    spread = card_self_spread(torch, tag, build, state, first, loss_of)
+    res['card_self_spread'] = spread
+    if max(spread.values()) >= PV_SELF_SPREAD:
+
+        def cast(batch):
+            return tuple(t.double() if isinstance(t, torch.Tensor)
+                         and t.is_floating_point() else t for t in batch)
+
+        res['first_batch_vs_cpu'] = synced_parity(
+            torch, f'{tag} float64', lambda dev: build(dev).double(), state,
+            cast(first), cast(cpu_batch), None, loss_of, PV_LR)
+        res['parity_dtype'] = 'float64'
+    else:
+        res['first_batch_vs_cpu'] = synced_parity(
+            torch, tag, build, state, first, cpu_batch, None, loss_of, PV_LR)
+        res['parity_dtype'] = 'float32'
     res['phase_s'] = {'build': gen_s, 'steps': steps_s, 'profile': prof_s,
                       'cpu_parity': time.perf_counter() - t0}
     log(f"[{tag}] seconds: {res['phase_s']}")
@@ -8874,6 +8917,471 @@ def phase_path_ab(torch, seed, iters):
     return res
 
 
+# -- path AC: MemPooling at PROTEINS_full's shape ------------------------------
+# TU's PROTEINS_full, as PyG's examples/mem_pool.py trains on it: 1,113
+# graphs, 43,471 nodes (at most 620 a graph), 162,088 directed edges
+# (81,044 pairs, both ways), 3 node labels and 29 node attributes (x 32
+# wide under use_node_attr), 2 classes (663 / 450). Generated
+# (``proteins_like``): graph sizes log-normal, scaled to the total with
+# one graph at the largest size; a random spanning path in each graph plus
+# uniform pairs, each pair once, to the graph's share of the pairs; labels
+# and attributes drawn per node, the attributes shifted by the label
+PROTEINS_GRAPHS, PROTEINS_NODES, PROTEINS_PAIRS = 1113, 43_471, 81_044
+PROTEINS_MAX, PROTEINS_LABELS, PROTEINS_ATTRS = 620, 3, 29
+PROTEINS_CLASS_SHARE = 663 / 1113
+# the JAX package's examples/mem_pool.py model at its widths: 2 x
+# GraphConv(32) with leaky_relu, MemPooling(32, 32, heads=4,
+# num_clusters=4), MemPooling(32, 2, heads=4, num_clusters=1); loss
+# cross-entropy + 0.1 (KL_1 + KL_2), Adam 1e-3; PyG's MemPool example's
+# batch of 20
+PAC_HIDDEN, PAC_HEADS, PAC_CLUSTERS, PAC_KL = 32, 4, 4, 0.1
+PAC_BATCH, PAC_STEPS, PAC_LR = 20, 20, 1e-3
+
+
+def proteins_like(root, seed=0, graphs=PROTEINS_GRAPHS, nodes=PROTEINS_NODES,
+                  pairs=PROTEINS_PAIRS, largest=PROTEINS_MAX,
+                  name='PROTEINS_full'):
+    """TU raw files at PROTEINS_full's shape under ``root/name/raw``
+    (``DS_A``, ``DS_graph_indicator``, ``DS_graph_labels``,
+    ``DS_node_labels``, ``DS_node_attributes``, TU's comma-and-space
+    text); returns the graph sizes."""
+    rng = np.random.default_rng(seed)
+    sizes = np.maximum(np.rint(rng.lognormal(
+        math.log(nodes / graphs) - 0.28, 0.75, graphs)), 4.0)
+    big = int(rng.integers(graphs))
+    rest = np.delete(np.arange(graphs), big)
+    share = sizes[rest]
+    for _ in range(20):
+        # scaled to the total, none past the largest
+        share = share * (nodes - largest) / share.sum()
+        if share.max() <= largest - 1:
+            break
+        share = np.minimum(share, largest - 1)
+    sizes = np.zeros(graphs, np.int64)
+    sizes[rest] = np.floor(share)
+    short = nodes - largest - int(sizes[rest].sum())
+    sizes[rest[np.argsort(-(share - np.floor(share)), kind='stable')[
+        :short]]] += 1
+    sizes[big] = largest
+    room = sizes * (sizes - 1) // 2
+    want = np.minimum(np.maximum(np.floor(pairs * sizes / nodes), sizes - 1),
+                      room).astype(np.int64)
+    for i in rng.permutation(graphs):
+        if want.sum() >= pairs:
+            break
+        want[i] += min(room[i] - want[i], pairs - want.sum())
+    check(want.sum() == pairs, f'proteins_like: {want.sum()} pairs')
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    edges = []
+    for g in range(graphs):
+        n, m = int(sizes[g]), int(want[g])
+        perm = rng.permutation(n)
+        a, b = perm[:-1], perm[1:]
+        keys = set((np.minimum(a, b) * n + np.maximum(a, b)).tolist())
+        while len(keys) < m:
+            u = rng.integers(0, n, 2 * (m - len(keys)) + 8)
+            v = rng.integers(0, n, len(u))
+            for k in (np.minimum(u, v) * n + np.maximum(u, v))[u != v]:
+                if len(keys) == m:
+                    break
+                keys.add(int(k))
+        k = np.array(sorted(keys), np.int64)
+        s, d = k // n, k % n
+        both = np.stack([np.concatenate([s, d]), np.concatenate([d, s])])
+        both = both[:, np.lexsort((both[1], both[0]))]
+        edges.append(both + off[g])
+    coo = np.concatenate(edges, 1) + 1
+    labels = rng.integers(0, PROTEINS_LABELS, nodes)
+    attrs = (rng.standard_normal((nodes, PROTEINS_ATTRS))
+             + labels[:, None] * 0.5).astype(np.float32)
+    graph_y = np.where(rng.random(graphs) < PROTEINS_CLASS_SHARE, 1, 2)
+    raw = Path(root) / name / 'raw'
+    raw.mkdir(parents=True, exist_ok=True)
+    for suffix, arr, fmt in (
+            ('A', coo.T, '%d'),
+            ('graph_indicator', np.repeat(np.arange(1, graphs + 1), sizes),
+             '%d'),
+            ('graph_labels', graph_y, '%d'),
+            ('node_labels', labels, '%d'),
+            ('node_attributes', attrs, '%.6f')):
+        np.savetxt(raw / f'{name}_{suffix}.txt', arr, fmt=fmt,
+                   delimiter=', ')
+    return sizes
+
+
+def mem_pool_net(torch, device, seed, in_channels=PROTEINS_LABELS
+                 + PROTEINS_ATTRS, hidden=PAC_HIDDEN, classes=2,
+                 heads=PAC_HEADS, clusters=PAC_CLUSTERS):
+    """Path AC's model, the JAX package's ``examples/mem_pool.py`` net:
+    ``model(x, ei, batch, num_graphs)`` gives the logits ``[B, classes]``
+    and the two poolings' summed KL loss; an ``EdgeIndex`` ``ei`` with
+    its caches makes both GraphConvs aggregate on kernel 1."""
+    import torch.nn.functional as F
+    from pytorch_geometric_tpu_torch.backend import resolve_device
+    from pytorch_geometric_tpu_torch.nn import GraphConv, MemPooling
+    device = resolve_device(device)
+    kw = dict(device=device, generator=torch.Generator().manual_seed(seed))
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = GraphConv(in_channels, hidden, **kw)
+            self.conv2 = GraphConv(hidden, hidden, **kw)
+            self.pool1 = MemPooling(hidden, hidden, heads, clusters, **kw)
+            self.pool2 = MemPooling(hidden, classes, heads, 1, **kw)
+
+        def forward(self, x, ei, batch, num_graphs):
+            h = F.leaky_relu(self.conv1(x, ei))
+            h = F.leaky_relu(self.conv2(h, ei))
+            hp, s1 = self.pool1(h, batch, num_graphs)
+            out, s2 = self.pool2(hp)
+            return out[:, 0], (MemPooling.kl_loss(s1)
+                               + MemPooling.kl_loss(s2))
+
+    return Net()
+
+
+def phase_path_ac(torch, seed):
+    """Path AC: MemPooling as the JAX package's ``examples/mem_pool.py``
+    runs it, on PROTEINS_full's shape as PyG's MemPool example trains:
+    ``proteins_like``'s raw files parsed by the port's
+    ``TUDataset(use_node_attr=True)``, ``DataLoader(batch_size=20,
+    shuffle=True, pad=False)``, each batch's ``EdgeIndex`` with its CSC and
+    CSR built on the card; ``mem_pool_net``, ``PAC_STEPS`` eager steps:
+    host ms a batch, card ms a step, kernel 1 three times a step (2
+    forward, ``A^T g`` of layer 2: x needs no gradient), a whole-window
+    profile and the idle share, the peak memory; one eval pass over all
+    1,113 graphs; the first batch's 3 steps against the CPU
+    (``synced_parity``); kernel 1 at the first batch's shapes (F = 32
+    forward and ``A^T g``) against its plain version and timed."""
+    import tempfile
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.datasets import TUDataset
+    from pytorch_geometric_tpu_torch.loader import DataLoader
+    tag = 'path AC'
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        sizes = proteins_like(root, seed)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dataset = TUDataset(root, 'PROTEINS_full', use_node_attr=True)
+        parse_s = time.perf_counter() - t0
+    graphs = [dataset[i] for i in range(len(dataset))]
+    n_nodes = sum(d.num_nodes for d in graphs)
+    n_edges = sum(d.num_edges for d in graphs)
+    check(len(graphs) == PROTEINS_GRAPHS and n_nodes == PROTEINS_NODES
+          and n_edges == 2 * PROTEINS_PAIRS
+          and max(d.num_nodes for d in graphs) == PROTEINS_MAX
+          and graphs[0].x.shape[1] == PROTEINS_LABELS + PROTEINS_ATTRS
+          and dataset.num_classes == 2,
+          f'{tag}: the parsed dataset, {len(graphs)} graphs, {n_nodes} '
+          f'nodes, {n_edges} edges')
+    log(f'[{tag}] proteins_like: {len(graphs)} graphs, {n_nodes} nodes '
+        f'({sizes.min()}-{sizes.max()} a graph), {n_edges} directed edges, '
+        f'x {graphs[0].x.shape[1]} wide; raw files written in '
+        f'{write_s:.2f} s, TUDataset parse {parse_s:.2f} s')
+    loader = DataLoader(dataset, batch_size=PAC_BATCH, shuffle=True,
+                        pad=False, seed=seed)
+
+    def prepare(batch):
+        n = batch.num_nodes
+        ei = EdgeIndex(batch.edge_index.coo.to('cuda'), (n, n)).fill_cache(
+            blocked=False)
+        return (batch.x.to('cuda'), ei, batch.batch.to('cuda'),
+                batch.y.to('cuda').long(), batch.num_graphs)
+
+    def loss_of(model, x, ei, bvec, y, ng):
+        logits, kl = model(x, ei, bvec, ng)
+        return torch.nn.functional.cross_entropy(logits, y) + PAC_KL * kl
+
+    def build(device):
+        return mem_pool_net(torch, device, seed)
+
+    model = build(None)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=PAC_LR)
+
+    def step(*batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    per_step_want = {'segment_spmm': 3}
+    t0 = time.perf_counter()
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, iter(loader), prepare, step, PAC_STEPS)
+    counts = launch_counts()
+    check(per_step == per_step_want,
+          f'{tag}: launches in the first step {per_step}')
+    check_counts(tag, counts, {k: v * PAC_STEPS
+                               for k, v in per_step_want.items()},
+                 f'{PAC_STEPS} steps')
+    steps_s = time.perf_counter() - t0
+    prof_rows, prof_ms, _ = whole_window(
+        torch, lambda: step(*first), 3,
+        expect={SEG_MAIN: per_step_want['segment_spmm']})
+    res = graph_path_result(tag, host_ms, card_ms, losses, per_step,
+                            prof_rows, prof_ms)
+    res['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    ei = first[1]
+    res.update(graphs=len(graphs), nodes=n_nodes, edges=n_edges,
+               raw_write_s=write_s, tu_parse_s=parse_s,
+               launch_counts=counts,
+               first_batch={'graphs': first[4], 'nodes': ei.num_src_nodes,
+                            'edges': ei.num_edges})
+    model.eval()
+    t0 = time.perf_counter()
+    eval_loader = DataLoader(dataset, batch_size=PAC_BATCH, pad=False)
+    acc = eval_batches(
+        torch, eval_loader, prepare,
+        lambda x, e, bv, y, ng: (model(x, e, bv, ng)[0].argmax(-1) == y)
+        .float().sum(), len(eval_loader))
+    res['eval_accuracy'] = sum(acc) / len(graphs)
+    res['eval_s'] = time.perf_counter() - t0
+    log(f"[{tag}] first batch {first[4]} graphs, {ei.num_src_nodes} nodes, "
+        f"{ei.num_edges} edges; peak {res['peak_gb']:.3f} GB; eval pass "
+        f"over all {len(graphs)} graphs in {res['eval_s']:.2f} s, accuracy "
+        f"{res['eval_accuracy']:.4f}")
+    cpu_ei = EdgeIndex(ei.coo.cpu(), ei.sparse_size,
+                       device='cpu').fill_cache(blocked=False)
+    cpu_batch = (first[0].cpu(), cpu_ei, first[2].cpu(), first[3].cpu(),
+                 first[4])
+    t0 = time.perf_counter()
+    res['first_batch_vs_cpu'] = synced_parity(
+        torch, tag, build, state, first, cpu_batch, None, loss_of, PAC_LR)
+    res['cpu_parity_s'] = time.perf_counter() - t0
+    rows, worst = kernel1_rows(torch, 'AC', ei, [
+        (f'forward F={PAC_HIDDEN}', ei.csc, None, first[0]),
+        (f'A^T g F={PAC_HIDDEN}', ei.csr, None, PAC_HIDDEN)], seed + 81)
+    del loader, model, opt, first, dataset, graphs
+    torch.cuda.empty_cache()
+    return res, rows, worst
+
+
+def cluster_cases(torch, seed, inputs, n, e, f, graphs, cap, g):
+    """``module_cases``' cluster pools, dense and advanced aggregations and
+    dense convs and pools: ``avg_pool_x`` / ``max_pool_x`` over graclus
+    clusters, ``EdgePooling``'s device score in its three methods,
+    ``ASAPooling``, ``MemPooling`` (node list and dense batch),
+    ``ClusterPooling`` (its clusters from each device's own scores: a
+    flipped threshold decision shows as a cluster mismatch), every new
+    aggregation over the 8 graphs (``max_num_elements`` the largest), the
+    five dense convs, the three dense pool functions and ``DMoNPooling``
+    over the dense batch and adjacency. The host merges run on the card's
+    own scores in ``host_decision_checks``."""
+    from pytorch_geometric_tpu_torch.nn import aggr, dense, pool
+    from pytorch_geometric_tpu_torch.nn.inits import linear
+    from pytorch_geometric_tpu_torch.utils.dense import (to_dense_adj,
+                                                         to_dense_batch)
+    rng = np.random.default_rng(seed + 77)
+    coo = inputs['coo'][:, :e]
+    inside = inputs['batch'][coo[0]] == inputs['batch'][coo[1]]
+    inputs.update({
+        'coo_in': coo[:, inside],
+        'cluster': torch.as_tensor(pool.graclus(coo[:, inside].numpy(), n,
+                                                seed=seed)),
+        'w_in': torch.as_tensor(rng.uniform(0.5, 1.5, int(inside.sum())),
+                                dtype=torch.float32)})
+    k_cl = int(np.unique(inputs['cluster'].numpy()).size)
+    inputs['cluster'] = torch.as_tensor(
+        np.unique(inputs['cluster'].numpy(), return_inverse=True)[1])
+
+    def dense_in(x, d):
+        xd, mask = to_dense_batch(x, d['batch'], graphs, cap)
+        adj = to_dense_adj(d['coo_in'], d['batch'], graphs, cap, d['w_in'])
+        return xd, adj, mask
+
+    def seg_run(m, x, d):
+        return m(x, d['batch'], graphs, None, cap)
+
+    def flat(*outs):
+        return torch.cat([o.reshape(-1) for o in outs
+                          if o.is_floating_point()])
+
+    cases = [
+        ('avg_pool_x graclus', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: pool.avg_pool_x(d['cluster'], m(x), k_cl)),
+        ('max_pool_x graclus', lambda dev: torch.nn.Identity(),
+         lambda m, x, d: pool.max_pool_x(d['cluster'], m(x), k_cl))]
+    for method in ('softmax', 'tanh', 'sigmoid'):
+        cases.append((f'EdgePooling {method}',
+                      lambda dev, method=method: pool.EdgePooling(
+                          f, method, **g(dev)),
+                      lambda m, x, d: m(x, d['coo_in'])))
+    cases += [
+        ('ASAPooling', lambda dev: pool.ASAPooling(f, 0.5, **g(dev)),
+         lambda m, x, d: flat(*m(x, d['coo_in'], d['w_in'], d['batch'],
+                                 graphs, cap)[:2])),
+        ('MemPooling', lambda dev: pool.MemPooling(f, 16, 4, 4, **g(dev)),
+         lambda m, x, d: flat(*m(x, d['batch'], graphs))),
+        ('MemPooling dense', lambda dev: pool.MemPooling(f, 16, 4, 2,
+                                                         **g(dev)),
+         lambda m, x, d: (lambda xd, adj, mask: flat(*m(xd, mask=mask)))(
+             *dense_in(x, d))),
+        ('ClusterPooling', lambda dev: pool.ClusterPooling(f, 'tanh',
+                                                           **g(dev)),
+         lambda m, x, d: (lambda o: torch.cat([
+             o[0].reshape(-1), o[1].to(x.dtype) / 1e3]))(
+                 m(x, d['coo_in'])))]
+    for name, build in (
+            ('SortAggregation', lambda dev: aggr.SortAggregation(30)),
+            ('QuantileAggregation', lambda dev: aggr.QuantileAggregation(
+                0.3, 'linear')),
+            ('MedianAggregation', lambda dev: aggr.MedianAggregation()),
+            ('GRUAggregation', lambda dev: aggr.GRUAggregation(f, 16,
+                                                               **g(dev))),
+            ('LSTMAggregation', lambda dev: aggr.LSTMAggregation(f, 16,
+                                                                 **g(dev))),
+            ('MLPAggregation', lambda dev: aggr.MLPAggregation(f, 16, cap,
+                                                               **g(dev))),
+            ('SetTransformerAggregation', lambda dev:
+             aggr.SetTransformerAggregation(f, 32, 2, 4, 1, **g(dev))),
+            ('GraphMultisetTransformer', lambda dev:
+             aggr.GraphMultisetTransformer(f, 32, **g(dev))),
+            ('LCMAggregation', lambda dev: aggr.LCMAggregation(f, 16,
+                                                               **g(dev))),
+            ('PatchTransformerAggregation', lambda dev:
+             aggr.PatchTransformerAggregation(f, 32, 8, 4, **g(dev))),
+            ('EquilibriumAggregation', lambda dev:
+             aggr.EquilibriumAggregation(f, 8, **g(dev)))):
+        cases.append((f'aggr {name}', build, seg_run))
+
+    def dense_conv_run(m, x, d):
+        xd, adj, mask = dense_in(x, d)
+        return m(xd, adj, mask)
+
+    cases += [
+        ('DenseGCNConv', lambda dev: dense.DenseGCNConv(f, 16, **g(dev)),
+         dense_conv_run),
+        ('DenseSAGEConv', lambda dev: dense.DenseSAGEConv(
+            f, 16, normalize=True, **g(dev)), dense_conv_run),
+        ('DenseGINConv', lambda dev: dense.DenseGINConv(
+            linear(f, 16, **g(dev)), train_eps=True, device=dev),
+         dense_conv_run),
+        ('DenseGraphConv', lambda dev: dense.DenseGraphConv(
+            f, 16, aggr='mean', **g(dev)), dense_conv_run),
+        ('DenseGATConv', lambda dev: dense.DenseGATConv(f, 8, heads=4,
+                                                        **g(dev)),
+         dense_conv_run),
+        ('DMoNPooling', lambda dev: dense.DMoNPooling(f, 6, **g(dev)),
+         lambda m, x, d: flat(*m(*dense_in(x, d))))]
+    for name in ('dense_diff_pool', 'dense_mincut_pool', 'dense_dmon_pool'):
+        fn = getattr(dense, name)
+
+        def run(m, x, d, fn=fn, name=name):
+            xd, adj, mask = dense_in(x, d)
+            s = m(xd)
+            if name == 'dense_dmon_pool':
+                s = torch.softmax(s, -1)
+            return flat(*fn(xd, adj, s, mask))
+
+        cases.append((name, lambda dev: linear(f, 6, **g(dev)), run))
+    return cases
+
+
+def host_decision_checks(torch, seed):
+    """The host halves of EdgePooling and ClusterPooling on the card's own
+    scores, on ``module_cases``' graph: EdgePooling's merge of the card's
+    scores must be a matching (each cluster one node, or the two ends of
+    an edge taken in the order of the scores, no node twice), its rows the
+    members' sum times the chosen score; ClusterPooling's clusters on the
+    card must be the components of the edges whose card score passes the
+    threshold, and its pooled rows those clusters' score-weighted sums,
+    recomputed on the host from the card's scores. The decisions are not
+    held to the CPU's: a last-place difference in a score may change them
+    (logged: whether the CPU's own decisions agree)."""
+    from pytorch_geometric_tpu_torch.nn import pool
+    from pytorch_geometric_tpu_torch.utils.coalesce import coalesce
+    cases, inputs, n, f = module_cases(torch, seed)
+    x_cpu = torch.randn((n, f), generator=torch.Generator().manual_seed(
+        seed + 72))
+    coo = inputs['coo_in']
+    res = {}
+
+    def gen(dev):
+        return dict(device=dev,
+                    generator=torch.Generator().manual_seed(seed + 71))
+
+    scores = {}
+    with torch.no_grad():
+        for dev in ('cpu', 'cuda'):
+            m = pool.EdgePooling(f, 'tanh', **gen(dev))
+            scores[dev] = m(x_cpu.to(dev), coo.to(dev)).cpu()
+    s_card = scores['cuda'].numpy()
+    new_x, new_coo, cluster = pool.EdgePooling.merge(x_cpu, coo, s_card)
+    c = coo.numpy()
+    members = {}
+    for v, cl in enumerate(cluster):
+        members.setdefault(int(cl), []).append(v)
+    edge_of = {}
+    for i in np.argsort(-s_card, kind='stable'):
+        edge_of.setdefault((int(c[0, i]), int(c[1, i])), float(s_card[i]))
+    ok = all(len(v) <= 2 for v in members.values())
+    want_x = np.zeros_like(new_x)
+    for cl, vs in members.items():
+        # a lone node: its own loop's score where it has one, else 1
+        w = edge_of.get((vs[0], vs[0]), 1.0)
+        if len(vs) == 2:
+            a, b = vs
+            w = max(edge_of.get((a, b), -np.inf), edge_of.get((b, a),
+                                                             -np.inf))
+            ok &= np.isfinite(w)
+        want_x[cl] = x_cpu.numpy()[vs].sum(0) * np.float32(w)
+    ok &= np.abs(new_x - want_x).max() <= 1e-5 * max(1.0, np.abs(
+        want_x).max())
+    ok &= np.array_equal(new_coo, coalesce(cluster[c], num_nodes=len(
+        members)).astype(np.int32))
+    cpu_same = np.array_equal(pool.EdgePooling.merge(
+        x_cpu, coo, scores['cpu'].numpy())[2], cluster)
+    check(ok, 'EdgePooling: the merge of the card\'s scores is no greedy '
+              'matching of them')
+    res['edge_pooling'] = {'clusters': len(members), 'merge_ok': bool(ok),
+                           'cpu_merge_same': bool(cpu_same)}
+    m = pool.ClusterPooling(f, 'tanh', **gen('cuda'))
+    with torch.no_grad():
+        pooled, cl, _, _, k = m(x_cpu.cuda(), coo.cuda())
+        raw = m.lin(torch.cat([x_cpu.cuda()[coo[0]], x_cpu.cuda()[coo[1]]],
+                              -1))[:, 0]
+        score = torch.tanh(raw).cpu().numpy()
+    keep = (score > 0) & (c[0] != c[1])
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    _, comp = connected_components(sp.coo_matrix(
+        (np.ones(int(keep.sum())), (c[0][keep], c[1][keep])), (n, n)),
+        directed=True, connection='weak')
+    cl = cl.cpu().numpy()
+    same = np.array_equal(cl, comp)
+    touched = np.zeros(n, bool)
+    touched[c[0][keep]] = touched[c[1][keep]] = True
+    sv = np.where(c[0] != c[1], score, 0.0)
+    row_w = np.zeros((n, n))
+    np.add.at(row_w, (c[0], cl[c[1]]), sv)
+    row_w[np.arange(n), cl] += ~touched
+    want = row_w.T @ x_cpu.double().numpy()
+    err = float(np.abs(pooled.cpu().double().numpy() - want).max()
+                / max(1.0, np.abs(want).max()))
+    with torch.no_grad():
+        cpu_cl = pool.ClusterPooling(f, 'tanh', **gen('cpu'))(
+            x_cpu, coo)[1].numpy()
+    log(f'[modules] host decisions on the card\'s scores: EdgePooling '
+        f'{len(members)} clusters, a greedy matching {bool(ok)}, the CPU '
+        f'scores merge the same {bool(cpu_same)}; ClusterPooling {k} '
+        f'clusters, the components of the card\'s kept edges {same}, pooled '
+        f'rows {err:.3e} from float64 (limit 1e-4), the CPU clusters the '
+        f'same {np.array_equal(cpu_cl, cl)}')
+    check(same and err <= 1e-4, f'ClusterPooling: clusters {same}, pooled '
+                                f'rows {err} from the host recomputation')
+    res['cluster_pooling'] = {'clusters': int(k), 'components_ok': same,
+                              'pooled_rel_err': err,
+                              'cpu_clusters_same': bool(np.array_equal(
+                                  cpu_cl, cl))}
+    return res
+
+
 def point_cases(torch, seed, inputs, n, e, f, g):
     """``module_cases``' point family and kernel convolutions: SplineConv at
     degrees 1-3 in 1-3 dimensions, GMMConv, NNConv, CGConv, FeaStConv,
@@ -9164,6 +9672,7 @@ def module_cases(torch, seed):
     cases += transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g)
     cases += zoo_cases(torch, seed, inputs, n, e, f, graphs, g)
     cases += point_cases(torch, seed, inputs, n, e, f, g)
+    cases += cluster_cases(torch, seed, inputs, n, e, f, graphs, cap, g)
     return cases, inputs, n, f
 
 
@@ -9572,7 +10081,8 @@ def phase_graph_modules(torch, seed):
         f'the CPU, forward and backward: worst {worst:.3e} (limit 1e-4); '
         + ', '.join(f"{r['module']} {max(r['out_rel_err'], r['grad_rel_err']):.1e}"
                     for r in rows))
-    return {'modules': rows, 'worst': worst, 'launch_counts': total}
+    return {'modules': rows, 'worst': worst, 'launch_counts': total,
+            'host_decisions': host_decision_checks(torch, seed)}
 
 
 def main():
@@ -9721,6 +10231,11 @@ def main():
     path_ab = phase_path_ab(torch, args.seed, args.iters)
     log(f'[time] paths AA and AB took {time.perf_counter() - t0:.1f} s')
     lap('paths AA and AB')
+    # the cluster pools: MemPooling at PROTEINS_full's shape (AC)
+    t0 = time.perf_counter()
+    path_ac, ac_rows, ac_err = phase_path_ac(torch, args.seed)
+    log(f'[time] path AC took {time.perf_counter() - t0:.1f} s')
+    lap('path AC')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -9785,6 +10300,7 @@ def main():
             'launch_counts'],
         path_z=path_z['launch_counts'],
         path_aa=path_aa['launch_counts'], path_ab=path_ab['launch_counts'],
+        path_ac=path_ac['launch_counts'],
         graph_modules=modules['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
@@ -9842,7 +10358,7 @@ def main():
                               'path_v': path_v, 'path_w': path_w,
                               'path_x': path_x, 'path_y': path_y,
                               'path_z': path_z, 'path_aa': path_aa,
-                              'path_ab': path_ab,
+                              'path_ab': path_ab, 'path_ac': path_ac,
                               'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the
@@ -9912,7 +10428,8 @@ def main():
             'path_u': path_u['launches_per_step']['segment_spmm'],
             'path_w': path_w['launches_per_step']['segment_spmm'],
             'path_y': path_y['training']['launches_per_step'][
-                'segment_spmm']},
+                'segment_spmm'],
+            'path_ac': path_ac['launches_per_step']['segment_spmm']},
         'launches_per_layerwise_batch': 2,
         'launches_per_path_r_forward': path_r['float32'][
             'launches_per_forward'],
@@ -9921,7 +10438,7 @@ def main():
         'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err,
                            *(r['max_abs_err'] for r in r_rows[:2]),
                            s_row['max_abs_err'], t_err, u_err, w_err,
-                           y_err),
+                           y_err, ac_err),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -9944,6 +10461,7 @@ def main():
         'path_r_per_shape': r_rows[:2], 'path_s_per_shape': [s_row],
         'path_t_per_shape': t_rows, 'path_u_per_shape': u_rows,
         'path_w_per_shape': w_rows, 'path_y_per_shape': y_rows,
+        'path_ac_per_shape': ac_rows,
         'regime_arms_rel_err': regime_arms['worst'],
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',

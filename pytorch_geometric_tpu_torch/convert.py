@@ -30,13 +30,20 @@ The JAX package's names map one to one onto the port's:
   * ``stack_k_w_t`` / ``stack_k_w_shared`` (and ``v``) -> ``stacks.k.w_t``
     / ``stacks.k.w_shared`` (ARMAConv's stacks, the shared pair of
     ``shared_weights`` included)
+  * ``sab_i``   -> ``sabs.i``        (SetTransformerAggregation's and
+                                      GraphMultisetTransformer's encoder
+                                      blocks; each block's ``att`` is a
+                                      flax MHA, below, its ``ln1`` /
+                                      ``ln2`` LayerNorms)
   * a flax ``LSTMCell`` (``Set2Set``'s ``lstm``: the eight Denses ``ii``,
     ``if``, ``ig``, ``io`` without bias and ``hi``, ``hf``, ``hg``, ``ho``
     with) -> ``weight_ih`` / ``weight_hh`` / ``bias_hh``, the four gates
     stacked in the order i, f, g, o (flax's cell has one bias, so there is
     no ``bias_ih``); JumpingKnowledge's ``lstm_f`` and ``lstm_b`` are two
-    such cells
-  * a flax ``GRUCell`` (GatedGraphConv's ``rnn``: the input Denses ``ir``,
+    such cells, and LSTMAggregation's ``lstm`` (an ``OptimizedLSTMCell``,
+    whose tree has the same eight Denses) another
+  * a flax ``GRUCell`` (GatedGraphConv's ``rnn``, GRUAggregation's
+    ``gru``, LCMAggregation's ``combine``: the input Denses ``ir``,
     ``iz``, ``in`` with bias, the hidden ones ``hr``, ``hz`` without and
     ``hn`` with) -> ``torch.nn.GRUCell``'s ``weight_ih`` / ``weight_hh`` /
     ``bias_ih`` / ``bias_hh``, the gates stacked in the order r, z, n and
@@ -57,11 +64,17 @@ The JAX package's names map one to one onto the port's:
     ``lin_bases``, ``lin_comb``; the norms' ``mean_scale``, ``bn``,
     ``ln``; the hetero modules' ``k_{t}``, ``a_rel_{edge type}``,
     ``skip_{t}``, ``proj_{t}``, ``q``, ``weight``, ``comp``,
-    ``basis_coef``, ``layer_{i}`` ...). Only a ``kernel`` is transposed:
-    the ``[R, F, C]`` banks, HGT's ``[H, D, D]`` transforms, RGCN's ``comp
-    [R, B]`` and HAN's ``q [1, C]`` keep their layout, as do RGATConv's
-    ``weight``, ``att``, ``basis``, ``q``, ``k``, ``e`` and the Performer's
-    ``projection`` (a buffer of the port's module).
+    ``basis_coef``, ``layer_{i}``; the cluster pools' ``lin``, ``att``,
+    ``gnn_score``, ``select``, MemPooling's ``keys`` and ``head_mix``;
+    the dense convs' ``lin``, ``lin_rel``, ``lin_root``, ``att_src``,
+    ``att_dst``, ``nn``, ``eps``; EquilibriumAggregation's
+    ``potential_hidden`` and ``potential_out`` ...). Only a ``kernel`` is
+    transposed: the ``[R, F, C]`` banks, HGT's ``[H, D, D]`` transforms,
+    RGCN's ``comp [R, B]`` and HAN's ``q [1, C]`` keep their layout, as
+    do RGATConv's ``weight``, ``att``, ``basis``, ``q``, ``k``, ``e``, the
+    Performer's ``projection`` (a buffer of the port's module), MemPooling's
+    ``keys [H, K, F]`` and DenseGATConv's ``att_src`` / ``att_dst`` ``[1,
+    1, H, C]``.
   * a 3-D ``kernel`` is a flax ``DenseGeneral``'s, in flax's
     ``MultiHeadDotProductAttention`` (``GPSConv``'s and ``QFormer``'s):
     ``query`` / ``key`` / ``value`` ``[F, H, D]`` -> ``weight [H * D,
@@ -88,7 +101,8 @@ _RULES = ((re.compile(r'^conv_(\d+)$'), r'convs.\1'),
           (re.compile(r'^convs_(\d+)$'), r'convs.\1'),
           (re.compile(r'^lin_([lr])_(\d+)$'), r'lins_\1.\2'),
           (re.compile(r'^stack_(\d+)_([wv]_(?:\d+|shared))$'),
-           r'stacks.\1.\2'))
+           r'stacks.\1.\2'),
+          (re.compile(r'^sab_(\d+)$'), r'sabs.\1'))
 
 _LSTM_GATES = ('i', 'f', 'g', 'o')
 _GRU_GATES = ('r', 'z', 'n')

@@ -1,14 +1,16 @@
 """Graph containers. Counterpart of ``pytorch_geometric_tpu/data``:
-``Data``, ``Batch``, ``HeteroData``, ``HeteroBatch`` and
-``TemporalData``."""
+``Data``, ``Batch``, ``HeteroData``, ``HeteroBatch``, ``TemporalData``,
+``Dataset`` and ``InMemoryDataset``."""
 
 from .data import Data
 from .batch import Batch
 from .hetero_data import HeteroData
 from .hetero_batch import HeteroBatch
 from .temporal import TemporalData
+from .dataset import Dataset, InMemoryDataset
 
-__all__ = ['Data', 'Batch', 'HeteroData', 'HeteroBatch', 'TemporalData']
+__all__ = ['Data', 'Batch', 'HeteroData', 'HeteroBatch', 'TemporalData',
+           'Dataset', 'InMemoryDataset']
 
 # Deprecated loader aliases the reference still re-exports from
 # torch_geometric.data (data/__init__.py:60-73), resolved at first use:

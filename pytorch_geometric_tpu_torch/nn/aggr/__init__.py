@@ -6,6 +6,11 @@ from .basic import (MaxAggregation, MeanAggregation, MinAggregation,
 from .multi import (DegreeScalerAggregation, MultiAggregation,
                     aggregation_resolver)
 from .attention import AttentionalAggregation, DeepSetsAggregation, Set2Set
+from .dense import (GRUAggregation, LSTMAggregation, MedianAggregation,
+                    MLPAggregation, QuantileAggregation, SortAggregation)
+from .advanced import (EquilibriumAggregation, GraphMultisetTransformer,
+                       LCMAggregation, PatchTransformerAggregation,
+                       SetTransformerAggregation)
 
 __all__ = [
     'Aggregation', 'aggregation_resolver',
@@ -15,4 +20,9 @@ __all__ = [
     'VariancePreservingAggregation',
     'MultiAggregation', 'DegreeScalerAggregation',
     'AttentionalAggregation', 'Set2Set', 'DeepSetsAggregation',
+    'SortAggregation', 'QuantileAggregation', 'MedianAggregation',
+    'GRUAggregation', 'LSTMAggregation', 'MLPAggregation',
+    'SetTransformerAggregation', 'GraphMultisetTransformer',
+    'LCMAggregation', 'PatchTransformerAggregation',
+    'EquilibriumAggregation',
 ]

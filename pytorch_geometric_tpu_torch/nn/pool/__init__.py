@@ -7,6 +7,9 @@ from .knn_index import (KNNIndex, KNNOutput, L2KNNIndex, MIPSKNNIndex,
 from .point import (knn, knn_graph, radius, radius_graph, fps, nearest,
                     voxel_grid, approx_knn, approx_knn_graph,
                     decimation_indices)
+from .cluster_pool import (ASAPooling, ClusterPooling, EdgePooling,
+                           MemPooling, avg_pool, avg_pool_x, graclus,
+                           max_pool, max_pool_x)
 
 __all__ = ['global_add_pool', 'global_mean_pool', 'global_max_pool',
            'avg_pool_neighbor_x', 'max_pool_neighbor_x',
@@ -15,4 +18,6 @@ __all__ = ['global_add_pool', 'global_mean_pool', 'global_max_pool',
            'knn', 'knn_graph', 'radius', 'radius_graph', 'fps', 'nearest',
            'voxel_grid', 'approx_knn', 'approx_knn_graph',
            'decimation_indices', 'KNNIndex', 'KNNOutput', 'L2KNNIndex',
-           'MIPSKNNIndex', 'ApproxL2KNNIndex', 'ApproxMIPSKNNIndex']
+           'MIPSKNNIndex', 'ApproxL2KNNIndex', 'ApproxMIPSKNNIndex',
+           'ClusterPooling', 'graclus', 'avg_pool', 'max_pool', 'avg_pool_x', 'max_pool_x',
+           'EdgePooling', 'ASAPooling', 'MemPooling']

@@ -1,11 +1,13 @@
 from .edge_dot import edge_dot, edge_dot_plain
 from .edge_attention import (FlashLayout, build_hgt_flash_layouts,
-                             build_union_flash_layout)
+                             build_union_flash_layout, hetero_edge_attention,
+                             hetero_edge_attention_multi)
 from .gat_fused import gat_aggregate, gat_mix, gat_mix_plain
 from .grouped import (RaggedLayout, TypedLayout, build_ragged_layout,
                       build_typed_layout, grouped_matmul, typed_matmul)
 from .sddmm import (edge_softmax, edge_softmax_aggregate,
-                    multi_relation_softmax_aggregate, sddmm)
+                    fused_softmax_available, multi_relation_softmax_aggregate,
+                    sddmm)
 from .sampled import (sampled_add, sampled_div, sampled_mul, sampled_op,
                       sampled_sub)
 from .scatter import group_argsort, scatter, scatter_argmax
@@ -26,4 +28,5 @@ __all__ = ['FlashLayout', 'build_hgt_flash_layouts',
            'sampled_sub', 'sampled_mul', 'sampled_div',
            'segment_max_blocked', 'segment_max_plain', 'segment_spmm',
            'segment_spmm_plain', 'softmax', 'spmm', 'spmm_regime',
-           'auto_dense_cap']
+           'auto_dense_cap', 'fused_softmax_available',
+           'hetero_edge_attention', 'hetero_edge_attention_multi']
