@@ -18,9 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .base import Aggregation
-from .dense import gru_cell
 from ..attention.mha import MultiHeadDotProductAttention
-from ..inits import glorot, linear
+from ..inits import glorot, gru_cell, linear
 from ...backend import resolve_device
 
 

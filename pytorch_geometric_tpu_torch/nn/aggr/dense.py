@@ -15,22 +15,8 @@ from torch import nn
 
 from .attention import _LSTMCell
 from .base import Aggregation
-from ..inits import linear
+from ..inits import gru_cell, linear
 from ...backend import resolve_device
-
-
-def gru_cell(in_channels: int, features: int, device=None,
-             generator: Optional[torch.Generator] = None) -> nn.GRUCell:
-    """``torch.nn.GRUCell`` in the place of flax's ``GRUCell`` (whose
-    reset and update gates have no hidden bias: ``convert.py`` loads
-    ``b_hr = b_hz = 0``, and a fresh cell starts with them at 0)."""
-    cell = nn.GRUCell(in_channels, features)
-    with torch.no_grad():
-        bound = features ** -0.5
-        for p in cell.parameters():
-            p.uniform_(-bound, bound, generator=generator)
-        cell.bias_hh[:2 * features].zero_()
-    return cell.to(device)
 
 
 class SortAggregation(Aggregation):

@@ -23,7 +23,7 @@ import torch
 
 from torch import nn
 
-from ..inits import constant, glorot, linear
+from ..inits import constant, glorot, gru_cell, linear
 from ..message_passing import MessagePassing
 from ...backend import resolve_device
 from ...edge_index import EdgeIndex
@@ -215,13 +215,7 @@ class GatedGraphConv(_WeightedGather):
         self.aggr = aggr
         self.weight = glorot((num_layers, out_channels, out_channels),
                              device, generator)
-        rnn = nn.GRUCell(out_channels, out_channels)
-        with torch.no_grad():
-            bound = out_channels ** -0.5
-            for p in rnn.parameters():
-                p.uniform_(-bound, bound, generator=generator)
-            rnn.bias_hh[:2 * out_channels].zero_()
-        self.rnn = rnn.to(device)
+        self.rnn = gru_cell(out_channels, out_channels, device, generator)
 
     def forward(self, x, edge_index,
                 edge_weight: Optional[torch.Tensor] = None,

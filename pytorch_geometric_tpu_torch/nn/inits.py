@@ -77,3 +77,18 @@ def embedding(num_embeddings: int, features: int, device=None,
         nn.init.trunc_normal_(emb.weight, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
     return emb.to(device)
+
+
+def gru_cell(in_channels: int, features: int, device=None,
+             generator: Optional[torch.Generator] = None) -> nn.GRUCell:
+    """``torch.nn.GRUCell`` in the place of flax's ``GRUCell``, whose reset
+    and update gates have no hidden bias: those two start at 0 (and
+    ``convert.py`` loads them as 0), the rest uniform in ``+-features **
+    -0.5``."""
+    cell = nn.GRUCell(in_channels, features)
+    with torch.no_grad():
+        bound = features ** -0.5
+        for p in cell.parameters():
+            p.uniform_(-bound, bound, generator=generator)
+        cell.bias_hh[:2 * features].zero_()
+    return cell.to(device)

@@ -126,28 +126,26 @@ def test_proteins_like_parses_the_same_on_both(tmp_path):
     assert got[0].x.shape[1] == 32 and got.num_classes == 2
 
 
-class _Squares(object):
-    """The same toy dataset on each package: graph ``i`` has ``i + 2``
-    nodes."""
+def _toy(base, data_cls):
+    """The same toy dataset on either package: its raw file written by
+    ``download``, graph ``i`` with ``i + 2`` nodes."""
 
-    def __init__(self, base):
-        class Toy(base):
-            @property
-            def raw_file_names(self):
-                return ['toy.txt']
+    class Toy(base):
+        @property
+        def raw_file_names(self):
+            return ['toy.txt']
 
-            def download(self):
-                (Path(self.raw_dir) / 'toy.txt').write_text('4\n')
+        def download(self):
+            (Path(self.raw_dir) / 'toy.txt').write_text('4\n')
 
-            def process(self):
-                n = int((Path(self.raw_dir) / 'toy.txt').read_text())
-                data_cls = self.data_cls
-                self.save([data_cls(x=np.full((i + 2, 1), float(i),
-                                              np.float32),
-                                    edge_index=np.zeros((2, 0), np.int32),
-                                    y=np.array([i % 2]), num_nodes=i + 2)
-                           for i in range(n)])
-        self.cls = Toy
+        def process(self):
+            n = int((Path(self.raw_dir) / 'toy.txt').read_text())
+            self.save([data_cls(x=np.full((i + 2, 1), float(i), np.float32),
+                                edge_index=np.zeros((2, 0), np.int32),
+                                y=np.array([i % 2]), num_nodes=i + 2)
+                       for i in range(n)])
+
+    return Toy
 
 
 def test_dataset_protocol_matches_jax(tmp_path):
@@ -156,17 +154,12 @@ def test_dataset_protocol_matches_jax(tmp_path):
     ``pre_filter`` and ``pre_transform`` before the save."""
     from pytorch_geometric_tpu.data import Data as JData
     from pytorch_geometric_tpu_torch.data import Data as TData
-    out = {}
-    for tag, base, data_cls in (('jax', jdataset.InMemoryDataset, JData),
-                                ('port', tdataset.InMemoryDataset, TData)):
-        cls = _Squares(base).cls
-        cls.data_cls = data_cls
-        ds = cls(str(tmp_path / tag),
-                 transform=lambda d: d.replace(z=np.ones(1, np.float32)),
-                 pre_filter=lambda d: d.num_nodes != 3,
-                 pre_transform=lambda d: d.replace(w=np.arange(2)))
-        out[tag] = ds
-    want, got = out['jax'], out['port']
+    kw = dict(transform=lambda d: d.replace(z=np.ones(1, np.float32)),
+              pre_filter=lambda d: d.num_nodes != 3,
+              pre_transform=lambda d: d.replace(w=np.arange(2)))
+    want = _toy(jdataset.InMemoryDataset, JData)(str(tmp_path / 'jax'), **kw)
+    got = _toy(tdataset.InMemoryDataset, TData)(str(tmp_path / 'port'),
+                                                 **kw)
     assert len(got) == len(want) == 3
     assert got.num_classes == want.num_classes
     for g, w in zip(got[1:], want[1:]):
@@ -177,7 +170,7 @@ def test_dataset_protocol_matches_jax(tmp_path):
         _same_data(g, w)
     for g, w in zip(got, want):
         _same_data(g, w)
-    assert repr(got) == repr(want).replace('Toy', 'Toy')
+    assert repr(got) == repr(want)
 
 
 def test_missing_raw_files_raise(tmp_path):
