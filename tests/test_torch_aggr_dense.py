@@ -8,7 +8,8 @@ and MLP aggregations, ``SetTransformerAggregation``,
 ``GraphMultisetTransformer``, ``LCMAggregation``,
 ``PatchTransformerAggregation`` and ``EquilibriumAggregation``; and what
 ``EquilibriumAggregation`` does under ``torch.no_grad`` (the same value)
-and under ``torch.inference_mode`` (it raises).
+and under ``torch.inference_mode`` (it raises), and with an unmasked row
+at the sentinel (no gradient in the port, one in the JAX package).
 
 Tolerances: outputs within 1e-5 * max(1, max|ref|) and gradients within
 1e-4 of each gradient's largest entry (``_torch_parity``); the attention
