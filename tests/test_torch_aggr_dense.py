@@ -134,8 +134,9 @@ def test_equilibrium_sentinel_row():
     in the port, where the JAX package's unrolled ``jax.grad`` gives it
     one: its out-of-range gather clamps to the last segment, the gradient's
     scatter drops it, and the transpose of that scatter, in the second
-    derivative, gathers the last segment's cotangent back (a deliberate
-    divergence, ROADMAP)."""
+    derivative, gathers the last segment's cotangent back. The JAX
+    package's output does not move with that row's x, so the port's zero
+    is the true derivative (a deliberate divergence, ROADMAP)."""
     jbuild, tbuild = ADVANCED['Equilibrium']
     jm, tm = jbuild(), tbuild()
     args = (jnp.asarray(INDEX), S, jnp.asarray(MASK), L)
@@ -149,6 +150,10 @@ def test_equilibrium_sentinel_row():
     got.sum().backward()
     gx = np.asarray(vjp(jnp.ones_like(want))[0])
     assert np.abs(gx[-1]).max() > 1e-3
+    moved = jnp.asarray(X).at[-1].add(1.0)
+    np.testing.assert_array_equal(np.asarray(jm.apply(variables, moved,
+                                                      *args)),
+                                  np.asarray(want))
     assert float(tx.grad[-1].abs().max()) == 0.0
     grad_close(tx.grad[:-1], gx[:-1], 'grad x')
 
