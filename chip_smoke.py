@@ -312,7 +312,23 @@ checks them:
      Linear 64 -> 256 -> 6890, NLL over the vertex ids, Adam 1e-3, 10
      eager steps and eval-mode serving: ms a step and a forward, busy and
      idle share, peak memory, no port kernel; 3 steps at full size against
-     the CPU with one dropout mask.
+     the CPU with one dropout mask;
+ 42. path AC, the JAX package's ``examples/mem_pool.py`` net on TU's
+     PROTEINS_full shape (``proteins_like``'s raw files parsed by
+     ``TUDataset``), batch 20, kernel 1 three times a step, 3 steps against
+     the CPU;
+ 43. path AD, the Kipf & Welling GCN (PyG's ``examples/gcn.py``) on
+     Planetoid's published shapes: ``planetoid_raw`` writes Cora's,
+     CiteSeer's and PubMed's raw files, the port's ``Planetoid`` parses
+     them (CiteSeer through the refill of its isolated test rows), and on
+     Cora and PubMed ``NormalizeFeatures`` and GCN(in, 16, classes) over
+     the normalisation computed once and carried as edge weights (kernel 1
+     four times a step), 200 epochs on the card and on the CPU from the
+     same weights and dropout masks (final test accuracies within 5 of the
+     1,000 test nodes), 3 steps without dropout against the CPU, kernel 1
+     at F = 16, 7 and 3 against its plain version and timed; the module
+     phase also holds the data plumbing (stores, ``HypergraphData.to``,
+     ``LightningNodeData``, ``summary``) on the card to the CPU.
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -7224,7 +7240,7 @@ def gin_collab_net(torch, device, seed, in_channels=COLLAB_F,
 
 
 def synced_parity(torch, tag, build, state, batch_card, batch_cpu, batch64,
-                  loss_of, lr, build64=None, exact=False):
+                  loss_of, lr, build64=None, exact=False, opt_of=None):
     """``PARITY_STEPS`` Adam steps from ``state`` on one batch on the card;
     before each, a CPU model takes the card's parameters (its running
     statistics stay its own, updated by its own forwards in training mode)
@@ -7259,14 +7275,17 @@ def synced_parity(torch, tag, build, state, batch_card, batch_cpu, batch64,
     model whose float32 gradients sit near or past 1e-4 of the largest
     from exact on either device (deep batch-normed stacks with ReLUs, sums
     over many nodes that cancel), the card must be as exact as the CPU is,
-    and the two float32 errors do not add up against one limit."""
+    and the two float32 errors do not add up against one limit.
+    ``opt_of(model)`` makes the card's optimizer (``Adam(lr)`` by
+    default)."""
     card = build('cuda')
     card.load_state_dict({k: v.cuda() for k, v in state.items()})
     cpu = build('cpu')
     cpu.load_state_dict(state)
     card.train()
     cpu.train()
-    opt = torch.optim.Adam(card.parameters(), lr=lr)
+    opt = (opt_of(card) if opt_of is not None
+           else torch.optim.Adam(card.parameters(), lr=lr))
     l_card, l_cpu = [], []
     for i in range(PARITY_STEPS):
         params = {k: v.detach().cpu() for k, v in card.named_parameters()}
@@ -9189,6 +9208,363 @@ def phase_path_ac(torch, seed):
     return res, rows, worst
 
 
+# -- path AD: the Kipf & Welling GCN on Planetoid's shapes --------------------
+# The public Planetoid splits (Yang et al. 2016) as PyG's
+# datasets/planetoid.py reads them and examples/gcn.py trains on them: nodes,
+# bag-of-words features, classes, training rows (20 a class), the rows of
+# allx (every node outside test.index's range), the isolated nodes in that
+# range that tx lacks (CiteSeer's 15), and the directed edges left after
+# parsing (self loops removed, duplicates merged, both directions kept)
+PLANETOID = {
+    'cora': dict(nodes=2708, features=1433, classes=7, train=140,
+                 allx=1708, missing=0, edges=10_556),
+    'citeseer': dict(nodes=3327, features=3703, classes=6, train=120,
+                     allx=2312, missing=15, edges=9104),
+    'pubmed': dict(nodes=19_717, features=500, classes=3, train=60,
+                   allx=18_717, missing=0, edges=88_648)}
+# Cora's density of words a row (49,216 of 2,708 x 1,433) and its share of
+# edges inside a class (0.81); the share of a row's expected words drawn
+# from its class's topic words
+PLANETOID_DENSITY, PLANETOID_HOMOPHILY, PLANETOID_TOPIC = 0.0127, 0.81, 0.3
+# examples/gcn.py: GCN(in, 16, classes), dropout 0.5, Adam 0.01 with weight
+# decay 5e-4 on the first layer only, 200 full-batch epochs
+PAD_HIDDEN, PAD_DROPOUT, PAD_LR, PAD_WD, PAD_EPOCHS = 16, 0.5, 0.01, 5e-4, 200
+PAD_TRAIN = ('cora', 'pubmed')
+# the card's and the CPU's final test accuracies may differ by this many of
+# the 1,000 test nodes (the same weights and dropout masks)
+PAD_ACC_NODES = 5
+
+
+def planetoid_raw(root, name, seed=0, shape=None):
+    """Planetoid's raw files at a dataset's published shape (``PLANETOID``;
+    ``shape`` overrides its entries) under ``root/<name>/raw``, in the real
+    format: ``ind.<name>.{x,tx,allx}`` pickled scipy CSR matrices of binary
+    bag-of-words rows (``PLANETOID_DENSITY``), ``{y,ty,ally}`` one-hot
+    arrays, ``graph`` a dict of neighbour lists (symmetric, salted with self
+    loops and duplicate entries), ``test.index`` the test ids shuffled, the
+    ``missing`` ids of the test range absent from it and from ``tx``
+    (isolated). Labels are planted: ``train / classes`` training rows a
+    class, every class with its own topic words (``PLANETOID_TOPIC`` of a
+    row's expected words), edges inside a class with probability
+    ``PLANETOID_HOMOPHILY``. Returns the shape used."""
+    import pickle
+    import scipy.sparse as sp
+    name = name.lower()
+    s = dict(PLANETOID[name], **(shape or {}))
+    n, f, c = s['nodes'], s['features'], s['classes']
+    n_all, train, pairs = s['allx'], s['train'], s['edges'] // 2
+    rng = np.random.default_rng(seed)
+    missing = np.sort(rng.choice(np.arange(n_all + 1, n - 1), s['missing'],
+                                 replace=False))
+    y = rng.integers(0, c, n)
+    y[:train] = rng.permutation(np.arange(train) % c)
+    y[missing] = 0
+    k = max(4, f // (2 * c))
+    topics = np.stack([rng.choice(f, k, replace=False) for _ in range(c)])
+    words = PLANETOID_DENSITY * f
+    probs = np.full((c, f), words * (1 - PLANETOID_TOPIC) / (f - k),
+                    np.float32)
+    probs[np.arange(c)[:, None], topics] = words * PLANETOID_TOPIC / k
+    x = rng.random((n, f), dtype=np.float32) < probs[y]
+    empty = np.nonzero(~x.any(1))[0]
+    x[empty, topics[y[empty], rng.integers(0, k, len(empty))]] = True
+    x[missing] = False
+    ok = np.setdiff1d(np.arange(n), missing)
+    by_class = [ok[y[ok] == j] for j in range(c)]
+    keys = np.zeros(0, np.int64)
+    while len(keys) < pairs:
+        m = 2 * (pairs - len(keys)) + 64
+        u, v = rng.choice(ok, m), rng.choice(ok, m)
+        same = rng.random(m) < PLANETOID_HOMOPHILY
+        for j in range(c):
+            sel = same & (y[u] == j)
+            v[sel] = rng.choice(by_class[j], int(sel.sum()))
+        keep = u != v
+        new = np.minimum(u, v)[keep] * n + np.maximum(u, v)[keep]
+        uniq, first = np.unique(np.concatenate([keys, new]),
+                                return_index=True)
+        keys = uniq[np.argsort(first, kind='stable')][:pairs]
+    a, b = keys // n, keys % n
+    src, dst = np.concatenate([a, b]), np.concatenate([b, a])
+    loops = rng.choice(ok, max(1, n // 100), replace=False)
+    dup = rng.choice(len(src), max(1, len(src) // 100), replace=False)
+    src = np.concatenate([src, loops, src[dup]])
+    dst = np.concatenate([dst, loops, dst[dup]])
+    perm = rng.permutation(len(src))
+    src, dst = src[perm], dst[perm]
+    order = np.argsort(src, kind='stable')
+    ptr = np.searchsorted(src[order], np.arange(n + 1))
+    nbrs = dst[order]
+    graph = {i: nbrs[ptr[i]:ptr[i + 1]].tolist() for i in range(n)}
+    test = rng.permutation(np.setdiff1d(np.arange(n_all, n), missing))
+    onehot = np.eye(c, dtype=np.int32)
+    raw = Path(root) / name / 'raw'
+    raw.mkdir(parents=True, exist_ok=True)
+    for part, obj in (
+            ('x', sp.csr_matrix(x[:train], dtype=np.float32)),
+            ('tx', sp.csr_matrix(x[test], dtype=np.float32)),
+            ('allx', sp.csr_matrix(x[:n_all], dtype=np.float32)),
+            ('y', onehot[y[:train]]), ('ty', onehot[y[test]]),
+            ('ally', onehot[y[:n_all]]), ('graph', graph)):
+        with open(raw / f'ind.{name}.{part}', 'wb') as fh:
+            pickle.dump(obj, fh, protocol=2)
+    (raw / f'ind.{name}.test.index').write_text(
+        ''.join(f'{int(i)}\n' for i in test))
+    return dict(s, test=len(test), missing_ids=missing.tolist())
+
+
+def planetoid_gcn(torch, device, seed, in_channels, classes,
+                  dropout=PAD_DROPOUT):
+    """Path AD's model, PyG's ``examples/gcn.py`` on the port's ``GCN``:
+    two GCNConv layers (``in -> 16 -> classes``) over the normalisation
+    computed once (``gcn_norm``, as ``cached=True`` does) and carried as
+    edge weights: ``normalize=False, add_self_loops=False``, kernel 1 on the
+    ``EdgeIndex``'s CSC forward and its CSR for ``A^T g``."""
+    from pytorch_geometric_tpu_torch.nn.models import GCN
+    return GCN(in_channels, PAD_HIDDEN, 2, classes, dropout=dropout,
+               conv_kwargs={'normalize': False, 'add_self_loops': False},
+               device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def planetoid_opt(torch, model):
+    """Adam 0.01, weight decay 5e-4 on the first layer only, as PyG's
+    example applies it."""
+    return torch.optim.Adam([
+        {'params': model.convs[0].parameters(), 'weight_decay': PAD_WD},
+        {'params': model.convs[1].parameters(), 'weight_decay': 0.0}],
+        lr=PAD_LR)
+
+
+def planetoid_inputs(torch, data, device):
+    """``(x, EdgeIndex, edge weights, y, train / val / test indices)`` on
+    ``device``: the GCN normalisation with self loops computed there once
+    (``gcn_norm``), the ``EdgeIndex``'s CSC and CSR built there."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import gcn_norm
+    n = data.num_nodes
+    coo, w = gcn_norm(data.edge_index.to(device), None, n)
+    ei = EdgeIndex(coo, (n, n), device=device).fill_cache(blocked=False)
+    idx = [torch.nonzero(m).view(-1).to(device)
+           for m in (data.train_mask, data.val_mask, data.test_mask)]
+    return (data.x.to(device), ei, w, data.y.to(device).long(), *idx)
+
+
+def planetoid_loss(torch, model, x, ei, w, y, train, generator=None):
+    out = model(x, ei, w, generator=generator)
+    return torch.nn.functional.cross_entropy(out[train], y[train])
+
+
+def planetoid_epochs(torch, model, inputs, epochs, seed):
+    """``epochs`` full-batch steps of ``model`` on ``inputs`` with the
+    dropout masks drawn from one CPU generator seeded ``seed``, each
+    followed by an eval-mode forward: the losses, the train / val / test
+    correct counts an epoch, and where the inputs lie on the card, the
+    card ms a step (CUDA events), the host ms until each step returns, and
+    the launches of the first step."""
+    x, ei, w, y, tr, va, te = inputs
+    cuda = x.device.type == 'cuda'
+    opt = planetoid_opt(torch, model)
+    gen = torch.Generator().manual_seed(seed)
+    losses, correct, card_ms, host_ms, per_step = [], [], [], [], None
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts()
+    for i in range(epochs):
+        model.train()
+        t0 = time.perf_counter()
+        if cuda:
+            start.record()
+        opt.zero_grad(set_to_none=True)
+        loss = planetoid_loss(torch, model, x, ei, w, y, tr, gen)
+        loss.backward()
+        opt.step()
+        if cuda:
+            end.record()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            card_ms.append(start.elapsed_time(end))
+            if i == 0:
+                per_step = {k: v for k, v in launch_counts().items() if v}
+        losses.append(loss.detach())
+        model.eval()
+        with torch.no_grad():
+            pred = model(x, ei, w).argmax(-1)
+            correct.append(torch.stack([(pred[m] == y[m]).sum()
+                                        for m in (tr, va, te)]))
+    losses = torch.stack(losses).cpu().tolist()
+    correct = torch.stack(correct).cpu().numpy()
+    check(all(math.isfinite(v) for v in losses), f'losses {losses}')
+    return losses, correct, card_ms, host_ms, per_step
+
+
+def phase_path_ad(torch, seed):
+    """Path AD: the Kipf & Welling GCN as PyG's ``examples/gcn.py`` trains
+    it, on Planetoid's published shapes. ``planetoid_raw`` writes Cora's,
+    CiteSeer's and PubMed's raw files; the port's ``Planetoid`` parses each
+    (seconds, and the counts against ``PLANETOID``: CiteSeer takes the
+    refill branch). On Cora and PubMed, ``NormalizeFeatures`` and
+    ``planetoid_gcn`` (dropout 0.5, Adam 0.01, first-layer weight decay),
+    ``PAD_EPOCHS`` full-batch epochs on the card: card ms a step, host ms a
+    step, kernel 1 four times a step (forward at F = 16 and classes, ``A^T
+    g`` at both), a whole-window profile and its idle share, the peak
+    memory above what earlier phases hold; the same epochs on the CPU from
+    the same weights and dropout masks (one seeded CPU generator), the
+    final and best-validation test accuracies within ``PAD_ACC_NODES``
+    nodes; 3 steps without dropout against the CPU (``synced_parity``);
+    kernel 1 at Cora's four shapes and PubMed's F = 3 against its plain
+    version, timed beside it and ``torch.sparse.mm``."""
+    import tempfile
+    from pytorch_geometric_tpu_torch.datasets import Planetoid
+    from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
+    tag = 'path AD'
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res, rows, worst, datasets = {'datasets': {}}, [], 0.0, {}
+    with tempfile.TemporaryDirectory() as root:
+        for name in PLANETOID:
+            t0 = time.perf_counter()
+            s = planetoid_raw(root, name, seed)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ds = Planetoid(root, name, transform=NormalizeFeatures())
+            parse_s = time.perf_counter() - t0
+            d = ds[0]
+            got = {'nodes': d.num_nodes, 'features': d.num_node_features,
+                   'classes': ds.num_classes,
+                   'train': int(d.train_mask.sum()),
+                   'val': int(d.val_mask.sum()),
+                   'test': int(d.test_mask.sum()), 'edges': d.num_edges}
+            # the JAX package's refill marks every id of the test range a
+            # test node, the 15 isolated ones too (PyG's keeps the 1,000)
+            want = {k: s[k] for k in ('nodes', 'features', 'classes',
+                                      'train', 'edges')}
+            want.update(val=500, test=1000 + s['missing'])
+            check(got == want, f'{tag}: {name} parsed to {got}, expected '
+                               f'{want}')
+            res['datasets'][name] = dict(got, raw_write_s=write_s,
+                                         parse_s=parse_s,
+                                         missing=s['missing'])
+            log(f'[{tag}] {name}: raw files written in {write_s:.2f} s, '
+                f'Planetoid parse {parse_s:.2f} s: {got}')
+            datasets[name] = (d, ds.num_classes)
+    for name in PAD_TRAIN:
+        d, classes = datasets[name]
+        f = d.num_node_features
+
+        def build(device, dropout=PAD_DROPOUT):
+            return planetoid_gcn(torch, device, seed, f, classes, dropout)
+
+        state = {k: v.detach().cpu().clone()
+                 for k, v in build('cpu').state_dict().items()}
+        card_in = planetoid_inputs(torch, d, 'cuda')
+        cpu_in = planetoid_inputs(torch, d, 'cpu')
+        model = build('cuda')
+        model.load_state_dict({k: v.cuda() for k, v in state.items()})
+        t0 = time.perf_counter()
+        losses, correct, card_ms, host_ms, per_step = planetoid_epochs(
+            torch, model, card_in, PAD_EPOCHS, seed + 91)
+        card_s = time.perf_counter() - t0
+        counts = launch_counts()
+        check(per_step == {'segment_spmm': 4},
+              f'{tag} {name}: launches in the first step {per_step}')
+        # 4 a step, 2 an eval-mode forward
+        check_counts(f'{tag} {name}', counts,
+                     {'segment_spmm': 6 * PAD_EPOCHS},
+                     f'{PAD_EPOCHS} epochs')
+        x, ei, w, y, tr = card_in[:5]
+        opt = planetoid_opt(torch, model)
+        model.train()
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = planetoid_loss(torch, model, x, ei, w, y, tr)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        prof_rows, prof_ms, _ = whole_window(torch, step, 3,
+                                             expect={SEG_MAIN: 4})
+        busy = sum(t for _, t, _ in prof_rows)
+        cpu_model = build('cpu')
+        cpu_model.load_state_dict(state)
+        t0 = time.perf_counter()
+        cpu_losses, cpu_correct, _, _, _ = planetoid_epochs(
+            torch, cpu_model, cpu_in, PAD_EPOCHS, seed + 91)
+        cpu_s = time.perf_counter() - t0
+        n_test = len(cpu_in[6])
+        best = int(np.argmax(correct[:, 1]))
+        cpu_best = int(np.argmax(cpu_correct[:, 1]))
+        acc = {'card_final': correct[-1, 2] / n_test,
+               'cpu_final': cpu_correct[-1, 2] / n_test,
+               'card_best_val': correct[best, 2] / n_test,
+               'cpu_best_val': cpu_correct[cpu_best, 2] / n_test,
+               'card_best_epoch': best, 'cpu_best_epoch': cpu_best}
+        check(abs(int(correct[-1, 2]) - int(cpu_correct[-1, 2]))
+              <= PAD_ACC_NODES,
+              f'{tag} {name}: final test accuracy {acc} on the card and '
+              f'the CPU differ by more than {PAD_ACC_NODES} nodes')
+        out = {'nodes': d.num_nodes, 'edges_with_loops': ei.num_edges,
+               'features': f, 'classes': classes, 'epochs': PAD_EPOCHS,
+               'card_s': card_s, 'cpu_s': cpu_s,
+               'losses_first_last': [losses[0], losses[-1]],
+               'cpu_losses_first_last': [cpu_losses[0], cpu_losses[-1]],
+               'accuracy': {k: float(v) for k, v in acc.items()},
+               'card_ms_per_step': float(np.median(card_ms[1:])),
+               'card_ms_first_steps': card_ms[:5],
+               'host_ms_per_step': float(np.median(host_ms[1:])),
+               'launch_counts': counts, 'launches_per_step': per_step,
+               'device_busy_ms_per_step': busy,
+               'profiled_ms_per_step': prof_ms,
+               'kernel1_ms_per_step': sum(t for n_, t, _ in prof_rows
+                                          if SEG_MAIN in n_),
+               'kernels_per_step': [[n_[:80], t, c]
+                                    for n_, t, c in prof_rows[:8]]}
+        out['device_idle_share_unprofiled'] = 1 - busy / out[
+            'card_ms_per_step']
+        log(f"[{tag}] {name}: {PAD_EPOCHS} epochs in {card_s:.2f} s on the "
+            f"card ({cpu_s:.2f} s on the CPU); card "
+            f"{out['card_ms_per_step']:.4f} ms a step (median after the "
+            f"first), host {out['host_ms_per_step']:.4f} ms until a step "
+            f"returns, busy {busy:.4f} ms, idle "
+            f"{out['device_idle_share_unprofiled']:.3f}, kernel 1 "
+            f"{out['kernel1_ms_per_step']:.4f} ms in {per_step} launches a "
+            f"step; loss {losses[0]:.4f} -> {losses[-1]:.4f}; test accuracy "
+            f"final {acc['card_final']:.4f} (CPU {acc['cpu_final']:.4f}), "
+            f"at the best validation {acc['card_best_val']:.4f} (CPU "
+            f"{acc['cpu_best_val']:.4f}; epochs {best} / {cpu_best})")
+        for n_, t, c in prof_rows[:8]:
+            log(f'[{tag}]   {t:.4f} ms  x{c:g}  {n_[:90]}')
+        t0 = time.perf_counter()
+        out['steps_vs_cpu'] = synced_parity(
+            torch, f'{tag} {name}', lambda dev: build(dev, 0.0), state,
+            card_in[:5], cpu_in[:5], None,
+            lambda m, *b: planetoid_loss(torch, m, *b), PAD_LR,
+            opt_of=lambda m: planetoid_opt(torch, m))
+        out['cpu_parity_s'] = time.perf_counter() - t0
+        res[name] = out
+        # the hidden width on Cora; the class widths, odd, on both
+        widths = (classes,) if name == 'pubmed' else (PAD_HIDDEN, classes)
+        r, err = kernel1_rows(torch, f'AD {name}', ei, [
+            (f'weighted {p} F={width}', lay, w[lay.perm].contiguous(), width)
+            for width in widths
+            for p, lay in (('forward', ei.csc), ('A^T g', ei.csr))],
+            seed + 93)
+        rows += r
+        worst = max(worst, err)
+        del model, cpu_model, opt, card_in, cpu_in, x, ei, w, y, tr
+    res['peak_gb'] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res['held_gb_at_start'] = held / 1e9
+    res['launch_counts'] = {k: sum(res[n]['launch_counts'].get(k, 0)
+                                   for n in PAD_TRAIN)
+                            for k in res[PAD_TRAIN[0]]['launch_counts']}
+    res['launches_per_step'] = res[PAD_TRAIN[0]]['launches_per_step']
+    log(f"[{tag}] peak {res['peak_gb']:.3f} GB over the "
+        f"{res['held_gb_at_start']:.3f} GB held at the start")
+    torch.cuda.empty_cache()
+    return res, rows, worst
+
+
 def cluster_cases(torch, seed, inputs, n, e, f, graphs, cap, g):
     """``module_cases``' cluster pools, dense and advanced aggregations and
     dense convs and pools: ``avg_pool_x`` / ``max_pool_x`` over graclus
@@ -10039,6 +10415,92 @@ def zoo_cases(torch, seed, inputs, n, e, f, graphs, g):
     return cases
 
 
+def data_cases(torch, seed):
+    """The data plumbing of the datasets slice on the card against the
+    CPU, each result within 1e-4 * max(1, max|CPU|) and on the device it
+    was asked for: ``InMemoryFeatureStore`` (a table put on the device,
+    rows rewritten through an index, rows read through another),
+    ``InMemoryGraphStore`` (the CSC and CSR of a COO on the device),
+    ``HypergraphData.to`` (the class and hyperedge count kept; a
+    ``HypergraphConv`` over the moved incidence), ``LightningNodeData``'s
+    train loader over a graph whose features lie on the device (its
+    batches gathered there) and ``summary`` of a dataset of graphs on the
+    device. None launches a port kernel. Returns ``(rows, worst)``."""
+    from pytorch_geometric_tpu_torch.data import (
+        Data, HypergraphData, InMemoryFeatureStore, InMemoryGraphStore,
+        LightningNodeData, summary)
+    from pytorch_geometric_tpu_torch.nn import HypergraphConv
+    rng = np.random.default_rng(seed + 95)
+    n, f, e, m = 600, 12, 4000, 90
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    coo = rng.integers(0, n, (2, e))
+    inc = np.stack([rng.integers(0, n, 3 * n), rng.integers(0, m, 3 * n)])
+    y = rng.integers(0, 4, n)
+    train = rng.random(n) < 0.3
+
+    def run(dev):
+        out = {}
+        fs = InMemoryFeatureStore()
+        fs['paper', 'x'] = torch.as_tensor(x, device=dev)
+        fs.put_tensor(torch.full((4, f), 2.0, device=dev), 'paper', 'x',
+                      index=torch.tensor([3, 1, 7, 400], device=dev))
+        out['feature store'] = fs.get_tensor(
+            'paper', 'x', index=torch.arange(0, n, 3, device=dev))
+        gs = InMemoryGraphStore()
+        gs.put_edge_index(torch.as_tensor(coo, device=dev), ('p', 'c', 'p'))
+        out['graph store csc'] = torch.cat(gs.csc(('p', 'c', 'p')))
+        out['graph store csr'] = torch.cat(gs.csr(('p', 'c', 'p')))
+        hg = HypergraphData(x=x, edge_index=inc, num_hyperedges=m).to(dev)
+        check(type(hg) is HypergraphData and hg.num_hyperedges == m,
+              f'HypergraphData.to({dev}) gave {type(hg).__name__} with '
+              f'{hg.num_hyperedges} hyperedges')
+        conv = HypergraphConv(f, 8, device=dev,
+                              generator=torch.Generator().manual_seed(seed))
+        out['HypergraphData.to + HypergraphConv'] = conv(
+            hg.x, hg.edge_index, num_edges=hg.num_hyperedges).detach()
+        data = Data(x=torch.as_tensor(x, device=dev), edge_index=coo, y=y,
+                    train_mask=train, num_nodes=n)
+        batch = next(iter(LightningNodeData(
+            data, num_neighbors=[5, 3], batch_size=32,
+            seed=seed).train_dataloader()))
+        out['LightningNodeData batch x'] = batch.x
+        graphs = [Data(x=torch.zeros((k, 2), device=dev),
+                       edge_index=rng_edges[:, :2 * k], num_nodes=k)
+                  for k, rng_edges in ((30, coo % 30), (45, coo % 45),
+                                       (12, coo % 12))]
+        s = summary(graphs)
+        out['summary'] = torch.tensor([
+            s.num_graphs, *(getattr(st, k) for st in (s.num_nodes,
+                                                      s.num_edges)
+                            for k in ('mean', 'std', 'min', 'quantile25',
+                                      'median', 'quantile75', 'max'))],
+            dtype=torch.float64)
+        for k, v in out.items():
+            if k != 'summary':
+                check(v.device.type == dev, f'{k}: on {v.device} for {dev}')
+        return {k: v.cpu() for k, v in out.items()}
+
+    ref = run('cpu')
+    reset_counts()
+    got = run('cuda')
+    check_counts('data cases', launch_counts(), {}, 'their card runs')
+    rows, worst = [], 0.0
+    for k, r in ref.items():
+        g = got[k]
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f'{k}: {g.dtype} {tuple(g.shape)} on the card, {r.dtype} '
+              f'{tuple(r.shape)} on the CPU')
+        err = float((g.double() - r.double()).abs().max()) / max(
+            1.0, float(r.double().abs().max()))
+        check(err <= 1e-4, f'{k}: {err} from the CPU')
+        worst = max(worst, err)
+        rows.append({'case': k, 'rel_err': err})
+    log(f'[modules] {len(rows)} data cases on the card against the CPU: '
+        f'worst {worst:.3e} (limit 1e-4); ' + ', '.join(
+            f"{r['case']} {r['rel_err']:.1e}" for r in rows))
+    return rows, worst
+
+
 def phase_graph_modules(torch, seed):
     """Each convolution, aggregation, norm and pooling function of the
     graph-level slice, each graph-transformer module and each class of the
@@ -10108,7 +10570,9 @@ def phase_graph_modules(torch, seed):
         f'the CPU, forward and backward: worst {worst:.3e} (limit 1e-4); '
         + ', '.join(f"{r['module']} {max(r['out_rel_err'], r['grad_rel_err']):.1e}"
                     for r in rows))
-    return {'modules': rows, 'worst': worst, 'launch_counts': total,
+    data_rows, data_worst = data_cases(torch, seed)
+    return {'modules': rows, 'worst': max(worst, data_worst),
+            'launch_counts': total, 'data_cases': data_rows,
             'host_decisions': host_decision_checks(torch, seed, inputs, n,
                                                    f)}
 
@@ -10264,6 +10728,11 @@ def main():
     path_ac, ac_rows, ac_err = phase_path_ac(torch, args.seed)
     log(f'[time] path AC took {time.perf_counter() - t0:.1f} s')
     lap('path AC')
+    # the datasets slice: the Kipf & Welling GCN on Planetoid's shapes (AD)
+    t0 = time.perf_counter()
+    path_ad, ad_rows, ad_err = phase_path_ad(torch, args.seed)
+    log(f'[time] path AD took {time.perf_counter() - t0:.1f} s')
+    lap('path AD')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -10329,6 +10798,7 @@ def main():
         path_z=path_z['launch_counts'],
         path_aa=path_aa['launch_counts'], path_ab=path_ab['launch_counts'],
         path_ac=path_ac['launch_counts'],
+        path_ad=path_ad['launch_counts'],
         graph_modules=modules['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
@@ -10387,6 +10857,7 @@ def main():
                               'path_x': path_x, 'path_y': path_y,
                               'path_z': path_z, 'path_aa': path_aa,
                               'path_ab': path_ab, 'path_ac': path_ac,
+                              'path_ad': path_ad,
                               'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the
@@ -10457,7 +10928,8 @@ def main():
             'path_w': path_w['launches_per_step']['segment_spmm'],
             'path_y': path_y['training']['launches_per_step'][
                 'segment_spmm'],
-            'path_ac': path_ac['launches_per_step']['segment_spmm']},
+            'path_ac': path_ac['launches_per_step']['segment_spmm'],
+            'path_ad': path_ad['launches_per_step']['segment_spmm']},
         'launches_per_layerwise_batch': 2,
         'launches_per_path_r_forward': path_r['float32'][
             'launches_per_forward'],
@@ -10466,7 +10938,7 @@ def main():
         'max_abs_err': max(worst, worst_bwd, worst_sampled, q_err,
                            *(r['max_abs_err'] for r in r_rows[:2]),
                            s_row['max_abs_err'], t_err, u_err, w_err,
-                           y_err, ac_err),
+                           y_err, ac_err, ad_err),
         'ms': per_fwd['ms'], 'kernel_ms': per_fwd['ms'],
         'plain_ms': per_fwd['plain_ms'],
         'bound_ms': per_fwd['bound_ms'], 'bound_by': bound_by,
@@ -10489,7 +10961,7 @@ def main():
         'path_r_per_shape': r_rows[:2], 'path_s_per_shape': [s_row],
         'path_t_per_shape': t_rows, 'path_u_per_shape': u_rows,
         'path_w_per_shape': w_rows, 'path_y_per_shape': y_rows,
-        'path_ac_per_shape': ac_rows,
+        'path_ac_per_shape': ac_rows, 'path_ad_per_shape': ad_rows,
         'regime_arms_rel_err': regime_arms['worst'],
         'plan_sweep': serving_sweep + seg_rows['sweep']}, {
         'name': 'bsr_spmm', 'route': 'cuda',

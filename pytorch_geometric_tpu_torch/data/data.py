@@ -142,6 +142,23 @@ class Data:
         obj._num_nodes = num_nodes
         return obj
 
+    def to(self, device, non_blocking: bool = False) -> 'Data':
+        """A copy of the same class and sizes with every tensor on
+        ``device``; other values are shared. An ``EdgeIndex`` raises: its
+        caches are built on their device, so rebuild it there
+        (``EdgeIndex(ei.coo.to(device), ei.sparse_size).fill_cache()``)."""
+        new = {}
+        for k, v in self._store.items():
+            if isinstance(v, EdgeIndex):
+                raise TypeError(f'{k!r} is an EdgeIndex; rebuild it on '
+                                f'{device}')
+            new[k] = (v.to(device, non_blocking=non_blocking)
+                      if isinstance(v, torch.Tensor) else v)
+        obj = object.__new__(type(self))
+        obj.__dict__.update(self.__dict__)
+        obj._store = new
+        return obj
+
     # -- sizes (reference data.py:170 num_nodes inference) -------------------
     @property
     def num_nodes(self) -> Optional[int]:

@@ -125,19 +125,22 @@ class InMemoryDataset(Dataset):
     def processed_file_names(self) -> Sequence[str]:
         return ['data.pt']
 
+    def _file(self) -> str:
+        # the first processed file holds the graphs: one per split where
+        # a subclass names one per split (PPI)
+        return osp.join(self.processed_dir, self.processed_file_names[0])
+
     def save(self, data_list: List[Data]):
         if self.pre_filter is not None:
             data_list = [d for d in data_list if self.pre_filter(d)]
         if self.pre_transform is not None:
             data_list = [self.pre_transform(d) for d in data_list]
-        torch.save([_graph_record(d) for d in data_list],
-                   osp.join(self.processed_dir, 'data.pt'))
+        torch.save([_graph_record(d) for d in data_list], self._file())
         self._data_list = data_list
 
     def _load(self):
         if self._data_list is None:
-            records = torch.load(osp.join(self.processed_dir, 'data.pt'),
-                                 weights_only=True)
+            records = torch.load(self._file(), weights_only=True)
             self._data_list = [Data(num_nodes=r['num_nodes'], **r['store'])
                                for r in records]
         return self._data_list

@@ -17,7 +17,7 @@ from ..conv import (EdgeConv, GATConv, GATv2Conv, GCNConv, GINConv,
                     PNAConv, SAGEConv)
 from ..inits import linear
 from ..norm.norms import RunningBatchNorm
-from .mlp import MLP
+from .mlp import MLP, apply_dropout
 from ...backend import resolve_device
 
 
@@ -90,7 +90,9 @@ class BasicGNN(nn.Module):
     def forward(self, x: torch.Tensor, edge_index,
                 edge_weight: Optional[torch.Tensor] = None,
                 edge_attr: Optional[torch.Tensor] = None,
-                edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                edge_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         xs = []
         for i, conv in enumerate(self.convs):
             kwargs = {}
@@ -105,7 +107,7 @@ class BasicGNN(nn.Module):
             if self.norms is not None:
                 x = self.norms[i](x)
             x = self.act(x)
-            x = F.dropout(x, self.dropout, training=self.training)
+            x = apply_dropout(x, self.dropout, self.training, generator)
             xs.append(x)
         if self.jk == 'cat':
             x = torch.cat(xs, dim=-1)

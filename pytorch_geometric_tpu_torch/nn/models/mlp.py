@@ -69,11 +69,19 @@ class MLP(nn.Module):
                 x = self.norms[i](x)
             if not self.act_first:
                 x = self.act(x)
-            if generator is None or not self.training or self.dropout == 0:
-                x = F.dropout(x, self.dropout, training=self.training)
-            else:
-                keep = 1.0 - self.dropout
-                draw = torch.rand(x.shape, generator=generator,
-                                  device=generator.device, dtype=x.dtype)
-                x = x * (draw.to(x.device) < keep) / keep
+            x = apply_dropout(x, self.dropout, self.training, generator)
         return x
+
+
+def apply_dropout(x: torch.Tensor, p: float, training: bool,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """``F.dropout``, or with a ``generator`` its mask drawn from it on the
+    generator's device and moved to ``x``'s (a CPU generator gives the card
+    and the CPU the same masks)."""
+    if generator is None or not training or p == 0:
+        return F.dropout(x, p, training=training)
+    keep = 1.0 - p
+    draw = torch.rand(x.shape, generator=generator, device=generator.device,
+                      dtype=x.dtype)
+    return x * (draw.to(x.device) < keep) / keep

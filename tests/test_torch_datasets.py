@@ -181,7 +181,9 @@ def test_missing_raw_files_raise(tmp_path):
 
 def test_datasets_exports():
     """The port's ``datasets`` exports what it ports, each under the JAX
-    package's name."""
-    assert set(tds.__all__) == {'FakeDataset', 'planetoid_like',
-                                'TUDataset'}
+    package's name: the first modules and those of the datasets slice."""
+    assert {'FakeDataset', 'planetoid_like', 'TUDataset', 'Planetoid',
+            'Amazon', 'Reddit', 'NELL', 'CitationFull', 'SNAPDataset',
+            'KarateClub', 'ExplainerDataset'} <= set(tds.__all__)
     assert set(tds.__all__) <= set(jds.__all__)
+    assert all(hasattr(tds, n) for n in tds.__all__)

@@ -86,7 +86,22 @@ def test_import_loads_no_jax():
         '"pytorch_geometric_tpu_torch.nn.norm.norms", '
         '"pytorch_geometric_tpu_torch.nn.pool.glob", '
         '"pytorch_geometric_tpu_torch.nn.conv.gen_conv", '
-        '"pytorch_geometric_tpu_torch.nn.conv.point_conv"} <= set('
+        '"pytorch_geometric_tpu_torch.nn.conv.point_conv", '
+        '"pytorch_geometric_tpu_torch.datasets.planetoid", '
+        '"pytorch_geometric_tpu_torch.datasets.npz_datasets", '
+        '"pytorch_geometric_tpu_torch.datasets.big_graphs", '
+        '"pytorch_geometric_tpu_torch.datasets.social", '
+        '"pytorch_geometric_tpu_torch.datasets.generators", '
+        '"pytorch_geometric_tpu_torch.datasets.graph_generator", '
+        '"pytorch_geometric_tpu_torch.datasets.motif_generator", '
+        '"pytorch_geometric_tpu_torch.data.download", '
+        '"pytorch_geometric_tpu_torch.data.extract", '
+        '"pytorch_geometric_tpu_torch.data.stores", '
+        '"pytorch_geometric_tpu_torch.data.summary", '
+        '"pytorch_geometric_tpu_torch.data.hypergraph", '
+        '"pytorch_geometric_tpu_torch.data.database", '
+        '"pytorch_geometric_tpu_torch.data.datapipes", '
+        '"pytorch_geometric_tpu_torch.data.lightning"} <= set('
         'sys.modules)\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -90,6 +90,31 @@ def test_jax_names_resolve_on_the_port(resolved, pkg):
     assert out['missing'][pkg] == [], (pkg, out['missing'][pkg])
 
 
+def test_data_and_datasets_hold_the_datasets_slice(resolved):
+    """The scan expects the ``data`` and ``datasets`` names of the
+    datasets slice (their modules have counterparts), and they resolve."""
+    expected, out = resolved
+    assert {'HypergraphData', 'Summary', 'Stats', 'summary', 'Database',
+            'SQLiteDatabase', 'RocksDatabase', 'OnDiskDataset', 'TensorInfo',
+            'download_url', 'download_google_url', 'extract_tar',
+            'extract_zip', 'extract_bz2', 'extract_gz', 'FeatureStore',
+            'GraphStore', 'InMemoryFeatureStore', 'InMemoryGraphStore',
+            'TensorAttr', 'EdgeAttr', 'EdgeLayout'} <= set(expected['.data'])
+    assert {'Planetoid', 'Amazon', 'Coauthor', 'WebKB', 'WikipediaNetwork',
+            'Actor', 'read_npz', 'Reddit', 'Reddit2', 'Flickr', 'Yelp',
+            'AmazonProducts', 'NELL', 'CitationFull', 'CoraFull',
+            'DeezerEurope', 'LastFMAsia', 'FacebookPagePage', 'GitHub',
+            'Twitch', 'GemsecDeezer', 'Airports', 'PolBlogs', 'EmailEUCore',
+            'WikiCS', 'PPI', 'HeterophilousGraphDataset', 'LINKXDataset',
+            'BitcoinOTC', 'EllipticBitcoinDataset', 'AttributedGraphDataset',
+            'SNAPDataset', 'KarateClub', 'StochasticBlockModelDataset',
+            'ExplainerDataset', 'FakeHeteroDataset', 'ba_graph', 'BAShapes',
+            'BA2MotifDataset', 'BAMultiShapesDataset', 'InfectionDataset',
+            'MixHopSyntheticDataset', 'RandomPartitionGraphDataset'} <= set(
+                expected['.datasets'])
+    assert out['missing']['.data'] == out['missing']['.datasets'] == []
+
+
 def test_root_namespace_holds_the_containers_and_subpackages(resolved):
     """The names the root must give, whatever the scan finds."""
     expected, _ = resolved
