@@ -329,6 +329,20 @@ checks them:
      at F = 16, 7 and 3 against its plain version and timed; the module
      phase also holds the data plumbing (stores, ``HypergraphData.to``,
      ``LightningNodeData``, ``summary``) on the card to the CPU.
+ 44. path AE, DimeNet++ (PyG's ``DimeNetPlusPlus.from_qm9_pretrained``
+     configuration) and SchNet (PyG's defaults) on QM9's shape:
+     ``qm9_raw`` writes 10,000 molecules' ``gdb9.sdf`` and
+     ``gdb9.sdf.csv``, the port's ``QM9`` parses them (checked against
+     what was written), and in batches of 32 each model trains (Adam 1e-3
+     on the standardised U0, 10 steps after 1) and serves (20 eval batches
+     after 2): card and host ms, DimeNet++'s host-side interaction graph
+     and triplets apart, busy and idle share, peak memory, no port kernel;
+     the float32 serving outputs against the CPU, 3 float64 steps against
+     the CPU, and SchNet's radius graph on the card against the CPU's;
+     the module phase also runs the molecular models (``molecule_cases``;
+     AttentiveFP's fused atom conv launches the mix and per-edge dot
+     kernels) and parses a dataset of each new family on the host and
+     moves it to the card (``data_cases``).
 
 Every path of phases 4, 7, 8, 11, 12, 15-18, 22 and 23 (serving GCN; paths
 A, B, C, D, E, F, G, H, I, J) also runs captured, through
@@ -9565,6 +9579,886 @@ def phase_path_ad(torch, seed):
     return res, rows, worst
 
 
+# -- path AE: DimeNet++ and SchNet on QM9's shape ------------------------------
+# QM9 (Ramakrishnan et al. 2014) as PyG's datasets/qm9.py reads it: 130,831
+# molecules of at most 9 heavy atoms (C, N, O, F) and 29 atoms in all, 18.0
+# atoms a molecule on average; gdb9.sdf.csv's 15 target columns after
+# mol_id, U0 (Hartree) the 11th. Path AE keeps 10,000 molecules
+QM9_MOLECULES = 10_000
+QM9_MAX_HEAVY, QM9_MAX_ATOMS = 9, 29
+QM9_TARGETS = ('A', 'B', 'C', 'mu', 'alpha', 'homo', 'lumo', 'gap', 'r2',
+               'zpve', 'u0', 'u298', 'h298', 'g298', 'cv')
+QM9_U0 = QM9_TARGETS.index('u0')
+# the heavy atoms a molecule (QM9: most have 9), the elements of a heavy
+# atom, their valences, and the bond orders of a tree bond (MDL types 1-3
+# and 4, aromatic, which takes one valence here)
+QM9_HEAVY_P = {9: 0.83, 8: 0.12, 7: 0.03, 6: 0.01, 5: 0.005, 4: 0.003,
+               3: 0.001, 2: 0.0005, 1: 0.0005}
+QM9_ELEMENTS = (('C', 0.72, 4), ('N', 0.115, 3), ('O', 0.16, 2),
+                ('F', 0.005, 1))
+QM9_BONDS = ((1, 0.7), (2, 0.16), (3, 0.06), (4, 0.08))
+# ring closures a molecule: 0, 1, 2, 3
+QM9_RINGS_P = (0.2, 0.35, 0.3, 0.15)
+# bond lengths (Angstrom) by MDL type, and of a bond to hydrogen; a new atom
+# is placed at least QM9_CLEAR from every atom but its parent (a geminal
+# H-H pair sits 1.78 apart, a 1-3 heavy pair ~2.5), and no two atoms of a
+# molecule come closer than QM9_MIN_DIST
+QM9_LENGTHS = {1: (1.43, 1.54), 2: (1.20, 1.34), 3: (1.16, 1.20),
+               4: (1.37, 1.40), 'H': (0.96, 1.09)}
+QM9_CLEAR, QM9_MIN_DIST = 1.8, 0.9
+# QM9's U0 of the free atoms (Hartree), PyG's qm9.py atomref
+QM9_ATOM_U0 = {'H': -0.500273, 'C': -37.846772, 'N': -54.583861,
+               'O': -75.064579, 'F': -99.718730}
+# PyG's qm9_pretrained_dimenet.py / qm9_pretrained_schnet.py evaluate in
+# batches of 32; DimeNetPlusPlus.from_qm9_pretrained's and SchNet's default
+# configurations
+PAE_BATCH = 32
+PAE_DIMENET = dict(hidden_channels=128, out_channels=1, num_blocks=4,
+                   int_emb_size=64, basis_emb_size=8, out_emb_channels=256,
+                   num_spherical=7, num_radial=6, cutoff=5.0,
+                   envelope_exponent=5, num_before_skip=1, num_after_skip=2,
+                   num_output_layers=3)
+PAE_SCHNET = dict(hidden_channels=128, num_filters=128, num_interactions=6,
+                  num_gaussians=50, cutoff=10.0, max_num_neighbors=32)
+# serving: eval batches after warm-up ones; training: Adam steps after a
+# warm-up one at 1e-3, DimeNet++'s rising linearly over its first 3,000
+# steps (the DimeNet++ paper's schedule; from its zero output layers, a
+# first step at the full rate throws the outputs to ~1e4 on these batches)
+PAE_SERVE_WARM, PAE_SERVE = 2, 20
+PAE_TRAIN_WARM, PAE_TRAIN = 1, 10
+PAE_LR, PAE_LR_WARMUP = 1e-3, {'dimenet++': 3000, 'schnet': 1}
+# the float32 serving outputs of the first batch, card against CPU, within
+# this share of max(1, max|CPU|) (PERF.md, path AE's prediction)
+PAE_SERVE_TOL = {'dimenet++': 1e-4, 'schnet': 1e-5}
+
+
+def qm9_molecules(count, seed=0):
+    """``count`` molecules at QM9's shape: per molecule the element symbols
+    (heavy atoms first, then hydrogens), the bonds ``(a, b, MDL type)`` of
+    a tree over the heavy atoms with each hydrogen on the atom whose
+    valence it fills (at most ``QM9_MAX_ATOMS`` atoms), and coordinates
+    from a bonded walk: each atom at its bond length (``QM9_LENGTHS``) from
+    its parent in a random direction drawn until it clears every other
+    atom by ``QM9_CLEAR`` (the best of 40 draws otherwise), rounded to the
+    SDF's 4 decimals; a molecule with two atoms closer than
+    ``QM9_MIN_DIST`` is drawn again. The placements run over all molecules
+    at once, one atom slot at a time. Returns ``(symbols, bonds, pos)``
+    lists."""
+    rng = np.random.default_rng(seed)
+    heavy_n = np.array(list(QM9_HEAVY_P))
+    heavy_p = np.array(list(QM9_HEAVY_P.values()))
+    el_names = [e[0] for e in QM9_ELEMENTS]
+    el_p = np.array([e[1] for e in QM9_ELEMENTS])
+    valence = {e[0]: e[2] for e in QM9_ELEMENTS}
+    orders = np.array([b[0] for b in QM9_BONDS])
+    order_p = np.array([b[1] for b in QM9_BONDS])
+    symbols, bonds, parents, lengths = [], [], [], []
+    heavy = rng.choice(heavy_n, count, p=heavy_p / heavy_p.sum())
+    # uniform draws in bulk: a molecule's slot, attempt, (element, parent,
+    # order); the first attempt whose bond fits both valences and leaves a
+    # free valence for the atoms still to come is taken (a carbon on a
+    # single bond always does)
+    draws = rng.random((count, QM9_MAX_HEAVY, 8, 3))
+    el_at = np.searchsorted(np.cumsum(el_p) / el_p.sum(), draws[..., 0])
+    order_at = orders[np.searchsorted(np.cumsum(order_p) / order_p.sum(),
+                                      draws[..., 2])]
+    ring_at = rng.choice(len(QM9_RINGS_P), count, p=QM9_RINGS_P)
+    for i in range(count):
+        h = int(heavy[i])
+        els = [el_names[min(el_at[i, 0, 0], len(el_names) - 1)]]
+        free = [valence[els[0]]]
+        bnd, par, ln, linked = [], [-1], [0.0], set()
+        for t in range(1, h):
+            cand = [a for a in range(t) if free[a] >= 1]
+            left = sum(free)
+            for k in range(draws.shape[2]):
+                e = el_names[min(el_at[i, t, k], len(el_names) - 1)]
+                a = cand[int(draws[i, t, k, 1] * len(cand))]
+                o = int(order_at[i, t, k])
+                take = 1 if o == 4 else o
+                if take <= min(free[a], valence[e]) and (
+                        t == h - 1 or left - 2 * take + valence[e] >= 1):
+                    break
+            else:
+                e, a, o, take = 'C', cand[0], 1, 1
+            els.append(e)
+            free[a] -= take
+            free.append(valence[e] - take)
+            bnd.append((a, t, o))
+            linked.add((a, t))
+            par.append(a)
+            ln.append(rng.uniform(*QM9_LENGTHS[o]))
+        # ring closures: bonds between two heavy atoms not yet bonded, each
+        # with a free valence
+        for _ in range(int(ring_at[i])):
+            pairs = [(a, b) for a in range(h) for b in range(a + 1, h)
+                     if free[a] >= 1 and free[b] >= 1
+                     and (a, b) not in linked]
+            if not pairs:
+                break
+            a, b = pairs[int(rng.integers(len(pairs)))]
+            o = 2 if min(free[a], free[b]) >= 2 and rng.random() < 0.3 \
+                else (4 if rng.random() < 0.4 else 1)
+            take = 1 if o == 4 else o
+            free[a] -= take
+            free[b] -= take
+            bnd.append((a, b, o))
+            linked.add((a, b))
+        sym = list(els)
+        for a in range(h):
+            for _ in range(free[a]):
+                if len(sym) == QM9_MAX_ATOMS:
+                    break
+                bnd.append((a, len(sym), 1))
+                par.append(a)
+                ln.append(rng.uniform(*QM9_LENGTHS['H']))
+                sym.append('H')
+        symbols.append(sym)
+        bonds.append(bnd)
+        parents.append(par)
+        lengths.append(ln)
+    pos = _qm9_walk(rng, parents, lengths)
+    for i in range(count):
+        while _min_dist(pos[i]) < QM9_MIN_DIST:
+            pos[i] = _qm9_walk(rng, parents[i:i + 1], lengths[i:i + 1])[0]
+    return symbols, bonds, pos
+
+
+def _min_dist(p):
+    d = np.linalg.norm(p[:, None] - p[None], axis=-1)
+    d[np.arange(len(p)), np.arange(len(p))] = np.inf
+    return float(d.min()) if len(p) > 1 else np.inf
+
+
+def _qm9_walk(rng, parents, lengths, tries=40):
+    """The bonded walk of ``qm9_molecules`` over every molecule at once:
+    slot ``t`` of each molecule that has one is placed from its parent in
+    turn, earlier slots fixed."""
+    m = len(parents)
+    size = np.array([len(p) for p in parents])
+    top = int(size.max())
+    par = np.zeros((m, top), np.int64)
+    ln = np.zeros((m, top))
+    for i, (p, l) in enumerate(zip(parents, lengths)):
+        par[i, :len(p)], ln[i, :len(l)] = p, l
+    pos = np.zeros((m, top, 3))
+    for t in range(1, top):
+        rows = np.nonzero(size > t)[0]
+        best = np.full(len(rows), -1.0)
+        best_p = np.zeros((len(rows), 3))
+        todo = np.arange(len(rows))
+        anchor = pos[rows, par[rows, t]]
+        others = np.arange(t)[None, :] != par[rows, t][:, None]   # [R, t]
+        for _ in range(tries):
+            d = rng.standard_normal((len(todo), 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            cand = anchor[todo] + d * ln[rows[todo], t][:, None]
+            gap = np.linalg.norm(pos[rows[todo], :t] - cand[:, None], axis=-1)
+            gap = np.where(others[todo], gap, np.inf).min(1)
+            better = gap > best[todo]
+            best[todo[better]] = gap[better]
+            best_p[todo[better]] = cand[better]
+            todo = todo[best[todo] < QM9_CLEAR]
+            if not len(todo):
+                break
+        pos[rows, t] = best_p
+    return [np.round(pos[i, :size[i]], 4) for i in range(m)]
+
+
+def qm9_raw(root, count=QM9_MOLECULES, seed=0):
+    """QM9's raw files at its published shape under ``root/raw``:
+    ``gdb9.sdf``, one V2000 block a molecule of ``qm9_molecules`` (the
+    header's three lines, the counts line, the atom block, the bond block,
+    ``M  END``) separated by ``$$$$``, and ``gdb9.sdf.csv``, ``mol_id`` and
+    the 15 targets of ``QM9_TARGETS`` in the layout ``QM9`` reads. U0 is the
+    free atoms' U0 (``QM9_ATOM_U0``) less about 0.1 Hartree a bond (QM9's
+    atomisation energies), the other targets drawn at their scale. Returns
+    what was written: atoms and heavy atoms a molecule, bonds by type, the
+    U0 column."""
+    raw = Path(root) / 'raw'
+    raw.mkdir(parents=True, exist_ok=True)
+    symbols, bonds, pos = qm9_molecules(count, seed)
+    rng = np.random.default_rng(seed + 1)
+    blocks, rows = [], ['mol_id,' + ','.join(QM9_TARGETS)]
+    u0 = np.zeros(count)
+    for i, (sym, bnd, p) in enumerate(zip(symbols, bonds, pos)):
+        lines = [f'gdb_{i + 1}', '     synthetic      3D', '',
+                 f'{len(sym):3d}{len(bnd):3d}  0  0  0  0  0  0  0  0999 '
+                 'V2000']
+        lines += [f'{x:10.4f}{y:10.4f}{z:10.4f} {s:<3} 0  0  0  0  0  0  0  '
+                  '0  0  0  0  0' for (x, y, z), s in zip(p, sym)]
+        lines += [f'{a + 1:3d}{b + 1:3d}{o:3d}  0' for a, b, o in bnd]
+        lines.append('M  END')
+        blocks.append('\n'.join(lines) + '\n$$$$\n')
+        u0[i] = (sum(QM9_ATOM_U0[s] for s in sym)
+                 - len(bnd) * rng.uniform(0.08, 0.12))
+        t = rng.standard_normal(len(QM9_TARGETS))
+        t[QM9_U0] = u0[i]
+        rows.append(f'gdb_{i + 1},' + ','.join(f'{v:.6f}' for v in t))
+    (raw / 'gdb9.sdf').write_text(''.join(blocks))
+    (raw / 'gdb9.sdf.csv').write_text('\n'.join(rows) + '\n')
+    types = np.bincount([o for bnd in bonds for _, _, o in bnd], minlength=5)
+    return {'molecules': count,
+            'atoms': np.array([len(s) for s in symbols]),
+            'heavy': np.array([sum(x != 'H' for x in s) for s in symbols]),
+            'bond_types': types[1:].tolist(),
+            'u0': np.array([float(f'{v:.6f}') for v in u0])}
+
+
+def qm9_model(torch, name, device, seed):
+    """Path AE's models: ``'dimenet++'``, PyG's
+    ``DimeNetPlusPlus.from_qm9_pretrained`` configuration (``PAE_DIMENET``),
+    or ``'schnet'``, PyG's SchNet defaults (``PAE_SCHNET``); random weights
+    from ``seed``."""
+    from pytorch_geometric_tpu_torch.nn.models import DimeNetPlusPlus, SchNet
+    cls, cfg = ((DimeNetPlusPlus, PAE_DIMENET) if name == 'dimenet++'
+                else (SchNet, PAE_SCHNET))
+    return cls(**cfg, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def qm9_inputs(torch, name, batch, device, u0_mean, u0_std,
+               prepare_ms=None):
+    """One batch of ``QM9`` graphs as path AE's model ``name`` takes it on
+    ``device``: ``(z, pos[, coo, idx_kj, idx_ji, triplet_mask], batch,
+    num_graphs, y)``, y the standardised U0. DimeNet++'s interaction graph
+    and triplets are built on the host (``DimeNet.prepare``), their ms
+    appended to ``prepare_ms``."""
+    from pytorch_geometric_tpu_torch.nn.models import DimeNet
+    z, pos, bvec = batch.z, batch.pos, batch.batch
+    y = ((batch.y[:, QM9_U0].double() - u0_mean) / u0_std).float()
+    args = [z, pos]
+    if name == 'dimenet++':
+        t0 = time.perf_counter()
+        host = DimeNet.prepare(pos.numpy(), bvec.numpy(),
+                               PAE_DIMENET['cutoff'])
+        if prepare_ms is not None:
+            prepare_ms.append((time.perf_counter() - t0) * 1e3)
+        args += [torch.from_numpy(a) for a in host]
+    args.append(bvec)
+    return tuple(a.to(device, non_blocking=True) for a in args) + (
+        batch.num_graphs, y.to(device, non_blocking=True))
+
+
+def qm9_loss(model, *batch):
+    """The L1 loss of the standardised U0 (``batch`` as ``qm9_inputs``
+    gives it)."""
+    *args, num_graphs, y = batch
+    return (model(*args, num_graphs).view(-1) - y).abs().mean()
+
+
+def check_qm9_parse(torch, tag, ds, written):
+    """The port's ``QM9`` parse of ``qm9_raw``'s files: a graph a molecule,
+    its atoms, its bonds in both directions by type, and U0 as written."""
+    atoms = np.array([d.num_nodes for d in ds])
+    check(len(ds) == written['molecules'] and np.array_equal(
+        atoms, written['atoms']), f'{tag}: QM9 parsed {len(ds)} graphs, '
+                                  f'{atoms.sum()} atoms')
+    types = torch.cat([d.edge_attr for d in ds]).sum(0).long().tolist()
+    check(types == [2 * t for t in written['bond_types']],
+          f'{tag}: bonds by type {types}, written '
+          f"{written['bond_types']} (each in both directions)")
+    u0 = torch.cat([d.y[:, QM9_U0] for d in ds]).numpy()
+    check(np.array_equal(u0, written['u0'].astype(np.float32)),
+          f'{tag}: the parsed U0 column differs from the written one')
+    heavy = np.array([int((d.z > 1).sum()) for d in ds])
+    check(heavy.max() <= QM9_MAX_HEAVY and atoms.max() <= QM9_MAX_ATOMS,
+          f'{tag}: molecules of up to {heavy.max()} heavy atoms and '
+          f'{atoms.max()} atoms')
+    return {'molecules': len(ds), 'atoms_mean': float(atoms.mean()),
+            'atoms_max': int(atoms.max()), 'heavy_mean': float(heavy.mean()),
+            'bonds_by_type': written['bond_types']}
+
+
+def serve_batches(torch, model, it, prepare, warm, batches):
+    """``warm + batches`` eval-mode forwards under ``torch.inference_mode``
+    over the batches of ``it``: host ms to take a batch and put it on the
+    card, card ms a forward (CUDA events), the first prepared batch and
+    its output, for the last ``batches``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_ms, card_ms, first, out0 = [], [], None, None
+    model.eval()
+    with torch.inference_mode():
+        for i in range(warm + batches):
+            t0 = time.perf_counter()
+            batch = prepare(next(it))
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            start.record()
+            out = model(*batch[:-1])
+            end.record()
+            torch.cuda.synchronize()
+            if i == 0:
+                first, out0 = batch, out.clone()
+            if i >= warm:
+                host_ms.append(host)
+                card_ms.append(start.elapsed_time(end))
+    check(bool(torch.isfinite(out0).all()), 'serving outputs not finite')
+    return host_ms, card_ms, first, out0
+
+
+def ae_model_run(torch, tag, name, seed, ds, u0_mean, u0_std):
+    """Path AE for one model: ``PAE_TRAIN_WARM + PAE_TRAIN`` Adam steps on
+    the card over shuffled batches of 32 (``PAE_LR`` with DimeNet++'s
+    warm-up; host ms a batch, DimeNet++'s
+    host-side ``prepare`` ms apart, card ms a step, no port kernel, the
+    peak memory above what was held before, a whole-window profile of a
+    step: busy and idle share, kernels a step), ``PAE_SERVE_WARM +
+    PAE_SERVE`` serving batches from the trained weights (host and card ms
+    a batch, a whole-window profile of a forward; ``host_breakdown`` of a
+    training step), the first serving
+    batch's float32 outputs against the CPU's within ``PAE_SERVE_TOL`` and
+    the card against itself, and the first training batch's
+    ``PARITY_STEPS`` steps in float64 on both devices from the trained
+    weights (``synced_parity``)."""
+    from pytorch_geometric_tpu_torch.loader import DataLoader
+    prep_ms = []
+
+    def prepare(batch):
+        return qm9_inputs(torch, name, batch, 'cuda', u0_mean, u0_std,
+                          prepare_ms=prep_ms)
+
+    def build(device):
+        return qm9_model(torch, name, device, seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = build('cuda')
+    opt = torch.optim.Adam(model.parameters(), lr=PAE_LR)
+    taken = []
+
+    def step(*batch):
+        for group in opt.param_groups:
+            group['lr'] = PAE_LR * min(1.0, (len(taken) + 1)
+                                       / PAE_LR_WARMUP[name])
+        taken.append(1)
+        opt.zero_grad(set_to_none=True)
+        loss = qm9_loss(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    loader = DataLoader(ds, batch_size=PAE_BATCH, shuffle=True, pad=False,
+                        seed=seed)
+    model.train()
+    t0 = time.perf_counter()
+    host_ms, card_ms, losses, first, per_step = timed_batches(
+        torch, iter(loader), prepare, step, PAE_TRAIN_WARM + PAE_TRAIN)
+    counts = launch_counts()
+    check_counts(tag, counts, {}, f'{PAE_TRAIN_WARM + PAE_TRAIN} steps')
+    train_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    train_prep = list(prep_ms)
+    prof_rows, prof_ms, _ = whole_window(torch, lambda: step(*first), 3)
+    busy = sum(t for _, t, _ in prof_rows)
+    card_step = float(np.median(card_ms[PAE_TRAIN_WARM:]))
+    res = {'train': {
+        'steps': PAE_TRAIN, 'warm_steps': PAE_TRAIN_WARM, 'losses': losses,
+        'card_ms_per_step': card_step, 'card_ms': card_ms,
+        'host_ms_per_batch': float(np.median(host_ms[PAE_TRAIN_WARM:])),
+        'peak_gb': peak, 'held_gb_at_start': held / 1e9,
+        'launch_counts': counts, 'launches_per_step': per_step,
+        'device_busy_ms_per_step': busy, 'profiled_ms_per_step': prof_ms,
+        'device_idle_share': 1 - busy / card_step,
+        'device_kernels_per_step': sum(c for _, _, c in prof_rows),
+        'kernels_per_step': [[n_[:80], t, c] for n_, t, c in prof_rows[:10]],
+        'seconds': train_s}}
+    if train_prep:
+        res['train']['host_prepare_ms_per_batch'] = float(
+            np.median(train_prep[PAE_TRAIN_WARM:]))
+    log(f'[{tag}] training: {PAE_TRAIN} Adam steps after '
+        f'{PAE_TRAIN_WARM}, card {card_step:.4f} ms a step (median), host '
+        f"{res['train']['host_ms_per_batch']:.3f} ms a batch"
+        + (f" (of it prepare {res['train']['host_prepare_ms_per_batch']:.3f}"
+           ' ms)' if train_prep else '')
+        + f', busy {busy:.4f} ms, idle {res["train"]["device_idle_share"]:.3f}'
+        f", {res['train']['device_kernels_per_step']:g} device kernels a "
+        f'step, no port kernel; peak {peak:.3f} GB over {held / 1e9:.3f} GB '
+        f'held; losses {losses}')
+    for n_, t, c in prof_rows[:10]:
+        log(f'[{tag}]   {t:.4f} ms  x{c:g}  {n_[:90]}')
+    res['train']['host_breakdown'] = host_breakdown(
+        torch, f'{tag} training', lambda: step(*first))
+
+    # serving from the trained weights
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    prep_ms.clear()
+    reset_counts()
+    s_host, s_card, s_first, s_out = serve_batches(
+        torch, model, iter(DataLoader(ds, batch_size=PAE_BATCH, pad=False)),
+        prepare, PAE_SERVE_WARM, PAE_SERVE)
+    check_counts(f'{tag} serving', launch_counts(), {},
+                 f'{PAE_SERVE_WARM + PAE_SERVE} forwards')
+
+    def forward():
+        with torch.inference_mode():
+            return model(*s_first[:-1])
+
+    s_rows, s_prof_ms, _ = whole_window(torch, forward, 3)
+    s_busy = sum(t for _, t, _ in s_rows)
+    serve_card = float(np.median(s_card))
+    res['serve'] = {
+        'batches': PAE_SERVE, 'warm_batches': PAE_SERVE_WARM,
+        'card_ms_per_batch': serve_card, 'card_ms': s_card,
+        'host_ms_per_batch': float(np.median(s_host)),
+        'device_busy_ms_per_batch': s_busy,
+        'profiled_ms_per_batch': s_prof_ms,
+        'device_idle_share': 1 - s_busy / serve_card,
+        'device_kernels_per_batch': sum(c for _, _, c in s_rows),
+        'molecules_per_s': PAE_BATCH / (serve_card + float(
+            np.median(s_host))) * 1e3,
+        'kernels_per_batch': [[n_[:80], t, c] for n_, t, c in s_rows[:10]]}
+    if prep_ms:
+        res['serve']['host_prepare_ms_per_batch'] = float(
+            np.median(prep_ms[PAE_SERVE_WARM:]))
+    log(f'[{tag}] serving: {PAE_SERVE} eval batches after {PAE_SERVE_WARM} '
+        f'under inference_mode, card {serve_card:.4f} ms a batch (median), '
+        f"host {res['serve']['host_ms_per_batch']:.3f} ms a batch"
+        + (f" (of it prepare {res['serve']['host_prepare_ms_per_batch']:.3f}"
+           ' ms)' if prep_ms else '')
+        + f', busy {s_busy:.4f} ms, idle '
+        f"{res['serve']['device_idle_share']:.3f}, "
+        f"{res['serve']['device_kernels_per_batch']:g} device kernels a "
+        'forward')
+    for n_, t, c in s_rows[:10]:
+        log(f'[{tag}]   {t:.4f} ms  x{c:g}  {n_[:90]}')
+
+    # the float32 serving outputs against the CPU, and the card against
+    # itself
+    cpu_first = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                      for t in s_first)
+    cpu = build('cpu')
+    cpu.load_state_dict(state)
+    cpu.eval()
+    with torch.inference_mode():
+        ref = cpu(*cpu_first[:-1])
+        again = model(*s_first[:-1]).cpu()
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((s_out.cpu() - ref).abs().max()) / scale
+    spread = float((again - s_out.cpu()).abs().max()) / scale
+    tol = PAE_SERVE_TOL[name]
+    log(f'[{tag}] float32 serving outputs of the first batch against the '
+        f'CPU: {err:.3e} of max(1, max|CPU|) (limit {tol:g}); the card '
+        f'against itself over two forwards {spread:.3e}')
+    check(err <= tol, f'{tag}: float32 serving outputs {err} from the CPU '
+                      f'(limit {tol})')
+    res['serve'].update(outputs_vs_cpu=err, card_self_spread=spread,
+                        outputs_tol=tol)
+
+    # float64 parity steps from the trained weights
+    def cast(batch):
+        return tuple(t.double() if isinstance(t, torch.Tensor)
+                     and t.is_floating_point() else t for t in batch)
+
+    cpu_train = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                      for t in first)
+    t0 = time.perf_counter()
+    res['steps_vs_cpu'] = synced_parity(
+        torch, f'{tag} float64', lambda dev: build(dev).double(), state,
+        cast(first), cast(cpu_train), None, qm9_loss,
+        PAE_LR / PAE_LR_WARMUP[name])
+    res['cpu_parity_s'] = time.perf_counter() - t0
+    del model, opt, cpu
+    torch.cuda.empty_cache()
+    return res, first
+
+
+def phase_path_ae(torch, seed):
+    """Path AE: DimeNet++ and SchNet on QM9's shape. ``qm9_raw`` writes
+    ``QM9_MOLECULES`` molecules' ``gdb9.sdf`` and ``gdb9.sdf.csv``; the
+    port's ``QM9`` parses them (seconds; graphs, atoms, bonds by type and
+    U0 against what was written); the regression target is U0
+    standardised over the set. For each model (``ae_model_run``): training
+    and serving on the card in batches of 32, the float32 serving outputs
+    and 3 float64 steps against the CPU. Edges and triplets a batch:
+    DimeNet++'s interaction graph at 5 Angstrom and its triplets
+    (``DimeNet.prepare``) over the serving batches; SchNet's radius graph
+    at 10 Angstrom (32 slots an atom) of the first training batch, on the
+    card against the CPU's, pair for pair."""
+    import tempfile
+    from pytorch_geometric_tpu_torch.datasets import QM9
+    from pytorch_geometric_tpu_torch.loader import DataLoader
+    from pytorch_geometric_tpu_torch.nn.models import DimeNet
+    from pytorch_geometric_tpu_torch.nn.pool import radius_graph
+    tag = 'path AE'
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        written = qm9_raw(root, QM9_MOLECULES, seed)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = QM9(root)
+        parse_s = time.perf_counter() - t0
+        res['dataset'] = check_qm9_parse(torch, tag, ds, written)
+        res['dataset'].update(raw_write_s=write_s, parse_s=parse_s)
+        log(f'[{tag}] qm9_raw: {QM9_MOLECULES} molecules written in '
+            f'{write_s:.2f} s; QM9 parse {parse_s:.2f} s: {res["dataset"]}')
+        # the data lives in memory from here on
+        ds = [ds[i] for i in range(len(ds))]
+    u0 = torch.cat([d.y[:, QM9_U0] for d in ds]).double()
+    u0_mean, u0_std = float(u0.mean()), float(u0.std())
+    res['u0_mean_hartree'], res['u0_std_hartree'] = u0_mean, u0_std
+
+    edges, trips = [], []
+    for batch in DataLoader(ds[:PAE_BATCH * (PAE_SERVE_WARM + PAE_SERVE)],
+                            batch_size=PAE_BATCH, pad=False):
+        coo, kj, _, _ = DimeNet.prepare(batch.pos.numpy(),
+                                        batch.batch.numpy(),
+                                        PAE_DIMENET['cutoff'])
+        edges.append(coo.shape[1])
+        trips.append(len(kj))
+    res['dimenet_graph'] = {'cutoff': PAE_DIMENET['cutoff'],
+                            'edges_per_batch': float(np.mean(edges)),
+                            'triplets_per_batch': float(np.mean(trips))}
+    log(f'[{tag}] DimeNet++ at {PAE_DIMENET["cutoff"]} A over the serving '
+        f'batches: {np.mean(edges):.1f} directed edges and '
+        f'{np.mean(trips):.1f} triplets a batch of {PAE_BATCH} '
+        f'({min(trips)}-{max(trips)})')
+
+    for name in ('dimenet++', 'schnet'):
+        t0 = time.perf_counter()
+        res[name], first = ae_model_run(torch, f'{tag} {name}', name, seed,
+                                        ds, u0_mean, u0_std)
+        res[name]['seconds'] = time.perf_counter() - t0
+    # SchNet's radius graph of the first training batch, card and CPU
+    z, pos, bvec = first[0], first[1], first[2]
+    graphs = {}
+    for dev in ('cuda', 'cpu'):
+        coo, valid = radius_graph(pos.to(dev), PAE_SCHNET['cutoff'],
+                                  batch=bvec.to(dev),
+                                  max_num_neighbors=PAE_SCHNET[
+                                      'max_num_neighbors'])
+        keep = valid.cpu()
+        pairs = coo.cpu()[:, keep]
+        graphs[dev] = set(map(tuple, pairs.t().tolist()))
+    check(graphs['cuda'] == graphs['cpu'],
+          f"{tag}: SchNet's radius graph on the card has "
+          f"{len(graphs['cuda'] - graphs['cpu'])} pairs the CPU's lacks and "
+          f"lacks {len(graphs['cpu'] - graphs['cuda'])}")
+    res['schnet_graph'] = {
+        'cutoff': PAE_SCHNET['cutoff'], 'atoms': int(z.shape[0]),
+        'slots': int(z.shape[0]) * PAE_SCHNET['max_num_neighbors'],
+        'edges': len(graphs['cuda'])}
+    log(f"[{tag}] SchNet at {PAE_SCHNET['cutoff']} A, first training batch: "
+        f"{len(graphs['cuda'])} edges of {res['schnet_graph']['slots']} slots "
+        f'({z.shape[0]} atoms), the same pairs on the card and the CPU')
+    res['launch_counts'] = {
+        k: res['dimenet++']['train']['launch_counts'].get(k, 0)
+        + res['schnet']['train']['launch_counts'].get(k, 0)
+        for k in res['schnet']['train']['launch_counts']}
+    del ds
+    torch.cuda.empty_cache()
+    return res
+
+
+def _write_off(path, pos, faces, header_counts=False):
+    """An OFF mesh; ``faces`` may mix triangles and quads; with
+    ``header_counts`` the counts share the header's line."""
+    head = (f'OFF{len(pos)} {len(faces)} 0\n' if header_counts
+            else f'OFF\n{len(pos)} {len(faces)} 0\n')
+    Path(path).write_text(
+        head + ''.join(' '.join(f'{v:.6f}' for v in p) + '\n' for p in pos)
+        + ''.join(f'{len(f)} ' + ' '.join(map(str, f)) + '\n'
+                  for f in faces))
+
+
+def _write_ply(path, pos, faces):
+    """An ASCII PLY mesh with a vertex and a face element."""
+    Path(path).write_text(
+        'ply\nformat ascii 1.0\ncomment synthetic\n'
+        f'element vertex {len(pos)}\nproperty float x\nproperty float y\n'
+        f'property float z\nelement face {len(faces)}\n'
+        'property list uchar int vertex_indices\nend_header\n'
+        + ''.join(' '.join(f'{v:.6f}' for v in p) + '\n' for p in pos)
+        + ''.join(f'{len(f)} ' + ' '.join(map(str, f)) + '\n'
+                  for f in faces))
+
+
+def _write_obj(path, pos, faces):
+    """An OBJ mesh, face vertices as ``v/vt/vn``."""
+    Path(path).write_text(
+        '# synthetic\n'
+        + ''.join('v ' + ' '.join(f'{v:.6f}' for v in p) + '\n' for p in pos)
+        + ''.join('f ' + ' '.join(f'{i + 1}/{i + 1}/{i + 1}' for i in f)
+                  + '\n' for f in faces))
+
+
+def _mesh(rng, n):
+    """``n`` vertices and a strip of triangles and quads over them."""
+    pos = rng.standard_normal((n, 3))
+    faces = [list(range(i, i + 3)) for i in range(0, n - 2, 3)]
+    faces += [[i, i + 1, i + 2, i + 3] for i in range(0, n - 3, 4)]
+    return pos, faces
+
+
+def dataset_raws(torch, root, seed=0):
+    """Raw files of every dataset family of ``datasets/geometry.py``,
+    ``molecules.py`` and ``point_datasets.py`` at small shapes under
+    ``root``, in each one's format (the layouts the JAX package reads):
+    SDF and csv (QM9, ``qm9_raw``), npz (MD17), OFF with quads and a
+    header that holds the counts (ModelNet, the OFF mesh folders), PLY
+    (FAUST, CoMA), OBJ (Teeth3DS), csv (MovieLens, JODIE, MoleculeNet),
+    pickles (ZINC, AQSOL, LRGB), ``torch.save`` payloads
+    (GNNBenchmarkDataset, MNISTSuperpixels), edge lists (MalNetTiny),
+    ``.mat`` (TOSCA, PascalPF with NaN rows, WILLOW), text clouds
+    (PCPNet, ShapeNet) and ``.npy`` rooms (S3DIS). Returns ``{family:
+    (class name, args, keywords)}``: ``getattr(datasets, name)(*args,
+    **keywords)`` builds the dataset of either package."""
+    import pickle
+    import scipy.io
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    out = {}
+
+    def mk(*parts):
+        p = root.joinpath(*parts)
+        p.mkdir(parents=True, exist_ok=True)
+        return p
+
+    qm9_raw(mk('qm9'), 12, seed)
+    out['QM9'] = ('QM9', (str(root / 'qm9'),), {})
+    np.savez(mk('md17', 'aspirin', 'raw') / 'aspirin.npz',
+             z=np.array([6, 6, 8, 1, 1]), R=rng.standard_normal((7, 5, 3)),
+             E=rng.standard_normal(7), F=rng.standard_normal((7, 5, 3)))
+    out['MD17'] = ('MD17', (str(root / 'md17'), 'aspirin'), {})
+    for split in ('train', 'test'):
+        for cat in ('chair', 'desk'):
+            d = mk('modelnet', 'modelnet10_' + split, 'raw', cat, split)
+            for i in range(2):
+                _write_off(d / f'{cat}_{i:04d}.off', *_mesh(rng, 9 + i),
+                           header_counts=(i == 1))
+    out['ModelNet'] = ('ModelNet', (str(root / 'modelnet'), '10'),
+                       {'train': True})
+    out['ModelNet test'] = ('ModelNet', (str(root / 'modelnet'), '10'),
+                            {'train': False})
+    d = mk('faust', 'raw', 'MPI-FAUST', 'training', 'registrations')
+    for i in range(3):
+        _write_ply(d / f'tr_reg_{i:03d}.ply', *_mesh(rng, 10))
+    out['FAUST'] = ('FAUST', (str(root / 'faust'),), {})
+    (mk('movielens', 'raw') / 'ratings.csv').write_text(
+        'userId,movieId,rating,timestamp\n' + ''.join(
+            f'{u},{m},{r:.1f},0\n' for u, m, r in zip(
+                rng.integers(1, 6, 20), rng.integers(10, 18, 20),
+                rng.integers(1, 11, 20) / 2)))
+    out['MovieLens'] = ('MovieLens', (str(root / 'movielens'),), {})
+    (mk('jodie', 'wikipedia', 'raw') / 'wikipedia.csv').write_text(
+        'user,item,timestamp,state_label,f0,f1,f2\n' + ''.join(
+            f'{u},{i},{t:.2f},{s},{a:.4f},{b:.4f},{c:.4f}\n'
+            for u, i, t, s, (a, b, c) in zip(
+                rng.integers(0, 4, 15), rng.integers(0, 5, 15),
+                np.sort(rng.uniform(0, 100, 15)), rng.integers(0, 2, 15),
+                rng.standard_normal((15, 3)))))
+    out['JODIEDataset'] = ('JODIEDataset', (str(root / 'jodie'),
+                                            'wikipedia'), {})
+    mols = [{'atom_type': rng.integers(0, 28, k),
+             'bond_type': np.triu(rng.integers(0, 4, (k, k)), 1),
+             'logP_SA_cycle_normalized': rng.normal()}
+            for k in (5, 8, 3)]
+    for m in mols:
+        m['bond_type'] = m['bond_type'] + m['bond_type'].T
+    with open(mk('zinc', 'raw') / 'train.pickle', 'wb') as fh:
+        pickle.dump(mols, fh)
+    out['ZINC'] = ('ZINC', (str(root / 'zinc'),), {})
+    out['ZINC subset'] = ('ZINC', (str(root / 'zinc'),), {'subset': True})
+    with open(mk('aqsol', 'raw') / 'train.pickle', 'wb') as fh:
+        pickle.dump([(rng.integers(0, 60, k), rng.integers(0, 4, 2 * k),
+                      rng.integers(0, k, (2, 2 * k)), float(rng.normal()))
+                     for k in (4, 6)], fh)
+    out['AQSOL'] = ('AQSOL', (str(root / 'aqsol'),), {})
+    (mk('molnet', 'esol', 'raw') / 'delaney-processed.csv').write_text(
+        'Compound ID,ESOL predicted log solubility,Minimum Degree,smiles\n'
+        'A,-0.77,1,OCC3OC(OCC2OC(OC(C#N)c1ccccc1)C(O)C(O)C2O)C(O)C(O)C3O\n'
+        'B,-3.3,1,Cc1occc1C(=O)Nc2ccccc2\nC,,2,C\n'
+        'D,-1.2,1,ClC(Cl)(Cl)Br\n')
+    out['MoleculeNet'] = ('MoleculeNet', (str(root / 'molnet'), 'esol'), {})
+
+    def graph_dict(k, pos=False):
+        g = {'x': torch.randn(k, 3, generator=gen),
+             'edge_index': torch.randint(0, k, (2, 2 * k), generator=gen),
+             'y': torch.randint(0, 4, (k,), generator=gen)}
+        if pos:
+            g['pos'] = torch.rand(k, 2, generator=gen)
+        return g
+
+    gen = torch.Generator().manual_seed(seed)
+    torch.save([[graph_dict(k) for k in (5, 7)], [graph_dict(4)],
+                [graph_dict(6)]], mk('gnnb', 'CLUSTER', 'raw') / 'CLUSTER.pt')
+    out['GNNBenchmarkDataset'] = ('GNNBenchmarkDataset',
+                                  (str(root / 'gnnb'), 'CLUSTER'),
+                                  {'split': 'val'})
+    torch.save([[graph_dict(k, True) for k in (6, 5)], [graph_dict(4, True)]],
+               mk('mnist', 'raw') / 'MNISTSuperpixels.pt')
+    out['MNISTSuperpixels'] = ('MNISTSuperpixels', (str(root / 'mnist'),),
+                               {'train': False})
+    with open(mk('lrgb', 'PascalVOC-SP', 'raw') / 'train.pickle', 'wb') as fh:
+        pickle.dump([(rng.standard_normal((k, 14)), rng.standard_normal(
+            (3 * k, 2)), rng.integers(0, k, (2, 3 * k)),
+            rng.integers(0, 21, k)) for k in (7, 9)], fh)
+    out['LRGBDataset'] = ('LRGBDataset', (str(root / 'lrgb'),
+                                          'PascalVOC-SP'), {})
+    d = mk('malnet', 'raw')
+    lines = []
+    for i, k in enumerate((6, 4)):
+        coo = rng.integers(0, k, (3 * k, 2))
+        (d / f'g{i}.edgelist').write_text(
+            '# src dst\n' + ''.join(f'{a} {b}\n' for a, b in coo))
+        lines.append(f'g{i}.edgelist {i % 2}')
+    (d / 'train.txt').write_text('\n'.join(lines) + '\n')
+    out['MalNetTiny'] = ('MalNetTiny', (str(root / 'malnet'),), {})
+    for cat in ('cube', 'tet'):
+        d = mk('shapes', 'raw', cat)
+        _write_off(d / 'a.off', *_mesh(rng, 8))
+        _write_off(d / 'b.OFF', *_mesh(rng, 6))
+    for name in ('GeometricShapes', 'SHREC2016', 'MedShapeNet'):
+        out[name] = (name, (str(root / 'shapes'),), {})
+    for cat in ('upper', 'lower'):
+        _write_obj(mk('teeth', 'raw', cat) / 'scan.obj', *_mesh(rng, 9))
+        _write_ply(mk('coma', 'raw', cat) / 'face.ply', *_mesh(rng, 7))
+    out['Teeth3DS'] = ('Teeth3DS', (str(root / 'teeth'),), {})
+    out['CoMA'] = ('CoMA', (str(root / 'coma'),), {})
+    d = mk('tosca', 'raw')
+    for name in ('cat0', 'cat1', 'dog0'):
+        pos, faces = _mesh(rng, 9)
+        tri = np.array([f for f in faces if len(f) == 3]) + 1
+        scipy.io.savemat(d / f'{name}.vert.mat', {'surface': pos})
+        scipy.io.savemat(d / f'{name}.tri.mat', {'tri': tri})
+    out['TOSCA'] = ('TOSCA', (str(root / 'tosca'),), {})
+    d = mk('pcpnet', 'raw')
+    mk('pcpnet', 'raw', 'list')
+    (d / 'list' / 'train.txt').write_text('cloud_a\ncloud_b\n')
+    for i, name in enumerate(('cloud_a', 'cloud_b')):
+        np.savetxt(d / f'{name}.xyz', rng.standard_normal((12, 3)))
+        if i == 0:
+            np.savetxt(d / f'{name}.normals', rng.standard_normal((12, 3)))
+    out['PCPNetDataset'] = ('PCPNetDataset', (str(root / 'pcpnet'),), {})
+    for cat, cols in (('airplane', 7), ('mug', 6)):
+        np.savetxt(mk('shapenet', 'raw', cat) / 'p0.txt', np.concatenate(
+            [rng.standard_normal((15, 6)), rng.integers(0, 4, (15, 1))],
+            1)[:, :cols])
+    out['ShapeNet'] = ('ShapeNet', (str(root / 'shapenet'),), {})
+    d = mk('s3dis', 'raw')
+    for name in ('Area_1_office', 'Area_6_lobby'):
+        np.save(d / f'{name}.npy', np.concatenate(
+            [rng.standard_normal((20, 3)), rng.integers(0, 256, (20, 3)),
+             rng.integers(0, 13, (20, 1))], 1))
+    out['S3DIS'] = ('S3DIS', (str(root / 's3dis'),), {})
+    out['S3DIS test'] = ('S3DIS', (str(root / 's3dis'),), {'train': False})
+    d = mk('pascalpf', 'raw', 'Annotations', 'car')
+    for i in range(2):
+        kps = rng.standard_normal((6, 2))
+        kps[i + 1] = np.nan
+        scipy.io.savemat(d / f'car_{i}.mat', {'kps': kps})
+    out['PascalPF'] = ('PascalPF', (str(root / 'pascalpf'), 'car'), {})
+    d = mk('willow', 'raw', 'Duck')
+    for i in range(2):
+        scipy.io.savemat(d / f'duck_{i}.mat',
+                         {'pts_coord': rng.standard_normal((2, 10))})
+    out['WILLOWObjectClass'] = ('WILLOWObjectClass', (str(root / 'willow'),
+                                                      'Duck'), {})
+    return out
+
+
+# the dataset families ``data_cases`` parses on the host and moves to the
+# card
+DATA_FAMILIES = ('QM9', 'MD17', 'ModelNet', 'FAUST', 'ZINC', 'LRGBDataset',
+                 'GeometricShapes', 'TOSCA', 'MoleculeNet')
+
+
+def molecule_cases(torch, seed, inputs, n, e, f, graphs, g):
+    """``module_cases``' molecular models: SchNet (plain, with ``dipole``,
+    with ``atomref``), DimeNet (bilinear) and DimeNet++ at narrow widths,
+    each on 8 ``qm9_molecules`` whose positions move with 0.01 of x's
+    first three columns (DimeNet's interaction graph and triplets from
+    ``DimeNet.prepare`` at the unmoved positions, glorot output layers so
+    that every first-step gradient flows; DimeNet's two in float64 on both
+    devices); AttentiveFP over an
+    ``EdgeIndex`` with the slot orders (its atom GATConv fused: the mix
+    kernel twice forward, once and the per-edge dot kernel once backward)
+    and over the raw COO with its mask; SignedGCN over the COO's two
+    halves as positive and negative edges; RECT_L over a cached
+    ``EdgeIndex`` (its GCNConv normalises on every call and propagates over
+    the raw COO that ``gcn_norm`` returns); GroupAddRev around a GCNConv,
+    its groups recomputed in the backward pass. Adds the molecules'
+    tensors to ``inputs``."""
+    from pytorch_geometric_tpu_torch import EdgeIndex
+    from pytorch_geometric_tpu_torch.nn.conv import GCNConv
+    from pytorch_geometric_tpu_torch.nn.models import (
+        AttentiveFP, DimeNet, DimeNetPlusPlus, GroupAddRev, RECT_L, SchNet,
+        SignedGCN)
+    numbers = {'H': 1, 'C': 6, 'N': 7, 'O': 8, 'F': 9}
+    symbols, _, pos = qm9_molecules(8, seed + 74)
+    z = np.array([numbers[s] for mol in symbols for s in mol])
+    pos = np.concatenate(pos).astype(np.float32)
+    mol = np.repeat(np.arange(8), [len(s) for s in symbols])
+    atoms = len(z)
+    coo, kj, ji, tmask = DimeNet.prepare(pos, mol, 5.0)
+    inputs.update({'mol_z': torch.as_tensor(z),
+                   'mol_pos': torch.as_tensor(pos),
+                   'mol_batch': torch.as_tensor(mol),
+                   'mol_coo': torch.as_tensor(coo),
+                   'mol_kj': torch.as_tensor(kj),
+                   'mol_ji': torch.as_tensor(ji),
+                   'mol_tmask': torch.as_tensor(tmask)})
+
+    def pos_of(x, d):
+        return d['mol_pos'] + 0.01 * x[:atoms, :3]
+
+    def schnet_run(m, x, d):
+        return m(d['mol_z'], pos_of(x, d), d['mol_batch'], 8)
+
+    def dimenet_run(m, x, d):
+        # float64 on both devices: at float32 a gradient of these narrow
+        # models sits up to 9.6e-5 of its own largest from float64 on the
+        # CPU (the l = 6 Bessel recurrence near its series switch), too
+        # near the phase's 1e-4 to hold one device to the other
+        return m(d['mol_z'], pos_of(x, d).double(), d['mol_coo'],
+                 d['mol_kj'], d['mol_ji'], d['mol_tmask'], d['mol_batch'], 8)
+
+    narrow = dict(hidden_channels=32, num_filters=32, num_interactions=2,
+                  num_gaussians=16, cutoff=5.0, max_num_neighbors=16)
+    dime = dict(hidden_channels=32, out_channels=2, num_blocks=2,
+                num_spherical=7, num_radial=6, cutoff=5.0,
+                output_initializer='glorot')
+
+    def slots(x, d):
+        return EdgeIndex(d['coo'][:, :e], (n, n), device=x.device
+                         ).fill_cache(blocked=True)
+
+    def rect_graph(x, d):
+        return EdgeIndex(d['coo'][:, :e], (n, n), device=x.device
+                         ).fill_cache(blocked=False)
+
+    return [
+        ('SchNet', lambda dev: SchNet(**narrow, **g(dev)), schnet_run),
+        ('SchNet dipole', lambda dev: SchNet(**narrow, dipole=True, **g(dev)),
+         schnet_run),
+        ('SchNet atomref', lambda dev: SchNet(
+            **narrow, atomref=np.linspace(-1.0, 1.0, 100), **g(dev)),
+         schnet_run),
+        ('DimeNet', lambda dev: DimeNet(**dime, num_bilinear=4,
+                                        **g(dev)).double(), dimenet_run),
+        ('DimeNetPlusPlus', lambda dev: DimeNetPlusPlus(
+            **dime, int_emb_size=16, basis_emb_size=8, out_emb_channels=48,
+            **g(dev)).double(), dimenet_run),
+        ('AttentiveFP fused', lambda dev: AttentiveFP(f, 32, 2, 8, **g(dev)),
+         lambda m, x, d: m(x, slots(x, d), d['ea'][:e], d['batch'],
+                           graphs)),
+        ('AttentiveFP', lambda dev: AttentiveFP(f, 32, 2, 8, **g(dev)),
+         lambda m, x, d: m(x, d['coo'], d['ea'], d['batch'], graphs,
+                           edge_mask=d['mask'])),
+        ('SignedGCN', lambda dev: SignedGCN(f, 16, 3, **g(dev)),
+         lambda m, x, d: m(x, d['coo'][:, :e // 2], d['coo'][:, e // 2:e])),
+        ('RECT_L', lambda dev: RECT_L(f, 24, **g(dev)),
+         lambda m, x, d: m(x, rect_graph(x, d))),
+        ('GroupAddRev', lambda dev: GroupAddRev(GCNConv(f // 2, f // 2,
+                                                        **g(dev)), 2),
+         lambda m, x, d: m(x, d['coo'], edge_mask=d['mask']))]
+
+
 def cluster_cases(torch, seed, inputs, n, e, f, graphs, cap, g):
     """``module_cases``' cluster pools, dense and advanced aggregations and
     dense convs and pools: ``avg_pool_x`` / ``max_pool_x`` over graclus
@@ -10076,15 +10970,20 @@ def module_cases(torch, seed):
     cases += zoo_cases(torch, seed, inputs, n, e, f, graphs, g)
     cases += point_cases(torch, seed, inputs, n, e, f, g)
     cases += cluster_cases(torch, seed, inputs, n, e, f, graphs, cap, g)
+    cases += molecule_cases(torch, seed, inputs, n, e, f, graphs, g)
     return cases, inputs, n, f
 
 
 # the kernel launches of a module case's card run (forward and backward):
 # kernel 1 in the GCN layers on the cached normalisation, once forward and
-# once A^T g each (x needs a gradient); no other case launches a kernel
+# once A^T g each (x needs a gradient); AttentiveFP's atom GATConv over the
+# slot orders, the mix kernel's stabiliser pass and mix forward, its
+# grad_v pass and the per-edge dot kernel's grad_p_u backward; no other
+# case launches a kernel
 MODULE_KERNELS = {'SGFormer cached': {'segment_spmm': 4},
                   'Polynormer local cached': {'segment_spmm': 4},
-                  'Polynormer global cached': {'segment_spmm': 4}}
+                  'Polynormer global cached': {'segment_spmm': 4},
+                  'AttentiveFP fused': {'gat_mix': 3, 'edge_dot': 1}}
 
 
 def transformer_cases(torch, seed, inputs, n, e, f, graphs, cap, g):
@@ -10425,11 +11324,24 @@ def data_cases(torch, seed):
     ``HypergraphConv`` over the moved incidence), ``LightningNodeData``'s
     train loader over a graph whose features lie on the device (its
     batches gathered there) and ``summary`` of a dataset of graphs on the
-    device. None launches a port kernel. Returns ``(rows, worst)``."""
+    device; and each dataset family of ``DATA_FAMILIES``, parsed once on the
+    host from ``dataset_raws``' files by the port's class, every graph moved
+    to the device and its tensors read there (bitwise: the limit is met
+    only by equal values). None launches a port kernel. Returns ``(rows,
+    worst)``."""
+    import tempfile
+    from pytorch_geometric_tpu_torch import datasets as tds
     from pytorch_geometric_tpu_torch.data import (
         Data, HypergraphData, InMemoryFeatureStore, InMemoryGraphStore,
         LightningNodeData, summary)
     from pytorch_geometric_tpu_torch.nn import HypergraphConv
+    parsed = {}
+    with tempfile.TemporaryDirectory() as root:
+        spec = dataset_raws(torch, root, seed)
+        for fam in DATA_FAMILIES:
+            name, args, kw = spec[fam]
+            ds = getattr(tds, name)(*args, **kw)
+            parsed[fam] = [ds[i] for i in range(len(ds))]
     rng = np.random.default_rng(seed + 95)
     n, f, e, m = 600, 12, 4000, 90
     x = rng.standard_normal((n, f)).astype(np.float32)
@@ -10475,6 +11387,18 @@ def data_cases(torch, seed):
                             for k in ('mean', 'std', 'min', 'quantile25',
                                       'median', 'quantile75', 'max'))],
             dtype=torch.float64)
+        for fam, graphs in parsed.items():
+            moved = [d.to(dev) for d in graphs]
+            vals = [t for d in moved for _, t in sorted(d.items())
+                    if isinstance(t, torch.Tensor)]
+            check(all(t.device.type == dev for t in vals),
+                  f'{fam}: a tensor left off {dev}')
+            flat = torch.cat([t.reshape(-1).double() for t in vals] + [
+                torch.tensor([float(d.num_nodes) for d in moved],
+                             dtype=torch.float64, device=dev)])
+            # a missing label (MoleculeNet's) is NaN: its place is compared
+            out[f'dataset {fam}'] = torch.cat([
+                torch.nan_to_num(flat, nan=0.0), flat.isnan().double()])
         for k, v in out.items():
             if k != 'summary':
                 check(v.device.type == dev, f'{k}: on {v.device} for {dev}')
@@ -10733,6 +11657,11 @@ def main():
     path_ad, ad_rows, ad_err = phase_path_ad(torch, args.seed)
     log(f'[time] path AD took {time.perf_counter() - t0:.1f} s')
     lap('path AD')
+    # the molecules slice: DimeNet++ and SchNet on QM9's shape (AE)
+    t0 = time.perf_counter()
+    path_ae = phase_path_ae(torch, args.seed)
+    log(f'[time] path AE took {time.perf_counter() - t0:.1f} s')
+    lap('path AE')
     worst_flash = (max(worst_flash[0], worst_flash_t[0], worst_n[0]),
                    max(worst_flash[1], worst_flash_t[1], worst_n[1]))
     flash_paths = {'path_k': path_k, 'path_l': paths_lm['path L'],
@@ -10799,6 +11728,7 @@ def main():
         path_aa=path_aa['launch_counts'], path_ab=path_ab['launch_counts'],
         path_ac=path_ac['launch_counts'],
         path_ad=path_ad['launch_counts'],
+        path_ae=path_ae['launch_counts'],
         graph_modules=modules['launch_counts'])
 
     for dt, key in (('float32', 'f32'), ('bf16 x', 'bf16')):
@@ -10857,7 +11787,7 @@ def main():
                               'path_x': path_x, 'path_y': path_y,
                               'path_z': path_z, 'path_aa': path_aa,
                               'path_ab': path_ab, 'path_ac': path_ac,
-                              'path_ad': path_ad,
+                              'path_ad': path_ad, 'path_ae': path_ae,
                               'graph_modules': modules,
                               'regime_arms': regime_arms}}))
     # a path K training step launches each flash kernel once per layer: the

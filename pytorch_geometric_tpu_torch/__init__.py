@@ -29,10 +29,11 @@ from . import experimental
 from . import sampler
 from . import loader
 from . import datasets
+from . import io
 
 __all__ = ['backend', 'transforms', 'default_device', 'CSR', 'EdgeIndex',
            'WindowedCSC', 'build_windowed_csc', 'from_numpy_coo', 'Data',
            'Batch', 'HeteroData', 'Dataset', 'InMemoryDataset', 'compile',
            'is_compiling', 'is_torch_instance', 'debug', 'is_debug_enabled',
            'set_debug', 'ops', 'utils', 'nn', 'experimental', 'sampler',
-           'loader', 'datasets', '__version__']
+           'loader', 'datasets', 'io', '__version__']

@@ -1,7 +1,8 @@
 """Datasets. Counterpart of ``pytorch_geometric_tpu/datasets``, so far:
 ``FakeDataset``, ``planetoid_like``, ``TUDataset``, ``Planetoid``, the npz
 datasets, the big single graphs, the social and web graphs, the synthetic
-generators and the graph and motif generator subpackages. Each parses raw
+generators, the mesh, point-cloud, molecular and temporal datasets and the
+graph and motif generator subpackages. Each parses raw
 files already under its root (nothing is downloaded) into host tensors."""
 
 from . import graph_generator, motif_generator
@@ -17,6 +18,13 @@ from .social import (CitationFull, CoraFull, DeezerEurope, LastFMAsia,
                      HeterophilousGraphDataset, LINKXDataset, BitcoinOTC,
                      EllipticBitcoinDataset, AttributedGraphDataset,
                      SNAPDataset)
+from .geometry import (ModelNet, FAUST, MD17, QM9, MovieLens, JODIEDataset,
+                       parse_sdf)
+from .molecules import (ZINC, AQSOL, MoleculeNet, GNNBenchmarkDataset,
+                        MNISTSuperpixels, LRGBDataset, MalNetTiny)
+from .point_datasets import (GeometricShapes, SHREC2016, MedShapeNet,
+                             Teeth3DS, CoMA, TOSCA, PCPNetDataset, ShapeNet,
+                             S3DIS, DynamicFAUST, PascalPF, WILLOWObjectClass)
 from .generators import (KarateClub, StochasticBlockModelDataset,
                          ExplainerDataset, FakeHeteroDataset, ba_graph,
                          BAShapes, BA2MotifDataset, BAMultiShapesDataset,
@@ -35,5 +43,10 @@ __all__ = [
     'PolBlogs', 'EmailEUCore', 'WikiCS', 'PPI', 'HeterophilousGraphDataset',
     'LINKXDataset', 'BitcoinOTC', 'EllipticBitcoinDataset',
     'AttributedGraphDataset', 'SNAPDataset', 'Reddit', 'Reddit2', 'Flickr',
-    'Yelp', 'AmazonProducts', 'NELL',
+    'Yelp', 'AmazonProducts', 'NELL', 'ModelNet', 'FAUST', 'MD17', 'QM9',
+    'MovieLens', 'JODIEDataset', 'parse_sdf', 'ZINC', 'AQSOL', 'MoleculeNet',
+    'GNNBenchmarkDataset', 'MNISTSuperpixels', 'LRGBDataset', 'MalNetTiny',
+    'GeometricShapes', 'SHREC2016', 'MedShapeNet', 'Teeth3DS', 'CoMA',
+    'TOSCA', 'PCPNetDataset', 'ShapeNet', 'S3DIS', 'DynamicFAUST',
+    'PascalPF', 'WILLOWObjectClass',
 ]

@@ -7,7 +7,8 @@ the ``DS_A.txt``, ``DS_graph_indicator.txt``, ``DS_graph_labels.txt``,
 ``DS_edge_labels.txt`` text files under ``root/name/raw``, parsed with the
 same numpy arithmetic. Node features are the one-hot node labels, then
 the node attributes when ``use_node_attr``; graph labels are renumbered
-from 0 in sorted order; edge labels become one-hot ``edge_attr``.
+from 0 in sorted order; edge labels become one-hot ``edge_attr``. The files
+are read by ``io/tu.py::read``, which ``io.read_tu_data`` reads with too.
 """
 
 import os.path as osp
@@ -17,6 +18,7 @@ import numpy as np
 
 from ..data.data import Data
 from ..data.dataset import InMemoryDataset
+from ..io.tu import read
 
 
 class TUDataset(InMemoryDataset):
@@ -31,12 +33,7 @@ class TUDataset(InMemoryDataset):
         return [f'{self.name}_A.txt', f'{self.name}_graph_indicator.txt']
 
     def _read(self, suffix, dtype=np.int64, optional=False):
-        path = osp.join(self.raw_dir, f'{self.name}_{suffix}.txt')
-        if not osp.exists(path):
-            if optional:
-                return None
-            raise FileNotFoundError(path)
-        return np.loadtxt(path, delimiter=',', dtype=dtype, ndmin=2)
+        return read(self.raw_dir, self.name, suffix, dtype, optional)
 
     def process(self):
         edges = self._read('A') - 1                        # 1-based

@@ -1,11 +1,12 @@
 """The port's package namespaces against the JAX package's: every name in
 the ``__all__`` of the JAX package's root, ``nn``, ``utils``, ``ops``,
-``nn.pool``, ``nn.aggr``, ``nn.dense``, ``data`` and ``datasets`` that the
-port has ported (its defining module has a counterpart in the port that
-defines the name) resolves on the port's package of the same path, in a fresh interpreter that imports only that package (the root's
-names after ``import pytorch_geometric_tpu_torch`` alone, its
-subpackages included); and that import loads no ``triton`` and starts no
-CUDA context."""
+``nn.pool``, ``nn.aggr``, ``nn.dense``, ``nn.models``, ``data``,
+``datasets`` and ``io`` that the port has ported (its defining module has a
+counterpart in the port that defines the name) resolves on the port's
+package of the same path, in a fresh interpreter that imports only that
+package (the root's names after ``import pytorch_geometric_tpu_torch``
+alone, its subpackages included); and that import loads no ``triton`` and
+starts no CUDA context."""
 
 import importlib
 import importlib.util
@@ -19,7 +20,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = ('', '.nn', '.utils', '.ops', '.nn.pool', '.nn.aggr', '.nn.dense',
-            '.data', '.datasets')
+            '.nn.models', '.data', '.datasets', '.io')
 
 
 def _port_module(module: str):
